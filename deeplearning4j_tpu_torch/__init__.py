@@ -1,0 +1,24 @@
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of ``deeplearning4j_tpu``.
+
+The JAX package beside it is the reference; this package mirrors its module
+paths and class names (``nn/computation_graph.py::ComputationGraph``,
+``zoo/models.py::ResNet50``, ``serving/server.py::ModelServer``, ...) so a
+reader finds each counterpart, and keeps the reference's layouts at every
+public function: NHWC activations, HWIO conv weights, and the same
+param/state dict keys per node.
+
+Every TPU kernel on a ported path is a hand-written Hopper kernel here
+(``csrc/``, built with ``nvcc`` on first use by ``ops/kernels/_build.py``)
+with a plain PyTorch version beside it. Entry points run on CUDA unless the
+caller passes ``device="cpu"``; with no GPU and no explicit device they
+raise instead of drifting to the CPU.
+
+This package imports ``torch``, numpy and the standard library only — never
+``jax`` and nothing of ``deeplearning4j_tpu``.
+
+Ported so far: ResNet-50 classify serving (ops, layers, conf JSON,
+ComputationGraph inference, bucketing, the batching scheduler, router and
+HTTP server) on the conv forward kernel. See ROADMAP.md for what is next.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,151 @@
+"""Network configuration builder (counterpart of
+deeplearning4j_tpu/nn/conf.py): ``InputType``, the
+``NeuralNetConfiguration.builder()`` chain a ComputationGraph is built
+with, and the JSON helpers both packages share the format of.
+
+The builder carries what ResNet-50 sets: seed, updater (kept as config),
+compute dtype, kernel dispatch and the remat knobs; the reference's other
+global settings (l1/l2, weight_init and activation stamping, buckets) come
+with the slices that use them. ``compute_dtype="bfloat16"`` keeps params
+fp32 and runs activations and convolutions in bf16.
+
+JSON: the port reads the JSON the JAX package writes and writes JSON the
+JAX package reads. Keys the port does not act on yet (:data:`INERT_KNOBS`:
+remat policy, TBPTT, loss scaling, gradient compression, pipelining, ...)
+are kept as read and written back, with the reference's defaults. The
+updater is kept as the reference's updater dict. ``kernel_impl`` is the one
+key whose vocabulary differs: the reference's forced-kernel mode
+``"pallas"`` is the port's ``"cuda"``, translated both ways.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from deeplearning4j_tpu_torch.ops import kernels as _kern
+
+#: conf keys kept verbatim for later slices, with the reference's defaults
+#: (deeplearning4j_tpu/nn/computation_graph.py:59-100), in its JSON order
+INERT_KNOBS = {
+    "tbptt_length": 0,
+    "remat_policy": None,
+    "stage_barriers": False,
+    "sync_every": 1,
+    "fused_update": False,
+    "loss_scale": "none",
+    "loss_scale_value": 2.0 ** 15,
+    "loss_scale_growth": 2000,
+    "grad_compression": "none",
+    "grad_compression_threshold": 1e-3,
+    "grad_compression_target": 1e-3,
+    "pipe_stages": 0,
+    "n_micro": 0,
+}
+
+#: the reference builder's default updater, Sgd(0.1), as its JSON dict
+DEFAULT_UPDATER = {"learning_rate": 0.1, "@updater": "Sgd"}
+
+
+class InputType:
+    """org/deeplearning4j/nn/conf/inputs/InputType.java parity (NHWC)."""
+
+    @staticmethod
+    def feed_forward(size: int) -> Tuple[int, ...]:
+        return (size,)
+
+    @staticmethod
+    def convolutional(height: int, width: int,
+                      channels: int) -> Tuple[int, ...]:
+        return (height, width, channels)
+
+
+def _buckets_to_json(spec):
+    """Bucket spec -> JSON value: None | "pow2" | [sizes]."""
+    if spec is None or spec == "pow2":
+        return spec
+    return list(spec)
+
+
+def _buckets_from_json(v):
+    if v is None or v == "pow2":
+        return v
+    return tuple(v)
+
+
+def _detuple(v):
+    """JSON lists -> tuples (layer configs use tuples for shapes)."""
+    return tuple(_detuple(x) if isinstance(x, list) else x for x in v)
+
+
+def kernel_impl_from_json(v: Optional[str]) -> Optional[str]:
+    return "cuda" if v == "pallas" else _kern.validate_impl(v)
+
+
+def kernel_impl_to_json(v: Optional[str]) -> Optional[str]:
+    return "pallas" if v == "cuda" else v
+
+
+def _updater_dict(u):
+    """The reference's updater dict from a dict or an object that has
+    ``to_dict()``; None stays None."""
+    if u is None or isinstance(u, dict):
+        return u
+    return u.to_dict()
+
+
+class NeuralNetConfiguration:
+    """Fluent builder entry point (NeuralNetConfiguration.Builder parity)."""
+
+    @staticmethod
+    def builder() -> "Builder":
+        return Builder()
+
+
+class Builder:
+    def __init__(self):
+        self._seed = 12345
+        self._updater = dict(DEFAULT_UPDATER)
+        self._compute_dtype = "float32"
+        self._kernel_impl: Optional[str] = None
+        self._knobs = dict(INERT_KNOBS)
+
+    def seed(self, s: int) -> "Builder":
+        self._seed = int(s)
+        return self
+
+    def updater(self, u) -> "Builder":
+        """Kept as config for the training slice: the reference's updater
+        dict (e.g. ``{"@updater": "Adam", "learning_rate": 1e-3, ...}``)
+        or any object with ``to_dict()``."""
+        self._updater = _updater_dict(u)
+        return self
+
+    def compute_dtype(self, dt: str) -> "Builder":
+        if dt not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, "
+                             f"got {dt!r}")
+        self._compute_dtype = dt
+        return self
+
+    def kernel_impl(self, impl: Optional[str]) -> "Builder":
+        """Pin the kernel dispatch for this net: ``"auto"``, ``"exact"``
+        (plain PyTorch) or ``"cuda"`` (force the kernels). ``None`` defers
+        to the DL4J_TORCH_KERNEL_IMPL env knob."""
+        self._kernel_impl = _kern.validate_impl(impl)
+        return self
+
+    def remat_policy(self, name: Optional[str]) -> "Builder":
+        """Kept as config (the training slice acts on it)."""
+        self._knobs["remat_policy"] = name
+        return self
+
+    def stage_barriers(self, on: bool = True) -> "Builder":
+        """Kept as config (the training slice acts on it)."""
+        self._knobs["stage_barriers"] = bool(on)
+        return self
+
+    def graph_builder(self):
+        """DAG builder (ComputationGraphConfiguration.GraphBuilder parity)."""
+        from deeplearning4j_tpu_torch.nn.computation_graph import GraphBuilder
+
+        return GraphBuilder(self)

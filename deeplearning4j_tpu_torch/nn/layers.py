@@ -1,0 +1,297 @@
+"""Layer configurations and their forward functions (counterpart of
+deeplearning4j_tpu/nn/layers.py), the subset on the ResNet-50 inference
+path.
+
+As in the reference, one frozen dataclass per layer carries the config and
+the functions (``initialize``, ``apply``, ``output_shape``); its fields and
+defaults are the reference's, field for field, so a conf JSON moves between
+the two packages unchanged. Params and state are plain dicts of tensors
+keyed as the reference keys them (``W``, ``b``, ``gamma``, ``beta``,
+``mean``, ``var``).
+
+Conventions: shapes exclude the batch dimension; CNN data is NHWC, so
+``input_shape`` is (H, W, C). ``apply`` returns (output, new_state).
+
+This slice is inference only: ``training=True`` on a layer whose training
+forward differs (batchnorm statistics, dropout) raises
+``NotImplementedError``; the training slice (``fit``) ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn import activations as act
+from deeplearning4j_tpu_torch.nn import weights as winit
+from deeplearning4j_tpu_torch.ops import nn as nnops
+
+_LAYER_TYPES: Dict[str, type] = {}
+
+_TRAINING_SLICE = ("training forward is not ported yet: it comes with the "
+                   "ResNet-50 training slice (fit, batchnorm_train)")
+
+
+def register_layer(cls):
+    _LAYER_TYPES[cls.__name__] = cls
+    return cls
+
+
+def layer_from_dict(d: dict) -> "Layer":
+    d = dict(d)
+    kind = d.pop("@layer")
+    cls = _LAYER_TYPES.get(kind)
+    if cls is None:
+        raise KeyError(f"layer type {kind!r} is not ported yet; ported: "
+                       f"{sorted(_LAYER_TYPES)}")
+    return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """Base layer config. ``updater`` is kept as the reference's updater
+    dict (``{"@updater": "Adam", ...}``); the port does not train yet."""
+
+    name: Optional[str] = None
+    dropout: float = 0.0  # input dropout rate, applied only in training
+    l1: float = 0.0
+    l2: float = 0.0
+    updater: Optional[Any] = None
+
+    def initialize(self, gen: torch.Generator, input_shape):
+        """-> (params, state) as CPU tensors."""
+        return {}, {}
+
+    def apply(self, params, state, x, *, training=False):
+        raise NotImplementedError
+
+    def output_shape(self, input_shape):
+        return tuple(input_shape)
+
+    def _maybe_dropout(self, x, training):
+        if training and self.dropout > 0.0:
+            raise NotImplementedError(f"dropout: {_TRAINING_SLICE}")
+        return x
+
+    def to_dict(self) -> dict:
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        d["@layer"] = type(self).__name__
+        return d
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DenseLayer(Layer):
+    """Fully connected layer (conf/layers/DenseLayer.java)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    activation: str = "identity"
+    weight_init: str = "xavier"
+    has_bias: bool = True
+
+    def initialize(self, gen, input_shape):
+        n_in = self.n_in
+        if not n_in:
+            n_in = 1
+            for s in input_shape:
+                n_in *= int(s)
+        params = {"W": winit.init(gen, self.weight_init, (n_in, self.n_out))}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,))
+        return params, {}
+
+    def _dense(self, params, x):
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        b = params.get("b")
+        if b is None:
+            b = torch.zeros(params["W"].shape[1], dtype=x.dtype,
+                            device=x.device)
+        return nnops.xw_plus_b(x, params["W"], b)
+
+    def apply(self, params, state, x, *, training=False):
+        x = self._maybe_dropout(x, training)
+        return act.resolve(self.activation)(self._dense(params, x)), state
+
+    def output_shape(self, input_shape):
+        return (self.n_out,)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ConvolutionLayer(Layer):
+    """2-D convolution (conf/layers/ConvolutionLayer.java); the forward is
+    ``ops.nn.conv2d``, i.e. the CUDA conv kernel on the card."""
+
+    n_in: int = 0  # input channels (inferred if 0)
+    n_out: int = 0
+    kernel_size: tuple = (3, 3)
+    stride: tuple = (1, 1)
+    padding: Any = "SAME"  # 'SAME' | 'VALID' | (ph, pw)
+    dilation: tuple = (1, 1)
+    activation: str = "identity"
+    weight_init: str = "relu"
+    has_bias: bool = True
+
+    def initialize(self, gen, input_shape):
+        c_in = self.n_in or input_shape[-1]
+        kh, kw = self.kernel_size
+        params = {"W": winit.init(gen, self.weight_init,
+                                  (kh, kw, c_in, self.n_out))}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,))
+        return params, {}
+
+    def apply(self, params, state, x, *, training=False):
+        x = self._maybe_dropout(x, training)
+        y = nnops.conv2d(x, params["W"], params.get("b"),
+                         strides=self.stride, padding=self.padding,
+                         dilation=self.dilation)
+        return act.resolve(self.activation)(y), state
+
+    def output_shape(self, input_shape):
+        h, w, _ = input_shape
+        kh, kw = self.kernel_size
+        sh, sw = self.stride
+        if self.padding == "SAME":
+            oh, ow = -(-h // sh), -(-w // sw)
+        elif self.padding == "VALID":
+            eff_kh = (kh - 1) * self.dilation[0] + 1
+            eff_kw = (kw - 1) * self.dilation[1] + 1
+            oh, ow = (h - eff_kh) // sh + 1, (w - eff_kw) // sw + 1
+        else:
+            ph, pw = (self.padding if not isinstance(self.padding, int)
+                      else (self.padding,) * 2)
+            oh = (h + 2 * ph - kh) // sh + 1
+            ow = (w + 2 * pw - kw) // sw + 1
+        return (oh, ow, self.n_out)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class SubsamplingLayer(Layer):
+    """Pooling (conf/layers/SubsamplingLayer.java): pooling_type MAX | AVG.
+    PNORM is not ported yet."""
+
+    kernel_size: tuple = (2, 2)
+    stride: Optional[tuple] = None
+    padding: Any = "VALID"
+    pooling_type: str = "max"
+    pnorm: int = 2
+
+    def apply(self, params, state, x, *, training=False):
+        strides = self.stride or self.kernel_size
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            y = nnops.max_pool2d(x, self.kernel_size, strides, self.padding)
+        elif pt in ("avg", "average"):
+            y = nnops.avg_pool2d(x, self.kernel_size, strides, self.padding)
+        elif pt == "pnorm":
+            raise NotImplementedError("pnorm pooling is not ported yet")
+        else:
+            raise ValueError(f"unknown pooling_type {self.pooling_type}")
+        return y, state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        kh, kw = self.kernel_size
+        sh, sw = self.stride or self.kernel_size
+        if self.padding == "SAME":
+            return (-(-h // sh), -(-w // sw), c)
+        if self.padding == "VALID":
+            return ((h - kh) // sh + 1, (w - kw) // sw + 1, c)
+        ph, pw = self.padding
+        return ((h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1, c)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class BatchNormalization(Layer):
+    """Batch norm over the channel axis (conf/layers/BatchNormalization.java).
+    Params gamma/beta, state running mean/var. Inference form only."""
+
+    n_out: int = 0  # channels (inferred if 0)
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma_init: float = 1.0
+    beta_init: float = 0.0
+    lock_gamma_beta: bool = False
+
+    def initialize(self, gen, input_shape):
+        c = self.n_out or input_shape[-1]
+        params = {}
+        if not self.lock_gamma_beta:
+            params = {"gamma": torch.full((c,), float(self.gamma_init)),
+                      "beta": torch.full((c,), float(self.beta_init))}
+        state = {"mean": torch.zeros((c,)), "var": torch.ones((c,))}
+        return params, state
+
+    def apply(self, params, state, x, *, training=False):
+        if training:
+            raise NotImplementedError(f"BatchNormalization: {_TRAINING_SLICE}")
+        y = nnops.batchnorm(x, state["mean"], state["var"],
+                            params.get("gamma"), params.get("beta"),
+                            eps=self.eps)
+        return y, state
+
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """Standalone activation (conf/layers/ActivationLayer.java)."""
+
+    activation: str = "relu"
+    activation_args: Optional[dict] = None
+
+    def apply(self, params, state, x, *, training=False):
+        fn = act.resolve(self.activation)
+        if self.activation_args:
+            return fn(x, **self.activation_args), state
+        return fn(x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class GlobalPoolingLayer(Layer):
+    """Global pooling (conf/layers/GlobalPoolingLayer.java) over the
+    spatial axes of CNN input. The recurrent (B, T, F) branch comes with
+    the recurrent slice."""
+
+    pooling_type: str = "avg"
+    pnorm: int = 2
+
+    def apply(self, params, state, x, *, training=False):
+        pt = self.pooling_type.lower()
+        if pt not in ("avg", "max", "sum", "pnorm"):
+            raise ValueError(f"unknown pooling_type {self.pooling_type!r}")
+        if x.dim() == 3:
+            raise NotImplementedError(
+                "GlobalPoolingLayer over time (B, T, F) is not ported yet: "
+                "it comes with the recurrent slice")
+        spatial = tuple(range(1, x.dim() - 1))
+        if pt == "avg":
+            return x.mean(dim=spatial), state
+        if pt == "sum":
+            return x.sum(dim=spatial), state
+        if pt == "pnorm":
+            return torch.pow(torch.pow(x.abs(), self.pnorm).sum(dim=spatial),
+                             1.0 / self.pnorm), state
+        return x.amax(dim=spatial), state
+
+    def output_shape(self, input_shape):
+        return (input_shape[-1],)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class OutputLayer(DenseLayer):
+    """Dense + loss head (conf/layers/OutputLayer.java). Its inference
+    forward is the dense product followed by the activation; ``loss`` is
+    kept for the training slice."""
+
+    loss: str = "mcxent"
+    activation: str = "softmax"

@@ -1,0 +1,105 @@
+"""Kernel dispatch seam of the port (mirrors deeplearning4j_tpu/ops/kernels/__init__.py:37-111).
+
+Every op that has a hand-written CUDA kernel asks :func:`dispatch` whether to
+launch it:
+
+- ``kernel_impl``: ``"auto" | "exact" | "cuda"``. ``exact`` always takes
+  the plain PyTorch version; ``cuda`` forces the kernel and raises on a
+  CPU tensor; ``auto`` takes the plain version for a CPU tensor and the
+  kernel for a CUDA tensor. On a CUDA tensor both launch the kernel or
+  raise, naming what the op's ``supports`` gate refused: nothing but
+  ``exact`` runs the plain version on the card.
+- Resolution order: explicit :func:`impl_scope` (the nets stamp their
+  conf's ``kernel_impl`` here around every forward) > the
+  ``DL4J_TORCH_KERNEL_IMPL`` env knob > ``"auto"``.
+- A conf JSON written by the JAX package may say ``"pallas"`` (its forced
+  kernel mode); the port reads it as ``"cuda"`` (nn/conf.py).
+
+Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
+made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
+plain path (only ``exact`` sends one there). Both are plain integers,
+reset with :func:`reset_counts`.
+
+Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
+``VMEM_BUDGET_BYTES``, conv.py:57-114) sizes a TPU program's whole-image
+block, which has no counterpart in a tiled CUDA grid; and the tuning-database
+lookup (conv.py:114-125, tuning/database.py) holds TPU measurements and is
+not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Dict, Optional
+
+_VALID = ("auto", "exact", "cuda")
+
+_impl_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "dl4j_torch_kernel_impl", default=None)
+
+#: launches per kernel, bumped by each wrapper where it launches
+LAUNCHES: Dict[str, int] = {"conv2d_fwd": 0}
+#: CUDA-tensor calls that took the plain path (``exact`` only)
+PLAIN_ON_CUDA: Dict[str, int] = {"conv2d_fwd": 0}
+
+
+def reset_counts() -> None:
+    for table in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in table:
+            table[k] = 0
+
+
+def validate_impl(impl: Optional[str]) -> Optional[str]:
+    if impl is not None and impl not in _VALID:
+        raise ValueError(f"kernel_impl must be one of {_VALID}, got {impl!r}")
+    return impl
+
+
+@contextlib.contextmanager
+def impl_scope(impl: Optional[str]):
+    """Pin the kernel dispatch for the dynamic extent. ``None`` leaves the
+    ambient resolution (env knob / auto) in place."""
+    validate_impl(impl)
+    tok = _impl_override.set(impl) if impl is not None else None
+    try:
+        yield
+    finally:
+        if tok is not None:
+            _impl_override.reset(tok)
+
+
+def resolve_impl() -> str:
+    """Effective kernel_impl: scope override > DL4J_TORCH_KERNEL_IMPL > auto."""
+    impl = _impl_override.get()
+    if impl is None:
+        impl = os.environ.get("DL4J_TORCH_KERNEL_IMPL") or "auto"
+    if impl not in _VALID:
+        raise ValueError(
+            f"DL4J_TORCH_KERNEL_IMPL must be one of {_VALID}, got {impl!r}")
+    return impl
+
+
+def dispatch(kernel: str, supported: bool, x, describe) -> bool:
+    """The one dispatch rule: True = launch ``kernel`` on ``x``'s device,
+    False = take the plain version. ``describe()`` names the call's
+    geometry and types for the error when ``supported`` is False."""
+    impl = resolve_impl()
+    if impl == "exact" or (impl == "auto" and not x.is_cuda):
+        if x.is_cuda:
+            PLAIN_ON_CUDA[kernel] += 1
+        return False
+    if not x.is_cuda:
+        raise RuntimeError(
+            f"kernel_impl='cuda' needs CUDA tensors; {kernel} got one on "
+            f"{x.device}")
+    if not supported:
+        raise ValueError(
+            f"kernel_impl={impl!r}: {kernel} has no kernel for "
+            f"{describe()} (see its supports()); kernel_impl='exact' runs "
+            "the plain version")
+    return True
+
+
+from deeplearning4j_tpu_torch.ops.kernels import conv  # noqa: E402,F401

@@ -1,0 +1,182 @@
+"""Neural-net ops on the ported paths (counterpart of
+deeplearning4j_tpu/ops/nn.py).
+
+Layouts are the reference's: NHWC activations, HWIO conv weights. Sums of
+products accumulate in fp32 whatever the input type, and results come back
+in the input's type, as in the reference.
+
+``conv2d`` is the one op here with a hand-written kernel: its dispatch
+(ops/kernels) launches the CUDA conv kernel on a CUDA tensor (or raises
+for a geometry the kernel does not take), and the plain tap-sum version on
+the CPU or under ``exact``. Pooling,
+batchnorm, the dense product and softmax are XLA ops in the reference, not
+Pallas kernels, so here they are plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.ops import kernels as _kern
+from deeplearning4j_tpu_torch.ops.kernels import conv as _kconv
+from deeplearning4j_tpu_torch.ops.registry import op
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _acc_dtype(t):
+    """Accumulation dtype: fp32 unless the input is already fp64."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Convolution
+# ---------------------------------------------------------------------------
+
+
+@op("conv2d", "conv")
+def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
+           data_format="NHWC", feature_group_count=1,
+           preferred_element_type=None):
+    """2-D convolution. x: [N,H,W,C] (NHWC) or [N,C,H,W] (NCHW);
+    w: [kH,kW,Cin/groups,Cout] (HWIO). ``padding``: 'SAME' (the XLA
+    asymmetric split), 'VALID', or symmetric (ph, pw) pixels.
+
+    The dispatch mirrors deeplearning4j_tpu/ops/nn.py:83-118 on the NHWC
+    view of x (NCHW input is permuted first): ``kernels.dispatch`` launches
+    the CUDA kernel on a CUDA tensor, or raises if ``supports`` refuses the
+    geometry, and takes the plain version on the CPU or under ``exact``;
+    the bias is added after the kernel. Accumulation is fp32 on both paths
+    and the output comes back in x's type, as the reference casts back."""
+    if data_format not in ("NHWC", "NCHW"):
+        raise ValueError(f"conv2d: unknown data_format {data_format!r}")
+    strides_p, dil_p = _pair(strides), _pair(dilation)
+    xh = x if data_format == "NHWC" else x.permute(0, 2, 3, 1)
+    pads = _kconv.resolve_padding(padding, (xh.shape[1], xh.shape[2]),
+                                  (w.shape[0], w.shape[1]), strides_p, dil_p)
+    supported = _kconv.supports(xh, w, "NHWC", feature_group_count,
+                                preferred_element_type)
+    if _kern.dispatch("conv2d_fwd", supported, xh, lambda: (
+            f"x {tuple(x.shape)} {x.dtype} ({data_format}), w "
+            f"{tuple(w.shape)} {w.dtype}, groups {feature_group_count}, "
+            f"preferred_element_type {preferred_element_type}")):
+        out = _kconv.conv2d_fwd(xh.contiguous(), w.contiguous(), strides_p,
+                                pads, dil_p, feature_group_count)
+    else:
+        out = _kconv.conv2d_fwd_reference(xh, w, strides_p, pads, dil_p,
+                                          feature_group_count)
+    if b is not None:
+        out = out + b.reshape(1, 1, 1, -1).to(out.dtype)
+    return out if data_format == "NHWC" else out.permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+
+
+def _pool_pads(padding, hw, kernel, strides):
+    """reduce_window padding as explicit ((top, bottom), (left, right)):
+    'SAME' is XLA's asymmetric split (the extra pixel goes low-side last:
+    a 3x3/s2 window on 112 pads (0, 1)); numbers are symmetric."""
+    return _kconv.resolve_padding(padding, hw, kernel, strides, (1, 1))
+
+
+def _to_nchw_padded(x, pads, data_format, value):
+    xc = x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+    (pt, pb), (pl, pr) = pads
+    if pt or pb or pl or pr:
+        xc = F.pad(xc, (pl, pr, pt, pb), value=value)
+    return xc
+
+
+def _from_nchw(y, data_format):
+    return y.permute(0, 2, 3, 1).contiguous() if data_format == "NHWC" else y
+
+
+@op("maxpool2d", "pooling", aliases=("max_pool2d", "maxpool"))
+def max_pool2d(x, kernel=(2, 2), strides=None, padding="VALID",
+               data_format="NHWC"):
+    """Max pooling with reduce_window semantics: the window pads with
+    -inf (the integer minimum for integer inputs), explicitly and
+    asymmetrically for SAME, so a padded cell never wins."""
+    strides = _pair(strides or kernel)
+    kernel = _pair(kernel)
+    hw = x.shape[1:3] if data_format == "NHWC" else x.shape[2:4]
+    pads = _pool_pads(padding, hw, kernel, strides)
+    fill = (float("-inf") if x.dtype.is_floating_point
+            else torch.iinfo(x.dtype).min)
+    xc = _to_nchw_padded(x, pads, data_format, fill)
+    return _from_nchw(F.max_pool2d(xc, kernel, strides), data_format)
+
+
+@op("avgpool2d", "pooling", aliases=("avg_pool2d", "avgpool"))
+def avg_pool2d(x, kernel=(2, 2), strides=None, padding="VALID",
+               data_format="NHWC"):
+    """Average pooling with reduce_window semantics: VALID divides by the
+    window size; SAME and numeric pads divide each window's sum by the
+    number of in-bounds cells it covered (the reference's ``counts``)."""
+    strides = _pair(strides or kernel)
+    kernel = _pair(kernel)
+    hw = x.shape[1:3] if data_format == "NHWC" else x.shape[2:4]
+    pads = _pool_pads(padding, hw, kernel, strides)
+    xc = _to_nchw_padded(x, pads, data_format, 0.0)
+    summed = F.avg_pool2d(xc, kernel, strides, divisor_override=1)
+    if padding == "VALID":
+        out = summed / (kernel[0] * kernel[1])
+    else:
+        ones = torch.ones((1, 1) + tuple(hw), dtype=x.dtype, device=x.device)
+        counts = F.avg_pool2d(_to_nchw_padded(ones, pads, "NCHW", 0.0),
+                              kernel, strides, divisor_override=1)
+        out = summed / counts
+    return _from_nchw(out, data_format)
+
+
+@op("global_avg_pool", "pooling", aliases=("globalavgpool",))
+def global_avg_pool(x, data_format="NHWC", keepdims=False):
+    dims = (1, 2) if data_format == "NHWC" else (2, 3)
+    return x.mean(dim=dims, keepdim=keepdims)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+@op("batchnorm", "norm", aliases=("batch_norm", "batchnorm_new"))
+def batchnorm(x, mean, variance, gamma=None, beta=None, eps=1e-5, axis=-1):
+    """Normalize with given statistics (the inference form): rsqrt(var+eps)
+    and the normalization in fp32, cast back to x's type."""
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    acc = _acc_dtype(x)
+    inv = torch.rsqrt(variance.to(acc) + eps).reshape(shape)
+    out = (x.to(acc) - mean.reshape(shape)) * inv
+    if gamma is not None:
+        out = out * gamma.reshape(shape)
+    if beta is not None:
+        out = out + beta.reshape(shape)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations, softmax, dense
+# ---------------------------------------------------------------------------
+
+op("identity", "transform")(lambda x: x)
+op("relu", "transform")(torch.relu)
+op("softmax", "softmax")(lambda x, axis=-1: torch.softmax(x, dim=axis))
+
+
+@op("xw_plus_b", "nn_misc", aliases=("linear_layer",))
+def xw_plus_b(x, w, b):
+    """x @ w + b with fp32 accumulation, result in x's type. A plain
+    matrix product: the reference leaves it to XLA outside any Pallas
+    kernel, so here it is ``torch.matmul`` on fp32 operands (TF32 stays
+    off for fp32 parity)."""
+    acc = _acc_dtype(x)
+    out = torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+    return out + b.to(out.dtype)

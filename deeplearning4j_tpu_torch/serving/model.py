@@ -1,0 +1,136 @@
+"""ServingModel — one loaded model behind the batching scheduler
+(counterpart of deeplearning4j_tpu/serving/model.py), ``kind="classify"``.
+
+A trained ``ComputationGraph`` is bound to the serving tier with ONE
+:class:`~deeplearning4j_tpu_torch.data.bucketing.BucketingPolicy` for every
+shape decision: warmup runs each batch bucket once, the scheduler coalesces
+up to the largest bucket, and a coalesced batch is split by
+``plan_serving_batch`` into chunks padded up to a bucket, run through
+``net.output`` and split back per request. Rows are independent, so a
+request's result does not depend on what it was batched with.
+
+Not ported yet: ``kind="generate"`` (paged-KV decode, the transformer
+slice), ``quantize`` (int8 serving), ``use_mesh`` (multi-device inference)
+and rolling reload; each raises ``NotImplementedError`` naming its slice.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+
+_DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+class ServingModel:
+    """One model-id's executor (see module doc)."""
+
+    def __init__(self, net, model_id: str, *, kind: str = "classify",
+                 bucketing=None, use_mesh: bool = False,
+                 quantize: Optional[str] = None):
+        if kind == "generate":
+            raise NotImplementedError(
+                "kind='generate' is not ported yet: it comes with the "
+                "transformer/paged-decode serving slice")
+        if kind != "classify":
+            raise ValueError(f"unknown serving kind {kind!r}")
+        if quantize is not None:
+            raise NotImplementedError(
+                "quantize is not ported yet: int8 serving is a later "
+                "serving slice")
+        if use_mesh:
+            raise NotImplementedError(
+                "use_mesh is not ported yet: multi-device inference comes "
+                "with the parallel slice")
+        self.net = net
+        self.model_id = str(model_id)
+        self.kind = kind
+        if bucketing is None:
+            bucketing = BucketingPolicy.from_conf(getattr(net, "conf", None))
+        if bucketing is None or not isinstance(bucketing.batch_buckets,
+                                               tuple):
+            # serving needs a finite bucket list (warmup enumerates it)
+            bucketing = BucketingPolicy(batch_buckets=_DEFAULT_BUCKETS)
+        self.policy = bucketing
+        self.warmed = False
+        #: chunks run through ``net.output`` since construction
+        self.chunks_executed = 0
+        self._lock = threading.Lock()
+
+    # -------------------------------------------------------------- shapes
+    def coalesce_limit(self) -> int:
+        """Largest batch the scheduler should coalesce: the largest bucket."""
+        top = self.policy.largest_batch_bucket()
+        return int(top) if top else 64
+
+    def payload_rows(self, payload) -> int:
+        return int(np.shape(payload)[0])
+
+    def _input_shape(self) -> tuple:
+        shape = tuple(getattr(self.net.conf, "input_shape", None) or ())
+        if not shape:
+            raise ValueError(
+                f"{self.model_id}: warmup() needs the conf's input shape")
+        return shape
+
+    # -------------------------------------------------------------- warmup
+    def warmup(self) -> int:
+        """Run every batch bucket once before traffic (on the card this
+        builds the kernels and warms the allocator). Returns the number of
+        buckets run."""
+        shape = self._input_shape()
+        for b in self.policy.batch_buckets:
+            self.net.output(np.zeros((int(b),) + shape, np.float32))
+        self.warmed = True
+        return len(self.policy.batch_buckets)
+
+    # ------------------------------------------------------------- execute
+    def execute(self, payloads: List[Any]
+                ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+        """Run one coalesced batch; returns (per-payload results, stats)
+        with real/padded row counts and the number of chunks run."""
+        with self._lock:
+            results, real, padded, chunks = self._execute_classify(payloads)
+        return results, {"real_rows": real, "padded_rows": padded,
+                         "chunks": chunks}
+
+    def _execute_classify(self, payloads):
+        xs = np.concatenate([np.asarray(p, np.float32) for p in payloads],
+                            axis=0)
+        plan = self.policy.plan_serving_batch(xs.shape[0])
+        outs, off = [], 0
+        for take, _bucket in plan:
+            chunk, _ = self.policy.pad_inference_batch(xs[off:off + take])
+            y = self.net.output(chunk)[:take]
+            outs.append(y.to(torch.float32).cpu().numpy())
+            self.chunks_executed += 1
+            off += take
+        out = np.concatenate(outs, axis=0)
+        results, off = [], 0
+        for p in payloads:
+            k = int(np.shape(p)[0])
+            results.append(out[off:off + k])
+            off += k
+        return results, xs.shape[0], sum(p for _, p in plan), len(plan)
+
+    def swap_from(self, shadow) -> int:
+        raise NotImplementedError(
+            "rolling reload is not ported yet: it comes with the serving "
+            "resilience slice")
+
+    def describe(self) -> dict:
+        return {
+            "kind": self.kind,
+            "buckets": self.policy.to_spec(),
+            "coalesce_limit": self.coalesce_limit(),
+            "warmed": self.warmed,
+            "chunks_executed": self.chunks_executed,
+            "device": str(getattr(self.net, "device", None)),
+            "params": int(self.net.num_params())
+            if hasattr(self.net, "num_params") else None,
+        }

@@ -1,0 +1,119 @@
+"""Zoo models (counterpart of deeplearning4j_tpu/zoo/models.py): ResNet-50
+on ComputationGraph, the same graph node for node, with NHWC layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from deeplearning4j_tpu_torch.nn import (ComputationGraph, InputType,
+                                         NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
+                                                BatchNormalization,
+                                                ConvolutionLayer,
+                                                GlobalPoolingLayer,
+                                                OutputLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+
+#: the reference zoo's default updater, Adam(1e-3), as its JSON dict
+ADAM_DEFAULT = {"learning_rate": 1e-3, "beta1": 0.9, "beta2": 0.999,
+                "epsilon": 1e-8, "@updater": "Adam"}
+
+
+@dataclasses.dataclass
+class ZooModel:
+    """Base (org/deeplearning4j/zoo/ZooModel.java parity)."""
+
+    num_classes: int = 1000
+    seed: int = 12345
+    input_shape: Tuple[int, int, int] = (224, 224, 3)  # HWC
+    compute_dtype: str = "float32"
+    updater: object = None
+
+    def conf(self):
+        raise NotImplementedError
+
+    def init(self, device=None) -> ComputationGraph:
+        """Build and initialize the network on ``device`` (CUDA unless
+        named otherwise)."""
+        return ComputationGraph(self.conf()).init(device=device)
+
+    def _builder(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or dict(ADAM_DEFAULT))
+                .compute_dtype(self.compute_dtype))
+
+
+@dataclasses.dataclass
+class ResNet50(ZooModel):
+    """zoo/model/ResNet50.java — the repo's flagship model. ResNet-v1
+    bottleneck layout (stride on the first 1x1, as in the reference/Keras),
+    NHWC. ``remat_policy``/``stage_barriers`` and the residual-stage
+    boundaries (stem, res2-res5) are recorded in the config for the
+    training slice."""
+
+    updater: object = None
+    remat_policy: Optional[str] = None
+    stage_barriers: bool = False
+
+    def conf(self):
+        h, w, c = self.input_shape
+        b = self._builder()
+        if self.remat_policy is not None:
+            b.remat_policy(self.remat_policy)
+        if self.stage_barriers:
+            b.stage_barriers(True)
+        gb = b.graph_builder().add_inputs("input")
+
+        def conv_bn(name, inp, n_out, k, stride=(1, 1), relu=True,
+                    pad="SAME"):
+            gb.add_layer(f"{name}_conv",
+                         ConvolutionLayer(n_out=n_out, kernel_size=(k, k),
+                                          stride=stride, padding=pad,
+                                          has_bias=False), inp)
+            gb.add_layer(f"{name}_bn", BatchNormalization(), f"{name}_conv")
+            if relu:
+                gb.add_layer(f"{name}_relu",
+                             ActivationLayer(activation="relu"),
+                             f"{name}_bn")
+                return f"{name}_relu"
+            return f"{name}_bn"
+
+        def bottleneck(name, inp, filters, stride, project):
+            f1, f2, f3 = filters
+            x = conv_bn(f"{name}_a", inp, f1, 1, stride=stride)
+            x = conv_bn(f"{name}_b", x, f2, 3)
+            x = conv_bn(f"{name}_c", x, f3, 1, relu=False)
+            sc = (conv_bn(f"{name}_sc", inp, f3, 1, stride=stride,
+                          relu=False) if project else inp)
+            gb.add_vertex(f"{name}_add", ElementWiseVertex(op="add"), x, sc)
+            gb.add_layer(f"{name}_out", ActivationLayer(activation="relu"),
+                         f"{name}_add")
+            return f"{name}_out"
+
+        x = conv_bn("stem", "input", 64, 7, stride=(2, 2))
+        gb.add_layer("stem_pool",
+                     SubsamplingLayer(kernel_size=(3, 3), stride=(2, 2),
+                                      padding="SAME"), x)
+        x = "stem_pool"
+        gb.stage_boundary("stem_pool")
+        stages = [
+            ("res2", 3, (64, 64, 256), (1, 1)),
+            ("res3", 4, (128, 128, 512), (2, 2)),
+            ("res4", 6, (256, 256, 1024), (2, 2)),
+            ("res5", 3, (512, 512, 2048), (2, 2)),
+        ]
+        for sname, blocks, filters, stride in stages:
+            x = bottleneck(f"{sname}a", x, filters, stride, project=True)
+            for i in range(1, blocks):
+                x = bottleneck(f"{sname}{chr(ord('a') + i)}", x, filters,
+                               (1, 1), project=False)
+            gb.stage_boundary(x)  # stage end (res2c_out ... res5c_out)
+        gb.add_layer("avgpool", GlobalPoolingLayer(), x)
+        gb.add_layer("output", OutputLayer(n_in=2048,
+                                           n_out=self.num_classes), "avgpool")
+        gb.set_outputs("output")
+        gb.set_input_types(InputType.convolutional(h, w, c))
+        return gb.build()
