@@ -7,28 +7,48 @@ Drives the port (``deeplearning4j_tpu_torch``) only, and imports nothing
 of the JAX package. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs.
-2. build: the CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` with nvcc.
+2. build: the CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` with nvcc
+   (one process per source, all started together).
 3. kernel: the conv kernel against its plain PyTorch version on every
    distinct conv geometry of the 224x224 ResNet-50 forward (enumerated from
    the port's own conf) at batch 8, plus dilated + grouped, odd-channel
    and row-tiled cases, in fp32 (rtol 1e-4, atol 1e-4) and bf16 (rtol 8e-3,
    atol 1e-4: two bf16 ulps on the same bf16 inputs), with the kernel's,
    the plain version's and ``F.conv2d``'s times and the card's bound.
-4. serve: full-width ResNet-50 (224x224x3, 1000 classes, random weights
+4. kernel_grad: the gradient kernels -- wgrad (``csrc/conv2d_wgrad.cu``)
+   and dgrad (the forward kernel on the stride-dilated dy) -- against their
+   plain versions at the same geometries at batch 8, fp32 and bf16, gated
+   on the error normalised by the largest output (GRAD_TOL below), with
+   kernel, plain, ``torch.nn.grad`` (cuDNN) times and the bound.
+5. serve: full-width ResNet-50 (224x224x3, 1000 classes, random weights
    from seed 12345) behind ModelServer -> ModelRouter -> BatchScheduler ->
    ServingModel; 8 HTTP requests of 1-16 rows, some concurrent. Every
    response must hold probabilities that sum to 1 and match ``net.output``
    on the plain path within 1e-4; the conv kernel must have launched 53
-   times per executed chunk and the plain path never on a CUDA tensor.
+   times per executed chunk and the plain path never on a CUDA tensor;
+   each of those launches is held against the plain version on its own
+   tensors (``check_every_launch``).
    Then ``net.output`` forward images/sec at batch 32 in fp32 and bf16
    (five windows of 2 s each: median, min, max), and one profiled
    batch-32 forward of each: device time by kernel, idle share.
-5. kernels: one JSON line per the kernel table in PERF.md.
+6. train: full-width ResNet-50 training at batch 32 (seed 12345, random
+   one-hot labels, the zoo's Adam(1e-3)): one step's loss and gradients
+   under ``auto`` against ``exact`` (53 / 53 / 52 launches of fwd / wgrad /
+   dgrad, none plain on CUDA; gradients held to an fp64 step, see
+   ``_grad_parity``), two controls the gradient gate must fail (TF32 on
+   the plain path, wgrad on bf16-rounded operands), four ``fit`` steps
+   whose loss must fall (the main path: its launches are the kernels
+   line's, and each is held against its plain version on its own batch-32
+   tensors), one bf16 ``fit`` step checked the same way, ``fit``
+   images/sec in fp32 and bf16 (five 2 s windows), one profiled step of
+   each.
+7. kernels: one JSON line per the kernel table in PERF.md.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -47,6 +67,21 @@ H100_BYTES_PER_S = 3.35e12    # HBM3
 CONV_SOURCE = "deeplearning4j_tpu_torch/csrc/conv2d_fwd.cu"
 CONV_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:174"
 CONV_REPLACES_TILED = "deeplearning4j_tpu/ops/kernels/conv.py:198"
+WGRAD_SOURCE = "deeplearning4j_tpu_torch/csrc/conv2d_wgrad.cu"
+WGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:283"
+DGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:424"
+# Gradient-kernel gates, on max|kernel - plain| / max|plain|. fp32: both sum
+# up to 1e5 products (the stem's wgrad at batch 8) in fp32 in different
+# orders (split slices, tap order); the rounding walk is about
+# sqrt(terms) * 6e-8 of the summed magnitudes, ~1e-5 of the largest output,
+# so 1e-4 leaves room and still catches a wrong term. bf16: the results are
+# cast to bf16 from fp32 sums, so one differing fp32 sum can round to the
+# neighbouring bf16 value: two bf16 ulps of the largest output, 2^-7.
+GRAD_TOL = {"fp32": 1e-4, "bf16": 2.0 ** -7}
+# train parity (auto against exact, one full-width step): the same
+# arithmetic summed in other orders through 53 layers
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
 SERVE_ROWS = (1, 3, 16, 2, 5, 8, 4, 7)
 BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -239,6 +274,198 @@ def kernel_phase(torch, conf):
     return records
 
 
+# ---------------------------------------------------------- gradient kernels
+
+
+def dgrad_launches(conf, batch):
+    """{geometry key: dgrad launches per train step}: every conv but those
+    reading the graph's input, which needs no gradient."""
+    geoms = conv_geometries(conf, batch)
+    from deeplearning4j_tpu_torch.nn import layers as L
+
+    first = {(batch, *conf.input_shapes[0], *n.node.kernel_size, n.node.n_out,
+              tuple(n.node.stride), n.node.padding, tuple(n.node.dilation), 1)
+             for n in conf.nodes if set(n.inputs) & set(conf.inputs)
+             and isinstance(n.node, L.ConvolutionLayer)}
+    return {k: c - (1 if k in first else 0) for k, c in geoms.items()}
+
+
+def _grad_error(out, ref):
+    diff = float((out.float() - ref.float()).abs().max())
+    return diff, diff / max(float(ref.float().abs().max()), 1e-30)
+
+
+def check_grad_geometry(torch, key, wgrad_count, dgrad_count):
+    """wgrad and dgrad kernels against their plain versions (and
+    torch.nn.grad's cuDNN times) at one geometry in fp32 and bf16."""
+    import torch.nn.functional as F
+    from torch.nn import grad as tgrad
+
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    n, h, w, cin, kh, kw, cout, stride, padding, dil, groups = key
+    strides = (stride, stride) if isinstance(stride, int) else stride
+    pads = kconv.resolve_padding(padding, (h, w), (kh, kw), strides, dil)
+    oh = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
+    ow = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
+    gen = torch.Generator(device="cuda").manual_seed(
+        zlib.crc32(repr(("grad", key)).encode()))
+    x32 = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+    dy32 = torch.randn((n, oh, ow, cout), generator=gen, device="cuda")
+    w32 = torch.randn((kh, kw, cin // groups, cout), generator=gen,
+                      device="cuda") * math.sqrt(2.0 / (kh * kw * cin))
+    rec = {"geometry": {"n": n, "hw": [h, w], "cin": cin, "k": [kh, kw],
+                        "cout": cout, "stride": list(strides),
+                        "padding": padding, "pads": pads,
+                        "dilation": list(dil), "groups": groups},
+           "wgrad_per_step": wgrad_count, "dgrad_per_step": dgrad_count}
+    flops = 2.0 * n * oh * ow * cout * kh * kw * (cin // groups)
+    x_read = n * cin * read_extent(h, oh, kh, strides[0], dil[0],
+                                   pads[0][0]) * read_extent(
+        w, ow, kw, strides[1], dil[1], pads[1][0])
+    for tag, dt, peak in (("fp32", torch.float32, H100_FP32_FLOPS),
+                          ("bf16", torch.bfloat16, H100_BF16_FLOPS)):
+        x, dy, wt = x32.to(dt), dy32.to(dt), w32.to(dt)
+        es = x.element_size()
+        # NCHW, padded once outside the timing (torch.nn.grad pads
+        # symmetrically only), for the cuDNN yardsticks
+        xl = F.pad(x.permute(0, 3, 1, 2),
+                   (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+        xl = xl.contiguous()
+        dyl = dy.permute(0, 3, 1, 2).contiguous()
+        wl = wt.permute(3, 2, 0, 1).contiguous()
+        cases = {
+            "wgrad": (
+                lambda: kconv.conv2d_wgrad(x, dy, kh, kw, strides, pads, dil,
+                                           groups),
+                lambda: kconv.conv2d_wgrad_reference(x, dy, kh, kw, strides,
+                                                     pads, dil, groups),
+                lambda: tgrad.conv2d_weight(xl, wl.shape, dyl, strides, 0,
+                                            dil, groups),
+                (x_read + dy.numel()) * es + 4 * wt.numel()),
+            "dgrad": (
+                lambda: kconv.conv2d_dgrad(dy, wt, (h, w), strides, pads,
+                                           dil, groups),
+                lambda: kconv.conv2d_dgrad_reference(dy, wt, (h, w), strides,
+                                                     pads, dil, groups),
+                lambda: tgrad.conv2d_input(xl.shape, wl, dyl, strides, 0,
+                                           dil, groups),
+                (dy.numel() + wt.numel() + x.numel()) * es),
+        }
+        for kname, (kernel, plain, library, nbytes) in cases.items():
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{kname} {key} {tag}: kernel gave "
+                                     f"{tuple(out.shape)}, plain "
+                                     f"{tuple(ref.shape)}, or non-finite")
+            err32, norm32 = _grad_error(out, ref)
+            if tag == "bf16":  # as the caller sees it: in the layer's type
+                err, norm = _grad_error(out.to(dt), ref.to(dt))
+            else:
+                err, norm = err32, norm32
+            if norm > GRAD_TOL[tag]:
+                raise AssertionError(
+                    f"{kname} {key} {tag}: kernel disagrees with the plain "
+                    f"version: max err {err} = {norm:.3g} of the largest "
+                    f"output > {GRAD_TOL[tag]}")
+            rec[f"{kname}_{tag}"] = {
+                "max_abs_err": err, "max_err_normalised": norm,
+                "max_err_normalised_fp32_out": norm32,
+                "tolerance": GRAD_TOL[tag],
+                "ms": time_ms(torch, kernel),
+                "plain_ms": time_ms(torch, plain),
+                "library_ms": time_ms(torch, library),
+                **bound(flops, nbytes, peak)}
+    return rec
+
+
+def kernel_grad_phase(torch, conf):
+    """The gradient kernels at every ResNet-50 conv geometry (batch 8)
+    plus the dilated + grouped and odd-channel extras."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    geoms = conv_geometries(conf, batch=8)
+    dg = dgrad_launches(conf, batch=8)
+    if sum(dg.values()) != 52:
+        raise AssertionError(f"{sum(dg.values())} dgrad launches per step, "
+                             "expected 52")
+    extra = {(8, 29, 29, 64, 3, 3, 64, (1, 1), "SAME", (2, 2), 2): 0,
+             (8, 13, 11, 6, 3, 3, 10, (2, 1), "SAME", (1, 2), 2): 0}
+    records = []
+    for key, count in list(geoms.items()) + list(extra.items()):
+        rec = check_grad_geometry(torch, key, count, dg.get(key, 0))
+        records.append(rec)
+        emit("kernel_grad", **rec)
+    kern.reset_counts()
+    return records
+
+
+# ------------------------------------------------- every launch of a path
+
+
+PLAIN_OF = {"conv2d_fwd": "conv2d_fwd_reference",
+            "conv2d_dgrad": "conv2d_dgrad_reference",
+            "conv2d_wgrad": "conv2d_wgrad_reference"}
+
+
+@contextlib.contextmanager
+def check_every_launch(torch, checked):
+    """While active, each call of a conv kernel's wrapper (``conv2d_fwd``,
+    ``conv2d_dgrad``, ``conv2d_wgrad``) is held against its plain version
+    on the call's own tensors, by the GRAD_TOL gate on the error
+    normalised by the largest plain output (bf16: on both results in
+    bf16). The kernel launches once per call, as unchecked, and the plain
+    versions count nothing, so a path run under the check launches what it
+    launches without it, and every one of those launches is checked.
+    ``checked`` collects {(wrapper, "fp32" | "bf16"): {"calls",
+    "max_err_normalised", "max_abs_err"}}."""
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    saved = {name: getattr(kconv, name) for name in PLAIN_OF}
+
+    def wrap(name):
+        kernel, plain = saved[name], getattr(kconv, PLAIN_OF[name])
+
+        def checked_call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            kwargs.pop("row_tile", None)
+            ref = plain(*args, **kwargs)
+            tag = "bf16" if args[0].dtype == torch.bfloat16 else "fp32"
+            a, b = ((out, ref) if tag == "fp32" else
+                    (out.to(args[0].dtype), ref.to(args[0].dtype)))
+            if a.shape != b.shape or not torch.isfinite(a.float()).all():
+                raise AssertionError(f"{name} {tag}: kernel gave "
+                                     f"{tuple(a.shape)}, plain "
+                                     f"{tuple(b.shape)}, or non-finite")
+            err, norm = _grad_error(a, b)
+            if norm > GRAD_TOL[tag]:
+                raise AssertionError(
+                    f"{name} {tag} on the path's tensors "
+                    f"{[tuple(t.shape) for t in args[:2]]}: max err {err} "
+                    f"= {norm:.3g} of the largest output > {GRAD_TOL[tag]}")
+            rec = checked.setdefault((name, tag), {
+                "calls": 0, "max_err_normalised": 0.0, "max_abs_err": 0.0})
+            rec["calls"] += 1
+            rec["max_err_normalised"] = max(rec["max_err_normalised"], norm)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            return out
+        return checked_call
+
+    for name in PLAIN_OF:
+        setattr(kconv, name, wrap(name))
+    try:
+        yield checked
+    finally:
+        for name, fn in saved.items():
+            setattr(kconv, name, fn)
+
+
+def _checked_summary(checked):
+    return {f"{name}_{tag}": rec for (name, tag), rec in sorted(
+        checked.items())}
+
+
 # ------------------------------------------------------------------ serve
 
 
@@ -346,11 +573,13 @@ def serve_phase(torch, np, card):
           for r in SERVE_ROWS]
     bodies = [{"inputs": x.tolist()} for x in xs]
     url = f"{server.url}/v1/models/resnet50/infer"
+    checked = {}
     try:
         kern.reset_counts()
         chunks0 = model.chunks_executed
         t1 = time.perf_counter()
-        with ThreadPoolExecutor(4) as pool:  # two waves of 4 concurrent
+        with check_every_launch(torch, checked), \
+                ThreadPoolExecutor(4) as pool:  # two waves of 4 concurrent
             answers = list(pool.map(lambda b: _post(url, b), bodies[:4]))
             answers += list(pool.map(lambda b: _post(url, b), bodies[4:]))
         serve_s = time.perf_counter() - t1
@@ -367,6 +596,9 @@ def serve_phase(torch, np, card):
     if plain_on_cuda:
         raise AssertionError(f"{plain_on_cuda} conv calls on CUDA tensors "
                              "took the plain path")
+    if checked[("conv2d_fwd", "fp32")]["calls"] != launches:
+        raise AssertionError(f"{launches} launches, "
+                             f"{_checked_summary(checked)} checked")
     max_err, max_sum_err = 0.0, 0.0
     for x, (body, _lat) in zip(xs, answers):
         got = np.asarray(body["outputs"], np.float64)
@@ -382,7 +614,9 @@ def serve_phase(torch, np, card):
     emit("serve", model="ResNet50", input=[224, 224, 3], classes=1000,
          params=n_params, requests=len(SERVE_ROWS), rows=list(SERVE_ROWS),
          batches=batches, chunks=chunks, conv_launches=launches,
-         plain_on_cuda=plain_on_cuda, max_abs_err_vs_exact=max_err,
+         plain_on_cuda=plain_on_cuda,
+         launches_checked=_checked_summary(checked),
+         max_abs_err_vs_exact=max_err,
          max_row_sum_err=max_sum_err, warmup_s=warm_s,
          serve_wall_s=serve_s, served_rows_per_s=sum(SERVE_ROWS) / serve_s,
          request_latency_s=[lat for _, lat in answers], card=card)
@@ -397,7 +631,329 @@ def serve_phase(torch, np, card):
     for tag, n in (("fp32", net), ("bf16", net16)):
         emit("profile", model="ResNet50", dtype=tag, card=card,
              **profile_forward(torch, n))
-    return launches
+    return launches, checked
+
+
+# ------------------------------------------------------------------ train
+
+
+def _kernel_class(name):
+    """Profile bucket of a device kernel by its name. The dgrad launches of
+    the forward body are told from the forward's by the CPU range they run
+    in (:func:`_range_kernels`), not by name."""
+    if "conv2d_wgrad" in name:
+        return "wgrad"
+    if "reduce_splits" in name:
+        return "split_reduce"
+    if "conv2d_fwd" in name:
+        return "fwd"
+    return None
+
+
+def _range_kernels(events, name):
+    """(kernel name, device us) of every device kernel launched inside the
+    outermost CPU ranges whose name holds ``name``: an autograd Function
+    and its backward node (``_BatchNormTrain``), or a backward node alone
+    (``Conv2dFunctionBackward``). The profiler hangs a kernel on the
+    innermost operator range open at its launch (a record_function range
+    is not one), so a kernel launched through ctypes in a backward lands
+    on that backward node."""
+    def walk(evt):
+        for k in evt.kernels:
+            yield k.name, k.duration
+        for child in evt.cpu_children:
+            yield from walk(child)
+
+    for evt in events:
+        if name in evt.name and not any(name in p.name for p in
+                                        _parents(evt)):
+            yield from walk(evt)
+
+
+def profile_train_step(torch, net, x, y, top=8):
+    """One train step under torch.profiler: device time by kernel class
+    (conv forward; dgrad = the forward body's launches inside the conv's
+    backward node, where nothing else launches it; wgrad; the split
+    reductions of all three;
+    batchnorm = the kernels under the training batchnorm's autograd
+    Function and its backward; other), wall time and the device's idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, by_class = [], {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.count, e.key))
+        cls = _kernel_class(e.key)
+        if cls:
+            by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    events = prof.events()
+    in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
+    dgrad_ms = sum(us for k, us in in_bwd if _kernel_class(k) == "fwd") / 1e3
+    if not dgrad_ms:
+        hosts = {}
+        for evt in events:
+            for k in evt.kernels:
+                if _kernel_class(k.name) == "fwd":
+                    hosts[evt.name] = hosts.get(evt.name, 0) + 1
+        raise AssertionError("the profile put no conv kernel under the "
+                             f"conv backward nodes; they hang on {hosts}")
+    bn_ms = sum(us for _, us in _range_kernels(events,
+                                                "_BatchNormTrain")) / 1e3
+    conv_like = sum(by_class.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "fwd_ms": by_class.get("fwd", 0.0) - dgrad_ms,
+            "dgrad_ms": dgrad_ms,
+            "wgrad_ms": by_class.get("wgrad", 0.0),
+            "split_reduce_ms": by_class.get("split_reduce", 0.0),
+            "batchnorm_ms": bn_ms,
+            "other_device_ms": busy - conv_like - bn_ms,
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:top]]}
+
+
+def _parents(evt):
+    p = getattr(evt, "cpu_parent", None)
+    while p is not None:
+        yield p
+        p = getattr(p, "cpu_parent", None)
+
+
+def train_images_per_sec(torch, net, x, y, window_s=2.0, windows=5):
+    """``net.fit`` images/sec on one device-resident batch: ``windows``
+    windows of at least ``window_s`` seconds of back-to-back steps, each
+    closed by a device sync; the last loss must be finite."""
+    for _ in range(2):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < window_s:
+            net.fit(x, y)
+            n += 1
+        torch.cuda.synchronize()
+        rates.append(x.shape[0] * n / (time.perf_counter() - t0))
+    if not math.isfinite(net.get_score()):
+        raise AssertionError(f"non-finite training loss {net.get_score()}")
+    rates.sort()
+    return {"median": rates[len(rates) // 2], "min": rates[0],
+            "max": rates[-1], "windows": rates}
+
+
+def _grad_parity(g_auto, g_exact, g_64, top=8):
+    """Per param tensor, the kernel path's (auto) and the plain path's
+    (exact) fp32 gradients against the same step in fp64 (the plain path on
+    fp64 activations). Where a gradient nearly cancels -- stem_bn's beta,
+    whose shift the batch-statistic batchnorms behind the 1x1 convs absorb
+    except in the windows where stem_relu / stem_pool are inactive -- both
+    fp32 paths sit far from it in relative terms, so the gate on each
+    tensor is: auto within TRAIN_GRAD_RTOL of the fp64 gradient, or no
+    farther from it than 3x the plain path, or within 1e-6 of the largest
+    tensor's gradient norm. The smoke's controls show the gate failing a
+    lower-precision step. Each row's ``gate_use`` is its distance over
+    the distance the gate allows it (a failure above 1). Returns (worst
+    auto-vs-exact relative L2 as (name, value), the rows, the
+    failures)."""
+    rows = []
+    for node, leaves in g_64.items():
+        for k, g in leaves.items():
+            g = g.double()
+            a, e = g_auto[node][k].double(), g_exact[node][k].double()
+            rows.append({"tensor": f"{node}.{k}",
+                         "norm_fp64": float(g.norm()),
+                         "auto_vs_exact_rel": float(
+                             (a - e).norm() / max(float(e.norm()), 1e-30)),
+                         "auto_vs_fp64": float((a - g).norm()),
+                         "exact_vs_fp64": float((e - g).norm())})
+    largest = max(r["norm_fp64"] for r in rows)
+    for r in rows:
+        r["gate_use"] = r["auto_vs_fp64"] / max(
+            TRAIN_GRAD_RTOL * r["norm_fp64"], 3.0 * r["exact_vs_fp64"],
+            1e-6 * largest, 1e-300)
+    failures = [r for r in rows if r["gate_use"] > 1.0]
+    failures.sort(key=lambda r: -r["gate_use"])
+    rows.sort(key=lambda r: -r["auto_vs_exact_rel"])
+    worst = (rows[0]["tensor"], rows[0]["auto_vs_exact_rel"])
+    return worst, rows[:top], failures
+
+
+@contextlib.contextmanager
+def _wgrad_on_bf16_operands():
+    """A deliberately worse wgrad for the gate's control: the kernel fed x
+    and dy rounded to bf16 (8 mantissa bits), summed in fp32 as before."""
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    kernel = kconv.conv2d_wgrad
+    kconv.conv2d_wgrad = lambda x, dy, *a: kernel(
+        x.bfloat16().float(), dy.bfloat16().float(), *a)
+    try:
+        yield
+    finally:
+        kconv.conv2d_wgrad = kernel
+
+
+def gate_controls(torch, net, x, y, g_exact, g_64):
+    """The gates against steps known to be less precise than the fp32
+    kernel path. (1) The plain path with TF32 matmuls (10 mantissa bits in
+    every product of the step) must fail the gradient gate on some tensor.
+    (2) wgrad fed bf16-rounded operands (8 mantissa bits in dW only): the
+    step gate's reading is reported, and the per-launch check must stop
+    it on the step's own tensors."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    def reading(g):
+        (worst_name, worst), rows, failures = _grad_parity(
+            g, g_exact, g_64, top=None)
+        return {"tensors_failing": len(failures),
+                "max_gate_use": max(r["gate_use"] for r in rows),
+                "tensors": sum(len(v) for v in g_64.values()),
+                "worst_vs_exact": [worst_name, worst],
+                "first_failing": failures[:3]}
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with kern.impl_scope("exact"):
+            g_tf32, _ = net.compute_gradient_and_score(x, y)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"plain_tf32": reading(g_tf32)}
+    del g_tf32
+    if not out["plain_tf32"]["tensors_failing"]:
+        raise AssertionError("control plain_tf32: the gradient gate passed "
+                             "a TF32 step")
+    with _wgrad_on_bf16_operands():
+        g_bf16, _ = net.compute_gradient_and_score(x, y)
+        out["wgrad_bf16_operands"] = reading(g_bf16)
+        del g_bf16
+        try:
+            with check_every_launch(torch, {}):
+                net.compute_gradient_and_score(x, y)
+        except AssertionError as e:
+            out["wgrad_bf16_operands"]["per_launch_check"] = str(e)[:300]
+        else:
+            raise AssertionError("control wgrad_bf16_operands: the "
+                                 "per-launch check passed it")
+    return out
+
+
+def train_phase(torch, np, card):
+    """Full-width ResNet-50 training at batch 32 (random weights from seed
+    12345, random one-hot labels): auto-vs-exact step parity and the gate's
+    controls; the main path (four Adam steps in fp32 through ``fit``, every
+    kernel launch held against its plain version); one checked bf16 step;
+    train images/sec in fp32 and bf16, and one profiled step of each."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    batch = 32
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    labels = np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, 1000, batch)]
+    y = torch.from_numpy(labels).cuda()
+
+    # (a) one step's gradients under auto and under exact, same params
+    kern.reset_counts()
+    g_auto, l_auto = net.compute_gradient_and_score(x, y)
+    torch.cuda.synchronize()
+    step_launches, step_plain = dict(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
+    want = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
+    if step_launches != want or any(step_plain.values()):
+        raise AssertionError(f"auto step launched {step_launches} (expected "
+                             f"{want}), plain on CUDA {step_plain}")
+    with kern.impl_scope("exact"):
+        g_exact, l_exact = net.compute_gradient_and_score(x, y)
+        # the same step on fp64 activations (the entry points take fp32,
+        # as the reference's do with x64 off, so this goes one level in)
+        l_64, g_64, _ = net._gradients(
+            {"input": x.double()}, {"output": y},
+            torch.ones(batch, dtype=torch.float64, device="cuda"))
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_auto, g_exact, g_64, top=None)
+    top_rows = rows[:8]
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"auto step off exact: loss rel {loss_rel}, "
+                             f"gradients past the gate: {failures[:4]}")
+    del g_auto
+    controls = gate_controls(torch, net, x, y, g_exact, g_64)
+    del g_exact, g_64
+    emit("train_parity", model="ResNet50", batch=batch,
+         loss_auto=float(l_auto), loss_exact=float(l_exact),
+         loss_fp64=float(l_64), loss_rel_err=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, worst_grad=worst_name,
+         worst_grad_rel_l2=worst, grad_rtol=TRAIN_GRAD_RTOL,
+         worst_tensors=top_rows,
+         max_gate_use=max(r["gate_use"] for r in rows),
+         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
+         gate_controls=controls,
+         launches_per_step=step_launches, plain_on_cuda=step_plain,
+         card=card)
+
+    # (b) the main path: four Adam steps through fit, each launch checked
+    checked = {}
+    kern.reset_counts()
+    losses = []
+    with check_every_launch(torch, checked):
+        for _ in range(4):
+            net.fit(x, y)
+            losses.append(net.get_score())
+    torch.cuda.synchronize()
+    launches, plain = dict(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
+    if launches != {k: 4 * v for k, v in want.items()} or any(plain.values()):
+        raise AssertionError(f"4 fit steps launched {launches}, plain on "
+                             f"CUDA {plain}")
+    if {k: checked[(k, "fp32")]["calls"] for k in want} != launches:
+        raise AssertionError(f"{launches} launches, "
+                             f"{_checked_summary(checked)} checked")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"Adam losses did not fall: {losses}")
+    emit("train", model="ResNet50", input=[224, 224, 3], classes=1000,
+         params=net.num_params(), batch=batch,
+         updater=net.conf.updater, steps=4, losses=losses,
+         launches=launches, plain_on_cuda=plain,
+         launches_checked=_checked_summary(checked), card=card)
+
+    # (c) one checked bf16 step, then train images/sec, fp32 and bf16
+    net16 = ResNet50(compute_dtype="bfloat16").init(device="cuda")
+    _calm_residual_branches(net16)
+    with check_every_launch(torch, checked):
+        net16.fit(x, y)
+    got16 = {k: checked.get((k, "bf16"), {}).get("calls") for k in want}
+    if got16 != want:
+        raise AssertionError(f"bf16 step checked {got16}, expected {want}")
+    emit("train_bf16_step", model="ResNet50", batch=batch,
+         loss=net16.get_score(), launches_checked={
+             f"{k}_bf16": checked[(k, "bf16")] for k in want}, card=card)
+    emit("train_throughput", model="ResNet50", batch=batch, path="net.fit",
+         window_s=2.0,
+         train_images_per_sec_fp32=train_images_per_sec(torch, net, x, y),
+         train_images_per_sec_bf16=train_images_per_sec(torch, net16, x, y),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+    # (d) one profiled step of each
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        emit("train_profile", model="ResNet50", dtype=tag, batch=batch,
+             card=card, **profile_train_step(torch, n, x, y))
+    return launches, checked
 
 
 def main() -> int:
@@ -434,18 +990,63 @@ def main() -> int:
          ptxas=[ln.split("ptxas info    : ", 1)[-1] for ln in log
                 if "Compiling entry" in ln or "registers" in ln])
 
-    records = kernel_phase(torch, ResNet50().conf())
-    launches = serve_phase(torch, np, smi)
+    conf = ResNet50().conf()
+    records = kernel_phase(torch, conf)
+    grad_records = kernel_grad_phase(torch, conf)
+    launches, serve_checked = serve_phase(torch, np, smi)
+    train_launches, train_checked = train_phase(torch, np, smi)
+
+    def checked_fields(name, checked):
+        """The main path's own launches held against the plain version
+        (check_every_launch): their count and worst errors."""
+        return {f"checked_{tag}": checked[(name, tag)]
+                for tag in ("fp32", "bf16") if (name, tag) in checked}
 
     per_fwd = [r for r in records if r["launches_per_forward"]]
 
     def total(tag, field):
         return sum(r[tag][field] * r["launches_per_forward"] for r in per_fwd)
 
+    def grad_entry(kname, source, replaces, per_step):
+        def tot(tag, field):
+            return sum(r[f"{kname}_{tag}"][field] * r[per_step]
+                       for r in grad_records)
+
+        ops, byt = tot("fp32", "ops_ms"), tot("fp32", "bytes_ms")
+        return {
+            "name": f"conv2d_{kname}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[
+                f"conv2d_{kname}"],
+            "max_abs_err": max(r[f"{kname}_fp32"]["max_abs_err"]
+                               for r in grad_records),
+            "max_err_normalised_fp32": max(
+                r[f"{kname}_fp32"]["max_err_normalised"]
+                for r in grad_records),
+            "max_err_normalised_bf16": max(
+                r[f"{kname}_bf16"]["max_err_normalised"]
+                for r in grad_records),
+            "ms": tot("fp32", "ms"), "plain_ms": tot("fp32", "plain_ms"),
+            "bound_ms": tot("fp32", "bound_ms"),
+            "bound_by": "operations" if ops >= byt else "bytes",
+            "library_ms": tot("fp32", "library_ms"),
+            "ms_bf16": tot("bf16", "ms"),
+            "plain_ms_bf16": tot("bf16", "plain_ms"),
+            "bound_ms_bf16": tot("bf16", "bound_ms"),
+            "library_ms_bf16": tot("bf16", "library_ms"),
+            **checked_fields(f"conv2d_{kname}", train_checked),
+            "per": "one 224x224 ResNet-50 train step at batch 8 (its "
+                   f"{sum(r[per_step] for r in grad_records)} launches "
+                   "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
+                   "replay; launches from the train phase's 4 fit steps at "
+                   "batch 32; checked_*: every launch of those steps (fp32) "
+                   "and of one bf16 step against the plain version",
+            "card": smi}
+
     print(json.dumps({"kernels": [{
         "name": "conv2d_fwd", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES, "replaces_also": CONV_REPLACES_TILED,
         "replaces_ids": ["K1", "K2"], "launches": launches,
+        "launches_train": train_launches["conv2d_fwd"],
         "max_abs_err": max(r["fp32"]["max_abs_err"] for r in records),
         "max_err_fp32": max(r["fp32"]["max_abs_err"] for r in records),
         "max_err_bf16": max(r["bf16"]["max_abs_err"] for r in records),
@@ -459,10 +1060,20 @@ def main() -> int:
         "eager_ms_bf16": total("bf16", "eager_ms"),
         "bound_ms_bf16": total("bf16", "bound_ms"),
         "library_ms_bf16": total("bf16", "library_ms"),
+        **{f"serve_{k}": v for k, v in checked_fields(
+            "conv2d_fwd", serve_checked).items()},
+        **{f"train_{k}": v for k, v in checked_fields(
+            "conv2d_fwd", train_checked).items()},
         "per": "one 224x224 ResNet-50 forward at batch 8 (its 53 launches "
                "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
-               "replay, eager_ms by a Python loop",
-        "card": smi}]}), flush=True)
+               "replay, eager_ms by a Python loop; launches from the serve "
+               "phase (53 per executed chunk), launches_train from the train phase's 4 "
+               "fit steps; serve_/train_checked_*: every launch of those "
+               "paths (and of one bf16 fit step) against the plain version",
+        "card": smi},
+        grad_entry("dgrad", CONV_SOURCE, DGRAD_REPLACES, "dgrad_per_step"),
+        grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,10 @@ This package imports ``torch``, numpy and the standard library only — never
 
 Ported so far: ResNet-50 classify serving (ops, layers, conf JSON,
 ComputationGraph inference, bucketing, the batching scheduler, router and
-HTTP server) on the conv forward kernel. See ROADMAP.md for what is next.
+HTTP server) on the conv forward kernel, and ResNet-50 training
+(``ComputationGraph.fit``: training batchnorm, softmax cross-entropy, the
+updaters and schedules, the conv backward on the dgrad and wgrad kernels).
+See ROADMAP.md for what is next.
 """
 
 __version__ = "0.1.0"

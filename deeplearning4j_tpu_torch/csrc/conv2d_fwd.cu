@@ -23,6 +23,10 @@
 // row_tile (the TPU kernel's tuning knob) cuts M into segments of row_tile*OW positions (row_tile
 // output rows of one image); no M tile crosses a segment. 0 means one segment over all of M.
 //
+// dgrad: the JAX package reuses _fwd_kernel for the input gradient (_conv_vjp_bwd runs it on the
+// stride-dilated dy with flipped, I/O-transposed weights); the port's conv2d_dgrad launches
+// dl4j_conv2d_fwd the same way.
+//
 // Split-K: when a geometry gives too few output tiles to fill the card (ResNet-50's res4/res5 at
 // small batch), dl4j_conv2d_fwd_plan asks for `splits` > 1, sized to one wave of resident blocks
 // (the occupancy calculator's count for the body the launch uses). blockIdx.z then walks
@@ -37,11 +41,7 @@
 // (the bf16 body loads, syncs, then computes; the fp32 body overlaps one stage through
 // registers), ldmatrix fragment loads, and a persistent schedule in place of split-K.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "conv_common.cuh"
 
 namespace {
 
@@ -52,9 +52,7 @@ constexpr int F_BK = 8;
 constexpr int T_BM = 128;
 constexpr int T_BN = 64;
 constexpr int T_BK = 32;
-constexpr int THREADS = 256;
-// split-K: fewest BK stages a K slice keeps, and most slices
-constexpr int MIN_STAGES_PER_SPLIT = 4;
+// split-K: most K slices
 constexpr int MAX_SPLITS = 16;
 
 struct ConvGeom {
@@ -255,14 +253,6 @@ conv2d_fwd_f32(const float* __restrict__ x, const float* __restrict__ w, float* 
 
 // ------------------------------------------------------------ bf16, mma.sync on the tensor cores
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // vec_a: Cg % 16 == 0, Cin % 8 == 0 and x 16-byte aligned, so a 16-long K run is 16 contiguous
 // channels of one tap (two 16-byte loads). vec_b: Og % 8 == 0, Cout % 8 == 0 and w 16-byte
 // aligned, so 8 output channels of one weight row are one 16-byte load.
@@ -425,26 +415,6 @@ conv2d_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     }
 }
 
-// ------------------------------------------------------------------ split-K reduction
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// out[i] = sum over s of ws[s][i], in split order
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reduce_splits(const float* __restrict__ ws, T* __restrict__ out, long long total, int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[(long long)k * total + i];
-    out[i] = from_f32<T>(s);
-  }
-}
-
 // ------------------------------------------------------------------ launch shape and plan
 
 // The grid of one launch: the body's block tile, M cut into row_tile segments of BM tiles, Og
@@ -474,36 +444,12 @@ LaunchShape launch_shape(int dtype, int n, int cin, int kh, int kw, int cout, in
   return l;
 }
 
-// Blocks of one wave on the current device for the body a launch with this dtype and Og uses:
-// SMs x the body's resident blocks per SM (registers and shared memory permitting), from the
-// occupancy calculator; cached per device and body (every writer stores the same value).
-cudaError_t wave_slots(int dtype, int og, int* slots) {
-  constexpr int MAX_DEVICES = 64;
-  static std::atomic<int> cache[MAX_DEVICES][3];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const int body = dtype == 0 ? (og > 64 ? 0 : 1) : 2;
-  if (dev < MAX_DEVICES) {
-    const int cached = cache[dev][body].load(std::memory_order_relaxed);
-    if (cached > 0) {
-      *slots = cached;
-      return cudaSuccess;
-    }
-  }
-  int blocks = 0, sms = 0;
-  if (body == 0)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conv2d_fwd_f32<128>, THREADS, 0);
-  else if (body == 1)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conv2d_fwd_f32<64>, THREADS, 0);
-  else
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conv2d_fwd_bf16, THREADS, 0);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  *slots = sms * (blocks > 1 ? blocks : 1);
-  if (dev < MAX_DEVICES) cache[dev][body].store(*slots, std::memory_order_relaxed);
-  return cudaSuccess;
+// Blocks of one wave on the current device for the body a launch with this dtype and Og uses.
+cudaError_t body_slots(int dtype, int og, int* slots) {
+  static std::atomic<int> cache[3][MAX_DEVICES];
+  if (dtype != 0) return wave_slots(conv2d_fwd_bf16, cache[2], slots);
+  if (og > 64) return wave_slots(conv2d_fwd_f32<128>, cache[0], slots);
+  return wave_slots(conv2d_fwd_f32<64>, cache[1], slots);
 }
 
 }  // namespace
@@ -522,13 +468,10 @@ int dl4j_conv2d_fwd_plan(int dtype, int n, int cin, int kh, int kw, int cout, in
     return (int)cudaErrorInvalidValue;
   const LaunchShape l = launch_shape(dtype, n, cin, kh, kw, cout, groups, oh, ow, row_tile);
   int slots = 0;
-  const cudaError_t e = wave_slots(dtype, cout / groups, &slots);
+  const cudaError_t e = body_slots(dtype, cout / groups, &slots);
   if (e != cudaSuccess) return (int)e;
-  const long long blocks = l.segments * l.tiles_per_seg * l.n_tiles * groups;
-  long long s = slots / blocks;
-  if (s > l.stages / MIN_STAGES_PER_SPLIT) s = l.stages / MIN_STAGES_PER_SPLIT;
-  if (s > MAX_SPLITS) s = MAX_SPLITS;
-  *splits = s > 1 ? (int)s : 1;
+  *splits = plan_splits(slots, l.segments * l.tiles_per_seg * l.n_tiles * groups, l.stages,
+                        MAX_SPLITS);
   return 0;
 }
 
@@ -583,14 +526,10 @@ int dl4j_conv2d_fwd(const void* x, const void* w, void* out, int dtype,
   }
   if (splits > 1) {
     const long long total = (long long)n * oh * ow * cout;
-    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS < 4096
-                                           ? (total + THREADS - 1) / THREADS : 4096);
     if (dtype == 0)
-      reduce_splits<float><<<blocks, THREADS, 0, s>>>(ws, static_cast<float*>(out), total,
-                                                      splits);
+      launch_reduce_splits(ws, static_cast<float*>(out), total, splits, s);
     else
-      reduce_splits<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
-          ws, static_cast<__nv_bfloat16*>(out), total, splits);
+      launch_reduce_splits(ws, static_cast<__nv_bfloat16*>(out), total, splits, s);
   }
   return (int)cudaGetLastError();
 }

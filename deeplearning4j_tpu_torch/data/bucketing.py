@@ -1,22 +1,40 @@
-"""Shape bucketing (counterpart of deeplearning4j_tpu/data/bucketing.py),
-the serving half: round a batch up to one of a small fixed set of sizes,
-padding with zero rows that the caller slices off again.
+"""Shape bucketing (counterpart of deeplearning4j_tpu/data/bucketing.py):
+round a batch up to one of a small fixed set of sizes, padding with zero
+rows that the caller slices off again (serving), or that a 0/1 loss-weights
+vector keeps out of the loss (training).
 
 In the reference a bucket bounds the number of compiled XLA programs. Here
-it bounds the set of shapes a model is warmed and served at, so every
-served batch runs at a shape the warmup already ran. Numpy only. The
-training half (padded loss weights, time-axis and TBPTT padding) comes with
-the training slice.
+it bounds the set of shapes a model is warmed, served and trained at.
+Padding works on numpy arrays and on tensors alike. Time-axis (``seq_buckets``)
+padding and TBPTT segments come with the recurrent slice: a 3-D batch under
+``seq_buckets`` raises there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 BucketSpec = Union[None, str, Tuple[int, ...]]  # None | "pow2" | explicit
+
+
+def dev_weights(cache: dict, size: int, real: int, device):
+    """0/1 loss-weights vector on ``device``, memoized in ``cache`` by
+    (size, real count, device): ones over the real rows, zeros over the
+    padding. ``fit`` passes one on every batch (ones when nothing was
+    padded), so a bucketed batch and an unbucketed one take the same
+    weighted loss."""
+    key = (int(size), int(real), str(device))
+    w = cache.get(key)
+    if w is None:
+        arr = np.zeros(key[0], np.float32)
+        arr[:key[1]] = 1.0
+        w = torch.from_numpy(arr).to(device)
+        cache[key] = w
+    return w
 
 
 def next_pow2(n: int) -> int:
@@ -112,12 +130,33 @@ class BucketingPolicy:
         return plan
 
     @staticmethod
-    def _pad_axis(a: np.ndarray, axis: int, target: int) -> np.ndarray:
+    def _pad_axis(a, axis: int, target: int):
+        """``a`` (a numpy array or a tensor) zero-padded to ``target``
+        along ``axis``."""
         if a.shape[axis] == target:
             return a
+        if isinstance(a, torch.Tensor):
+            shape = list(a.shape)
+            shape[axis] = target - a.shape[axis]
+            return torch.cat([a, a.new_zeros(shape)], dim=axis)
         widths = [(0, 0)] * a.ndim
         widths[axis] = (0, target - a.shape[axis])
         return np.pad(a, widths)
+
+    def pad_graph_batch(self, features: Sequence, labels: Sequence):
+        """Pad one ComputationGraph training batch (lists of (B, ...) arrays
+        or tensors) to its batch bucket with zero rows; returns (features,
+        labels). The caller keeps the padding out of the loss with
+        :func:`dev_weights` over the real row count."""
+        feats, labs = list(features), list(labels)
+        if self.seq_buckets is not None and any(
+                a.ndim == 3 for a in feats + labs):
+            raise NotImplementedError(
+                "seq_buckets padding is not ported yet: it comes with the "
+                "recurrent slice (ROADMAP Queue 1 item 6)")
+        np_ = self.bucket_batch(feats[0].shape[0])
+        return ([self._pad_axis(f, 0, np_) for f in feats],
+                [self._pad_axis(y, 0, np_) for y in labs])
 
     def pad_inference_batch(self, x) -> Tuple[np.ndarray, int]:
         """Pad a forward batch (rows only); returns (padded, real_n).

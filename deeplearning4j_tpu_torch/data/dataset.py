@@ -1,0 +1,54 @@
+"""DataSet — (features, labels) pair with optional masks (counterpart of
+deeplearning4j_tpu/data/dataset.py; org/nd4j/linalg/dataset/DataSet.java and
+MultiDataSet). Numpy arrays, or tensors; ``ComputationGraph.fit`` takes one,
+a list of them, or any iterable of them. Masks are kept as data: the
+masked (sequence) training path comes with the recurrent slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class DataSet:
+    features: np.ndarray
+    labels: np.ndarray
+    features_mask: Optional[np.ndarray] = None
+    labels_mask: Optional[np.ndarray] = None
+
+    def num_examples(self) -> int:
+        return len(self.features)
+
+    def split_test_and_train(self, n_train: int):
+        return (
+            DataSet(self.features[:n_train], self.labels[:n_train]),
+            DataSet(self.features[n_train:], self.labels[n_train:]),
+        )
+
+    def shuffle(self, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        idx = rng.permutation(len(self.features))
+        self.features = self.features[idx]
+        self.labels = self.labels[idx]
+        if self.features_mask is not None:
+            self.features_mask = self.features_mask[idx]
+        if self.labels_mask is not None:
+            self.labels_mask = self.labels_mask[idx]
+        return self
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multiple inputs/outputs (ComputationGraph training)."""
+
+    features: list
+    labels: list
+    features_masks: Optional[list] = None
+    labels_masks: Optional[list] = None
+
+    def num_examples(self) -> int:
+        return len(self.features[0])

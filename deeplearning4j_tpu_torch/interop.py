@@ -1,12 +1,16 @@
-"""Weights carried across from the JAX package (no counterpart there).
+"""Weights and training state carried across from the JAX package, and back
+(no counterpart there).
 
 The reference's ``ComputationGraph.params``/``states`` are nested dicts
 node-name -> {key: array}, keyed ``W``/``b``/``gamma``/``beta``/``mean``/
 ``var`` in the reference's layouts (HWIO conv weights, (n_in, n_out) dense
-weights). Turned into numpy on the caller's side
-(``jax.tree_util.tree_map(np.asarray, net.params)``), they copy into the
-port's graph as they are: the layouts are the same, so nothing is
-transposed.
+weights). Its ``opt_states`` are node-name -> the updater's state tree
+(``()`` for Sgd/NoOp, ``{"m": {key: array}, "v": {...}}`` for Adam, ...),
+the same trees the port's updaters keep. Turned into numpy on the caller's
+side (``jax.tree_util.tree_map(np.asarray, net.opt_states)``), they copy
+into the port's graph as they are: the layouts are the same, so nothing is
+transposed. :func:`to_numpy` hands the port's trees back in that form, so
+a trajectory compares leaf by leaf and can continue in either package.
 """
 
 from __future__ import annotations
@@ -41,15 +45,70 @@ def _copy_tree(name: str, dst: Dict[str, dict], src: Dict[str, dict],
                 np.array(a, np.float32, copy=True)).to(device)
 
 
-def load_reference(net: ComputationGraph, params: dict,
-                   states: dict) -> ComputationGraph:
-    """Copy the reference's initialized params/states (nested dicts of
-    numpy arrays) into an initialized port graph, in place."""
+def _copy_opt_tree(path: str, dst, src, device):
+    """The reference's state tree for one node -> tensors, shaped as the
+    port's own tree ``dst`` (dicts recurse, ``()`` stays empty)."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise ValueError(f"{path}: keys "
+                             f"{sorted(src) if isinstance(src, dict) else src}"
+                             f" != {sorted(dst)}")
+        return {k: _copy_opt_tree(f"{path}[{k!r}]", dst[k], src[k], device)
+                for k in dst}
+    if isinstance(dst, (tuple, list)):
+        if len(src) != len(dst):
+            raise ValueError(f"{path}: {len(src)} entries != {len(dst)}")
+        return type(dst)(_copy_opt_tree(f"{path}[{i}]", d, s, device)
+                         for i, (d, s) in enumerate(zip(dst, src)))
+    a = np.asarray(src)
+    if a.shape != tuple(dst.shape):
+        raise ValueError(f"{path}: shape {a.shape} != {tuple(dst.shape)}")
+    return torch.from_numpy(np.array(a, np.float32, copy=True)).to(device)
+
+
+def load_reference(net: ComputationGraph, params: dict, states: dict,
+                   opt_states: dict = None, iteration: int = None,
+                   epoch: int = None) -> ComputationGraph:
+    """Copy the reference's params/states (nested dicts of numpy arrays)
+    into an initialized port graph, in place; with ``opt_states`` (the
+    reference's ``opt_states`` as numpy), ``iteration`` and ``epoch`` also
+    its optimizer state and counters, so training continues where the
+    reference's left off."""
     if net.device is None:
         raise ValueError("init() the port graph before load_reference()")
     _copy_tree("params", net.params, params, net.device)
     _copy_tree("states", net.states, states, net.device)
+    if opt_states is not None:
+        if set(opt_states) != set(net.opt_states):
+            raise ValueError(
+                f"opt_states: node sets differ: {sorted(opt_states)} != "
+                f"{sorted(net.opt_states)}")
+        net.opt_states = {
+            name: _copy_opt_tree(f"opt_states[{name!r}]", tree,
+                                 opt_states[name], net.device)
+            for name, tree in net.opt_states.items()}
+    if iteration is not None:
+        net.iteration = int(iteration)
+    if epoch is not None:
+        net.epoch = int(epoch)
     return net
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def to_numpy(net: ComputationGraph) -> dict:
+    """The port graph's training state as numpy, in the reference's tree
+    shapes: ``{"params", "states", "opt_states", "iteration", "epoch"}``."""
+    return {"params": _numpy_tree(net.params),
+            "states": _numpy_tree(net.states),
+            "opt_states": _numpy_tree(net.opt_states),
+            "iteration": net.iteration, "epoch": net.epoch}
 
 
 def from_reference_json(conf_json: str, params: dict, states: dict,

@@ -1,5 +1,5 @@
 """ComputationGraph — DAG network (counterpart of
-deeplearning4j_tpu/nn/computation_graph.py), inference path.
+deeplearning4j_tpu/nn/computation_graph.py): inference and training.
 
 The configuration, its JSON and the GraphBuilder DSL mirror the reference
 (``ComputationGraphConfiguration`` :59, ``GraphBuilder`` :221). The runtime
@@ -10,10 +10,27 @@ reference.
 
 ``compute_dtype="bfloat16"`` casts the inputs and the params (not the
 batchnorm running statistics) to bf16 for the forward, as the reference's
-``_cast``/``_cast_params`` do (:553-568).
+``_cast``/``_cast_params`` do (:553-568); the inference forward caches the
+casts per param version, the training forward casts inside autograd so the
+gradients reach the fp32 params.
 
-Not ported yet: ``fit`` and the loss/score/evaluate paths (the training
-slice), masks and TBPTT (the recurrent slice), SharedLayer, remat stages.
+Training (``fit`` :1200, ``_fit_batch`` :1236, ``make_step_fn`` :1145, the
+non-fused per-node updater path): one eager step is the training forward
+(batch-statistics batchnorm), the loss of every output's ``compute_loss``
+(0/1 row weights always passed, so a bucket-padded batch takes the
+unpadded mean) plus the layers' l1/l2 penalty, ``torch.autograd.grad`` of
+it with respect to the params (the conv backward on the dgrad and wgrad
+kernels), and each node's updater (its own, else the conf's, else
+Sgd(0.1)), applied in place. ``iteration``, ``epoch`` and ``score_value``
+follow the reference; ``score`` is the inference-mode loss.
+
+Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
+loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), dropout in
+training (item 4), masks, TBPTT and ``rnn_time_step`` (the recurrent slice,
+item 6), SharedLayer and ``evaluate`` (items 3-4), telemetry, listeners and
+AOT warmup (item 12), remat segments (item 12: ``remat_policy`` and
+``stage_barriers`` are kept as config and leave the step's arithmetic as
+it is, as they do in the reference), pipelining (item 10).
 """
 
 from __future__ import annotations
@@ -25,11 +42,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
+                                                     dev_weights)
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn import vertices as V
-from deeplearning4j_tpu_torch.nn.conf import (INERT_KNOBS, Builder,
+from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
+                                              Builder,
                                               _buckets_from_json,
                                               _buckets_to_json, _detuple,
                                               kernel_impl_from_json,
@@ -223,17 +244,35 @@ class GraphBuilder:
 
 
 class ComputationGraph:
-    """DAG network runtime (ComputationGraph.java parity), inference only.
-    ``params``/``states`` are dicts node-name -> dict of tensors, keyed as
-    the reference keys them."""
+    """DAG network runtime (ComputationGraph.java parity).
+    ``params``/``states``/``opt_states`` are dicts node-name -> the node's
+    tree, keyed as the reference keys them; params are plain tensors,
+    marked as needing a gradient only inside a training step."""
 
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
         self.topo = conf.topological_order()
         self.params: Dict[str, dict] = {}
         self.states: Dict[str, dict] = {}
+        self.opt_states: Dict[str, Any] = {}
+        self.iteration = 0
+        self.epoch = 0
+        self.score_value: Any = float("nan")
         self.device: Optional[torch.device] = None
         self._cast_cache: Dict[Tuple[str, str], tuple] = {}
+        self._w_cache: dict = {}
+        # per-node updater (:373-378): the node's own, else the conf's,
+        # else Sgd(0.1); nodes with equal updaters step together
+        self._updaters: Dict[str, upd.Updater] = {}
+        groups: Dict[str, Tuple[upd.Updater, List[str]]] = {}
+        for n in self.topo:
+            if n.is_layer:
+                u = upd.updater_from_dict(
+                    n.node.updater or conf.updater or DEFAULT_UPDATER)
+                self._updaters[n.name] = u
+                key = json.dumps(u.to_dict(), sort_keys=True)
+                groups.setdefault(key, (u, []))[1].append(n.name)
+        self._update_groups = list(groups.values())
         names = {n.name for n in self.topo}
         consumed = {i for n in self.topo for i in n.inputs}
         for name in conf.outputs:
@@ -271,6 +310,8 @@ class ComputationGraph:
                 self.params[n.name] = {}
                 self.states[n.name] = {}
                 shape_of[n.name] = tuple(n.node.output_shape(*in_shapes))
+        self.opt_states = {name: u.init_state(self.params[name])
+                           for name, u in self._updaters.items()}
         return self
 
     def _place(self, tree: dict) -> dict:
@@ -364,7 +405,9 @@ class ComputationGraph:
         """Forward pass; a list of output activations, or one tensor when
         the graph has one output. With ``batch_buckets`` on the conf the
         batch pads up to its bucket and the padding rows are sliced off.
-        ``train=True`` needs training-mode batchnorm (training slice)."""
+        ``train=True`` uses training-mode (batch) statistics and no
+        dropout, and leaves the running statistics as they are, as the
+        reference's ``output(train=True)``."""
         self._require_init()
         ins = [self._as_input(x) for x in inputs]
         real_n = None
@@ -387,3 +430,169 @@ class ComputationGraph:
         self._require_init()
         ins = dict(zip(self.conf.inputs, [self._as_input(x) for x in inputs]))
         return self._forward(self.params, self.states, ins)
+
+    # ---------------------------------------------------------------- train
+    def _check_trainable(self):
+        self._require_init()
+        k = {**INERT_KNOBS, **self.conf.knobs}
+        if k["fused_update"] or k["loss_scale"] != "none":
+            raise NotImplementedError(
+                "fused_update / loss_scale are not ported yet: the fused "
+                "optimizer (FusedUpdateEngine) and loss scaling come with the "
+                "parallel-training slice (ROADMAP Queue 1 item 10)")
+        for n in self.topo:
+            if n.is_layer and n.node.dropout > 0.0:
+                raise NotImplementedError(f"layer {n.name!r}: "
+                                          f"{L.DROPOUT_SLICE}")
+
+    def _loss(self, inputs, labels, weights, *, training=True):
+        """Sum of the output layers' losses (+ the l1/l2 penalty in
+        training) and the new states (:667-723). The training forward
+        casts the fp32 params inside autograd (bf16 compute), the
+        inference loss takes them through the cast cache."""
+        params, states = self.params, self.states
+        acts = {k: self._cast(v) for k, v in inputs.items()}
+        if training:
+            cparams = {name: {k: self._cast(v) for k, v in p.items()}
+                       for name, p in params.items()}
+        else:
+            cparams = self._cast_params(params)
+        new_states = dict(states)
+        out_names = set(self.conf.outputs)
+        loss = 0.0
+        for n in self.topo:
+            if not n.is_layer:
+                acts[n.name] = n.node.apply(*self._gather_input(acts, n))
+                continue
+            x = self._gather_input(acts, n)
+            if n.name in out_names:
+                if not hasattr(n.node, "compute_loss"):
+                    raise ValueError(
+                        f"output {n.name!r} must be an OutputLayer/LossLayer")
+                out_loss = n.node.compute_loss(
+                    cparams[n.name], states[n.name], x, labels[n.name],
+                    training=training, weights=weights)
+                loss = loss + out_loss.to(
+                    torch.promote_types(out_loss.dtype, torch.float32))
+                acts[n.name] = x  # terminal; activation unused downstream
+            else:
+                acts[n.name], new_states[n.name] = n.node.apply(
+                    cparams[n.name], states[n.name], x, training=training)
+        if training:
+            for n in self.topo:
+                if n.is_layer:
+                    loss = loss + n.node.regularization(params[n.name])
+        return loss, new_states
+
+    def _batch(self, features, labels):
+        """Inputs/labels as tensors on this graph's device, padded to the
+        batch bucket, and the 0/1 row weights."""
+        if not isinstance(features, (list, tuple)):
+            features = [features]
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        feats = [self._as_input(f) for f in features]
+        labs = [self._as_input(y) for y in labels]
+        real_n = feats[0].shape[0]
+        if self._bucketing is not None:
+            feats, labs = self._bucketing.pad_graph_batch(feats, labs)
+        weights = dev_weights(self._w_cache, feats[0].shape[0], real_n,
+                              self.device)
+        return (dict(zip(self.conf.inputs, feats)),
+                dict(zip(self.conf.outputs, labs)), weights)
+
+    def _gradients(self, inputs, labels, weights):
+        """(loss, grads, new_states) of one training forward + backward,
+        leaving params, states and optimizer states as they are. Nodes
+        whose updater is NoOp are frozen: their params get no gradient."""
+        leaves = [(name, k, t) for name, u in self._updaters.items()
+                  if not isinstance(u, upd.NoOp)
+                  for k, t in self.params[name].items()
+                  if t.is_floating_point()]
+        for _, _, t in leaves:
+            t.requires_grad_(True)
+        try:
+            with self._kscope():
+                loss, new_states = self._loss(inputs, labels, weights)
+                gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
+                                         allow_unused=True)
+        finally:
+            for _, _, t in leaves:
+                t.requires_grad_(False)
+        grads: Dict[str, dict] = {}
+        for (name, k, t), g in zip(leaves, gs):
+            grads.setdefault(name, {})[k] = (torch.zeros_like(t) if g is None
+                                             else g)
+        new_states = {name: {k: v.detach() for k, v in s.items()}
+                      for name, s in new_states.items()}
+        return loss.detach(), grads, new_states
+
+    def compute_gradient_and_score(self, features, labels):
+        """(grads, score) of one training step on this batch without
+        applying it (ComputationGraph.computeGradientAndScore): grads is
+        node-name -> {key: tensor}, score the loss as a 0-d tensor. Params,
+        states and optimizer states are left as they are."""
+        self._check_trainable()
+        loss, grads, _ = self._gradients(*self._batch(features, labels))
+        return grads, loss
+
+    def fit(self, data, labels=None, epochs: int = 1):
+        """fit(x, y) | fit([x1, x2], [y1, ...]) | fit(DataSet) |
+        fit(iterable of DataSet/MultiDataSet) — :1200 parity."""
+        if labels is not None:
+            for _ in range(epochs):
+                self._fit_batch(data, labels)
+                self._end_epoch()
+            return self
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = [data]
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            for ds in data:
+                masks = (getattr(ds, "features_mask", None),
+                         getattr(ds, "labels_mask", None),
+                         getattr(ds, "features_masks", None),
+                         getattr(ds, "labels_masks", None))
+                if any(m is not None for m in masks):
+                    raise NotImplementedError(
+                        "masked training is not ported yet: it comes with "
+                        "the recurrent slice (ROADMAP Queue 1 item 6)")
+                self._fit_batch(ds.features, ds.labels)
+            self._end_epoch()
+        return self
+
+    def _end_epoch(self):
+        self.epoch += 1
+
+    def _fit_batch(self, features, labels):
+        """One step (:1236): forward, loss, backward, updaters in place.
+        ``score_value`` keeps the loss as a device tensor (no host sync per
+        step); ``get_score()`` reads it."""
+        self._check_trainable()
+        loss, grads, new_states = self._gradients(
+            *self._batch(features, labels))
+        for updater, names in self._update_groups:
+            names = [n for n in names if grads.get(n)]
+            new = upd.apply_updates(
+                updater, [self.params[n] for n in names],
+                [grads[n] for n in names],
+                [self.opt_states[n] for n in names], self.iteration)
+            self.opt_states.update(zip(names, new))
+        self.states = new_states
+        self.score_value = loss
+        self.iteration += 1
+
+    def score(self, dataset=None, x=None, y=None) -> float:
+        """Inference-mode loss (running batchnorm statistics, no penalty)
+        of a batch, as a float (:1546-1612)."""
+        self._require_init()
+        if dataset is not None:
+            x, y = dataset.features, dataset.labels
+        inputs, labels, weights = self._batch(x, y)
+        with self._kscope(), torch.inference_mode():
+            loss, _ = self._loss(inputs, labels, weights, training=False)
+        return float(loss)
+
+    def get_score(self) -> float:
+        return float(self.score_value)

@@ -1,6 +1,5 @@
 """Layer configurations and their forward functions (counterpart of
-deeplearning4j_tpu/nn/layers.py), the subset on the ResNet-50 inference
-path.
+deeplearning4j_tpu/nn/layers.py), the subset on the ResNet-50 path.
 
 As in the reference, one frozen dataclass per layer carries the config and
 the functions (``initialize``, ``apply``, ``output_shape``); its fields and
@@ -12,9 +11,12 @@ keyed as the reference keys them (``W``, ``b``, ``gamma``, ``beta``,
 Conventions: shapes exclude the batch dimension; CNN data is NHWC, so
 ``input_shape`` is (H, W, C). ``apply`` returns (output, new_state).
 
-This slice is inference only: ``training=True`` on a layer whose training
-forward differs (batchnorm statistics, dropout) raises
-``NotImplementedError``; the training slice (``fit``) ports it.
+``training=True`` gives batchnorm its batch statistics and EMA update
+(``ops.nn.batchnorm_train``); ``OutputLayer.compute_loss`` is the loss
+head of ``fit`` and ``score``; ``regularization`` is the l1/l2 penalty on
+weights. Dropout is not ported: a layer with ``dropout > 0`` makes ``fit``
+raise (:data:`DROPOUT_SLICE`), and the inference forward and
+``output(train=True)`` apply none, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,13 +27,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as act
+from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.ops import nn as nnops
 
 _LAYER_TYPES: Dict[str, type] = {}
 
-_TRAINING_SLICE = ("training forward is not ported yet: it comes with the "
-                   "ResNet-50 training slice (fit, batchnorm_train)")
+#: why ``fit`` refuses a layer with dropout
+DROPOUT_SLICE = ("dropout in training is not ported yet: it comes with the "
+                 "conv-zoo slice (ROADMAP Queue 1 item 4, the Dropout layer "
+                 "and a counter-based RNG)")
 
 
 def register_layer(cls):
@@ -52,7 +57,8 @@ def layer_from_dict(d: dict) -> "Layer":
 @dataclasses.dataclass(frozen=True)
 class Layer:
     """Base layer config. ``updater`` is kept as the reference's updater
-    dict (``{"@updater": "Adam", ...}``); the port does not train yet."""
+    dict (``{"@updater": "Adam", ...}``): the node's own learning rule, in
+    place of the conf's."""
 
     name: Optional[str] = None
     dropout: float = 0.0  # input dropout rate, applied only in training
@@ -70,10 +76,22 @@ class Layer:
     def output_shape(self, input_shape):
         return tuple(input_shape)
 
-    def _maybe_dropout(self, x, training):
-        if training and self.dropout > 0.0:
-            raise NotImplementedError(f"dropout: {_TRAINING_SLICE}")
-        return x
+    def regularization(self, params):
+        """L1/L2 penalty on weight params (DL4J applies it to W, not biases
+        or batchnorm params), summed in the params' type; 0.0 when the
+        layer has neither."""
+        reg = 0.0
+        if not (self.l1 or self.l2):
+            return reg
+        for name, p in params.items():
+            if name.startswith("b") or name in ("gamma", "beta", "mean",
+                                                "var"):
+                continue
+            if self.l1:
+                reg = reg + self.l1 * p.abs().sum()
+            if self.l2:
+                reg = reg + 0.5 * self.l2 * (p * p).sum()
+        return reg
 
     def to_dict(self) -> dict:
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
@@ -113,7 +131,6 @@ class DenseLayer(Layer):
         return nnops.xw_plus_b(x, params["W"], b)
 
     def apply(self, params, state, x, *, training=False):
-        x = self._maybe_dropout(x, training)
         return act.resolve(self.activation)(self._dense(params, x)), state
 
     def output_shape(self, input_shape):
@@ -146,7 +163,6 @@ class ConvolutionLayer(Layer):
         return params, {}
 
     def apply(self, params, state, x, *, training=False):
-        x = self._maybe_dropout(x, training)
         y = nnops.conv2d(x, params["W"], params.get("b"),
                          strides=self.stride, padding=self.padding,
                          dilation=self.dilation)
@@ -211,7 +227,7 @@ class SubsamplingLayer(Layer):
 @dataclasses.dataclass(frozen=True)
 class BatchNormalization(Layer):
     """Batch norm over the channel axis (conf/layers/BatchNormalization.java).
-    Params gamma/beta, state running mean/var. Inference form only."""
+    Params gamma/beta, state running mean/var (an EMA with ``decay``)."""
 
     n_out: int = 0  # channels (inferred if 0)
     decay: float = 0.9
@@ -230,13 +246,15 @@ class BatchNormalization(Layer):
         return params, state
 
     def apply(self, params, state, x, *, training=False):
+        gamma, beta = params.get("gamma"), params.get("beta")
         if training:
-            raise NotImplementedError(f"BatchNormalization: {_TRAINING_SLICE}")
-        y = nnops.batchnorm(x, state["mean"], state["var"],
-                            params.get("gamma"), params.get("beta"),
+            y, new_mean, new_var = nnops.batchnorm_train(
+                x, gamma, beta, state["mean"], state["var"],
+                momentum=self.decay, eps=self.eps)
+            return y, {"mean": new_mean, "var": new_var}
+        y = nnops.batchnorm(x, state["mean"], state["var"], gamma, beta,
                             eps=self.eps)
         return y, state
-
 
 
 @register_layer
@@ -290,8 +308,25 @@ class GlobalPoolingLayer(Layer):
 @dataclasses.dataclass(frozen=True)
 class OutputLayer(DenseLayer):
     """Dense + loss head (conf/layers/OutputLayer.java). Its inference
-    forward is the dense product followed by the activation; ``loss`` is
-    kept for the training slice."""
+    forward is the dense product followed by the activation; the loss
+    pairs with the activation for the fused logits path when it can
+    (softmax + MCXENT)."""
 
     loss: str = "mcxent"
     activation: str = "softmax"
+
+    def compute_loss(self, params, state, x, labels, *, training=True,
+                     weights=None):
+        """Loss from the layer's INPUT x (pre-dense), a scalar: the fused
+        logits path when the activation matches the loss's pair."""
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        logits = self._dense(params, x)
+        logits_fn, act_fn, fused_act = losses_mod.resolve(self.loss)
+        if logits_fn is not None and fused_act == self.activation.lower():
+            return logits_fn(logits, labels, weights)
+        if act_fn is None:
+            raise ValueError(f"loss {self.loss} requires activation "
+                             f"{fused_act}")
+        return act_fn(act.resolve(self.activation)(logits), labels,
+                      weights=weights)

@@ -39,10 +39,13 @@ _VALID = ("auto", "exact", "cuda")
 _impl_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "dl4j_torch_kernel_impl", default=None)
 
+#: the kernels behind the seam: the conv forward (K1/K2), the input
+#: gradient (K1 launched on the transformed dy) and the filter gradient (K3)
+KERNELS = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad")
 #: launches per kernel, bumped by each wrapper where it launches
-LAUNCHES: Dict[str, int] = {"conv2d_fwd": 0}
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: CUDA-tensor calls that took the plain path (``exact`` only)
-PLAIN_ON_CUDA: Dict[str, int] = {"conv2d_fwd": 0}
+PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def reset_counts() -> None:

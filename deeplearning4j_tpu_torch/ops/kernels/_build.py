@@ -8,7 +8,8 @@ interface (pointers and the stream as ``void*``), so they compile with
 ``ctypes``. Each source compiles to an object in its own ``nvcc`` process,
 all started together; one more ``nvcc`` links the objects into a library
 in ``build/kernels/`` at the root of the checkout, named by a hash of the
-sources and flags: an edited source gets a new library on its next load,
+sources, the headers they share (``csrc/*.cuh``) and the flags: an edited
+source or header gets a new library on its next load,
 an unchanged one is reused. Nothing here runs at import time; the first
 kernel launch calls :func:`load`. A build that fails raises with nvcc's
 output.
@@ -59,9 +60,13 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdl4j_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -118,6 +123,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_conv2d_fwd.restype = i
     lib.dl4j_conv2d_fwd_plan.argtypes = [i] * 10 + [ctypes.POINTER(i)]
     lib.dl4j_conv2d_fwd_plan.restype = i
+    lib.dl4j_conv2d_wgrad.argtypes = [vp, vp, vp] + [i] * 18 + [vp, vp]
+    lib.dl4j_conv2d_wgrad.restype = i
+    lib.dl4j_conv2d_wgrad_plan.argtypes = [i] * 9 + [ctypes.POINTER(i)]
+    lib.dl4j_conv2d_wgrad_plan.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib

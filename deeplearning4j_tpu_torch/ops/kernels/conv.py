@@ -1,4 +1,5 @@
-"""Conv2d forward: the hand-written CUDA kernel and its plain version.
+"""Conv2d on hand-written CUDA kernels: forward, input gradient (dgrad) and
+filter gradient (wgrad), each with its plain version.
 
 Counterpart of deeplearning4j_tpu/ops/kernels/conv.py. The TPU forward
 kernels ``_fwd_kernel`` / ``_fwd_kernel_tiled`` become one implicit-GEMM
@@ -11,13 +12,29 @@ too few output tiles to fill the card splits its K sum into an fp32
 workspace: the kernel library plans the split (``dl4j_conv2d_fwd_plan``),
 the wrapper allocates what it asks for.
 
-:func:`conv2d_fwd_reference` is the TPU kernel's own arithmetic in PyTorch:
-pad, then for each (ki, kj) tap one strided window reshaped to
-(N*OH*OW, Cg) times the (Cg, Og) weight slice per group, summed in fp32.
-It is the exact path of ``ops.nn.conv2d`` and what the kernel is held to.
+The backward is the reference's ``custom_vjp`` (``_conv_vjp_bwd``) as
+:class:`Conv2dFunction`:
 
-The filter- and input-gradient kernels (``_wgrad_kernel``, and the forward
-kernel reused for dgrad) belong to the training slice.
+- dx (:func:`conv2d_dgrad`) is the forward kernel launched on the
+  stride-dilated dy with flipped, I/O-transposed weights, as the reference
+  reuses ``_fwd_kernel``. The zero-dilated dy is materialised (a strided
+  layer's dgrad does up to sh*sw times the useful work); its re-padding is
+  not: the kernel masks the top/left pads and reads no row past the input.
+- dW (:func:`conv2d_wgrad`) is the wgrad kernel (``csrc/conv2d_wgrad.cu``,
+  replacing ``_wgrad_kernel``), fp32 out, cast to w's type by the caller.
+
+Each of the three kernels goes through ``kernels.dispatch`` on its own and
+counts its own launches (``conv2d_fwd``, ``conv2d_dgrad``,
+``conv2d_wgrad``), though dgrad shares the forward body.
+
+The plain versions are the TPU kernels' own arithmetic in PyTorch:
+:func:`conv2d_fwd_reference` pads, then for each (ki, kj) tap multiplies
+one strided window reshaped to (N*OH*OW, Cg) by the (Cg, Og) weight slice
+per group, summed in fp32; :func:`conv2d_wgrad_reference` sums
+patch(ki, kj)^T @ dY per tap; :func:`conv2d_dgrad_reference` dilates,
+pads (or trims) dy as ``_dy_for_input_grad`` does and runs the plain
+forward. They are the exact path of ``ops.nn.conv2d`` and what the kernels
+are held to.
 """
 
 from __future__ import annotations
@@ -101,17 +118,15 @@ def _geometry(x, w, strides, pads, dilation):
 
 
 @functools.lru_cache(maxsize=None)
-def _splits(device_index: int, dtype_code: int, n, cin, kh, kw, cout, groups,
-            oh, ow, row_tile: int) -> int:
-    """K slices of one launch, as the kernel library plans them for this
-    card (``dl4j_conv2d_fwd_plan``: its block tile, and one wave of
-    resident blocks from the occupancy calculator); cached per geometry."""
+def _splits(plan: str, device_index: int, *geometry: int) -> int:
+    """Reduction slices of one launch, as the kernel library's ``plan``
+    entry (``dl4j_conv2d_fwd_plan``: K slices, ``dl4j_conv2d_wgrad_plan``:
+    position slices) sizes them for this card: its block tile, and one wave
+    of resident blocks from the occupancy calculator. Cached per geometry."""
     splits = ctypes.c_int(1)
     with torch.cuda.device(device_index):
-        rc = _build.load().dl4j_conv2d_fwd_plan(
-            dtype_code, n, cin, kh, kw, cout, groups, oh, ow, row_tile,
-            ctypes.byref(splits))
-    _build.check(rc, "conv2d_fwd plan")
+        rc = getattr(_build.load(), plan)(*geometry, ctypes.byref(splits))
+    _build.check(rc, plan)
     return splits.value
 
 
@@ -142,6 +157,38 @@ def conv2d_fwd_reference(x, w, strides, pads, dilation, groups):
     return out.reshape(n, oh, ow, cout).to(x.dtype)
 
 
+def _check_cuda_pair(name, a, b):
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"{name}: tensors on {a.device} and {b.device}; "
+                         "both must be on one CUDA device")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _launch_fwd(x, w, out, strides, dilation, pad_top, pad_left, row_tile):
+    """One launch of the forward kernel into ``out`` (N, OH, OW, Cout); the
+    split-K workspace is sized by the kernel library's plan."""
+    lib = _build.load()
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    _, oh, ow, _ = out.shape
+    groups = cin // w.shape[2]
+    code = _KERNEL_DTYPES[x.dtype]
+    splits = _splits("dl4j_conv2d_fwd_plan", x.device.index, code, n, cin,
+                     kh, kw, cout, groups, oh, ow, row_tile or 0)
+    ws = (torch.empty((splits, n * oh * ow, cout), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_conv2d_fwd(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), code,
+            n, h, wd, cin, kh, kw, cout, groups, oh, ow,
+            strides[0], strides[1], dilation[0], dilation[1],
+            pad_top, pad_left, row_tile or 0, splits,
+            None if ws is None else ws.data_ptr(), stream)
+    _build.check(rc, "conv2d_fwd launch")
+
+
 def conv2d_fwd(x, w, strides, pads, dilation, groups,
                row_tile: Optional[int] = None):
     """NHWC x HWIO convolution on the CUDA kernel. ``pads`` is the explicit
@@ -156,15 +203,11 @@ def conv2d_fwd(x, w, strides, pads, dilation, groups,
             "(must be a positive divisor)")
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv2d_fwd_reference(x, w, strides, pads, dilation, groups)
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
-        raise ValueError(f"conv2d_fwd: x on {x.device}, w on {w.device}; "
-                         "both must be on one CUDA device")
+    _check_cuda_pair("conv2d_fwd", x, w)
     if not supports(x, w, "NHWC", groups, None):
         raise ValueError(
             f"conv2d_fwd: unsupported x {tuple(x.shape)} {x.dtype}, "
             f"w {tuple(w.shape)} {w.dtype}, groups {groups}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv2d_fwd: x and w must be contiguous")
     if min(min(p) for p in pads) < 0 or min(strides + dilation) < 1:
         raise ValueError(f"conv2d_fwd: bad pads {pads} / strides {strides} "
                          f"/ dilation {dilation}")
@@ -173,21 +216,253 @@ def conv2d_fwd(x, w, strides, pads, dilation, groups,
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _build.load()
-    _, h, wd, cin = x.shape
-    kh, kw = w.shape[0], w.shape[1]
-    splits = _splits(x.device.index, _KERNEL_DTYPES[x.dtype], n, cin, kh, kw,
-                     cout, groups, oh, ow, row_tile or 0)
-    ws = (torch.empty((splits, n * oh * ow, cout), dtype=torch.float32,
-                      device=x.device) if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dl4j_conv2d_fwd(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), _KERNEL_DTYPES[x.dtype],
-            n, h, wd, cin, kh, kw, cout, groups, oh, ow,
-            strides[0], strides[1], dilation[0], dilation[1],
-            pads[0][0], pads[1][0], row_tile or 0, splits,
-            None if ws is None else ws.data_ptr(), stream)
-    _build.check(rc, "conv2d_fwd launch")
+    _launch_fwd(x, w, out, strides, dilation, pads[0][0], pads[1][0],
+                row_tile)
     _kern.LAUNCHES["conv2d_fwd"] += 1
     return out
+
+
+def conv2d(x, w, strides, pads, dilation, groups, supported, describe):
+    """The forward as ``ops.nn.conv2d`` dispatches it: the kernel on a CUDA
+    tensor (or raise), the plain version on the CPU or under ``exact``."""
+    if _kern.dispatch("conv2d_fwd", supported, x, describe):
+        return conv2d_fwd(x.contiguous(), w.contiguous(), strides, pads,
+                          dilation, groups)
+    return conv2d_fwd_reference(x, w, strides, pads, dilation, groups)
+
+
+# ---------------------------------------------------------------------------
+# filter gradient (wgrad): K3
+# ---------------------------------------------------------------------------
+
+
+def supports_wgrad(x, dy, groups) -> bool:
+    """Type/layout gate of the wgrad kernel: 4-D NHWC x and dy of one
+    kernel type, channels divisible by ``groups``."""
+    return (x.dim() == 4 and dy.dim() == 4 and x.dtype in _KERNEL_DTYPES
+            and dy.dtype == x.dtype and x.shape[-1] % groups == 0
+            and dy.shape[-1] % groups == 0)
+
+
+def conv2d_wgrad_reference(x, dy, kh, kw, strides, pads, dilation, groups):
+    """Plain PyTorch version of ``_wgrad_kernel``: for each group and tap,
+    patch(ki, kj)^T @ dY over all N*OH*OW positions, fp32 sums and an fp32
+    (kh, kw, Cg, Cout) result (fp64 stays fp64)."""
+    n, oh, ow, cout = dy.shape
+    cg = x.shape[-1] // groups
+    og = cout // groups
+    sh, sw = strides
+    dh, dw = dilation
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_t), (0, 0, pads[1][0], pads[1][1],
+                             pads[0][0], pads[0][1]))
+    dyf = dy.to(acc_t).reshape(n * oh * ow, cout)
+    out = torch.empty((kh, kw, cg, cout), dtype=acc_t, device=x.device)
+    for g in range(groups):
+        dyg = dyf[:, g * og:(g + 1) * og]
+        for ki in range(kh):
+            for kj in range(kw):
+                r0, c0 = ki * dh, kj * dw
+                patch = xp[:, r0:r0 + (oh - 1) * sh + 1:sh,
+                           c0:c0 + (ow - 1) * sw + 1:sw, g * cg:(g + 1) * cg]
+                out[ki, kj, :, g * og:(g + 1) * og] = (
+                    patch.reshape(n * oh * ow, cg).t() @ dyg)
+    return out
+
+
+def conv2d_wgrad(x, dy, kh, kw, strides, pads, dilation, groups):
+    """dW (kh, kw, Cin/groups, Cout) in fp32 on the wgrad kernel, from the
+    forward's x and the output gradient dy (both NHWC, one type). A CPU
+    tensor takes :func:`conv2d_wgrad_reference`."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return conv2d_wgrad_reference(x, dy, kh, kw, strides, pads, dilation,
+                                      groups)
+    _check_cuda_pair("conv2d_wgrad", x, dy)
+    if not supports_wgrad(x, dy, groups):
+        raise ValueError(
+            f"conv2d_wgrad: unsupported x {tuple(x.shape)} {x.dtype}, "
+            f"dy {tuple(dy.shape)} {dy.dtype}, groups {groups}")
+    n, h, wd, cin = x.shape
+    _, oh, ow, cout = dy.shape
+    want = (_out_size(h, pads[0], kh, strides[0], dilation[0]),
+            _out_size(wd, pads[1], kw, strides[1], dilation[1]))
+    if (oh, ow) != want or dy.shape[0] != n:
+        raise ValueError(f"conv2d_wgrad: dy {tuple(dy.shape)} does not match "
+                         f"x {tuple(x.shape)} (expected {want} outputs)")
+    cg = cin // groups
+    out = torch.empty((kh, kw, cg, cout), dtype=torch.float32,
+                      device=x.device)
+    if dy.numel() == 0:
+        return out.zero_()
+    code = _KERNEL_DTYPES[x.dtype]
+    splits = _splits("dl4j_conv2d_wgrad_plan", x.device.index, code, n, cin,
+                     kh, kw, cout, groups, oh, ow)
+    ws = (torch.empty((splits, kh * kw * cg, cout), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_conv2d_wgrad(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(), code,
+            n, h, wd, cin, kh, kw, cout, groups, oh, ow,
+            strides[0], strides[1], dilation[0], dilation[1],
+            pads[0][0], pads[1][0], splits,
+            None if ws is None else ws.data_ptr(), stream)
+    _build.check(rc, "conv2d_wgrad launch")
+    _kern.LAUNCHES["conv2d_wgrad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# input gradient (dgrad): K1 on the transformed dy and w
+# ---------------------------------------------------------------------------
+
+
+def flip_transpose_w(w, groups):
+    """w (kh, kw, Cg, g*Og) -> (kh, kw, Og, g*Cg): spatial flip + per-group
+    I/O transpose (the reference's ``_flip_transpose_w``)."""
+    kh, kw, cg, cout = w.shape
+    og = cout // groups
+    wg = w.reshape(kh, kw, cg, groups, og).flip(0, 1)
+    return wg.permute(0, 1, 4, 3, 2).reshape(kh, kw, og, groups * cg)
+
+
+def dilate_dy(dy, strides):
+    """dy with sh-1 / sw-1 zero rows / columns between its rows / columns,
+    (N, (OH-1)*sh+1, (OW-1)*sw+1, C); dy itself at stride 1."""
+    sh, sw = strides
+    if (sh, sw) == (1, 1):
+        return dy
+    n, oh, ow, c = dy.shape
+    out = dy.new_zeros((n, (oh - 1) * sh + 1, (ow - 1) * sw + 1, c))
+    out[:, ::sh, ::sw] = dy
+    return out
+
+
+def dgrad_pads(x_hw, k_hw, strides, pads, dilation, dy_hw):
+    """(lo', hi') per axis of the stride-dilated dy for the forward conv
+    that computes dx: ``lo' = eff-1-lo``, ``hi' = H+lo-len(dilated dy)``
+    (negative = trim), as ``_dy_for_input_grad`` derives them."""
+    spec = []
+    for i in range(2):
+        eff = (k_hw[i] - 1) * dilation[i] + 1
+        odl = (dy_hw[i] - 1) * strides[i] + 1
+        spec.append((eff - 1 - pads[i][0], x_hw[i] + pads[i][0] - odl))
+    return tuple(spec)
+
+
+def supports_dgrad(dy, w, groups) -> bool:
+    """The forward kernel's gate, on dy and the transposed weights."""
+    return (dy.dim() == 4 and w.dim() == 4 and dy.dtype in _KERNEL_DTYPES
+            and w.dtype == dy.dtype and dy.shape[-1] == w.shape[3]
+            and w.shape[3] % groups == 0)
+
+
+def conv2d_dgrad_reference(dy, w, x_hw, strides, pads, dilation, groups):
+    """Plain PyTorch version: dilate dy, pad (or trim) it by
+    :func:`dgrad_pads`, and run :func:`conv2d_fwd_reference` with the
+    flipped, transposed weights at stride 1. Result in dy's type."""
+    dyd = dilate_dy(dy, strides)
+    spec = dgrad_pads(x_hw, w.shape[:2], strides, pads, dilation,
+                      dy.shape[1:3])
+    (tlo, thi), (llo, lhi) = ((max(0, -lo), max(0, -hi)) for lo, hi in spec)
+    dyd = dyd[:, tlo:dyd.shape[1] - thi, llo:dyd.shape[2] - lhi]
+    fpads = tuple((max(0, lo), max(0, hi)) for lo, hi in spec)
+    return conv2d_fwd_reference(dyd, flip_transpose_w(w, groups), (1, 1),
+                                fpads, dilation, groups)
+
+
+def conv2d_dgrad(dy, w, x_hw, strides, pads, dilation, groups):
+    """dx (N, H, W, Cin) on the forward kernel, launched on the
+    stride-dilated dy with :func:`flip_transpose_w` weights and the top/left
+    pads of :func:`dgrad_pads`; the kernel masks the pad rows and never
+    reads past row H+lo-1, so no padded or trimmed copy is made. A CPU
+    tensor takes :func:`conv2d_dgrad_reference`."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    if dy.device.type == "cpu" and w.device.type == "cpu":
+        return conv2d_dgrad_reference(dy, w, x_hw, strides, pads, dilation,
+                                      groups)
+    _check_cuda_pair("conv2d_dgrad", dy, w)
+    if not supports_dgrad(dy, w, groups):
+        raise ValueError(
+            f"conv2d_dgrad: unsupported dy {tuple(dy.shape)} {dy.dtype}, "
+            f"w {tuple(w.shape)} {w.dtype}, groups {groups}")
+    n = dy.shape[0]
+    cin = w.shape[2] * groups
+    out = torch.empty((n, x_hw[0], x_hw[1], cin), dtype=dy.dtype,
+                      device=dy.device)
+    if out.numel() == 0:
+        return out
+    spec = dgrad_pads(x_hw, w.shape[:2], strides, pads, dilation,
+                      dy.shape[1:3])
+    dyd = dilate_dy(dy, strides).contiguous()
+    wt = flip_transpose_w(w, groups).contiguous()
+    _launch_fwd(dyd, wt, out, (1, 1), dilation, spec[0][0], spec[1][0], None)
+    _kern.LAUNCHES["conv2d_dgrad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op
+# ---------------------------------------------------------------------------
+
+
+def conv2d_bwd(dy, x, w, strides, pads, dilation, groups, need_dx=True,
+               need_dw=True):
+    """(dx, dW) of the NHWC conv, each through its own dispatch: the dgrad
+    or wgrad kernel on a CUDA tensor (or raise), the plain version on the
+    CPU or under ``exact``. dW comes back in w's type, dx in x's; an input
+    that needs no gradient gets None and costs no launch."""
+    dx = dw = None
+    if need_dx:
+        if _kern.dispatch("conv2d_dgrad", supports_dgrad(dy, w, groups), dy,
+                          lambda: f"dy {tuple(dy.shape)} {dy.dtype}, w "
+                                  f"{tuple(w.shape)} {w.dtype}, groups "
+                                  f"{groups}"):
+            dx = conv2d_dgrad(dy.contiguous(), w.contiguous(),
+                              tuple(x.shape[1:3]), strides, pads, dilation,
+                              groups)
+        else:
+            dx = conv2d_dgrad_reference(dy, w, tuple(x.shape[1:3]), strides,
+                                        pads, dilation, groups)
+        dx = dx.to(x.dtype)
+    if need_dw:
+        kh, kw = w.shape[0], w.shape[1]
+        if _kern.dispatch("conv2d_wgrad", supports_wgrad(x, dy, groups), x,
+                          lambda: f"x {tuple(x.shape)} {x.dtype}, dy "
+                                  f"{tuple(dy.shape)} {dy.dtype}, groups "
+                                  f"{groups}"):
+            dw = conv2d_wgrad(x.contiguous(), dy.contiguous(), kh, kw,
+                              strides, pads, dilation, groups)
+        else:
+            dw = conv2d_wgrad_reference(x, dy, kh, kw, strides, pads,
+                                        dilation, groups)
+        dw = dw.to(w.dtype)
+    return dx, dw
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """The reference's ``conv2d_pallas`` custom VJP: the forward through
+    :func:`conv2d`, the backward through :func:`conv2d_bwd` (dgrad skipped
+    when x needs no gradient, e.g. a network's input). The dispatch mode is
+    read when the forward runs and pinned for the backward, which autograd
+    may run on another thread."""
+
+    @staticmethod
+    def forward(ctx, x, w, strides, pads, dilation, groups, supported,
+                describe):
+        ctx.impl = _kern.resolve_impl()
+        ctx.geometry = (strides, pads, dilation, groups)
+        ctx.save_for_backward(x, w)
+        return conv2d(x, w, strides, pads, dilation, groups, supported,
+                      describe)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        with _kern.impl_scope(ctx.impl):
+            dx, dw = conv2d_bwd(dy, x, w, *ctx.geometry,
+                                need_dx=ctx.needs_input_grad[0],
+                                need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None, None, None, None, None, None

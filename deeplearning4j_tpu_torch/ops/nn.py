@@ -5,12 +5,15 @@ Layouts are the reference's: NHWC activations, HWIO conv weights. Sums of
 products accumulate in fp32 whatever the input type, and results come back
 in the input's type, as in the reference.
 
-``conv2d`` is the one op here with a hand-written kernel: its dispatch
+``conv2d`` is the one op here with hand-written kernels: its dispatch
 (ops/kernels) launches the CUDA conv kernel on a CUDA tensor (or raises
 for a geometry the kernel does not take), and the plain tap-sum version on
-the CPU or under ``exact``. Pooling,
-batchnorm, the dense product and softmax are XLA ops in the reference, not
-Pallas kernels, so here they are plain PyTorch.
+the CPU or under ``exact``; when autograd records it, its backward runs
+the dgrad and wgrad kernels the same way (``Conv2dFunction``). Pooling,
+batchnorm (inference and training), the dense product, softmax and the
+losses are XLA ops in the reference, not Pallas kernels, so here they are
+plain PyTorch; training batchnorm keeps the reference's arithmetic and its
+hand-written VJP rather than ATen's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops.kernels import conv as _kconv
 from deeplearning4j_tpu_torch.ops.registry import op
 
@@ -50,7 +52,10 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
     the CUDA kernel on a CUDA tensor, or raises if ``supports`` refuses the
     geometry, and takes the plain version on the CPU or under ``exact``;
     the bias is added after the kernel. Accumulation is fp32 on both paths
-    and the output comes back in x's type, as the reference casts back."""
+    and the output comes back in x's type, as the reference casts back.
+    When autograd records the call (grad enabled and x or w needing a
+    gradient) it goes through ``Conv2dFunction``, the reference's custom
+    VJP, whose backward dispatches the dgrad and wgrad kernels."""
     if data_format not in ("NHWC", "NCHW"):
         raise ValueError(f"conv2d: unknown data_format {data_format!r}")
     strides_p, dil_p = _pair(strides), _pair(dilation)
@@ -59,15 +64,18 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
                                   (w.shape[0], w.shape[1]), strides_p, dil_p)
     supported = _kconv.supports(xh, w, "NHWC", feature_group_count,
                                 preferred_element_type)
-    if _kern.dispatch("conv2d_fwd", supported, xh, lambda: (
-            f"x {tuple(x.shape)} {x.dtype} ({data_format}), w "
-            f"{tuple(w.shape)} {w.dtype}, groups {feature_group_count}, "
-            f"preferred_element_type {preferred_element_type}")):
-        out = _kconv.conv2d_fwd(xh.contiguous(), w.contiguous(), strides_p,
-                                pads, dil_p, feature_group_count)
+
+    def describe():
+        return (f"x {tuple(x.shape)} {x.dtype} ({data_format}), w "
+                f"{tuple(w.shape)} {w.dtype}, groups {feature_group_count}, "
+                f"preferred_element_type {preferred_element_type}")
+
+    args = (xh, w, strides_p, pads, dil_p, feature_group_count, supported,
+            describe)
+    if torch.is_grad_enabled() and (xh.requires_grad or w.requires_grad):
+        out = _kconv.Conv2dFunction.apply(*args)
     else:
-        out = _kconv.conv2d_fwd_reference(xh, w, strides_p, pads, dil_p,
-                                          feature_group_count)
+        out = _kconv.conv2d(*args)
     if b is not None:
         out = out + b.reshape(1, 1, 1, -1).to(out.dtype)
     return out if data_format == "NHWC" else out.permute(0, 3, 1, 2)
@@ -162,6 +170,90 @@ def batchnorm(x, mean, variance, gamma=None, beta=None, eps=1e-5, axis=-1):
     return out.to(x.dtype)
 
 
+def _bn_geometry(x, axis):
+    ax = axis % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != ax)
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    n = 1
+    for i in red:
+        n *= x.shape[i]
+    return red, shape, float(n)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """The reference's ``_bn_train_fused`` (deeplearning4j_tpu/ops/nn.py
+    :356-422): statistics from one paired sum (E[x], E[x^2]), the EMA
+    update with the unbiased variance, and its hand-written VJP, including
+    the EMA outputs' cotangents (None when nothing asks for them, as in
+    training, where the states are not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, rm, rv, momentum, eps, axis):
+        red, shape, n = _bn_geometry(x, axis)
+        xf = x.to(_acc_dtype(x))
+        mean = xf.sum(dim=red) / n
+        var = torch.clamp_min((xf * xf).sum(dim=red) / n - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        out = ((xf - mean.reshape(shape))
+               * (inv * gamma.to(xf.dtype)).reshape(shape)
+               + beta.to(xf.dtype).reshape(shape)).to(x.dtype)
+        unbiased = var * (n / max(n - 1.0, 1.0))
+        new_mean = momentum * rm + (1.0 - momentum) * mean.to(rm.dtype)
+        new_var = momentum * rv + (1.0 - momentum) * unbiased.to(rv.dtype)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.bn = (momentum, axis)
+        ctx.set_materialize_grads(False)
+        return out, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, dout, dm_ema, dv_ema):
+        x, gamma, mean, inv = ctx.saved_tensors
+        momentum, axis = ctx.bn
+        red, shape, n = _bn_geometry(x, axis)
+        xf = x.to(_acc_dtype(x))
+        xhat = (xf - mean.reshape(shape)) * inv.reshape(shape)
+        dx = dgamma = dbeta = None
+        if dout is not None:
+            dyf = dout.to(xf.dtype)
+            g = dyf.sum(dim=red)
+            g2 = (dyf * xhat).sum(dim=red)
+            dgamma, dbeta = g2.to(gamma.dtype), g.to(gamma.dtype)
+            ginv = gamma.to(xf.dtype) * inv
+            dx = ginv.reshape(shape) * (dyf - (g / n).reshape(shape)
+                                        - xhat * (g2 / n).reshape(shape))
+        one_m = 1.0 - momentum
+        if dm_ema is not None:
+            t = (one_m / n) * dm_ema.to(xf.dtype).reshape(shape)
+            dx = t if dx is None else dx + t
+        if dv_ema is not None:
+            scale = one_m * (n / max(n - 1.0, 1.0)) * 2.0 / n
+            t = scale * dv_ema.to(xf.dtype).reshape(shape) * (
+                xhat / inv.reshape(shape))
+            dx = t if dx is None else dx + t
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        if not ctx.needs_input_grad[0]:
+            dx = None
+        return (dx, dgamma, dbeta,
+                None if dm_ema is None else momentum * dm_ema,
+                None if dv_ema is None else momentum * dv_ema,
+                None, None, None)
+
+
+@op("batchnorm_train", "norm")
+def batchnorm_train(x, gamma, beta, running_mean, running_var, momentum=0.9,
+                    eps=1e-5, axis=-1):
+    """Training-mode batchnorm: batch statistics + EMA update (``new =
+    momentum*old + (1-momentum)*batch``, unbiased variance), with the
+    reference's single-pass statistics and hand-written VJP (not ATen's
+    Welford batchnorm, which drifts from the reference over a trajectory).
+
+    Returns (out, new_running_mean, new_running_var)."""
+    return _BatchNormTrain.apply(x, gamma, beta, running_mean, running_var,
+                                 float(momentum), float(eps), int(axis))
+
+
 # ---------------------------------------------------------------------------
 # Activations, softmax, dense
 # ---------------------------------------------------------------------------
@@ -169,6 +261,8 @@ def batchnorm(x, mean, variance, gamma=None, beta=None, eps=1e-5, axis=-1):
 op("identity", "transform")(lambda x: x)
 op("relu", "transform")(torch.relu)
 op("softmax", "softmax")(lambda x, axis=-1: torch.softmax(x, dim=axis))
+op("log_softmax", "softmax")(
+    lambda x, axis=-1: torch.log_softmax(x, dim=axis))
 
 
 @op("xw_plus_b", "nn_misc", aliases=("linear_layer",))
@@ -180,3 +274,37 @@ def xw_plus_b(x, w, b):
     acc = _acc_dtype(x)
     out = torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
     return out + b.to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss ops (mean over the batch, optional per-example weights)
+# ---------------------------------------------------------------------------
+
+
+def _weighted_mean(per_example, weights):
+    """Mean of ``per_example``, or its weighted mean with weights aligned on
+    the leading axes. The normalizer multiplies by the reciprocal of the
+    clamped weight sum, as the reference does (ops/nn.py:514-534), so a
+    0/1-padded batch gives the unpadded mean; all-zero weights give 0."""
+    if weights is None:
+        return per_example.mean()
+    if weights.dim() < per_example.dim():
+        weights = weights.reshape(tuple(weights.shape)
+                                  + (1,) * (per_example.dim() - weights.dim()))
+    wfull = torch.broadcast_to(weights.to(per_example.dtype),
+                               per_example.shape)
+    return (per_example * wfull).sum() * (
+        1.0 / torch.clamp_min(wfull.sum(), 1e-12))
+
+
+@op("softmax_cross_entropy", "loss",
+    aliases=("softmax_cross_entropy_loss", "mcxent"))
+def softmax_cross_entropy(logits, labels, weights=None, label_smoothing=0.0):
+    """Softmax cross-entropy with one-hot (or soft) labels [batch, classes],
+    the log-softmax in fp32."""
+    if label_smoothing > 0.0:
+        k = labels.shape[-1]
+        labels = labels * (1.0 - label_smoothing) + label_smoothing / k
+    logp = torch.log_softmax(logits.to(_acc_dtype(logits)), dim=-1)
+    per = -(labels * logp).sum(dim=-1)
+    return _weighted_mean(per, weights)

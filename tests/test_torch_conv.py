@@ -130,8 +130,8 @@ def test_dispatch_takes_plain_path_on_cpu(impl):
     with TK.impl_scope(impl):
         out = tnn.conv2d(x, w)
     assert tuple(out.shape) == (2, 6, 6, 3)
-    assert TK.LAUNCHES == {"conv2d_fwd": 0}
-    assert TK.PLAIN_ON_CUDA == {"conv2d_fwd": 0}
+    assert TK.LAUNCHES == dict.fromkeys(TK.KERNELS, 0)
+    assert TK.PLAIN_ON_CUDA == dict.fromkeys(TK.KERNELS, 0)
 
 
 def test_forced_cuda_raises_on_cpu_tensor():
@@ -211,7 +211,8 @@ def test_dispatch_on_cuda_launches_or_raises(impl, supported, outcome):
         else:
             assert TK.dispatch("conv2d_fwd", supported, _OnCard(),
                                lambda: "GEOM") is (outcome == "kernel")
-    assert TK.PLAIN_ON_CUDA == {"conv2d_fwd": int(outcome == "plain")}
+    assert TK.PLAIN_ON_CUDA == {**dict.fromkeys(TK.KERNELS, 0),
+                                "conv2d_fwd": int(outcome == "plain")}
 
 
 @pytest.mark.parametrize("data_format", ["NHWC", "NCHW"])
