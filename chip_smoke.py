@@ -42,7 +42,28 @@ of the JAX package. Phases, each printing one JSON line:
    tensors), one bf16 ``fit`` step checked the same way, ``fit``
    images/sec in fp32 and bf16 (five 2 s windows), one profiled step of
    each.
-7. kernels: one JSON line per the kernel table in PERF.md.
+7. attention_kernel: the flash-attention kernel (``csrc/flash_fwd.cu``, K5)
+   against its plain version at BERT-base head geometry (batch 8, 12 heads
+   of 64), S 128 and 512, fp32 and bf16: no mask, causal, and a padding
+   mask with a fully-masked batch row; O and the LSE gated by ATTN_TOL and
+   LSE_TOL below; the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times and the card's bound.
+8. attention_sweep: the kernel against the port's exact attention from 32
+   to 2048 tokens (8192 tokens per batch), fp32 and bf16: the crossover
+   ``ops/attention.py``'s FLASH_MIN_SEQ is set from.
+9. bert_serve: full-width BERT-base (hidden 768, 12 layers, 12 heads, FFN
+   3072, 512 positions, 2 classes; random weights from seed 12345, the
+   flash kernel forced) behind ModelServer; 8 HTTP requests of 1-16 rows
+   of 512 tokens. Answers within 1e-4 of the plain path; 12 flash launches
+   per executed chunk, none plain on CUDA, each held against the plain
+   version on its own tensors.
+10. bert_forward: ``net.output`` sequences/sec at batch 32, S 128 and 512,
+    fp32 and bf16; one forward with a ragged padding mask (every launch
+    checked, the answer against the plain path); one profiled batch-32
+    S=512 fp32 forward by class (flash kernel, matmuls, layer norm, gelu,
+    embedding gather, idle share).
+11. timing: the seconds each phase took, and the whole run's.
+12. kernels: one JSON line per the kernel table in PERF.md.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -84,6 +105,20 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
 SERVE_ROWS = (1, 3, 16, 2, 5, 8, 4, 7)
 BUCKETS = (1, 2, 4, 8, 16, 32)
+FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_fwd.cu"
+FLASH_REPLACES = "deeplearning4j_tpu/ops/attention.py:119 _flash_fwd_kernel"
+# Flash-attention gates, on max|kernel - plain| / max|plain| for O, and on
+# the LSE's error over its largest magnitude (rows that are not fully
+# masked; fully-masked rows must give -1e30 exactly). fp32: the same fp32
+# arithmetic in another order over at most 512 keys, ~1e-6 of the largest
+# output, so 1e-5 still catches a wrong term. bf16: the kernel rounds P to
+# bf16 before P @ V (2^-9 relative per term) and both round O to bf16 (one
+# ulp, 2^-8): 2^-7 of the largest output, the conv kernels' ceiling. The
+# LSE is fp32 in both types (l sums the fp32 p): 1e-5.
+ATTN_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
+LSE_TOL = 1e-5
+BERT_LAYERS = 12
+SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
 
 
 def emit(phase, **fields):
@@ -404,61 +439,104 @@ def kernel_grad_phase(torch, conf):
 # ------------------------------------------------- every launch of a path
 
 
+# wrapper -> plain version, in ops/kernels/conv.py and ops/kernels/attention.py
 PLAIN_OF = {"conv2d_fwd": "conv2d_fwd_reference",
             "conv2d_dgrad": "conv2d_dgrad_reference",
             "conv2d_wgrad": "conv2d_wgrad_reference"}
+ATTENTION_PLAIN_OF = {"flash_attention_fwd": "flash_attention_fwd_reference"}
+
+
+def _wrapped_kernels():
+    """(module, wrapper name, plain version's name) of every kernel."""
+    from deeplearning4j_tpu_torch.ops.kernels import attention as katt
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    return ([(kconv, n, p) for n, p in PLAIN_OF.items()]
+            + [(katt, n, p) for n, p in ATTENTION_PLAIN_OF.items()])
+
+
+def attention_error(torch, out, ref):
+    """(O's max abs error, O's error over its largest value, the LSE's error
+    over its largest magnitude, whether every fully-masked row gave
+    exactly -1e30) of a flash result against the plain version's."""
+    (o, lse), (ro, rl) = out, ref
+    o_err, o_norm = _grad_error(o, ro)
+    valid = rl > -1e29
+    lse_norm = 0.0
+    if bool(valid.any()):
+        lse_norm = float((lse - rl)[valid].abs().max()) / max(
+            float(rl[valid].abs().max()), 1.0)
+    dead_exact = bool(((lse == rl) | valid).all())
+    return o_err, o_norm, lse_norm, dead_exact
 
 
 @contextlib.contextmanager
 def check_every_launch(torch, checked):
-    """While active, each call of a conv kernel's wrapper (``conv2d_fwd``,
-    ``conv2d_dgrad``, ``conv2d_wgrad``) is held against its plain version
-    on the call's own tensors, by the GRAD_TOL gate on the error
-    normalised by the largest plain output (bf16: on both results in
-    bf16). The kernel launches once per call, as unchecked, and the plain
-    versions count nothing, so a path run under the check launches what it
-    launches without it, and every one of those launches is checked.
-    ``checked`` collects {(wrapper, "fp32" | "bf16"): {"calls",
-    "max_err_normalised", "max_abs_err"}}."""
-    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+    """While active, each call of a kernel's wrapper (``conv2d_fwd``,
+    ``conv2d_dgrad``, ``conv2d_wgrad``, ``flash_attention_fwd``) is held
+    against its plain version on the call's own tensors: the conv kernels
+    by the GRAD_TOL gate on the error normalised by the largest plain
+    output (bf16: on both results in bf16), the flash kernel by ATTN_TOL on
+    O and LSE_TOL on the LSE. The kernel launches once per call, as
+    unchecked, and the plain versions count nothing, so a path run under
+    the check launches what it launches without it, and every one of those
+    launches is checked. ``checked`` collects {(wrapper, "fp32" | "bf16"):
+    {"calls", "max_err_normalised", "max_abs_err"[, "max_lse_err"]}}."""
+    kernels = _wrapped_kernels()
+    saved = {name: getattr(mod, name) for mod, name, _ in kernels}
 
-    saved = {name: getattr(kconv, name) for name in PLAIN_OF}
-
-    def wrap(name):
-        kernel, plain = saved[name], getattr(kconv, PLAIN_OF[name])
+    def wrap(mod, name, plain_name):
+        kernel, plain = saved[name], getattr(mod, plain_name)
 
         def checked_call(*args, **kwargs):
             out = kernel(*args, **kwargs)
             kwargs.pop("row_tile", None)
             ref = plain(*args, **kwargs)
             tag = "bf16" if args[0].dtype == torch.bfloat16 else "fp32"
-            a, b = ((out, ref) if tag == "fp32" else
-                    (out.to(args[0].dtype), ref.to(args[0].dtype)))
-            if a.shape != b.shape or not torch.isfinite(a.float()).all():
-                raise AssertionError(f"{name} {tag}: kernel gave "
-                                     f"{tuple(a.shape)}, plain "
-                                     f"{tuple(b.shape)}, or non-finite")
-            err, norm = _grad_error(a, b)
-            if norm > GRAD_TOL[tag]:
-                raise AssertionError(
-                    f"{name} {tag} on the path's tensors "
-                    f"{[tuple(t.shape) for t in args[:2]]}: max err {err} "
-                    f"= {norm:.3g} of the largest output > {GRAD_TOL[tag]}")
+            lse_err = None
+            if name == "flash_attention_fwd":
+                if out[0].shape != ref[0].shape or not torch.isfinite(
+                        out[0].float()).all():
+                    raise AssertionError(f"{name} {tag}: kernel gave "
+                                         f"{tuple(out[0].shape)} or non-finite")
+                err, norm, lse_err, dead = attention_error(torch, out, ref)
+                if norm > ATTN_TOL[tag] or lse_err > LSE_TOL or not dead:
+                    raise AssertionError(
+                        f"{name} {tag} on the path's tensors "
+                        f"{tuple(args[0].shape)}: O err {norm:.3g} (gate "
+                        f"{ATTN_TOL[tag]}), LSE err {lse_err:.3g} (gate "
+                        f"{LSE_TOL}), fully-masked rows exact: {dead}")
+            else:
+                a, b = ((out, ref) if tag == "fp32" else
+                        (out.to(args[0].dtype), ref.to(args[0].dtype)))
+                if a.shape != b.shape or not torch.isfinite(a.float()).all():
+                    raise AssertionError(f"{name} {tag}: kernel gave "
+                                         f"{tuple(a.shape)}, plain "
+                                         f"{tuple(b.shape)}, or non-finite")
+                err, norm = _grad_error(a, b)
+                if norm > GRAD_TOL[tag]:
+                    raise AssertionError(
+                        f"{name} {tag} on the path's tensors "
+                        f"{[tuple(t.shape) for t in args[:2]]}: max err "
+                        f"{err} = {norm:.3g} of the largest output > "
+                        f"{GRAD_TOL[tag]}")
             rec = checked.setdefault((name, tag), {
                 "calls": 0, "max_err_normalised": 0.0, "max_abs_err": 0.0})
             rec["calls"] += 1
             rec["max_err_normalised"] = max(rec["max_err_normalised"], norm)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if lse_err is not None:
+                rec["max_lse_err"] = max(rec.get("max_lse_err", 0.0), lse_err)
             return out
         return checked_call
 
-    for name in PLAIN_OF:
-        setattr(kconv, name, wrap(name))
+    for mod, name, plain_name in kernels:
+        setattr(mod, name, wrap(mod, name, plain_name))
     try:
         yield checked
     finally:
-        for name, fn in saved.items():
-            setattr(kconv, name, fn)
+        for mod, name, _ in kernels:
+            setattr(mod, name, saved[name])
 
 
 def _checked_summary(checked):
@@ -490,12 +568,10 @@ def _calm_residual_branches(net, scale=0.25):
             p["gamma"].mul_(scale)
 
 
-def forward_images_per_sec(torch, net, batch=32, window_s=2.0, windows=5):
-    """``net.output`` forward images/sec at ``batch`` rows (no HTTP,
-    scheduler or bucketing): ``windows`` windows of at least ``window_s``
-    seconds of back-to-back forwards, each closed by a device sync."""
-    x = torch.randn((batch, 224, 224, 3), device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(1))
+def forward_rows_per_sec(torch, net, x, window_s=2.0, windows=5):
+    """``net.output(x)`` rows/sec (no HTTP, scheduler or bucketing):
+    ``windows`` windows of at least ``window_s`` seconds of back-to-back
+    forwards, each closed by a device sync."""
     for _ in range(3):
         net.output(x)
     torch.cuda.synchronize()
@@ -506,12 +582,38 @@ def forward_images_per_sec(torch, net, batch=32, window_s=2.0, windows=5):
             y = net.output(x)
             n += 1
         torch.cuda.synchronize()
-        rates.append(batch * n / (time.perf_counter() - t0))
+        rates.append(x.shape[0] * n / (time.perf_counter() - t0))
     if not torch.isfinite(y.float()).all():
-        raise AssertionError(f"non-finite batch-{batch} output")
+        raise AssertionError(f"non-finite batch-{x.shape[0]} output")
     rates.sort()
     return {"median": rates[len(rates) // 2], "min": rates[0],
             "max": rates[-1], "windows": rates}
+
+
+def forward_images_per_sec(torch, net, batch=32, window_s=2.0, windows=5):
+    """``net.output`` forward images/sec at ``batch`` 224x224 images."""
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    return forward_rows_per_sec(torch, net, x, window_s, windows)
+
+
+def device_kernels(torch, prof):
+    """[(device ms, calls, kernel name)] of a profile, largest first. A
+    ``record_function`` range also shows on the device, as the span of the
+    kernels inside it; those spans are left out, so the kernels' times add
+    up to the device's busy time."""
+    averages = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {e.key for e in averages if e.device_type != cuda}
+    kernels = []
+    for e in averages:
+        if e.device_type != cuda or e.key in ranges:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.count, e.key))
+    return sorted(kernels, reverse=True)
 
 
 def profile_forward(torch, net, batch=32, top=8):
@@ -530,15 +632,7 @@ def profile_forward(torch, net, batch=32, top=8):
         net.output(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3, e.count, e.key))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(torch, prof)
     busy = sum(k[0] for k in kernels)
     conv = sum(k[0] for k in kernels if "conv2d_fwd" in k[2])
     split = sum(k[0] for k in kernels if "reduce_splits" in k[2])
@@ -688,18 +782,11 @@ def profile_train_step(torch, net, x, y, top=8):
         net.fit(x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, by_class = [], {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3, e.count, e.key))
-        cls = _kernel_class(e.key)
+    kernels, by_class = device_kernels(torch, prof), {}
+    for ms, _, name in kernels:
+        cls = _kernel_class(name)
         if cls:
-            by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-    kernels.sort(reverse=True)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
     busy = sum(k[0] for k in kernels)
     events = prof.events()
     in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
@@ -871,11 +958,19 @@ def train_phase(torch, np, card):
     y = torch.from_numpy(labels).cuda()
 
     # (a) one step's gradients under auto and under exact, same params
+    want = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
+
+    def conv_only(counts):
+        """The conv kernels' counts; every other kernel's must be 0 here."""
+        if any(v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"the ResNet step launched {counts}")
+        return {k: counts[k] for k in want}
+
     kern.reset_counts()
     g_auto, l_auto = net.compute_gradient_and_score(x, y)
     torch.cuda.synchronize()
-    step_launches, step_plain = dict(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
-    want = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
+    step_launches = conv_only(kern.LAUNCHES)
+    step_plain = dict(kern.PLAIN_ON_CUDA)
     if step_launches != want or any(step_plain.values()):
         raise AssertionError(f"auto step launched {step_launches} (expected "
                              f"{want}), plain on CUDA {step_plain}")
@@ -917,7 +1012,7 @@ def train_phase(torch, np, card):
             net.fit(x, y)
             losses.append(net.get_score())
     torch.cuda.synchronize()
-    launches, plain = dict(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
+    launches, plain = conv_only(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
     if launches != {k: 4 * v for k, v in want.items()} or any(plain.values()):
         raise AssertionError(f"4 fit steps launched {launches}, plain on "
                              f"CUDA {plain}")
@@ -956,7 +1051,399 @@ def train_phase(torch, np, card):
     return launches, checked
 
 
+# ------------------------------------------------------------ attention (K5)
+
+
+def attention_pairs(np, b, sq, sk, causal, mask):
+    """(query, key) pairs one head attends to over the batch: every pair,
+    or those inside the causal window (key <= query + Sk - Sq) and on a real
+    key of the padding mask (this run's mask, so a fully-masked batch row
+    needs none)."""
+    real = (np.ones((b, sk)) if mask is None
+            else (np.asarray(mask) > 0).astype(np.float64))
+    if not causal:
+        return float(sq * real.sum())
+    before = np.concatenate([np.zeros((b, 1)), np.cumsum(real, axis=1)], 1)
+    ends = np.clip(np.arange(sq) + (sk - sq) + 1, 0, sk)
+    return float(before[:, ends].sum())
+
+
+def attention_bound(np, b, h, sq, sk, d, causal, mask, es, peak):
+    """The card's least time for one flash forward: 4*D operations per
+    attended (query, key) pair and head (q.k and p*v, two each), against q,
+    k, v read and o written once in the input type, the fp32 LSE written
+    and the fp32 mask read."""
+    flops = 4.0 * d * h * attention_pairs(np, b, sq, sk, causal, mask)
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * es + 4 * b * h * sq
+    if mask is not None:
+        nbytes += 4 * b * sk
+    return bound(flops, nbytes, peak)
+
+
+def attention_inputs(torch, np, b, h, s, d, seed):
+    """q, k, v as the encoder block hands them over: (B, H, S, D) views of
+    (B, S, H, D) buffers, unit normal from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+            .cuda().permute(0, 2, 1, 3) for _ in range(3)]
+
+
+def check_attention(torch, np, s, case, b=8, h=12, d=64):
+    """K5 against its plain version at BERT-base head geometry (fp32 and
+    bf16), with its time, the plain version's, SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops.kernels import attention as katt
+
+    seed = zlib.crc32(repr(("attention", s, case)).encode())
+    q32, k32, v32 = attention_inputs(torch, np, b, h, s, d, seed)
+    mask = None
+    if case == "padding":  # ragged lengths, batch row 0 fully masked
+        lens = np.random.default_rng(seed).integers(s // 4, s + 1, size=b)
+        lens[0] = 0
+        mask = torch.from_numpy(
+            (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)).cuda()
+    causal = case == "causal"
+    scale = d ** -0.5
+    rec = {"b": b, "h": h, "s": s, "d": d, "case": case}
+    for tag, dt, peak in (("fp32", torch.float32, H100_FP32_FLOPS),
+                          ("bf16", torch.bfloat16, H100_BF16_FLOPS)):
+        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+
+        def kernel():
+            return katt.flash_attention_fwd(q, k, v, scale, causal, mask)
+
+        def plain():
+            return katt.flash_attention_fwd_reference(q, k, v, scale, causal,
+                                                      mask)
+
+        amask = None if mask is None else (mask > 0)[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=amask, is_causal=causal, scale=scale)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if out[0].shape != ref[0].shape or out[0].dtype != dt \
+                or not torch.isfinite(out[0].float()).all():
+            raise AssertionError(f"attention {s} {case} {tag}: kernel gave "
+                                 f"{tuple(out[0].shape)} {out[0].dtype}")
+        err, norm, lse_err, dead = attention_error(torch, out, ref)
+        if norm > ATTN_TOL[tag] or lse_err > LSE_TOL or not dead:
+            raise AssertionError(
+                f"attention S={s} {case} {tag}: O err {norm:.3g} (gate "
+                f"{ATTN_TOL[tag]}), LSE err {lse_err:.3g} (gate {LSE_TOL}), "
+                f"fully-masked rows exact: {dead}")
+        rec[tag] = {
+            "max_abs_err": err, "max_err_normalised": norm,
+            "max_lse_err": lse_err, "tolerance": ATTN_TOL[tag],
+            "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library),
+            **attention_bound(np, b, h, s, s, d, causal,
+                              None if mask is None else mask.cpu().numpy(),
+                              q.element_size(), peak)}
+    return rec
+
+
+def attention_kernel_phase(torch, np):
+    """K5 at BERT-base head geometry (batch 8, 12 heads of 64), S 128 and
+    512: no mask, causal, a padding mask with a fully-masked batch row."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    records = []
+    for s in (128, 512):
+        for case in ("none", "causal", "padding"):
+            rec = check_attention(torch, np, s, case)
+            records.append(rec)
+            emit("attention_kernel", name="flash_attention_fwd", **rec)
+    kern.reset_counts()
+    return records
+
+
+def attention_sweep(torch, np, card):
+    """The flash kernel against the port's exact ``dot_product_attention``
+    from 32 to 2048 tokens, 8192 tokens per batch, 12 heads of 64, fp32 and
+    bf16: the measurement ``ops/attention.py``'s FLASH_MIN_SEQ is set from
+    (the shortest length from which the kernel wins at every longer one)."""
+    from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.ops.kernels import attention as katt
+
+    rows, crossover = [], {}
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        wins = []
+        for s in SWEEP_SEQ:
+            b = 8192 // s
+            q, k, v = (t.to(dt) for t in attention_inputs(
+                torch, np, b, 12, s, 64, zlib.crc32(repr(("sweep", s))
+                                                    .encode())))
+            flash_ms = time_ms(torch, lambda: katt.flash_attention_fwd(
+                q, k, v, 0.125, False), reps=10)
+            exact_ms = time_ms(torch, lambda: attn.dot_product_attention(
+                q, k, v, scale=0.125), reps=10)
+            rows.append({"dtype": tag, "s": s, "batch": b,
+                         "flash_ms": flash_ms, "exact_ms": exact_ms,
+                         "exact_over_flash": exact_ms / flash_ms})
+            wins.append((s, flash_ms < exact_ms))
+            del q, k, v
+        crossover[tag] = next(
+            (s for i, (s, _) in enumerate(wins)
+             if all(w for _, w in wins[i:])), None)
+    kern.reset_counts()
+    emit("attention_sweep", heads=12, head_dim=64, tokens_per_batch=8192,
+         rows=rows, crossover_seq=crossover,
+         port_flash_min_seq=attn.FLASH_MIN_SEQ, card=card)
+
+
+# -------------------------------------------------------------------- BERT
+
+
+def bert_rows(np, rows, seq, rng, dtype=None):
+    """(rows, seq, 2) [token ids in [0, 30522), segment ids 0 then 1]."""
+    tokens = rng.integers(0, 30522, size=(rows, seq))
+    segments = np.broadcast_to(np.arange(seq) >= seq // 2, (rows, seq))
+    return np.stack([tokens, segments], axis=-1).astype(dtype or np.float32)
+
+
+def bert_serve_phase(torch, np, card):
+    """Full-width BERT-base (seed 12345, max length 512, the flash kernel
+    forced) behind ModelServer: 8 HTTP requests of 512-token rows, every
+    flash launch held against the plain version on its own tensors, the
+    answers against the plain path (``exact``) on the same net."""
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import (ModelRouter, ModelServer,
+                                                  ServingModel)
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    t0 = time.perf_counter()
+    net = Bert.base(max_length=512, flash=True).init(device="cuda")
+    n_params = net.num_params()
+    model = ServingModel(net, "bert",
+                         bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+    router = ModelRouter()
+    router.register(model, max_wait_ms=100.0, queue_limit=64)
+    server = ModelServer(router, port=0).start()  # warms every bucket
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(12345)
+    xs = [bert_rows(np, r, 512, rng) for r in SERVE_ROWS]
+    bodies = [{"inputs": x.tolist()} for x in xs]
+    url = f"{server.url}/v1/models/bert/infer"
+    checked = {}
+    try:
+        kern.reset_counts()
+        chunks0 = model.chunks_executed
+        t1 = time.perf_counter()
+        with check_every_launch(torch, checked), \
+                ThreadPoolExecutor(4) as pool:  # two waves of 4 concurrent
+            answers = list(pool.map(lambda b: _post(url, b), bodies[:4]))
+            answers += list(pool.map(lambda b: _post(url, b), bodies[4:]))
+        serve_s = time.perf_counter() - t1
+        launches = dict(kern.LAUNCHES)
+        plain_on_cuda = dict(kern.PLAIN_ON_CUDA)
+        chunks = model.chunks_executed - chunks0
+        _, sched = router.get("bert")
+        batches = sched.counts["batches"]
+    finally:
+        server.stop()
+    flash = launches.pop("flash_attention_fwd")
+    if chunks < 1 or flash != BERT_LAYERS * chunks or any(launches.values()):
+        raise AssertionError(f"flash kernel launched {flash} times for "
+                             f"{chunks} chunks (expected {BERT_LAYERS} per "
+                             f"chunk), others {launches}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"plain path on CUDA tensors: {plain_on_cuda}")
+    if checked[("flash_attention_fwd", "fp32")]["calls"] != flash:
+        raise AssertionError(f"{flash} launches, "
+                             f"{_checked_summary(checked)} checked")
+    max_err, max_sum_err = 0.0, 0.0
+    for x, (body, _lat) in zip(xs, answers):
+        got = np.asarray(body["outputs"], np.float64)
+        if got.shape != (x.shape[0], 2) or not np.isfinite(got).all():
+            raise AssertionError(f"response shape {got.shape}")
+        max_sum_err = max(max_sum_err, float(np.abs(got.sum(1) - 1).max()))
+        with kern.impl_scope("exact"):
+            ref = net.output(x).double().cpu().numpy()
+        max_err = max(max_err, float(np.abs(got - ref).max()))
+    if max_sum_err > 1e-5 or max_err > 1e-4:
+        raise AssertionError(f"served probabilities off: sum err "
+                             f"{max_sum_err}, vs exact {max_err}")
+    emit("bert_serve", model="Bert.base", seq=512, hidden=768,
+         layers=BERT_LAYERS, heads=12, ffn=3072, vocab=30522, classes=2,
+         params=n_params, requests=len(SERVE_ROWS), rows=list(SERVE_ROWS),
+         batches=batches, chunks=chunks, flash_launches=flash,
+         plain_on_cuda=plain_on_cuda,
+         launches_checked=_checked_summary(checked),
+         max_abs_err_vs_exact=max_err, max_row_sum_err=max_sum_err,
+         warmup_s=warm_s, serve_wall_s=serve_s,
+         served_rows_per_s=sum(SERVE_ROWS) / serve_s,
+         request_latency_s=[lat for _, lat in answers], card=card)
+    return net, flash, checked
+
+
+def _bert_class(names):
+    """Profile bucket of a device kernel by the CPU ranges it ran under."""
+    if "bert::layer_norm" in names:
+        return "layer_norm"
+    if "aten::gelu" in names:
+        return "gelu"
+    if names & {"aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"}:
+        return "matmul"
+    if names & {"aten::index_select", "aten::embedding"}:
+        return "embedding_gather"
+    return "other"
+
+
+def profile_bert_forward(torch, net, x, top=8):
+    """One ``net.output(x)`` under torch.profiler: device ms of the flash
+    kernel (by name), and of the rest by the CPU range each kernel ran
+    under: the projection and FFN matmuls, layer norm (a profiler range
+    around ``_layer_norm`` for this run), gelu, the embedding gather;
+    wall time and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deeplearning4j_tpu_torch.nn import transformer as tr
+
+    layer_norm = tr._layer_norm
+
+    def ranged_layer_norm(*args, **kwargs):
+        with record_function("bert::layer_norm"):
+            return layer_norm(*args, **kwargs)
+
+    net.output(x)
+    torch.cuda.synchronize()
+    tr._layer_norm = ranged_layer_norm
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.output(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tr._layer_norm = layer_norm
+    kernels = device_kernels(torch, prof)
+    flash_ms = sum(ms for ms, _, name in kernels if "flash_fwd" in name)
+    flash_calls = sum(n for _, n, name in kernels if "flash_fwd" in name)
+    busy = sum(k[0] for k in kernels)
+    by_class = {}
+    for evt in prof.events():
+        for k in evt.kernels:
+            if "flash_fwd" in k.name:
+                continue
+            names = {evt.name} | {p.name for p in _parents(evt)}
+            cls = _bert_class(names)
+            by_class[cls] = by_class.get(cls, 0.0) + k.duration / 1e3
+    named = sum(v for c, v in by_class.items() if c != "other")
+    return {"batch": x.shape[0], "seq": x.shape[1], "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "flash_kernel_ms": flash_ms, "flash_launches": flash_calls,
+            "matmul_ms": by_class.get("matmul", 0.0),
+            "layer_norm_ms": by_class.get("layer_norm", 0.0),
+            "gelu_ms": by_class.get("gelu", 0.0),
+            "embedding_gather_ms": by_class.get("embedding_gather", 0.0),
+            "other_device_ms": busy - flash_ms - named,
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:top]]}
+
+
+def bert_forward_phase(torch, np, card, net):
+    """BERT-base ``net.output`` sequences/sec at batch 32, S 128 and 512,
+    fp32 and bf16 (integer token ids: float ids would arrive rounded to
+    bf16); one forward with a ragged padding mask (the masked kernel
+    variant on the main path) against the plain path; one profiled
+    batch-32 S=512 fp32 forward."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    net16 = Bert.base(max_length=512, flash=True,
+                      compute_dtype="bfloat16").init(device="cuda")
+    net16.params, net16.states = net.params, net.states  # cast per forward
+    rng = np.random.default_rng(7)
+    xs = {s: torch.from_numpy(bert_rows(np, 32, s, rng, np.int64)).cuda()
+          for s in (128, 512)}
+    rates = {f"seq{s}_{tag}": forward_rows_per_sec(torch, n, xs[s])
+             for tag, n in (("fp32", net), ("bf16", net16))
+             for s in (128, 512)}
+    emit("bert_throughput", model="Bert.base", batch=32, path="net.output",
+         window_s=2.0, sequences_per_sec=rates, card=card)
+
+    lens = rng.integers(16, 513, size=32)
+    lens[0] = 512
+    mask = torch.from_numpy((np.arange(512)[None, :] < lens[:, None])
+                            .astype(np.float32)).cuda()
+    checked = {}
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        got = net.output(xs[512], mask=mask)
+    torch.cuda.synchronize()
+    masked_launches = kern.LAUNCHES["flash_attention_fwd"]
+    if masked_launches != BERT_LAYERS or checked[(
+            "flash_attention_fwd", "fp32")]["calls"] != BERT_LAYERS:
+        raise AssertionError(f"masked forward launched {masked_launches}")
+    with kern.impl_scope("exact"):
+        ref = net.output(xs[512], mask=mask)
+    err = float((got.double() - ref.double()).abs().max())
+    if not torch.isfinite(got).all() or err > 1e-4:
+        raise AssertionError(f"masked forward off the plain path by {err}")
+    emit("bert_masked_forward", batch=32, seq=512, lengths=lens.tolist(),
+         flash_launches=masked_launches,
+         launches_checked=_checked_summary(checked),
+         max_abs_err_vs_exact=err, card=card)
+    prof = profile_bert_forward(torch, net, xs[512])
+    if prof["flash_launches"] != BERT_LAYERS:
+        raise AssertionError(f"profiled forward ran {prof['flash_launches']} "
+                             "flash launches")
+    emit("bert_profile", model="Bert.base", dtype="fp32", card=card, **prof)
+    return masked_launches, checked
+
+
+def flash_entry(records, launches, serve_checked, masked_launches,
+                masked_checked, card):
+    """K5's line of the kernels table: times of one launch at the main
+    path's geometry (batch 8, S=512, 12 heads of 64, no mask), errors over
+    every attention_kernel case, launches of the served requests."""
+    main = next(r for r in records if r["s"] == 512 and r["case"] == "none")
+
+    def worst(tag, field):
+        return max(r[tag][field] for r in records)
+
+    flash = "flash_attention_fwd"
+    return {
+        "name": flash, "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "replaces_ids": ["K5"],
+        "launches": launches, "launches_masked_forward": masked_launches,
+        "max_abs_err": worst("fp32", "max_abs_err"),
+        "max_err_normalised_fp32": worst("fp32", "max_err_normalised"),
+        "max_err_normalised_bf16": worst("bf16", "max_err_normalised"),
+        "max_lse_err": max(worst("fp32", "max_lse_err"),
+                           worst("bf16", "max_lse_err")),
+        "ms": main["fp32"]["ms"], "plain_ms": main["fp32"]["plain_ms"],
+        "bound_ms": main["fp32"]["bound_ms"],
+        "bound_by": main["fp32"]["bound_by"],
+        "library_ms": main["fp32"]["library_ms"],
+        "ms_bf16": main["bf16"]["ms"],
+        "plain_ms_bf16": main["bf16"]["plain_ms"],
+        "bound_ms_bf16": main["bf16"]["bound_ms"],
+        "bound_by_bf16": main["bf16"]["bound_by"],
+        "library_ms_bf16": main["bf16"]["library_ms"],
+        "serve_checked_fp32": serve_checked[(flash, "fp32")],
+        "masked_forward_checked_fp32": masked_checked[(flash, "fp32")],
+        "per": "one launch at batch 8, S=512, 12 heads of 64, no mask, fp32 "
+               "unless suffixed _bf16; ms by CUDA graph replay; library_ms "
+               "is torch's scaled_dot_product_attention on the same tensors "
+               "(a yardstick the port never calls); errors over the six "
+               "attention_kernel cases; launches from the bert_serve phase "
+               f"({BERT_LAYERS} per executed chunk), launches_masked_forward "
+               "from one masked batch-32 forward; *_checked: every launch "
+               "of those paths against the plain version",
+        "card": card}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -990,11 +1477,27 @@ def main() -> int:
          ptxas=[ln.split("ptxas info    : ", 1)[-1] for ln in log
                 if "Compiling entry" in ln or "registers" in ln])
 
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     conf = ResNet50().conf()
-    records = kernel_phase(torch, conf)
-    grad_records = kernel_grad_phase(torch, conf)
-    launches, serve_checked = serve_phase(torch, np, smi)
-    train_launches, train_checked = train_phase(torch, np, smi)
+    records = timed("kernel", kernel_phase, torch, conf)
+    grad_records = timed("kernel_grad", kernel_grad_phase, torch, conf)
+    launches, serve_checked = timed("serve", serve_phase, torch, np, smi)
+    train_launches, train_checked = timed("train", train_phase, torch, np,
+                                          smi)
+    att_records = timed("attention_kernel", attention_kernel_phase, torch, np)
+    timed("attention_sweep", attention_sweep, torch, np, smi)
+    bert, bert_launches, bert_checked = timed("bert_serve", bert_serve_phase,
+                                              torch, np, smi)
+    masked_launches, masked_checked = timed(
+        "bert_forward", bert_forward_phase, torch, np, smi, bert)
+    emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
 
     def checked_fields(name, checked):
         """The main path's own launches held against the plain version
@@ -1073,6 +1576,8 @@ def main() -> int:
         "card": smi},
         grad_entry("dgrad", CONV_SOURCE, DGRAD_REPLACES, "dgrad_per_step"),
         grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
+        flash_entry(att_records, bert_launches, bert_checked,
+                    masked_launches, masked_checked, smi),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,8 +20,10 @@ Ported so far: ResNet-50 classify serving (ops, layers, conf JSON,
 ComputationGraph inference, bucketing, the batching scheduler, router and
 HTTP server) on the conv forward kernel, and ResNet-50 training
 (``ComputationGraph.fit``: training batchnorm, softmax cross-entropy, the
-updaters and schedules, the conv backward on the dgrad and wgrad kernels).
-See ROADMAP.md for what is next.
+updaters and schedules, the conv backward on the dgrad and wgrad kernels),
+and BERT-base classify serving (the attention ops on the flash-attention
+forward kernel, the transformer layers, MultiLayerNetwork inference and
+its conf JSON, ``zoo.Bert``). See ROADMAP.md for what is next.
 """
 
 __version__ = "0.1.0"

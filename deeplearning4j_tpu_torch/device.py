@@ -10,6 +10,7 @@ by asking for it (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """numpy or tensor -> tensor on ``device``; float64 becomes float32,
+    as ``jnp.asarray`` does with x64 off."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    return t.to(device)

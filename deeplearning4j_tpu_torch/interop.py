@@ -11,10 +11,16 @@ side (``jax.tree_util.tree_map(np.asarray, net.opt_states)``), they copy
 into the port's graph as they are: the layouts are the same, so nothing is
 transposed. :func:`to_numpy` hands the port's trees back in that form, so
 a trajectory compares leaf by leaf and can continue in either package.
+
+A ``MultiLayerNetwork``'s params and states are lists with one dict per
+layer (``{}`` for a layer without params), keyed as the reference keys them
+(``nn/transformer.py:57-63`` and ``:140-149`` for BERT); they copy across
+with :func:`load_reference_mln`.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict
 
 import numpy as np
@@ -22,6 +28,8 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.computation_graph import (
     ComputationGraph, ComputationGraphConfiguration)
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 
 def _copy_tree(name: str, dst: Dict[str, dict], src: Dict[str, dict],
@@ -94,6 +102,24 @@ def load_reference(net: ComputationGraph, params: dict, states: dict,
     return net
 
 
+def load_reference_mln(net: MultiLayerNetwork, params, states
+                       ) -> MultiLayerNetwork:
+    """Copy the reference MultiLayerNetwork's params/states (lists of
+    per-layer dicts of numpy arrays) into an initialized port network, in
+    place."""
+    if net.device is None:
+        raise ValueError("init() the port network before load_reference_mln()")
+    for name, dst, src in (("params", net.params, params),
+                           ("states", net.states, states)):
+        if len(src) != len(dst):
+            raise ValueError(f"{name}: {len(src)} layers != {len(dst)}")
+        # the per-layer dicts are updated in place
+        _copy_tree(name, {str(i): d for i, d in enumerate(dst)},
+                   {str(i): d for i, d in enumerate(src)}, net.device)
+    net._cast_cache = {}
+    return net
+
+
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
@@ -102,19 +128,29 @@ def _numpy_tree(tree):
     return tree.detach().cpu().numpy()
 
 
-def to_numpy(net: ComputationGraph) -> dict:
-    """The port graph's training state as numpy, in the reference's tree
-    shapes: ``{"params", "states", "opt_states", "iteration", "epoch"}``."""
+def to_numpy(net) -> dict:
+    """The port network's state as numpy, in the reference's tree shapes:
+    ``{"params", "states", "opt_states", "iteration", "epoch"}`` for a
+    graph, ``{"params", "states"}`` (lists of per-layer dicts) for a
+    MultiLayerNetwork."""
+    if isinstance(net, MultiLayerNetwork):
+        return {"params": _numpy_tree(net.params),
+                "states": _numpy_tree(net.states)}
     return {"params": _numpy_tree(net.params),
             "states": _numpy_tree(net.states),
             "opt_states": _numpy_tree(net.opt_states),
             "iteration": net.iteration, "epoch": net.epoch}
 
 
-def from_reference_json(conf_json: str, params: dict, states: dict,
-                        device=None) -> ComputationGraph:
-    """A port graph from the reference's conf JSON and its params/states,
-    on ``device`` (CUDA unless named otherwise)."""
+def from_reference_json(conf_json: str, params, states, device=None):
+    """A port network from the reference's conf JSON and its params/states,
+    on ``device`` (CUDA unless named otherwise): a ComputationGraph for a
+    graph conf, a MultiLayerNetwork for a layer-stack conf (one with
+    ``layers``)."""
+    if "layers" in json.loads(conf_json):
+        conf = MultiLayerConfiguration.from_json(conf_json)
+        return load_reference_mln(MultiLayerNetwork(conf).init(device=device),
+                                  params, states)
     conf = ComputationGraphConfiguration.from_json(conf_json)
     return load_reference(ComputationGraph(conf).init(device=device), params,
                           states)

@@ -39,13 +39,12 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
                                                      dev_weights)
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn import vertices as V
@@ -377,15 +376,6 @@ class ComputationGraph:
                     acts[n.name] = n.node.apply(*self._gather_input(acts, n))
             return acts
 
-    def _as_input(self, x) -> torch.Tensor:
-        """numpy or tensor -> tensor on this graph's device. float64 turns
-        into float32, as ``jnp.asarray`` does with x64 off."""
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(x))
-        if t.dtype == torch.float64:
-            t = t.to(torch.float32)
-        return t.to(self.device)
-
     def _require_init(self):
         if self.device is None:
             raise ValueError("init() the graph first")
@@ -409,7 +399,7 @@ class ComputationGraph:
         dropout, and leaves the running statistics as they are, as the
         reference's ``output(train=True)``."""
         self._require_init()
-        ins = [self._as_input(x) for x in inputs]
+        ins = [as_tensor(x, self.device) for x in inputs]
         real_n = None
         if self._bucketing is not None:
             n = ins[0].shape[0]
@@ -428,7 +418,8 @@ class ComputationGraph:
     def feed_forward(self, *inputs) -> Dict[str, torch.Tensor]:
         """All vertex activations by name (ComputationGraph.feedForward)."""
         self._require_init()
-        ins = dict(zip(self.conf.inputs, [self._as_input(x) for x in inputs]))
+        ins = dict(zip(self.conf.inputs,
+                       [as_tensor(x, self.device) for x in inputs]))
         return self._forward(self.params, self.states, ins)
 
     # ---------------------------------------------------------------- train
@@ -491,8 +482,8 @@ class ComputationGraph:
             features = [features]
         if not isinstance(labels, (list, tuple)):
             labels = [labels]
-        feats = [self._as_input(f) for f in features]
-        labs = [self._as_input(y) for y in labels]
+        feats = [as_tensor(f, self.device) for f in features]
+        labs = [as_tensor(y, self.device) for y in labels]
         real_n = feats[0].shape[0]
         if self._bucketing is not None:
             feats, labs = self._bucketing.pad_graph_batch(feats, labs)

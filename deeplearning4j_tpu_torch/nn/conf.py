@@ -1,13 +1,16 @@
 """Network configuration builder (counterpart of
 deeplearning4j_tpu/nn/conf.py): ``InputType``, the
-``NeuralNetConfiguration.builder()`` chain a ComputationGraph is built
-with, and the JSON helpers both packages share the format of.
+``NeuralNetConfiguration.builder()`` chain a ComputationGraph
+(``graph_builder()``) or a MultiLayerNetwork (``list()`` ->
+:class:`ListBuilder` -> :class:`MultiLayerConfiguration`) is built with,
+and the JSON helpers both packages share the format of.
 
-The builder carries what ResNet-50 sets: seed, updater (kept as config),
-compute dtype, kernel dispatch and the remat knobs; the reference's other
-global settings (l1/l2, weight_init and activation stamping, buckets) come
-with the slices that use them. ``compute_dtype="bfloat16"`` keeps params
-fp32 and runs activations and convolutions in bf16.
+The builder carries what ResNet-50 and BERT set: seed, updater (kept as
+config), compute dtype, kernel dispatch and the remat knobs; the
+reference's other global settings (l1/l2, weight_init and activation
+stamping onto the layers, buckets) come with the slices that use them.
+``compute_dtype="bfloat16"`` keeps params fp32 and runs activations and
+convolutions in bf16.
 
 JSON: the port reads the JSON the JAX package writes and writes JSON the
 JAX package reads. Keys the port does not act on yet (:data:`INERT_KNOBS`:
@@ -20,8 +23,11 @@ key whose vocabulary differs: the reference's forced-kernel mode
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import json
+from typing import Any, Dict, List, Optional, Tuple
 
+from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 
 #: conf keys kept verbatim for later slices, with the reference's defaults
@@ -57,6 +63,12 @@ class InputType:
     def convolutional(height: int, width: int,
                       channels: int) -> Tuple[int, ...]:
         return (height, width, channels)
+
+    @staticmethod
+    def recurrent(size: int,
+                  timesteps: Optional[int] = None) -> Tuple[Optional[int], ...]:
+        """(T, F) sequences; T is None when the length is not fixed."""
+        return (timesteps, size) if timesteps else (None, size)
 
 
 def _buckets_to_json(spec):
@@ -144,8 +156,109 @@ class Builder:
         self._knobs["stage_barriers"] = bool(on)
         return self
 
+    def list(self) -> "ListBuilder":
+        """Layer-stack builder (NeuralNetConfiguration.ListBuilder parity)."""
+        return ListBuilder(self)
+
     def graph_builder(self):
         """DAG builder (ComputationGraphConfiguration.GraphBuilder parity)."""
         from deeplearning4j_tpu_torch.nn.computation_graph import GraphBuilder
 
         return GraphBuilder(self)
+
+
+@dataclasses.dataclass
+class MultiLayerConfiguration:
+    """A layer stack (MultiLayerConfiguration.java parity; reference
+    ``nn/conf.py:45``). ``input_shape`` excludes the batch; ``remat_stages``
+    are layer indices that start a stage; ``knobs`` holds the
+    :data:`INERT_KNOBS` kept for later slices."""
+
+    layers: List[L.Layer]
+    seed: int = 12345
+    updater: Optional[dict] = None
+    input_shape: Optional[Tuple[Optional[int], ...]] = None
+    compute_dtype: str = "float32"
+    kernel_impl: Optional[str] = None  # auto | exact | cuda | None (ambient)
+    batch_buckets: Any = None
+    seq_buckets: Any = None
+    remat_stages: Optional[Tuple[int, ...]] = None
+    knobs: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: dict(INERT_KNOBS))
+
+    def to_json(self) -> str:
+        """The reference's JSON (``nn/conf.py:102``), key for key."""
+        k = {**INERT_KNOBS, **self.knobs}
+        return json.dumps({
+            "seed": self.seed,
+            "updater": self.updater,
+            "input_shape": list(self.input_shape)
+            if self.input_shape else None,
+            "compute_dtype": self.compute_dtype,
+            "tbptt_length": k["tbptt_length"],
+            "remat_policy": k["remat_policy"],
+            "remat_stages": list(self.remat_stages)
+            if self.remat_stages else None,
+            "stage_barriers": k["stage_barriers"],
+            "sync_every": k["sync_every"],
+            "batch_buckets": _buckets_to_json(self.batch_buckets),
+            "seq_buckets": _buckets_to_json(self.seq_buckets),
+            "kernel_impl": kernel_impl_to_json(self.kernel_impl),
+            **{name: k[name] for name in list(INERT_KNOBS)[4:]},
+            "layers": [lyr.to_dict() for lyr in self.layers],
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        """Read the reference's JSON (``nn/conf.py:133``)."""
+        d = json.loads(s)
+
+        def fix(lyr):
+            return L.layer_from_dict({
+                k: _detuple(v) if isinstance(v, list) else v
+                for k, v in lyr.items()})
+
+        return MultiLayerConfiguration(
+            layers=[fix(x) for x in d["layers"]],
+            seed=d["seed"],
+            updater=d.get("updater"),
+            input_shape=tuple(d["input_shape"])
+            if d.get("input_shape") else None,
+            compute_dtype=d.get("compute_dtype", "float32"),
+            kernel_impl=kernel_impl_from_json(d.get("kernel_impl")),
+            batch_buckets=_buckets_from_json(d.get("batch_buckets")),
+            seq_buckets=_buckets_from_json(d.get("seq_buckets")),
+            remat_stages=tuple(d["remat_stages"])
+            if d.get("remat_stages") else None,
+            knobs={k: d.get(k, v) for k, v in INERT_KNOBS.items()},
+        )
+
+
+class ListBuilder:
+    """NeuralNetConfiguration.ListBuilder parity (reference
+    ``nn/conf.py:456``)."""
+
+    def __init__(self, parent: Builder):
+        self._p = parent
+        self._layers: List[L.Layer] = []
+        self._input_shape = None
+
+    def layer(self, lyr: L.Layer) -> "ListBuilder":
+        self._layers.append(lyr)
+        return self
+
+    def set_input_type(self, shape) -> "ListBuilder":
+        self._input_shape = tuple(shape)
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        p = self._p
+        return MultiLayerConfiguration(
+            layers=list(self._layers),
+            seed=p._seed,
+            updater=p._updater,
+            input_shape=self._input_shape,
+            compute_dtype=p._compute_dtype,
+            kernel_impl=p._kernel_impl,
+            knobs=dict(p._knobs),
+        )

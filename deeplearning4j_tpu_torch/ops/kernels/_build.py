@@ -127,6 +127,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_conv2d_wgrad.restype = i
     lib.dl4j_conv2d_wgrad_plan.argtypes = [i] * 9 + [ctypes.POINTER(i)]
     lib.dl4j_conv2d_wgrad_plan.restype = i
+    ll = ctypes.c_longlong
+    lib.dl4j_flash_fwd.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 12
+                                   + [ctypes.c_float, i, vp])
+    lib.dl4j_flash_fwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,8 @@
 """ServingModel — one loaded model behind the batching scheduler
 (counterpart of deeplearning4j_tpu/serving/model.py), ``kind="classify"``.
 
-A trained ``ComputationGraph`` is bound to the serving tier with ONE
+A trained ``ComputationGraph`` or ``MultiLayerNetwork`` (the reference
+binds either) is bound to the serving tier with ONE
 :class:`~deeplearning4j_tpu_torch.data.bucketing.BucketingPolicy` for every
 shape decision: warmup runs each batch bucket once, the scheduler coalesces
 up to the largest bucket, and a coalesced batch is split by
@@ -9,9 +10,10 @@ up to the largest bucket, and a coalesced batch is split by
 ``net.output`` and split back per request. Rows are independent, so a
 request's result does not depend on what it was batched with.
 
-Not ported yet: ``kind="generate"`` (paged-KV decode, the transformer
-slice), ``quantize`` (int8 serving), ``use_mesh`` (multi-device inference)
-and rolling reload; each raises ``NotImplementedError`` naming its slice.
+Not ported yet: ``kind="generate"`` (paged-KV decode, the generate
+serving slice), ``quantize`` (int8 serving), ``use_mesh`` (multi-device
+inference) and rolling reload; each raises ``NotImplementedError`` naming
+its slice.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ class ServingModel:
         if kind == "generate":
             raise NotImplementedError(
                 "kind='generate' is not ported yet: it comes with the "
-                "transformer/paged-decode serving slice")
+                "generate/paged-decode serving slice")
         if kind != "classify":
             raise ValueError(f"unknown serving kind {kind!r}")
         if quantize is not None:
@@ -72,10 +74,13 @@ class ServingModel:
         return int(np.shape(payload)[0])
 
     def _input_shape(self) -> tuple:
+        """The conf's input shape without the batch: a graph's single input
+        or a layer stack's ``input_shape`` ((T, F) for BERT)."""
         shape = tuple(getattr(self.net.conf, "input_shape", None) or ())
-        if not shape:
+        if not shape or None in shape:
             raise ValueError(
-                f"{self.model_id}: warmup() needs the conf's input shape")
+                f"{self.model_id}: warmup() needs the conf's input shape "
+                f"with every dimension fixed, got {shape or None}")
         return shape
 
     # -------------------------------------------------------------- warmup

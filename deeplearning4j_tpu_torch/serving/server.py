@@ -130,7 +130,7 @@ def _make_handler(server: ModelServer):
                 if verb == "generate":
                     self._send_json(501, {
                         "error": "generate is not ported yet: it comes "
-                                 "with the transformer serving slice"})
+                                 "with the generate serving slice"})
                     return
                 self._send_json(200, server._handle_infer(
                     model_id, json.loads(raw or b"{}")))

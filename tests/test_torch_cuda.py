@@ -1,0 +1,88 @@
+"""The port's kernels on a CUDA card, against their plain versions.
+
+Every test here is marked ``cuda`` and skips without a card. This file
+imports nothing of JAX or of the JAX package, so it also runs where only
+the port is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(``--noconftest``: the suite's ``conftest.py`` sets up JAX). Tolerances
+are the smoke's: the flash kernel's O within 1e-5 (fp32) or 2^-7 (bf16,
+P is rounded to bf16 before P @ V) of the largest plain output, its LSE
+within 1e-5 relative, a fully-masked row exactly O = 0 and LSE = -1e30;
+a whole network within 1e-4 relative of the same network on the CPU.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from deeplearning4j_tpu_torch.ops import attention as TA  # noqa: E402
+from deeplearning4j_tpu_torch.ops import kernels as TK  # noqa: E402
+from deeplearning4j_tpu_torch.ops.kernels import attention as KA  # noqa: E402
+from deeplearning4j_tpu_torch.zoo import Bert  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the same checks "
+                    "on the H100")
+    TK.reset_counts()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+def test_flash_kernel_matches_plain(card, dtype, tol, causal):
+    """K5 on the projections' transposed views (B, S, H, D) -> (B, H, S,
+    D), a ragged length, a padding mask with one fully-masked batch row."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 100, 3, 64), np.float32))
+    q = x.to(card, dtype).permute(0, 2, 1, 3)
+    mask = torch.ones((2, 100), device=card)
+    mask[1] = 0.0
+    o, lse = KA.flash_attention_fwd(q, q, q, 0.125, causal, mask)
+    ro, rl = KA.flash_attention_fwd_reference(q, q, q, 0.125, causal, mask)
+    assert TK.LAUNCHES["flash_attention_fwd"] == 1
+    err = (o.float() - ro.float()).abs().max() / ro.float().abs().max()
+    assert float(err) <= tol
+    assert torch.equal(o[1], torch.zeros_like(o[1]))
+    assert torch.equal(lse[1], rl[1])
+    assert float((lse[0] - rl[0]).abs().max()) <= 1e-5 * float(
+        rl[0].abs().max())
+
+
+def test_flash_attention_on_card_launches_the_kernel(card):
+    """``flash_attention`` on a CUDA tensor launches K5 and never the plain
+    version; ``exact`` takes the plain version and counts it."""
+    q = torch.randn((2, 2, 64, 32), device=card)
+    with TK.impl_scope("auto"):
+        o = TA.flash_attention(q, q, q)
+    with TK.impl_scope("exact"):
+        ref = TA.flash_attention(q, q, q)
+    assert TK.LAUNCHES["flash_attention_fwd"] == 1
+    assert TK.PLAIN_ON_CUDA["flash_attention_fwd"] == 1
+    assert float((o - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_bert_tiny_on_card_matches_cpu(card):
+    """The whole slice on the card, the flash kernel forced, against the
+    same net on the CPU, with a ragged padding mask."""
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, 30522, size=(4, 16))
+    x = np.stack([tokens, np.zeros_like(tokens)], axis=-1).astype(np.float32)
+    mask = np.ones((4, 16), np.float32)
+    mask[1, 9:] = 0.0
+    mask[2, 1:] = 0.0
+    cpu = Bert.tiny(max_length=16, flash=True).init(device="cpu")
+    gpu = Bert.tiny(max_length=16, flash=True).init(device=card)
+    got = gpu.output(x, mask=mask).cpu().numpy()
+    assert TK.LAUNCHES["flash_attention_fwd"] == 2  # one per encoder block
+    np.testing.assert_allclose(got, cpu.output(x, mask=mask).numpy(),
+                               rtol=1e-4, atol=1e-6)

@@ -386,7 +386,11 @@ def test_package_imports_without_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'deeplearning4j_tpu' or k.startswith('deeplearning4j_tpu.')]"
         "\n"
-        "assert len(mods) >= 20 and not bad, (mods, bad)\n")
+        "assert len(mods) >= 20 and not bad, (mods, bad)\n"
+        "new = {'deeplearning4j_tpu_torch.' + m for m in ("
+        "'ops.attention', 'ops.kernels.attention', 'nn.transformer', "
+        "'nn.multilayer', 'zoo.bert')}\n"
+        "assert new <= set(mods), sorted(new - set(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
