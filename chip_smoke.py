@@ -47,7 +47,8 @@ of the JAX package. Phases, each printing one JSON line:
    of 64), S 128 and 512, fp32 and bf16: no mask, causal, and a padding
    mask with a fully-masked batch row; O and the LSE gated by ATTN_TOL and
    LSE_TOL below; the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times and the card's bound.
+   ``scaled_dot_product_attention``'s times and the card's bound; the
+   kernel must refuse inputs that require grad (it has no backward).
 8. attention_sweep: the kernel against the port's exact attention from 32
    to 2048 tokens (8192 tokens per batch), fp32 and bf16: the crossover
    ``ops/attention.py``'s FLASH_MIN_SEQ is set from.
@@ -62,8 +63,29 @@ of the JAX package. Phases, each printing one JSON line:
     checked, the answer against the plain path); one profiled batch-32
     S=512 fp32 forward by class (flash kernel, matmuls, layer norm, gelu,
     embedding gather, idle share).
-11. timing: the seconds each phase took, and the whole run's.
-12. kernels: one JSON line per the kernel table in PERF.md.
+11. lstm_kernel: the fused LSTM cell kernel (``csrc/lstm_cell.cu``, K4)
+    against its plain version at the char-RNN's geometries, training (B 32,
+    H 256) and sampling (B 4, H 256), both gate orders, fp32 and bf16, xp a
+    strided time slice, gated by LSTM_TOL; the kernel's time (one launch
+    alone, and per launch of 50 in one CUDA graph), the plain version's,
+    the library route's (``torch.addmm`` + ``torch._thnn_fused_lstm_cell``)
+    and cuDNN ``nn.LSTM``'s per step, and the card's bound.
+12. char_rnn_train: full-width TextGenerationLSTM (47 characters, 256
+    units, dropout 0.2, Adam(1e-3), seed 12345) at dl4j-examples'
+    LSTMCharModellingExample shape (batch 32, 1000 characters of SURVEY.md
+    per sequence, TBPTT 50: 20 updates and 2000 K4 launches per ``fit``
+    call): one segment's step under ``auto`` against ``exact`` with dropout
+    off (loss 1e-5 relative, gradients by the fp64 step gate), the main
+    path (CHAR_FITS ``fit`` calls, every K4 launch held against its plain
+    version, none plain on CUDA, the loss of the last five segments below
+    the first five's), one checked bf16 ``fit`` call, train characters/sec
+    fp32 and bf16 (five windows of one ``fit`` call), one profiled
+    segment (device busy, idle share, K4's share).
+13. char_rnn_sample: 4 samples of 300 characters from the trained net with
+    ``rnn_time_step`` after a short prime (2 K4 launches per character
+    step at batch 4, each checked), characters/sec, a 60-character excerpt.
+14. timing: the seconds each phase took, and the whole run's.
+15. kernels: one JSON line per the kernel table in PERF.md.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -119,6 +141,21 @@ ATTN_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 LSE_TOL = 1e-5
 BERT_LAYERS = 12
 SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
+LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_cell.cu"
+LSTM_REPLACES = "deeplearning4j_tpu/ops/kernels/lstm.py:97 _cell_kernel"
+# LSTM cell gate, on max|kernel - plain| / max|plain| over h' and c'. fp32:
+# the same fp32 sums of H products in another order (~1e-7 of the largest
+# output at H = 256), so 1e-5 still catches a wrong term. bf16: both round
+# the same fp32 values to bf16 once; one differing fp32 sum can land on the
+# neighbouring bf16 value (2^-8): 2^-7, the other kernels' ceiling.
+LSTM_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
+# the char-RNN: dl4j-examples' LSTMCharModellingExample shape (batch 32,
+# sequences of 1000 characters, TBPTT 50, 4 samples of 300 characters), on
+# the repo's SURVEY.md mapped onto 47 symbols (anything else a space)
+CHAR_SET = "abcdefghijklmnopqrstuvwxyz0123456789 \n.,:;'\"()-"
+CHAR_BATCH, CHAR_SEQ, CHAR_TBPTT, CHAR_UNITS = 32, 1000, 50, 256
+CHAR_FITS = 3
+SAMPLES, SAMPLE_LEN, SAMPLE_PRIME = 4, 300, "the port "
 
 
 def emit(phase, **fields):
@@ -444,15 +481,25 @@ PLAIN_OF = {"conv2d_fwd": "conv2d_fwd_reference",
             "conv2d_dgrad": "conv2d_dgrad_reference",
             "conv2d_wgrad": "conv2d_wgrad_reference"}
 ATTENTION_PLAIN_OF = {"flash_attention_fwd": "flash_attention_fwd_reference"}
+LSTM_PLAIN_OF = {"lstm_cell_fwd": "lstm_cell_reference"}
 
 
 def _wrapped_kernels():
     """(module, wrapper name, plain version's name) of every kernel."""
     from deeplearning4j_tpu_torch.ops.kernels import attention as katt
     from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+    from deeplearning4j_tpu_torch.ops.kernels import lstm as klstm
 
     return ([(kconv, n, p) for n, p in PLAIN_OF.items()]
-            + [(katt, n, p) for n, p in ATTENTION_PLAIN_OF.items()])
+            + [(katt, n, p) for n, p in ATTENTION_PLAIN_OF.items()]
+            + [(klstm, n, p) for n, p in LSTM_PLAIN_OF.items()])
+
+
+def lstm_error(out, ref):
+    """(max abs error, error over the largest output) of a cell's h' and c'
+    against the plain version's, the worse of the two."""
+    errs = [_grad_error(o, r) for o, r in zip(out, ref)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def attention_error(torch, out, ref):
@@ -473,11 +520,12 @@ def attention_error(torch, out, ref):
 @contextlib.contextmanager
 def check_every_launch(torch, checked):
     """While active, each call of a kernel's wrapper (``conv2d_fwd``,
-    ``conv2d_dgrad``, ``conv2d_wgrad``, ``flash_attention_fwd``) is held
-    against its plain version on the call's own tensors: the conv kernels
-    by the GRAD_TOL gate on the error normalised by the largest plain
-    output (bf16: on both results in bf16), the flash kernel by ATTN_TOL on
-    O and LSE_TOL on the LSE. The kernel launches once per call, as
+    ``conv2d_dgrad``, ``conv2d_wgrad``, ``flash_attention_fwd``,
+    ``lstm_cell_fwd``) is held against its plain version on the call's own
+    tensors: the conv kernels by the GRAD_TOL gate on the error normalised
+    by the largest plain output (bf16: on both results in bf16), the flash
+    kernel by ATTN_TOL on O and LSE_TOL on the LSE, the LSTM cell by
+    LSTM_TOL on h' and c'. The kernel launches once per call, as
     unchecked, and the plain versions count nothing, so a path run under
     the check launches what it launches without it, and every one of those
     launches is checked. ``checked`` collects {(wrapper, "fp32" | "bf16"):
@@ -494,7 +542,21 @@ def check_every_launch(torch, checked):
             ref = plain(*args, **kwargs)
             tag = "bf16" if args[0].dtype == torch.bfloat16 else "fp32"
             lse_err = None
-            if name == "flash_attention_fwd":
+            if name == "lstm_cell_fwd":
+                if any(o.shape != r.shape or o.dtype != r.dtype
+                       or not torch.isfinite(o.float()).all()
+                       for o, r in zip(out, ref)):
+                    raise AssertionError(f"{name} {tag}: kernel gave "
+                                         f"{[tuple(o.shape) for o in out]} "
+                                         "of another type, or non-finite")
+                err, norm = lstm_error(out, ref)
+                if norm > LSTM_TOL[tag]:
+                    raise AssertionError(
+                        f"{name} {tag} on the path's tensors "
+                        f"{tuple(args[0].shape)} x {tuple(args[3].shape)}: "
+                        f"max err {err} = {norm:.3g} of the largest output "
+                        f"> {LSTM_TOL[tag]}")
+            elif name == "flash_attention_fwd":
                 if out[0].shape != ref[0].shape or not torch.isfinite(
                         out[0].float()).all():
                     raise AssertionError(f"{name} {tag}: kernel gave "
@@ -1148,8 +1210,10 @@ def check_attention(torch, np, s, case, b=8, h=12, d=64):
 
 def attention_kernel_phase(torch, np):
     """K5 at BERT-base head geometry (batch 8, 12 heads of 64), S 128 and
-    512: no mask, causal, a padding mask with a fully-masked batch row."""
+    512: no mask, causal, a padding mask with a fully-masked batch row; and
+    the kernel's refusal of inputs that require grad."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.ops.kernels import attention as katt
 
     records = []
     for s in (128, 512):
@@ -1157,6 +1221,15 @@ def attention_kernel_phase(torch, np):
             rec = check_attention(torch, np, s, case)
             records.append(rec)
             emit("attention_kernel", name="flash_attention_fwd", **rec)
+    q = torch.randn((1, 2, 32, 64), device="cuda", requires_grad=True)
+    try:
+        katt.flash_attention_fwd(q, q, q, 0.125, False)
+    except NotImplementedError as e:
+        emit("attention_refuses_grad", name="flash_attention_fwd",
+             error=str(e)[:200])
+    else:
+        raise AssertionError("the flash kernel took inputs that require "
+                             "grad: its output would carry no gradient")
     kern.reset_counts()
     return records
 
@@ -1400,6 +1473,437 @@ def bert_forward_phase(torch, np, card, net):
     return masked_launches, checked
 
 
+# ------------------------------------------------------------ LSTM cell (K4)
+
+
+def lstm_bound(b, h, es, peak):
+    """The cell's bound: 2*B*H*4H operations of h @ U (the gates and the
+    state update add some 20*B*H more, under 1%), against xp, h, c and U
+    read once and h', c' written once."""
+    nbytes = (b * 4 * h + 2 * b * h + h * 4 * h + 2 * b * h) * es
+    return {"flops": 2 * b * h * 4 * h, "bytes": nbytes,
+            **bound(2 * b * h * 4 * h, nbytes, peak)}
+
+
+def check_lstm(torch, b, h, order_name):
+    """K4 against its plain version on a strided time slice of a (B, T, 4H)
+    projection, fp32 and bf16, with its time (one launch alone and 50 in one
+    CUDA graph), the plain version's, the library route's (``torch.addmm``
+    then ATen's fused ``_thnn_fused_lstm_cell``, gates permuted to its
+    i, f, g, o order once outside the timing; a zero tensor as its hidden
+    gates) and, per step of a 50-step
+    segment, cuDNN's ``nn.LSTM``; and the bound."""
+    from deeplearning4j_tpu_torch.ops.kernels import lstm as klstm
+
+    order = klstm.ORDER_IFOG if order_name == "ifog" else klstm.ORDER_IOFG
+    gen = torch.Generator(device="cuda").manual_seed(
+        zlib.crc32(repr(("lstm", b, h, order_name)).encode()))
+    xp_seq32 = torch.randn((b, 4, 4 * h), device="cuda", generator=gen)
+    h32 = 0.5 * torch.randn((b, h), device="cuda", generator=gen)
+    c32 = torch.randn((b, h), device="cuda", generator=gen)
+    u32 = torch.randn((h, 4 * h), device="cuda", generator=gen) / h ** 0.5
+    rec = {"b": b, "h": h, "order": order_name}
+    for tag, dt, peak in (("fp32", torch.float32, H100_FP32_FLOPS),
+                          ("bf16", torch.bfloat16, H100_BF16_FLOPS)):
+        xp_seq, hh, c, u = (t.to(dt) for t in (xp_seq32, h32, c32, u32))
+        xp = xp_seq[:, 2]  # (B, 4H) rows 4 * 4H apart, read in place
+
+        def kernel():
+            return klstm.lstm_cell_fwd(xp, hh, c, u, order)
+
+        def plain():
+            return klstm.lstm_cell_reference(xp, hh, c, u, order)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if any(o.shape != (b, h) or o.dtype != dt
+               or not torch.isfinite(o.float()).all() for o in out):
+            raise AssertionError(f"lstm B={b} H={h} {order_name} {tag}: "
+                                 "kernel gave a wrong shape, type or "
+                                 "non-finite values")
+        err, norm = lstm_error(out, ref)
+        if norm > LSTM_TOL[tag]:
+            raise AssertionError(f"lstm B={b} H={h} {order_name} {tag}: err "
+                                 f"{norm:.3g} > {LSTM_TOL[tag]}")
+        r = {"max_abs_err": err, "max_err_normalised": norm,
+             "tolerance": LSTM_TOL[tag],
+             "ms": time_ms(torch, kernel, reps=50),
+             "ms_one_launch": time_ms(torch, kernel, reps=1),
+             "plain_ms": time_ms(torch, plain, reps=50),
+             **lstm_bound(b, h, xp.element_size(), peak)}
+        perm = torch.cat([torch.arange(p * h, (p + 1) * h, device="cuda")
+                          for p in (order.index(g) for g in "ifgo")])
+        xp_l, u_l = xp[:, perm].contiguous(), u[:, perm].contiguous()
+        zeros = torch.zeros_like(xp_l)
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell(
+                torch.addmm(xp_l, hh, u_l), zeros, c)[:2]
+
+        # the yardsticks are timed only: a library call that this build of
+        # torch cannot make is recorded as null with its error, not gated
+        try:
+            r["library_err_normalised"] = lstm_error(library(), ref)[1]
+            r["library_ms"] = time_ms(torch, library, reps=50)
+        except RuntimeError as e:
+            r["library_ms"], r["library_error"] = None, str(e)[:200]
+        if order_name == "ifog":
+            try:
+                cudnn = torch.nn.LSTM(h, h).to(device="cuda", dtype=dt)
+                cudnn.flatten_parameters()  # one weight buffer, as cuDNN wants
+                seq = torch.randn((CHAR_TBPTT, b, h), device="cuda",
+                                  generator=gen).to(dt)
+                state = (hh[None].contiguous(), c[None].contiguous())
+                with torch.no_grad():
+                    r["cudnn_lstm_ms_per_step"] = eager_ms(
+                        torch, lambda: cudnn(seq, state)) / CHAR_TBPTT
+            except RuntimeError as e:
+                r["cudnn_lstm_ms_per_step"] = None
+                r["cudnn_lstm_error"] = str(e)[:200]
+        rec[tag] = r
+    return rec
+
+
+def lstm_kernel_phase(torch, np):
+    """K4 at the char-RNN's geometries: training (B 32, H 256) and sampling
+    (B 4, H 256), both gate orders, fp32 and bf16."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    records = []
+    for b in (CHAR_BATCH, SAMPLES):
+        for order_name in ("ifog", "iofg"):
+            rec = check_lstm(torch, b, CHAR_UNITS, order_name)
+            records.append(rec)
+            emit("lstm_kernel", name="lstm_cell_fwd", **rec)
+    kern.reset_counts()
+    return records
+
+
+# ---------------------------------------------------------------- char-RNN
+
+
+def char_corpus(np):
+    """SURVEY.md, lower-cased, as indices into CHAR_SET (anything else a
+    space)."""
+    with open(os.path.join(ROOT, "SURVEY.md"), encoding="utf-8") as f:
+        text = f.read().lower()
+    lut = {ch: i for i, ch in enumerate(CHAR_SET)}
+    space = lut[" "]
+    return np.array([lut.get(ch, space) for ch in text], np.int64)
+
+
+def char_batch(torch, np, corpus, rng, b=CHAR_BATCH, t=CHAR_SEQ):
+    """(x, y) on the card: one-hot windows of ``t`` characters at offsets
+    from ``rng``, and the next characters as labels."""
+    starts = rng.integers(0, len(corpus) - t - 1, size=b)
+    ids = torch.from_numpy(np.stack([corpus[s:s + t + 1] for s in starts]))
+    eye = torch.eye(len(CHAR_SET), device="cuda")
+    ids = ids.cuda()
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def char_net(dropout=0.2, dtype="float32"):
+    """Full-width TextGenerationLSTM (47 characters, 256 units, the zoo's
+    Adam(1e-3)), TBPTT 50, random weights from seed 12345."""
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    net = TextGenerationLSTM(total_unique_characters=len(CHAR_SET),
+                             units=CHAR_UNITS, dropout=dropout,
+                             max_length=CHAR_SEQ,
+                             compute_dtype=dtype).init(device="cuda")
+    net.conf.tbptt_length = CHAR_TBPTT
+    return net
+
+
+def lstm_only(counts, what):
+    """The K4 count; every other kernel's must be 0 on the char-RNN."""
+    if any(v for k, v in counts.items() if k != "lstm_cell_fwd"):
+        raise AssertionError(f"{what} launched {counts}")
+    return counts["lstm_cell_fwd"]
+
+
+def chars_per_sec(torch, net, x, y, windows=5):
+    """``net.fit`` characters/sec on one device-resident batch: ``windows``
+    windows of one fit call each (20 TBPTT updates), each closed by a
+    device sync; the loss must stay finite."""
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        rates.append(x.shape[0] * x.shape[1] / (time.perf_counter() - t0))
+    if not math.isfinite(net.get_score()):
+        raise AssertionError(f"non-finite char-RNN loss {net.get_score()}")
+    rates.sort()
+    return {"median": rates[len(rates) // 2], "min": rates[0],
+            "max": rates[-1], "windows": rates}
+
+
+def profile_char_segment(torch, net, x, y, top=8):
+    """One TBPTT segment's update (a 50-step fit) under torch.profiler:
+    device busy, idle share, K4's share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, ys = x[:, :CHAR_TBPTT], y[:, :CHAR_TBPTT]
+    net.fit(xs, ys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the first kernels after it starts: give it
+        # one of its own before the segment
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(xs, ys)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kernels)
+    k4 = sum(ms for ms, _, name in kernels if "lstm_cell_fwd" in name)
+    k4_calls = sum(n for _, n, name in kernels if "lstm_cell_fwd" in name)
+    return {"segment_steps": CHAR_TBPTT, "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "lstm_kernel_ms": k4, "lstm_kernel_launches": k4_calls,
+            "lstm_kernel_share_of_busy": k4 / busy if busy else None,
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:top]]}
+
+
+def char_rnn_train_phase(torch, np, card):
+    """Full-width char-RNN training at the LSTMCharModellingExample shape:
+    one segment's step under ``auto`` against ``exact`` with dropout off on
+    the same params (loss, and gradients by the fp64 step gate); the main
+    path, CHAR_FITS ``fit`` calls with dropout 0.2 (2000 K4 launches each,
+    every one held against its plain version on its own tensors), whose
+    loss must fall; one checked bf16 ``fit`` call; train characters/sec
+    fp32 and bf16; one profiled segment."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    corpus = char_corpus(np)
+    rng = np.random.default_rng(12345)
+    batches = [char_batch(torch, np, corpus, rng) for _ in range(CHAR_FITS)]
+    per_fit = 2 * CHAR_SEQ  # two LSTM layers, one launch per step each
+
+    # (a) one segment, auto against exact, dropout off, the same params
+    net0 = char_net(dropout=0.0)
+    xs, ys = batches[0][0][:, :CHAR_TBPTT], batches[0][1][:, :CHAR_TBPTT]
+    ones = torch.ones(CHAR_BATCH, device="cuda")
+    kern.reset_counts()
+    l_auto, g_auto, _, _ = net0._gradients(None, xs, ys, ones)
+    torch.cuda.synchronize()
+    step_launches = lstm_only(dict(kern.LAUNCHES), "the auto step")
+    if step_launches != 2 * CHAR_TBPTT or any(kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"auto step: {step_launches} K4 launches "
+                             f"(expected {2 * CHAR_TBPTT}), plain on CUDA "
+                             f"{kern.PLAIN_ON_CUDA}")
+    with kern.impl_scope("exact"):
+        l_exact, g_exact, _, _ = net0._gradients(None, xs, ys, ones)
+        # the same step on fp64 activations (params cast per use)
+        l_64, g_64, _, _ = net0._gradients(None, xs.double(), ys.double(),
+                                           ones.double())
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_auto, g_exact, g_64, top=None)
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"char-RNN auto step off exact: loss rel "
+                             f"{loss_rel}, gradients past the gate: "
+                             f"{failures[:4]}")
+    emit("char_rnn_parity", model="TextGenerationLSTM", batch=CHAR_BATCH,
+         steps=CHAR_TBPTT, loss_auto=float(l_auto),
+         loss_exact=float(l_exact), loss_fp64=float(l_64),
+         loss_rel_err=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+         worst_grad=worst_name, worst_grad_rel_l2=worst,
+         max_gate_use=max(r["gate_use"] for r in rows),
+         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
+         launches_per_step=step_launches, card=card)
+    del net0, g_auto, g_exact, g_64
+
+    # (b) the main path: CHAR_FITS fit calls, every K4 launch checked
+    net = char_net()
+    seg_losses = []
+    inner = net._gradients
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seg_losses.append(out[0])
+        return out
+
+    net._gradients = recording
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with check_every_launch(torch, checked):
+            for x, y in batches:
+                net.fit(x, y)
+        torch.cuda.synchronize()
+    finally:
+        del net._gradients
+    checked_s = time.perf_counter() - t0
+    launches = lstm_only(dict(kern.LAUNCHES), "the char-RNN fit calls")
+    plain = dict(kern.PLAIN_ON_CUDA)
+    if launches != CHAR_FITS * per_fit or any(plain.values()):
+        raise AssertionError(f"{CHAR_FITS} fit calls launched K4 {launches} "
+                             f"times (expected {CHAR_FITS * per_fit}), plain "
+                             f"on CUDA {plain}")
+    if checked[("lstm_cell_fwd", "fp32")]["calls"] != launches:
+        raise AssertionError(f"{launches} launches, "
+                             f"{_checked_summary(checked)} checked")
+    losses = [float(v) for v in seg_losses]
+    segments = CHAR_FITS * CHAR_SEQ // CHAR_TBPTT
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if (len(losses) != segments or net.iteration != segments
+            or not all(math.isfinite(v) for v in losses) or last5 >= first5):
+        raise AssertionError(f"char-RNN losses over {len(losses)} segments "
+                             f"did not fall: {losses}")
+    emit("char_rnn_train", model="TextGenerationLSTM",
+         characters=len(CHAR_SET), units=CHAR_UNITS, dropout=0.2,
+         params=net.num_params(), updater=net.conf.updater,
+         batch=CHAR_BATCH, seq=CHAR_SEQ, tbptt=CHAR_TBPTT,
+         corpus_chars=int(len(corpus)), fit_calls=CHAR_FITS,
+         segments=len(losses), loss_first5=first5, loss_last5=last5,
+         segment_losses=losses, launches=launches,
+         launches_per_fit_call=launches // CHAR_FITS, plain_on_cuda=plain,
+         launches_checked=_checked_summary(checked),
+         checked_wall_s=checked_s, card=card)
+
+    # (c) one checked bf16 fit call
+    net16 = char_net(dtype="bfloat16")
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        net16.fit(*batches[0])
+    torch.cuda.synchronize()
+    got16 = checked.get(("lstm_cell_fwd", "bf16"), {}).get("calls")
+    if got16 != per_fit or not math.isfinite(net16.get_score()):
+        raise AssertionError(f"bf16 fit call checked {got16} launches "
+                             f"(expected {per_fit}), loss "
+                             f"{net16.get_score()}")
+    emit("char_rnn_bf16_fit", model="TextGenerationLSTM", batch=CHAR_BATCH,
+         seq=CHAR_SEQ, loss=net16.get_score(),
+         launches_checked={"lstm_cell_fwd_bf16": checked[
+             ("lstm_cell_fwd", "bf16")]}, card=card)
+
+    # (d) train characters/sec and one profiled segment
+    x, y = batches[0]
+    emit("char_rnn_throughput", model="TextGenerationLSTM", batch=CHAR_BATCH,
+         seq=CHAR_SEQ, tbptt=CHAR_TBPTT, path="net.fit",
+         train_chars_per_sec_fp32=chars_per_sec(torch, net, x, y),
+         train_chars_per_sec_bf16=chars_per_sec(torch, net16, x, y),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    emit("char_rnn_profile", model="TextGenerationLSTM", dtype="fp32",
+         batch=CHAR_BATCH, card=card,
+         **profile_char_segment(torch, net, x, y))
+    kern.reset_counts()
+    return net, launches, checked
+
+
+def sample_chars(torch, np, net, rng):
+    """dl4j-examples' sampleCharactersFromNetwork: prime every sample with
+    SAMPLE_PRIME through ``rnn_time_step``, then SAMPLE_LEN times draw each
+    sample's next character from the last step's distribution (numpy
+    ``rng``) and feed it back. Returns the SAMPLES strings."""
+    lut = {ch: i for i, ch in enumerate(CHAR_SET)}
+    eye = torch.eye(len(CHAR_SET), device="cuda")
+    prime = torch.tensor([lut[ch] for ch in SAMPLE_PRIME], device="cuda")
+    net.rnn_clear_previous_state()
+    out = net.rnn_time_step(eye[prime][None].expand(SAMPLES, -1, -1))
+    probs = out[:, -1]
+    texts = [[] for _ in range(SAMPLES)]
+    for _ in range(SAMPLE_LEN):
+        p = probs.double().cpu().numpy()
+        if not np.isfinite(p).all() or np.abs(p.sum(1) - 1).max() > 1e-4:
+            raise AssertionError(f"sampling distribution off: {p.sum(1)}")
+        nxt = [int(rng.choice(len(CHAR_SET), p=row / row.sum()))
+               for row in p]
+        for t, i in zip(texts, nxt):
+            t.append(CHAR_SET[i])
+        probs = net.rnn_time_step(eye[torch.tensor(nxt, device="cuda")])
+    return [SAMPLE_PRIME + "".join(t) for t in texts]
+
+
+def char_rnn_sample_phase(torch, np, card, net):
+    """Sampling from the trained char-RNN: SAMPLES x SAMPLE_LEN characters
+    with ``rnn_time_step`` (2 K4 launches per character step at batch 4,
+    every one checked), then the same unchecked for characters/sec."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    want = 2 * (len(SAMPLE_PRIME) + SAMPLE_LEN)
+    checked = {}
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        texts = sample_chars(torch, np, net, np.random.default_rng(12345))
+    torch.cuda.synchronize()
+    launches = lstm_only(dict(kern.LAUNCHES), "sampling")
+    if launches != want or checked[("lstm_cell_fwd", "fp32")]["calls"] \
+            != want or any(kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"sampling launched K4 {launches} times "
+                             f"(expected {want}), checked "
+                             f"{_checked_summary(checked)}")
+    t0 = time.perf_counter()
+    again = sample_chars(torch, np, net, np.random.default_rng(12345))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if again != texts:
+        raise AssertionError("sampling with one seed gave two texts")
+    emit("char_rnn_sample", samples=SAMPLES, chars_per_sample=SAMPLE_LEN,
+         prime=SAMPLE_PRIME, launches=launches,
+         launches_per_char_step=launches / (len(SAMPLE_PRIME) + SAMPLE_LEN),
+         launches_checked=_checked_summary(checked),
+         sample_wall_s=wall, chars_per_sec=SAMPLES * SAMPLE_LEN / wall,
+         excerpt=texts[0][:60], card=card)
+    kern.reset_counts()
+    return launches, checked
+
+
+def lstm_entry(records, launches, train_checked, sample_launches,
+               sample_checked, card):
+    """K4's line of the kernels table: times of one launch at the training
+    geometry (B 32, H 256, IFOG; the sampling geometry's beside it), errors
+    over every lstm_kernel case, launches of the char-RNN's fit calls and of
+    sampling."""
+    def rec(b, order="ifog"):
+        return next(r for r in records if r["b"] == b and r["order"] == order)
+
+    train, sample = rec(CHAR_BATCH), rec(SAMPLES)
+
+    def worst(tag, field):
+        return max(r[tag][field] for r in records)
+
+    entry = {
+        "name": "lstm_cell_fwd", "route": "cuda", "source": LSTM_SOURCE,
+        "replaces": LSTM_REPLACES, "replaces_ids": ["K4"],
+        "launches": launches, "launches_per_fit_call": launches // CHAR_FITS,
+        "launches_sample": sample_launches,
+        "max_abs_err": worst("fp32", "max_abs_err"),
+        "max_err_normalised_fp32": worst("fp32", "max_err_normalised"),
+        "max_err_normalised_bf16": worst("bf16", "max_err_normalised")}
+    for suffix, r in (("", train["fp32"]), ("_bf16", train["bf16"]),
+                      ("_b4", sample["fp32"]), ("_b4_bf16", sample["bf16"])):
+        for field in ("ms", "ms_one_launch", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms", "cudnn_lstm_ms_per_step"):
+            entry[field + suffix] = r.get(field)
+    entry.update({
+        "train_checked": {f"{k}_{t}": v for (k, t), v in train_checked.items()
+                          if k == "lstm_cell_fwd"},
+        "sample_checked_fp32": sample_checked[("lstm_cell_fwd", "fp32")],
+        "per": f"one launch at B {CHAR_BATCH}, H {CHAR_UNITS}, IFOG, fp32 "
+               "unless suffixed (_bf16; _b4: the sampling geometry, B 4); "
+               "ms: 50 launches in one CUDA graph, per launch; "
+               "ms_one_launch: a graph of one launch; library_ms: "
+               "torch.addmm + torch._thnn_fused_lstm_cell on the same "
+               "tensors (a yardstick the port never calls); "
+               "cudnn_lstm_ms_per_step: nn.LSTM over a 50-step segment "
+               "(input projection included) over 50; launches from the "
+               f"char_rnn_train phase's {CHAR_FITS} fit calls and "
+               "launches_sample from char_rnn_sample; *_checked: every "
+               "launch of those paths against the plain version",
+        "card": card})
+    return entry
+
+
 def flash_entry(records, launches, serve_checked, masked_launches,
                 masked_checked, card):
     """K5's line of the kernels table: times of one launch at the main
@@ -1429,6 +1933,7 @@ def flash_entry(records, launches, serve_checked, masked_launches,
         "bound_ms_bf16": main["bf16"]["bound_ms"],
         "bound_by_bf16": main["bf16"]["bound_by"],
         "library_ms_bf16": main["bf16"]["library_ms"],
+        "refuses_inputs_that_require_grad": True,
         "serve_checked_fp32": serve_checked[(flash, "fp32")],
         "masked_forward_checked_fp32": masked_checked[(flash, "fp32")],
         "per": "one launch at batch 8, S=512, 12 heads of 64, no mask, fp32 "
@@ -1497,6 +2002,13 @@ def main() -> int:
                                               torch, np, smi)
     masked_launches, masked_checked = timed(
         "bert_forward", bert_forward_phase, torch, np, smi, bert)
+    del bert
+    lstm_records = timed("lstm_kernel", lstm_kernel_phase, torch, np)
+    char_net_trained, char_launches, char_checked = timed(
+        "char_rnn_train", char_rnn_train_phase, torch, np, smi)
+    sample_launches, sample_checked = timed(
+        "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
+        char_net_trained)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
 
     def checked_fields(name, checked):
@@ -1578,6 +2090,8 @@ def main() -> int:
         grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
         flash_entry(att_records, bert_launches, bert_checked,
                     masked_launches, masked_checked, smi),
+        lstm_entry(lstm_records, char_launches, char_checked,
+                   sample_launches, sample_checked, smi),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

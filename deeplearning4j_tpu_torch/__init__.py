@@ -21,9 +21,12 @@ ComputationGraph inference, bucketing, the batching scheduler, router and
 HTTP server) on the conv forward kernel, and ResNet-50 training
 (``ComputationGraph.fit``: training batchnorm, softmax cross-entropy, the
 updaters and schedules, the conv backward on the dgrad and wgrad kernels),
-and BERT-base classify serving (the attention ops on the flash-attention
+BERT-base classify serving (the attention ops on the flash-attention
 forward kernel, the transformer layers, MultiLayerNetwork inference and
-its conf JSON, ``zoo.Bert``). See ROADMAP.md for what is next.
+its conf JSON, ``zoo.Bert``), and the char-RNN (``zoo.TextGenerationLSTM``:
+the LSTM layer on the fused LSTM cell kernel, ``RnnOutputLayer``, dropout,
+``MultiLayerNetwork.fit`` with truncated BPTT and ``rnn_time_step``). See
+ROADMAP.md for what is next.
 """
 
 __version__ = "0.1.0"

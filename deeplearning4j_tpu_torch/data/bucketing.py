@@ -5,9 +5,14 @@ vector keeps out of the loss (training).
 
 In the reference a bucket bounds the number of compiled XLA programs. Here
 it bounds the set of shapes a model is warmed, served and trained at.
-Padding works on numpy arrays and on tensors alike. Time-axis (``seq_buckets``)
-padding and TBPTT segments come with the recurrent slice: a 3-D batch under
-``seq_buckets`` raises there.
+Padding works on numpy arrays and on tensors alike. A MultiLayerNetwork
+batch pads on both axes (:meth:`BucketingPolicy.pad_batch`: the time axis
+to its ``seq_buckets`` bucket with zero mask entries over the padding), and
+each TBPTT segment onto one (B, seg_len) shape
+(:meth:`BucketingPolicy.pad_segment`). Time-axis padding of a
+ComputationGraph batch needs graph masks, which are not ported yet
+(ROADMAP.md Queue 1 item 14): a 3-D graph batch under ``seq_buckets``
+raises.
 """
 
 from __future__ import annotations
@@ -106,6 +111,9 @@ class BucketingPolicy:
     def bucket_batch(self, n: int) -> int:
         return self._round(int(n), self.batch_buckets)
 
+    def bucket_seq(self, t: int) -> int:
+        return self._round(int(t), self.seq_buckets)
+
     def largest_batch_bucket(self) -> Optional[int]:
         """Largest explicit batch bucket, or None (pow2 / unbucketed)."""
         if isinstance(self.batch_buckets, tuple):
@@ -143,6 +151,72 @@ class BucketingPolicy:
         widths[axis] = (0, target - a.shape[axis])
         return np.pad(a, widths)
 
+    @staticmethod
+    def _ones(like, shape):
+        """float32 ones of ``shape``, a tensor on ``like``'s device when
+        ``like`` is a tensor, else a numpy array."""
+        if isinstance(like, torch.Tensor):
+            return torch.ones(shape, dtype=torch.float32, device=like.device)
+        return np.ones(shape, np.float32)
+
+    def pad_batch(self, x, y, mask=None, label_mask=None):
+        """Pad one MultiLayerNetwork training batch to its buckets (reference
+        ``:224``); returns ``(x, y, mask, label_mask)``. The caller keeps
+        the padding rows out of the loss with :func:`dev_weights` over the
+        real row count. Under ``seq_buckets`` a 3-D batch gets (B, T) masks
+        (ones where it had none) and its time axis padded with zero mask
+        entries; 2-D (per-sequence) labels keep their shape. numpy arrays
+        stay numpy, tensors stay tensors on their device."""
+        n = x.shape[0]
+        if self.seq_buckets is not None and x.ndim == 3:
+            t = x.shape[1]
+            tp = self.bucket_seq(t)
+            if mask is None:
+                mask = self._ones(x, (n, t))
+            if label_mask is None and y.ndim == 3:
+                label_mask = self._ones(x, (n, t))
+            if tp != t:
+                x = self._pad_axis(x, 1, tp)
+                mask = self._pad_axis(mask, 1, tp)
+                if y.ndim == 3:
+                    y = self._pad_axis(y, 1, tp)
+                if label_mask is not None:
+                    label_mask = self._pad_axis(label_mask, 1, tp)
+        np_ = self.bucket_batch(n)
+        if np_ != n:
+            x, y = self._pad_axis(x, 0, np_), self._pad_axis(y, 0, np_)
+            if mask is not None:
+                mask = self._pad_axis(mask, 0, np_)
+            if label_mask is not None:
+                label_mask = self._pad_axis(label_mask, 0, np_)
+        return x, y, mask, label_mask
+
+    def pad_segment(self, arrays, mask, label_mask, seg_len: int):
+        """Put one TBPTT segment onto the (B, seg_len) shape (reference
+        ``:319``): a tail shorter than ``seg_len`` pads with zero features,
+        labels and mask entries, and every segment gets masks (ones where
+        the batch had none), so the tail and full segments share one shape.
+        ``arrays`` is the (x, y) tuple; returns ((x, y), mask,
+        label_mask)."""
+        def pad_t(a):
+            if a is None or a.ndim != 3 or a.shape[1] >= seg_len:
+                return a
+            return self._pad_axis(a, 1, seg_len)
+
+        ref = next((a for a in arrays if a.ndim == 3), arrays[0])
+        n, t = ref.shape[0], min(ref.shape[1], seg_len)
+        if mask is None:
+            mask = self._ones(ref, (n, t))
+        if label_mask is None:
+            label_mask = self._ones(ref, (n, t))
+
+        def pad_m(m):
+            return self._pad_axis(m, 1, seg_len) if m.shape[1] < seg_len \
+                else m
+
+        return (tuple(pad_t(a) for a in arrays), pad_m(mask),
+                pad_m(label_mask))
+
     def pad_graph_batch(self, features: Sequence, labels: Sequence):
         """Pad one ComputationGraph training batch (lists of (B, ...) arrays
         or tensors) to its batch bucket with zero rows; returns (features,
@@ -152,8 +226,9 @@ class BucketingPolicy:
         if self.seq_buckets is not None and any(
                 a.ndim == 3 for a in feats + labs):
             raise NotImplementedError(
-                "seq_buckets padding is not ported yet: it comes with the "
-                "recurrent slice (ROADMAP Queue 1 item 6)")
+                "seq_buckets padding of a ComputationGraph batch needs graph "
+                "masks, which are not ported yet (ROADMAP.md Queue 1 item "
+                "14); MultiLayerNetwork.fit pads the time axis")
         np_ = self.bucket_batch(feats[0].shape[0])
         return ([self._pad_axis(f, 0, np_) for f in feats],
                 [self._pad_axis(y, 0, np_) for y in labs])

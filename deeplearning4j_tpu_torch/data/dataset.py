@@ -1,8 +1,9 @@
 """DataSet — (features, labels) pair with optional masks (counterpart of
 deeplearning4j_tpu/data/dataset.py; org/nd4j/linalg/dataset/DataSet.java and
-MultiDataSet). Numpy arrays, or tensors; ``ComputationGraph.fit`` takes one,
-a list of them, or any iterable of them. Masks are kept as data: the
-masked (sequence) training path comes with the recurrent slice.
+MultiDataSet). Numpy arrays, or tensors; ``fit`` takes one, a list of them,
+or any iterable of them. ``MultiLayerNetwork.fit`` applies the (B, T)
+feature and label masks; ``ComputationGraph.fit`` refuses masks until
+graph masks are ported (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations

@@ -12,10 +12,12 @@ into the port's graph as they are: the layouts are the same, so nothing is
 transposed. :func:`to_numpy` hands the port's trees back in that form, so
 a trajectory compares leaf by leaf and can continue in either package.
 
-A ``MultiLayerNetwork``'s params and states are lists with one dict per
-layer (``{}`` for a layer without params), keyed as the reference keys them
-(``nn/transformer.py:57-63`` and ``:140-149`` for BERT); they copy across
-with :func:`load_reference_mln`.
+A ``MultiLayerNetwork``'s params, states and optimizer states are lists
+with one entry per layer (``{}`` for a layer without params), keyed as the
+reference keys them (``W``/``U``/``b`` for an LSTM; ``nn/transformer.py:57-63``
+and ``:140-149`` for BERT); they copy across with
+:func:`load_reference_mln`, with the iteration and epoch, so a test can
+start both packages from the same point.
 """
 
 from __future__ import annotations
@@ -102,11 +104,13 @@ def load_reference(net: ComputationGraph, params: dict, states: dict,
     return net
 
 
-def load_reference_mln(net: MultiLayerNetwork, params, states
-                       ) -> MultiLayerNetwork:
+def load_reference_mln(net: MultiLayerNetwork, params, states,
+                       opt_states=None, iteration: int = None,
+                       epoch: int = None) -> MultiLayerNetwork:
     """Copy the reference MultiLayerNetwork's params/states (lists of
     per-layer dicts of numpy arrays) into an initialized port network, in
-    place."""
+    place; with ``opt_states`` (the reference's per-layer optimizer states
+    as numpy), ``iteration`` and ``epoch`` also its training state."""
     if net.device is None:
         raise ValueError("init() the port network before load_reference_mln()")
     for name, dst, src in (("params", net.params, params),
@@ -116,6 +120,17 @@ def load_reference_mln(net: MultiLayerNetwork, params, states
         # the per-layer dicts are updated in place
         _copy_tree(name, {str(i): d for i, d in enumerate(dst)},
                    {str(i): d for i, d in enumerate(src)}, net.device)
+    if opt_states is not None:
+        if len(opt_states) != len(net.opt_states):
+            raise ValueError(f"opt_states: {len(opt_states)} layers != "
+                             f"{len(net.opt_states)}")
+        net.opt_states = [
+            _copy_opt_tree(f"opt_states[{i}]", tree, src, net.device)
+            for i, (tree, src) in enumerate(zip(net.opt_states, opt_states))]
+    if iteration is not None:
+        net.iteration = int(iteration)
+    if epoch is not None:
+        net.epoch = int(epoch)
     net._cast_cache = {}
     return net
 

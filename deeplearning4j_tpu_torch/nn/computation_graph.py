@@ -24,10 +24,14 @@ kernels), and each node's updater (its own, else the conf's, else
 Sgd(0.1)), applied in place. ``iteration``, ``epoch`` and ``score_value``
 follow the reference; ``score`` is the inference-mode loss.
 
+Dropout applies in training, drawn from the graph's ``torch.Generator``
+(seeded from ``conf.seed`` on its device at ``init``), as the layers'
+``dropout`` says (``nn/layers.py``).
+
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
-loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), dropout in
-training (item 4), masks, TBPTT and ``rnn_time_step`` (the recurrent slice,
-item 6), SharedLayer and ``evaluate`` (items 3-4), telemetry, listeners and
+loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), masks,
+TBPTT and ``rnn_time_step`` in the graph (item 14; the MultiLayerNetwork
+has them), SharedLayer and ``evaluate`` (items 3-4), telemetry, listeners and
 AOT warmup (item 12), remat segments (item 12: ``remat_policy`` and
 ``stage_barriers`` are kept as config and leave the step's arithmetic as
 it is, as they do in the reference), pipelining (item 10).
@@ -258,20 +262,16 @@ class ComputationGraph:
         self.epoch = 0
         self.score_value: Any = float("nan")
         self.device: Optional[torch.device] = None
+        self._gen: Optional[torch.Generator] = None  # dropout, set by init
         self._cast_cache: Dict[Tuple[str, str], tuple] = {}
         self._w_cache: dict = {}
         # per-node updater (:373-378): the node's own, else the conf's,
         # else Sgd(0.1); nodes with equal updaters step together
-        self._updaters: Dict[str, upd.Updater] = {}
-        groups: Dict[str, Tuple[upd.Updater, List[str]]] = {}
-        for n in self.topo:
-            if n.is_layer:
-                u = upd.updater_from_dict(
-                    n.node.updater or conf.updater or DEFAULT_UPDATER)
-                self._updaters[n.name] = u
-                key = json.dumps(u.to_dict(), sort_keys=True)
-                groups.setdefault(key, (u, []))[1].append(n.name)
-        self._update_groups = list(groups.values())
+        self._updaters: Dict[str, upd.Updater] = {
+            n.name: upd.updater_from_dict(
+                n.node.updater or conf.updater or DEFAULT_UPDATER)
+            for n in self.topo if n.is_layer}
+        self._update_groups = upd.group_by_rule(self._updaters)
         names = {n.name for n in self.topo}
         consumed = {i for n in self.topo for i in n.inputs}
         for name in conf.outputs:
@@ -311,6 +311,8 @@ class ComputationGraph:
                 shape_of[n.name] = tuple(n.node.output_shape(*in_shapes))
         self.opt_states = {name: u.init_state(self.params[name])
                            for name, u in self._updaters.items()}
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(self.conf.seed))
         return self
 
     def _place(self, tree: dict) -> dict:
@@ -431,10 +433,6 @@ class ComputationGraph:
                 "fused_update / loss_scale are not ported yet: the fused "
                 "optimizer (FusedUpdateEngine) and loss scaling come with the "
                 "parallel-training slice (ROADMAP Queue 1 item 10)")
-        for n in self.topo:
-            if n.is_layer and n.node.dropout > 0.0:
-                raise NotImplementedError(f"layer {n.name!r}: "
-                                          f"{L.DROPOUT_SLICE}")
 
     def _loss(self, inputs, labels, weights, *, training=True):
         """Sum of the output layers' losses (+ the l1/l2 penalty in
@@ -450,6 +448,7 @@ class ComputationGraph:
             cparams = self._cast_params(params)
         new_states = dict(states)
         out_names = set(self.conf.outputs)
+        gen = self._gen if training else None
         loss = 0.0
         for n in self.topo:
             if not n.is_layer:
@@ -462,13 +461,14 @@ class ComputationGraph:
                         f"output {n.name!r} must be an OutputLayer/LossLayer")
                 out_loss = n.node.compute_loss(
                     cparams[n.name], states[n.name], x, labels[n.name],
-                    training=training, weights=weights)
+                    training=training, gen=gen, weights=weights)
                 loss = loss + out_loss.to(
                     torch.promote_types(out_loss.dtype, torch.float32))
                 acts[n.name] = x  # terminal; activation unused downstream
             else:
                 acts[n.name], new_states[n.name] = n.node.apply(
-                    cparams[n.name], states[n.name], x, training=training)
+                    cparams[n.name], states[n.name], x, training=training,
+                    gen=gen)
         if training:
             for n in self.topo:
                 if n.is_layer:
@@ -547,8 +547,9 @@ class ComputationGraph:
                          getattr(ds, "labels_masks", None))
                 if any(m is not None for m in masks):
                     raise NotImplementedError(
-                        "masked training is not ported yet: it comes with "
-                        "the recurrent slice (ROADMAP Queue 1 item 6)")
+                        "masked training and TBPTT in ComputationGraph are "
+                        "not ported yet (ROADMAP.md Queue 1 item 14); "
+                        "MultiLayerNetwork.fit takes masks")
                 self._fit_batch(ds.features, ds.labels)
             self._end_epoch()
         return self
@@ -563,13 +564,8 @@ class ComputationGraph:
         self._check_trainable()
         loss, grads, new_states = self._gradients(
             *self._batch(features, labels))
-        for updater, names in self._update_groups:
-            names = [n for n in names if grads.get(n)]
-            new = upd.apply_updates(
-                updater, [self.params[n] for n in names],
-                [grads[n] for n in names],
-                [self.opt_states[n] for n in names], self.iteration)
-            self.opt_states.update(zip(names, new))
+        upd.step_groups(self._update_groups, self.params, grads,
+                        self.opt_states, self.iteration)
         self.states = new_states
         self.score_value = loss
         self.iteration += 1

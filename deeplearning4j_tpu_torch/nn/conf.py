@@ -5,17 +5,20 @@ deeplearning4j_tpu/nn/conf.py): ``InputType``, the
 :class:`ListBuilder` -> :class:`MultiLayerConfiguration`) is built with,
 and the JSON helpers both packages share the format of.
 
-The builder carries what ResNet-50 and BERT set: seed, updater (kept as
-config), compute dtype, kernel dispatch and the remat knobs; the
-reference's other global settings (l1/l2, weight_init and activation
-stamping onto the layers, buckets) come with the slices that use them.
+The builder carries what ResNet-50, BERT and the char-RNN set: seed,
+updater, compute dtype, kernel dispatch, the TBPTT segment length and the
+remat knobs; the reference's other global settings (l1/l2, weight_init and
+activation stamping onto the layers, buckets) come with the slices that
+use them.
 ``compute_dtype="bfloat16"`` keeps params fp32 and runs activations and
 convolutions in bf16.
 
 JSON: the port reads the JSON the JAX package writes and writes JSON the
-JAX package reads. Keys the port does not act on yet (:data:`INERT_KNOBS`:
-remat policy, TBPTT, loss scaling, gradient compression, pipelining, ...)
-are kept as read and written back, with the reference's defaults. The
+JAX package reads. The knobs of :data:`INERT_KNOBS` are kept as read and
+written back, with the reference's defaults; of them the port acts on
+``tbptt_length`` (``MultiLayerNetwork.fit``) and leaves the rest (remat
+policy, loss scaling, gradient compression, pipelining, ...) for later
+slices. The
 updater is kept as the reference's updater dict. ``kernel_impl`` is the one
 key whose vocabulary differs: the reference's forced-kernel mode
 ``"pallas"`` is the port's ``"cuda"``, translated both ways.
@@ -30,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 
-#: conf keys kept verbatim for later slices, with the reference's defaults
+#: conf keys kept verbatim, with the reference's defaults
 #: (deeplearning4j_tpu/nn/computation_graph.py:59-100), in its JSON order
 INERT_KNOBS = {
     "tbptt_length": 0,
@@ -146,6 +149,13 @@ class Builder:
         self._kernel_impl = _kern.validate_impl(impl)
         return self
 
+    def tbptt_length(self, k: int) -> "Builder":
+        """Truncated BPTT (reference ``nn/conf.py:310``): ``fit`` splits the
+        time axis into length-k segments, the recurrent state carried
+        forward and the gradients stopped at segment boundaries."""
+        self._knobs["tbptt_length"] = int(k)
+        return self
+
     def remat_policy(self, name: Optional[str]) -> "Builder":
         """Kept as config (the training slice acts on it)."""
         self._knobs["remat_policy"] = name
@@ -185,6 +195,15 @@ class MultiLayerConfiguration:
     remat_stages: Optional[Tuple[int, ...]] = None
     knobs: Dict[str, Any] = dataclasses.field(
         default_factory=lambda: dict(INERT_KNOBS))
+
+    @property
+    def tbptt_length(self) -> int:
+        """The TBPTT segment length; 0 = whole-sequence BPTT."""
+        return int(self.knobs.get("tbptt_length") or 0)
+
+    @tbptt_length.setter
+    def tbptt_length(self, k: int) -> None:
+        self.knobs["tbptt_length"] = int(k)
 
     def to_json(self) -> str:
         """The reference's JSON (``nn/conf.py:102``), key for key."""

@@ -14,9 +14,13 @@ Conventions: shapes exclude the batch dimension; CNN data is NHWC, so
 ``training=True`` gives batchnorm its batch statistics and EMA update
 (``ops.nn.batchnorm_train``); ``OutputLayer.compute_loss`` is the loss
 head of ``fit`` and ``score``; ``regularization`` is the l1/l2 penalty on
-weights. Dropout is not ported: a layer with ``dropout > 0`` makes ``fit``
-raise (:data:`DROPOUT_SLICE`), and the inference forward and
-``output(train=True)`` apply none, as in the reference.
+weights. ``dropout`` is the input dropout rate (``Layer._maybe_dropout``,
+``ops/random.py``), applied where the reference applies it (the dense and
+conv layers' ``apply``, the output layers' ``compute_loss``, the recurrent
+layers) in training only, drawing from the network's ``gen``: the
+``torch.Generator`` in place of the reference's ``key``. The inference
+forward and ``output(train=True)`` pass none and apply no dropout, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -30,13 +34,9 @@ from deeplearning4j_tpu_torch.nn import activations as act
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.ops import nn as nnops
+from deeplearning4j_tpu_torch.ops import random as randops
 
 _LAYER_TYPES: Dict[str, type] = {}
-
-#: why ``fit`` refuses a layer with dropout
-DROPOUT_SLICE = ("dropout in training is not ported yet: it comes with the "
-                 "conv-zoo slice (ROADMAP Queue 1 item 4, the Dropout layer "
-                 "and a counter-based RNG)")
 
 
 def register_layer(cls):
@@ -70,11 +70,18 @@ class Layer:
         """-> (params, state) as CPU tensors."""
         return {}, {}
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         raise NotImplementedError
 
     def output_shape(self, input_shape):
         return tuple(input_shape)
+
+    def _maybe_dropout(self, x, training, gen):
+        """Input dropout at ``self.dropout`` in training, when the network
+        passed its generator (reference ``nn/layers.py:121``)."""
+        if training and self.dropout > 0.0 and gen is not None:
+            return randops.dropout(x, gen, self.dropout, training=True)
+        return x
 
     def regularization(self, params):
         """L1/L2 penalty on weight params (DL4J applies it to W, not biases
@@ -130,7 +137,8 @@ class DenseLayer(Layer):
                             device=x.device)
         return nnops.xw_plus_b(x, params["W"], b)
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
+        x = self._maybe_dropout(x, training, gen)
         return act.resolve(self.activation)(self._dense(params, x)), state
 
     def output_shape(self, input_shape):
@@ -162,7 +170,8 @@ class ConvolutionLayer(Layer):
             params["b"] = torch.zeros((self.n_out,))
         return params, {}
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
+        x = self._maybe_dropout(x, training, gen)
         y = nnops.conv2d(x, params["W"], params.get("b"),
                          strides=self.stride, padding=self.padding,
                          dilation=self.dilation)
@@ -198,7 +207,7 @@ class SubsamplingLayer(Layer):
     pooling_type: str = "max"
     pnorm: int = 2
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         strides = self.stride or self.kernel_size
         pt = self.pooling_type.lower()
         if pt == "max":
@@ -245,7 +254,7 @@ class BatchNormalization(Layer):
         state = {"mean": torch.zeros((c,)), "var": torch.ones((c,))}
         return params, state
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         gamma, beta = params.get("gamma"), params.get("beta")
         if training:
             y, new_mean, new_var = nnops.batchnorm_train(
@@ -265,7 +274,7 @@ class ActivationLayer(Layer):
     activation: str = "relu"
     activation_args: Optional[dict] = None
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         fn = act.resolve(self.activation)
         if self.activation_args:
             return fn(x, **self.activation_args), state
@@ -282,7 +291,7 @@ class GlobalPoolingLayer(Layer):
     pooling_type: str = "avg"
     pnorm: int = 2
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         pt = self.pooling_type.lower()
         if pt not in ("avg", "max", "sum", "pnorm"):
             raise ValueError(f"unknown pooling_type {self.pooling_type!r}")
@@ -316,9 +325,10 @@ class OutputLayer(DenseLayer):
     activation: str = "softmax"
 
     def compute_loss(self, params, state, x, labels, *, training=True,
-                     weights=None):
+                     gen=None, weights=None):
         """Loss from the layer's INPUT x (pre-dense), a scalar: the fused
         logits path when the activation matches the loss's pair."""
+        x = self._maybe_dropout(x, training, gen)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         logits = self._dense(params, x)

@@ -13,9 +13,11 @@ Params are dicts keyed as the reference keys them (``word``/``pos``/
 (in, out) projection weights, so the reference's params copy across as
 they are.
 
-Inference only: dropout (the embedding's input ``dropout`` and the blocks'
-``hidden_dropout``) applies in training, which is not ported for these
-layers yet. Not ported yet: ``embed_step``/``embed_window``,
+Inference only for the encoder block: it has no backward yet (the flash
+backward, ROADMAP.md Queue 1 item 7), so ``MultiLayerNetwork.fit`` refuses
+a net with one, and its ``hidden_dropout`` is not applied. The embedding
+applies its ``dropout`` to its output in training, as the reference does.
+Not ported yet: ``embed_step``/``embed_window``,
 ``prefill``/``decode_step`` and the paged methods (the generate serving
 slice).
 """
@@ -81,7 +83,7 @@ class BertEmbeddingLayer(Layer):
             "beta": torch.zeros((hs,)),
         }, {}
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         if x.dim() == 3:
             tokens = x[..., 0].to(torch.int64)
             segments = x[..., 1].to(torch.int64)
@@ -91,7 +93,8 @@ class BertEmbeddingLayer(Layer):
         t = tokens.shape[1]
         h = (_take(params["word"], tokens) + params["pos"][None, :t]
              + _take(params["type"], segments))
-        return _layer_norm(h, params["gamma"], params["beta"]), state
+        h = _layer_norm(h, params["gamma"], params["beta"])
+        return self._maybe_dropout(h, training, gen), state
 
     def output_shape(self, input_shape):
         return (input_shape[0], self.hidden_size)
@@ -188,7 +191,8 @@ class TransformerEncoderBlock(Layer):
         return _layer_norm(h + self._ffn_block(params, h),
                            params["ln2_g"], params["ln2_b"])
 
-    def apply(self, params, state, x, *, training=False, mask=None):
+    def apply(self, params, state, x, *, training=False, gen=None,
+              mask=None):
         a = self._mha(params, self._attn_input(params, x), mask)
         out = self._finish(params, x, a)
         if mask is not None:
@@ -207,7 +211,7 @@ class TimeStepLayer(Layer):
 
     index: int = 0
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, gen=None):
         return x[:, self.index], state
 
     def output_shape(self, input_shape):

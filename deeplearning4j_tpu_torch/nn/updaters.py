@@ -24,8 +24,9 @@ raises in ``ComputationGraph`` naming the slice that brings it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -302,3 +303,30 @@ def apply_updater(updater: Updater, params: dict, grads: dict, state,
     Returns (params, new_state), the reference's signature."""
     return params, apply_updates(updater, [params], [grads], [state],
                                  iteration, epoch)[0]
+
+
+def group_by_rule(updaters: Dict[Any, Updater]
+                  ) -> List[Tuple[Updater, List[Any]]]:
+    """``(updater, [keys])`` for each distinct rule of ``updaters`` (key ->
+    Updater), in first-seen order: nodes or layers with equal updaters
+    step together in one multi-tensor call."""
+    groups: Dict[str, Tuple[Updater, List[Any]]] = {}
+    for key, u in updaters.items():
+        groups.setdefault(json.dumps(u.to_dict(), sort_keys=True),
+                          (u, []))[1].append(key)
+    return list(groups.values())
+
+
+def step_groups(groups, params, grads: dict, opt_states, iteration) -> None:
+    """One optimizer step over :func:`group_by_rule`'s groups. ``params``
+    and ``opt_states`` are indexed by the groups' keys (a dict by node
+    name, or a list by layer index); the params are updated in place and
+    each stepped key's state replaced in ``opt_states``. Keys without
+    gradients (``grads.get(key)`` empty) are left as they are."""
+    for updater, keys in groups:
+        keys = [k for k in keys if grads.get(k)]
+        new = apply_updates(updater, [params[k] for k in keys],
+                            [grads[k] for k in keys],
+                            [opt_states[k] for k in keys], iteration)
+        for k, state in zip(keys, new):
+            opt_states[k] = state

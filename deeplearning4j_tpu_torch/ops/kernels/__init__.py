@@ -40,9 +40,9 @@ _impl_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "dl4j_torch_kernel_impl", default=None)
 
 #: the kernels behind the seam: the conv forward (K1/K2), the input
-#: gradient (K1 launched on the transformed dy), the filter gradient (K3) and
-#: the flash-attention forward (K5)
-KERNELS = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
+#: gradient (K1 launched on the transformed dy), the filter gradient (K3),
+#: the fused LSTM cell (K4) and the flash-attention forward (K5)
+KERNELS = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad", "lstm_cell_fwd",
            "flash_attention_fwd")
 #: launches per kernel, bumped by each wrapper where it launches
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -108,4 +108,4 @@ def dispatch(kernel: str, supported: bool, x, describe) -> bool:
 
 
 from deeplearning4j_tpu_torch.ops.kernels import (  # noqa: E402,F401
-    attention, conv)
+    attention, conv, lstm)

@@ -41,6 +41,13 @@ _NEG_BIG = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's largest head dimension (a multiple of 8 up to this)
 MAX_HEAD_DIM = 128
+#: why the kernel refuses inputs that need a gradient: it writes O through a
+#: ctypes launch with no autograd Function, so O would carry no grad_fn and
+#: training would silently get no gradient through the attention
+FLASH_BACKWARD = (
+    "the flash-attention backward is not ported yet (ROADMAP.md Queue 1 item "
+    "7, the reference's _flash_bwd): the forward kernel takes no inputs that "
+    "require grad, and transformer layers cannot be trained yet")
 
 
 def supports(q, k, v, mask=None) -> bool:
@@ -132,12 +139,16 @@ def flash_attention_fwd(q, k, v, scale, causal, mask=None, block_k: int = 512):
     mask, > 0 = attend. o is returned as a (B, H, Sq, D) view of a
     (B, Sq, H, D) buffer, so merging the heads afterwards is free. Tensors
     on the CPU take :func:`flash_attention_fwd_reference` (``block_k``
-    sizes its key blocks; the kernel picks its own tiles)."""
+    sizes its key blocks; the kernel picks its own tiles). On the card it
+    raises :data:`FLASH_BACKWARD` when grad is enabled and q, k or v
+    requires grad."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, scale, causal, mask,
                                              block_k)
     _check_cuda(q, k, v, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(FLASH_BACKWARD)
     if not supports(q, k, v, mask):
         raise ValueError(f"flash_attention_fwd: unsupported "
                          f"{_describe(q, k, v, mask)}")

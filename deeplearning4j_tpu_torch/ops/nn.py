@@ -11,7 +11,7 @@ for a geometry the kernel does not take), and the plain tap-sum version on
 the CPU or under ``exact``; when autograd records it, its backward runs
 the dgrad and wgrad kernels the same way (``Conv2dFunction``). Pooling,
 batchnorm (inference and training), the dense product, the activations
-(relu, tanh, gelu), softmax and the losses are XLA ops in the reference,
+(relu, tanh, sigmoid, gelu), softmax and the losses are XLA ops in the reference,
 not Pallas kernels, so here they are
 plain PyTorch; training batchnorm keeps the reference's arithmetic and its
 hand-written VJP rather than ATen's.
@@ -262,6 +262,7 @@ def batchnorm_train(x, gamma, beta, running_mean, running_var, momentum=0.9,
 op("identity", "transform")(lambda x: x)
 op("relu", "transform")(torch.relu)
 op("tanh", "transform_float")(torch.tanh)
+op("sigmoid", "transform_float")(torch.sigmoid)
 # the reference's canonical gelu is the exact erf form
 # (deeplearning4j_tpu/ops/elementwise.py:54-58), not the tanh approximation
 op("gelu", "transform_float", aliases=("gelu_erf",))(

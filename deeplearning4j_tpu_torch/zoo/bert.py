@@ -6,16 +6,19 @@ stacked [token ids, segment ids], an optional (B, T) feature mask.
 
 ``task="classification"``: embeddings -> ``n_layers`` encoder blocks ->
 [CLS] (``TimeStepLayer(0)``) -> tanh pooler -> softmax over
-``num_classes``. ``task="mlm"`` needs ``RnnOutputLayer``, which comes with
-the recurrent slice, and raises until then.
+``num_classes``. ``task="mlm"``: embeddings -> blocks -> a per-token
+softmax over the vocabulary (``RnnOutputLayer``), for inference: a net
+with encoder blocks does not train yet (the flash backward, ROADMAP.md
+Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from deeplearning4j_tpu_torch.nn import InputType, MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn import InputType
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+from deeplearning4j_tpu_torch.nn.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.transformer import (BertEmbeddingLayer,
                                                      TimeStepLayer,
                                                      TransformerEncoderBlock)
@@ -75,12 +78,6 @@ class Bert(ZooModel):
         return cls(**kw)
 
     def conf(self):
-        if self.task == "mlm":
-            raise NotImplementedError(
-                "Bert(task='mlm') needs RnnOutputLayer, which is not ported "
-                "yet: it comes with the recurrent slice (ROADMAP.md Queue 1)")
-        if self.task != "classification":
-            raise ValueError(f"unknown task {self.task!r}")
         lb = self._builder().list()
         lb.layer(BertEmbeddingLayer(
             vocab_size=self.vocab_size, hidden_size=self.hidden_size,
@@ -92,15 +89,19 @@ class Bert(ZooModel):
                 hidden_size=self.hidden_size, n_heads=self.n_heads,
                 ffn_size=self.ffn_size, hidden_dropout=self.hidden_dropout,
                 flash=self.flash, causal=self.causal))
-        lb.layer(TimeStepLayer(index=0))  # [CLS]
-        lb.layer(DenseLayer(n_in=self.hidden_size, n_out=self.hidden_size,
-                            activation="tanh"))  # pooler
-        lb.layer(OutputLayer(n_in=self.hidden_size, n_out=self.num_classes,
-                             loss="mcxent", activation="softmax"))
+        if self.task == "classification":
+            lb.layer(TimeStepLayer(index=0))  # [CLS]
+            lb.layer(DenseLayer(n_in=self.hidden_size,
+                                n_out=self.hidden_size,
+                                activation="tanh"))  # pooler
+            lb.layer(OutputLayer(n_in=self.hidden_size,
+                                 n_out=self.num_classes, loss="mcxent",
+                                 activation="softmax"))
+        elif self.task == "mlm":
+            lb.layer(RnnOutputLayer(n_in=self.hidden_size,
+                                    n_out=self.vocab_size, loss="mcxent",
+                                    activation="softmax"))
+        else:
+            raise ValueError(f"unknown task {self.task!r}")
         lb.set_input_type(InputType.recurrent(2, self.max_length))
         return lb.build()
-
-    def init(self, device=None) -> MultiLayerNetwork:
-        """Build and initialize the network on ``device`` (CUDA unless
-        named otherwise)."""
-        return MultiLayerNetwork(self.conf()).init(device=device)

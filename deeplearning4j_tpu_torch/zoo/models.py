@@ -1,5 +1,6 @@
 """Zoo models (counterpart of deeplearning4j_tpu/zoo/models.py): ResNet-50
-on ComputationGraph, the same graph node for node, with NHWC layout.
+on ComputationGraph, the same graph node for node, with NHWC layout, and
+the char-RNN TextGenerationLSTM on MultiLayerNetwork.
 """
 
 from __future__ import annotations
@@ -8,12 +9,14 @@ import dataclasses
 from typing import Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn import (ComputationGraph, InputType,
+                                         MultiLayerNetwork,
                                          NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
                                                 ConvolutionLayer,
                                                 GlobalPoolingLayer,
                                                 OutputLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.recurrent import LSTM, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
 
 #: the reference zoo's default updater, Adam(1e-3), as its JSON dict
@@ -34,10 +37,14 @@ class ZooModel:
     def conf(self):
         raise NotImplementedError
 
-    def init(self, device=None) -> ComputationGraph:
+    def init(self, device=None):
         """Build and initialize the network on ``device`` (CUDA unless
-        named otherwise)."""
-        return ComputationGraph(self.conf()).init(device=device)
+        named otherwise): a ComputationGraph for a graph conf, a
+        MultiLayerNetwork for a layer stack (ZooModel.init parity)."""
+        conf = self.conf()
+        if hasattr(conf, "nodes"):
+            return ComputationGraph(conf).init(device=device)
+        return MultiLayerNetwork(conf).init(device=device)
 
     def _builder(self):
         return (NeuralNetConfiguration.builder()
@@ -117,3 +124,28 @@ class ResNet50(ZooModel):
         gb.set_outputs("output")
         gb.set_input_types(InputType.convolutional(h, w, c))
         return gb.build()
+
+
+@dataclasses.dataclass
+class TextGenerationLSTM(ZooModel):
+    """zoo/model/TextGenerationLSTM.java, the char-RNN (reference
+    ``zoo/models.py:451``): two stacked LSTMs and a per-timestep softmax
+    over the characters, dropout on the second LSTM's and the output
+    layer's inputs. Input (B, T, vocab) one-hot; output the per-step
+    distribution."""
+
+    total_unique_characters: int = 47
+    units: int = 256
+    dropout: float = 0.2
+    max_length: int = 40
+
+    def conf(self):
+        v = self.total_unique_characters
+        lb = self._builder().list()
+        lb.layer(LSTM(n_in=v, n_out=self.units))
+        lb.layer(LSTM(n_in=self.units, n_out=self.units,
+                      dropout=self.dropout))
+        lb.layer(RnnOutputLayer(n_in=self.units, n_out=v, loss="mcxent",
+                                activation="softmax", dropout=self.dropout))
+        lb.set_input_type(InputType.recurrent(v, self.max_length))
+        return lb.build()

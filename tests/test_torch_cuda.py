@@ -10,7 +10,10 @@ the port is installed:
 are the smoke's: the flash kernel's O within 1e-5 (fp32) or 2^-7 (bf16,
 P is rounded to bf16 before P @ V) of the largest plain output, its LSE
 within 1e-5 relative, a fully-masked row exactly O = 0 and LSE = -1e30;
-a whole network within 1e-4 relative of the same network on the CPU.
+the LSTM cell kernel's h' and c' within 1e-5 (fp32: the same fp32 sums in
+another order) or 2^-7 (bf16: both round the same fp32 values to bf16, a
+tie may fall the other way, two ulps of headroom) of the largest output; a
+whole network within 1e-4 relative of the same network on the CPU.
 """
 
 import numpy as np
@@ -21,7 +24,8 @@ torch = pytest.importorskip("torch")
 from deeplearning4j_tpu_torch.ops import attention as TA  # noqa: E402
 from deeplearning4j_tpu_torch.ops import kernels as TK  # noqa: E402
 from deeplearning4j_tpu_torch.ops.kernels import attention as KA  # noqa: E402
-from deeplearning4j_tpu_torch.zoo import Bert  # noqa: E402
+from deeplearning4j_tpu_torch.ops.kernels import lstm as KL  # noqa: E402
+from deeplearning4j_tpu_torch.zoo import Bert, TextGenerationLSTM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +90,76 @@ def test_bert_tiny_on_card_matches_cpu(card):
     assert TK.LAUNCHES["flash_attention_fwd"] == 2  # one per encoder block
     np.testing.assert_allclose(got, cpu.output(x, mask=mask).numpy(),
                                rtol=1e-4, atol=1e-6)
+
+
+def test_flash_kernel_refuses_inputs_that_need_grad(card):
+    """The kernel's output would carry no grad_fn: with grad enabled and an
+    input that requires grad it raises, naming the flash backward; with
+    grad off it runs."""
+    q = torch.randn((1, 2, 32, 16), device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="flash-attention backward"):
+        KA.flash_attention_fwd(q, q, q, 0.25, False)
+    with torch.no_grad():
+        KA.flash_attention_fwd(q, q, q, 0.25, False)
+    assert TK.LAUNCHES["flash_attention_fwd"] == 1
+
+
+@pytest.mark.parametrize("order", ["ifog", "iofg"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h", [(32, 256), (4, 256), (5, 37)])
+def test_lstm_cell_kernel_matches_plain(card, dtype, tol, order, b, h):
+    """K4 on a strided time slice of a (B, T, 4H) projection, against its
+    plain version on the same tensors."""
+    ordr = KL.ORDER_IFOG if order == "ifog" else KL.ORDER_IOFG
+    gen = torch.Generator(device=card).manual_seed(b * h)
+    xp_seq = torch.randn((b, 3, 4 * h), device=card, generator=gen).to(dtype)
+    hh = (0.5 * torch.randn((b, h), device=card, generator=gen)).to(dtype)
+    c = torch.randn((b, h), device=card, generator=gen).to(dtype)
+    u = (torch.randn((h, 4 * h), device=card, generator=gen)
+         / h ** 0.5).to(dtype)
+    xp = xp_seq[:, 1]
+    assert not xp.is_contiguous()
+    got = KL.lstm_cell_fwd(xp, hh, c, u, ordr)
+    ref = KL.lstm_cell_reference(xp, hh, c, u, ordr)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["lstm_cell_fwd"] == 1
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == (b, h)
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= tol
+
+
+def test_char_rnn_on_card_matches_cpu(card):
+    """A narrow TextGenerationLSTM (dropout 0, TBPTT 4 over 10 steps):
+    three fit calls and a few rnn_time_step calls on the card, every LSTM
+    step on K4, against the same net on the CPU."""
+    rng = np.random.default_rng(3)
+    eye = np.eye(11, dtype=np.float32)
+    nets = {}
+    for dev in ("cpu", card):
+        net = TextGenerationLSTM(total_unique_characters=11, units=16,
+                                 dropout=0.0).init(device=dev)
+        net.conf.tbptt_length = 4
+        nets[str(dev)] = net
+    cpu, gpu = nets["cpu"], nets[str(card)]
+    for _ in range(3):
+        ids = rng.integers(0, 11, size=(3, 11))
+        x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+        gpu.fit(x, y)
+        cpu.fit(x, y)
+        np.testing.assert_allclose(gpu.get_score(), cpu.get_score(),
+                                   rtol=1e-4)
+    assert TK.LAUNCHES["lstm_cell_fwd"] == 3 * 2 * 10
+    assert TK.PLAIN_ON_CUDA["lstm_cell_fwd"] == 0
+    for pg, pc in zip(gpu.params, cpu.params):
+        for k in pc:
+            np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(),
+                                       rtol=1e-4, atol=1e-6)
+    x = eye[rng.integers(0, 11, size=(2, 4))]
+    for t in range(4):
+        np.testing.assert_allclose(gpu.rnn_time_step(x[:, t]).cpu().numpy(),
+                                   cpu.rnn_time_step(x[:, t]).numpy(),
+                                   rtol=1e-4, atol=1e-6)
+    assert TK.LAUNCHES["lstm_cell_fwd"] == 3 * 2 * 10 + 2 * 4

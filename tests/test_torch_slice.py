@@ -281,15 +281,24 @@ def test_entry_points_never_drift_to_cpu(monkeypatch):
 
 def test_inference_only_layers_name_their_slice(narrow):
     """What the port does not have yet raises, naming the slice that brings
-    it: dropout in training, and the serving kinds beyond classify."""
+    it: the serving kinds beyond classify. Dropout in training is ported:
+    a graph with dropout 0.5 on its first node trains, draws its masks
+    from the graph's seeded generator (two graphs, one seed, one
+    trajectory), and its inference forward applies none."""
     jnet, params, states, x = narrow
     d = json.loads(jnet.conf.to_json())
     d["nodes"][0]["node"]["dropout"] = 0.5
-    net = interop.from_reference_json(json.dumps(d), params, states,
-                                      device="cpu")
     y = np.eye(5, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="slice"):
-        net.fit(x, y)
+    nets = [interop.from_reference_json(json.dumps(d), params, states,
+                                        device="cpu") for _ in range(2)]
+    plain = _port_net(jnet, params, states)
+    np.testing.assert_array_equal(nets[0].output(x).numpy(),
+                                  plain.output(x).numpy())
+    for n in nets + [plain]:
+        n.fit(x, y)
+    assert np.isfinite(nets[0].get_score())
+    assert nets[0].get_score() == nets[1].get_score()
+    assert nets[0].get_score() != plain.get_score()
     net = _port_net(jnet, params, states)
     with pytest.raises(NotImplementedError, match="generate"):
         ServingModel(net, "m", kind="generate")
@@ -389,7 +398,8 @@ def test_package_imports_without_jax():
         "assert len(mods) >= 20 and not bad, (mods, bad)\n"
         "new = {'deeplearning4j_tpu_torch.' + m for m in ("
         "'ops.attention', 'ops.kernels.attention', 'nn.transformer', "
-        "'nn.multilayer', 'zoo.bert')}\n"
+        "'nn.multilayer', 'zoo.bert', 'ops.kernels.lstm', 'ops.random', "
+        "'nn.recurrent')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -536,7 +536,7 @@ def test_unported_training_paths_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice"):
         TGraph(conf).init(device="cpu").fit(x, y)
     net = TGraph(_small_conf()).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent slice"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         net.fit(DataSet(x, y, features_mask=np.ones((2, 6))))
 
 
