@@ -43,12 +43,14 @@ of the JAX package. Phases, each printing one JSON line:
    images/sec in fp32 and bf16 (five 2 s windows), one profiled step of
    each.
 7. attention_kernel: the flash-attention kernel (``csrc/flash_fwd.cu``, K5)
-   against its plain version at BERT-base head geometry (batch 8, 12 heads
-   of 64), S 128 and 512, fp32 and bf16: no mask, causal, and a padding
-   mask with a fully-masked batch row; O and the LSE gated by ATTN_TOL and
-   LSE_TOL below; the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times and the card's bound; the
-   kernel must refuse inputs that require grad (it has no backward).
+   against its plain version on ATTENTION_CASES below (BERT-base heads of
+   64 at batch 8, S 128 and 512; D 128; a ragged S of 1000; batch 1 and 32
+   at S 512, where the bf16 body takes 64 and 128 query rows per block),
+   fp32 and bf16: no mask, causal, and a padding mask with a fully-masked
+   batch row; O and the LSE gated by ATTN_TOL and LSE_TOL below; the
+   kernel's, the plain version's and ``scaled_dot_product_attention``'s
+   times, the card's bound and the rows per block; the kernel must refuse
+   inputs that require grad (it has no backward).
 8. attention_sweep: the kernel against the port's exact attention from 32
    to 2048 tokens (8192 tokens per batch), fp32 and bf16: the crossover
    ``ops/attention.py``'s FLASH_MIN_SEQ is set from.
@@ -59,10 +61,11 @@ of the JAX package. Phases, each printing one JSON line:
    per executed chunk, none plain on CUDA, each held against the plain
    version on its own tensors.
 10. bert_forward: ``net.output`` sequences/sec at batch 32, S 128 and 512,
-    fp32 and bf16; one forward with a ragged padding mask (every launch
-    checked, the answer against the plain path); one profiled batch-32
-    S=512 fp32 forward by class (flash kernel, matmuls, layer norm, gelu,
-    embedding gather, idle share).
+    fp32 and bf16; one forward with a ragged padding mask in each type
+    (every launch checked; fp32's answer against the plain path); one
+    profiled batch-32 S=512 forward in each type by class (flash kernel
+    and its share, matmuls, layer norm, gelu, embedding gather, idle
+    share).
 11. lstm_kernel: the fused LSTM cell kernel (``csrc/lstm_cell.cu``, K4)
     against its plain version at the char-RNN's geometries, training (B 32,
     H 256) and sampling (B 4, H 256), both gate orders, fp32 and bf16, xp a
@@ -140,6 +143,16 @@ FLASH_REPLACES = "deeplearning4j_tpu/ops/attention.py:119 _flash_fwd_kernel"
 ATTN_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 LSE_TOL = 1e-5
 BERT_LAYERS = 12
+# attention_kernel cases, (batch, S, head dim, mask case), 12 heads each: the
+# BERT-base head geometry (D 64) at the kernel phase's batch 8; D 128 and a
+# ragged S (1000: no tile divides it); the served batch (1) and the
+# forward's (32) at S 512, where the bf16 body takes 64 and 128 query rows
+# per block. The timed main-path case is the first (8, 512, 64, "none").
+ATTENTION_CASES = (
+    (8, 512, 64, "none"), (8, 512, 64, "causal"), (8, 512, 64, "padding"),
+    (8, 128, 64, "none"), (8, 128, 64, "causal"), (8, 128, 64, "padding"),
+    (8, 512, 128, "none"), (8, 1000, 64, "causal"), (8, 1000, 128, "padding"),
+    (1, 512, 64, "none"), (32, 512, 64, "none"))
 SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
 LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_cell.cu"
 LSTM_REPLACES = "deeplearning4j_tpu/ops/kernels/lstm.py:97 _cell_kernel"
@@ -1151,8 +1164,9 @@ def attention_inputs(torch, np, b, h, s, d, seed):
 
 
 def check_attention(torch, np, s, case, b=8, h=12, d=64):
-    """K5 against its plain version at BERT-base head geometry (fp32 and
-    bf16), with its time, the plain version's, SDPA's and the bound."""
+    """K5 against its plain version (fp32 and bf16), with its time, the
+    plain version's, SDPA's, the bound and the query rows per block the
+    kernel took."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops.kernels import attention as katt
@@ -1198,6 +1212,7 @@ def check_attention(torch, np, s, case, b=8, h=12, d=64):
                 f"{ATTN_TOL[tag]}), LSE err {lse_err:.3g} (gate {LSE_TOL}), "
                 f"fully-masked rows exact: {dead}")
         rec[tag] = {
+            "rows_per_block": katt.rows_per_block(q),
             "max_abs_err": err, "max_err_normalised": norm,
             "max_lse_err": lse_err, "tolerance": ATTN_TOL[tag],
             "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
@@ -1209,18 +1224,17 @@ def check_attention(torch, np, s, case, b=8, h=12, d=64):
 
 
 def attention_kernel_phase(torch, np):
-    """K5 at BERT-base head geometry (batch 8, 12 heads of 64), S 128 and
-    512: no mask, causal, a padding mask with a fully-masked batch row; and
-    the kernel's refusal of inputs that require grad."""
+    """K5 on ATTENTION_CASES (no mask, causal, a padding mask with a
+    fully-masked batch row), and the kernel's refusal of inputs that
+    require grad."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.ops.kernels import attention as katt
 
     records = []
-    for s in (128, 512):
-        for case in ("none", "causal", "padding"):
-            rec = check_attention(torch, np, s, case)
-            records.append(rec)
-            emit("attention_kernel", name="flash_attention_fwd", **rec)
+    for b, s, d, case in ATTENTION_CASES:
+        rec = check_attention(torch, np, s, case, b=b, d=d)
+        records.append(rec)
+        emit("attention_kernel", name="flash_attention_fwd", **rec)
     q = torch.randn((1, 2, 32, 64), device="cuda", requires_grad=True)
     try:
         katt.flash_attention_fwd(q, q, q, 0.125, False)
@@ -1373,7 +1387,8 @@ def profile_bert_forward(torch, net, x, top=8):
     kernel (by name), and of the rest by the CPU range each kernel ran
     under: the projection and FFN matmuls, layer norm (a profiler range
     around ``_layer_norm`` for this run), gelu, the embedding gather;
-    wall time and the device's idle share."""
+    wall time and the device's idle share. One warm-up kernel runs inside
+    the profiler's window before the forward."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from deeplearning4j_tpu_torch.nn import transformer as tr
@@ -1390,6 +1405,10 @@ def profile_bert_forward(torch, net, x, top=8):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the tracer can miss the first kernels after it starts: give
+            # it one of its own before the forward
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             net.output(x)
             torch.cuda.synchronize()
@@ -1413,6 +1432,7 @@ def profile_bert_forward(torch, net, x, top=8):
             "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "flash_kernel_ms": flash_ms, "flash_launches": flash_calls,
+            "flash_share_of_busy": flash_ms / busy if busy else None,
             "matmul_ms": by_class.get("matmul", 0.0),
             "layer_norm_ms": by_class.get("layer_norm", 0.0),
             "gelu_ms": by_class.get("gelu", 0.0),
@@ -1425,9 +1445,10 @@ def profile_bert_forward(torch, net, x, top=8):
 def bert_forward_phase(torch, np, card, net):
     """BERT-base ``net.output`` sequences/sec at batch 32, S 128 and 512,
     fp32 and bf16 (integer token ids: float ids would arrive rounded to
-    bf16); one forward with a ragged padding mask (the masked kernel
-    variant on the main path) against the plain path; one profiled
-    batch-32 S=512 fp32 forward."""
+    bf16); one forward with a ragged padding mask in each type (the masked
+    kernel variant on the main path, every launch checked; fp32 also
+    against the plain path); one profiled batch-32 S=512 forward in each
+    type."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.zoo import Bert
 
@@ -1447,29 +1468,35 @@ def bert_forward_phase(torch, np, card, net):
     lens[0] = 512
     mask = torch.from_numpy((np.arange(512)[None, :] < lens[:, None])
                             .astype(np.float32)).cuda()
-    checked = {}
-    kern.reset_counts()
-    with check_every_launch(torch, checked):
-        got = net.output(xs[512], mask=mask)
-    torch.cuda.synchronize()
-    masked_launches = kern.LAUNCHES["flash_attention_fwd"]
-    if masked_launches != BERT_LAYERS or checked[(
-            "flash_attention_fwd", "fp32")]["calls"] != BERT_LAYERS:
-        raise AssertionError(f"masked forward launched {masked_launches}")
-    with kern.impl_scope("exact"):
-        ref = net.output(xs[512], mask=mask)
-    err = float((got.double() - ref.double()).abs().max())
-    if not torch.isfinite(got).all() or err > 1e-4:
-        raise AssertionError(f"masked forward off the plain path by {err}")
+    checked, masked_launches = {}, {}
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        kern.reset_counts()
+        with check_every_launch(torch, checked):
+            got = n.output(xs[512], mask=mask)
+        torch.cuda.synchronize()
+        masked_launches[tag] = kern.LAUNCHES["flash_attention_fwd"]
+        calls = checked.get(("flash_attention_fwd", tag), {}).get("calls")
+        if masked_launches[tag] != BERT_LAYERS or calls != BERT_LAYERS \
+                or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"masked {tag} forward launched "
+                                 f"{masked_launches[tag]}, checked {calls}")
+        if tag == "fp32":
+            with kern.impl_scope("exact"):
+                ref = net.output(xs[512], mask=mask)
+            err = float((got.double() - ref.double()).abs().max())
+            if err > 1e-4:
+                raise AssertionError(f"masked forward off the plain path "
+                                     f"by {err}")
     emit("bert_masked_forward", batch=32, seq=512, lengths=lens.tolist(),
          flash_launches=masked_launches,
          launches_checked=_checked_summary(checked),
          max_abs_err_vs_exact=err, card=card)
-    prof = profile_bert_forward(torch, net, xs[512])
-    if prof["flash_launches"] != BERT_LAYERS:
-        raise AssertionError(f"profiled forward ran {prof['flash_launches']} "
-                             "flash launches")
-    emit("bert_profile", model="Bert.base", dtype="fp32", card=card, **prof)
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        prof = profile_bert_forward(torch, n, xs[512])
+        if prof["flash_launches"] != BERT_LAYERS:
+            raise AssertionError(f"profiled {tag} forward ran "
+                                 f"{prof['flash_launches']} flash launches")
+        emit("bert_profile", model="Bert.base", dtype=tag, card=card, **prof)
     return masked_launches, checked
 
 
@@ -1907,9 +1934,10 @@ def lstm_entry(records, launches, train_checked, sample_launches,
 def flash_entry(records, launches, serve_checked, masked_launches,
                 masked_checked, card):
     """K5's line of the kernels table: times of one launch at the main
-    path's geometry (batch 8, S=512, 12 heads of 64, no mask), errors over
-    every attention_kernel case, launches of the served requests."""
-    main = next(r for r in records if r["s"] == 512 and r["case"] == "none")
+    path's geometry (ATTENTION_CASES[0]: batch 8, S=512, 12 heads of 64, no
+    mask), errors over every attention_kernel case, launches of the served
+    requests and of the masked forwards."""
+    main = records[0]
 
     def worst(tag, field):
         return max(r[tag][field] for r in records)
@@ -1918,7 +1946,9 @@ def flash_entry(records, launches, serve_checked, masked_launches,
     return {
         "name": flash, "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "replaces_ids": ["K5"],
-        "launches": launches, "launches_masked_forward": masked_launches,
+        "launches": launches,
+        "launches_masked_forward_fp32": masked_launches["fp32"],
+        "launches_masked_forward_bf16": masked_launches["bf16"],
         "max_abs_err": worst("fp32", "max_abs_err"),
         "max_err_normalised_fp32": worst("fp32", "max_err_normalised"),
         "max_err_normalised_bf16": worst("bf16", "max_err_normalised"),
@@ -1933,17 +1963,20 @@ def flash_entry(records, launches, serve_checked, masked_launches,
         "bound_ms_bf16": main["bf16"]["bound_ms"],
         "bound_by_bf16": main["bf16"]["bound_by"],
         "library_ms_bf16": main["bf16"]["library_ms"],
+        "rows_per_block_bf16": main["bf16"]["rows_per_block"],
         "refuses_inputs_that_require_grad": True,
         "serve_checked_fp32": serve_checked[(flash, "fp32")],
         "masked_forward_checked_fp32": masked_checked[(flash, "fp32")],
+        "masked_forward_checked_bf16": masked_checked[(flash, "bf16")],
         "per": "one launch at batch 8, S=512, 12 heads of 64, no mask, fp32 "
                "unless suffixed _bf16; ms by CUDA graph replay; library_ms "
                "is torch's scaled_dot_product_attention on the same tensors "
-               "(a yardstick the port never calls); errors over the six "
-               "attention_kernel cases; launches from the bert_serve phase "
-               f"({BERT_LAYERS} per executed chunk), launches_masked_forward "
-               "from one masked batch-32 forward; *_checked: every launch "
-               "of those paths against the plain version",
+               "(a yardstick the port never calls); errors over the "
+               f"{len(records)} attention_kernel cases; launches from the "
+               f"bert_serve phase ({BERT_LAYERS} per executed chunk), "
+               "launches_masked_forward_* from one masked batch-32 forward "
+               "in each type; *_checked: every launch of those paths "
+               "against the plain version",
         "card": card}
 
 

@@ -40,8 +40,8 @@ _NEG_BIG = _katt._NEG_BIG
 # on one NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md): the kernel
 # against dot_product_attention at BERT-base head geometry (12 heads of 64),
 # tokens per batch held at 8192. The kernel won at every length measured,
-# 32 to 2048 tokens: exact/flash time 1.24x at 32 tokens and 1.26-2.05x
-# above in fp32, 2.8-5.0x in bf16. 32 is the shortest length measured.
+# 32 to 2048 tokens: exact/flash time 1.09x at 32 tokens and 1.57-2.14x
+# above in fp32, 3.2-16.6x in bf16. 32 is the shortest length measured.
 FLASH_MIN_SEQ = 32
 
 

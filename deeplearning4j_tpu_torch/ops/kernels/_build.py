@@ -131,6 +131,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_flash_fwd.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 12
                                    + [ctypes.c_float, i, vp])
     lib.dl4j_flash_fwd.restype = i
+    lib.dl4j_flash_fwd_rows.argtypes = [i] * 2
+    lib.dl4j_flash_fwd_rows.restype = i
     lib.dl4j_lstm_cell_fwd.argtypes = [vp] * 6 + [i] * 3 + [ll] + [i] * 4 + [vp]
     lib.dl4j_lstm_cell_fwd.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]

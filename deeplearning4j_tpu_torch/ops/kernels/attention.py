@@ -3,10 +3,11 @@ version.
 
 Counterpart of the flash forward in deeplearning4j_tpu/ops/attention.py: the
 TPU kernel ``_flash_fwd_kernel`` (launched by ``_flash_fwd_pallas``) becomes
-``csrc/flash_fwd.cu`` (fp32: FMA on the CUDA cores; bf16: ``mma.sync``
-tensor cores with P rounded to bf16 before P @ V). :func:`flash_attention_fwd`
-launches it on CUDA tensors and takes :func:`flash_attention_fwd_reference`
-only for tensors on the CPU.
+``csrc/flash_fwd.cu`` (fp32: FMA on the CUDA cores; bf16: Hopper's TMA
+loads into an mbarrier ring and ``wgmma`` tensor-core products, with P
+rounded to bf16 before P @ V). :func:`flash_attention_fwd` launches it on
+CUDA tensors and takes :func:`flash_attention_fwd_reference` only for
+tensors on the CPU.
 
 Both compute, for q (B, H, Sq, D) and k, v (B, H, Sk, D):
 
@@ -115,9 +116,12 @@ def flash_attention_fwd_reference(q, k, v, scale, causal, mask=None,
 
 def _kernel_operand(t):
     """``t`` as the kernel reads it: last dim contiguous, every stride and
-    the base 16-byte aligned (a copy only where a view breaks that)."""
+    the base 16-byte aligned, no dim of more than one element at stride 0
+    (the bf16 body's TMA tensor maps take none of those; a copy only where
+    a view breaks that)."""
     align = 16 // t.element_size()
     if t.stride(-1) != 1 or any(s % align for s in t.stride()[:-1]) \
+            or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)) \
             or t.data_ptr() % 16:
         t = t.contiguous()
         if t.data_ptr() % 16:
@@ -175,6 +179,14 @@ def flash_attention_fwd(q, k, v, scale, causal, mask=None, block_k: int = 512):
     _build.check(rc, "flash_attention_fwd launch")
     _kern.LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
+
+
+def rows_per_block(q) -> int:
+    """Query rows per block (fp32) or per work item of the persistent bf16
+    body that the kernel takes for q (B, H, Sq, D): 64, or in bf16 128 for
+    D > 64. Reported by the smoke beside each timed case."""
+    return _build.load().dl4j_flash_fwd_rows(_KERNEL_DTYPES[q.dtype],
+                                             q.shape[-1])
 
 
 def flash(q, k, v, scale, causal, mask=None, block_k: int = 512):

@@ -377,3 +377,65 @@ def test_chip_smoke_checks_each_flash_launch(monkeypatch):
     with pytest.raises(AssertionError, match="flash_attention_fwd fp32"):
         with smoke.check_every_launch(torch, {}):
             KA.flash_attention_fwd(q, q, q, 0.3, False, mask)
+
+
+_OPERANDS = [
+    # (id, make the operand from a contiguous (2, 3, 16, 8) fp32 tensor, copied)
+    ("contiguous", lambda t: t, False),
+    ("head-split-view", lambda t: t.permute(0, 2, 1, 3).contiguous()
+     .permute(0, 2, 1, 3), False),
+    ("expanded-batch", lambda t: t[:1].expand(2, -1, -1, -1), True),
+    ("strided-last-dim", lambda t: t.transpose(2, 3), True),
+]
+
+
+@pytest.mark.parametrize("case", _OPERANDS, ids=_ids(_OPERANDS))
+def test_kernel_operand_copies_only_what_the_kernel_cannot_read(case):
+    """The kernel reads (batch, head, sequence) strides with a contiguous
+    head dim, all 16-byte aligned; its bf16 TMA tensor maps also take no
+    dim of more than one element at stride 0. A view that keeps to that
+    goes in as it is; any other is copied, with the same values."""
+    _, make, copied = case
+    t = make(torch.arange(2 * 3 * 16 * 8, dtype=torch.float32)
+             .reshape(2, 3, 16, 8))
+    got = KA._kernel_operand(t)
+    assert (got.data_ptr() != t.data_ptr()) is copied
+    assert torch.equal(got, t)
+    assert got.stride(-1) == 1
+    assert all(s != 0 for s, n in zip(got.stride(), got.shape) if n > 1)
+
+
+def test_chip_smoke_attention_cases_cover_the_kernel_geometries():
+    """The smoke's attention_kernel cases: the main path's geometry first
+    (batch 8, S 512, heads of 64, no mask), every mask case at S 128 and
+    512, D 128, a ragged S no tile divides, and the served (1) and forward
+    (32) batches."""
+    cases = _smoke().ATTENTION_CASES
+    assert cases[0] == (8, 512, 64, "none")
+    assert len(set(cases)) == len(cases)
+    for s in (128, 512):
+        assert {c for b, sq, d, c in cases if (b, sq, d) == (8, s, 64)} == {
+            "none", "causal", "padding"}
+    assert any(d == 128 for _, _, d, _ in cases)
+    assert any(s % 64 for _, s, _, _ in cases)
+    assert {1, 32} <= {b for b, _, _, _ in cases}
+
+
+def test_flash_ablation_variants_apply_to_the_kernel_source():
+    """tools/flash_ablation.py makes its variants by editing
+    csrc/flash_fwd.cu's text: every edit still finds its anchor, and every
+    variant but the source as built differs from it."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "flash_ablation.py"
+    spec = importlib.util.spec_from_file_location("flash_ablation", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = pathlib.Path(tool.SOURCE).read_text()
+    variants = tool.variant_sources(src)
+    assert set(variants) == set(tool.VARIANTS)
+    assert variants["built"] == src
+    assert all(text != src for name, text in variants.items()
+               if name != "built")

@@ -39,27 +39,60 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+# (id, B, H, Sq, Sk, D, causal, padding mask with batch row 1 fully masked)
+_FLASH_CASES = [
+    ("d40", 2, 3, 100, 100, 40, False, True),
+    ("d64", 2, 3, 100, 100, 64, True, True),
+    ("d72", 2, 3, 100, 100, 72, False, True),
+    ("d128", 2, 3, 100, 100, 128, True, True),
+    ("s1", 2, 3, 1, 1, 64, False, False),
+    ("s63", 2, 3, 63, 63, 64, True, False),
+    ("s65", 2, 3, 65, 65, 128, False, True),
+    ("s512", 2, 3, 512, 512, 64, False, True),
+    ("s1000", 2, 2, 1000, 1000, 64, True, True),
+    ("causal-sq-lt-sk", 2, 3, 63, 200, 64, True, False),
+    ("causal-sq-gt-sk", 2, 3, 200, 63, 64, True, True),
+    ("causal-sq-gt-sk-d128", 2, 3, 130, 65, 128, True, False),
+    ("bh384", 32, 12, 64, 64, 64, False, False),
+]
+
+
+@pytest.mark.parametrize("case", _FLASH_CASES, ids=[c[0] for c in _FLASH_CASES])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2.0 ** -7)],
                          ids=["fp32", "bf16"])
-def test_flash_kernel_matches_plain(card, dtype, tol, causal):
-    """K5 on the projections' transposed views (B, S, H, D) -> (B, H, S,
-    D), a ragged length, a padding mask with one fully-masked batch row."""
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((2, 100, 3, 64), np.float32))
-    q = x.to(card, dtype).permute(0, 2, 1, 3)
-    mask = torch.ones((2, 100), device=card)
-    mask[1] = 0.0
-    o, lse = KA.flash_attention_fwd(q, q, q, 0.125, causal, mask)
-    ro, rl = KA.flash_attention_fwd_reference(q, q, q, 0.125, causal, mask)
+def test_flash_kernel_matches_plain(card, dtype, tol, case):
+    """K5 on q, k, v as three distinct projections' transposed views (B, S,
+    H, D) -> (B, H, S, D), across head dims, ragged lengths, a key offset
+    either way under the causal mask, a padding mask with a fully-masked
+    batch row, and B*H = 384: O within ``tol`` of the largest plain value,
+    the LSE within 1e-5 relative, rows with no key exactly O = 0 and LSE =
+    -1e30."""
+    _, b, h, sq, sk, d, causal, masked = case
+    rng = np.random.default_rng(sq * 1000 + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d), np.float32))
+               .to(card, dtype).permute(0, 2, 1, 3) for n in (sq, sk, sk))
+    mask = None
+    if masked:
+        lens = rng.integers(1, sk + 1, size=b)
+        mask = torch.from_numpy((np.arange(sk)[None, :] < lens[:, None])
+                                .astype(np.float32)).to(card)
+        mask[1] = 0.0
+    o, lse = KA.flash_attention_fwd(q, k, v, d ** -0.5, causal, mask)
+    ro, rl = KA.flash_attention_fwd_reference(q, k, v, d ** -0.5, causal,
+                                              mask)
     assert TK.LAUNCHES["flash_attention_fwd"] == 1
+    assert o.shape == ro.shape and o.dtype == dtype
     err = (o.float() - ro.float()).abs().max() / ro.float().abs().max()
     assert float(err) <= tol
-    assert torch.equal(o[1], torch.zeros_like(o[1]))
-    assert torch.equal(lse[1], rl[1])
-    assert float((lse[0] - rl[0]).abs().max()) <= 1e-5 * float(
-        rl[0].abs().max())
+    dead = rl <= -1e29
+    assert torch.equal(lse[dead], rl[dead])
+    assert torch.equal(o.float()[dead], torch.zeros_like(o.float()[dead]))
+    if masked:
+        assert bool(dead[1].all())
+    live = ~dead
+    assert float((lse - rl)[live].abs().max()) <= 1e-5 * max(
+        float(rl[live].abs().max()), 1.0)
 
 
 def test_flash_attention_on_card_launches_the_kernel(card):
