@@ -14,12 +14,15 @@ of the JAX package. Phases, each printing one JSON line:
    the port's own conf) at batch 8, plus dilated + grouped, odd-channel
    and row-tiled cases, in fp32 (rtol 1e-4, atol 1e-4) and bf16 (rtol 8e-3,
    atol 1e-4: two bf16 ulps on the same bf16 inputs), with the kernel's,
-   the plain version's and ``F.conv2d``'s times and the card's bound.
+   the plain version's and ``F.conv2d``'s times, the card's bound, and the
+   body the kernel library picked (fp32 ``fma``; bf16 ``wgmma`` where Cg
+   and Og are multiples of 64, else ``mma_sync``) with its K slices.
 4. kernel_grad: the gradient kernels -- wgrad (``csrc/conv2d_wgrad.cu``)
-   and dgrad (the forward kernel on the stride-dilated dy) -- against their
-   plain versions at the same geometries at batch 8, fp32 and bf16, gated
-   on the error normalised by the largest output (GRAD_TOL below), with
-   kernel, plain, ``torch.nn.grad`` (cuDNN) times and the bound.
+   and dgrad (the conv kernel over the undilated dy, split by stride phase,
+   one launch) -- against their plain versions at the same geometries at
+   batch 8, fp32 and bf16, gated on the error normalised by the largest
+   output (GRAD_TOL below), with kernel, plain, ``torch.nn.grad`` (cuDNN)
+   times, the bound and dgrad's body and phases.
 5. serve: full-width ResNet-50 (224x224x3, 1000 classes, random weights
    from seed 12345) behind ModelServer -> ModelRouter -> BatchScheduler ->
    ServingModel; 8 HTTP requests of 1-16 rows, some concurrent. Every
@@ -116,6 +119,12 @@ CONV_REPLACES_TILED = "deeplearning4j_tpu/ops/kernels/conv.py:198"
 WGRAD_SOURCE = "deeplearning4j_tpu_torch/csrc/conv2d_wgrad.cu"
 WGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:283"
 DGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:424"
+# csrc/conv2d_wgrad.cu's body per type (it has one of each)
+WGRAD_BODY = {"fp32": "fma", "bf16": "mma_sync"}
+# the conv kernel's bodies over one bf16 ResNet-50 train step: wgmma for
+# every forward conv but the stem (Cin 3: mma.sync) and for all 52 dgrads
+BF16_STEP_BODIES = {"conv2d_fwd/wgmma": 52, "conv2d_fwd/mma_sync": 1,
+                    "conv2d_dgrad/wgmma": 52}
 # Gradient-kernel gates, on max|kernel - plain| / max|plain|. fp32: both sum
 # up to 1e5 products (the stem's wgrad at batch 8) in fp32 in different
 # orders (split slices, tap order); the rounding walk is about
@@ -325,8 +334,10 @@ def check_geometry(torch, key, count):
                                        pads[0][0]) * read_extent(
             w, ow, kw, strides[1], dil[1], pads[1][0])
         nbytes = (x_read + wt.numel() + out.numel()) * x.element_size()
+        _, splits, body = kconv.fwd_plan(x, wt, strides, pads, dil, groups,
+                                         row_tile)
         rec[tag] = {
-            "max_abs_err": err,
+            "max_abs_err": err, "body": body, "splits": splits,
             "ms": time_ms(torch, kernel),
             "eager_ms": eager_ms(torch, kernel),
             "plain_ms": time_ms(torch, plain),
@@ -437,6 +448,15 @@ def check_grad_geometry(torch, key, wgrad_count, dgrad_count):
                                            dil, groups),
                 (dy.numel() + wt.numel() + x.numel()) * es),
         }
+        _, dgrad_splits, dgrad_body = kconv.dgrad_plan(dy, wt, (h, w),
+                                                       strides, pads, dil,
+                                                       groups)
+        bodies = {"wgrad": {"body": WGRAD_BODY[tag]},
+                  "dgrad": {"body": dgrad_body, "splits": dgrad_splits,
+                            "phases": [len(a[2]) for a in
+                                       kconv.dgrad_phase_plan(
+                                           (h, w), (kh, kw), strides, pads,
+                                           dil, (oh, ow))]}}
         for kname, (kernel, plain, library, nbytes) in cases.items():
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
@@ -455,6 +475,7 @@ def check_grad_geometry(torch, key, wgrad_count, dgrad_count):
                     f"version: max err {err} = {norm:.3g} of the largest "
                     f"output > {GRAD_TOL[tag]}")
             rec[f"{kname}_{tag}"] = {
+                **bodies[kname],
                 "max_abs_err": err, "max_err_normalised": norm,
                 "max_err_normalised_fp32_out": norm32,
                 "tolerance": GRAD_TOL[tag],
@@ -694,7 +715,9 @@ def device_kernels(torch, prof):
 def profile_forward(torch, net, batch=32, top=8):
     """One batch-``batch`` forward under torch.profiler: device time by
     kernel (the conv kernel and its split-K reduction apart from the
-    rest), the wall time and the device's idle share of it."""
+    rest), the wall time and the device's idle share of it. One warm-up
+    kernel runs inside the profiler's window before the forward, and every
+    kernel of the conv library must fall in a class."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn((batch, 224, 224, 3), device="cuda",
@@ -703,14 +726,17 @@ def profile_forward(torch, net, batch=32, top=8):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up kernel
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         net.output(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(torch, prof)
     busy = sum(k[0] for k in kernels)
-    conv = sum(k[0] for k in kernels if "conv2d_fwd" in k[2])
-    split = sum(k[0] for k in kernels if "reduce_splits" in k[2])
+    by_class = _by_class(kernels)
+    conv = by_class.get("fwd", 0.0)
+    split = by_class.get("split_reduce", 0.0)
     return {"batch": batch, "wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "conv_kernel_ms": conv, "split_reduce_ms": split,
@@ -806,17 +832,55 @@ def serve_phase(torch, np, card):
 # ------------------------------------------------------------------ train
 
 
+# the split-K reductions: the conv kernel's (csrc/conv2d_fwd.cu) and
+# wgrad's (csrc/conv_common.cuh)
+SPLIT_REDUCTIONS = ("reduce_conv_splits", "reduce_splits")
+
+
 def _kernel_class(name):
-    """Profile bucket of a device kernel by its name. The dgrad launches of
-    the forward body are told from the forward's by the CPU range they run
+    """Profile bucket of a device kernel by its name: every body of the
+    conv kernel (``conv2d_fwd_f32``, ``conv2d_fwd_bf16``,
+    ``conv2d_fwd_wgmma``) is "fwd", the wgrad kernel's "wgrad", the split
+    reductions (SPLIT_REDUCTIONS) "split_reduce". The dgrad launches of
+    the conv kernel are told from the forward's by the CPU range they run
     in (:func:`_range_kernels`), not by name."""
     if "conv2d_wgrad" in name:
         return "wgrad"
-    if "reduce_splits" in name:
+    if any(r in name for r in SPLIT_REDUCTIONS):
         return "split_reduce"
     if "conv2d_fwd" in name:
         return "fwd"
     return None
+
+
+def conv_kernel_names(root=ROOT):
+    """The names of the conv library's device kernels: every __global__
+    function of ``deeplearning4j_tpu_torch/csrc/conv*``."""
+    import glob
+    import re
+
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                      r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    names = set()
+    for path in glob.glob(os.path.join(root, "deeplearning4j_tpu_torch",
+                                       "csrc", "conv*")):
+        with open(path) as f:
+            names.update(decl.findall(f.read()))
+    return names
+
+
+def _by_class(kernels):
+    """Device ms of a profile's kernels by :func:`_kernel_class`; a kernel
+    of the conv library (:func:`conv_kernel_names`) or one whose name says
+    conv2d with no class fails."""
+    conv_names, by_class = conv_kernel_names(), {}
+    for ms, _, name in kernels:
+        cls = _kernel_class(name)
+        if cls:
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+        elif "conv2d" in name or any(k in name for k in conv_names):
+            raise AssertionError(f"profile: no class for kernel {name}")
+    return by_class
 
 
 def _range_kernels(events, name):
@@ -841,27 +905,29 @@ def _range_kernels(events, name):
 
 def profile_train_step(torch, net, x, y, top=8):
     """One train step under torch.profiler: device time by kernel class
-    (conv forward; dgrad = the forward body's launches inside the conv's
+    (conv forward; dgrad = the conv kernel's launches inside the conv's
     backward node, where nothing else launches it; wgrad; the split
     reductions of all three;
     batchnorm = the kernels under the training batchnorm's autograd
     Function and its backward; other), wall time and the device's idle
-    share."""
+    share. One warm-up kernel runs inside the profiler's window before the
+    step, and every kernel of the conv library must fall in a class."""
     from torch.profiler import ProfilerActivity, profile
 
     net.fit(x, y)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the first kernels after it starts: give it
+        # one of its own before the step
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         net.fit(x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, by_class = device_kernels(torch, prof), {}
-    for ms, _, name in kernels:
-        cls = _kernel_class(name)
-        if cls:
-            by_class[cls] = by_class.get(cls, 0.0) + ms
+    kernels = device_kernels(torch, prof)
+    by_class = _by_class(kernels)
     busy = sum(k[0] for k in kernels)
     events = prof.events()
     in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
@@ -1105,14 +1171,20 @@ def train_phase(torch, np, card):
     # (c) one checked bf16 step, then train images/sec, fp32 and bf16
     net16 = ResNet50(compute_dtype="bfloat16").init(device="cuda")
     _calm_residual_branches(net16)
+    kern.reset_counts()
     with check_every_launch(torch, checked):
         net16.fit(x, y)
     got16 = {k: checked.get((k, "bf16"), {}).get("calls") for k in want}
     if got16 != want:
         raise AssertionError(f"bf16 step checked {got16}, expected {want}")
+    bodies16 = dict(kern.BODY_LAUNCHES)
+    if bodies16 != BF16_STEP_BODIES:
+        raise AssertionError(f"bf16 step ran the conv bodies {bodies16}, "
+                             f"expected {BF16_STEP_BODIES}")
     emit("train_bf16_step", model="ResNet50", batch=batch,
          loss=net16.get_score(), launches_checked={
-             f"{k}_bf16": checked[(k, "bf16")] for k in want}, card=card)
+             f"{k}_bf16": checked[(k, "bf16")] for k in want},
+         conv_bodies=bodies16, card=card)
     emit("train_throughput", model="ResNet50", batch=batch, path="net.fit",
          window_s=2.0,
          train_images_per_sec_fp32=train_images_per_sec(torch, net, x, y),
@@ -1123,7 +1195,7 @@ def train_phase(torch, np, card):
     for tag, n in (("fp32", net), ("bf16", net16)):
         emit("train_profile", model="ResNet50", dtype=tag, batch=batch,
              card=card, **profile_train_step(torch, n, x, y))
-    return launches, checked
+    return launches, checked, bodies16
 
 
 # ------------------------------------------------------------ attention (K5)
@@ -2027,8 +2099,8 @@ def main() -> int:
     records = timed("kernel", kernel_phase, torch, conf)
     grad_records = timed("kernel_grad", kernel_grad_phase, torch, conf)
     launches, serve_checked = timed("serve", serve_phase, torch, np, smi)
-    train_launches, train_checked = timed("train", train_phase, torch, np,
-                                          smi)
+    train_launches, train_checked, train_bodies16 = timed(
+        "train", train_phase, torch, np, smi)
     att_records = timed("attention_kernel", attention_kernel_phase, torch, np)
     timed("attention_sweep", attention_sweep, torch, np, smi)
     bert, bert_launches, bert_checked = timed("bert_serve", bert_serve_phase,
@@ -2051,6 +2123,15 @@ def main() -> int:
                 for tag in ("fp32", "bf16") if (name, tag) in checked}
 
     per_fwd = [r for r in records if r["launches_per_forward"]]
+
+    def bodies(recs, tag, per):
+        """{body: launches per pass} over the path's geometries."""
+        out = {}
+        for r in recs:
+            if r[per]:
+                b = r[tag]["body"]
+                out[b] = out.get(b, 0) + r[per]
+        return out
 
     def total(tag, field):
         return sum(r[tag][field] * r["launches_per_forward"] for r in per_fwd)
@@ -2081,6 +2162,12 @@ def main() -> int:
             "plain_ms_bf16": tot("bf16", "plain_ms"),
             "bound_ms_bf16": tot("bf16", "bound_ms"),
             "library_ms_bf16": tot("bf16", "library_ms"),
+            "bodies_fp32": bodies(grad_records, f"{kname}_fp32", per_step),
+            "bodies_bf16": bodies(grad_records, f"{kname}_bf16", per_step),
+            **({"bodies_bf16_train_step": {
+                k.split("/")[1]: v for k, v in train_bodies16.items()
+                if k.startswith("conv2d_dgrad/")}} if kname == "dgrad"
+               else {}),
             **checked_fields(f"conv2d_{kname}", train_checked),
             "per": "one 224x224 ResNet-50 train step at batch 8 (its "
                    f"{sum(r[per_step] for r in grad_records)} launches "
@@ -2105,6 +2192,12 @@ def main() -> int:
                      >= total("fp32", "bytes_ms") else "bytes"),
         "library_ms": total("fp32", "library_ms"),
         "ms_bf16": total("bf16", "ms"),
+        "plain_ms_bf16": total("bf16", "plain_ms"),
+        "bodies_fp32": bodies(records, "fp32", "launches_per_forward"),
+        "bodies_bf16": bodies(records, "bf16", "launches_per_forward"),
+        "bodies_bf16_train_step": {
+            k.split("/")[1]: v for k, v in train_bodies16.items()
+            if k.startswith("conv2d_fwd/")},
         "eager_ms_bf16": total("bf16", "eager_ms"),
         "bound_ms_bf16": total("bf16", "bound_ms"),
         "library_ms_bf16": total("bf16", "library_ms"),

@@ -55,11 +55,13 @@ void launch_reduce_splits(const float* ws, T* out, long long total, int splits, 
                                                                             splits);
 }
 
-// Blocks of one wave on the current device for `kernel` at THREADS threads: SMs x its resident
-// blocks per SM (registers and shared memory permitting), from the occupancy calculator; cached
-// per device in `cache` (one array of MAX_DEVICES per kernel; every writer stores the same value).
+// Blocks of one wave on the current device for `kernel` at `threads` threads and `smem` bytes of
+// dynamic shared memory: SMs x its resident blocks per SM (registers and shared memory
+// permitting), from the occupancy calculator; cached per device in `cache` (one array of
+// MAX_DEVICES per kernel; every writer stores the same value).
 template <typename Kernel>
-cudaError_t wave_slots(Kernel kernel, std::atomic<int>* cache, int* slots) {
+cudaError_t wave_slots(Kernel kernel, std::atomic<int>* cache, int* slots, int threads = THREADS,
+                       int smem = 0) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -71,7 +73,7 @@ cudaError_t wave_slots(Kernel kernel, std::atomic<int>* cache, int* slots) {
     }
   }
   int blocks = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;

@@ -161,7 +161,8 @@ class TransformerEncoderBlock(Layer):
     def _mha(self, params, x, mask):
         t = x.shape[1]
         q, k, v = self._qkv(params, x)
-        if attn_ops.resolve_flash(self.flash, t, t, mask, device=x.device):
+        if attn_ops.resolve_flash(self.flash, t, t, mask, device=x.device,
+                                  head_dim=q.shape[-1]):
             o = attn_ops.flash_attention(q, k, v, causal=self.causal,
                                          mask=mask)
         else:

@@ -79,21 +79,30 @@ def dot_product_attention(q, k, v, mask=None, scale: Optional[float] = None,
     return out
 
 
-def resolve_flash(flash, seq_q, seq_k, mask=None, device=None) -> bool:
+def resolve_flash(flash, seq_q, seq_k, mask=None, device=None,
+                  head_dim=None) -> bool:
     """Dispatch rule of the attention layers: ``flash`` True, False or
     "auto". A (B, Tk) padding mask is flash-eligible; any other mask takes
     the exact path. "auto" picks flash for tensors on ``device`` CUDA from
-    :data:`FLASH_MIN_SEQ` tokens (the reference picks it on a TPU backend
-    from its own crossover); on the CPU it stays exact, as the reference
-    does off the TPU."""
+    :data:`FLASH_MIN_SEQ` tokens, and only where the kernel takes
+    ``head_dim`` (the reference picks it on a TPU backend from its own
+    crossover, where its kernel runs); on the CPU it stays exact, as the
+    reference does off the TPU. ``flash=True`` on CUDA with a head dim the
+    kernel refuses raises, naming it."""
     if flash not in (True, False, "auto"):
         raise ValueError(
             f"flash must be True, False, or 'auto'; got {flash!r}")
     if mask is not None and mask.dim() != 2:
         return False
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    kernel_takes = head_dim is None or _katt.supports_head_dim(head_dim)
     if flash == "auto":
-        return (device is not None and torch.device(device).type == "cuda"
-                and min(seq_q, seq_k) >= FLASH_MIN_SEQ)
+        return on_cuda and kernel_takes and min(seq_q, seq_k) >= FLASH_MIN_SEQ
+    if flash and on_cuda and not kernel_takes:
+        raise ValueError(
+            f"flash=True: the flash kernel has no body for head dim "
+            f"{head_dim} (a multiple of 8 up to {_katt.MAX_HEAD_DIM}); "
+            "flash='auto' or False takes exact attention")
     return bool(flash)
 
 

@@ -17,7 +17,8 @@ launch it:
 
 Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
 made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
-plain path (only ``exact`` sends one there). Both are plain integers,
+plain path (only ``exact`` sends one there); :data:`BODY_LAUNCHES` splits
+the conv kernel's launches by the body that ran. All are plain integers,
 reset with :func:`reset_counts`.
 
 Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
@@ -48,12 +49,16 @@ KERNELS = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad", "lstm_cell_fwd",
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: CUDA-tensor calls that took the plain path (``exact`` only)
 PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: launches of a kernel with more than one body, by ``"kernel/body"``
+#: (the conv kernel's ``fma``, ``mma_sync`` and ``wgmma``)
+BODY_LAUNCHES: Dict[str, int] = {}
 
 
 def reset_counts() -> None:
     for table in (LAUNCHES, PLAIN_ON_CUDA):
         for k in table:
             table[k] = 0
+    BODY_LAUNCHES.clear()
 
 
 def validate_impl(impl: Optional[str]) -> Optional[str]:

@@ -119,10 +119,13 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_conv2d_fwd.argtypes = [vp, vp, vp] + [i] * 19 + [vp, vp]
-    lib.dl4j_conv2d_fwd.restype = i
-    lib.dl4j_conv2d_fwd_plan.argtypes = [i] * 10 + [ctypes.POINTER(i)]
-    lib.dl4j_conv2d_fwd_plan.restype = i
+    lib.dl4j_conv2d.argtypes = [vp, vp, vp, i, vp, i, vp, vp]
+    lib.dl4j_conv2d.restype = i
+    lib.dl4j_conv2d_plan.argtypes = [i, vp, ctypes.POINTER(i),
+                                     ctypes.POINTER(i)]
+    lib.dl4j_conv2d_plan.restype = i
+    lib.dl4j_conv2d_spec_bytes.argtypes = []
+    lib.dl4j_conv2d_spec_bytes.restype = i
     lib.dl4j_conv2d_wgrad.argtypes = [vp, vp, vp] + [i] * 18 + [vp, vp]
     lib.dl4j_conv2d_wgrad.restype = i
     lib.dl4j_conv2d_wgrad_plan.argtypes = [i] * 9 + [ctypes.POINTER(i)]

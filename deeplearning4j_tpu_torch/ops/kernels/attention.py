@@ -51,6 +51,12 @@ FLASH_BACKWARD = (
     "require grad, and transformer layers cannot be trained yet")
 
 
+def supports_head_dim(d) -> bool:
+    """The head dims the kernel has a body for: a multiple of 8 up to
+    :data:`MAX_HEAD_DIM`."""
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+
+
 def supports(q, k, v, mask=None) -> bool:
     """Type/shape gate of the kernel: 4-D (B, H, S, D) q, k, v of one type
     (fp32 or bf16), head dim a multiple of 8 up to 128, k and v of one
@@ -61,7 +67,7 @@ def supports(q, k, v, mask=None) -> bool:
             or v.dtype != q.dtype:
         return False
     b, h, _, d = q.shape
-    if d % 8 or d > MAX_HEAD_DIM or d < 1:
+    if not supports_head_dim(d):
         return False
     if k.shape[:2] != (b, h) or v.shape[:2] != (b, h) \
             or k.shape[3] != d or v.shape[3] != d or v.shape[2] != k.shape[2]:

@@ -3,29 +3,40 @@ filter gradient (wgrad), each with its plain version.
 
 Counterpart of deeplearning4j_tpu/ops/kernels/conv.py. The TPU forward
 kernels ``_fwd_kernel`` / ``_fwd_kernel_tiled`` become one implicit-GEMM
-CUDA kernel (``csrc/conv2d_fwd.cu``: FMA on the CUDA cores for fp32,
-``mma.sync`` tensor cores for bf16); the TPU ``row_tile`` knob is that
-kernel's ``row_tile`` argument (output rows per M segment), not a second
-body. :func:`conv2d_fwd` launches it on a CUDA tensor and takes
+CUDA kernel (``csrc/conv2d_fwd.cu``) with three bodies: FMA on the CUDA
+cores for fp32; for bf16, ``wgmma`` with TMA and an mbarrier ring where
+the group's input and output channels are multiples of 64 (every
+ResNet-50 conv but the stem), ``mma.sync`` elsewhere. The kernel library
+picks the body from the type and geometry (``dl4j_conv2d_plan``) and the
+wrappers report it (:func:`fwd_plan`, :func:`dgrad_plan`,
+``kernels.BODY_LAUNCHES``). The TPU ``row_tile`` knob is that kernel's
+``row_tile`` (output rows per M segment), not a second body.
+:func:`conv2d_fwd` launches it on a CUDA tensor and takes
 :func:`conv2d_fwd_reference` only for a tensor on the CPU. A geometry with
 too few output tiles to fill the card splits its K sum into an fp32
-workspace: the kernel library plans the split (``dl4j_conv2d_fwd_plan``),
-the wrapper allocates what it asks for.
+workspace: the plan sizes the split, the wrapper allocates it.
+
+The kernel reads a phase plan per spatial axis (:class:`_Spec`): which
+outputs form each phase, and for each tap of a phase its input offset and
+weight index. The forward is one phase per axis.
 
 The backward is the reference's ``custom_vjp`` (``_conv_vjp_bwd``) as
 :class:`Conv2dFunction`:
 
-- dx (:func:`conv2d_dgrad`) is the forward kernel launched on the
-  stride-dilated dy with flipped, I/O-transposed weights, as the reference
-  reuses ``_fwd_kernel``. The zero-dilated dy is materialised (a strided
-  layer's dgrad does up to sh*sw times the useful work); its re-padding is
-  not: the kernel masks the top/left pads and reads no row past the input.
+- dx (:func:`conv2d_dgrad`) is the same kernel launched on dy with the
+  flipped, I/O-transposed weights (indexed in place, no copy), as the
+  reference reuses ``_fwd_kernel``, but split by stride phase
+  (:func:`dgrad_phase_plan`):
+  the dx rows with (ih + lo) mod s = r take only the taps with
+  ki*d = r (mod s), each a stride-1 gather of the undilated dy. No
+  zero-dilated dy is made and no product with its zeros computed; all
+  phases run in one launch, and a phase with no taps writes zeros.
 - dW (:func:`conv2d_wgrad`) is the wgrad kernel (``csrc/conv2d_wgrad.cu``,
   replacing ``_wgrad_kernel``), fp32 out, cast to w's type by the caller.
 
 Each of the three kernels goes through ``kernels.dispatch`` on its own and
 counts its own launches (``conv2d_fwd``, ``conv2d_dgrad``,
-``conv2d_wgrad``), though dgrad shares the forward body.
+``conv2d_wgrad``), though dgrad shares the forward kernel.
 
 The plain versions are the TPU kernels' own arithmetic in PyTorch:
 :func:`conv2d_fwd_reference` pads, then for each (ki, kj) tap multiplies
@@ -33,8 +44,8 @@ one strided window reshaped to (N*OH*OW, Cg) by the (Cg, Og) weight slice
 per group, summed in fp32; :func:`conv2d_wgrad_reference` sums
 patch(ki, kj)^T @ dY per tap; :func:`conv2d_dgrad_reference` dilates,
 pads (or trims) dy as ``_dy_for_input_grad`` does and runs the plain
-forward. They are the exact path of ``ops.nn.conv2d`` and what the kernels
-are held to.
+forward, a construction independent of the phase plan. They are the exact
+path of ``ops.nn.conv2d`` and what the kernels are held to.
 """
 
 from __future__ import annotations
@@ -106,7 +117,7 @@ def supports(x, w, data_format, feature_group_count,
         return False
     if w.shape[2] * feature_group_count != cin:
         return False
-    return True
+    return max(w.shape[0], w.shape[1]) <= MAX_AXIS_TAPS
 
 
 def _geometry(x, w, strides, pads, dilation):
@@ -119,15 +130,188 @@ def _geometry(x, w, strides, pads, dilation):
 
 @functools.lru_cache(maxsize=None)
 def _splits(plan: str, device_index: int, *geometry: int) -> int:
-    """Reduction slices of one launch, as the kernel library's ``plan``
-    entry (``dl4j_conv2d_fwd_plan``: K slices, ``dl4j_conv2d_wgrad_plan``:
-    position slices) sizes them for this card: its block tile, and one wave
-    of resident blocks from the occupancy calculator. Cached per geometry."""
+    """Position slices of one wgrad launch, as the kernel library's
+    ``plan`` entry (``dl4j_conv2d_wgrad_plan``) sizes them for this card:
+    its block tile, and one wave of resident blocks from the occupancy
+    calculator. Cached per geometry."""
     splits = ctypes.c_int(1)
     with torch.cuda.device(device_index):
         rc = getattr(_build.load(), plan)(*geometry, ctypes.byref(splits))
     _build.check(rc, plan)
     return splits.value
+
+
+# ---------------------------------------------------------------------------
+# the phase plan and the launch (csrc/conv2d_fwd.cu)
+# ---------------------------------------------------------------------------
+
+#: the kernel's limits per spatial axis: phases (the stride, for dgrad) and
+#: taps (the kernel extent)
+MAX_AXIS_PHASES = 8
+MAX_AXIS_TAPS = 32
+#: the bodies of csrc/conv2d_fwd.cu, by the code ``dl4j_conv2d_plan`` reports
+BODIES = ("fma", "mma_sync", "wgmma")
+
+
+class _Axis(ctypes.Structure):
+    """csrc/conv2d_fwd.cu's ConvAxis: one spatial axis of a phase plan."""
+    _fields_ = [("phases", ctypes.c_int), ("in_size", ctypes.c_int),
+                ("out_size", ctypes.c_int), ("in_step", ctypes.c_int),
+                ("out_step", ctypes.c_int),
+                ("n_out", ctypes.c_int * MAX_AXIS_PHASES),
+                ("out0", ctypes.c_int * MAX_AXIS_PHASES),
+                ("tap0", ctypes.c_int * (MAX_AXIS_PHASES + 1)),
+                ("off", ctypes.c_int * MAX_AXIS_TAPS),
+                ("wk", ctypes.c_int * MAX_AXIS_TAPS)]
+
+
+class _Spec(ctypes.Structure):
+    """csrc/conv2d_fwd.cu's ConvSpec: one launch."""
+    _fields_ = [("n", ctypes.c_int), ("cin", ctypes.c_int),
+                ("cout", ctypes.c_int), ("groups", ctypes.c_int),
+                ("kh", ctypes.c_int), ("kw", ctypes.c_int),
+                ("row_tile", ctypes.c_int), ("b_trans", ctypes.c_int),
+                ("ax", _Axis * 2)]
+
+
+def fwd_axis_plan(k, stride, dilation, pad_lo, out_size):
+    """The forward along one axis as a phase plan: ``(in_step, out_step,
+    phases)``, one phase ``(out0, n_out, taps)`` of every output, tap ki
+    reading input ``o * stride + ki * dilation - pad_lo``."""
+    taps = tuple((ki, ki * dilation - pad_lo) for ki in range(k))
+    return (stride, 1, ((0, out_size, taps),))
+
+
+def dgrad_axis_plan(x_size, k, stride, dilation, pad_lo):
+    """dx along one axis of a conv (stride s, dilation d, low pad lo) as a
+    phase plan ``(1, s, phases)``. dy row oh reaches dx row ih through tap
+    ki exactly when ``oh*s - lo + ki*d = ih``, so the rows with
+    ``(ih + lo) mod s = r`` form phase r: ``n_out`` rows from ``out0`` at
+    stride s, and its taps are the ki with ``ki*d = r (mod s)``, tap
+    ``(ki, off)`` adding ``dy[o + off] @ w[ki]^T`` to ``dx[out0 + o*s]``
+    (a dy row outside dy reads as zero). A phase may have no tap; phases
+    with no row are left out."""
+    phases = []
+    for r in range(stride):
+        j0 = -((r - pad_lo) // stride)  # first j with j*s + r - lo >= 0
+        n_out = (x_size - 1 + pad_lo - r) // stride - j0 + 1
+        if n_out <= 0:
+            continue
+        taps = tuple((ki, j0 + (r - ki * dilation) // stride)
+                     for ki in range(k) if (ki * dilation - r) % stride == 0)
+        phases.append((j0 * stride + r - pad_lo, n_out, taps))
+    return (1, stride, tuple(phases))
+
+
+def dgrad_phase_plan(x_hw, k_hw, strides, pads, dilation, dy_hw):
+    """The phase plan of dx, one :func:`dgrad_axis_plan` per axis: a 2-D
+    phase is a pair of axis phases, its taps the pairs of their taps. Each
+    dx position lies in exactly one 2-D phase; ``dy_hw`` bounds the dy
+    rows and columns a tap may read (the rest are zeros)."""
+    for i in range(2):
+        eff = (k_hw[i] - 1) * dilation[i] + 1
+        want = (x_hw[i] + sum(pads[i]) - eff) // strides[i] + 1
+        if dy_hw[i] != want:
+            raise ValueError(f"dgrad_phase_plan: dy extent {dy_hw[i]} along "
+                             f"axis {i}, expected {want}")
+    return tuple(dgrad_axis_plan(x_hw[i], k_hw[i], strides[i], dilation[i],
+                                 pads[i][0]) for i in range(2))
+
+
+def _spec(n, cin, cout, groups, k_hw, in_hw, out_hw, plans, row_tile,
+          b_trans):
+    """The launch's ConvSpec. ``b_trans``: the weights are the forward's of
+    the conv whose input gradient this is, (kh, kw, Cout/groups, Cin) here,
+    read transposed in place (no flipped, transposed copy: tap ki reads
+    weight index ki)."""
+    s = _Spec(n=n, cin=cin, cout=cout, groups=groups, kh=k_hw[0],
+              kw=k_hw[1], row_tile=row_tile or 0, b_trans=int(b_trans))
+    for i, (in_step, out_step, phases) in enumerate(plans):
+        a = s.ax[i]
+        a.phases, a.in_size, a.out_size = len(phases), in_hw[i], out_hw[i]
+        a.in_step, a.out_step = in_step, out_step
+        t = 0
+        for r, (out0, n_out, taps) in enumerate(phases):
+            a.n_out[r], a.out0[r], a.tap0[r] = n_out, out0, t
+            for k, off in taps:
+                a.off[t], a.wk[t] = off, k
+                t += 1
+        a.tap0[len(phases)] = t
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(device_index, code, n, cin, cout, groups, k_hw, in_hw,
+                 out_hw, plans, row_tile, b_trans):
+    """(ConvSpec, K slices, body name) of one launch, as the kernel
+    library plans it for this card (``dl4j_conv2d_plan``); cached per
+    geometry, so a step's launches build no struct and make no plan call."""
+    lib = _build.load()
+    if lib.dl4j_conv2d_spec_bytes() != ctypes.sizeof(_Spec):
+        raise RuntimeError("csrc/conv2d_fwd.cu's ConvSpec and conv.py's "
+                           "_Spec differ")
+    spec = _spec(n, cin, cout, groups, k_hw, in_hw, out_hw, plans, row_tile,
+                 b_trans)
+    splits, body = ctypes.c_int(1), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.dl4j_conv2d_plan(code, ctypes.addressof(spec),
+                                  ctypes.byref(splits), ctypes.byref(body))
+    _build.check(rc, "dl4j_conv2d_plan")
+    return spec, splits.value, BODIES[body.value]
+
+
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (TMA and the
+    16-byte loads of the bf16 wgmma body need it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(kernel, x, w, out, plan):
+    """One launch of the conv kernel into ``out`` on the plan from
+    :func:`_launch_plan`; counts it under ``kernel`` and its body."""
+    spec, splits, body = plan
+    if body == "wgmma":
+        x, w = _aligned(x), _aligned(w)
+    ws = (torch.empty((splits, out.numel()), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_conv2d(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             _KERNEL_DTYPES[x.dtype], ctypes.addressof(spec),
+                             splits, None if ws is None else ws.data_ptr(),
+                             stream)
+    _build.check(rc, f"{kernel} launch")
+    _kern.LAUNCHES[kernel] += 1
+    key = f"{kernel}/{body}"
+    _kern.BODY_LAUNCHES[key] = _kern.BODY_LAUNCHES.get(key, 0) + 1
+
+
+def fwd_plan(x, w, strides, pads, dilation, groups, row_tile=None):
+    """(ConvSpec, K slices, body) of :func:`conv2d_fwd` on these CUDA
+    tensors."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    _, oh, ow, _ = _geometry(x, w, strides, pads, dilation)
+    plans = tuple(fwd_axis_plan(k, s, d, p[0], o) for k, s, d, p, o in zip(
+        (kh, kw), strides, dilation, pads, (oh, ow)))
+    return _launch_plan(x.device.index, _KERNEL_DTYPES[x.dtype], n, cin,
+                        cout, groups, (kh, kw), (h, wd), (oh, ow), plans,
+                        row_tile or 0, False)
+
+
+def dgrad_plan(dy, w, x_hw, strides, pads, dilation, groups):
+    """(ConvSpec, K slices, body) of :func:`conv2d_dgrad` on these CUDA
+    tensors (``w`` as the forward's, HWIO)."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    n, oh, ow, cout = dy.shape
+    kh, kw, cg, _ = w.shape
+    plans = dgrad_phase_plan(x_hw, (kh, kw), strides, pads, dilation,
+                             (oh, ow))
+    return _launch_plan(dy.device.index, _KERNEL_DTYPES[dy.dtype], n, cout,
+                        cg * groups, groups, (kh, kw), (oh, ow),
+                        tuple(x_hw), plans, 0, True)
 
 
 def conv2d_fwd_reference(x, w, strides, pads, dilation, groups):
@@ -165,30 +349,6 @@ def _check_cuda_pair(name, a, b):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _launch_fwd(x, w, out, strides, dilation, pad_top, pad_left, row_tile):
-    """One launch of the forward kernel into ``out`` (N, OH, OW, Cout); the
-    split-K workspace is sized by the kernel library's plan."""
-    lib = _build.load()
-    n, h, wd, cin = x.shape
-    kh, kw, _, cout = w.shape
-    _, oh, ow, _ = out.shape
-    groups = cin // w.shape[2]
-    code = _KERNEL_DTYPES[x.dtype]
-    splits = _splits("dl4j_conv2d_fwd_plan", x.device.index, code, n, cin,
-                     kh, kw, cout, groups, oh, ow, row_tile or 0)
-    ws = (torch.empty((splits, n * oh * ow, cout), dtype=torch.float32,
-                      device=x.device) if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dl4j_conv2d_fwd(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), code,
-            n, h, wd, cin, kh, kw, cout, groups, oh, ow,
-            strides[0], strides[1], dilation[0], dilation[1],
-            pad_top, pad_left, row_tile or 0, splits,
-            None if ws is None else ws.data_ptr(), stream)
-    _build.check(rc, "conv2d_fwd launch")
-
-
 def conv2d_fwd(x, w, strides, pads, dilation, groups,
                row_tile: Optional[int] = None):
     """NHWC x HWIO convolution on the CUDA kernel. ``pads`` is the explicit
@@ -216,9 +376,8 @@ def conv2d_fwd(x, w, strides, pads, dilation, groups,
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch_fwd(x, w, out, strides, dilation, pads[0][0], pads[1][0],
-                row_tile)
-    _kern.LAUNCHES["conv2d_fwd"] += 1
+    _launch("conv2d_fwd", x, w, out,
+            fwd_plan(x, w, strides, pads, dilation, groups, row_tile))
     return out
 
 
@@ -352,11 +511,16 @@ def dgrad_pads(x_hw, k_hw, strides, pads, dilation, dy_hw):
     return tuple(spec)
 
 
-def supports_dgrad(dy, w, groups) -> bool:
-    """The forward kernel's gate, on dy and the transposed weights."""
+def supports_dgrad(dy, w, groups, strides=(1, 1)) -> bool:
+    """The kernel's gate on dy and the forward's weights: 4-D, one kernel
+    type, dy's channels the weights' outputs, and a phase plan within the
+    kernel's limits (strides up to MAX_AXIS_PHASES, kernel extents up to
+    MAX_AXIS_TAPS)."""
     return (dy.dim() == 4 and w.dim() == 4 and dy.dtype in _KERNEL_DTYPES
             and w.dtype == dy.dtype and dy.shape[-1] == w.shape[3]
-            and w.shape[3] % groups == 0)
+            and w.shape[3] % groups == 0
+            and max(_pair(strides)) <= MAX_AXIS_PHASES
+            and max(w.shape[0], w.shape[1]) <= MAX_AXIS_TAPS)
 
 
 def conv2d_dgrad_reference(dy, w, x_hw, strides, pads, dilation, groups):
@@ -374,32 +538,29 @@ def conv2d_dgrad_reference(dy, w, x_hw, strides, pads, dilation, groups):
 
 
 def conv2d_dgrad(dy, w, x_hw, strides, pads, dilation, groups):
-    """dx (N, H, W, Cin) on the forward kernel, launched on the
-    stride-dilated dy with :func:`flip_transpose_w` weights and the top/left
-    pads of :func:`dgrad_pads`; the kernel masks the pad rows and never
-    reads past row H+lo-1, so no padded or trimmed copy is made. A CPU
-    tensor takes :func:`conv2d_dgrad_reference`."""
+    """dx (N, H, W, Cin) on the conv kernel, split by stride phase: one
+    launch over every phase of :func:`dgrad_phase_plan`, reading the
+    undilated dy and the forward's weights as they are (the kernel indexes
+    them transposed, tap ki at weight ki: no flipped copy); a phase with no
+    taps writes zeros. A CPU tensor takes :func:`conv2d_dgrad_reference`."""
     strides, dilation = _pair(strides), _pair(dilation)
     if dy.device.type == "cpu" and w.device.type == "cpu":
         return conv2d_dgrad_reference(dy, w, x_hw, strides, pads, dilation,
                                       groups)
     _check_cuda_pair("conv2d_dgrad", dy, w)
-    if not supports_dgrad(dy, w, groups):
+    if not supports_dgrad(dy, w, groups, strides):
         raise ValueError(
             f"conv2d_dgrad: unsupported dy {tuple(dy.shape)} {dy.dtype}, "
-            f"w {tuple(w.shape)} {w.dtype}, groups {groups}")
+            f"w {tuple(w.shape)} {w.dtype}, groups {groups}, strides "
+            f"{strides}")
     n = dy.shape[0]
     cin = w.shape[2] * groups
     out = torch.empty((n, x_hw[0], x_hw[1], cin), dtype=dy.dtype,
                       device=dy.device)
     if out.numel() == 0:
         return out
-    spec = dgrad_pads(x_hw, w.shape[:2], strides, pads, dilation,
-                      dy.shape[1:3])
-    dyd = dilate_dy(dy, strides).contiguous()
-    wt = flip_transpose_w(w, groups).contiguous()
-    _launch_fwd(dyd, wt, out, (1, 1), dilation, spec[0][0], spec[1][0], None)
-    _kern.LAUNCHES["conv2d_dgrad"] += 1
+    plan = dgrad_plan(dy, w, x_hw, strides, pads, dilation, groups)
+    _launch("conv2d_dgrad", dy, w, out, plan)
     return out
 
 
@@ -416,7 +577,8 @@ def conv2d_bwd(dy, x, w, strides, pads, dilation, groups, need_dx=True,
     that needs no gradient gets None and costs no launch."""
     dx = dw = None
     if need_dx:
-        if _kern.dispatch("conv2d_dgrad", supports_dgrad(dy, w, groups), dy,
+        if _kern.dispatch("conv2d_dgrad",
+                          supports_dgrad(dy, w, groups, strides), dy,
                           lambda: f"dy {tuple(dy.shape)} {dy.dtype}, w "
                                   f"{tuple(w.shape)} {w.dtype}, groups "
                                   f"{groups}"):

@@ -227,6 +227,28 @@ def test_resolve_flash(flash, seq, mask_ndim, device, expected):
         assert JA.resolve_flash(flash, seq, seq, jm) is expected
 
 
+@pytest.mark.parametrize("head_dim,takes", [(64, True), (100, False),
+                                            (256, False)])
+def test_resolve_flash_asks_the_kernel_gate(head_dim, takes):
+    """"auto" picks flash on CUDA only where the kernel's ``supports`` takes
+    the head dim, as the reference picks it only where its kernel runs;
+    ``flash=True`` there still raises, naming the refused head dim."""
+    assert TA.resolve_flash("auto", 128, 128, device="cuda",
+                            head_dim=head_dim) is takes
+    assert TA.resolve_flash("auto", 128, 128, device="cpu",
+                            head_dim=head_dim) is False
+    if takes:
+        assert TA.resolve_flash(True, 128, 128, device="cuda",
+                                head_dim=head_dim) is True
+    else:
+        with pytest.raises(ValueError, match=f"head dim {head_dim}"):
+            TA.resolve_flash(True, 128, 128, device="cuda",
+                             head_dim=head_dim)
+    # the CPU runs the plain blockwise forward at any head dim
+    assert TA.resolve_flash(True, 128, 128, device="cpu",
+                            head_dim=head_dim) is True
+
+
 def test_resolve_flash_rejects_other_values():
     with pytest.raises(ValueError, match="flash must be"):
         TA.resolve_flash("yes", 8, 8)

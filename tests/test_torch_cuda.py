@@ -13,7 +13,10 @@ within 1e-5 relative, a fully-masked row exactly O = 0 and LSE = -1e30;
 the LSTM cell kernel's h' and c' within 1e-5 (fp32: the same fp32 sums in
 another order) or 2^-7 (bf16: both round the same fp32 values to bf16, a
 tie may fall the other way, two ulps of headroom) of the largest output; a
-whole network within 1e-4 relative of the same network on the CPU.
+whole network within 1e-4 relative of the same network on the CPU; the
+conv kernel's forward within rtol/atol 1e-4 (fp32) or rtol 8e-3 + atol
+1e-4 (bf16: two bf16 ulps) of its plain version, its dgrad within 1e-4
+(fp32) or 2^-7 (bf16) of the largest plain output (PERF.md §2).
 """
 
 import numpy as np
@@ -23,7 +26,10 @@ torch = pytest.importorskip("torch")
 
 from deeplearning4j_tpu_torch.ops import attention as TA  # noqa: E402
 from deeplearning4j_tpu_torch.ops import kernels as TK  # noqa: E402
+from deeplearning4j_tpu_torch.nn.transformer import (  # noqa: E402
+    TransformerEncoderBlock)
 from deeplearning4j_tpu_torch.ops.kernels import attention as KA  # noqa: E402
+from deeplearning4j_tpu_torch.ops.kernels import conv as KC  # noqa: E402
 from deeplearning4j_tpu_torch.ops.kernels import lstm as KL  # noqa: E402
 from deeplearning4j_tpu_torch.zoo import Bert, TextGenerationLSTM  # noqa: E402
 
@@ -196,3 +202,141 @@ def test_char_rnn_on_card_matches_cpu(card):
                                    cpu.rnn_time_step(x[:, t]).numpy(),
                                    rtol=1e-4, atol=1e-6)
     assert TK.LAUNCHES["lstm_cell_fwd"] == 3 * 2 * 10 + 2 * 4
+
+
+# (id, N, H, W, Cin, k, stride, Cout, body in bf16): ResNet-50 geometries at a
+# small batch: a 1x1 stride-1 with Og 64 (the wgmma body's 64-wide tile), a
+# 3x3 stride-1 with Og 256 (its 128-wide tile), a 1x1 stride-2 (dgrad: three
+# tapless phases of four), a 3x3 stride-2 on 7x7-odd and 14x14 edges, and
+# the stem (Cin 3: the mma.sync body)
+_CONV_CASES = [
+    ("1x1s1-og64", 2, 56, 56, 256, 1, 1, 64, "wgmma"),
+    ("3x3s1-og256", 2, 14, 14, 256, 3, 1, 256, "wgmma"),
+    ("1x1s2", 2, 28, 28, 512, 1, 2, 256, "wgmma"),
+    ("3x3s2-14", 2, 14, 14, 128, 3, 2, 128, "wgmma"),
+    ("3x3s1-7", 4, 7, 7, 512, 3, 1, 512, "wgmma"),
+    ("stem", 1, 224, 224, 3, 7, 2, 64, "mma_sync"),
+]
+_CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
+_DGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _conv_inputs(card, dtype, case):
+    _, n, h, w, cin, k, s, cout, _ = case
+    gen = torch.Generator(device=card).manual_seed(n * h * cin + k * cout)
+    x = torch.randn((n, h, w, cin), device=card, generator=gen)
+    wt = torch.randn((k, k, cin, cout), device=card, generator=gen) * (
+        2.0 / (k * k * cin)) ** 0.5
+    pads = KC.resolve_padding("SAME", (h, w), (k, k), (s, s), (1, 1))
+    return x.to(dtype), wt.to(dtype), (s, s), pads
+
+
+@pytest.mark.parametrize("case", _CONV_CASES, ids=[c[0] for c in _CONV_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv_fwd_kernel_matches_plain(card, dtype, case):
+    """The conv forward on the body the plan picks (fp32: FMA; bf16: wgmma
+    where Cg and Og are multiples of 64, mma.sync for the stem)."""
+    x, w, strides, pads = _conv_inputs(card, dtype, case)
+    body = "fma" if dtype == torch.float32 else case[-1]
+    assert KC.fwd_plan(x, w, strides, pads, (1, 1), 1)[2] == body
+    got = KC.conv2d_fwd(x, w, strides, pads, (1, 1), 1)
+    ref = KC.conv2d_fwd_reference(x, w, strides, pads, (1, 1), 1)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["conv2d_fwd"] == 1
+    assert TK.BODY_LAUNCHES == {f"conv2d_fwd/{body}": 1}
+    assert got.dtype == dtype and got.shape == ref.shape
+    rtol, atol = _CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", _CONV_CASES, ids=[c[0] for c in _CONV_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv_dgrad_kernel_matches_plain(card, dtype, case):
+    """dx by stride phase in one launch, against the plain dilate-and-convolve
+    version, on a result block the allocator first handed out full of NaN:
+    a phase that wrote nothing would leave NaN behind."""
+    _, n, h, w_, cin, k, s, cout, _ = case
+    _, w, strides, pads = _conv_inputs(card, dtype, case)
+    oh, ow = -(-h // s), -(-w_ // s)
+    gen = torch.Generator(device=card).manual_seed(7)
+    dy = torch.randn((n, oh, ow, cout), device=card, generator=gen).to(dtype)
+    # dgrad's GEMM reduces over Cout into Cin: the stem's Cin 3 is mma.sync's
+    body = ("fma" if dtype == torch.float32 else
+            "wgmma" if cin % 64 == 0 and cout % 64 == 0 else "mma_sync")
+    assert KC.dgrad_plan(dy, w, (h, w_), strides, pads, (1, 1), 1)[2] == body
+    ref = KC.conv2d_dgrad_reference(dy, w, (h, w_), strides, pads, (1, 1), 1)
+    poison = torch.full((n, h, w_, cin), float("nan"), dtype=dtype,
+                        device=card)
+    del poison  # its block goes back to the cache and comes out as dx
+    got = KC.conv2d_dgrad(dy, w, (h, w_), strides, pads, (1, 1), 1)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["conv2d_dgrad"] == 1
+    assert TK.BODY_LAUNCHES == {f"conv2d_dgrad/{body}": 1}
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= _DGRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv_dgrad_tapless_phases_write_zeros(card, dtype):
+    """A 1x1 stride-2 dgrad: the three phases with no tap must overwrite
+    the NaN the allocator's block held with zeros."""
+    n, h, cin, cout = 2, 14, 128, 64
+    w = torch.randn((1, 1, cin, cout), device=card).to(dtype)
+    dy = torch.randn((n, 7, 7, cout), device=card).to(dtype)
+    poison = torch.full((n, h, h, cin), float("nan"), dtype=dtype,
+                        device=card)
+    ptr = poison.data_ptr()
+    del poison
+    got = KC.conv2d_dgrad(dy, w, (h, h), (2, 2), ((0, 0), (0, 0)), (1, 1),
+                          1)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr  # the poisoned block came back
+    for r, c in ((0, 1), (1, 0), (1, 1)):
+        assert bool((got[:, r::2, c::2] == 0).all())
+    ref = KC.conv2d_dgrad_reference(dy, w, (h, h), (2, 2), ((0, 0), (0, 0)),
+                                    (1, 1), 1)
+    err = (got.float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= _DGRAD_TOL[dtype]
+
+
+def test_conv_row_tile_on_every_body(card):
+    """K2's row_tile: no M tile crosses a segment of row_tile output rows,
+    on the wgmma body as on the others."""
+    x32 = torch.randn((2, 56, 56, 64), device=card)
+    w32 = torch.randn((3, 3, 64, 64), device=card) / 24
+    pads = KC.resolve_padding("SAME", (56, 56), (3, 3), (1, 1), (1, 1))
+    for dtype, body in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        x, w = x32.to(dtype), w32.to(dtype)
+        got = KC.conv2d_fwd(x, w, (1, 1), pads, (1, 1), 1, row_tile=7)
+        ref = KC.conv2d_fwd_reference(x, w, (1, 1), pads, (1, 1), 1)
+        rtol, atol = _CONV_TOL[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
+        assert TK.BODY_LAUNCHES.get(f"conv2d_fwd/{body}") == 1
+
+
+@pytest.mark.parametrize("head_dim", [100, 256])
+def test_encoder_block_auto_takes_exact_where_flash_refuses(card, head_dim):
+    """flash="auto" on the card at a head dim the kernel has no body for
+    gives exact attention, no flash launch and no error; flash=True
+    raises, naming the head dim."""
+    hidden = 4 * head_dim
+    params, _ = TransformerEncoderBlock(hidden_size=hidden, n_heads=4) \
+        .initialize(torch.Generator().manual_seed(0), (64, hidden))
+    params = {k: v.to(card) for k, v in params.items()}
+    x = torch.randn((2, 64, hidden), device=card)
+    auto = TransformerEncoderBlock(hidden_size=hidden, n_heads=4)
+    exact = TransformerEncoderBlock(hidden_size=hidden, n_heads=4,
+                                    flash=False)
+    got, _ = auto.apply(params, {}, x)
+    want, _ = exact.apply(params, {}, x)
+    assert TK.LAUNCHES["flash_attention_fwd"] == 0
+    assert torch.equal(got, want)
+    forced = TransformerEncoderBlock(hidden_size=hidden, n_heads=4,
+                                     flash=True)
+    with pytest.raises(ValueError, match=f"head dim {head_dim}"):
+        forced.apply(params, {}, x)

@@ -581,10 +581,39 @@ def test_chip_smoke_counts_52_dgrad_launches_per_step():
      "wgrad"),
     ("void (anonymous namespace)::reduce_splits<float>(float const*)",
      "split_reduce"),
+    ("void (anonymous namespace)::reduce_conv_splits<__nv_bfloat16>("
+     "float const*)", "split_reduce"),
+    ("void (anonymous namespace)::conv2d_fwd_wgmma<128, true>(CUtensorMap)",
+     "fwd"),
     ("void at::native::reduce_kernel<128, 4>()", None),
 ])
 def test_chip_smoke_profile_buckets(name, cls):
     assert _smoke()._kernel_class(name) == cls
+
+
+def test_chip_smoke_classes_every_conv_kernel(monkeypatch):
+    """Every device kernel of the conv library's sources falls in a profile
+    class, and a library kernel with no class fails the profile rather
+    than going into its "other" time unseen."""
+    smoke = _smoke()
+    names = smoke.conv_kernel_names()
+    assert {"conv2d_fwd_f32", "conv2d_fwd_bf16", "conv2d_fwd_wgmma",
+            "conv2d_wgrad_f32", "reduce_conv_splits",
+            "reduce_splits"} <= names
+    for k in names:
+        assert smoke._kernel_class(
+            f"void (anonymous namespace)::{k}<float>(float const*)"), k
+    assert smoke._by_class([
+        (1.0, 2, "void (anonymous namespace)::reduce_conv_splits<float>()"),
+        (0.5, 1, "void (anonymous namespace)::reduce_splits<float>()"),
+        (2.0, 1, "void (anonymous namespace)::conv2d_fwd_wgmma<64, false>()"),
+        (4.0, 9, "void at::native::vectorized_elementwise_kernel<4>()"),
+    ]) == {"split_reduce": 1.5, "fwd": 2.0}
+    monkeypatch.setattr(smoke, "conv_kernel_names",
+                        lambda root=None: {"fresh_kernel"})
+    with pytest.raises(AssertionError, match="no class"):
+        smoke._by_class([(1.0, 1, "void (anonymous namespace)::"
+                                  "fresh_kernel<float>()")])
 
 
 def test_chip_smoke_range_kernels_take_outermost_ranges_whole():
