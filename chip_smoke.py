@@ -22,7 +22,9 @@ of the JAX package. Phases, each printing one JSON line:
    one launch) -- against their plain versions at the same geometries at
    batch 8, fp32 and bf16, gated on the error normalised by the largest
    output (GRAD_TOL below), with kernel, plain, ``torch.nn.grad`` (cuDNN)
-   times, the bound and dgrad's body and phases.
+   times, the bound, wgrad's body and splits as its plan reports them
+   (bf16 ``wgmma`` for one group of Cin and Cout multiples of 64, else
+   ``mma_sync``) and dgrad's body and phases.
 5. serve: full-width ResNet-50 (224x224x3, 1000 classes, random weights
    from seed 12345) behind ModelServer -> ModelRouter -> BatchScheduler ->
    ServingModel; 8 HTTP requests of 1-16 rows, some concurrent. Every
@@ -119,12 +121,12 @@ CONV_REPLACES_TILED = "deeplearning4j_tpu/ops/kernels/conv.py:198"
 WGRAD_SOURCE = "deeplearning4j_tpu_torch/csrc/conv2d_wgrad.cu"
 WGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:283"
 DGRAD_REPLACES = "deeplearning4j_tpu/ops/kernels/conv.py:424"
-# csrc/conv2d_wgrad.cu's body per type (it has one of each)
-WGRAD_BODY = {"fp32": "fma", "bf16": "mma_sync"}
-# the conv kernel's bodies over one bf16 ResNet-50 train step: wgmma for
-# every forward conv but the stem (Cin 3: mma.sync) and for all 52 dgrads
+# the conv and wgrad kernels' bodies over one bf16 ResNet-50 train step:
+# wgmma for every forward conv and wgrad but the stem's (Cin 3: mma.sync)
+# and for all 52 dgrads
 BF16_STEP_BODIES = {"conv2d_fwd/wgmma": 52, "conv2d_fwd/mma_sync": 1,
-                    "conv2d_dgrad/wgmma": 52}
+                    "conv2d_dgrad/wgmma": 52, "conv2d_wgrad/wgmma": 52,
+                    "conv2d_wgrad/mma_sync": 1}
 # Gradient-kernel gates, on max|kernel - plain| / max|plain|. fp32: both sum
 # up to 1e5 products (the stem's wgrad at batch 8) in fp32 in different
 # orders (split slices, tap order); the rounding walk is about
@@ -451,7 +453,9 @@ def check_grad_geometry(torch, key, wgrad_count, dgrad_count):
         _, dgrad_splits, dgrad_body = kconv.dgrad_plan(dy, wt, (h, w),
                                                        strides, pads, dil,
                                                        groups)
-        bodies = {"wgrad": {"body": WGRAD_BODY[tag]},
+        wgrad_splits, wgrad_body = kconv.wgrad_plan(x, dy, kh, kw, strides,
+                                                    pads, dil, groups)
+        bodies = {"wgrad": {"body": wgrad_body, "splits": wgrad_splits},
                   "dgrad": {"body": dgrad_body, "splits": dgrad_splits,
                             "phases": [len(a[2]) for a in
                                        kconv.dgrad_phase_plan(
@@ -2164,10 +2168,9 @@ def main() -> int:
             "library_ms_bf16": tot("bf16", "library_ms"),
             "bodies_fp32": bodies(grad_records, f"{kname}_fp32", per_step),
             "bodies_bf16": bodies(grad_records, f"{kname}_bf16", per_step),
-            **({"bodies_bf16_train_step": {
+            "bodies_bf16_train_step": {
                 k.split("/")[1]: v for k, v in train_bodies16.items()
-                if k.startswith("conv2d_dgrad/")}} if kname == "dgrad"
-               else {}),
+                if k.startswith(f"conv2d_{kname}/")},
             **checked_fields(f"conv2d_{kname}", train_checked),
             "per": "one 224x224 ResNet-50 train step at batch 8 (its "
                    f"{sum(r[per_step] for r in grad_records)} launches "

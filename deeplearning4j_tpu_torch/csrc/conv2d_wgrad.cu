@@ -5,43 +5,103 @@
 // The TPU kernel revisits one fp32 (kh, kw, Cg, Og) output block image after image on its sequential
 // grid and adds, for each tap, patch(ki, kj)^T @ dY. Here the same sum is one GEMM per group:
 //   M = kh*kw*Cg filter rows (tap-major, channel-minor: the HWIO layout, so the output is written in
-//   place as (kh, kw, Cg, Cout)), N = Og = Cout/groups, and the reduction runs over the P = N*OH*OW
-//   output positions. A block owns a BM x BN tile of dW and loops over its range of positions,
-//   gathering input patches (A, masked to 0 outside the image: the padding is never materialised)
-//   and dY rows (B) into shared memory. Sums are fp32 and the output is fp32 whatever the input type,
-//   as the TPU kernel's.
+//   place as (kh, kw, Cg, Cout)), N = Og = Cout/groups, and the reduction (K) runs over the
+//   P = N*OH*OW output positions. Patches are gathered with the padding masked to 0 (never
+//   materialised). Sums are fp32 and the output is fp32 whatever the input type, as the TPU
+//   kernel's.
 //
 // The TPU grid's carry across images has no counterpart on the card (blocks run in parallel, in no
-// order), so the reduction over P is split across blocks instead: dl4j_conv2d_wgrad_plan sizes the
-// split to one wave of resident blocks; each split writes its partial dW into an fp32 workspace
-// [splits][kh*kw*Cg][Cout], and a second kernel adds the slices in split order. No atomics, so the
-// result does not depend on scheduling.
+// order), so the reduction over P is split across blocks: each split writes its partial dW into an
+// fp32 workspace [splits][kh*kw*Cg][Cout], and a second kernel (reduce_splits, below) adds
+// the slices in an order fixed by the geometry. No atomics, so two runs are equal to the bit.
+// dl4j_conv2d_wgrad_plan sizes the split and reports the body.
 //
-// Two bodies, one per input type:
+// Three bodies; which one runs is a pure function of the type and the geometry (pick_body):
 //   - fp32: FMA on the CUDA cores (TF32 stays off for fp32 parity), 128x128 tiles (128x64 when
 //     Og <= 64), 8x8 outputs per thread, 8 positions per stage, register-staged double buffer.
-//   - bf16: tensor cores through mma.sync.m16n8k16 (bf16 in, fp32 accumulate), 128x64 tiles, 32
-//     positions per stage; the patch and dY rows are gathered along channels and stored transposed
-//     (position-contiguous) for the fragment loads.
+//   - bf16 wgmma (groups 1, Cin and Cout multiples of 64: every ResNet-50 wgrad but the stem's): a
+//     persistent, warp-specialised block of one producer and two consumer warpgroups over a ring of
+//     stages in shared memory (as many as 192 KB holds, up to eight), with a full and an empty
+//     mbarrier per stage; the ring runs on across work items (M tile, N tile, split), so the next
+//     item's loads overlap this one's products and epilogue. A chunk is 64 positions (K):
+//       A (x's patch rows): for one tap, the 64 channels of one position are 128 bytes of an NHWC
+//         pixel, one row of a 128-byte swizzle atom. One TMA load in im2col mode fetches a chunk's
+//         64 positions of one A atom: x's im2col tensor map walks the output positions' base pixels
+//         (a bounding box from (-pad_left, -pad_top) at the conv's strides, W, then H, then N) and
+//         reads each at the tap's offset, so padding and positions past P read as 0 and no thread
+//         gathers anything. The positions are K, so the tile is MN-major and wgmma reads it
+//         through the transpose bit: no transposing stores. (A gather by 16-byte cp.async into the
+//         same layout ran at some 15 GB/s an SM, two thirds of the kernel's time: PERF.md.)
+//       B (dy's rows): dy as a 2-D [P, Cout] matrix, one TMA box of 64 positions x 64 channels per
+//         64 columns, 128-byte swizzle, MN-major like A; the tensor map is encoded per call and
+//         passed as __grid_constant__ (valid inside a CUDA-graph capture). Rows past P read as 0.
+//       Tiles: a consumer owns 64 filter rows x CN columns (CN 128 where it divides the tile's
+//         width, else 64). The two consumers split the tile over M (128 rows: two taps of 64
+//         channels, or 128 channels of one tap) or, where kh*kw*Cg is 64 (ResNet-50's 1x1 convs
+//         from 64 channels), over N (64 rows x 2 CN), so no tile is half empty in M. A consumer
+//         with no rows or columns in the tile (an odd last M tile, Og 64 over N) skips its
+//         products.
+//       Producer: one thread in each of the producer warpgroup's four warps issues a chunk's loads
+//         side by side (A atom 0, A atom 1, B atoms 0-1, B atoms 2-3), each with its own
+//         expect_tx on the stage's full barrier (four arrivals); one thread issuing them all held
+//         the ring back (PERF.md).
+//       Consumers: wgmma.mma_async m64nCNk16, fp32 accumulators in registers; a stage is released
+//         (one arrival per consumer warp) when the next chunk's products have started and its own
+//         have completed (wait_group 1). The epilogue writes fp32 straight from the registers, to
+//         dW or to the split's slice (a TMA store from a staging area in shared memory timed
+//         slower: the staging costs the ring a stage; PERF.md).
+//   - bf16 mma.sync (the rest: the stem's Cin 3, odd channel counts, groups > 1): mma.sync.m16n8k16
+//     (bf16 in, fp32 accumulate), 128x64 tiles, 32 positions per stage; the patch and dY rows are
+//     gathered along channels and stored transposed (position-contiguous) for the fragment loads.
 //
-// What bounds it on the card: ResNet-50's layers do hundreds of operations per byte, so the bound is
-// arithmetic (the fp32 non-tensor rate, or the bf16 tensor-core rate). Left on the table: wgmma and
-// TMA, a multi-stage cp.async ring (the bf16 body loads, syncs, then computes), ldmatrix.trans in
-// place of the transposed shared-memory stores, and a persistent schedule in place of the split.
+// The split, per body. FMA and mma.sync: as many position slices as fit the output tiles into one
+// wave of resident blocks, at least MIN_STAGES_PER_SPLIT stages each, at most MAX_SPLITS. wgmma:
+// as many as fit its tiles into one wave, at least MIN_CHUNKS_PER_SPLIT chunks each: a slice
+// writes BM x BN fp32 that the second launch reads back, so shorter slices cost the reduction
+// more than they save in loads (2, 8 and 16 timed no better than 4 on ResNet-50's convs:
+// tools/wgrad_ablation.py). The slices are reduced by that second launch (reduce_splits) rather
+// than in the kernel by the block that completes a tile (an arrival counter): ResNet-50's dW is
+// small and its P long, so a 1x1 conv from 64 channels runs its one tile in ninety-eight slices
+// at batch 8; a last arriver would read all of them (6 MB) through one SM, where the second
+// launch spreads the read over the card: four elements a thread, and where the slices are many,
+// up to 32 threads an element, each summing its run of slices in split order before the
+// element's first thread adds the runs in order.
+//
+// What bounds it on the card (ResNet-50 at batch 8): the bound is bytes for the 1x1 convs (x and
+// dy read once: 0.0009-0.0048 ms at 3.35 TB/s, against 0.0002-0.0012 ms of bf16 tensor-core
+// time), operations for the 3x3 convs at 14x14 and 28x28, and writing the fp32 dW for 7x7 512 ->
+// 512 (9.4 MB). The wgmma body stays 3-10x above it, on fixed costs (tools/wgrad_ablation.py,
+// PERF.md): some 1 us of launch, 2-3 us of second launch where there are slices, 1-1.5 us of
+// epilogue stores, and about 0.3 us for each 64-position chunk an item walks even with no load
+// and no product (the ring's handshake); the loads add 2-3 us, the products 1. Left on the table:
+// the slices reduced in the kernel across a thread-block cluster (distributed shared memory, no
+// second launch), a TMA store of the epilogue, longer chunks or 64 x 256 consumer tiles to cut
+// the handshakes per product, and the fp32 body on TF32 tensor cores (refused for fp32 parity).
 
-#include "conv_common.cuh"
+#include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
 // fp32 FMA body (BN is 128 or 64)
 constexpr int F_BM = 128;
 constexpr int F_BK = 8;
-// bf16 tensor-core body
+// bf16 mma.sync body
 constexpr int T_BM = 128;
 constexpr int T_BN = 64;
 constexpr int T_BK = 32;
-// split over positions: most slices
+// split over positions (FMA and mma.sync): most slices
 constexpr int MAX_SPLITS = 128;
+// bf16 wgmma body: one producer and two consumer warpgroups, 64 positions a chunk
+constexpr int G_THREADS = 384;
+constexpr int G_BK = 64;
+// a wgmma split keeps at least this many chunks
+constexpr int MIN_CHUNKS_PER_SPLIT = 4;
+// threads of a split-reduction block
+constexpr int R_THREADS = 64;
+
+enum Body { BODY_FMA = 0, BODY_MMA = 1, BODY_WGMMA = 2 };
 
 struct WgradGeom {
   int n, h, w, cin;
@@ -83,6 +143,78 @@ __device__ __forceinline__ Position position(const WgradGeom& g, long long p) {
   q.iy = oy * g.sh;
   q.ix = (rem - oy * g.ow) * g.sw;
   return q;
+}
+
+// ------------------------------------------------------------------ split reduction
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ float shfl(float v, int lane) { return __shfl_sync(~0u, v, lane); }
+__device__ __forceinline__ float4 shfl(const float4& v, int lane) {
+  return make_float4(shfl(v.x, lane), shfl(v.y, lane), shfl(v.z, lane), shfl(v.w, lane));
+}
+
+// out[i] = the sum over s of ws[s][i], for `total` elements of V (float, or float4: four
+// consecutive floats). A group of `lanes` threads (a power of two up to 32, inside one warp) shares
+// an element: lane j sums the slices [j*per, (j+1)*per) in split order, eight loads in flight, and
+// the group's first lane adds the lanes' sums in lane order. The order depends only on `splits`
+// and `lanes`, which the plan fixes per geometry, so two runs are equal to the bit.
+template <typename V>
+__global__ void __launch_bounds__(R_THREADS)
+reduce_splits(const V* __restrict__ ws, V* __restrict__ out, long long total, int splits,
+              int lanes) {
+  constexpr int ILP = 8;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = t / lanes;
+  const int j = (int)(t & (lanes - 1));
+  const int per = (splits + lanes - 1) / lanes;
+  const int k_end = min(splits, (j + 1) * per);
+  V s = V();  // zero
+  if (i < total && j * per < k_end) {
+    int k = j * per;
+    s = ws[(long long)k * total + i];
+    for (++k; k + ILP <= k_end; k += ILP) {
+      V v[ILP];
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) v[u] = ws[(long long)(k + u) * total + i];
+#pragma unroll
+      for (int u = 0; u < ILP; ++u) add_to(s, v[u]);
+    }
+    for (; k < k_end; ++k) add_to(s, ws[(long long)k * total + i]);
+  }
+  V sum = s;
+  const int first = (threadIdx.x & 31) & ~(lanes - 1);
+  for (int m = 1; m < lanes; ++m) {
+    const V o = shfl(s, first + m);  // every lane of the warp takes part
+    if (j == 0) add_to(sum, o);
+  }
+  if (i < total && j == 0) out[i] = sum;
+}
+
+// The second pass of a split launch: the `splits` fp32 slices of `ws`, `total` elements each,
+// summed into `out` in a fixed order (no atomics, so the result does not depend on scheduling);
+// by float4 where `total` and both pointers allow it, with as many lanes an element (up to 32,
+// eight slices a lane or more) as bring the threads to some 2^18, so a small dW of many slices
+// still spreads over the card.
+inline void launch_reduce_splits(const float* ws, float* out, long long total, int splits,
+                                 cudaStream_t s) {
+  const bool vec = total % 4 == 0 && (reinterpret_cast<uintptr_t>(ws) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const long long n = vec ? total / 4 : total;
+  int lanes = 1;
+  while (lanes < 32 && 16 * lanes <= splits && n * lanes < (1 << 18)) lanes *= 2;
+  const unsigned grid = (unsigned)((n * lanes + R_THREADS - 1) / R_THREADS);
+  if (vec)
+    reduce_splits<float4><<<grid, R_THREADS, 0, s>>>(reinterpret_cast<const float4*>(ws),
+                                                     reinterpret_cast<float4*>(out), n, splits,
+                                                     lanes);
+  else
+    reduce_splits<float><<<grid, R_THREADS, 0, s>>>(ws, out, n, splits, lanes);
 }
 
 // ------------------------------------------------------------------ fp32, FMA on the CUDA cores
@@ -401,9 +533,230 @@ conv2d_wgrad_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
 }
 
-// ------------------------------------------------------------------ launch shape and plan
+// ------------------------------------------------------------ bf16, wgmma + TMA + an mbarrier ring
 
-// The grid of one launch: the body's block tile over filter rows (BM) and Og (BN), and the
+// A consumer's 64 filter rows x CN columns; SPLIT_N: the two consumers split the tile over N
+// (64 x 2 CN), else over M (128 x CN).
+template <int CN, int SPLIT_N>
+struct GTile {
+  static constexpr int ATOM = G_BK * 128;                       // 64 positions x 64 channels
+  static constexpr int A_BYTES = (SPLIT_N ? 1 : 2) * ATOM;        // the tile's filter rows
+  static constexpr int B_BYTES = (SPLIT_N ? 2 : 1) * CN / 64 * ATOM;  // its output channels
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // as many stages as 192 KB holds, at most 8: one block an SM
+  static constexpr int STAGES = 192 * 1024 / STAGE < 8 ? 192 * 1024 / STAGE : 8;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BYTES = RING + 16 * STAGES + 1024;  // + barriers, 1024-byte alignment
+  static constexpr int ACC = CN / 2;  // fp32 accumulators a consumer thread holds
+};
+
+// What the wgmma body's blocks read (groups 1, so Cg = Cin and Og = Cout).
+struct WgmmaGeom {
+  int cin, cout, kw;
+  int oh, ow, sh, sw, dh, dw, pad_top, pad_left;
+  int rows;       // R = kh*kw*Cin
+  int positions;  // P = N*OH*OW (< 2^31)
+  int bm, bn;     // the block tile: 128 x CN (split over M) or 64 x 2 CN (split over N)
+  int split_n;
+  int m_tiles, n_tiles, splits;
+  int chunks_per_split;
+};
+
+// Cin and Cout are multiples of 64 (pick_body), so an A atom (64 filter rows) is 64 channels of
+// one tap and a consumer's rows and columns are all inside dW or all outside. x and dy are
+// 16-byte aligned (the wrapper's copy). Persistent: the grid is what fits on the card, and each
+// block walks the work items (M tile fastest, then N tile, then split) blockIdx.x, + gridDim.x, ...
+template <int CN, int SPLIT_N>
+__global__ void __launch_bounds__(G_THREADS, 1)
+conv2d_wgrad_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_dy,
+                   float* __restrict__ out, float* __restrict__ ws,
+                   const __grid_constant__ WgmmaGeom g) {
+  using T = GTile<CN, SPLIT_N>;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle repeats at 1 KB
+  const uint32_t bar_full = base + T::RING;                       // 8 bytes each
+  const uint32_t bar_empty = bar_full + 8 * S;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: producer; 1, 2: consumers
+  const int items = g.m_tiles * g.n_tiles * g.splits;
+  const int chunks_total = (g.positions + G_BK - 1) / G_BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      mbar_init(bar_full + 8 * st, 4);   // one arrival per producer warp
+      mbar_init(bar_empty + 8 * st, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int ring_pos = 0;  // chunks through the ring so far, this block's items together
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int m_tile = item % g.m_tiles;
+    const int rest = item / g.m_tiles;
+    const int n_tile = rest % g.n_tiles;
+    const int split = rest / g.n_tiles;
+    const int r0 = m_tile * g.bm;
+    const int n0 = n_tile * g.bn;
+    const int c_beg = split * g.chunks_per_split;
+    const int chunks = max(0, min(chunks_total, c_beg + g.chunks_per_split) - c_beg);
+    const int a_atoms = min(g.bm, g.rows - r0) / 64;  // 64-row A atoms in this tile: 1 or 2
+    const int b_atoms = min(g.bn, g.cout - n0) / 64;  // 64-column B atoms: 1 to 4
+
+    if (wg == 0) {
+      // ---- producer warpgroup: lane 0 of warp w issues A atom w (w < 2) or B atoms 2 (w - 2)
+      // and 2 (w - 2) + 1 (w >= 2), so four threads issue a chunk's loads side by side
+      const int w = tid >> 5;
+      if ((tid & 31) != 0) continue;
+      const int first = w < 2 ? w : 2 * (w - 2);
+      const int count = w < 2 ? (w < a_atoms ? 1 : 0) : max(0, min(2, b_atoms - first));
+      int c0 = 0, off_w = 0, off_h = 0;
+      if (w < 2) {
+        const int r = min(r0 + 64 * w, g.rows - 64);
+        const int tap = r / g.cin;
+        const int ki = tap / g.kw;
+        c0 = r - tap * g.cin;
+        off_h = ki * g.dh;
+        off_w = (tap - ki * g.kw) * g.dw;
+      }
+      const int ohw = g.oh * g.ow;
+      for (int c = 0; c < chunks; ++c, ++ring_pos) {
+        const int st = ring_pos % S;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, ((ring_pos / S) & 1) ^ 1);  // the first lap passes
+        if (count == 0) {
+          mbar_arrive(full);
+          continue;
+        }
+        mbar_expect_tx(full, count * T::ATOM);
+        const int p0 = (c_beg + c) * G_BK;  // the chunk's first position
+        if (w < 2) {
+          // the input pixel the first position's window starts at
+          const int img = p0 / ohw;
+          const int oy = (p0 - img * ohw) / g.ow;
+          const int ox = p0 - img * ohw - oy * g.ow;
+          tma_load_im2col(base + st * T::STAGE + w * T::ATOM, &tm_x, full, c0,
+                          ox * g.sw - g.pad_left, oy * g.sh - g.pad_top, img, (uint16_t)off_w,
+                          (uint16_t)off_h);
+        } else {
+          for (int b = first; b < first + count; ++b)
+            tma_load_2d(base + st * T::STAGE + T::A_BYTES + b * T::ATOM, &tm_dy, full,
+                        n0 + 64 * b, p0);
+        }
+      }
+    } else {
+      // ---- consumer warpgroup cw: 64 filter rows x CN columns of the tile
+      const int cw = wg - 1;
+      const int lane = tid & 31, warp = (tid >> 5) & 3;
+      const int a_atom = SPLIT_N ? 0 : cw;
+      const int b_atom0 = SPLIT_N ? cw * (CN / 64) : 0;
+      const bool active = a_atom < a_atoms && b_atom0 < b_atoms;  // uniform over the warpgroup
+      float acc[T::ACC];
+#pragma unroll
+      for (int i = 0; i < T::ACC; ++i) acc[i] = 0.f;
+      for (int c = 0; c < chunks; ++c, ++ring_pos) {
+        const int st = ring_pos % S;
+        const uint32_t s_a = base + st * T::STAGE + a_atom * T::ATOM;
+        const uint32_t s_b = base + st * T::STAGE + T::A_BYTES + b_atom0 * T::ATOM;
+        mbar_wait(bar_full + 8 * st, (ring_pos / S) & 1);
+        if (!active) {  // nothing of this tile is ours: hand the stage straight back
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+          continue;
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BK / 16; ++kk) {
+          const uint64_t da = desc_mn_major(s_a + kk * 16 * 128, T::ATOM);
+          const uint64_t db = desc_mn_major(s_b + kk * 16 * 128, T::ATOM);
+          if constexpr (CN == 64)
+            wgmma_n64<1, 1>(acc, da, db);
+          else
+            wgmma_n128<1, 1>(acc, da, db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: release its stage
+        fence_regs(acc);
+        if (c > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * ((ring_pos - 1) % S));
+        }
+      }
+      if (active) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (chunks > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * ((ring_pos - 1) % S));
+        }
+        // Epilogue, fp32 from the registers. Accumulator element 4n + 2h + e is row 16 warp +
+        // lane / 4 + 8 h, column 8 n + 2 (lane % 4) + e of the consumer's 64 x CN.
+        float* dst = g.splits > 1 ? ws + (long long)split * g.rows * g.cout : out;
+        const int row0 = r0 + 64 * a_atom + 16 * warp + (lane >> 2);
+        const int col0 = n0 + 64 * b_atom0 + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* drow = dst + (long long)(row0 + 8 * h) * g.cout + col0;
+#pragma unroll
+          for (int n = 0; n < CN / 8; ++n)
+            *reinterpret_cast<float2*>(drow + 8 * n) =
+                make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ body, plan and launch
+
+// One launch's geometry, as the C entries take it: x (n, h, w, cin), dW (kh, kw, cin / groups,
+// cout), dy (n, oh, ow, cout), the forward's strides, dilation and explicit (top, left) pads.
+struct WgradArgs {
+  int n, h, w, cin, kh, kw, cout, groups, oh, ow, sh, sw, dh, dw, pad_top, pad_left;
+};
+
+// The bounding box of x's im2col tensor map (lower, upper: w then h), whose corners and the taps'
+// offsets a 4-D map holds within [-128, 127] and [0, 127], at element strides up to 8: the base
+// pixels run from (-pad_left, -pad_top) in steps of the stride, OW (OH) of them a row (column).
+void im2col_box(const WgradArgs& a, int* lower, int* upper) {
+  lower[0] = -a.pad_left;
+  lower[1] = -a.pad_top;
+  upper[0] = -a.pad_left + (a.ow - 1) * a.sw + 1 - a.w;
+  upper[1] = -a.pad_top + (a.oh - 1) * a.sh + 1 - a.h;
+}
+
+bool im2col_fits(const WgradArgs& a) {
+  int lower[2], upper[2];
+  im2col_box(a, lower, upper);
+  for (int i = 0; i < 2; ++i)
+    if (lower[i] < -128 || lower[i] > 127 || upper[i] < -128 || upper[i] > 127) return false;
+  return a.sh <= 8 && a.sw <= 8 && (a.kh - 1) * a.dh <= 127 && (a.kw - 1) * a.dw <= 127;
+}
+
+// The body a launch of this type and geometry runs: the one place that decides it
+// (ops/kernels/conv.py::wgrad_body mirrors it).
+Body pick_body(int dtype, const WgradArgs& a) {
+  if (dtype == 0) return BODY_FMA;
+  return a.groups == 1 && a.cin % 64 == 0 && a.cout % 64 == 0 && im2col_fits(a) ? BODY_WGMMA
+                                                                                  : BODY_MMA;
+}
+
+// The geometry checks of dl4j_conv2d_wgrad_plan and dl4j_conv2d_wgrad.
+bool valid_geometry(int dtype, const WgradArgs& a) {
+  return (dtype == 0 || dtype == 1) && a.n >= 1 && a.h >= 1 && a.w >= 1 && a.groups >= 1 &&
+         a.cin >= a.groups && a.cout >= a.groups && a.cin % a.groups == 0 &&
+         a.cout % a.groups == 0 && a.kh >= 1 && a.kw >= 1 && a.oh >= 1 && a.ow >= 1 &&
+         a.sh >= 1 && a.sw >= 1 && a.dh >= 1 && a.dw >= 1 && a.pad_top >= 0 && a.pad_left >= 0 &&
+         (long long)a.n * a.oh * a.ow <= INT_MAX &&
+         (long long)a.kh * a.kw * (a.cin / a.groups) <= INT_MAX / 2;
+}
+
+// The FMA and mma.sync grids: the block tile over filter rows (BM) and Og (BN), and the
 // positions in stages of BK.
 struct LaunchShape {
   int bm, bn, bk;
@@ -412,92 +765,200 @@ struct LaunchShape {
   long long stages;    // BK stages over N*OH*OW
 };
 
-LaunchShape launch_shape(int dtype, int n, int cin, int kh, int kw, int cout, int groups, int oh,
-                         int ow) {
-  const int og = cout / groups;
+LaunchShape launch_shape(int dtype, const WgradArgs& a) {
+  const int og = a.cout / a.groups;
   LaunchShape l;
   l.bm = dtype == 0 ? F_BM : T_BM;
   l.bn = dtype == 0 ? (og > 64 ? 128 : 64) : T_BN;
   l.bk = dtype == 0 ? F_BK : T_BK;
-  const int rows = kh * kw * (cin / groups);
+  const int rows = a.kh * a.kw * (a.cin / a.groups);
   l.r_tiles = (rows + l.bm - 1) / l.bm;
   l.n_tiles = (og + l.bn - 1) / l.bn;
-  l.stages = ((long long)n * oh * ow + l.bk - 1) / l.bk;
+  l.stages = ((long long)a.n * a.oh * a.ow + l.bk - 1) / l.bk;
   return l;
 }
 
-// Blocks of one wave on the current device for the body a launch with this dtype and Og uses.
-cudaError_t body_slots(int dtype, int og, int* slots) {
-  static std::atomic<int> cache[3][MAX_DEVICES];
-  if (dtype != 0) return wave_slots(conv2d_wgrad_bf16, cache[2], slots);
+// The wgmma body's geometry, before the split: CN columns a consumer, the two consumers over M,
+// or over N where R is one A atom.
+WgmmaGeom wgmma_geom(const WgradArgs& a) {
+  WgmmaGeom g;
+  g.cin = a.cin; g.cout = a.cout; g.kw = a.kw;
+  g.oh = a.oh; g.ow = a.ow; g.sh = a.sh; g.sw = a.sw; g.dh = a.dh; g.dw = a.dw;
+  g.pad_top = a.pad_top; g.pad_left = a.pad_left;
+  g.rows = a.kh * a.kw * a.cin;
+  g.positions = a.n * a.oh * a.ow;
+  g.split_n = g.rows == 64;
+  const int cn = g.cout % (g.split_n ? 256 : 128) == 0 ? 128 : 64;
+  g.bm = g.split_n ? 64 : 128;
+  g.bn = g.split_n ? 2 * cn : cn;
+  g.m_tiles = (g.rows + g.bm - 1) / g.bm;
+  g.n_tiles = (g.cout + g.bn - 1) / g.bn;
+  g.splits = 1;
+  g.chunks_per_split = 0;
+  return g;
+}
+
+int consumer_cols(const WgmmaGeom& g) { return g.split_n ? g.bn / 2 : g.bn; }
+
+template <int CN, int SN>
+cudaError_t wgmma_slots(std::atomic<int>* cache, int* slots) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  const cudaError_t e = allow_smem(conv2d_wgrad_wgmma<CN, SN>, GTile<CN, SN>::BYTES, done);
+  if (e != cudaSuccess) return e;
+  return wave_slots(conv2d_wgrad_wgmma<CN, SN>, cache, slots, G_THREADS, GTile<CN, SN>::BYTES);
+}
+
+// Blocks of one wave on the current device for the body (and, for wgmma, its consumer width and
+// split) a launch uses.
+cudaError_t body_slots(Body body, int og, int cn, bool split_n, int* slots) {
+  static std::atomic<int> cache[7][MAX_DEVICES];
+  if (body == BODY_WGMMA) {
+    if (cn == 128)
+      return split_n ? wgmma_slots<128, 1>(cache[3], slots) : wgmma_slots<128, 0>(cache[4], slots);
+    return split_n ? wgmma_slots<64, 1>(cache[5], slots) : wgmma_slots<64, 0>(cache[6], slots);
+  }
+  if (body == BODY_MMA) return wave_slots(conv2d_wgrad_bf16, cache[2], slots);
   if (og > 64) return wave_slots(conv2d_wgrad_f32<128>, cache[0], slots);
   return wave_slots(conv2d_wgrad_f32<64>, cache[1], slots);
+}
+
+// The wgmma body's position slices: as many as fit its tiles into one wave of `slots` blocks, at
+// least MIN_CHUNKS_PER_SPLIT chunks each, then as few as hold the chunks at that many a slice.
+int wgmma_splits(int slots, long long tiles, long long chunks) {
+  long long s = slots / tiles;
+  if (s > chunks / MIN_CHUNKS_PER_SPLIT) s = chunks / MIN_CHUNKS_PER_SPLIT;
+  if (s <= 1) return 1;
+  const long long per = (chunks + s - 1) / s;
+  return (int)((chunks + per - 1) / per);
+}
+
+template <int CN, int SN>
+void launch_wgmma(const CUtensorMap& map_x, const CUtensorMap& map_dy, float* out, float* ws,
+                  const WgmmaGeom& g, unsigned blocks, cudaStream_t s) {
+  conv2d_wgrad_wgmma<CN, SN><<<blocks, G_THREADS, GTile<CN, SN>::BYTES, s>>>(map_x, map_dy, out,
+                                                                            ws, g);
+}
+
+// The wgmma body's launch: x's im2col map and dy's [P, Cout] map (boxes of 64 channels x 64
+// positions), encoded per call, and a persistent grid of what fits on the card.
+cudaError_t launch_wgmma_body(const void* x, const void* dy, float* out, float* ws,
+                              const WgradArgs& a, int splits, cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(x) & 15) != 0 || (reinterpret_cast<uintptr_t>(dy) & 15) != 0)
+    return cudaErrorMisalignedAddress;
+  WgmmaGeom g = wgmma_geom(a);
+  const long long chunks = ((long long)g.positions + G_BK - 1) / G_BK;
+  g.splits = splits;
+  g.chunks_per_split = (int)((chunks + splits - 1) / splits);
+  const long long items = (long long)g.m_tiles * g.n_tiles * splits;
+  if (items > INT_MAX) return cudaErrorInvalidConfiguration;
+  int lower[2], upper[2];
+  im2col_box(a, lower, upper);
+  CUtensorMap map_x, map_dy;
+  if (!encode_im2col(&map_x, x, a.n, a.h, a.w, a.cin, lower, upper, a.sh, a.sw, G_BK) ||
+      !encode_2d(&map_dy, dy, g.positions, a.cout, G_BK))
+    return cudaErrorInvalidValue;
+  const int cn = consumer_cols(g);
+  int slots = 0;
+  const cudaError_t e = body_slots(BODY_WGMMA, a.cout, cn, g.split_n, &slots);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)(items < slots ? items : slots);
+  if (cn == 128 && g.split_n)
+    launch_wgmma<128, 1>(map_x, map_dy, out, ws, g, blocks, s);
+  else if (cn == 128)
+    launch_wgmma<128, 0>(map_x, map_dy, out, ws, g, blocks, s);
+  else if (g.split_n)
+    launch_wgmma<64, 1>(map_x, map_dy, out, ws, g, blocks, s);
+  else
+    launch_wgmma<64, 0>(map_x, map_dy, out, ws, g, blocks, s);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The position slices of one launch (dtype 0 = float32, 1 = bfloat16) on the current device: as
-// many as fit its output tiles (BM x BN tiles of every group) into one wave of resident blocks,
-// keeping at least MIN_STAGES_PER_SPLIT BK stages in each slice and at most MAX_SPLITS slices.
-// splits > 1 means dl4j_conv2d_wgrad needs a workspace of splits * kh*kw*Cg * Cout floats.
-// Returns a cudaError_t (0 on success).
-int dl4j_conv2d_wgrad_plan(int dtype, int n, int cin, int kh, int kw, int cout, int groups, int oh,
-                           int ow, int* splits) {
-  if ((dtype != 0 && dtype != 1) || groups < 1 || splits == nullptr)
+// The plan of one launch (dtype 0 = float32, 1 = bfloat16; the geometry as dl4j_conv2d_wgrad
+// takes it) on the current device: the body it runs (*body: 0 fp32 FMA, 1 bf16 mma.sync, 2 bf16
+// wgmma) and its position slices (*splits), sized to one wave of resident blocks of that body
+// (see the note at the top). splits > 1 means dl4j_conv2d_wgrad needs a workspace of splits *
+// kh*kw*Cg * Cout floats. Returns a cudaError_t (0 on success).
+int dl4j_conv2d_wgrad_plan(int dtype, int n, int h, int wd, int cin, int kh, int kw, int cout,
+                           int groups, int oh, int ow, int sh, int sw, int dh, int dw,
+                           int pad_top, int pad_left, int* splits, int* body) {
+  const WgradArgs a = {n, h, wd, cin, kh, kw, cout, groups, oh, ow, sh, sw, dh, dw, pad_top,
+                       pad_left};
+  if (!valid_geometry(dtype, a) || splits == nullptr || body == nullptr)
     return (int)cudaErrorInvalidValue;
-  const LaunchShape l = launch_shape(dtype, n, cin, kh, kw, cout, groups, oh, ow);
+  const Body b = pick_body(dtype, a);
   int slots = 0;
-  const cudaError_t e = body_slots(dtype, cout / groups, &slots);
-  if (e != cudaSuccess) return (int)e;
-  *splits = plan_splits(slots, (long long)l.r_tiles * l.n_tiles * groups, l.stages, MAX_SPLITS);
+  if (b == BODY_WGMMA) {
+    const WgmmaGeom g = wgmma_geom(a);
+    const cudaError_t e = body_slots(b, cout, consumer_cols(g), g.split_n, &slots);
+    if (e != cudaSuccess) return (int)e;
+    *splits = wgmma_splits(slots, (long long)g.m_tiles * g.n_tiles,
+                           ((long long)g.positions + G_BK - 1) / G_BK);
+  } else {
+    const LaunchShape l = launch_shape(dtype, a);
+    const cudaError_t e = body_slots(b, cout / groups, 0, false, &slots);
+    if (e != cudaSuccess) return (int)e;
+    *splits = plan_splits(slots, (long long)l.r_tiles * l.n_tiles * groups, l.stages, MAX_SPLITS);
+  }
+  *body = (int)b;
   return 0;
 }
 
 // dW (kh, kw, Cin/groups, Cout) in fp32 from x (N, H, W, Cin) and dy (N, OH, OW, Cout), both NHWC
 // in one type (dtype 0 = float32, 1 = bfloat16). Pads are the forward's explicit (top, left); the
 // bottom/right pads are implied by oh/ow. `splits` comes from dl4j_conv2d_wgrad_plan; splits > 1
-// needs `workspace`: splits * kh*kw*Cg * Cout floats. Returns the cudaError_t of the launches.
+// needs `workspace`: splits * kh*kw*Cg * Cout floats. The bf16 wgmma body needs x and dy 16-byte
+// aligned. Returns the cudaError_t of the launches.
 int dl4j_conv2d_wgrad(const void* x, const void* dy, void* out, int dtype,
                       int n, int h, int wd, int cin, int kh, int kw, int cout, int groups,
                       int oh, int ow, int sh, int sw, int dh, int dw,
                       int pad_top, int pad_left, int splits, void* workspace, void* stream) {
-  if ((dtype != 0 && dtype != 1) || splits < 1 || (splits > 1 && workspace == nullptr))
+  const WgradArgs a = {n, h, wd, cin, kh, kw, cout, groups, oh, ow, sh, sw, dh, dw, pad_top,
+                       pad_left};
+  if (!valid_geometry(dtype, a) || splits < 1 || (splits > 1 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
   const int og = cout / groups;
   const int cg = cin / groups;
-  const LaunchShape l = launch_shape(dtype, n, cin, kh, kw, cout, groups, oh, ow);
-  WgradGeom g;
-  g.n = n; g.h = h; g.w = wd; g.cin = cin;
-  g.kh = kh; g.kw = kw; g.cout = cout; g.groups = groups;
-  g.oh = oh; g.ow = ow;
-  g.sh = sh; g.sw = sw; g.dh = dh; g.dw = dw;
-  g.pad_top = pad_top; g.pad_left = pad_left;
-  g.splits = splits;
-  g.p_per_split = (int)(((l.stages + splits - 1) / splits) * l.bk);
-  dim3 grid((unsigned)l.r_tiles, (unsigned)l.n_tiles, (unsigned)(groups * splits));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* of = static_cast<float*>(out);
   float* ws = static_cast<float*>(workspace);
   (void)cudaGetLastError();  // report these launches' errors, not an older one
-  const bool x16 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool d16 = (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  if (dtype == 0) {
-    const int vec_a = cg % 4 == 0 && cin % 4 == 0 && x16;
-    const int vec_b = og % 4 == 0 && cout % 4 == 0 && d16;
-    const float* xf = static_cast<const float*>(x);
-    const float* df = static_cast<const float*>(dy);
-    if (l.bn == 128)
-      conv2d_wgrad_f32<128><<<grid, THREADS, 0, s>>>(xf, df, of, ws, g, vec_a, vec_b);
-    else
-      conv2d_wgrad_f32<64><<<grid, THREADS, 0, s>>>(xf, df, of, ws, g, vec_a, vec_b);
+  const Body body = pick_body(dtype, a);
+  if (body == BODY_WGMMA) {
+    const cudaError_t e = launch_wgmma_body(x, dy, of, ws, a, splits, s);
+    if (e != cudaSuccess) return (int)e;
   } else {
-    const int vec_a = cg % 16 == 0 && cin % 8 == 0 && x16;
-    const int vec_b = og % 8 == 0 && cout % 8 == 0 && d16;
-    conv2d_wgrad_bf16<<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                               static_cast<const __nv_bfloat16*>(dy), of, ws, g,
-                                               vec_a, vec_b);
+    const LaunchShape l = launch_shape(dtype, a);
+    WgradGeom g;
+    g.n = n; g.h = h; g.w = wd; g.cin = cin;
+    g.kh = kh; g.kw = kw; g.cout = cout; g.groups = groups;
+    g.oh = oh; g.ow = ow;
+    g.sh = sh; g.sw = sw; g.dh = dh; g.dw = dw;
+    g.pad_top = pad_top; g.pad_left = pad_left;
+    g.splits = splits;
+    g.p_per_split = (int)(((l.stages + splits - 1) / splits) * l.bk);
+    dim3 grid((unsigned)l.r_tiles, (unsigned)l.n_tiles, (unsigned)(groups * splits));
+    const bool x16 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const bool d16 = (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+    if (body == BODY_FMA) {
+      const int vec_a = cg % 4 == 0 && cin % 4 == 0 && x16;
+      const int vec_b = og % 4 == 0 && cout % 4 == 0 && d16;
+      const float* xf = static_cast<const float*>(x);
+      const float* df = static_cast<const float*>(dy);
+      if (l.bn == 128)
+        conv2d_wgrad_f32<128><<<grid, THREADS, 0, s>>>(xf, df, of, ws, g, vec_a, vec_b);
+      else
+        conv2d_wgrad_f32<64><<<grid, THREADS, 0, s>>>(xf, df, of, ws, g, vec_a, vec_b);
+    } else {
+      const int vec_a = cg % 16 == 0 && cin % 8 == 0 && x16;
+      const int vec_b = og % 8 == 0 && cout % 8 == 0 && d16;
+      conv2d_wgrad_bf16<<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                 static_cast<const __nv_bfloat16*>(dy), of, ws, g,
+                                                 vec_a, vec_b);
+    }
   }
   if (splits > 1) launch_reduce_splits(ws, of, (long long)kh * kw * cg * cout, splits, s);
   return (int)cudaGetLastError();

@@ -1,8 +1,7 @@
-// What the conv kernels (conv2d_fwd.cu, conv2d_wgrad.cu) share: the bf16 tensor-core product, the
-// fixed-order split reduction, and the split plan that sizes a launch to one wave of resident
-// blocks. Each source includes it into its own translation unit; everything here has internal
-// linkage (an anonymous namespace), so no kernel or host symbol crosses between the objects of the
-// library.
+// What the conv kernels (conv2d_fwd.cu, conv2d_wgrad.cu) share: the bf16 tensor-core product and
+// the split plan that sizes a launch to one wave of resident blocks. Each source includes it into
+// its own translation unit; everything here has internal linkage (an anonymous namespace), so no
+// kernel or host symbol crosses between the objects of the library.
 
 #pragma once
 
@@ -32,27 +31,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// out[i] = sum over s of ws[s][i], in split order
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reduce_splits(const float* __restrict__ ws, T* __restrict__ out, long long total, int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[(long long)k * total + i];
-    out[i] = from_f32<T>(s);
-  }
-}
-
-// The second pass of a split launch: the `splits` fp32 slices of `ws`, `total` elements each,
-// summed into `out` in split order (no atomics, so the result does not depend on scheduling).
-template <typename T>
-void launch_reduce_splits(const float* ws, T* out, long long total, int splits, cudaStream_t s) {
-  const long long need = (total + THREADS - 1) / THREADS;
-  reduce_splits<T><<<(unsigned)(need < 4096 ? need : 4096), THREADS, 0, s>>>(ws, out, total,
-                                                                            splits);
 }
 
 // Blocks of one wave on the current device for `kernel` at `threads` threads and `smem` bytes of

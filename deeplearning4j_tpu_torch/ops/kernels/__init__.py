@@ -18,8 +18,8 @@ launch it:
 Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
 made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
 plain path (only ``exact`` sends one there); :data:`BODY_LAUNCHES` splits
-the conv kernel's launches by the body that ran. All are plain integers,
-reset with :func:`reset_counts`.
+the conv and wgrad kernels' launches by the body that ran. All are plain
+integers, reset with :func:`reset_counts`.
 
 Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
 ``VMEM_BUDGET_BYTES``, conv.py:57-114) sizes a TPU program's whole-image
@@ -50,7 +50,7 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: CUDA-tensor calls that took the plain path (``exact`` only)
 PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: launches of a kernel with more than one body, by ``"kernel/body"``
-#: (the conv kernel's ``fma``, ``mma_sync`` and ``wgmma``)
+#: (the conv and wgrad kernels' ``fma``, ``mma_sync`` and ``wgmma``)
 BODY_LAUNCHES: Dict[str, int] = {}
 
 

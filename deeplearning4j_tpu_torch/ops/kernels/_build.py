@@ -128,7 +128,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_conv2d_spec_bytes.restype = i
     lib.dl4j_conv2d_wgrad.argtypes = [vp, vp, vp] + [i] * 18 + [vp, vp]
     lib.dl4j_conv2d_wgrad.restype = i
-    lib.dl4j_conv2d_wgrad_plan.argtypes = [i] * 9 + [ctypes.POINTER(i)]
+    lib.dl4j_conv2d_wgrad_plan.argtypes = [i] * 17 + [ctypes.POINTER(i)] * 2
     lib.dl4j_conv2d_wgrad_plan.restype = i
     ll = ctypes.c_longlong
     lib.dl4j_flash_fwd.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 12

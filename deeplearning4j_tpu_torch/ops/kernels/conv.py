@@ -33,6 +33,9 @@ The backward is the reference's ``custom_vjp`` (``_conv_vjp_bwd``) as
   phases run in one launch, and a phase with no taps writes zeros.
 - dW (:func:`conv2d_wgrad`) is the wgrad kernel (``csrc/conv2d_wgrad.cu``,
   replacing ``_wgrad_kernel``), fp32 out, cast to w's type by the caller.
+  Its bodies are the conv kernel's three, picked by its own gate
+  (:func:`wgrad_body`: bf16 ``wgmma`` needs one group as well) and
+  reported by :func:`wgrad_plan`.
 
 Each of the three kernels goes through ``kernels.dispatch`` on its own and
 counts its own launches (``conv2d_fwd``, ``conv2d_dgrad``,
@@ -128,19 +131,6 @@ def _geometry(x, w, strides, pads, dilation):
     return n, oh, ow, cout
 
 
-@functools.lru_cache(maxsize=None)
-def _splits(plan: str, device_index: int, *geometry: int) -> int:
-    """Position slices of one wgrad launch, as the kernel library's
-    ``plan`` entry (``dl4j_conv2d_wgrad_plan``) sizes them for this card:
-    its block tile, and one wave of resident blocks from the occupancy
-    calculator. Cached per geometry."""
-    splits = ctypes.c_int(1)
-    with torch.cuda.device(device_index):
-        rc = getattr(_build.load(), plan)(*geometry, ctypes.byref(splits))
-    _build.check(rc, plan)
-    return splits.value
-
-
 # ---------------------------------------------------------------------------
 # the phase plan and the launch (csrc/conv2d_fwd.cu)
 # ---------------------------------------------------------------------------
@@ -149,7 +139,8 @@ def _splits(plan: str, device_index: int, *geometry: int) -> int:
 #: taps (the kernel extent)
 MAX_AXIS_PHASES = 8
 MAX_AXIS_TAPS = 32
-#: the bodies of csrc/conv2d_fwd.cu, by the code ``dl4j_conv2d_plan`` reports
+#: the bodies of csrc/conv2d_fwd.cu and csrc/conv2d_wgrad.cu, by the code
+#: ``dl4j_conv2d_plan`` and ``dl4j_conv2d_wgrad_plan`` report
 BODIES = ("fma", "mma_sync", "wgmma")
 
 
@@ -403,6 +394,69 @@ def supports_wgrad(x, dy, groups) -> bool:
             and dy.shape[-1] % groups == 0)
 
 
+def wgrad_body(dtype, x_shape, dy_shape, k_hw, strides, pads, dilation,
+               groups) -> str:
+    """The body of ``csrc/conv2d_wgrad.cu`` a launch runs, as its
+    ``pick_body`` decides (``dl4j_conv2d_wgrad_plan`` reports it on the
+    card): fp32 ``fma``; bf16 ``wgmma`` for one group whose Cin and Cout
+    are multiples of 64 and whose window fits x's im2col tensor map
+    (strides up to 8, window extents and bounding-box corners within
+    127: every ResNet-50 wgrad but the stem's), ``mma_sync`` elsewhere.
+    Shapes are NHWC; ``pads`` the explicit ((top, bottom), (left, right))."""
+    if dtype == torch.float32:
+        return "fma"
+    cin, cout = x_shape[-1], dy_shape[-1]
+    fits = True
+    for i in range(2):
+        k, s, d, lo = k_hw[i], strides[i], dilation[i], pads[i][0]
+        upper = -lo + (dy_shape[1 + i] - 1) * s + 1 - x_shape[1 + i]
+        fits &= (s <= 8 and (k - 1) * d <= 127 and -128 <= -lo <= 127
+                 and -128 <= upper <= 127)
+    return ("wgmma" if groups == 1 and cin % 64 == 0 and cout % 64 == 0
+            and fits else "mma_sync")
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_plan(device_index, code, *geometry):
+    """(position slices, body) of one wgrad launch, as the kernel library's
+    ``dl4j_conv2d_wgrad_plan`` sizes them for this card (the body's block
+    tile, one wave of resident blocks from the occupancy calculator);
+    raises where its body is not :func:`wgrad_body`'s. Cached per
+    geometry, so a step's launches make no plan call."""
+    splits, body = ctypes.c_int(1), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _build.load().dl4j_conv2d_wgrad_plan(
+            code, *geometry, ctypes.byref(splits), ctypes.byref(body))
+    _build.check(rc, "dl4j_conv2d_wgrad_plan")
+    n, h, wd, cin, kh, kw, cout, groups, oh, ow, sh, sw, dh, dw, pt, pl = \
+        geometry
+    want = wgrad_body(torch.float32 if code == 0 else torch.bfloat16,
+                      (n, h, wd, cin), (n, oh, ow, cout), (kh, kw), (sh, sw),
+                      ((pt, 0), (pl, 0)), (dh, dw), groups)
+    if BODIES[body.value] != want:
+        raise RuntimeError(f"csrc/conv2d_wgrad.cu picked "
+                           f"{BODIES[body.value]} where conv.py's "
+                           f"wgrad_body says {want}")
+    return splits.value, want
+
+
+def _wgrad_geometry(x, dy, kh, kw, strides, pads, dilation, groups):
+    """The geometry ints of ``dl4j_conv2d_wgrad_plan`` and
+    ``dl4j_conv2d_wgrad``."""
+    n, h, wd, cin = x.shape
+    _, oh, ow, cout = dy.shape
+    return (n, h, wd, cin, kh, kw, cout, groups, oh, ow, strides[0],
+            strides[1], dilation[0], dilation[1], pads[0][0], pads[1][0])
+
+
+def wgrad_plan(x, dy, kh, kw, strides, pads, dilation, groups):
+    """(position slices, body) of :func:`conv2d_wgrad` on these CUDA
+    tensors."""
+    return _wgrad_plan(x.device.index, _KERNEL_DTYPES[x.dtype],
+                       *_wgrad_geometry(x, dy, kh, kw, _pair(strides), pads,
+                                        _pair(dilation), groups))
+
+
 def conv2d_wgrad_reference(x, dy, kh, kw, strides, pads, dilation, groups):
     """Plain PyTorch version of ``_wgrad_kernel``: for each group and tap,
     patch(ki, kj)^T @ dY over all N*OH*OW positions, fp32 sums and an fp32
@@ -454,22 +508,23 @@ def conv2d_wgrad(x, dy, kh, kw, strides, pads, dilation, groups):
                       device=x.device)
     if dy.numel() == 0:
         return out.zero_()
+    geometry = _wgrad_geometry(x, dy, kh, kw, strides, pads, dilation, groups)
     code = _KERNEL_DTYPES[x.dtype]
-    splits = _splits("dl4j_conv2d_wgrad_plan", x.device.index, code, n, cin,
-                     kh, kw, cout, groups, oh, ow)
+    splits, body = _wgrad_plan(x.device.index, code, *geometry)
+    if body == "wgmma":
+        x, dy = _aligned(x), _aligned(dy)
     ws = (torch.empty((splits, kh * kw * cg, cout), dtype=torch.float32,
                       device=x.device) if splits > 1 else None)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dl4j_conv2d_wgrad(
-            x.data_ptr(), dy.data_ptr(), out.data_ptr(), code,
-            n, h, wd, cin, kh, kw, cout, groups, oh, ow,
-            strides[0], strides[1], dilation[0], dilation[1],
-            pads[0][0], pads[1][0], splits,
-            None if ws is None else ws.data_ptr(), stream)
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(), code, *geometry,
+            splits, None if ws is None else ws.data_ptr(), stream)
     _build.check(rc, "conv2d_wgrad launch")
     _kern.LAUNCHES["conv2d_wgrad"] += 1
+    key = f"conv2d_wgrad/{body}"
+    _kern.BODY_LAUNCHES[key] = _kern.BODY_LAUNCHES.get(key, 0) + 1
     return out
 
 

@@ -15,8 +15,9 @@ another order) or 2^-7 (bf16: both round the same fp32 values to bf16, a
 tie may fall the other way, two ulps of headroom) of the largest output; a
 whole network within 1e-4 relative of the same network on the CPU; the
 conv kernel's forward within rtol/atol 1e-4 (fp32) or rtol 8e-3 + atol
-1e-4 (bf16: two bf16 ulps) of its plain version, its dgrad within 1e-4
-(fp32) or 2^-7 (bf16) of the largest plain output (PERF.md §2).
+1e-4 (bf16: two bf16 ulps) of its plain version, its dgrad and the wgrad
+kernel's dW within 1e-4 (fp32) or 2^-7 (bf16) of the largest plain output
+(PERF.md §2).
 """
 
 import numpy as np
@@ -218,7 +219,7 @@ _CONV_CASES = [
     ("stem", 1, 224, 224, 3, 7, 2, 64, "mma_sync"),
 ]
 _CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
-_DGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
 def _conv_inputs(card, dtype, case):
@@ -276,7 +277,61 @@ def test_conv_dgrad_kernel_matches_plain(card, dtype, case):
     assert TK.BODY_LAUNCHES == {f"conv2d_dgrad/{body}": 1}
     assert got.shape == ref.shape and bool(torch.isfinite(got).all())
     err = (got.float() - ref.to(dtype).float()).abs().max()
-    assert float(err / ref.float().abs().max()) <= _DGRAD_TOL[dtype]
+    assert float(err / ref.float().abs().max()) <= _GRAD_TOL[dtype]
+
+
+# (id, N, H, W, Cin, k, stride, Cout, groups, body in bf16): _CONV_CASES at
+# one group, then what only wgrad's tiles meet: 7x7 at batch 1 (P = 49, less
+# than one 64-position chunk), kh*kw*Cin 64 (the consumers split the tile
+# over N) with Cout 256 and with Cout 64 (one consumer has no columns), a 3x3
+# from 64 channels (576 filter rows: the last 128-row tile half empty), and
+# two groups of 64 (the mma.sync body)
+_WGRAD_CASES = [c[:8] + (1, c[8]) for c in _CONV_CASES] + [
+    ("7x7-n1", 1, 7, 7, 512, 1, 1, 2048, 1, "wgmma"),
+    ("r64-og256", 2, 56, 56, 64, 1, 1, 256, 1, "wgmma"),
+    ("r64-og64", 1, 56, 56, 64, 1, 1, 64, 1, "wgmma"),
+    ("3x3-cg64", 2, 28, 28, 64, 3, 1, 64, 1, "wgmma"),
+    ("groups2", 2, 14, 14, 128, 3, 1, 128, 2, "mma_sync"),
+]
+
+
+@pytest.mark.parametrize("case", _WGRAD_CASES,
+                         ids=[c[0] for c in _WGRAD_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv_wgrad_kernel_matches_plain(card, dtype, case):
+    """dW on the body the plan reports (fp32: FMA; bf16: wgmma for one group
+    of Cin and Cout multiples of 64, else mma.sync), against the plain
+    version within 1e-4 (fp32) or 2^-7 (bf16, compared in bf16 as the
+    layer sees it) of the largest output, on a result block the allocator
+    first handed out full of NaN (an element left unwritten shows), and
+    equal to the bit over two runs (the split slices are summed in a fixed
+    order)."""
+    _, n, h, w_, cin, k, s, cout, groups, bf16_body = case
+    gen = torch.Generator(device=card).manual_seed(n * h * cin + k * cout)
+    oh, ow = -(-h // s), -(-w_ // s)
+    x = torch.randn((n, h, w_, cin), device=card, generator=gen).to(dtype)
+    dy = torch.randn((n, oh, ow, cout), device=card, generator=gen).to(dtype)
+    pads = KC.resolve_padding("SAME", (h, w_), (k, k), (s, s), (1, 1))
+    body = "fma" if dtype == torch.float32 else bf16_body
+    assert KC.wgrad_body(dtype, x.shape, dy.shape, (k, k), (s, s), pads,
+                         (1, 1), groups) == body
+    assert KC.wgrad_plan(x, dy, k, k, (s, s), pads, (1, 1), groups)[1] == body
+    ref = KC.conv2d_wgrad_reference(x, dy, k, k, (s, s), pads, (1, 1),
+                                    groups)
+    poison = torch.full(ref.shape, float("nan"), device=card)
+    del poison  # its block goes back to the cache and comes out as dW
+    got = KC.conv2d_wgrad(x, dy, k, k, (s, s), pads, (1, 1), groups)
+    again = KC.conv2d_wgrad(x, dy, k, k, (s, s), pads, (1, 1), groups)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["conv2d_wgrad"] == 2
+    assert TK.BODY_LAUNCHES == {f"conv2d_wgrad/{body}": 2}
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    err = (got.to(dtype).float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.to(dtype).float().abs().max()) <= \
+        _GRAD_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -300,7 +355,7 @@ def test_conv_dgrad_tapless_phases_write_zeros(card, dtype):
     ref = KC.conv2d_dgrad_reference(dy, w, (h, h), (2, 2), ((0, 0), (0, 0)),
                                     (1, 1), 1)
     err = (got.float() - ref.to(dtype).float()).abs().max()
-    assert float(err / ref.float().abs().max()) <= _DGRAD_TOL[dtype]
+    assert float(err / ref.float().abs().max()) <= _GRAD_TOL[dtype]
 
 
 def test_conv_row_tile_on_every_body(card):

@@ -585,6 +585,10 @@ def test_chip_smoke_counts_52_dgrad_launches_per_step():
      "float const*)", "split_reduce"),
     ("void (anonymous namespace)::conv2d_fwd_wgmma<128, true>(CUtensorMap)",
      "fwd"),
+    ("void (anonymous namespace)::conv2d_wgrad_wgmma<128, 0>(CUtensorMap, "
+     "CUtensorMap, float*, float*, (anonymous namespace)::WgmmaGeom)", "wgrad"),
+    ("void (anonymous namespace)::reduce_splits<float4>(float4 const*, "
+     "float4*, long long, int, int)", "split_reduce"),
     ("void at::native::reduce_kernel<128, 4>()", None),
 ])
 def test_chip_smoke_profile_buckets(name, cls):
@@ -598,7 +602,7 @@ def test_chip_smoke_classes_every_conv_kernel(monkeypatch):
     smoke = _smoke()
     names = smoke.conv_kernel_names()
     assert {"conv2d_fwd_f32", "conv2d_fwd_bf16", "conv2d_fwd_wgmma",
-            "conv2d_wgrad_f32", "reduce_conv_splits",
+            "conv2d_wgrad_f32", "conv2d_wgrad_wgmma", "reduce_conv_splits",
             "reduce_splits"} <= names
     for k in names:
         assert smoke._kernel_class(
