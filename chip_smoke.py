@@ -71,27 +71,36 @@ of the JAX package. Phases, each printing one JSON line:
     profiled batch-32 S=512 forward in each type by class (flash kernel
     and its share, matmuls, layer norm, gelu, embedding gather, idle
     share).
-11. lstm_kernel: the fused LSTM cell kernel (``csrc/lstm_cell.cu``, K4)
-    against its plain version at the char-RNN's geometries, training (B 32,
-    H 256) and sampling (B 4, H 256), both gate orders, fp32 and bf16, xp a
-    strided time slice, gated by LSTM_TOL; the kernel's time (one launch
-    alone, and per launch of 50 in one CUDA graph), the plain version's,
-    the library route's (``torch.addmm`` + ``torch._thnn_fused_lstm_cell``)
-    and cuDNN ``nn.LSTM``'s per step, and the card's bound.
+11. lstm_kernel: K4 at the char-RNN's geometries, both gate orders, fp32
+    and bf16, gated by LSTM_TOL. The one-step cell kernel
+    (``csrc/lstm_cell.cu``) at training (B 32, H 256) and sampling (B 4,
+    H 256) on a strided time slice: its time (one launch alone, and per
+    launch of 50 in one CUDA graph), the plain version's, the library
+    route's (``torch.addmm`` + ``torch._thnn_fused_lstm_cell``) and cuDNN
+    ``nn.LSTM``'s per step, the bound. The segment kernel
+    (``csrc/lstm_seq.cu``, the main path's) at (B 32, T 50) and (B 4,
+    T 1), with and without a ragged mask, on y, the carries and the final
+    state: the segment's time and per step, the step body's at the same
+    geometry, the plain version's, the library route per step (50 steps in
+    one CUDA graph) and per segment, cuDNN ``nn.LSTM`` over the same
+    segment, the bound per segment, the body that ran.
 12. char_rnn_train: full-width TextGenerationLSTM (47 characters, 256
     units, dropout 0.2, Adam(1e-3), seed 12345) at dl4j-examples'
     LSTMCharModellingExample shape (batch 32, 1000 characters of SURVEY.md
-    per sequence, TBPTT 50: 20 updates and 2000 K4 launches per ``fit``
-    call): one segment's step under ``auto`` against ``exact`` with dropout
-    off (loss 1e-5 relative, gradients by the fp64 step gate), the main
-    path (CHAR_FITS ``fit`` calls, every K4 launch held against its plain
-    version, none plain on CUDA, the loss of the last five segments below
-    the first five's), one checked bf16 ``fit`` call, train characters/sec
-    fp32 and bf16 (five windows of one ``fit`` call), one profiled
-    segment (device busy, idle share, K4's share).
-13. char_rnn_sample: 4 samples of 300 characters from the trained net with
-    ``rnn_time_step`` after a short prime (2 K4 launches per character
-    step at batch 4, each checked), characters/sec, a 60-character excerpt.
+    per sequence, TBPTT 50: 20 updates and 40 K4 launches per ``fit``
+    call, one per segment and layer): one segment's step under ``auto``
+    against ``exact`` with dropout off (loss 1e-5 relative, gradients by
+    the fp64 step gate), the main path (CHAR_FITS ``fit`` calls, every K4
+    launch held against its plain version, none plain on CUDA, the loss of
+    the last five segments below the first five's), one checked bf16
+    ``fit`` call, train characters/sec fp32 and bf16 (five windows of one
+    ``fit`` call), one profiled segment (device busy, idle share, K4's
+    launches and share).
+13. char_rnn_sample: 4 samples of 300 characters with ``rnn_time_step``
+    after a 9-character prime (one call: 2 K4 launches; then 2 K4 launches
+    per character step at batch 4, each checked), from the trained fp32
+    net and from the bf16 net of its one ``fit`` call: characters/sec and
+    a 60-character excerpt of each.
 14. timing: the seconds each phase took, and the whole run's.
 15. kernels: one JSON line per the kernel table in PERF.md.
 
@@ -166,6 +175,7 @@ ATTENTION_CASES = (
     (1, 512, 64, "none"), (32, 512, 64, "none"))
 SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
 LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_cell.cu"
+LSTM_SEQ_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_seq.cu"
 LSTM_REPLACES = "deeplearning4j_tpu/ops/kernels/lstm.py:97 _cell_kernel"
 # LSTM cell gate, on max|kernel - plain| / max|plain| over h' and c'. fp32:
 # the same fp32 sums of H products in another order (~1e-7 of the largest
@@ -519,7 +529,8 @@ PLAIN_OF = {"conv2d_fwd": "conv2d_fwd_reference",
             "conv2d_dgrad": "conv2d_dgrad_reference",
             "conv2d_wgrad": "conv2d_wgrad_reference"}
 ATTENTION_PLAIN_OF = {"flash_attention_fwd": "flash_attention_fwd_reference"}
-LSTM_PLAIN_OF = {"lstm_cell_fwd": "lstm_cell_reference"}
+LSTM_PLAIN_OF = {"lstm_cell_fwd": "lstm_cell_reference",
+                 "lstm_seq_fwd": "lstm_seq_reference"}
 
 
 def _wrapped_kernels():
@@ -535,7 +546,8 @@ def _wrapped_kernels():
 
 def lstm_error(out, ref):
     """(max abs error, error over the largest output) of a cell's h' and c'
-    against the plain version's, the worse of the two."""
+    (or a segment's y, carries and final state) against the plain
+    version's, the worst of them."""
     errs = [_grad_error(o, r) for o, r in zip(out, ref)]
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
@@ -559,11 +571,13 @@ def attention_error(torch, out, ref):
 def check_every_launch(torch, checked):
     """While active, each call of a kernel's wrapper (``conv2d_fwd``,
     ``conv2d_dgrad``, ``conv2d_wgrad``, ``flash_attention_fwd``,
-    ``lstm_cell_fwd``) is held against its plain version on the call's own
-    tensors: the conv kernels by the GRAD_TOL gate on the error normalised
-    by the largest plain output (bf16: on both results in bf16), the flash
-    kernel by ATTN_TOL on O and LSE_TOL on the LSE, the LSTM cell by
-    LSTM_TOL on h' and c'. The kernel launches once per call, as
+    ``lstm_cell_fwd``, ``lstm_seq_fwd``) is held against its plain version
+    on the call's own tensors: the conv kernels by the GRAD_TOL gate on the
+    error normalised by the largest plain output (bf16: on both results in
+    bf16), the flash kernel by ATTN_TOL on O and LSE_TOL on the LSE, the
+    LSTM cell by LSTM_TOL on h' and c', the LSTM segment by LSTM_TOL on y,
+    the h and c carries and the final state. The kernel launches once per
+    call, as
     unchecked, and the plain versions count nothing, so a path run under
     the check launches what it launches without it, and every one of those
     launches is checked. ``checked`` collects {(wrapper, "fp32" | "bf16"):
@@ -577,10 +591,11 @@ def check_every_launch(torch, checked):
         def checked_call(*args, **kwargs):
             out = kernel(*args, **kwargs)
             kwargs.pop("row_tile", None)
+            kwargs.pop("body", None)
             ref = plain(*args, **kwargs)
             tag = "bf16" if args[0].dtype == torch.bfloat16 else "fp32"
             lse_err = None
-            if name == "lstm_cell_fwd":
+            if name in ("lstm_cell_fwd", "lstm_seq_fwd"):
                 if any(o.shape != r.shape or o.dtype != r.dtype
                        or not torch.isfinite(o.float()).all()
                        for o, r in zip(out, ref)):
@@ -1667,19 +1682,139 @@ def check_lstm(torch, b, h, order_name):
     return rec
 
 
+def lstm_seq_bound(b, h, t, es, peak, masked=False):
+    """A segment's bound: 2*B*H*4H*T operations of h @ U (the gates add some
+    20*B*H*T, under 1%), against U, h0, c0, xp (and the mask) read once and
+    y, the c carries (and under a mask the h carries) and the final (h, c)
+    written once."""
+    reads = h * 4 * h + 2 * b * h + b * t * 4 * h + (b * t if masked else 0)
+    writes = (3 if masked else 2) * b * t * h + 2 * b * h
+    flops = 2 * b * h * 4 * h * t
+    nbytes = (reads + writes) * es
+    return {"flops": flops, "bytes": nbytes, **bound(flops, nbytes, peak)}
+
+
+def ragged_mask(torch, b, t, gen):
+    """A (B, T) 0/1 mask of random lengths from 1 to T, row 0 full."""
+    lengths = torch.randint(1, t + 1, (b,), device="cuda", generator=gen)
+    lengths[0] = t
+    return (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+
+
+def check_lstm_seq(torch, b, h, t, order_name):
+    """The segment kernel (the main path's K4) against its plain version on a
+    (B, T, 4H) projection, with and without a ragged mask, fp32 and bf16,
+    on y, the carries and the final state. For IFOG also its times: the
+    segment (10 launches in one CUDA graph, per launch) and per step, the
+    step body forced on the same inputs, the plain version, the library
+    route (``torch.addmm`` then ATen's ``_thnn_fused_lstm_cell``, gates
+    permuted to its i, f, g, o order outside the timing) over the T steps
+    in one CUDA graph, cuDNN ``nn.LSTM`` over the same T steps (its input
+    projection included), and the bound."""
+    from deeplearning4j_tpu_torch.ops.kernels import lstm as klstm
+
+    order = klstm.ORDER_IFOG if order_name == "ifog" else klstm.ORDER_IOFG
+    gen = torch.Generator(device="cuda").manual_seed(
+        zlib.crc32(repr(("lstm_seq", b, h, t, order_name)).encode()))
+    xp32 = torch.randn((b, t, 4 * h), device="cuda", generator=gen)
+    h32 = 0.5 * torch.randn((b, h), device="cuda", generator=gen)
+    c32 = torch.randn((b, h), device="cuda", generator=gen)
+    u32 = torch.randn((h, 4 * h), device="cuda", generator=gen) / h ** 0.5
+    mask = ragged_mask(torch, b, t, gen)
+    rec = {"b": b, "h": h, "t": t, "order": order_name}
+    for tag, dt, peak in (("fp32", torch.float32, H100_FP32_FLOPS),
+                          ("bf16", torch.bfloat16, H100_BF16_FLOPS)):
+        xp, h0, c0, u = (v.to(dt) for v in (xp32, h32, c32, u32))
+        r = {"body": klstm.seq_body(dt, b, h), "tolerance": LSTM_TOL[tag]}
+        for key, m in (("unmasked", None), ("masked", mask)):
+            out = klstm.lstm_seq_fwd(xp, h0, c0, u, order, m)
+            ref = klstm.lstm_seq_reference(xp, h0, c0, u, order, m)
+            torch.cuda.synchronize()
+            if any(o.shape != q.shape or o.dtype != dt
+                   or not torch.isfinite(o.float()).all()
+                   for o, q in zip(out, ref)):
+                raise AssertionError(f"lstm_seq B={b} H={h} T={t} "
+                                     f"{order_name} {tag} {key}: kernel "
+                                     "gave a wrong shape, type or "
+                                     "non-finite values")
+            err, norm = lstm_error(out, ref)
+            if norm > LSTM_TOL[tag]:
+                raise AssertionError(f"lstm_seq B={b} H={h} T={t} "
+                                     f"{order_name} {tag} {key}: err "
+                                     f"{norm:.3g} > {LSTM_TOL[tag]}")
+            r[f"max_abs_err_{key}"], r[f"max_err_normalised_{key}"] = err, norm
+        r["max_abs_err"] = max(r["max_abs_err_unmasked"],
+                               r["max_abs_err_masked"])
+        r["max_err_normalised"] = max(r["max_err_normalised_unmasked"],
+                                      r["max_err_normalised_masked"])
+        if order_name == "ifog":
+            r["ms"] = time_ms(torch, lambda: klstm.lstm_seq_fwd(
+                xp, h0, c0, u, order), reps=10)
+            r["ms_per_step"] = r["ms"] / t
+            r["ms_step_body"] = time_ms(torch, lambda: klstm.lstm_seq_fwd(
+                xp, h0, c0, u, order, body="step"), reps=10)
+            r["plain_ms"] = time_ms(torch, lambda: klstm.lstm_seq_reference(
+                xp, h0, c0, u, order), reps=2)
+            r.update(lstm_seq_bound(b, h, t, xp.element_size(), peak))
+            perm = torch.cat([torch.arange(p * h, (p + 1) * h, device="cuda")
+                              for p in (order.index(g) for g in "ifgo")])
+            xp_l, u_l = xp[:, :, perm].contiguous(), u[:, perm].contiguous()
+            zeros = torch.zeros_like(xp_l[:, 0])
+
+            def library():
+                hh, cc = h0, c0
+                for s in range(t):
+                    hh, cc = torch.ops.aten._thnn_fused_lstm_cell(
+                        torch.addmm(xp_l[:, s], hh, u_l), zeros, cc)[:2]
+                return hh, cc
+
+            # the yardsticks are timed only: a library call that this build
+            # of torch cannot make is recorded as null with its error
+            try:
+                r["library_err_normalised"] = lstm_error(
+                    library(), klstm.lstm_seq_reference(
+                        xp, h0, c0, u, order)[3:])[1]
+                r["library_ms"] = time_ms(torch, library, reps=1)
+                r["library_ms_per_step"] = r["library_ms"] / t
+            except RuntimeError as e:
+                r["library_ms"], r["library_error"] = None, str(e)[:200]
+            try:
+                cudnn = torch.nn.LSTM(h, h, batch_first=True).to(
+                    device="cuda", dtype=dt)
+                cudnn.flatten_parameters()  # one weight buffer, as cuDNN wants
+                seq = torch.randn((b, t, h), device="cuda",
+                                  generator=gen).to(dt)
+                state = (h0[None].contiguous(), c0[None].contiguous())
+                with torch.no_grad():
+                    r["cudnn_lstm_ms"] = eager_ms(
+                        torch, lambda: cudnn(seq, state))
+            except RuntimeError as e:
+                r["cudnn_lstm_ms"], r["cudnn_lstm_error"] = None, str(e)[:200]
+        rec[tag] = r
+    return rec
+
+
 def lstm_kernel_phase(torch, np):
-    """K4 at the char-RNN's geometries: training (B 32, H 256) and sampling
-    (B 4, H 256), both gate orders, fp32 and bf16."""
+    """K4 at the char-RNN's geometries: the one-step cell kernel at training
+    (B 32, H 256) and sampling (B 4, H 256) shapes, and the segment kernel
+    at a training segment (B 32, T 50) and a sampling step (B 4, T 1);
+    both gate orders, fp32 and bf16. Returns (cell records, segment
+    records)."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
 
-    records = []
+    records, seq_records = [], []
     for b in (CHAR_BATCH, SAMPLES):
         for order_name in ("ifog", "iofg"):
             rec = check_lstm(torch, b, CHAR_UNITS, order_name)
             records.append(rec)
             emit("lstm_kernel", name="lstm_cell_fwd", **rec)
+    for b, t in ((CHAR_BATCH, CHAR_TBPTT), (SAMPLES, 1)):
+        for order_name in ("ifog", "iofg"):
+            rec = check_lstm_seq(torch, b, CHAR_UNITS, t, order_name)
+            seq_records.append(rec)
+            emit("lstm_kernel", name="lstm_seq_fwd", **rec)
     kern.reset_counts()
-    return records
+    return records, seq_records
 
 
 # ---------------------------------------------------------------- char-RNN
@@ -1719,10 +1854,17 @@ def char_net(dropout=0.2, dtype="float32"):
 
 
 def lstm_only(counts, what):
-    """The K4 count; every other kernel's must be 0 on the char-RNN."""
-    if any(v for k, v in counts.items() if k != "lstm_cell_fwd"):
+    """The K4 count, the segment kernel's; every other kernel's (the one-step
+    cell's included) must be 0 on the char-RNN."""
+    if any(v for k, v in counts.items() if k != "lstm_seq_fwd"):
         raise AssertionError(f"{what} launched {counts}")
-    return counts["lstm_cell_fwd"]
+    return counts["lstm_seq_fwd"]
+
+
+def _is_k4(name):
+    """A profiler kernel name of K4: the segment kernel's resident body or
+    the cell kernel (its step body)."""
+    return "lstm_seq_resident" in name or "lstm_cell_fwd" in name
 
 
 def chars_per_sec(torch, net, x, y, windows=5):
@@ -1746,12 +1888,16 @@ def chars_per_sec(torch, net, x, y, windows=5):
 
 def profile_char_segment(torch, net, x, y, top=8):
     """One TBPTT segment's update (a 50-step fit) under torch.profiler:
-    device busy, idle share, K4's share of the busy time."""
+    device busy, idle share, K4's launches (one per layer, by the wrapper's
+    count; the trace's count beside it) and its share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import kernels as kern
 
     xs, ys = x[:, :CHAR_TBPTT], y[:, :CHAR_TBPTT]
     net.fit(xs, ys)
     torch.cuda.synchronize()
+    kern.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # the tracer can miss the first kernels after it starts: give it
@@ -1764,12 +1910,15 @@ def profile_char_segment(torch, net, x, y, top=8):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(torch, prof)
     busy = sum(k[0] for k in kernels)
-    k4 = sum(ms for ms, _, name in kernels if "lstm_cell_fwd" in name)
-    k4_calls = sum(n for _, n, name in kernels if "lstm_cell_fwd" in name)
+    k4 = sum(ms for ms, _, name in kernels if _is_k4(name))
+    k4_calls = sum(n for _, n, name in kernels if _is_k4(name))
     return {"segment_steps": CHAR_TBPTT, "wall_ms": wall_ms,
             "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-            "lstm_kernel_ms": k4, "lstm_kernel_launches": k4_calls,
+            "lstm_kernel_ms": k4,
+            "lstm_kernel_launches": lstm_only(dict(kern.LAUNCHES),
+                                              "the profiled segment"),
+            "lstm_kernel_traced_launches": k4_calls,
             "lstm_kernel_share_of_busy": k4 / busy if busy else None,
             "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
                     for ms, n, name in kernels[:top]]}
@@ -1779,16 +1928,19 @@ def char_rnn_train_phase(torch, np, card):
     """Full-width char-RNN training at the LSTMCharModellingExample shape:
     one segment's step under ``auto`` against ``exact`` with dropout off on
     the same params (loss, and gradients by the fp64 step gate); the main
-    path, CHAR_FITS ``fit`` calls with dropout 0.2 (2000 K4 launches each,
-    every one held against its plain version on its own tensors), whose
-    loss must fall; one checked bf16 ``fit`` call; train characters/sec
-    fp32 and bf16; one profiled segment."""
+    path, CHAR_FITS ``fit`` calls with dropout 0.2 (40 K4 launches each,
+    one per segment and layer, every one held against its plain version on
+    its own tensors), whose loss must fall; one checked bf16 ``fit`` call;
+    train characters/sec fp32 and bf16; one profiled segment. Returns the
+    net, the main path's launches, their checks and their bodies, and the
+    bf16 net."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
 
     corpus = char_corpus(np)
     rng = np.random.default_rng(12345)
     batches = [char_batch(torch, np, corpus, rng) for _ in range(CHAR_FITS)]
-    per_fit = 2 * CHAR_SEQ  # two LSTM layers, one launch per step each
+    # two LSTM layers, one launch per TBPTT segment each
+    per_fit = 2 * (CHAR_SEQ // CHAR_TBPTT)
 
     # (a) one segment, auto against exact, dropout off, the same params
     net0 = char_net(dropout=0.0)
@@ -1798,9 +1950,9 @@ def char_rnn_train_phase(torch, np, card):
     l_auto, g_auto, _, _ = net0._gradients(None, xs, ys, ones)
     torch.cuda.synchronize()
     step_launches = lstm_only(dict(kern.LAUNCHES), "the auto step")
-    if step_launches != 2 * CHAR_TBPTT or any(kern.PLAIN_ON_CUDA.values()):
+    if step_launches != 2 or any(kern.PLAIN_ON_CUDA.values()):
         raise AssertionError(f"auto step: {step_launches} K4 launches "
-                             f"(expected {2 * CHAR_TBPTT}), plain on CUDA "
+                             f"(expected 2), plain on CUDA "
                              f"{kern.PLAIN_ON_CUDA}")
     with kern.impl_scope("exact"):
         l_exact, g_exact, _, _ = net0._gradients(None, xs, ys, ones)
@@ -1821,7 +1973,7 @@ def char_rnn_train_phase(torch, np, card):
          worst_grad=worst_name, worst_grad_rel_l2=worst,
          max_gate_use=max(r["gate_use"] for r in rows),
          worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
-         launches_per_step=step_launches, card=card)
+         launches_per_segment=step_launches, card=card)
     del net0, g_auto, g_exact, g_64
 
     # (b) the main path: CHAR_FITS fit calls, every K4 launch checked
@@ -1847,12 +1999,14 @@ def char_rnn_train_phase(torch, np, card):
         del net._gradients
     checked_s = time.perf_counter() - t0
     launches = lstm_only(dict(kern.LAUNCHES), "the char-RNN fit calls")
+    bodies = {k.split("/")[1]: v for k, v in kern.BODY_LAUNCHES.items()
+              if k.startswith("lstm_seq_fwd/")}
     plain = dict(kern.PLAIN_ON_CUDA)
     if launches != CHAR_FITS * per_fit or any(plain.values()):
         raise AssertionError(f"{CHAR_FITS} fit calls launched K4 {launches} "
                              f"times (expected {CHAR_FITS * per_fit}), plain "
                              f"on CUDA {plain}")
-    if checked[("lstm_cell_fwd", "fp32")]["calls"] != launches:
+    if checked[("lstm_seq_fwd", "fp32")]["calls"] != launches:
         raise AssertionError(f"{launches} launches, "
                              f"{_checked_summary(checked)} checked")
     losses = [float(v) for v in seg_losses]
@@ -1870,6 +2024,7 @@ def char_rnn_train_phase(torch, np, card):
          segments=len(losses), loss_first5=first5, loss_last5=last5,
          segment_losses=losses, launches=launches,
          launches_per_fit_call=launches // CHAR_FITS, plain_on_cuda=plain,
+         bodies=bodies,
          launches_checked=_checked_summary(checked),
          checked_wall_s=checked_s, card=card)
 
@@ -1879,15 +2034,15 @@ def char_rnn_train_phase(torch, np, card):
     with check_every_launch(torch, checked):
         net16.fit(*batches[0])
     torch.cuda.synchronize()
-    got16 = checked.get(("lstm_cell_fwd", "bf16"), {}).get("calls")
+    got16 = checked.get(("lstm_seq_fwd", "bf16"), {}).get("calls")
     if got16 != per_fit or not math.isfinite(net16.get_score()):
         raise AssertionError(f"bf16 fit call checked {got16} launches "
                              f"(expected {per_fit}), loss "
                              f"{net16.get_score()}")
     emit("char_rnn_bf16_fit", model="TextGenerationLSTM", batch=CHAR_BATCH,
          seq=CHAR_SEQ, loss=net16.get_score(),
-         launches_checked={"lstm_cell_fwd_bf16": checked[
-             ("lstm_cell_fwd", "bf16")]}, card=card)
+         launches_checked={"lstm_seq_fwd_bf16": checked[
+             ("lstm_seq_fwd", "bf16")]}, card=card)
 
     # (d) train characters/sec and one profiled segment
     x, y = batches[0]
@@ -1900,14 +2055,15 @@ def char_rnn_train_phase(torch, np, card):
          batch=CHAR_BATCH, card=card,
          **profile_char_segment(torch, net, x, y))
     kern.reset_counts()
-    return net, launches, checked
+    return net, launches, checked, bodies, net16
 
 
-def sample_chars(torch, np, net, rng):
+def sample_chars(torch, np, net, rng, tol):
     """dl4j-examples' sampleCharactersFromNetwork: prime every sample with
     SAMPLE_PRIME through ``rnn_time_step``, then SAMPLE_LEN times draw each
     sample's next character from the last step's distribution (numpy
-    ``rng``) and feed it back. Returns the SAMPLES strings."""
+    ``rng``) and feed it back; each distribution must sum to 1 within
+    ``tol``. Returns the SAMPLES strings."""
     lut = {ch: i for i, ch in enumerate(CHAR_SET)}
     eye = torch.eye(len(CHAR_SET), device="cuda")
     prime = torch.tensor([lut[ch] for ch in SAMPLE_PRIME], device="cuda")
@@ -1917,7 +2073,7 @@ def sample_chars(torch, np, net, rng):
     texts = [[] for _ in range(SAMPLES)]
     for _ in range(SAMPLE_LEN):
         p = probs.double().cpu().numpy()
-        if not np.isfinite(p).all() or np.abs(p.sum(1) - 1).max() > 1e-4:
+        if not np.isfinite(p).all() or np.abs(p.sum(1) - 1).max() > tol:
             raise AssertionError(f"sampling distribution off: {p.sum(1)}")
         nxt = [int(rng.choice(len(CHAR_SET), p=row / row.sum()))
                for row in p]
@@ -1927,82 +2083,113 @@ def sample_chars(torch, np, net, rng):
     return [SAMPLE_PRIME + "".join(t) for t in texts]
 
 
-def char_rnn_sample_phase(torch, np, card, net):
-    """Sampling from the trained char-RNN: SAMPLES x SAMPLE_LEN characters
-    with ``rnn_time_step`` (2 K4 launches per character step at batch 4,
-    every one checked), then the same unchecked for characters/sec."""
+def char_rnn_sample_phase(torch, np, card, net, net16):
+    """Sampling: SAMPLES x SAMPLE_LEN characters with ``rnn_time_step`` (the
+    prime one call of 9 steps, then one call a character: 2 K4 launches a
+    call at batch 4, every one checked) from the fp32 net, then the same
+    unchecked for characters/sec; both again from the bf16 net, whose
+    distributions are bf16 (each probability within half an ulp, so the
+    sum within 2^-7 of 1 where fp32's is within 1e-4). Returns the fp32
+    net's launches and every check."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
 
-    want = 2 * (len(SAMPLE_PRIME) + SAMPLE_LEN)
-    checked = {}
-    kern.reset_counts()
-    with check_every_launch(torch, checked):
-        texts = sample_chars(torch, np, net, np.random.default_rng(12345))
-    torch.cuda.synchronize()
-    launches = lstm_only(dict(kern.LAUNCHES), "sampling")
-    if launches != want or checked[("lstm_cell_fwd", "fp32")]["calls"] \
-            != want or any(kern.PLAIN_ON_CUDA.values()):
-        raise AssertionError(f"sampling launched K4 {launches} times "
-                             f"(expected {want}), checked "
-                             f"{_checked_summary(checked)}")
-    t0 = time.perf_counter()
-    again = sample_chars(torch, np, net, np.random.default_rng(12345))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if again != texts:
-        raise AssertionError("sampling with one seed gave two texts")
+    want = 2 * (1 + SAMPLE_LEN)
+    checked, rates = {}, {}
+    for tag, n, tol in (("fp32", net, 1e-4), ("bf16", net16, 2.0 ** -7)):
+        kern.reset_counts()
+        with check_every_launch(torch, checked):
+            texts = sample_chars(torch, np, n, np.random.default_rng(12345),
+                                 tol)
+        torch.cuda.synchronize()
+        got = lstm_only(dict(kern.LAUNCHES), f"{tag} sampling")
+        if tag == "fp32":
+            launches = got
+        if got != want or checked[("lstm_seq_fwd", tag)]["calls"] != want \
+                or any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{tag} sampling launched K4 {got} times "
+                                 f"(expected {want}), checked "
+                                 f"{_checked_summary(checked)}")
+        t0 = time.perf_counter()
+        again = sample_chars(torch, np, n, np.random.default_rng(12345), tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if again != texts:
+            raise AssertionError(f"{tag} sampling with one seed gave two "
+                                 "texts")
+        rates[tag] = {"sample_wall_s": wall,
+                      "chars_per_sec": SAMPLES * SAMPLE_LEN / wall,
+                      "excerpt": texts[0][:60]}
     emit("char_rnn_sample", samples=SAMPLES, chars_per_sample=SAMPLE_LEN,
          prime=SAMPLE_PRIME, launches=launches,
-         launches_per_char_step=launches / (len(SAMPLE_PRIME) + SAMPLE_LEN),
+         launches_per_char_step=(launches - 2) / SAMPLE_LEN,
          launches_checked=_checked_summary(checked),
-         sample_wall_s=wall, chars_per_sec=SAMPLES * SAMPLE_LEN / wall,
-         excerpt=texts[0][:60], card=card)
+         sample_wall_s=rates["fp32"]["sample_wall_s"],
+         chars_per_sec=rates["fp32"]["chars_per_sec"],
+         excerpt=rates["fp32"]["excerpt"],
+         chars_per_sec_bf16=rates["bf16"]["chars_per_sec"],
+         excerpt_bf16=rates["bf16"]["excerpt"], card=card)
     kern.reset_counts()
     return launches, checked
 
 
-def lstm_entry(records, launches, train_checked, sample_launches,
-               sample_checked, card):
-    """K4's line of the kernels table: times of one launch at the training
-    geometry (B 32, H 256, IFOG; the sampling geometry's beside it), errors
-    over every lstm_kernel case, launches of the char-RNN's fit calls and of
-    sampling."""
+def lstm_entry(cell_records, seq_records, launches, train_checked,
+               sample_launches, sample_checked, bodies, card):
+    """K4's line of the kernels table: the segment kernel the main paths
+    launch, its times at the training segment (B 32, H 256, T 50, IFOG) and
+    at the sampling step (B 4, T 1) beside them, the step body's at both,
+    the one-step cell kernel's per launch, errors over every lstm_kernel
+    case, launches of the char-RNN's fit calls and of sampling, and the
+    bodies those launches ran."""
     def rec(b, order="ifog"):
-        return next(r for r in records if r["b"] == b and r["order"] == order)
+        return next(r for r in seq_records
+                    if r["b"] == b and r["order"] == order)
 
     train, sample = rec(CHAR_BATCH), rec(SAMPLES)
+    cell = next(r for r in cell_records
+                if r["b"] == CHAR_BATCH and r["order"] == "ifog")
 
     def worst(tag, field):
-        return max(r[tag][field] for r in records)
+        return max(r[tag][field] for r in seq_records + cell_records)
 
     entry = {
-        "name": "lstm_cell_fwd", "route": "cuda", "source": LSTM_SOURCE,
-        "replaces": LSTM_REPLACES, "replaces_ids": ["K4"],
-        "launches": launches, "launches_per_fit_call": launches // CHAR_FITS,
-        "launches_sample": sample_launches,
+        "name": "lstm_seq_fwd", "route": "cuda", "source": LSTM_SEQ_SOURCE,
+        "source_step_body": LSTM_SOURCE, "replaces": LSTM_REPLACES,
+        "replaces_ids": ["K4"], "launches": launches,
+        "launches_per_fit_call": launches // CHAR_FITS,
+        "launches_sample": sample_launches, "bodies": bodies,
         "max_abs_err": worst("fp32", "max_abs_err"),
         "max_err_normalised_fp32": worst("fp32", "max_err_normalised"),
         "max_err_normalised_bf16": worst("bf16", "max_err_normalised")}
     for suffix, r in (("", train["fp32"]), ("_bf16", train["bf16"]),
-                      ("_b4", sample["fp32"]), ("_b4_bf16", sample["bf16"])):
-        for field in ("ms", "ms_one_launch", "plain_ms", "bound_ms",
-                      "bound_by", "library_ms", "cudnn_lstm_ms_per_step"):
+                      ("_t1", sample["fp32"]), ("_t1_bf16", sample["bf16"])):
+        for field in ("ms", "ms_per_step", "ms_step_body", "plain_ms",
+                      "bound_ms", "bound_by", "library_ms",
+                      "library_ms_per_step", "cudnn_lstm_ms", "body"):
             entry[field + suffix] = r.get(field)
+    for suffix, r in (("", cell["fp32"]), ("_bf16", cell["bf16"])):
+        for field in ("ms", "ms_one_launch", "plain_ms", "bound_ms",
+                      "library_ms"):
+            entry[f"cell_{field}{suffix}"] = r.get(field)
     entry.update({
         "train_checked": {f"{k}_{t}": v for (k, t), v in train_checked.items()
-                          if k == "lstm_cell_fwd"},
-        "sample_checked_fp32": sample_checked[("lstm_cell_fwd", "fp32")],
-        "per": f"one launch at B {CHAR_BATCH}, H {CHAR_UNITS}, IFOG, fp32 "
-               "unless suffixed (_bf16; _b4: the sampling geometry, B 4); "
-               "ms: 50 launches in one CUDA graph, per launch; "
-               "ms_one_launch: a graph of one launch; library_ms: "
-               "torch.addmm + torch._thnn_fused_lstm_cell on the same "
-               "tensors (a yardstick the port never calls); "
-               "cudnn_lstm_ms_per_step: nn.LSTM over a 50-step segment "
-               "(input projection included) over 50; launches from the "
-               f"char_rnn_train phase's {CHAR_FITS} fit calls and "
-               "launches_sample from char_rnn_sample; *_checked: every "
-               "launch of those paths against the plain version",
+                          if k == "lstm_seq_fwd"},
+        "sample_checked_fp32": sample_checked[("lstm_seq_fwd", "fp32")],
+        "sample_checked_bf16": sample_checked[("lstm_seq_fwd", "bf16")],
+        "per": f"one segment launch at B {CHAR_BATCH}, H {CHAR_UNITS}, T "
+               f"{CHAR_TBPTT}, IFOG, fp32 unless suffixed (_bf16; _t1: the "
+               f"sampling step, B {SAMPLES}, T 1); ms: 10 launches in one "
+               "CUDA graph, per launch; ms_step_body: the step body forced "
+               "on the same inputs; library_ms: torch.addmm + "
+               "torch._thnn_fused_lstm_cell over the T steps in one CUDA "
+               "graph (a yardstick the port never calls); cudnn_lstm_ms: "
+               "nn.LSTM over the same T steps (input projection included); "
+               "cell_*: the one-step cell kernel per launch at B "
+               f"{CHAR_BATCH} (50 launches in one CUDA graph); launches "
+               f"from the char_rnn_train phase's {CHAR_FITS} fit calls and "
+               "launches_sample from char_rnn_sample (the fp32 net; the "
+               "bf16 net's as many, in sample_checked_bf16); bodies: the fit "
+               "calls' launches by body; *_checked: every launch of those "
+               "paths against the plain version",
         "card": card})
     return entry
 
@@ -2112,12 +2299,13 @@ def main() -> int:
     masked_launches, masked_checked = timed(
         "bert_forward", bert_forward_phase, torch, np, smi, bert)
     del bert
-    lstm_records = timed("lstm_kernel", lstm_kernel_phase, torch, np)
-    char_net_trained, char_launches, char_checked = timed(
-        "char_rnn_train", char_rnn_train_phase, torch, np, smi)
+    lstm_records, lstm_seq_records = timed("lstm_kernel", lstm_kernel_phase,
+                                           torch, np)
+    char_net_trained, char_launches, char_checked, char_bodies, char_net16 = \
+        timed("char_rnn_train", char_rnn_train_phase, torch, np, smi)
     sample_launches, sample_checked = timed(
         "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
-        char_net_trained)
+        char_net_trained, char_net16)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
 
     def checked_fields(name, checked):
@@ -2219,8 +2407,9 @@ def main() -> int:
         grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
         flash_entry(att_records, bert_launches, bert_checked,
                     masked_launches, masked_checked, smi),
-        lstm_entry(lstm_records, char_launches, char_checked,
-                   sample_launches, sample_checked, smi),
+        lstm_entry(lstm_records, lstm_seq_records, char_launches,
+                   char_checked, sample_launches, sample_checked,
+                   char_bodies, smi),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

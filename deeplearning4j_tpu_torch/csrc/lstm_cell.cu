@@ -1,5 +1,8 @@
 // Fused LSTM cell for Hopper (sm_90a): one time step, z = xp + h @ U, the gate block and the
-// state update in one kernel, h' and c' out.
+// state update in one kernel, h' and c' out. It is also the step body of the sequence entry
+// (lstm_seq.cu's dl4j_lstm_seq_fwd), which launches it once per time step where the resident body
+// does not fit, with the states read and written at row strides and _scan's mask rule applied in
+// the epilogue (lstm_common.cuh's blend).
 //
 // Replaces the TPU kernel of the JAX package:
 //   deeplearning4j_tpu/ops/kernels/lstm.py::_cell_kernel (launched by _cell_pallas)
@@ -33,11 +36,9 @@
 // launch itself (a few microseconds). BT = JT = 8 gives (H / 8) x (B / 8) = 128 blocks at B 32,
 // H 256: one wave over the 132 SMs. Left on the table: the persistent time loop (U kept in
 // shared memory across steps, one launch per segment), tensor cores (mma.sync / wgmma) for
-// bf16, and vector loads.
+// bf16, and vector loads: lstm_seq.cu's resident body has the first two.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "lstm_common.cuh"
 
 namespace {
 
@@ -49,40 +50,16 @@ constexpr int PAIRS = BT * JT;                // (row, unit) pairs per block
 constexpr int THREADS = PAIRS * KSPLIT;       // 256
 constexpr int COLS = 4 * JT;                  // z columns a block computes
 
-struct CellGeom {
-  int b, h;
-  long long xp_stride;  // elements between consecutive rows of xp
-  int col_i, col_f, col_o, col_g;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid_acc(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// z[c] for a runtime block index c in 0..3, kept in registers
-__device__ __forceinline__ float pick(const float (&z)[4], int c) {
-  return c == 0 ? z[0] : c == 1 ? z[1] : c == 2 ? z[2] : z[3];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-lstm_cell_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h_prev,
-                     const T* __restrict__ c_prev, const T* __restrict__ u,
-                     T* __restrict__ h_out, T* __restrict__ c_out, CellGeom g) {
+__global__ void __launch_bounds__(THREADS) lstm_cell_fwd_kernel(const StepArgs g) {
   __shared__ float hs[BT][KC + 1];           // +1: the BT rows fall in distinct banks
   __shared__ float us[KC][COLS];
   __shared__ float part[KSPLIT - 1][4][PAIRS];
 
+  const T* __restrict__ xp = static_cast<const T*>(g.xp);
+  const T* __restrict__ h_prev = static_cast<const T*>(g.h_prev);
+  const T* __restrict__ c_prev = static_cast<const T*>(g.c_prev);
+  const T* __restrict__ u = static_cast<const T*>(g.u);
   const int tid = threadIdx.x;
   const int pair = tid % PAIRS;
   const int ks = tid / PAIRS;                // a warp shares one slice: no divergence
@@ -96,7 +73,7 @@ lstm_cell_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h_prev,
     for (int e = tid; e < BT * KC; e += THREADS) {
       const int r = e / KC, k = e % KC;
       const int b = b0 + r, kk = k0 + k;
-      hs[r][k] = (b < g.b && kk < H) ? to_f(h_prev[(long long)b * H + kk]) : 0.f;
+      hs[r][k] = (b < g.b && kk < H) ? to_f(h_prev[(long long)b * g.h_stride + kk]) : 0.f;
     }
     for (int e = tid; e < KC * COLS; e += THREADS) {
       const int k = e / COLS, col = e % COLS;
@@ -136,15 +113,40 @@ lstm_cell_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h_prev,
   const float fg = sigmoid_acc(pick(z, g.col_f));
   const float og = sigmoid_acc(pick(z, g.col_o));
   const float gg = tanhf(pick(z, g.col_g));
-  const long long at = (long long)b * H + j;
-  const float c_new = fg * to_f(c_prev[at]) + ig * gg;
-  c_out[at] = from_f<T>(c_new);
-  h_out[at] = from_f<T>(og * tanhf(c_new));
+  const float c_old = to_f(c_prev[(long long)b * g.c_stride + j]);
+  const float c_new = __fadd_rn(__fmul_rn(fg, c_old), __fmul_rn(ig, gg));  // as torch's ops
+  float h_car = rt<T>(og * tanhf(c_new)), c_car = rt<T>(c_new), y = h_car;
+  if (g.mask != nullptr) {
+    const float m = to_f(static_cast<const T*>(g.mask)[(long long)b * g.m_stride]);
+    y = rt<T>(__fmul_rn(m, h_car));
+    h_car = blend<T>(m, h_car, to_f(h_prev[(long long)b * g.h_stride + j]));
+    c_car = blend<T>(m, c_car, c_old);
+    static_cast<T*>(g.hc_out)[(long long)b * g.hc_stride + j] = from_f<T>(h_car);
+  }
+  static_cast<T*>(g.c_out)[(long long)b * g.c_out_stride + j] = from_f<T>(c_car);
+  static_cast<T*>(g.y)[(long long)b * g.y_stride + j] = from_f<T>(y);
 }
 
 }  // namespace
 
 extern "C" {
+
+int dl4j_lstm_step_launch(const StepArgs* a, int dtype, void* stream) {
+  const int seen = (1 << a->col_i) | (1 << a->col_f) | (1 << a->col_o) | (1 << a->col_g);
+  if ((dtype != 0 && dtype != 1) || a->b < 1 || a->h < 1 || a->xp_stride < 4LL * a->h ||
+      a->col_i < 0 || a->col_i > 3 || a->col_f < 0 || a->col_f > 3 || a->col_o < 0 ||
+      a->col_o > 3 || a->col_g < 0 || a->col_g > 3 || seen != 0xF ||
+      (a->b + BT - 1) / BT > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a->h + JT - 1) / JT), (unsigned)((a->b + BT - 1) / BT));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();  // report this launch's error, not an older one
+  if (dtype == 0)
+    lstm_cell_fwd_kernel<float><<<grid, THREADS, 0, s>>>(*a);
+  else
+    lstm_cell_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(*a);
+  return (int)cudaGetLastError();
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor of one type). xp (B, 4H) rows xp_stride
 // elements apart, each row contiguous; h, c, h_out, c_out (B, H) and U (H, 4H) contiguous.
@@ -155,29 +157,15 @@ int dl4j_lstm_cell_fwd(const void* xp, const void* h, const void* c, const void*
                        void* h_out, void* c_out, int dtype, int b, int hidden,
                        long long xp_stride, int col_i, int col_f, int col_o, int col_g,
                        void* stream) {
-  const int seen = (1 << col_i) | (1 << col_f) | (1 << col_o) | (1 << col_g);
-  if ((dtype != 0 && dtype != 1) || b < 1 || hidden < 1 || xp_stride < 4LL * hidden ||
-      col_i < 0 || col_i > 3 || col_f < 0 || col_f > 3 || col_o < 0 || col_o > 3 ||
-      col_g < 0 || col_g > 3 || seen != 0xF || (b + BT - 1) / BT > 65535)
-    return (int)cudaErrorInvalidValue;
-  CellGeom g;
-  g.b = b; g.h = hidden; g.xp_stride = xp_stride;
-  g.col_i = col_i; g.col_f = col_f; g.col_o = col_o; g.col_g = col_g;
-  const dim3 grid((unsigned)((hidden + JT - 1) / JT), (unsigned)((b + BT - 1) / BT));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  (void)cudaGetLastError();  // report this launch's error, not an older one
-  if (dtype == 0) {
-    lstm_cell_fwd_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(xp), static_cast<const float*>(h),
-        static_cast<const float*>(c), static_cast<const float*>(u), static_cast<float*>(h_out),
-        static_cast<float*>(c_out), g);
-  } else {
-    lstm_cell_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(xp), static_cast<const __nv_bfloat16*>(h),
-        static_cast<const __nv_bfloat16*>(c), static_cast<const __nv_bfloat16*>(u),
-        static_cast<__nv_bfloat16*>(h_out), static_cast<__nv_bfloat16*>(c_out), g);
-  }
-  return (int)cudaGetLastError();
+  StepArgs a{};
+  a.xp = xp; a.h_prev = h; a.c_prev = c; a.u = u; a.mask = nullptr;
+  a.y = h_out; a.c_out = c_out; a.hc_out = nullptr;
+  a.b = b; a.h = hidden;
+  a.xp_stride = xp_stride;
+  a.h_stride = a.c_stride = a.y_stride = a.c_out_stride = a.hc_stride = hidden;
+  a.m_stride = 0;
+  a.col_i = col_i; a.col_f = col_f; a.col_o = col_o; a.col_g = col_g;
+  return dl4j_lstm_step_launch(&a, dtype, stream);
 }
 
 }  // extern "C"

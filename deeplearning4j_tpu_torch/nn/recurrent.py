@@ -13,13 +13,15 @@ As in the reference:
 - the LSTM's gate order is [i, f, o, g], the forget-gate bias starts at
   ``forget_gate_bias_init``.
 
-The LSTM step dispatches like every kernel of the port
+The LSTM dispatches like every kernel of the port
 (``ops/kernels/__init__.py``): on a CUDA tensor under ``auto`` or ``cuda``
-each step is one launch of the fused cell kernel (``csrc/lstm_cell.cu``,
-K4) through ``LSTMCellFunction``, or raises when the cell has no kernel
-(activations other than sigmoid/tanh, types other than fp32/bf16);
-``exact`` and a CPU tensor under ``auto`` take the reference's plain step,
-in the input's type. Autograd differentiates through the time loop.
+each ``apply_seq`` call (a TBPTT segment, or one ``rnn_time_step``) is one
+launch of the segment kernel (``csrc/lstm_seq.cu``, K4 over all T steps,
+mask included) through ``LSTMSequenceFunction``, or raises when the cell
+has no kernel (activations other than sigmoid/tanh, types other than
+fp32/bf16); ``exact`` and a CPU tensor under ``auto`` take the reference's
+plain step in ``_scan``, in the input's type, and autograd differentiates
+through that time loop.
 
 Not ported yet (ROADMAP.md Queue 1 item 14): GravesLSTM, GRU, SimpleRnn,
 Bidirectional, GravesBidirectionalLSTM, ConvLSTM2D, LastTimeStep and
@@ -132,17 +134,13 @@ class LSTM(BaseRecurrentLayer):
         u = params["U"].to(x.dtype)
         xp0 = xp[:, 0] if xp.dim() == 3 else xp
         if _kern.dispatch(
-                "lstm_cell_fwd",
+                "lstm_seq_fwd",
                 _klstm.supports(xp0, u, self.gate_activation, self.activation),
                 xp, lambda: (f"{_klstm._describe(xp0, carry[0], carry[1], u)}"
                              f", activations {self.gate_activation}/"
                              f"{self.activation}")):
-            def step(c, xt):
-                h_new, c_new = _klstm.lstm_cell(xt, c[0], c[1], u,
-                                                _klstm.ORDER_IFOG)
-                return (h_new, c_new), h_new
-
-            return self._scan(step, carry, xp, mask)
+            return _klstm.lstm_seq(xp, carry[0], carry[1], u,
+                                   _klstm.ORDER_IFOG, mask)
 
         f_act = act.resolve(self.activation)
         g_act = act.resolve(self.gate_activation)

@@ -18,8 +18,8 @@ launch it:
 Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
 made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
 plain path (only ``exact`` sends one there); :data:`BODY_LAUNCHES` splits
-the conv and wgrad kernels' launches by the body that ran. All are plain
-integers, reset with :func:`reset_counts`.
+the conv, wgrad and LSTM segment kernels' launches by the body that ran.
+All are plain integers, reset with :func:`reset_counts`.
 
 Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
 ``VMEM_BUDGET_BYTES``, conv.py:57-114) sizes a TPU program's whole-image
@@ -42,15 +42,17 @@ _impl_override: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
 
 #: the kernels behind the seam: the conv forward (K1/K2), the input
 #: gradient (K1 launched on the transformed dy), the filter gradient (K3),
-#: the fused LSTM cell (K4) and the flash-attention forward (K5)
+#: the fused LSTM cell (K4, one step) and its segment entry (K4 over a
+#: TBPTT segment, one launch), and the flash-attention forward (K5)
 KERNELS = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad", "lstm_cell_fwd",
-           "flash_attention_fwd")
+           "lstm_seq_fwd", "flash_attention_fwd")
 #: launches per kernel, bumped by each wrapper where it launches
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: CUDA-tensor calls that took the plain path (``exact`` only)
 PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: launches of a kernel with more than one body, by ``"kernel/body"``
-#: (the conv and wgrad kernels' ``fma``, ``mma_sync`` and ``wgmma``)
+#: (the conv and wgrad kernels' ``fma``, ``mma_sync`` and ``wgmma``; the
+#: LSTM segment's ``resident`` and ``step``)
 BODY_LAUNCHES: Dict[str, int] = {}
 
 

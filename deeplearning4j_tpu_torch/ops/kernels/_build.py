@@ -138,6 +138,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_flash_fwd_rows.restype = i
     lib.dl4j_lstm_cell_fwd.argtypes = [vp] * 6 + [i] * 3 + [ll] + [i] * 4 + [vp]
     lib.dl4j_lstm_cell_fwd.restype = i
+    lib.dl4j_lstm_seq_fwd.argtypes = ([vp] * 10 + [i] * 4 + [ll] * 2 + [i] * 5
+                                      + [vp])
+    lib.dl4j_lstm_seq_fwd.restype = i
+    lib.dl4j_lstm_seq_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 5
+    lib.dl4j_lstm_seq_plan.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib

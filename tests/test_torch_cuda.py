@@ -10,9 +10,10 @@ the port is installed:
 are the smoke's: the flash kernel's O within 1e-5 (fp32) or 2^-7 (bf16,
 P is rounded to bf16 before P @ V) of the largest plain output, its LSE
 within 1e-5 relative, a fully-masked row exactly O = 0 and LSE = -1e30;
-the LSTM cell kernel's h' and c' within 1e-5 (fp32: the same fp32 sums in
-another order) or 2^-7 (bf16: both round the same fp32 values to bf16, a
-tie may fall the other way, two ulps of headroom) of the largest output; a
+the LSTM cell kernel's h' and c', and the LSTM segment kernel's y, carries
+and final state, within 1e-5 (fp32: the same fp32 sums in another order)
+or 2^-7 (bf16: both round the same fp32 values to bf16, a tie may fall the
+other way, two ulps of headroom) of the largest output; a
 whole network within 1e-4 relative of the same network on the CPU; the
 conv kernel's forward within rtol/atol 1e-4 (fp32) or rtol 8e-3 + atol
 1e-4 (bf16: two bf16 ulps) of its plain version, its dgrad and the wgrad
@@ -174,7 +175,8 @@ def test_lstm_cell_kernel_matches_plain(card, dtype, tol, order, b, h):
 def test_char_rnn_on_card_matches_cpu(card):
     """A narrow TextGenerationLSTM (dropout 0, TBPTT 4 over 10 steps):
     three fit calls and a few rnn_time_step calls on the card, every LSTM
-    step on K4, against the same net on the CPU."""
+    segment one K4 launch (H 16: the step body), against the same net on
+    the CPU."""
     rng = np.random.default_rng(3)
     eye = np.eye(11, dtype=np.float32)
     nets = {}
@@ -191,8 +193,10 @@ def test_char_rnn_on_card_matches_cpu(card):
         cpu.fit(x, y)
         np.testing.assert_allclose(gpu.get_score(), cpu.get_score(),
                                    rtol=1e-4)
-    assert TK.LAUNCHES["lstm_cell_fwd"] == 3 * 2 * 10
-    assert TK.PLAIN_ON_CUDA["lstm_cell_fwd"] == 0
+    # 3 fit calls x 3 segments (4, 4, 2 steps) x 2 layers
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 3 * 3 * 2
+    assert TK.PLAIN_ON_CUDA["lstm_seq_fwd"] == 0
+    assert TK.LAUNCHES["lstm_cell_fwd"] == 0
     for pg, pc in zip(gpu.params, cpu.params):
         for k in pc:
             np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(),
@@ -202,7 +206,93 @@ def test_char_rnn_on_card_matches_cpu(card):
         np.testing.assert_allclose(gpu.rnn_time_step(x[:, t]).cpu().numpy(),
                                    cpu.rnn_time_step(x[:, t]).numpy(),
                                    rtol=1e-4, atol=1e-6)
-    assert TK.LAUNCHES["lstm_cell_fwd"] == 3 * 2 * 10 + 2 * 4
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 3 * 3 * 2 + 2 * 4
+
+
+# (B, H, T): the char-RNN's training segment and sampling step, a batch
+# under one n8 tile, a batch over one cluster's rows, H 512 (bf16: two m16
+# tiles a column block; fp32: the step body), and H 100 (the step body)
+_SEQ_CASES = [(32, 256, 50), (4, 256, 1), (3, 256, 7), (33, 256, 5),
+              (32, 512, 10), (5, 100, 6)]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("order", ["ifog", "iofg"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,t", _SEQ_CASES,
+                         ids=[f"b{b}-h{h}-t{t}" for b, h, t in _SEQ_CASES])
+def test_lstm_seq_kernel_matches_plain(card, dtype, tol, order, b, h, t,
+                                       masked):
+    """K4's segment entry on the body ``seq_body`` names, xp a strided
+    window of a longer projection, with a ragged mask or none: y, the h and
+    c carries and the final state within ``tol`` of the plain version's
+    largest output, written into blocks the allocator first handed out full
+    of NaN (an element left unwritten shows), and equal to the bit over two
+    launches."""
+    ordr = KL.ORDER_IFOG if order == "ifog" else KL.ORDER_IOFG
+    gen = torch.Generator(device=card).manual_seed(b * h + t)
+    xp_all = torch.randn((b, t + 2, 4 * h), device=card, generator=gen)
+    xp = xp_all.to(dtype)[:, 1:t + 1]
+    h0 = (0.5 * torch.randn((b, h), device=card, generator=gen)).to(dtype)
+    c0 = torch.randn((b, h), device=card, generator=gen).to(dtype)
+    u = (torch.randn((h, 4 * h), device=card, generator=gen)
+         / h ** 0.5).to(dtype)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, t + 1, (b,), device=card, generator=gen)
+        mask = (torch.arange(t, device=card)[None]
+                < lengths[:, None]).float()
+    body = KL.seq_body(dtype, b, h)
+    assert body == ("step" if h == 100 or (h == 512 and dtype ==
+                                           torch.float32) else "resident")
+    ref = KL.lstm_seq_reference(xp, h0, c0, u, ordr, mask)
+    poison = [torch.full(r.shape, float("nan"), dtype=dtype, device=card)
+              for r in ref]
+    ptrs = {q.data_ptr() for q in poison}
+    del poison  # the blocks go back to the cache and come out as outputs
+    got = KL.lstm_seq_fwd(xp, h0, c0, u, ordr, mask)
+    again = KL.lstm_seq_fwd(xp, h0, c0, u, ordr, mask)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() in ptrs
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 2
+    assert TK.BODY_LAUNCHES == {f"lstm_seq_fwd/{body}": 2}
+    assert (got[1] is got[0]) == (mask is None)
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert torch.equal(g, a)
+        err = (g.float() - r.float()).abs().max() / r.float().abs().max()
+        assert float(err) <= tol
+
+
+def test_lstm_layer_fit_step_auto_matches_exact(card):
+    """One TBPTT segment's loss and gradients of a TextGenerationLSTM of 256
+    units (the resident body, a ragged batch of 5 over two clusters) under
+    ``auto`` against ``exact`` on the card: loss within 1e-5, each gradient
+    within 1e-4 of its size (relative L2); 2 K4 launches, none plain."""
+    rng = np.random.default_rng(8)
+    eye = np.eye(11, dtype=np.float32)
+    net = TextGenerationLSTM(total_unique_characters=11, units=256,
+                             dropout=0.0).init(device=card)
+    ids = rng.integers(0, 11, size=(5, 13))
+    x = torch.from_numpy(eye[ids[:, :-1]]).to(card)
+    y = torch.from_numpy(eye[ids[:, 1:]]).to(card)
+    ones = torch.ones(5, device=card)
+    l_auto, g_auto, _, _ = net._gradients(None, x, y, ones)
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 2
+    assert TK.BODY_LAUNCHES == {"lstm_seq_fwd/resident": 2}
+    with TK.impl_scope("exact"):
+        l_exact, g_exact, _, _ = net._gradients(None, x, y, ones)
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 2
+    assert TK.PLAIN_ON_CUDA["lstm_seq_fwd"] == 2
+    assert abs(float(l_auto) - float(l_exact)) <= 1e-5 * abs(float(l_exact))
+    assert g_auto.keys() == g_exact.keys()
+    for i, layer in g_exact.items():
+        for k, ge in layer.items():
+            rel = (g_auto[i][k] - ge).norm() / ge.norm().clamp_min(1e-30)
+            assert float(rel) <= 1e-4, (i, k)
 
 
 # (id, N, H, W, Cin, k, stride, Cout, body in bf16): ResNet-50 geometries at a
