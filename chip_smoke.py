@@ -101,8 +101,33 @@ of the JAX package. Phases, each printing one JSON line:
     per character step at batch 4, each checked), from the trained fp32
     net and from the bf16 net of its one ``fit`` call: characters/sec and
     a 60-character excerpt of each.
-14. timing: the seconds each phase took, and the whole run's.
-15. kernels: one JSON line per the kernel table in PERF.md.
+14. lenet: LeNet-5 (``zoo.LeNet``: conv 5x5 -> 20, pool, conv 5x5 -> 50,
+    pool, dense 500, softmax 10; seed 12345, Adam(1e-3), fp32) as
+    dl4j-examples' LeNetMNIST trains it, on the reference's synthetic
+    MNIST (60,000 training and 10,000 test digits, MnistDataSetIterator at
+    batch 64): one step under ``auto`` against ``exact`` (2 / 1 / 2 conv
+    launches of fwd / dgrad / wgrad, the fp64 step gate); the main path,
+    one epoch of ``fit(iterator)`` (938 steps, the last of 32) with
+    ScoreIterationListener(100), PerformanceListener(100) and
+    CollectScoresListener(1), every conv launch held against its plain
+    version, none plain on CUDA, every iteration seen once in order, the
+    mean of the last 50 scores below the first 50's; its first 200 steps
+    again at ``sync_every`` 16 (the same scores within 1e-6, one host copy
+    a window); ``evaluate`` on the test digits (accuracy >= 0.97, all
+    10,000 rows counted, the ``exact`` path's confusion matrix but for
+    rows whose top two probabilities lie within 1e-4) and ``score``
+    against ``exact`` (1e-5); EarlyStoppingTrainer on 6,000 digits (at
+    most 3 epochs, patience 1; the best model on the card re-scores to its
+    recorded score within 1e-6); a checked bf16 run of 200 steps (every
+    launch on mma.sync) and its ``evaluate``; train images/sec fp32 and
+    bf16 (five windows of 200 steps), ``evaluate`` images/sec at batch
+    1024, one profiled step of each (device busy, idle share, the conv
+    kernels' share). LeNet's two conv geometries at batch 64 are extra
+    cases of phases 3 and 4 (marked ``lenet``).
+15. timing: the seconds each phase took, and the whole run's.
+16. kernels: one JSON line per the kernel table in PERF.md; the conv
+    kernels' entries carry LeNet's launches and step times under
+    ``lenet``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -190,6 +215,20 @@ CHAR_SET = "abcdefghijklmnopqrstuvwxyz0123456789 \n.,:;'\"()-"
 CHAR_BATCH, CHAR_SEQ, CHAR_TBPTT, CHAR_UNITS = 32, 1000, 50, 256
 CHAR_FITS = 3
 SAMPLES, SAMPLE_LEN, SAMPLE_PRIME = 4, 300, "the port "
+# LeNet-5 (dl4j-examples' LeNetMNIST): batch 64 on the reference's
+# synthetic MNIST (no idx files are in the repository), 60,000 training and
+# 10,000 test digits; its two convs (5x5 VALID, stride 1) at batch 64 are
+# extra cases of the kernel phases: (geometry key) -> (name, forwards,
+# dgrads, wgrads per train step); conv1 reads the input, so it has no dgrad
+LENET_BATCH, LENET_TRAIN, LENET_TEST = 64, 60000, 10000
+LENET_CONVS = {
+    (64, 28, 28, 1, 5, 5, 20, (1, 1), "VALID", (1, 1), 1): ("conv1", 1, 0, 1),
+    (64, 12, 12, 20, 5, 5, 50, (1, 1), "VALID", (1, 1), 1): ("conv2", 1, 1, 1),
+}
+LENET_STEP = {"conv2d_fwd": 2, "conv2d_dgrad": 1, "conv2d_wgrad": 2}
+LENET_ACCURACY = 0.97  # the reference's own bar (tests/test_multilayer.py)
+LENET_WINDOW, LENET_SYNC_STEPS, LENET_SYNC_EVERY = 200, 200, 16
+LENET_ES_TRAIN, LENET_EVAL_BATCH = 6000, 1024
 
 
 def emit(phase, **fields):
@@ -372,10 +411,13 @@ def kernel_phase(torch, conf):
     # the row-tiled program (the TPU kernel's row_tile, K2)
     extra = {(8, 29, 29, 64, 3, 3, 64, (1, 1), "SAME", (2, 2), 2): 0,
              (8, 13, 11, 6, 3, 3, 10, (2, 1), "SAME", (1, 2), 2): 0,
-             (8, 56, 56, 64, 3, 3, 64, (1, 1), "SAME", (1, 1), 1, 7): 0}
+             (8, 56, 56, 64, 3, 3, 64, (1, 1), "SAME", (1, 1), 1, 7): 0,
+             **dict.fromkeys(LENET_CONVS, 0)}
     records = []
     for key, count in list(geoms.items()) + list(extra.items()):
         rec = check_geometry(torch, key, count)
+        if key in LENET_CONVS:
+            rec["lenet"], rec["lenet_per_step"] = LENET_CONVS[key][:2]
         records.append(rec)
         emit("kernel", name="conv2d_fwd", **rec)
     kern.reset_counts()
@@ -511,10 +553,15 @@ def kernel_grad_phase(torch, conf):
         raise AssertionError(f"{sum(dg.values())} dgrad launches per step, "
                              "expected 52")
     extra = {(8, 29, 29, 64, 3, 3, 64, (1, 1), "SAME", (2, 2), 2): 0,
-             (8, 13, 11, 6, 3, 3, 10, (2, 1), "SAME", (1, 2), 2): 0}
+             (8, 13, 11, 6, 3, 3, 10, (2, 1), "SAME", (1, 2), 2): 0,
+             **dict.fromkeys(LENET_CONVS, 0)}
     records = []
     for key, count in list(geoms.items()) + list(extra.items()):
         rec = check_grad_geometry(torch, key, count, dg.get(key, 0))
+        if key in LENET_CONVS:
+            name, _, dgrads, wgrads = LENET_CONVS[key]
+            rec.update(lenet=name, lenet_dgrad_per_step=dgrads,
+                       lenet_wgrad_per_step=wgrads)
         records.append(rec)
         emit("kernel_grad", **rec)
     kern.reset_counts()
@@ -947,6 +994,11 @@ def profile_train_step(torch, net, x, y, top=8):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(torch, prof)
     by_class = _by_class(kernels)
+    traced = {}
+    for _, n, name in kernels:
+        cls = _kernel_class(name)
+        if cls:
+            traced[cls] = traced.get(cls, 0) + n
     busy = sum(k[0] for k in kernels)
     events = prof.events()
     in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
@@ -970,6 +1022,7 @@ def profile_train_step(torch, net, x, y, top=8):
             "split_reduce_ms": by_class.get("split_reduce", 0.0),
             "batchnorm_ms": bn_ms,
             "other_device_ms": busy - conv_like - bn_ms,
+            "conv_launches_traced": traced,
             "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
                     for ms, n, name in kernels[:top]]}
 
@@ -2132,6 +2185,318 @@ def char_rnn_sample_phase(torch, np, card, net, net16):
     return launches, checked
 
 
+# ------------------------------------------------------------------ LeNet
+
+
+def lenet_only(counts, what):
+    """The conv kernels' counts; every other kernel's must be 0 on LeNet."""
+    if any(v for k, v in counts.items() if k not in LENET_STEP):
+        raise AssertionError(f"{what} launched {counts}")
+    return {k: counts[k] for k in LENET_STEP}
+
+
+def lenet_outputs(torch, net, xs, batch=LENET_BATCH):
+    """``net.output`` over ``xs`` in ``evaluate``'s batches, on the host."""
+    return torch.cat([net.output(xs[i:i + batch])
+                      for i in range(0, len(xs), batch)]).float().cpu()
+
+
+def lenet_windows(torch, net, batches, windows=5):
+    """``net.fit`` images/sec: ``windows`` windows of one fit call over the
+    same LENET_WINDOW host batches (each step moves its batch to the card,
+    as ``fit(iterator)`` does), each closed by a device sync."""
+    net.fit(batches[:10])
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        net.fit(batches)
+        torch.cuda.synchronize()
+        rates.append(sum(len(ds.features) for ds in batches)
+                     / (time.perf_counter() - t0))
+    if not math.isfinite(net.get_score()):
+        raise AssertionError(f"non-finite LeNet loss {net.get_score()}")
+    rates.sort()
+    return {"median": rates[len(rates) // 2], "min": rates[0],
+            "max": rates[-1], "windows": rates}
+
+
+def lenet_phase(torch, np, card):
+    """LeNet-5 (``zoo.LeNet``, seed 12345, Adam 1e-3, fp32) as
+    dl4j-examples' LeNetMNIST trains it: MnistDataSetIterator at batch 64
+    over the synthetic 60,000 / 10,000 digits. (a) One step under ``auto``
+    against ``exact`` (the fp64 step gate), 2 / 1 / 2 conv launches. (b)
+    The main path: one epoch of ``fit(iterator)`` (938 steps, the last of
+    32) with ScoreIterationListener(100), PerformanceListener(100) and
+    CollectScoresListener(1), every conv launch checked, none plain, every
+    iteration seen once in order, the loss falling. (c) Its first
+    LENET_SYNC_STEPS steps again from the same init at sync_every 16: the
+    same scores. (d) ``evaluate`` on the 10,000 test digits (accuracy >=
+    0.97, every row counted, the exact path's confusion matrix but for
+    near-tied rows) and ``score`` against ``exact``. (e) EarlyStoppingTrainer
+    on 6,000 digits. (f) A checked bf16 run of 200 steps and its
+    ``evaluate``. (g) Train images/sec fp32 and bf16, ``evaluate``
+    images/sec at batch 1024, one profiled step. Returns the main path's
+    launches, their checks and the bf16 run's bodies."""
+    import itertools
+
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.data import (ArrayDataSetIterator, DataSet,
+                                               MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import listeners as lst
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(batch=LENET_BATCH, n_examples=LENET_TRAIN)
+    test = MnistDataSetIterator(batch=LENET_BATCH, train=False,
+                                n_examples=LENET_TEST)
+    data_s = time.perf_counter() - t0
+    steps = -(-LENET_TRAIN // LENET_BATCH)
+    emit("lenet_data", synthetic=train.synthetic and test.synthetic,
+         train_examples=train.total_examples(),
+         test_examples=test.total_examples(), batch=LENET_BATCH,
+         steps_per_epoch=steps, generate_s=data_s)
+    if (train.total_examples(), test.total_examples()) != (LENET_TRAIN,
+                                                           LENET_TEST):
+        raise AssertionError("LeNet data: wrong example counts")
+
+    # (a) one step, auto against exact, the same params and batch
+    net0 = LeNet().init(device="cuda")
+    first = next(iter(ArrayDataSetIterator(train.features, train.labels,
+                                           batch=LENET_BATCH)))
+    x = torch.from_numpy(first.features).cuda()
+    y = torch.from_numpy(first.labels).cuda()
+    ones = torch.ones(LENET_BATCH, device="cuda")
+    kern.reset_counts()
+    l_auto, g_auto, _, _ = net0._gradients(None, x, y, ones)
+    torch.cuda.synchronize()
+    step_launches = lenet_only(dict(kern.LAUNCHES), "the auto step")
+    if step_launches != LENET_STEP or any(kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"LeNet auto step launched {step_launches}, "
+                             f"plain on CUDA {kern.PLAIN_ON_CUDA}")
+    with kern.impl_scope("exact"):
+        l_exact, g_exact, _, _ = net0._gradients(None, x, y, ones)
+        l_64, g_64, _, _ = net0._gradients(None, x.double(), y.double(),
+                                           ones.double())
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_auto, g_exact, g_64, top=None)
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"LeNet auto step off exact: loss rel "
+                             f"{loss_rel}, gradients past the gate: "
+                             f"{failures[:4]}")
+    emit("lenet_parity", model="LeNet", batch=LENET_BATCH,
+         loss_auto=float(l_auto), loss_exact=float(l_exact),
+         loss_fp64=float(l_64), loss_rel_err=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, worst_grad=worst_name,
+         worst_grad_rel_l2=worst, grad_rtol=TRAIN_GRAD_RTOL,
+         max_gate_use=max(r["gate_use"] for r in rows),
+         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
+         launches_per_step=step_launches, card=card)
+    del net0, g_auto, g_exact, g_64
+
+    # (b) the main path: one epoch of fit(iterator) with listeners
+    net = LeNet().init(device="cuda")
+    logs = {"score": [], "perf": []}
+    collect = lst.CollectScoresListener(1)
+    net.set_listeners(lst.ScoreIterationListener(100, log_fn=logs["score"]
+                                                 .append),
+                      lst.PerformanceListener(100, log_fn=logs["perf"]
+                                              .append), collect)
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with check_every_launch(torch, checked):
+        net.fit(train)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = lenet_only(dict(kern.LAUNCHES), "the LeNet epoch")
+    plain = dict(kern.PLAIN_ON_CUDA)
+    if launches != {k: v * steps for k, v in LENET_STEP.items()} or any(
+            plain.values()):
+        raise AssertionError(f"the LeNet epoch launched {launches} "
+                             f"({steps} steps), plain on CUDA {plain}")
+    if {k: checked[(k, "fp32")]["calls"] for k in LENET_STEP} != launches:
+        raise AssertionError(f"{launches} launches, "
+                             f"{_checked_summary(checked)} checked")
+    its = [it for it, _ in collect.scores]
+    scores = [v for _, v in collect.scores]
+    first50, last50 = sum(scores[:50]) / 50, sum(scores[-50:]) / 50
+    if its != list(range(1, steps + 1)) or net.iteration != steps:
+        raise AssertionError(f"the listener saw iterations {its[:5]}... "
+                             f"({len(its)}), expected 1..{steps}")
+    if not all(math.isfinite(v) for v in scores) or last50 >= first50:
+        raise AssertionError(f"LeNet loss did not fall: first 50 mean "
+                             f"{first50}, last 50 {last50}")
+    emit("lenet_train", model="LeNet", params=net.num_params(),
+         updater=net.conf.updater, batch=LENET_BATCH, steps=steps,
+         epochs=net.epoch, loss_first50=first50, loss_last50=last50,
+         launches=launches, plain_on_cuda=plain,
+         launches_checked=_checked_summary(checked), checked_epoch_s=epoch_s,
+         score_log=logs["score"], performance_log=logs["perf"], card=card)
+
+    # (c) the first LENET_SYNC_STEPS steps again at sync_every 16
+    conf = LeNet().conf()
+    conf.knobs["sync_every"] = LENET_SYNC_EVERY
+    net_sync = MultiLayerNetwork(conf).init(device="cuda")
+    collect16 = lst.CollectScoresListener(1)
+    net_sync.set_listeners(collect16)
+    again = ArrayDataSetIterator(train.features, train.labels,
+                                 batch=LENET_BATCH, shuffle=True,
+                                 seed=train.seed)
+    net_sync.fit(list(itertools.islice(iter(again), LENET_SYNC_STEPS)))
+    torch.cuda.synchronize()
+    pairs = list(zip(collect.scores[:LENET_SYNC_STEPS], collect16.scores))
+    diff = max(abs(a[1] - b[1]) / max(abs(a[1]), 1e-30) for a, b in pairs)
+    fetches = net_sync._dispatcher.fetches
+    if (len(collect16.scores) != LENET_SYNC_STEPS or diff > 1e-6
+            or any(a[0] != b[0] for a, b in pairs)
+            or fetches != -(-LENET_SYNC_STEPS // LENET_SYNC_EVERY)):
+        raise AssertionError(f"sync_every {LENET_SYNC_EVERY}: "
+                             f"{len(collect16.scores)} scores, largest "
+                             f"relative difference {diff}, {fetches} "
+                             "fetches")
+    emit("lenet_sync_every", sync_every=LENET_SYNC_EVERY,
+         steps=LENET_SYNC_STEPS, host_fetches=fetches,
+         max_rel_diff_vs_sync_every_1=diff, card=card)
+    del net_sync
+
+    # (d) evaluate and score on the 10,000 test digits, auto against exact
+    kern.reset_counts()
+    ev = net.evaluate(test)
+    p_auto = lenet_outputs(torch, net, test.features)
+    with kern.impl_scope("exact"):
+        ev_exact = net.evaluate(test)
+        p_exact = lenet_outputs(torch, net, test.features)
+    top2 = p_exact.topk(2, dim=1).values
+    tied = (top2[:, 0] - top2[:, 1]) <= 1e-4
+    a_auto, a_exact = p_auto.argmax(1), p_exact.argmax(1)
+    truth = torch.from_numpy(test.labels).argmax(1)
+
+    def confusion(pred):
+        c = torch.zeros((10, 10), dtype=torch.int64)
+        c.index_put_((truth, pred), torch.ones_like(truth), accumulate=True)
+        return c.numpy()
+
+    counted = int(ev.confusion_matrix().sum())
+    if (counted != LENET_TEST or ev.accuracy() < LENET_ACCURACY
+            or not (a_auto[~tied] == a_exact[~tied]).all()
+            or (ev.confusion_matrix() != confusion(a_auto)).any()
+            or (ev_exact.confusion_matrix() != confusion(a_exact)).any()):
+        raise AssertionError(f"LeNet evaluate: {counted} rows, accuracy "
+                             f"{ev.accuracy()} (bar {LENET_ACCURACY}), "
+                             f"{int(tied.sum())} near-tied rows, auto and "
+                             f"exact argmax differ on "
+                             f"{int((a_auto != a_exact).sum())}")
+    whole = DataSet(test.features, test.labels)
+    s_auto = net.score(whole)
+    with kern.impl_scope("exact"):
+        s_exact = net.score(whole)
+    score_rel = abs(s_auto - s_exact) / abs(s_exact)
+    if score_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"LeNet score: auto {s_auto}, exact {s_exact}")
+    emit("lenet_evaluate", examples=counted, accuracy=ev.accuracy(),
+         accuracy_bar=LENET_ACCURACY, accuracy_exact=ev_exact.accuracy(),
+         f1=ev.f1(), near_tied_rows=int(tied.sum()),
+         argmax_differs=int((a_auto != a_exact).sum()),
+         score_auto=s_auto, score_exact=s_exact, score_rel_err=score_rel,
+         confusion=ev.confusion_matrix().tolist(), card=card)
+
+    # (e) early stopping on 6,000 training digits
+    small = ArrayDataSetIterator(train.features[:LENET_ES_TRAIN],
+                                 train.labels[:LENET_ES_TRAIN],
+                                 batch=LENET_BATCH, shuffle=True, seed=7)
+    cfg = (es.EarlyStoppingConfiguration.builder()
+           .score_calculator(es.DataSetLossCalculator(test))
+           .model_saver(es.InMemoryModelSaver())
+           .epoch_termination_conditions(
+               es.MaxEpochsTerminationCondition(3),
+               es.ScoreImprovementEpochTerminationCondition(1)).build())
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, LeNet().init(device="cuda"),
+                                     small).fit()
+    es_s = time.perf_counter() - t0
+    best = result.best_model
+    rescored = es.DataSetLossCalculator(test).calculate_score(best)
+    on_cuda = all(t.is_cuda for p in best.params for t in p.values())
+    if (abs(rescored - result.best_model_score)
+            > 1e-6 * abs(result.best_model_score) or not on_cuda):
+        raise AssertionError(f"early stopping: best model rescored "
+                             f"{rescored}, recorded "
+                             f"{result.best_model_score}, params on CUDA "
+                             f"{on_cuda}")
+    emit("lenet_early_stopping", train_examples=LENET_ES_TRAIN,
+         reason=result.termination_reason.value,
+         details=result.termination_details,
+         total_epochs=result.total_epochs,
+         best_epoch=result.best_model_epoch,
+         best_score=result.best_model_score, rescored=rescored,
+         score_vs_epoch=result.score_vs_epoch, wall_s=es_s, card=card)
+    del best, result
+
+    # (f) a checked bf16 run of LENET_WINDOW steps, then its evaluate
+    batches = list(itertools.islice(iter(ArrayDataSetIterator(
+        train.features, train.labels, batch=LENET_BATCH, shuffle=True,
+        seed=train.seed)), LENET_WINDOW))
+    net16 = LeNet(compute_dtype="bfloat16").init(device="cuda")
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        net16.fit(batches)
+    torch.cuda.synchronize()
+    want16 = {k: v * LENET_WINDOW for k, v in LENET_STEP.items()}
+    got16 = {k: checked.get((k, "bf16"), {}).get("calls") for k in LENET_STEP}
+    bodies16 = dict(kern.BODY_LAUNCHES)
+    if got16 != want16 or bodies16 != {f"{k}/mma_sync": v
+                                       for k, v in want16.items()}:
+        raise AssertionError(f"bf16 LeNet run checked {got16}, bodies "
+                             f"{bodies16}, expected {want16} on mma_sync")
+    ev16 = net16.evaluate(test)
+    if int(ev16.confusion_matrix().sum()) != LENET_TEST:
+        raise AssertionError("bf16 LeNet evaluate lost rows")
+    emit("lenet_bf16", steps=LENET_WINDOW, loss=net16.get_score(),
+         accuracy=ev16.accuracy(), conv_bodies=bodies16,
+         launches_checked={f"{k}_bf16": checked[(k, "bf16")]
+                           for k in LENET_STEP}, card=card)
+
+    # (g) rates and one profiled step
+    rates = {"train_images_per_sec_fp32": lenet_windows(torch, net, batches),
+             "train_images_per_sec_bf16": lenet_windows(torch, net16,
+                                                        batches)}
+    big = ArrayDataSetIterator(test.features, test.labels,
+                               batch=LENET_EVAL_BATCH)
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        n.evaluate(big)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            n.evaluate(big)
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        rates[f"evaluate_images_per_sec_{tag}"] = {
+            "median": LENET_TEST / walls[2], "min": LENET_TEST / walls[-1],
+            "max": LENET_TEST / walls[0], "batch": LENET_EVAL_BATCH}
+    emit("lenet_throughput", model="LeNet", batch=LENET_BATCH,
+         window_steps=LENET_WINDOW, path="net.fit / net.evaluate",
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card,
+         **rates)
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        prof = profile_train_step(torch, n, x, y)
+        conv = (prof["fwd_ms"] + prof["dgrad_ms"] + prof["wgrad_ms"]
+                + prof["split_reduce_ms"])
+        # the trace's conv launches beside the wrappers' (fwd counts the
+        # forwards and the dgrad: one kernel), as the trace can drop some
+        emit("lenet_profile", model="LeNet", dtype=tag, batch=LENET_BATCH,
+             conv_kernel_ms=conv,
+             conv_share_of_busy=conv / prof["device_busy_ms"],
+             conv_launches_per_step={"fwd": 3, "wgrad": 2}, card=card,
+             **prof)
+    kern.reset_counts()
+    return launches, checked, bodies16
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -2306,6 +2671,9 @@ def main() -> int:
     sample_launches, sample_checked = timed(
         "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
         char_net_trained, char_net16)
+    del char_net_trained, char_net16
+    lenet_launches, lenet_checked, lenet_bodies16 = timed(
+        "lenet", lenet_phase, torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
 
     def checked_fields(name, checked):
@@ -2327,6 +2695,27 @@ def main() -> int:
 
     def total(tag, field):
         return sum(r[tag][field] * r["launches_per_forward"] for r in per_fwd)
+
+    def lenet_fields(kname, recs, field, per):
+        """LeNet's launches of one kernel on its main path (the epoch) and
+        the kernel's times at LeNet's geometries, summed over a step."""
+        def tot(tag, f):
+            return sum(r[field(tag)][f] * r[per] for r in recs
+                       if r.get("lenet"))
+
+        out = {"launches": lenet_launches[kname],
+               "bf16_bodies": {k.split("/")[1]: v for k, v in
+                               lenet_bodies16.items()
+                               if k.startswith(f"{kname}/")},
+               **checked_fields(kname, lenet_checked),
+               "per": f"one LeNet train step at batch {LENET_BATCH} (its "
+                      f"{sum(r[per] for r in recs if r.get('lenet'))} "
+                      "launches summed), fp32 unless suffixed _bf16; "
+                      "launches from the LeNet epoch"}
+        for tag, sfx in (("fp32", ""), ("bf16", "_bf16")):
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                out[f + sfx] = tot(tag, f)
+        return out
 
     def grad_entry(kname, source, replaces, per_step):
         def tot(tag, field):
@@ -2360,6 +2749,9 @@ def main() -> int:
                 k.split("/")[1]: v for k, v in train_bodies16.items()
                 if k.startswith(f"conv2d_{kname}/")},
             **checked_fields(f"conv2d_{kname}", train_checked),
+            "lenet": lenet_fields(f"conv2d_{kname}", grad_records,
+                                  lambda tag: f"{kname}_{tag}",
+                                  f"lenet_{kname}_per_step"),
             "per": "one 224x224 ResNet-50 train step at batch 8 (its "
                    f"{sum(r[per_step] for r in grad_records)} launches "
                    "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
@@ -2396,6 +2788,8 @@ def main() -> int:
             "conv2d_fwd", serve_checked).items()},
         **{f"train_{k}": v for k, v in checked_fields(
             "conv2d_fwd", train_checked).items()},
+        "lenet": lenet_fields("conv2d_fwd", records, lambda tag: tag,
+                              "lenet_per_step"),
         "per": "one 224x224 ResNet-50 forward at batch 8 (its 53 launches "
                "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
                "replay, eager_ms by a Python loop; launches from the serve "

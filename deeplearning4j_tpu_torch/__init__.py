@@ -25,7 +25,11 @@ BERT-base classify serving (the attention ops on the flash-attention
 forward kernel, the transformer layers, MultiLayerNetwork inference and
 its conf JSON, ``zoo.Bert``), and the char-RNN (``zoo.TextGenerationLSTM``:
 the LSTM layer on the fused LSTM cell kernel, ``RnnOutputLayer``, dropout,
-``MultiLayerNetwork.fit`` with truncated BPTT and ``rnn_time_step``). See
+``MultiLayerNetwork.fit`` with truncated BPTT and ``rnn_time_step``), and
+LeNet-5's training and evaluation loop (``zoo.LeNet`` on the conv kernels;
+``data``'s iterators, MNIST and normalizers; ``score``, ``evaluate`` and
+``evaluate_regression``; ``eval``; ``nn.listeners`` with the coalescing
+dispatcher; ``earlystopping``; every loss of the reference). See
 ROADMAP.md for what is next.
 """
 

@@ -1,9 +1,11 @@
 """DataSet — (features, labels) pair with optional masks (counterpart of
 deeplearning4j_tpu/data/dataset.py; org/nd4j/linalg/dataset/DataSet.java and
-MultiDataSet). Numpy arrays, or tensors; ``fit`` takes one, a list of them,
-or any iterable of them. ``MultiLayerNetwork.fit`` applies the (B, T)
-feature and label masks; ``ComputationGraph.fit`` refuses masks until
-graph masks are ported (ROADMAP.md Queue 1 item 14).
+MultiDataSet). Numpy arrays, or tensors; ``fit`` takes one, a list of
+them, or any iterable of them (the iterators of ``data/iterators.py``),
+``evaluate`` an iterable and ``score`` one. ``MultiLayerNetwork`` applies the
+(B, T) feature and label masks; ``ComputationGraph.fit`` refuses masks
+until graph masks are ported (ROADMAP.md Queue 1 item 14). The async
+prefetching iterator and the image iterator are not ported yet (item 9).
 """
 
 from __future__ import annotations

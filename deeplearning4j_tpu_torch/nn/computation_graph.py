@@ -22,7 +22,13 @@ unpadded mean) plus the layers' l1/l2 penalty, ``torch.autograd.grad`` of
 it with respect to the params (the conv backward on the dgrad and wgrad
 kernels), and each node's updater (its own, else the conf's, else
 Sgd(0.1)), applied in place. ``iteration``, ``epoch`` and ``score_value``
-follow the reference; ``score`` is the inference-mode loss.
+follow the reference; ``score`` is the inference-mode loss (without the
+penalty, as the reference's ``_loss_eval`` ``:1572-1612``), ``evaluate``
+(``:1615``) runs ``output`` over an iterator into an ``Evaluation`` of
+the first output. Listeners (``set_listeners``, ``nn/listeners.py``) are
+called after every update through the coalescing dispatcher, whose window
+is the conf's ``sync_every``; the end of an epoch flushes it and calls
+``on_epoch_end``.
 
 Dropout applies in training, drawn from the graph's ``torch.Generator``
 (seeded from ``conf.seed`` on its device at ``init``), as the layers'
@@ -31,10 +37,10 @@ Dropout applies in training, drawn from the graph's ``torch.Generator``
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
 loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), masks,
 TBPTT and ``rnn_time_step`` in the graph (item 14; the MultiLayerNetwork
-has them), SharedLayer and ``evaluate`` (items 3-4), telemetry, listeners and
-AOT warmup (item 12), remat segments (item 12: ``remat_policy`` and
-``stage_barriers`` are kept as config and leave the step's arithmetic as
-it is, as they do in the reference), pipelining (item 10).
+has them), SharedLayer (item 4), telemetry and AOT warmup (item 12), remat
+segments (item 12: ``remat_policy`` and ``stage_barriers`` are kept as
+config and leave the step's arithmetic as it is, as they do in the
+reference), pipelining (item 10).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
                                                      dev_weights)
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
+from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn import vertices as V
@@ -58,6 +65,7 @@ from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               _buckets_to_json, _detuple,
                                               kernel_impl_from_json,
                                               kernel_impl_to_json)
+from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 
 
@@ -260,7 +268,11 @@ class ComputationGraph:
         self.opt_states: Dict[str, Any] = {}
         self.iteration = 0
         self.epoch = 0
+        self.listeners: list = []
         self.score_value: Any = float("nan")
+        self.last_iteration_wall_ns = None  # set during coalesced dispatch
+        self._dispatcher = CoalescingListenerDispatcher(
+            self, {**INERT_KNOBS, **conf.knobs}["sync_every"])
         self.device: Optional[torch.device] = None
         self._gen: Optional[torch.Generator] = None  # dropout, set by init
         self._cast_cache: Dict[Tuple[str, str], tuple] = {}
@@ -541,26 +553,25 @@ class ComputationGraph:
             if hasattr(data, "reset"):
                 data.reset()
             for ds in data:
-                masks = (getattr(ds, "features_mask", None),
-                         getattr(ds, "labels_mask", None),
-                         getattr(ds, "features_masks", None),
-                         getattr(ds, "labels_masks", None))
-                if any(m is not None for m in masks):
-                    raise NotImplementedError(
-                        "masked training and TBPTT in ComputationGraph are "
-                        "not ported yet (ROADMAP.md Queue 1 item 14); "
-                        "MultiLayerNetwork.fit takes masks")
+                _refuse_masks(ds)
                 self._fit_batch(ds.features, ds.labels)
             self._end_epoch()
         return self
 
     def _end_epoch(self):
+        """``:1229-1234``: the listeners see the whole epoch before its
+        end."""
+        self._dispatcher.flush()
         self.epoch += 1
+        for lst in self.listeners:
+            if hasattr(lst, "on_epoch_end"):
+                lst.on_epoch_end(self)
 
     def _fit_batch(self, features, labels):
         """One step (:1236): forward, loss, backward, updaters in place.
         ``score_value`` keeps the loss as a device tensor (no host sync per
-        step); ``get_score()`` reads it."""
+        step); ``get_score()`` reads it. The listeners get the iteration
+        through the dispatcher (``:1301-1308``)."""
         self._check_trainable()
         loss, grads, new_states = self._gradients(
             *self._batch(features, labels))
@@ -569,6 +580,7 @@ class ComputationGraph:
         self.states = new_states
         self.score_value = loss
         self.iteration += 1
+        self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
 
     def score(self, dataset=None, x=None, y=None) -> float:
         """Inference-mode loss (running batchnorm statistics, no penalty)
@@ -581,5 +593,39 @@ class ComputationGraph:
             loss, _ = self._loss(inputs, labels, weights, training=False)
         return float(loss)
 
+    def evaluate(self, iterator) -> Evaluation:
+        """Classification metrics of the first output over an iterator of
+        DataSets or MultiDataSets (``:1615``); masked data is refused, as
+        in ``fit``."""
+        ev = Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            _refuse_masks(ds)
+            feats = (ds.features if isinstance(ds.features, (list, tuple))
+                     else [ds.features])
+            preds = self.output(*feats)
+            p0 = preds[0] if isinstance(preds, list) else preds
+            l0 = (ds.labels[0] if isinstance(ds.labels, (list, tuple))
+                  else ds.labels)
+            ev.eval(l0, p0)
+        return ev
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
     def get_score(self) -> float:
         return float(self.score_value)
+
+
+def _refuse_masks(ds):
+    masks = (getattr(ds, "features_mask", None),
+             getattr(ds, "labels_mask", None),
+             getattr(ds, "features_masks", None),
+             getattr(ds, "labels_masks", None))
+    if any(m is not None for m in masks):
+        raise NotImplementedError(
+            "masked training and TBPTT in ComputationGraph are not ported "
+            "yet (ROADMAP.md Queue 1 item 14); MultiLayerNetwork.fit takes "
+            "masks")

@@ -16,9 +16,10 @@ convolutions in bf16.
 JSON: the port reads the JSON the JAX package writes and writes JSON the
 JAX package reads. The knobs of :data:`INERT_KNOBS` are kept as read and
 written back, with the reference's defaults; of them the port acts on
-``tbptt_length`` (``MultiLayerNetwork.fit``) and leaves the rest (remat
-policy, loss scaling, gradient compression, pipelining, ...) for later
-slices. The
+``tbptt_length`` (``MultiLayerNetwork.fit``) and ``sync_every`` (the
+listener dispatch window of both networks' ``fit``) and leaves the rest
+(remat policy, loss scaling, gradient compression, pipelining, ...) for
+later slices. The
 updater is kept as the reference's updater dict. ``kernel_impl`` is the one
 key whose vocabulary differs: the reference's forced-kernel mode
 ``"pallas"`` is the port's ``"cuda"``, translated both ways.
@@ -154,6 +155,16 @@ class Builder:
         time axis into length-k segments, the recurrent state carried
         forward and the gradients stopped at segment boundaries."""
         self._knobs["tbptt_length"] = int(k)
+        return self
+
+    def sync_every(self, n: int) -> "Builder":
+        """Dispatch the listeners every ``n`` iterations (reference
+        ``nn/conf.py:337``): each window's losses come to the host in one
+        copy, and every listener still sees every iteration, up to n - 1
+        iterations late. 1 (the default) calls them after each step."""
+        if n < 1:
+            raise ValueError(f"sync_every must be >= 1, got {n}")
+        self._knobs["sync_every"] = int(n)
         return self
 
     def remat_policy(self, name: Optional[str]) -> "Builder":

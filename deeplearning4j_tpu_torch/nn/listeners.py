@@ -1,0 +1,159 @@
+"""Training listeners (counterpart of deeplearning4j_tpu/nn/listeners.py;
+org/deeplearning4j/optimize/api/TrainingListener.java and the listeners of
+org/deeplearning4j/optimize/listeners/).
+
+A network calls ``iteration_done(model, iteration, epoch)`` on each of its
+listeners after every update and ``on_epoch_end(model)`` after every epoch.
+Reading ``model.get_score()`` copies one scalar from the device, so it
+waits for the step: :class:`ScoreIterationListener` reads it only every
+``print_iterations``.
+
+With ``sync_every > 1`` on the conf, ``fit`` routes the calls through
+:class:`CoalescingListenerDispatcher`: each step hands over its loss as a
+device tensor without waiting for it, and every ``sync_every`` steps (or at
+the epoch's end) the window's losses come to the host in one copy, after
+which every listener sees every iteration of the window in order, with
+``model.score_value`` that iteration's loss as a float. Listeners see the
+same (iteration, epoch, score) stream as at ``sync_every`` 1, up to
+``sync_every - 1`` iterations late; a listener that times steps reads
+:func:`iteration_wall_ns`, the step's own host clock.
+
+Not ported yet: ``CheckpointListener`` (it writes ModelSerializer
+archives, ROADMAP Queue 1 item 5), ``RecompileListener`` (XLA's retraces,
+item 12) and the dispatcher's telemetry spans (item 12).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def iteration_wall_ns(model) -> int:
+    """The host clock of the iteration being dispatched: the step's own
+    stamp under coalesced dispatch (``model.last_iteration_wall_ns``), else
+    now."""
+    ns = getattr(model, "last_iteration_wall_ns", None)
+    return ns if ns is not None else time.perf_counter_ns()
+
+
+class TrainingListener:
+    def iteration_done(self, model, iteration: int, epoch: int) -> None:
+        pass
+
+    def on_epoch_end(self, model) -> None:
+        pass
+
+
+class CoalescingListenerDispatcher:
+    """Listener dispatch over a ``sync_every`` window (reference
+    ``nn/listeners.py:44``). At ``sync_every`` 1 it calls the listeners at
+    once; above 1 it queues (iteration, epoch, device loss, host clock) and
+    :meth:`flush` fetches a full window's losses with one
+    ``torch.stack(...).tolist()``. With no listeners it does nothing, so
+    the step chain never waits on the host. ``fetches`` counts the
+    copies."""
+
+    def __init__(self, model, sync_every: int = 1):
+        self.model = model
+        self.sync_every = max(1, int(sync_every))
+        self._pending: list = []  # (iteration, epoch, device loss, wall ns)
+        self.fetches = 0
+
+    def iteration_done(self, loss, iteration: int, epoch: int) -> None:
+        model = self.model
+        if not model.listeners:
+            return
+        if self.sync_every <= 1:
+            for lst in model.listeners:
+                lst.iteration_done(model, iteration, epoch)
+            return
+        self._pending.append((iteration, epoch, loss, time.perf_counter_ns()))
+        if len(self._pending) >= self.sync_every:
+            self.flush()
+
+    def flush(self) -> None:
+        """Fetch the pending losses in one copy and dispatch them in
+        order."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        vals = torch.stack([torch.as_tensor(p[2], dtype=torch.float32)
+                            for p in pending]).tolist()
+        self.fetches += 1
+        model = self.model
+        try:
+            for (it, ep, _, wall_ns), val in zip(pending, vals):
+                model.score_value = val
+                model.last_iteration_wall_ns = wall_ns
+                for lst in model.listeners:
+                    lst.iteration_done(model, it, ep)
+        finally:
+            model.last_iteration_wall_ns = None
+
+
+class ScoreIterationListener(TrainingListener):
+    def __init__(self, print_iterations: int = 10, log_fn=print):
+        self.print_iterations = print_iterations
+        self.log = log_fn
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration % self.print_iterations == 0:
+            self.log(f"Score at iteration {iteration} is "
+                     f"{model.get_score():.6f}")
+
+
+class PerformanceListener(TrainingListener):
+    """Iterations/sec every ``frequency`` iterations (PerformanceListener
+    parity), on the steps' own clock under coalesced dispatch."""
+
+    def __init__(self, frequency: int = 10, log_fn=print):
+        self.frequency = frequency
+        self.log = log_fn
+        self._last_time = None
+        self._last_iter = 0
+
+    def iteration_done(self, model, iteration, epoch):
+        now = iteration_wall_ns(model) / 1e9
+        if self._last_time is None:
+            self._last_time = now
+            self._last_iter = iteration
+            return
+        if iteration - self._last_iter >= self.frequency:
+            dt = now - self._last_time
+            ips = (iteration - self._last_iter) / dt if dt > 0 else float(
+                "inf")
+            self.log(f"iteration {iteration}: {ips:.1f} iter/sec")
+            self._last_time = now
+            self._last_iter = iteration
+
+
+class CollectScoresListener(TrainingListener):
+    """Keeps (iteration, score) every ``frequency`` iterations
+    (CollectScoresIterationListener parity)."""
+
+    def __init__(self, frequency: int = 1):
+        self.frequency = frequency
+        self.scores: list = []
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration % self.frequency == 0:
+            self.scores.append((iteration, model.get_score()))
+
+
+class EvaluativeListener(TrainingListener):
+    """``model.evaluate`` on a held-out iterator every ``frequency``
+    iterations (EvaluativeListener parity)."""
+
+    def __init__(self, iterator, frequency: int = 100, log_fn=print):
+        self.iterator = iterator
+        self.frequency = frequency
+        self.log = log_fn
+        self.last_evaluation = None
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration % self.frequency == 0:
+            self.last_evaluation = model.evaluate(self.iterator)
+            self.log(f"iteration {iteration}: "
+                     f"accuracy={self.last_evaluation.accuracy():.4f}")

@@ -1,16 +1,11 @@
 """Loss functions by DL4J name (counterpart of deeplearning4j_tpu/nn/losses.py,
 the ``LossFunctions.LossFunction`` enum).
 
-Each entry is ``(loss_from_logits_fn | None, loss_from_activations_fn,
-fused_activation | None)``: an output layer whose activation matches the
-fused pair computes the loss from its logits (softmax + MCXENT in one
-log-softmax), else from its activations.
-
-Ported: the softmax + cross-entropy pair (``mcxent``,
-``negativeloglikelihood``), the losses of the ResNet-50 training slice. The
-reference's other losses (xent, mse, l1/l2, kl_divergence, cosine, hinge,
-poisson, huber, sparse_mcxent) need loss ops the port has not registered
-yet; :func:`resolve` raises for them, naming the slice that brings them.
+Each entry is ``(loss_from_logits_fn | None, loss_from_activations_fn |
+None, fused_activation | None)``: an output layer whose activation matches
+the fused pair computes the loss from its logits (softmax + MCXENT in one
+log-softmax, sigmoid + XENT from the logits), else from its activations.
+The loss ops are ``ops/nn.py``'s; every one takes ``weights`` by keyword.
 """
 
 from __future__ import annotations
@@ -18,11 +13,6 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.ops import nn as nnops
-
-#: the reference's losses the port does not have yet
-_LATER = ("xent", "mse", "l2", "l1", "mean_absolute_error", "kl_divergence",
-          "cosine_proximity", "hinge", "squared_hinge", "poisson", "huber",
-          "sparse_mcxent")
 
 
 def mcxent_logits(logits, labels, weights=None):
@@ -37,20 +27,39 @@ def mcxent_probs(probs, labels, eps=1e-7, weights=None):
     return nnops._weighted_mean(per, weights)
 
 
+def xent_logits(logits, labels, weights=None):
+    return nnops.sigmoid_cross_entropy(logits, labels, weights)
+
+
+def xent_probs(probs, labels, eps=1e-7, weights=None):
+    return nnops.log_loss(probs, labels, eps, weights)
+
+
+def sparse_mcxent_logits(logits, labels, weights=None):
+    return nnops.sparse_softmax_cross_entropy(logits, labels, weights)
+
+
 _LOSSES = {
     "mcxent": (mcxent_logits, mcxent_probs, "softmax"),
     "negativeloglikelihood": (mcxent_logits, mcxent_probs, "softmax"),
+    "xent": (xent_logits, xent_probs, "sigmoid"),
+    "mse": (None, nnops.mse_loss, None),
+    "l2": (None, nnops.mse_loss, None),
+    "l1": (None, nnops.mae_loss, None),
+    "mean_absolute_error": (None, nnops.mae_loss, None),
+    "kl_divergence": (None, nnops.kl_divergence, None),
+    "cosine_proximity": (None, nnops.cosine_distance_loss, None),
+    "hinge": (None, nnops.hinge_loss, None),
+    "squared_hinge": (None, nnops.squared_hinge_loss, None),
+    "poisson": (None, nnops.poisson_loss, None),
+    "huber": (None, nnops.huber_loss, None),
+    "sparse_mcxent": (sparse_mcxent_logits, None, "softmax"),
 }
 
 
 def resolve(name: str):
     """-> (logits_fn | None, activations_fn | None, fused_activation | None)."""
     key = name.lower()
-    if key in _LATER:
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet: it comes with the "
-            "MultiLayerNetwork/LeNet slice and the rest of the conv zoo "
-            "(ROADMAP Queue 1 items 3-4), with the loss ops it needs")
     if key not in _LOSSES:
         raise ValueError(f"Unknown loss function: {name!r} "
                          f"(have {sorted(_LOSSES)})")

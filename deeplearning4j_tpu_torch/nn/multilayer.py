@@ -39,11 +39,25 @@ at segment boundaries. Carries live in the compute type.
 ``rnn_time_step`` (``:591``) runs the stack on one step or a few, keeping
 the recurrent carries between calls until ``rnn_clear_previous_state``.
 
+Scoring and evaluation (``score`` ``:975``, ``evaluate`` ``:1008``,
+``evaluate_regression`` ``:1021``): ``score`` is the inference-mode loss of
+a batch, masks and bucketing as in training, with the layers' l1/l2
+penalty, as the reference's ``_loss_eval`` has it; ``evaluate`` runs
+``output`` over an iterator into an ``Evaluation`` (or a
+``RegressionEvaluation``), which copies each batch's predictions to the
+host once.
+
+Listeners (``set_listeners``/``add_listener``, ``nn/listeners.py``): every
+update calls them through the coalescing dispatcher, whose window is the
+conf's ``sync_every`` (1: at once; n: one host copy of n losses); a TBPTT
+batch calls them once, after its last segment, as the reference does
+(``:584-587``); the end of each epoch flushes the window, then calls
+``on_epoch_end``.
+
 Refused: a net with ``TransformerEncoderBlock`` layers does not train, on
 any device, until the flash-attention backward is ported (ROADMAP.md
 Queue 1 item 7); ``fused_update``/``loss_scale`` (item 10). Not ported:
-``score`` and ``evaluate`` (the LeNet milestone, item 3), listeners,
-telemetry, the AOT store and the coalescing dispatcher (item 12); remat
+telemetry, the AOT store (item 12) and ``pretrain`` (item 13); remat
 stages are kept as config.
 """
 
@@ -58,16 +72,14 @@ from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
                                                      dev_weights)
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
+from deeplearning4j_tpu_torch.eval import Evaluation, RegressionEvaluation
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
 from deeplearning4j_tpu_torch.nn.transformer import TransformerEncoderBlock
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops.kernels.attention import FLASH_BACKWARD
-
-_NOT_PORTED = ("MultiLayerNetwork.{} is not ported yet: see ROADMAP.md "
-               "Queue 1 (score and evaluate come with the LeNet milestone, "
-               "item 3)")
 
 
 def _is_recurrent(lyr) -> bool:
@@ -88,7 +100,11 @@ class MultiLayerNetwork:
         self.opt_states: List[Any] = []
         self.iteration = 0
         self.epoch = 0
+        self.listeners: list = []
         self.score_value: Any = float("nan")
+        self.last_iteration_wall_ns = None  # set during coalesced dispatch
+        self._dispatcher = CoalescingListenerDispatcher(
+            self, {**INERT_KNOBS, **conf.knobs}["sync_every"])
         self.device: Optional[torch.device] = None
         self._gen: Optional[torch.Generator] = None  # dropout, set by init
         self._rnn_carries: Optional[list] = None
@@ -336,7 +352,7 @@ class MultiLayerNetwork:
         if labels is not None:
             for _ in range(epochs):
                 self._fit_batch(data, labels)
-                self.epoch += 1
+                self._end_epoch()
             return self
         if isinstance(data, DataSet):
             data = [data]
@@ -347,20 +363,33 @@ class MultiLayerNetwork:
                 self._fit_batch(ds.features, ds.labels,
                                 mask=getattr(ds, "features_mask", None),
                                 label_mask=getattr(ds, "labels_mask", None))
-            self.epoch += 1
+            self._end_epoch()
         return self
+
+    def _end_epoch(self):
+        """``:469-474``: the listeners see the whole epoch before its end."""
+        self._dispatcher.flush()
+        self.epoch += 1
+        for lst in self.listeners:
+            if hasattr(lst, "on_epoch_end"):
+                lst.on_epoch_end(self)
+
+    def _on_device(self, x, y, mask, label_mask):
+        """x, y and the (B, T) masks as tensors on this net's device, the
+        masks as floats."""
+        dev = self.device
+        return (as_tensor(x, dev), as_tensor(y, dev),
+                None if mask is None else as_tensor(mask, dev).float(),
+                None if label_mask is None
+                else as_tensor(label_mask, dev).float())
 
     def _fit_batch(self, x, y, mask=None, label_mask=None):
         """One update (``:632-705``), or one per TBPTT segment when
         ``tbptt_length`` cuts the sequence. ``score_value`` keeps the loss
         as a device tensor (no host sync per step); ``get_score()`` reads
-        it."""
+        it. The listeners get the iteration through the dispatcher."""
         self._check_trainable()
-        dev = self.device
-        x, y = as_tensor(x, dev), as_tensor(y, dev)
-        mask = None if mask is None else as_tensor(mask, dev).float()
-        label_mask = (None if label_mask is None
-                      else as_tensor(label_mask, dev).float())
+        x, y, mask, label_mask = self._on_device(x, y, mask, label_mask)
         k = self.conf.tbptt_length
         if k and x.dim() == 3 and y.dim() == 3 and x.shape[1] > k:
             # per-sequence (2-D) labels cannot be segmented: whole-sequence
@@ -370,11 +399,12 @@ class MultiLayerNetwork:
         if self._bucketing is not None:
             x, y, mask, label_mask = self._bucketing.pad_batch(
                 x, y, mask, label_mask)
-        weights = dev_weights(self._w_cache, x.shape[0], real_n, dev)
+        weights = dev_weights(self._w_cache, x.shape[0], real_n, self.device)
         loss, grads, new_states, _ = self._gradients(
             None, x, y, weights, mask, label_mask)
         self._apply_step(grads, new_states)
         self.score_value = loss
+        self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
 
     def _init_carries(self, batch_size, dtype):
         return [lyr.init_carry(batch_size, dtype, self.device)
@@ -383,7 +413,9 @@ class MultiLayerNetwork:
     def _fit_batch_tbptt(self, x, y, mask=None, label_mask=None):
         """The segment loop (``:529-589``): each k-step segment is one
         update and one iteration, the carries flow forward detached, and
-        ``score_value`` is the mean of the segments' losses. Under
+        ``score_value`` is the mean of the segments' losses; the listeners
+        are called once, after the last segment (the window flushed
+        first, as the reference does). Under
         bucketing the batch rows pad to their bucket once, and each segment
         pads onto the (B, k) shape (``pad_segment``)."""
         k = self.conf.tbptt_length
@@ -412,7 +444,10 @@ class MultiLayerNetwork:
                 carries, xs, ys, weights, ms, lms)
             self._apply_step(grads, new_states)
             losses.append(loss)
+        self._dispatcher.flush()
         self.score_value = torch.stack(losses).mean()
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
 
     # ------------------------------------------------- stateful rnn inference
     def rnn_time_step(self, x):
@@ -459,6 +494,53 @@ class MultiLayerNetwork:
     def get_score(self) -> float:
         return float(self.score_value)
 
-    # ------------------------------------------------------------ not ported
-    def score(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(_NOT_PORTED.format("score"))
+    # ------------------------------------------------------- score, evaluate
+    def score(self, dataset=None, x=None, y=None, mask=None,
+              label_mask=None) -> float:
+        """The inference-mode loss of a batch with the layers' l1/l2
+        penalty, as a float (``:975``, ``_loss_eval`` ``:994``): no
+        dropout, the DataSet's feature and label masks applied, a batch
+        padded to its bucket under ``batch_buckets`` with the padding rows
+        weighted 0."""
+        self._require_init()
+        if dataset is not None:
+            x, y = dataset.features, dataset.labels
+            mask = getattr(dataset, "features_mask", None)
+            label_mask = getattr(dataset, "labels_mask", None)
+        x, y, mask, label_mask = self._on_device(x, y, mask, label_mask)
+        real_n = x.shape[0]
+        if self._bucketing is not None:
+            x, y, mask, label_mask = self._bucketing.pad_batch(
+                x, y, mask, label_mask)
+        weights = dev_weights(self._w_cache, x.shape[0], real_n, self.device)
+        with self._kscope(), torch.inference_mode():
+            loss, _ = self._loss_body(None, x, y, weights, mask, label_mask,
+                                      training=False)
+        return float(loss)
+
+    def _evaluate_into(self, ev, iterator):
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            preds = self.output(ds.features,
+                                mask=getattr(ds, "features_mask", None))
+            ev.eval(ds.labels, preds)
+        return ev
+
+    def evaluate(self, iterator) -> Evaluation:
+        """Classification metrics of ``output`` over an iterator of
+        DataSets (``:1008``)."""
+        return self._evaluate_into(Evaluation(), iterator)
+
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        """Regression metrics of ``output`` over an iterator (``:1021``)."""
+        return self._evaluate_into(RegressionEvaluation(), iterator)
+
+    # -------------------------------------------------------------- listeners
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self

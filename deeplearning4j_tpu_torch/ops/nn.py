@@ -315,3 +315,93 @@ def softmax_cross_entropy(logits, labels, weights=None, label_smoothing=0.0):
     logp = torch.log_softmax(logits.to(_acc_dtype(logits)), dim=-1)
     per = -(labels * logp).sum(dim=-1)
     return _weighted_mean(per, weights)
+
+
+def _mean_rest(t):
+    """Mean over every axis but the first; a 1-D tensor as it is (the
+    reference's ``jnp.mean(axis=())``)."""
+    return t.mean(dim=tuple(range(1, t.dim()))) if t.dim() > 1 else t
+
+
+@op("sparse_softmax_cross_entropy", "loss")
+def sparse_softmax_cross_entropy(logits, label_indices, weights=None):
+    """Softmax cross-entropy with integer class indices [batch]."""
+    logp = torch.log_softmax(logits.to(_acc_dtype(logits)), dim=-1)
+    idx = label_indices.long()[..., None]
+    per = -torch.gather(logp, -1, idx)[..., 0]
+    return _weighted_mean(per, weights)
+
+
+@op("sigmoid_cross_entropy", "loss", aliases=("xent",))
+def sigmoid_cross_entropy(logits, labels, weights=None):
+    """Binary cross-entropy from logits, summed over the outputs of an
+    example, in fp32."""
+    z = logits.to(_acc_dtype(logits))
+    per = (torch.clamp_min(z, 0) - z * labels
+           + torch.log1p(torch.exp(-z.abs())))
+    if per.dim() > 1:
+        per = per.sum(dim=tuple(range(1, per.dim())))
+    return _weighted_mean(per, weights)
+
+
+@op("mse_loss", "loss", aliases=("mean_sqerr_loss", "l2_loss_per_example"))
+def mse_loss(predictions, labels, weights=None):
+    return _weighted_mean(_mean_rest((predictions - labels) ** 2), weights)
+
+
+@op("mae_loss", "loss", aliases=("absolute_difference_loss", "l1"))
+def mae_loss(predictions, labels, weights=None):
+    return _weighted_mean(_mean_rest((predictions - labels).abs()), weights)
+
+
+@op("huber_loss", "loss")
+def huber_loss(predictions, labels, delta=1.0, weights=None):
+    abs_err = (predictions - labels).abs()
+    quad = torch.clamp_max(abs_err, delta)
+    per = 0.5 * quad ** 2 + delta * (abs_err - quad)
+    return _weighted_mean(_mean_rest(per), weights)
+
+
+@op("hinge_loss", "loss")
+def hinge_loss(predictions, labels, weights=None):
+    """Labels in {0, 1} mapped to -1/+1 (the ND4J convention)."""
+    signed = 2.0 * labels - 1.0
+    per = torch.clamp_min(1.0 - signed * predictions, 0.0)
+    return _weighted_mean(_mean_rest(per), weights)
+
+
+@op("squared_hinge_loss", "loss")
+def squared_hinge_loss(predictions, labels, weights=None):
+    signed = 2.0 * labels - 1.0
+    per = torch.clamp_min(1.0 - signed * predictions, 0.0) ** 2
+    return _weighted_mean(_mean_rest(per), weights)
+
+
+@op("log_loss", "loss")
+def log_loss(predictions, labels, eps=1e-7, weights=None):
+    p = torch.clamp(predictions, eps, 1.0 - eps)
+    per = -_mean_rest(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p))
+    return _weighted_mean(per, weights)
+
+
+@op("poisson_loss", "loss")
+def poisson_loss(predictions, labels, weights=None):
+    per = predictions - labels * torch.log(torch.clamp_min(predictions, 1e-12))
+    return _weighted_mean(_mean_rest(per), weights)
+
+
+@op("kl_divergence", "loss", aliases=("kld",))
+def kl_divergence(predictions, labels, eps=1e-12, weights=None):
+    per = (labels * (torch.log(torch.clamp_min(labels, eps))
+                     - torch.log(torch.clamp_min(predictions, eps)))
+           ).sum(dim=-1)
+    return _weighted_mean(per, weights)
+
+
+@op("cosine_distance_loss", "loss")
+def cosine_distance_loss(predictions, labels, axis=-1, weights=None):
+    num = (predictions * labels).sum(dim=axis)
+    n_p = torch.sqrt((predictions ** 2).sum(dim=axis))
+    n_l = torch.sqrt((labels ** 2).sum(dim=axis))
+    per = 1.0 - num / torch.clamp_min(n_p * n_l, 1e-12)
+    return _weighted_mean(per, weights)

@@ -1,6 +1,6 @@
 """Zoo models (counterpart of deeplearning4j_tpu/zoo/models.py): ResNet-50
 on ComputationGraph, the same graph node for node, with NHWC layout, and
-the char-RNN TextGenerationLSTM on MultiLayerNetwork.
+LeNet-5 and the char-RNN TextGenerationLSTM on MultiLayerNetwork.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from deeplearning4j_tpu_torch.nn import (ComputationGraph, InputType,
 from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
                                                 ConvolutionLayer,
+                                                DenseLayer,
                                                 GlobalPoolingLayer,
                                                 OutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.recurrent import LSTM, RnnOutputLayer
@@ -51,6 +52,31 @@ class ZooModel:
                 .seed(self.seed)
                 .updater(self.updater or dict(ADAM_DEFAULT))
                 .compute_dtype(self.compute_dtype))
+
+
+@dataclasses.dataclass
+class LeNet(ZooModel):
+    """zoo/model/LeNet.java (reference ``zoo/models.py:76``), BASELINE
+    config #1: conv 5x5 -> 20 and 5x5 -> 50 (VALID, relu), each followed by
+    a 2x2 max-pool, dense 500 (relu), softmax over the classes; 28x28x1
+    NHWC input."""
+
+    num_classes: int = 10
+    input_shape: Tuple[int, int, int] = (28, 28, 1)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (self._builder().list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                        padding="VALID", activation="relu"))
+                .layer(SubsamplingLayer(kernel_size=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                        padding="VALID", activation="relu"))
+                .layer(SubsamplingLayer(kernel_size=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_in=500, n_out=self.num_classes))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@
   ``net.output``'s probabilities;
 - bf16 compute rounds float token ids in both packages alike (id 30000
   arrives as 29952), a reference behaviour recorded in ROADMAP.md Queue 3;
+- ``score`` (the inference loss, masked and not) against the reference's;
 - what the slice leaves out raises, naming ROADMAP.md.
 
 None of this imports ``deeplearning4j_tpu.autodiff``.
@@ -244,11 +245,29 @@ def test_bf16_rounds_float_token_ids_in_both_packages():
 
 @pytest.mark.parametrize("method", ["fit", "score", "rnn_time_step"])
 def test_unported_mln_methods_name_the_roadmap(method):
-    """``score`` still waits for the LeNet milestone. ``fit`` is ported, but
-    refuses a net with encoder blocks on every device until the flash
-    backward is (Queue 1 item 7: the flash kernel's output would carry no
-    gradient). ``rnn_time_step`` is ported: on a stack without recurrent
-    layers it is the plain forward."""
+    """``fit`` is ported, but refuses a net with encoder blocks on every
+    device until the flash backward is (Queue 1 item 7: the flash kernel's
+    output would carry no gradient). ``score`` is ported (the LeNet slice):
+    ``Bert.tiny``'s inference loss, with a ragged padding mask, matches the
+    reference's within 1e-4 relative. ``rnn_time_step`` is ported: on a
+    stack without recurrent layers it is the plain forward."""
+    if method == "score":
+        jnet = JBert.tiny(max_length=T).init()
+        tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+        net = interop.from_reference_json(jnet.conf.to_json(),
+                                          tree(jnet.params),
+                                          tree(jnet.states), device="cpu")
+        x, mask = _ids(4, seed=9), _ragged_mask(4)
+        y = np.eye(2, dtype=np.float32)[[0, 1, 1, 0]]
+        from deeplearning4j_tpu.data.dataset import DataSet as JDataSet
+        from deeplearning4j_tpu_torch.data import DataSet
+        want = float(jnet.score(JDataSet(x, y, features_mask=mask)))
+        got = net.score(DataSet(x, y, features_mask=mask))
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        np.testing.assert_allclose(net.score(x=x, y=y),
+                                   float(jnet.score(x=x, y=y)), rtol=1e-4)
+        assert got != net.score(x=x, y=y)
+        return
     net = TBert.tiny(max_length=T).init(device="cpu")
     x = _ids(1, seed=8)
     if method == "rnn_time_step":
@@ -256,14 +275,9 @@ def test_unported_mln_methods_name_the_roadmap(method):
                                    net.output(x).numpy(), rtol=1e-6,
                                    atol=1e-7)
         return
-    match = "Queue 1 item 7" if method == "fit" else "ROADMAP.md"
-    with pytest.raises(NotImplementedError, match=match):
-        if method == "fit":
-            net.fit(x, np.eye(2, dtype=np.float32)[[1]])
-        else:
-            net.score(x)
-    if method == "fit":
-        assert net.iteration == 0
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        net.fit(x, np.eye(2, dtype=np.float32)[[1]])
+    assert net.iteration == 0
 
 
 def test_mlm_task_waits_for_the_recurrent_slice():

@@ -18,7 +18,9 @@ whole network within 1e-4 relative of the same network on the CPU; the
 conv kernel's forward within rtol/atol 1e-4 (fp32) or rtol 8e-3 + atol
 1e-4 (bf16: two bf16 ulps) of its plain version, its dgrad and the wgrad
 kernel's dW within 1e-4 (fp32) or 2^-7 (bf16) of the largest plain output
-(PERF.md §2).
+(PERF.md §2); LeNet's fit against the CPU's within 1e-4, its score within
+1e-5 (``-k lenet``: the conv kernels at LeNet's geometries and LeNet on
+the card).
 """
 
 import numpy as np
@@ -485,3 +487,188 @@ def test_encoder_block_auto_takes_exact_where_flash_refuses(card, head_dim):
                                      flash=True)
     with pytest.raises(ValueError, match=f"head dim {head_dim}"):
         forced.apply(params, {}, x)
+
+
+# (id, N, H, Cin, Cout): LeNet-5's two convs (5x5 VALID, stride 1) at the
+# training batch (64) and the ragged last batch of its epochs (32): conv1
+# takes Cin 1 (25 taps in all, not a multiple of mma.sync's k16), Cout 20
+# and 50 are no multiples of 8 (the unvectorised gathers); conv2's dgrad is
+# a VALID conv re-padded by 4 on an 8x8 dy. Every bf16 launch is mma.sync
+# (no channel count is a multiple of 64).
+_LENET_CONVS = [("conv1-n64", 64, 28, 1, 20), ("conv2-n64", 64, 12, 20, 50),
+                ("conv1-n32", 32, 28, 1, 20), ("conv2-n32", 32, 12, 20, 50)]
+
+
+def _poisoned(shape, dtype, card):
+    """Hand a NaN-filled block back to the allocator: the next result of
+    this size comes out in it, so an element left unwritten shows."""
+    poison = torch.full(shape, float("nan"), dtype=dtype, device=card)
+    del poison
+
+
+@pytest.mark.parametrize("case", _LENET_CONVS, ids=[c[0] for c in _LENET_CONVS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_lenet_conv_kernels_match_plain(card, dtype, case):
+    """K1's forward, its dgrad (conv2 only: conv1 reads the input, which
+    needs no gradient) and K3 at LeNet's geometries: into NaN-filled
+    blocks, within the smoke's tolerances of the plain versions, on the
+    body the plan names, equal to the bit on a second launch."""
+    _, n, h, cin, cout = case
+    gen = torch.Generator(device=card).manual_seed(n * h + cin)
+    x = torch.rand((n, h, h, cin), device=card, generator=gen).to(dtype)
+    w = (torch.randn((5, 5, cin, cout), device=card, generator=gen)
+         * (2.0 / (25 * cin)) ** 0.5).to(dtype)
+    oh = h - 4
+    dy = torch.randn((n, oh, oh, cout), device=card, generator=gen).to(dtype)
+    pads, one = ((0, 0), (0, 0)), (1, 1)
+    body = "fma" if dtype == torch.float32 else "mma_sync"
+    assert KC.fwd_plan(x, w, one, pads, one, 1)[2] == body
+    assert KC.wgrad_plan(x, dy, 5, 5, one, pads, one, 1)[1] == body
+
+    _poisoned((n, oh, oh, cout), dtype, card)
+    y = KC.conv2d_fwd(x, w, one, pads, one, 1)
+    y2 = KC.conv2d_fwd(x, w, one, pads, one, 1)
+    ref = KC.conv2d_fwd_reference(x, w, one, pads, one, 1)
+    _poisoned((5, 5, cin, cout), torch.float32, card)
+    dw = KC.conv2d_wgrad(x, dy, 5, 5, one, pads, one, 1)
+    dw2 = KC.conv2d_wgrad(x, dy, 5, 5, one, pads, one, 1)
+    dw_ref = KC.conv2d_wgrad_reference(x, dy, 5, 5, one, pads, one, 1)
+    torch.cuda.synchronize()
+    rtol, atol = _CONV_TOL[dtype]
+    assert bool(torch.isfinite(y).all()) and torch.equal(y, y2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+    assert bool(torch.isfinite(dw).all()) and torch.equal(dw, dw2)
+    err = (dw.to(dtype).float() - dw_ref.to(dtype).float()).abs().max()
+    assert float(err / dw_ref.to(dtype).float().abs().max()) <= \
+        _GRAD_TOL[dtype]
+    launches = {"conv2d_fwd": 2, "conv2d_wgrad": 2}
+    if cin > 1:
+        assert KC.dgrad_plan(dy, w, (h, h), one, pads, one, 1)[2] == body
+        _poisoned((n, h, h, cin), dtype, card)
+        dx = KC.conv2d_dgrad(dy, w, (h, h), one, pads, one, 1)
+        dx2 = KC.conv2d_dgrad(dy, w, (h, h), one, pads, one, 1)
+        dx_ref = KC.conv2d_dgrad_reference(dy, w, (h, h), one, pads, one, 1)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(dx).all()) and torch.equal(dx, dx2)
+        err = (dx.float() - dx_ref.to(dtype).float()).abs().max()
+        assert float(err / dx_ref.float().abs().max()) <= _GRAD_TOL[dtype]
+        launches["conv2d_dgrad"] = 2
+    assert {k: v for k, v in TK.LAUNCHES.items() if v} == launches
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_lenet_fit_and_evaluate_on_card_match_cpu(card):
+    """LeNet from the zoo (the same params on both devices: init draws on
+    the CPU) over 64 + 32 + 64 random digits with Adam: per-step losses and
+    the params within 1e-4 of the CPU's, 2 / 1 / 2 conv launches a step
+    (fwd / dgrad / wgrad), none plain; then ``score`` within 1e-5 and
+    ``evaluate`` counting all 50 rows, its predictions the CPU's wherever
+    the CPU's top two probabilities are more than 1e-4 apart."""
+    from deeplearning4j_tpu_torch.data import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    gpu, cpu = LeNet().init(device=card), LeNet().init(device="cpu")
+    for n in (64, 32, 64):
+        x = rng.random((n, 28, 28, 1), dtype=np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+        gpu.fit(x, y)
+        cpu.fit(x, y)
+        np.testing.assert_allclose(gpu.get_score(), cpu.get_score(),
+                                   rtol=1e-4)
+    assert TK.LAUNCHES["conv2d_fwd"] == 2 * 3
+    assert TK.LAUNCHES["conv2d_dgrad"] == 3
+    assert TK.LAUNCHES["conv2d_wgrad"] == 2 * 3
+    assert not any(TK.PLAIN_ON_CUDA.values())
+    for pg, pc in zip(gpu.params, cpu.params):
+        for k in pc:
+            np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(),
+                                       rtol=1e-4, atol=1e-6)
+    x = rng.random((50, 28, 28, 1), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 50)]
+    np.testing.assert_allclose(gpu.score(x=x, y=y), cpu.score(x=x, y=y),
+                               rtol=1e-5)
+    ev = gpu.evaluate(ArrayDataSetIterator(x, y, batch=16))
+    assert ev.confusion_matrix().sum() == 50
+    p_g = torch.cat([gpu.output(x[i:i + 16]) for i in range(0, 50, 16)])
+    p_g, p_c = p_g.cpu().numpy(), cpu.output(x).numpy()
+    top2 = np.sort(p_c, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-4
+    assert clear.sum() >= 45
+    np.testing.assert_array_equal(p_g.argmax(1)[clear], p_c.argmax(1)[clear])
+    want = np.zeros((10, 10), np.int64)
+    np.add.at(want, (y.argmax(1), p_g.argmax(1)), 1)
+    np.testing.assert_array_equal(ev.confusion_matrix(), want)
+
+
+def test_graph_listeners_early_stopping_and_regression_on_card(card):
+    """What the LeNet slice added beyond LeNet, on CUDA tensors: a
+    ComputationGraph's listeners at sync_every 3 (the same calls as on the
+    CPU, scores within 1e-4), EarlyStoppingTrainer driving that graph (its
+    best model on the card re-scores to its recorded score within 1e-6),
+    and a MultiLayerNetwork's ``evaluate_regression`` (within 1e-5 of the
+    CPU's)."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.data import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.listeners import CollectScoresListener
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(50, 5)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 50)]
+
+    def graph(dev):
+        gb = (NeuralNetConfiguration.builder().seed(4).sync_every(3)
+              .updater({"@updater": "Sgd", "learning_rate": 0.3})
+              .graph_builder().add_inputs("in"))
+        gb.add_layer("d", DenseLayer(n_out=8, activation="tanh"), "in")
+        gb.add_layer("out", OutputLayer(n_in=8, n_out=3), "d")
+        return ComputationGraph(gb.set_outputs("out").set_input_types(
+            InputType.feed_forward(5)).build()).init(device=dev)
+
+    calls = {}
+    for dev in ("cpu", card):
+        g = graph(dev)
+        collect = CollectScoresListener(1)
+        g.set_listeners(collect)
+        g.fit(ArrayDataSetIterator(x, y, batch=16, shuffle=True), epochs=2)
+        calls[str(dev)] = collect.scores
+    cpu, gpu = calls["cpu"], calls[str(card)]
+    assert [c[0] for c in gpu] == [c[0] for c in cpu] == list(range(1, 9))
+    np.testing.assert_allclose([c[1] for c in gpu], [c[1] for c in cpu],
+                               rtol=1e-4)
+
+    test = ArrayDataSetIterator(x[:20], y[:20], batch=8)
+    cfg = (es.EarlyStoppingConfiguration.builder()
+           .score_calculator(es.DataSetLossCalculator(test))
+           .epoch_termination_conditions(
+               es.MaxEpochsTerminationCondition(2)).build())
+    res = es.EarlyStoppingTrainer(cfg, graph(card), ArrayDataSetIterator(
+        x, y, batch=16, shuffle=True)).fit()
+    best = res.best_model
+    assert all(t.is_cuda for p in best.params.values() for t in p.values())
+    rescored = es.DataSetLossCalculator(test).calculate_score(best)
+    assert abs(rescored - res.best_model_score) <= \
+        1e-6 * abs(res.best_model_score)
+
+    evs = []
+    for dev in ("cpu", card):
+        conf = (NeuralNetConfiguration.builder().seed(5).list()
+                .layer(DenseLayer(n_out=8, activation="tanh"))
+                .layer(OutputLayer(n_in=8, n_out=3, loss="mse",
+                                   activation="identity"))
+                .set_input_type(InputType.feed_forward(5)).build())
+        net = MultiLayerNetwork(conf).init(device=dev)
+        evs.append(net.evaluate_regression(ArrayDataSetIterator(x, y,
+                                                                batch=16)))
+    for m in ("mean_squared_error", "mean_absolute_error", "r_squared"):
+        np.testing.assert_allclose(getattr(evs[1], m)(), getattr(evs[0], m)(),
+                                   rtol=1e-5)

@@ -33,6 +33,7 @@ import deeplearning4j_tpu_torch.nn.layers as TL  # noqa: E402
 import deeplearning4j_tpu_torch.nn.vertices as TV  # noqa: E402
 from deeplearning4j_tpu.nn import ComputationGraph as JGraph  # noqa: E402
 from deeplearning4j_tpu.nn import layers as JL  # noqa: E402
+from deeplearning4j_tpu.nn import losses as JLOSSES  # noqa: E402
 from deeplearning4j_tpu.nn import schedules as jsched  # noqa: E402
 from deeplearning4j_tpu.nn import updaters as jupd  # noqa: E402
 from deeplearning4j_tpu.nn.computation_graph import (  # noqa: E402
@@ -144,9 +145,12 @@ def test_zero_one_weights_give_the_unpadded_mean():
 def test_losses_resolve_mcxent_and_name_later_slices():
     assert tlosses.resolve("MCXENT")[2] == "softmax"
     assert tlosses.resolve("negativeloglikelihood")[0] is not None
-    for name in ("mse", "xent", "sparse_mcxent"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tlosses.resolve(name)
+    # every loss of the reference is ported now (the LeNet slice brought
+    # the rest): each resolves to the reference's fused activation
+    for name, fused in (("mse", None), ("xent", "sigmoid"),
+                        ("sparse_mcxent", "softmax")):
+        assert tlosses.resolve(name)[2] == fused
+    assert tlosses.available() == sorted(JLOSSES.available())
     with pytest.raises(ValueError):
         tlosses.resolve("nope")
 
