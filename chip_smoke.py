@@ -54,8 +54,9 @@ of the JAX package. Phases, each printing one JSON line:
    fp32 and bf16: no mask, causal, and a padding mask with a fully-masked
    batch row; O and the LSE gated by ATTN_TOL and LSE_TOL below; the
    kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   times, the card's bound and the rows per block; the kernel must refuse
-   inputs that require grad (it has no backward).
+   times, the card's bound and the rows per block; the raw launch must
+   refuse inputs that require grad, and ``flash_attention`` on them must
+   give an O with a grad_fn (the FlashAttention autograd Function).
 8. attention_sweep: the kernel against the port's exact attention from 32
    to 2048 tokens (8192 tokens per batch), fp32 and bf16: the crossover
    ``ops/attention.py``'s FLASH_MIN_SEQ is set from.
@@ -71,7 +72,24 @@ of the JAX package. Phases, each printing one JSON line:
     profiled batch-32 S=512 forward in each type by class (flash kernel
     and its share, matmuls, layer norm, gelu, embedding gather, idle
     share).
-11. lstm_kernel: K4 at the char-RNN's geometries, both gate orders, fp32
+11. bert_train: full-width BERT-base training on MultiLayerNetwork
+    (seed 12345, hidden_dropout 0.1, Adam(1e-5)) on BertIterator batches of
+    32 at S 128 over lines of SURVEY.md and ROADMAP.md (the label: the file
+    a line comes from; the vocabulary ``Vocab.build`` of the same lines):
+    one step under ``auto`` against ``exact`` with dropout off (loss 1e-5
+    relative, gradients by the fp64 step gate, 12 K5 launches); the
+    FlashAttention Function alone at batch 8 and 32, S 128 and 512, no
+    mask, causal and padding with a fully-masked row, fp32 and bf16: dq,
+    dk, dv against the exact attention's fp64 autograd (FLASH_BWD_TOL), and
+    at batch 32 its backward's time beside SDPA's and the exact path's and
+    its bound; the main path, three epochs of ``fit(iterator)`` with every
+    K5 launch checked and the mean loss of the last 10 steps below the
+    first 10's and below the class prior's ln 2; one checked bf16 step on integer ids; three masked-LM steps,
+    then TransferLearning to a classifier on frozen embeddings, three
+    steps, the frozen params bit-equal; train sequences/sec at S 128 and
+    512, fp32 and bf16; one profiled step in each type (K5, the flash
+    backward, matmuls, layer norm's forward, Adam, idle share).
+12. lstm_kernel: K4 at the char-RNN's geometries, both gate orders, fp32
     and bf16, gated by LSTM_TOL. The one-step cell kernel
     (``csrc/lstm_cell.cu``) at training (B 32, H 256) and sampling (B 4,
     H 256) on a strided time slice: its time (one launch alone, and per
@@ -84,7 +102,7 @@ of the JAX package. Phases, each printing one JSON line:
     geometry, the plain version's, the library route per step (50 steps in
     one CUDA graph) and per segment, cuDNN ``nn.LSTM`` over the same
     segment, the bound per segment, the body that ran.
-12. char_rnn_train: full-width TextGenerationLSTM (47 characters, 256
+13. char_rnn_train: full-width TextGenerationLSTM (47 characters, 256
     units, dropout 0.2, Adam(1e-3), seed 12345) at dl4j-examples'
     LSTMCharModellingExample shape (batch 32, 1000 characters of SURVEY.md
     per sequence, TBPTT 50: 20 updates and 40 K4 launches per ``fit``
@@ -96,12 +114,12 @@ of the JAX package. Phases, each printing one JSON line:
     ``fit`` call, train characters/sec fp32 and bf16 (five windows of one
     ``fit`` call), one profiled segment (device busy, idle share, K4's
     launches and share).
-13. char_rnn_sample: 4 samples of 300 characters with ``rnn_time_step``
+14. char_rnn_sample: 4 samples of 300 characters with ``rnn_time_step``
     after a 9-character prime (one call: 2 K4 launches; then 2 K4 launches
     per character step at batch 4, each checked), from the trained fp32
     net and from the bf16 net of its one ``fit`` call: characters/sec and
     a 60-character excerpt of each.
-14. lenet: LeNet-5 (``zoo.LeNet``: conv 5x5 -> 20, pool, conv 5x5 -> 50,
+15. lenet: LeNet-5 (``zoo.LeNet``: conv 5x5 -> 20, pool, conv 5x5 -> 50,
     pool, dense 500, softmax 10; seed 12345, Adam(1e-3), fp32) as
     dl4j-examples' LeNetMNIST trains it, on the reference's synthetic
     MNIST (60,000 training and 10,000 test digits, MnistDataSetIterator at
@@ -124,8 +142,8 @@ of the JAX package. Phases, each printing one JSON line:
     1024, one profiled step of each (device busy, idle share, the conv
     kernels' share). LeNet's two conv geometries at batch 64 are extra
     cases of phases 3 and 4 (marked ``lenet``).
-15. timing: the seconds each phase took, and the whole run's.
-16. kernels: one JSON line per the kernel table in PERF.md; the conv
+16. timing: the seconds each phase took, and the whole run's.
+17. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
     ``lenet``.
 
@@ -134,6 +152,7 @@ exits non-zero; with no CUDA device it exits 1 before doing anything.
 """
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -199,6 +218,27 @@ ATTENTION_CASES = (
     (8, 512, 128, "none"), (8, 1000, 64, "causal"), (8, 1000, 128, "padding"),
     (1, 512, 64, "none"), (32, 512, 64, "none"))
 SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
+# BERT-base training (bert_train): BertIterator batches of 32 at S 128 over
+# the repository's own text, three epochs of fit(iterator) (66 steps).
+# Adam at 1e-5 from random weights, without warmup: on this data 1e-4 and
+# 3e-5 spike in the first steps and settle at the class prior (ln 2), 1e-5
+# goes below it in three epochs (PERF.md, PR 10); the main path must too
+BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, BERT_TRAIN_EPOCHS = 32, 128, 3
+BERT_TRAIN_LR = 1e-5
+BERT_MLM_STEPS = BERT_TRANSFER_STEPS = 3
+# the FlashAttention Function alone: (batch, S) at BERT-base's heads, each
+# with no mask, causal and a padding mask with a fully-masked batch row;
+# timed at batch 32
+FLASH_BWD_SHAPES = ((8, 128), (8, 512), (32, 128), (32, 512))
+# Its gradient gate, on max|dq, dk, dv - fp64 exact| over the largest fp64
+# gradient. fp32: K5's O and LSE stand ~1e-6 from the plain path's, and the
+# backward sums at most 512 keys and 64 dims in fp32 (a rounding walk of
+# ~sqrt(512) * 6e-8 of the summed magnitudes), so 2e-5 still catches a
+# wrong term. bf16: the inputs are the same bf16 values in both; K5 rounds
+# P to bf16 before P @ V and O to bf16 (each 2^-9 relative), delta =
+# sum(dO * O) takes the rounded O and feeds every ds, and each gradient is
+# rounded once to bf16: four bf16 steps, 2^-6.
+FLASH_BWD_TOL = {"fp32": 2e-5, "bf16": 2.0 ** -6}
 LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_cell.cu"
 LSTM_SEQ_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_seq.cu"
 LSTM_REPLACES = "deeplearning4j_tpu/ops/kernels/lstm.py:97 _cell_kernel"
@@ -1299,12 +1339,13 @@ def attention_bound(np, b, h, sq, sk, d, causal, mask, es, peak):
     return bound(flops, nbytes, peak)
 
 
-def attention_inputs(torch, np, b, h, s, d, seed):
-    """q, k, v as the encoder block hands them over: (B, H, S, D) views of
-    (B, S, H, D) buffers, unit normal from a numpy seed."""
+def attention_inputs(torch, np, b, h, s, d, seed, n=3):
+    """q, k, v (and, with ``n`` 4, dO) as the encoder block hands them
+    over: (B, H, S, D) views of (B, S, H, D) buffers, unit normal from a
+    numpy seed."""
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
-            .cuda().permute(0, 2, 1, 3) for _ in range(3)]
+            .cuda().permute(0, 2, 1, 3) for _ in range(n)]
 
 
 def check_attention(torch, np, s, case, b=8, h=12, d=64):
@@ -1369,8 +1410,10 @@ def check_attention(torch, np, s, case, b=8, h=12, d=64):
 
 def attention_kernel_phase(torch, np):
     """K5 on ATTENTION_CASES (no mask, causal, a padding mask with a
-    fully-masked batch row), and the kernel's refusal of inputs that
-    require grad."""
+    fully-masked batch row); the raw launch's refusal of inputs that
+    require grad, and ``flash_attention`` on such inputs giving an O with
+    a grad_fn (the FlashAttention Function)."""
+    from deeplearning4j_tpu_torch.ops import attention as attn
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.ops.kernels import attention as katt
 
@@ -1380,14 +1423,23 @@ def attention_kernel_phase(torch, np):
         records.append(rec)
         emit("attention_kernel", name="flash_attention_fwd", **rec)
     q = torch.randn((1, 2, 32, 64), device="cuda", requires_grad=True)
+    kern.reset_counts()
     try:
         katt.flash_attention_fwd(q, q, q, 0.125, False)
     except NotImplementedError as e:
-        emit("attention_refuses_grad", name="flash_attention_fwd",
-             error=str(e)[:200])
+        refusal = str(e)[:200]
     else:
-        raise AssertionError("the flash kernel took inputs that require "
+        raise AssertionError("the raw flash launch took inputs that require "
                              "grad: its output would carry no gradient")
+    o = attn.flash_attention(q, q, q, scale=0.125)
+    if o.grad_fn is None or kern.LAUNCHES["flash_attention_fwd"] != 1:
+        raise AssertionError(f"flash_attention on inputs that require grad "
+                             f"gave grad_fn {o.grad_fn}, "
+                             f"{kern.LAUNCHES['flash_attention_fwd']} K5 "
+                             "launches")
+    emit("attention_grad", name="flash_attention_fwd",
+         raw_launch_refuses=refusal,
+         flash_attention_grad_fn=type(o.grad_fn).__name__)
     kern.reset_counts()
     return records
 
@@ -1642,6 +1694,445 @@ def bert_forward_phase(torch, np, card, net):
                                  f"{prof['flash_launches']} flash launches")
         emit("bert_profile", model="Bert.base", dtype=tag, card=card, **prof)
     return masked_launches, checked
+
+
+# ------------------------------------------------------------ BERT training
+
+
+def bert_corpus():
+    """The training text: lines of SURVEY.md and ROADMAP.md with more than
+    three words, one from each file in turn while both last; the label is
+    the file a line comes from (0 SURVEY.md, 1 ROADMAP.md)."""
+    def lines(name):
+        with open(os.path.join(ROOT, name), encoding="utf-8") as f:
+            return [ln.strip() for ln in f if len(ln.split()) > 3]
+
+    text, labels = [], []
+    for a, b in zip(lines("SURVEY.md"), lines("ROADMAP.md")):
+        text += [a, b]
+        labels += [0, 1]
+    return text, labels
+
+
+def bert_iterator(vocab, text, labels=None):
+    """BertIterator over ``text`` at batch 32 and S 128: SEQ_CLASSIFICATION
+    with ``labels``, else UNSUPERVISED (the 80/10/10 masker, seed
+    12345)."""
+    from deeplearning4j_tpu_torch.nlp import (BertIterator,
+                                              BertWordPieceTokenizer)
+
+    task = (BertIterator.UNSUPERVISED if labels is None
+            else BertIterator.SEQ_CLASSIFICATION)
+    return BertIterator(BertWordPieceTokenizer(vocab), task=task,
+                        max_length=BERT_TRAIN_SEQ,
+                        batch_size=BERT_TRAIN_BATCH,
+                        sentences=text, labels=labels,
+                        n_classes=None if labels is None else 2, seed=12345)
+
+
+def bert_train_net(torch, **kw):
+    """Full-width BERT-base on the card, seed 12345, Adam(BERT_TRAIN_LR)."""
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    kw.setdefault("max_length", BERT_TRAIN_SEQ)
+    return Bert.base(updater=Adam(BERT_TRAIN_LR), **kw).init(device="cuda")
+
+
+def _ds_on_card(torch, ds, ids_dtype=None):
+    """A DataSet's arrays as card tensors; token ids as ``ids_dtype``."""
+    x = torch.from_numpy(ds.features).cuda()
+    if ids_dtype is not None:
+        x = x.to(ids_dtype)
+    return (x, torch.from_numpy(ds.labels).cuda(),
+            torch.from_numpy(ds.features_mask).cuda())
+
+
+def flash_bwd_bound(np, b, h, sq, sk, d, causal, mask, es, peak):
+    """The card's least time for the flash backward: 10*D operations per
+    attended (query, key) pair and head (the recomputed q.k, then dv, dp,
+    dq and dk: 2.5x the forward's 4*D), against q, k, v, O and dO read and
+    dq, dk, dv written once in the input type, the fp32 LSE read and the
+    fp32 mask read."""
+    flops = 10.0 * d * h * attention_pairs(np, b, sq, sk, causal, mask)
+    nbytes = ((4 * b * h * sq * d + 4 * b * h * sk * d) * es
+              + 4 * b * h * sq)
+    if mask is not None:
+        nbytes += 4 * b * sk
+    return bound(flops, nbytes, peak)
+
+
+def check_flash_bwd(torch, np, b, s, case, h=12, d=64, timed=False):
+    """The FlashAttention Function on the card (K5's forward, the plain
+    backward on its O and LSE) at BERT-base's head geometry: dq, dk, dv
+    against the exact attention's autograd in fp64 on the same (rounded)
+    inputs, gated by FLASH_BWD_TOL on the error over the largest fp64
+    gradient; a fully-masked batch row's gradients exactly 0. With
+    ``timed``: the backward's device time beside SDPA's backward and the
+    exact path's autograd backward on the same inputs, each the time of
+    its forward and backward in one CUDA graph less the forward's (an
+    autograd backward is captured only with its forward), the Function's
+    backward alone from a Python loop too (``eager_ms``), and its
+    bound."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import attention as attn
+
+    seed = zlib.crc32(repr(("flash_bwd", b, s, case)).encode())
+    q32, k32, v32, do32 = attention_inputs(torch, np, b, h, s, d, seed, n=4)
+    mask = None
+    if case == "padding":  # ragged lengths, batch row 0 fully masked
+        lens = np.random.default_rng(seed).integers(s // 4, s + 1, size=b)
+        lens[0] = 0
+        mask = torch.from_numpy(
+            (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)).cuda()
+    causal = case == "causal"
+    amask = None if mask is None else (mask > 0)[:, None, None, :]
+    rec = {"b": b, "h": h, "s": s, "d": d, "case": case}
+    for tag, dt, peak in (("fp32", torch.float32, H100_FP32_FLOPS),
+                          ("bf16", torch.bfloat16, H100_BF16_FLOPS)):
+        q, k, v = (t.to(dt).detach().requires_grad_()
+                   for t in (q32, k32, v32))
+        do = do32.to(dt)
+        o = attn.flash_attention(q, k, v, causal=causal, mask=mask)
+        if type(o.grad_fn).__name__ != "FlashAttentionBackward":
+            raise AssertionError(f"flash_attention gave grad_fn {o.grad_fn}")
+        grads = torch.autograd.grad(o, (q, k, v), do, retain_graph=timed)
+        q64, k64, v64 = (t.detach().double().requires_grad_()
+                         for t in (q, k, v))
+        o64 = attn.dot_product_attention(q64, k64, v64, mask=amask,
+                                         causal=causal)
+        want = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+        del o64, q64, k64, v64
+        errs = [float((g.double() - w).abs().max() / w.abs().max())
+                for g, w in zip(grads, want)]
+        dead_zero = mask is None or not any(bool(g[0].any()) for g in grads)
+        if (max(errs) > FLASH_BWD_TOL[tag] or not dead_zero
+                or not all(bool(torch.isfinite(g).all()) for g in grads)):
+            raise AssertionError(
+                f"flash backward B={b} S={s} {case} {tag}: dq/dk/dv err "
+                f"{errs} of the largest fp64 gradient (gate "
+                f"{FLASH_BWD_TOL[tag]}), padded row zero: {dead_zero}")
+        rec[tag] = {"err_dq_dk_dv": errs, "tolerance": FLASH_BWD_TOL[tag]}
+        del want
+        if timed:
+            # leaves of their own: a graph still holding q's gradient
+            # accumulator from the default stream breaks the capture
+            qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+            forwards = {
+                "": lambda: attn.flash_attention(qt, kt, vt, causal=causal,
+                                                 mask=mask),
+                "sdpa_": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=amask, is_causal=causal,
+                    scale=d ** -0.5),
+                "exact_": lambda: attn.dot_product_attention(
+                    qt, kt, vt, mask=amask, causal=causal)}
+            for prefix, fwd in forwards.items():
+                fwd_ms = time_ms(torch, fwd, reps=5)
+                both_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    fwd(), (qt, kt, vt), do), reps=5)
+                rec[tag][prefix + "fwd_bwd_ms"] = both_ms
+                rec[tag][prefix + "bwd_ms"] = both_ms - fwd_ms
+            rec[tag]["ms"] = rec[tag].pop("bwd_ms")
+            rec[tag]["eager_ms"] = eager_ms(
+                torch, lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                   retain_graph=True),
+                reps=5)
+            rec[tag]["ms_per_step"] = BERT_LAYERS * rec[tag]["ms"]
+            rec[tag].update(flash_bwd_bound(
+                np, b, h, s, s, d, causal,
+                None if mask is None else mask.cpu().numpy(),
+                q.element_size(), peak))
+        del o, grads
+    return rec
+
+
+def _bert_train_class(kernel, names):
+    """Profile bucket of a device kernel of a BERT train step: K5 by name,
+    then by the CPU ranges it ran under: the FlashAttention backward node,
+    Adam (a range around the updater step), layer norm's forward (a range
+    around ``_layer_norm``), the matrix products, the rest."""
+    if "flash_fwd" in kernel:
+        return "flash_fwd"
+    if any("FlashAttentionBackward" in n for n in names):
+        return "flash_bwd"
+    if "bert::adam" in names:
+        return "adam"
+    if "bert::layer_norm" in names:
+        return "layer_norm_fwd"
+    if names & {"aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"}:
+        return "matmul"
+    return "other"
+
+
+def profile_bert_train_step(torch, net, x, y, mask):
+    """One ``fit`` step under torch.profiler: wall time, device busy, idle
+    share, and device ms by :func:`_bert_train_class` with K5's and the
+    flash backward's shares of busy time. One warm-up kernel runs inside
+    the profiler's window before the step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import multilayer as mln
+    from deeplearning4j_tpu_torch.nn import transformer as tr
+
+    layer_norm, step_groups = tr._layer_norm, mln.upd.step_groups
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    ds = DataSet(x, y, features_mask=mask)
+    net.fit(ds)
+    torch.cuda.synchronize()
+    tr._layer_norm = ranged("bert::layer_norm", layer_norm)
+    mln.upd.step_groups = ranged("bert::adam", step_groups)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tr._layer_norm, mln.upd.step_groups = layer_norm, step_groups
+    kernels = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kernels)
+    by_class, flash_launches = {}, 0
+    for evt in prof.events():
+        names = {evt.name} | {p.name for p in _parents(evt)}
+        for k in evt.kernels:
+            cls = _bert_train_class(k.name, names)
+            by_class[cls] = by_class.get(cls, 0.0) + k.duration / 1e3
+            flash_launches += cls == "flash_fwd"
+    share = {f"{c}_share_of_busy": v / busy for c, v in by_class.items()
+             if busy}
+    return {"batch": x.shape[0], "seq": x.shape[1], "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "flash_launches_traced": flash_launches,
+            **{f"{c}_ms": v for c, v in sorted(by_class.items())}, **share,
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:8]]}
+
+
+def bert_train_phase(torch, np, card):
+    """BERT-base training on MultiLayerNetwork at its published width
+    (hidden 768, 12 layers, 12 heads of 64, FFN 3072; seed 12345): the
+    parity step, the FlashAttention Function alone at BERT-base's
+    geometry, the main path (``fit(iterator)`` with dropout 0.1, every K5
+    launch checked), a checked bf16 step on integer ids, masked-LM steps
+    and the transfer to a frozen-embedding classifier, train
+    sequences/sec, one profiled step in each type. Returns the main path's
+    K5 launches, their checks (and the bf16 step's) and the Function's
+    records."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nlp import Vocab
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+    from deeplearning4j_tpu_torch.nn.transformer import TimeStepLayer
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    flash = "flash_attention_fwd"
+    text, labels = bert_corpus()
+    vocab = Vocab.build(text)
+    batches = list(bert_iterator(vocab, text, labels))
+    steps = BERT_TRAIN_EPOCHS * len(batches)
+
+    def flash_only(what):
+        launches = dict(kern.LAUNCHES)
+        n = launches.pop(flash)
+        if any(launches.values()) or any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{what}: other kernels {launches}, plain "
+                                 f"on CUDA {kern.PLAIN_ON_CUDA}")
+        return n
+
+    # (a) one step, auto against exact, dropout off, the same params
+    net0 = bert_train_net(torch, num_classes=2, hidden_dropout=0.0)
+    x, y, m = _ds_on_card(torch, batches[0])
+    ones = torch.ones(x.shape[0], device="cuda")
+    kern.reset_counts()
+    l_auto, g_auto, _, _ = net0._gradients(None, x, y, ones, m)
+    torch.cuda.synchronize()
+    step_launches = flash_only("the auto step")
+    if step_launches != BERT_LAYERS:
+        raise AssertionError(f"auto step: {step_launches} K5 launches")
+    with kern.impl_scope("exact"):
+        l_exact, g_exact, _, _ = net0._gradients(None, x, y, ones, m)
+        params = net0.params
+        net0.params = [{k: v.double() for k, v in p.items()} for p in params]
+        try:  # the same step in fp64
+            l_64, g_64, _, _ = net0._gradients(None, x.double(), y.double(),
+                                               ones.double(), m.double())
+        finally:
+            net0.params = params
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_auto, g_exact, g_64, top=None)
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"BERT auto step off exact: loss rel "
+                             f"{loss_rel}, gradients past the gate: "
+                             f"{failures[:4]}")
+    emit("bert_train_parity", model="Bert.base", batch=x.shape[0],
+         seq=BERT_TRAIN_SEQ, loss_auto=float(l_auto),
+         loss_exact=float(l_exact), loss_fp64=float(l_64),
+         loss_rel_err=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+         worst_grad=worst_name, worst_grad_rel_l2=worst,
+         max_gate_use=max(r["gate_use"] for r in rows),
+         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
+         flash_launches=step_launches, card=card)
+    del net0, g_auto, g_exact, g_64
+
+    # (b) the Function alone at BERT-base's geometry
+    bwd_records = []
+    for b, s in FLASH_BWD_SHAPES:
+        for case in ("none", "causal", "padding"):
+            rec = check_flash_bwd(torch, np, b, s, case,
+                                  timed=b == BERT_TRAIN_BATCH
+                                  and case == "none")
+            bwd_records.append(rec)
+            emit("bert_flash_backward", name="FlashAttention", **rec,
+                 card=card)
+    torch.cuda.empty_cache()
+
+    # (c) the main path: fit(iterator), dropout 0.1, every K5 launch checked
+    net = bert_train_net(torch, num_classes=2)
+    losses = []
+    inner = net._gradients
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        losses.append(out[0])
+        return out
+
+    net._gradients = recording
+    checked = {}
+    it = bert_iterator(vocab, text, labels)
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with check_every_launch(torch, checked):
+            net.fit(it, epochs=BERT_TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+    finally:
+        del net._gradients
+    checked_s = time.perf_counter() - t0
+    launches = flash_only("the BERT fit")
+    losses = [float(v) for v in losses]
+    first10, last10 = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if (launches != BERT_LAYERS * steps or len(losses) != steps
+            or checked[(flash, "fp32")]["calls"] != launches
+            or not all(math.isfinite(v) for v in losses)
+            or last10 >= min(first10, math.log(2.0))):
+        raise AssertionError(f"BERT fit: {launches} K5 launches over "
+                             f"{len(losses)} steps, checked "
+                             f"{_checked_summary(checked)}, losses {losses}")
+    emit("bert_train", model="Bert.base", params=net.num_params(),
+         class_prior_loss=math.log(2.0),
+         hidden_dropout=0.1, updater=net.conf.updater,
+         batch=BERT_TRAIN_BATCH, seq=BERT_TRAIN_SEQ, vocab=len(vocab),
+         sentences=len(text), epochs=BERT_TRAIN_EPOCHS, steps=steps,
+         loss_first10=first10, loss_last10=last10, losses=losses,
+         launches=launches, launches_per_step=launches // steps,
+         launches_checked=_checked_summary(checked),
+         checked_wall_s=checked_s, card=card)
+    del net
+    torch.cuda.empty_cache()
+
+    # (d) one checked bf16 step, integer token ids
+    net16 = bert_train_net(torch, num_classes=2, compute_dtype="bfloat16")
+    x16, y16, m16 = _ds_on_card(torch, batches[0], torch.int64)
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        net16.fit(DataSet(x16, y16, features_mask=m16))
+    torch.cuda.synchronize()
+    got16 = checked.get((flash, "bf16"), {}).get("calls")
+    if flash_only("the bf16 step") != BERT_LAYERS or got16 != BERT_LAYERS \
+            or not math.isfinite(net16.get_score()):
+        raise AssertionError(f"bf16 step checked {got16} K5 launches, loss "
+                             f"{net16.get_score()}")
+    emit("bert_train_bf16", model="Bert.base", batch=x16.shape[0],
+         seq=BERT_TRAIN_SEQ, loss=net16.get_score(),
+         launches_checked={f"{flash}_bf16": checked[(flash, "bf16")]},
+         card=card)
+    del net16
+
+    # (e) masked LM, then the transfer to a classifier on frozen embeddings
+    mlm = bert_train_net(torch, task="mlm", vocab_size=len(vocab))
+    mlm_checked = {}
+    kern.reset_counts()
+    with check_every_launch(torch, mlm_checked):
+        for ds in itertools.islice(bert_iterator(vocab, text),
+                                   BERT_MLM_STEPS):
+            mlm.fit(ds)
+            if not ds.labels_mask.any():
+                raise AssertionError("an MLM batch with no masked token")
+        mlm_loss = mlm.get_score()
+        hs = mlm.layers[0].hidden_size
+        tuned = (TransferLearning.Builder(mlm)
+                 .remove_output_layer()
+                 .add_layer(TimeStepLayer(index=0))
+                 .add_layer(DenseLayer(n_in=hs, n_out=hs,
+                                       activation="tanh"))
+                 .add_layer(OutputLayer(n_in=hs, n_out=2, loss="mcxent",
+                                        activation="softmax"))
+                 .set_feature_extractor(0).build())
+        del mlm
+        frozen = {k: v.clone() for k, v in tuned.params[0].items()}
+        trunk = tuned.params[1]["Wq"].clone()
+        for ds in batches[:BERT_TRANSFER_STEPS]:
+            tuned.fit(ds)
+    torch.cuda.synchronize()
+    mlm_launches = flash_only("the MLM and transfer steps")
+    want = BERT_LAYERS * (BERT_MLM_STEPS + BERT_TRANSFER_STEPS)
+    bit_equal = all(torch.equal(tuned.params[0][k], v)
+                    for k, v in frozen.items())
+    if (mlm_launches != want or not bit_equal
+            or mlm_checked[(flash, "fp32")]["calls"] != want
+            or torch.equal(tuned.params[1]["Wq"], trunk)
+            or not math.isfinite(mlm_loss + tuned.get_score())):
+        raise AssertionError(f"MLM/transfer: {mlm_launches} K5 launches "
+                             f"(expected {want}), frozen bit-equal "
+                             f"{bit_equal}, losses {mlm_loss} "
+                             f"{tuned.get_score()}")
+    emit("bert_mlm_transfer", model="Bert.base", vocab=len(vocab),
+         mlm_steps=BERT_MLM_STEPS, mlm_loss=mlm_loss,
+         transfer_layers=[type(lyr).__name__ for lyr in tuned.layers],
+         transfer_steps=BERT_TRANSFER_STEPS, transfer_loss=tuned.get_score(),
+         frozen_params_bit_equal=bit_equal, launches=mlm_launches,
+         launches_checked=_checked_summary(mlm_checked), card=card)
+    del tuned, frozen
+    torch.cuda.empty_cache()
+
+    # (f) train sequences/sec and one profiled step in each type
+    rate_net = bert_train_net(torch, num_classes=2, max_length=512)
+    rate16 = bert_train_net(torch, num_classes=2, max_length=512,
+                            compute_dtype="bfloat16")
+    rate16.params, rate16.states = rate_net.params, rate_net.states
+    rng = np.random.default_rng(11)
+    rates = {}
+    for s in (128, 512):
+        xs = torch.from_numpy(bert_rows(np, BERT_TRAIN_BATCH, s, rng,
+                                        np.int64)).cuda()
+        ys = torch.eye(2, device="cuda")[torch.from_numpy(
+            rng.integers(0, 2, size=BERT_TRAIN_BATCH)).cuda()]
+        for tag, n in (("fp32", rate_net), ("bf16", rate16)):
+            rates[f"seq{s}_{tag}"] = train_images_per_sec(
+                torch, n, xs, ys, window_s=1.0)
+    emit("bert_train_throughput", model="Bert.base", batch=BERT_TRAIN_BATCH,
+         path="net.fit", hidden_dropout=0.1, window_s=1.0,
+         sequences_per_sec=rates,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    for tag, n in (("fp32", rate_net), ("bf16", rate16)):
+        prof = profile_bert_train_step(torch, n, x16, y16, m16)
+        emit("bert_train_profile", model="Bert.base", dtype=tag, card=card,
+             **prof)
+    kern.reset_counts()
+    return launches, checked, bwd_records
 
 
 # ------------------------------------------------------------ LSTM cell (K4)
@@ -2560,11 +3051,14 @@ def lstm_entry(cell_records, seq_records, launches, train_checked,
 
 
 def flash_entry(records, launches, serve_checked, masked_launches,
-                masked_checked, card):
+                masked_checked, train_launches, train_checked, bwd_records,
+                card):
     """K5's line of the kernels table: times of one launch at the main
     path's geometry (ATTENTION_CASES[0]: batch 8, S=512, 12 heads of 64, no
     mask), errors over every attention_kernel case, launches of the served
-    requests and of the masked forwards."""
+    requests, of the masked forwards and of BERT-base's training (with
+    their checks), and the FlashAttention backward's worst gradient errors
+    and its times per step."""
     main = records[0]
 
     def worst(tag, field):
@@ -2592,7 +3086,25 @@ def flash_entry(records, launches, serve_checked, masked_launches,
         "bound_by_bf16": main["bf16"]["bound_by"],
         "library_ms_bf16": main["bf16"]["library_ms"],
         "rows_per_block_bf16": main["bf16"]["rows_per_block"],
-        "refuses_inputs_that_require_grad": True,
+        "raw_launch_refuses_inputs_that_require_grad": True,
+        "launches_train": train_launches,
+        "train_checked_fp32": train_checked[(flash, "fp32")],
+        "train_checked_bf16": train_checked[(flash, "bf16")],
+        "backward": {
+            "source": "deeplearning4j_tpu_torch/ops/kernels/attention.py "
+                      "flash_attention_bwd_reference (plain torch)",
+            "replaces": "deeplearning4j_tpu/ops/attention.py:268 _flash_bwd "
+                        "(jnp, not Pallas)",
+            "max_err_fp32": max(max(r["fp32"]["err_dq_dk_dv"])
+                                for r in bwd_records),
+            "max_err_bf16": max(max(r["bf16"]["err_dq_dk_dv"])
+                                for r in bwd_records),
+            "per_step": {f"s{r['s']}_{tag}": {
+                k: r[tag][k] for k in ("ms", "eager_ms", "ms_per_step",
+                                       "sdpa_bwd_ms", "exact_bwd_ms",
+                                       "bound_ms", "bound_by")}
+                for r in bwd_records if "ms" in r["fp32"]
+                for tag in ("fp32", "bf16")}},
         "serve_checked_fp32": serve_checked[(flash, "fp32")],
         "masked_forward_checked_fp32": masked_checked[(flash, "fp32")],
         "masked_forward_checked_bf16": masked_checked[(flash, "bf16")],
@@ -2603,8 +3115,16 @@ def flash_entry(records, launches, serve_checked, masked_launches,
                f"{len(records)} attention_kernel cases; launches from the "
                f"bert_serve phase ({BERT_LAYERS} per executed chunk), "
                "launches_masked_forward_* from one masked batch-32 forward "
-               "in each type; *_checked: every launch of those paths "
-               "against the plain version",
+               "in each type, launches_train from bert_train's fit "
+               f"({BERT_LAYERS} per step; train_checked_bf16 from its bf16 "
+               "step); *_checked: every launch of those paths against the "
+               "plain version; backward: the FlashAttention Function's "
+               "dq/dk/dv against fp64 over bert_flash_backward's cases, "
+               "and its device time per launch (forward and backward in "
+               "one CUDA graph less the forward's; eager_ms: the backward "
+               "alone from a Python loop) at batch 32, no mask, with "
+               "SDPA's and the exact path's backward timed the same way, "
+               f"x{BERT_LAYERS} per step",
         "card": card}
 
 
@@ -2664,6 +3184,9 @@ def main() -> int:
     masked_launches, masked_checked = timed(
         "bert_forward", bert_forward_phase, torch, np, smi, bert)
     del bert
+    torch.cuda.empty_cache()
+    bert_train_launches, bert_train_checked, bwd_records = timed(
+        "bert_train", bert_train_phase, torch, np, smi)
     lstm_records, lstm_seq_records = timed("lstm_kernel", lstm_kernel_phase,
                                            torch, np)
     char_net_trained, char_launches, char_checked, char_bodies, char_net16 = \
@@ -2800,7 +3323,8 @@ def main() -> int:
         grad_entry("dgrad", CONV_SOURCE, DGRAD_REPLACES, "dgrad_per_step"),
         grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
         flash_entry(att_records, bert_launches, bert_checked,
-                    masked_launches, masked_checked, smi),
+                    masked_launches, masked_checked, bert_train_launches,
+                    bert_train_checked, bwd_records, smi),
         lstm_entry(lstm_records, lstm_seq_records, char_launches,
                    char_checked, sample_launches, sample_checked,
                    char_bodies, smi),

@@ -29,8 +29,11 @@ the LSTM layer on the fused LSTM cell kernel, ``RnnOutputLayer``, dropout,
 LeNet-5's training and evaluation loop (``zoo.LeNet`` on the conv kernels;
 ``data``'s iterators, MNIST and normalizers; ``score``, ``evaluate`` and
 ``evaluate_regression``; ``eval``; ``nn.listeners`` with the coalescing
-dispatcher; ``earlystopping``; every loss of the reference). See
-ROADMAP.md for what is next.
+dispatcher; ``earlystopping``; every loss of the reference), and BERT-base
+training (the flash-attention backward as an autograd Function around the
+forward kernel, the encoder's dropout, ``nlp``'s tokenizers and
+``BertIterator``, ``nn.transfer``'s frozen layers and transfer builder,
+``nn.attention``'s attention layers). See ROADMAP.md for what is next.
 """
 
 __version__ = "0.1.0"

@@ -244,8 +244,10 @@ class MultiLayerConfiguration:
         d = json.loads(s)
 
         def fix(lyr):
+            # a wrapper (FrozenLayer) holds its inner layer's dict
             return L.layer_from_dict({
-                k: _detuple(v) if isinstance(v, list) else v
+                k: fix(v) if isinstance(v, dict) and "@layer" in v
+                else _detuple(v) if isinstance(v, list) else v
                 for k, v in lyr.items()})
 
         return MultiLayerConfiguration(

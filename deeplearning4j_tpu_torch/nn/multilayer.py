@@ -54,9 +54,10 @@ batch calls them once, after its last segment, as the reference does
 (``:584-587``); the end of each epoch flushes the window, then calls
 ``on_epoch_end``.
 
-Refused: a net with ``TransformerEncoderBlock`` layers does not train, on
-any device, until the flash-attention backward is ported (ROADMAP.md
-Queue 1 item 7); ``fused_update``/``loss_scale`` (item 10). Not ported:
+Refused: ``fused_update``/``loss_scale`` (ROADMAP.md Queue 1 item 10).
+Layers wrapped in ``nn/transfer.py``'s ``FrozenLayer`` take no gradient:
+their params enter the updater with zero gradients, which leave Adam's
+update exactly zero, as in the reference. Not ported:
 telemetry, the AOT store (item 12) and ``pretrain`` (item 13); remat
 stages are kept as config.
 """
@@ -77,9 +78,7 @@ from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
-from deeplearning4j_tpu_torch.nn.transformer import TransformerEncoderBlock
 from deeplearning4j_tpu_torch.ops import kernels as _kern
-from deeplearning4j_tpu_torch.ops.kernels.attention import FLASH_BACKWARD
 
 
 def _is_recurrent(lyr) -> bool:
@@ -304,9 +303,6 @@ class MultiLayerNetwork:
                 "fused_update / loss_scale are not ported yet: the fused "
                 "optimizer (FusedUpdateEngine) and loss scaling come with the "
                 "parallel-training slice (ROADMAP Queue 1 item 10)")
-        if any(isinstance(lyr, TransformerEncoderBlock)
-               for lyr in self.layers):
-            raise NotImplementedError(FLASH_BACKWARD)
 
     def _gradients(self, carries, x, y, weights, mask=None, label_mask=None):
         """(loss, grads, new states, new carries) of one training forward

@@ -13,11 +13,14 @@ Params are dicts keyed as the reference keys them (``word``/``pos``/
 (in, out) projection weights, so the reference's params copy across as
 they are.
 
-Inference only for the encoder block: it has no backward yet (the flash
-backward, ROADMAP.md Queue 1 item 7), so ``MultiLayerNetwork.fit`` refuses
-a net with one, and its ``hidden_dropout`` is not applied. The embedding
-applies its ``dropout`` to its output in training, as the reference does.
-Not ported yet: ``embed_step``/``embed_window``,
+The encoder block trains on both paths: the exact attention through
+autograd, the flash path through ``FlashAttention`` (the kernel's forward,
+the reference's ``_flash_bwd`` as its backward). In training it applies
+``hidden_dropout`` to the attention output and to the FFN output, drawing
+twice from the network's generator (the reference splits its key in two);
+``attn_dropout`` is kept as config and, as in the reference, never applied.
+The embedding applies its ``dropout`` to its output in training, as the
+reference does. Not ported yet: ``embed_step``/``embed_window``,
 ``prefill``/``decode_step`` and the paged methods (the generate serving
 slice).
 """
@@ -32,6 +35,7 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations as act
 from deeplearning4j_tpu_torch.nn.layers import Layer, register_layer
 from deeplearning4j_tpu_torch.ops import attention as attn_ops
+from deeplearning4j_tpu_torch.ops import random as randops
 
 
 def _layer_norm(x, gamma, beta, eps=1e-12):
@@ -181,21 +185,30 @@ class TransformerEncoderBlock(Layer):
         fn = act.resolve(self.activation)
         return fn(h @ params["W1"] + params["b1"]) @ params["W2"] + params["b2"]
 
-    def _finish(self, params, x, a):
-        """Residual + layer norm + FFN after the attention output ``a``."""
+    def _finish(self, params, x, a, training=False, gen=None):
+        """Residual + layer norm + FFN after the attention output ``a``
+        (reference ``:186-207``), with ``hidden_dropout`` on each sublayer's
+        output in training: the attention output's mask drawn first, then
+        the FFN output's."""
+
+        def drop(h):
+            if training and self.hidden_dropout > 0.0 and gen is not None:
+                return randops.dropout(h, gen, self.hidden_dropout)
+            return h
+
         if self.pre_norm:
-            h = x + a
+            h = x + drop(a)
             f = self._ffn_block(
                 params, _layer_norm(h, params["ln2_g"], params["ln2_b"]))
-            return h + f
-        h = _layer_norm(x + a, params["ln1_g"], params["ln1_b"])
-        return _layer_norm(h + self._ffn_block(params, h),
+            return h + drop(f)
+        h = _layer_norm(x + drop(a), params["ln1_g"], params["ln1_b"])
+        return _layer_norm(h + drop(self._ffn_block(params, h)),
                            params["ln2_g"], params["ln2_b"])
 
     def apply(self, params, state, x, *, training=False, gen=None,
               mask=None):
         a = self._mha(params, self._attn_input(params, x), mask)
-        out = self._finish(params, x, a)
+        out = self._finish(params, x, a, training, gen)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out, state

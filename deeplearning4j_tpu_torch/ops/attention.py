@@ -1,5 +1,6 @@
 """Attention ops (counterpart of deeplearning4j_tpu/ops/attention.py): the
-exact dot-product attention and the flash-attention forward.
+exact dot-product attention, flash attention with its backward, and
+multi-head attention.
 
 Layout is the reference's: q, k, v are [batch, heads, seq, head_dim]. Masks
 follow ND4J: 1/True = attend, 0/False = blocked. A blocked score is
@@ -13,16 +14,21 @@ both paths.
   forward of ``ops/kernels/attention.py``: the hand-written CUDA kernel
   (``csrc/flash_fwd.cu``, replacing ``_flash_fwd_kernel``) on a CUDA tensor,
   its plain blockwise version on the CPU or under ``kernel_impl="exact"``.
-  A (B, Sk) padding mask is applied per key inside the kernel.
+  A (B, Sk) padding mask is applied per key inside the kernel. It trains:
+  on inputs that require grad it runs through the ``FlashAttention``
+  autograd Function, whose backward recomputes the probabilities from the
+  forward's LSE (the reference's ``_flash_bwd``, plain PyTorch there too).
 - :func:`resolve_flash` (reference ``:389``) is the layers' choice between
   the two: ``"auto"`` takes flash on a CUDA tensor from
   :data:`FLASH_MIN_SEQ` tokens, the crossover measured on the H100
   (``chip_smoke.py``'s ``attention_sweep``); the reference's 1024 is a TPU
   crossover and does not carry over.
+- :func:`multi_head_dot_product_attention` (reference ``:465``) projects
+  [B, T, F] sequences into heads and takes flash or exact attention by
+  :func:`resolve_flash`.
 
-Not ported yet: multi-head attention (``:465``), the paged functions and
-the flash backward (``_flash_bwd``); the kernel's wrapper returns the LSE
-the backward will consume.
+Not ported yet: the paged functions (``paged_kv_gather``,
+``paged_attention``), which come with the generate serving slice.
 """
 
 from __future__ import annotations
@@ -134,3 +140,45 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
         mask = mask.to(torch.float32)
     o, _lse = _katt.flash(q, k, v, float(scale), bool(causal), mask, bk)
     return o
+
+
+def _split_heads(x, n_heads):
+    """(B, T, F) -> (B, n_heads, T, F / n_heads), a view (reference
+    ``:453``)."""
+    b, t, f = x.shape
+    return x.reshape(b, t, n_heads, f // n_heads).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x):
+    """(B, H, T, Dh) -> (B, T, H * Dh) (reference ``:458``)."""
+    b, h, t, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
+
+
+@op("multi_head_dot_product_attention", "attention",
+    aliases=("multiHeadDotProductAttention", "mha"))
+def multi_head_dot_product_attention(queries, keys, values, Wq, Wk, Wv, Wo,
+                                     n_heads: int, mask=None,
+                                     scale: Optional[float] = None,
+                                     causal: bool = False, flash="auto"):
+    """Projected multi-head attention over [B, T, F] sequences (reference
+    ``:465``). Wq/Wk/Wv: (F, H*Dh); Wo: (H*Dh, Fout). ``mask`` is a
+    (B, Tk) padding mask (1 = valid) or a full [B, 1|H, Tq, Tk] attention
+    mask, which takes the exact path. ``flash``: True | False | "auto"
+    (:func:`resolve_flash`); the flash path trains through the
+    ``FlashAttention`` Function."""
+    q = _split_heads(queries @ Wq, n_heads)
+    k = _split_heads(keys @ Wk, n_heads)
+    v = _split_heads(values @ Wv, n_heads)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=q.device)
+    if resolve_flash(flash, q.shape[2], k.shape[2], mask, device=q.device,
+                     head_dim=q.shape[-1]):
+        o = flash_attention(q, k, v, scale=scale, causal=causal, mask=mask)
+    else:
+        amask = None
+        if mask is not None:
+            amask = mask[:, None, None, :] if mask.dim() == 2 else mask
+        o = dot_product_attention(q, k, v, mask=amask, scale=scale,
+                                  causal=causal)
+    return _merge_heads(o) @ Wo

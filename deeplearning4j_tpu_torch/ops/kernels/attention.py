@@ -27,8 +27,12 @@ reference in PyTorch: the same blocks of ``block_k`` keys (a ragged last
 block where Sk does not divide), the same arithmetic. The kernel picks its
 own tiles; only the order of the sums differs.
 
-The LSE is returned for the flash backward of a later training slice, which
-recomputes the probabilities from it (the reference's ``_flash_bwd``).
+The backward is the reference's ``_flash_bwd`` (jnp there, not Pallas) in
+plain PyTorch, :func:`flash_attention_bwd_reference`: it recomputes the
+probabilities block by block from the forward's LSE. :class:`FlashAttention`
+pairs the two as the reference's ``jax.custom_vjp`` pair ``_flash`` /
+``_flash_masked`` does, and :func:`flash` goes through it whenever a
+gradient is wanted.
 """
 
 from __future__ import annotations
@@ -42,13 +46,13 @@ _NEG_BIG = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's largest head dimension (a multiple of 8 up to this)
 MAX_HEAD_DIM = 128
-#: why the kernel refuses inputs that need a gradient: it writes O through a
-#: ctypes launch with no autograd Function, so O would carry no grad_fn and
-#: training would silently get no gradient through the attention
-FLASH_BACKWARD = (
-    "the flash-attention backward is not ported yet (ROADMAP.md Queue 1 item "
-    "7, the reference's _flash_bwd): the forward kernel takes no inputs that "
-    "require grad, and transformer layers cannot be trained yet")
+#: why the raw launch refuses inputs that need a gradient: it writes O
+#: through ctypes, so O would carry no grad_fn and training would silently
+#: get no gradient through the attention
+RAW_LAUNCH_NO_GRAD = (
+    "flash_attention_fwd is the raw kernel launch and has no backward: call "
+    "it on inputs that require grad through the FlashAttention autograd "
+    "Function (ops.kernels.attention.flash, or ops.attention.flash_attention)")
 
 
 def supports_head_dim(d) -> bool:
@@ -87,20 +91,22 @@ def flash_attention_fwd_reference(q, k, v, scale, causal, mask=None,
                                   block_k: int = 512):
     """Plain PyTorch version: the reference's blockwise online-softmax
     forward over key blocks of ``min(block_k, Sk)``. Returns (o in q's
-    type, lse fp32 (B, H, Sq))."""
+    type, lse fp32 (B, H, Sq)). fp64 inputs are computed in fp64 (a
+    gradient check's), every other type in fp32."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     bk = max(1, min(int(block_k), sk))
-    qf = q.to(torch.float32)
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(f32)
     q_pos = torch.arange(sq, device=q.device) + (sk - sq)
     keep = None if mask is None else (mask > 0)
-    m = torch.full((b, h, sq), _NEG_BIG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), _NEG_BIG, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=f32, device=q.device)
     masked = causal or mask is not None
     for j0 in range(0, sk, bk):
-        kj = k[:, :, j0:j0 + bk].to(torch.float32)
-        vj = v[:, :, j0:j0 + bk].to(torch.float32)
+        kj = k[:, :, j0:j0 + bk].to(f32)
+        vj = v[:, :, j0:j0 + bk].to(f32)
         s = torch.matmul(qf, kj.transpose(-1, -2)) * scale
         if causal:
             k_pos = torch.arange(j0, j0 + kj.shape[2], device=q.device)
@@ -150,15 +156,15 @@ def flash_attention_fwd(q, k, v, scale, causal, mask=None, block_k: int = 512):
     (B, Sq, H, D) buffer, so merging the heads afterwards is free. Tensors
     on the CPU take :func:`flash_attention_fwd_reference` (``block_k``
     sizes its key blocks; the kernel picks its own tiles). On the card it
-    raises :data:`FLASH_BACKWARD` when grad is enabled and q, k or v
-    requires grad."""
+    raises :data:`RAW_LAUNCH_NO_GRAD` when grad is enabled and q, k or v
+    requires grad: :class:`FlashAttention` launches it under no-grad."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, scale, causal, mask,
                                              block_k)
     _check_cuda(q, k, v, mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(FLASH_BACKWARD)
+        raise NotImplementedError(RAW_LAUNCH_NO_GRAD)
     if not supports(q, k, v, mask):
         raise ValueError(f"flash_attention_fwd: unsupported "
                          f"{_describe(q, k, v, mask)}")
@@ -195,12 +201,89 @@ def rows_per_block(q) -> int:
                                              q.shape[-1])
 
 
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale, causal,
+                                  mask=None, block_k: int = 512):
+    """The flash backward (the reference's ``_flash_bwd``, ``:268``) in plain
+    PyTorch: over key blocks of ``min(block_k, Sk)`` (a ragged last block
+    where Sk does not divide), the probabilities are recomputed in fp32 from
+    the forward's ``lse`` with the causal and (B, Sk) padding masks
+    reapplied, ``p`` zeroed where the score is masked (a fully-masked row
+    has ``s == lse == _NEG_BIG``, so ``exp(0) = 1`` would leak gradient),
+    and ``delta = sum(dO * O)`` is taken on the saved (rounded) O. Returns
+    (dq, dk, dv) in q's, k's and v's types; computed in fp32 (fp64 for
+    fp64 inputs)."""
+    sq, sk = q.shape[2], k.shape[2]
+    bk = max(1, min(int(block_k), sk))
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    qf, dof = q.to(f32), do.to(f32)
+    delta = (dof * o.to(f32)).sum(dim=-1, keepdim=True)
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    keep = None if mask is None else (mask > 0)
+    masked = causal or mask is not None
+    lse = lse[..., None]
+    dq = torch.zeros(qf.shape, dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, sk, bk):
+        kj = k[:, :, j0:j0 + bk].to(f32)
+        vj = v[:, :, j0:j0 + bk].to(f32)
+        s = torch.matmul(qf, kj.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = torch.arange(j0, j0 + kj.shape[2], device=q.device)
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, _NEG_BIG)
+        if keep is not None:
+            s = torch.where(keep[:, None, None, j0:j0 + bk], s, _NEG_BIG)
+        p = torch.exp(s - lse)
+        if masked:
+            p = torch.where(s <= _NEG_BIG / 2, 0.0, p)
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        ds = p * (torch.matmul(dof, vj.transpose(-1, -2)) - delta) * scale
+        dq += torch.matmul(ds, kj)
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf))
+    dk = dks[0] if len(dks) == 1 else torch.cat(dks, dim=2)
+    dv = dvs[0] if len(dvs) == 1 else torch.cat(dvs, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward with its backward (the reference's ``jax.custom_vjp``
+    pair ``_flash`` / ``_flash_masked``, ``:314-378``). The forward runs, as
+    every ``autograd.Function`` forward does, under no-grad: the kernel
+    (``launch``) or the plain forward. It saves q, k, v, O, the fp32 LSE
+    and the mask as they are (views included), and the backward is
+    :func:`flash_attention_bwd_reference` on them: dq, dk, dv in the inputs'
+    types, None for the mask and the settings. Returns (O, LSE); the LSE
+    takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, causal, block_k, launch):
+        fwd = flash_attention_fwd if launch else \
+            flash_attention_fwd_reference
+        o, lse = fwd(q, k, v, scale, causal, mask, block_k)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
+        ctx.settings = (scale, causal, block_k)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        scale, causal, block_k = ctx.settings
+        dq, dk, dv = flash_attention_bwd_reference(
+            q, k, v, o, lse, do, scale, causal, mask, block_k)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash(q, k, v, scale, causal, mask=None, block_k: int = 512):
     """The forward as ``ops.attention.flash_attention`` dispatches it: the
     kernel on a CUDA tensor (or raise), the plain version on the CPU or
-    under ``exact``."""
-    if _kern.dispatch("flash_attention_fwd", supports(q, k, v, mask), q,
-                      lambda: _describe(q, k, v, mask)):
+    under ``exact``; through :class:`FlashAttention` whenever grad is
+    enabled and q, k or v requires it. Returns (o, lse)."""
+    launch = _kern.dispatch("flash_attention_fwd", supports(q, k, v, mask), q,
+                            lambda: _describe(q, k, v, mask))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, mask, scale, causal, block_k,
+                                    launch)
+    if launch:
         return flash_attention_fwd(q, k, v, scale, causal, mask, block_k)
     return flash_attention_fwd_reference(q, k, v, scale, causal, mask,
                                          block_k)

@@ -7,9 +7,10 @@ stacked [token ids, segment ids], an optional (B, T) feature mask.
 ``task="classification"``: embeddings -> ``n_layers`` encoder blocks ->
 [CLS] (``TimeStepLayer(0)``) -> tanh pooler -> softmax over
 ``num_classes``. ``task="mlm"``: embeddings -> blocks -> a per-token
-softmax over the vocabulary (``RnnOutputLayer``), for inference: a net
-with encoder blocks does not train yet (the flash backward, ROADMAP.md
-Queue 1 item 7).
+softmax over the vocabulary (``RnnOutputLayer``), trained on
+``nlp.BertIterator``'s UNSUPERVISED batches (their ``labels_mask`` picks
+the masked tokens). Both tasks train with ``fit``, and so do the causal
+(GPT-style) blocks: the flash path through the ``FlashAttention`` Function.
 """
 
 from __future__ import annotations

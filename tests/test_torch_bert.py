@@ -14,7 +14,8 @@
 - bf16 compute rounds float token ids in both packages alike (id 30000
   arrives as 29952), a reference behaviour recorded in ROADMAP.md Queue 3;
 - ``score`` (the inference loss, masked and not) against the reference's;
-- what the slice leaves out raises, naming ROADMAP.md.
+- ``fit`` trains ``Bert.tiny`` (its trajectory against the reference's is
+  ``tests/test_torch_bert_train.py``).
 
 None of this imports ``deeplearning4j_tpu.autodiff``.
 """
@@ -245,9 +246,10 @@ def test_bf16_rounds_float_token_ids_in_both_packages():
 
 @pytest.mark.parametrize("method", ["fit", "score", "rnn_time_step"])
 def test_unported_mln_methods_name_the_roadmap(method):
-    """``fit`` is ported, but refuses a net with encoder blocks on every
-    device until the flash backward is (Queue 1 item 7: the flash kernel's
-    output would carry no gradient). ``score`` is ported (the LeNet slice):
+    """Each of these methods is ported now. ``fit`` trains a net with
+    encoder blocks (the flash path through the FlashAttention Function):
+    ``Bert.tiny`` with the flash path forced, on one batch repeated, its
+    loss falls over eight Adam steps. ``score`` is ported (the LeNet slice):
     ``Bert.tiny``'s inference loss, with a ragged padding mask, matches the
     reference's within 1e-4 relative. ``rnn_time_step`` is ported: on a
     stack without recurrent layers it is the plain forward."""
@@ -268,19 +270,25 @@ def test_unported_mln_methods_name_the_roadmap(method):
                                    float(jnet.score(x=x, y=y)), rtol=1e-4)
         assert got != net.score(x=x, y=y)
         return
-    net = TBert.tiny(max_length=T).init(device="cpu")
-    x = _ids(1, seed=8)
     if method == "rnn_time_step":
+        net = TBert.tiny(max_length=T).init(device="cpu")
+        x = _ids(1, seed=8)
         np.testing.assert_allclose(net.rnn_time_step(x).numpy(),
                                    net.output(x).numpy(), rtol=1e-6,
                                    atol=1e-7)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        net.fit(x, np.eye(2, dtype=np.float32)[[1]])
-    assert net.iteration == 0
+    net = TBert.tiny(max_length=T, flash=True,
+                     hidden_dropout=0.0).init(device="cpu")
+    x, y = _ids(4, seed=8), np.eye(2, dtype=np.float32)[[1, 0, 0, 1]]
+    losses = []
+    for _ in range(8):
+        net.fit(x, y)
+        losses.append(net.get_score())
+    assert net.iteration == 8 and np.isfinite(losses).all()
+    assert losses[-1] < 0.5 * losses[0], losses
 
 
-def test_mlm_task_waits_for_the_recurrent_slice():
+def test_mlm_task_output_matches_reference():
     """With RnnOutputLayer ported, ``Bert.tiny(task="mlm")`` builds in both
     packages from the same conf; its per-token vocabulary softmax matches
     the reference's within 1e-4 relative, with a ragged padding mask."""

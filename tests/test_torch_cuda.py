@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from deeplearning4j_tpu_torch.data import DataSet  # noqa: E402
+from deeplearning4j_tpu_torch.nn.updaters import Adam  # noqa: E402
 from deeplearning4j_tpu_torch.ops import attention as TA  # noqa: E402
 from deeplearning4j_tpu_torch.ops import kernels as TK  # noqa: E402
 from deeplearning4j_tpu_torch.nn.transformer import (  # noqa: E402
@@ -136,15 +138,101 @@ def test_bert_tiny_on_card_matches_cpu(card):
 
 
 def test_flash_kernel_refuses_inputs_that_need_grad(card):
-    """The kernel's output would carry no grad_fn: with grad enabled and an
-    input that requires grad it raises, naming the flash backward; with
-    grad off it runs."""
+    """The raw launch's output would carry no grad_fn: with grad enabled and
+    an input that requires grad it raises, naming the FlashAttention
+    Function; with grad off it runs. ``flash_attention`` on such inputs
+    goes through the Function: its O has a grad_fn, and the kernel
+    launched once more."""
     q = torch.randn((1, 2, 32, 16), device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="flash-attention backward"):
+    with pytest.raises(NotImplementedError, match="FlashAttention"):
         KA.flash_attention_fwd(q, q, q, 0.25, False)
     with torch.no_grad():
         KA.flash_attention_fwd(q, q, q, 0.25, False)
     assert TK.LAUNCHES["flash_attention_fwd"] == 1
+    o = TA.flash_attention(q, q, q, scale=0.25)
+    assert o.grad_fn is not None
+    assert TK.LAUNCHES["flash_attention_fwd"] == 2
+
+
+# (id, B, H, S, D, causal, padding mask with batch row 1 fully masked)
+_FLASH_BWD_CASES = [
+    ("plain", 2, 3, 128, 64, False, False),
+    ("causal", 2, 3, 100, 64, True, False),
+    ("padding", 3, 2, 130, 64, False, True),
+    ("causal-padding-d128", 2, 2, 96, 128, True, True),
+]
+
+
+@pytest.mark.parametrize("case", _FLASH_BWD_CASES,
+                         ids=[c[0] for c in _FLASH_BWD_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2.0 ** -6)],
+                         ids=["fp32", "bf16"])
+def test_flash_function_grads_on_card_match_cpu(card, dtype, tol, case):
+    """The FlashAttention Function on the card (K5's forward, the plain
+    backward on its O and LSE) against the same Function on the CPU (the
+    plain forward): dq, dk, dv within ``tol`` of the largest CPU gradient.
+    fp32: the same fp32 arithmetic in another order (2e-5); bf16: K5 rounds
+    P to bf16 before P @ V, so the saved O, and delta = sum(dO * O) with
+    it, differ by up to a bf16 step, and each gradient rounds once to bf16:
+    2^-6 (four bf16 steps)."""
+    _, b, h, s, d, causal, masked = case
+    rng = np.random.default_rng(s)
+    arrays = [rng.normal(size=(b, s, h, d)).astype(np.float32)
+              for _ in range(4)]
+    mask = None
+    if masked:
+        lens = rng.integers(s // 4, s + 1, size=b)
+        lens[1] = 0
+        mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+
+    def grads(dev):
+        q, k, v, do = (torch.from_numpy(a).to(dev).to(dtype)
+                       .permute(0, 2, 1, 3) for a in arrays)
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        m = None if mask is None else torch.from_numpy(mask).to(dev)
+        o = TA.flash_attention(q, k, v, causal=causal, mask=m)
+        o.backward(do)
+        return [t.grad.float().cpu() for t in (q, k, v)]
+
+    got = grads(card)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["flash_attention_fwd"] == 1
+    for name, g, r in zip("qkv", got, grads("cpu")):
+        err = (g - r).abs().max() / r.abs().max()
+        assert float(err) <= tol, f"d{name}: {float(err)}"
+        if masked:
+            assert not g[1].any()
+
+
+def test_bert_tiny_fit_step_on_card_matches_cpu(card):
+    """One Adam step of ``Bert.tiny`` (flash forced, dropout off, Adam at
+    epsilon 1e-3: at 1e-8 the first step moves each entry by lr in the
+    direction of its gradient, which rounding picks where a gradient is
+    near 0; ROADMAP.md Queue 3) on a ragged masked batch: the card (K5 in
+    both blocks, the Function's backward) against the CPU, loss and params
+    within 1e-4 relative."""
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 30522, size=(4, 32))
+    x = np.stack([tokens, np.zeros_like(tokens)], axis=-1).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1, 1, 0]]
+    mask = np.ones((4, 32), np.float32)
+    mask[1, 20:] = 0.0
+    mask[2, 3:] = 0.0
+    nets = [Bert.tiny(max_length=32, flash=True, hidden_dropout=0.0,
+                      updater=Adam(1e-3, epsilon=1e-3)).init(device=dev)
+            for dev in ("cpu", card)]
+    for net in nets:
+        net.fit(DataSet(x, y, features_mask=mask))
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["flash_attention_fwd"] == 2
+    assert not any(TK.PLAIN_ON_CUDA.values())
+    cpu, gpu = nets
+    np.testing.assert_allclose(gpu.get_score(), cpu.get_score(), rtol=1e-4)
+    for pc, pg in zip(cpu.params, gpu.params):
+        for k in pc:
+            np.testing.assert_allclose(pg[k].cpu().numpy(), pc[k].numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("order", ["ifog", "iofg"])
