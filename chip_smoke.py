@@ -142,10 +142,43 @@ of the JAX package. Phases, each printing one JSON line:
     1024, one profiled step of each (device busy, idle share, the conv
     kernels' share). LeNet's two conv geometries at batch 64 are extra
     cases of phases 3 and 4 (marked ``lenet``).
-16. timing: the seconds each phase took, and the whole run's.
-17. kernels: one JSON line per the kernel table in PERF.md; the conv
+16. recurrent_layers: each layer, wrapper, head and vertex of the
+    recurrent slice on CUDA tensors against the same layer on the CPU
+    (the same params, a seeded input and (B, T) ragged mask, fp32 and
+    bf16, the output and the gradients of every param and the input,
+    LAYER_TOL): GravesLSTM, GRU with and without ``b_rec``, SimpleRnn,
+    Bidirectional(LSTM) in its four modes (K4 once a direction),
+    GravesBidirectionalLSTM, LastTimeStep, RnnLossLayer, GlobalPooling
+    over time (four types), the two recurrent vertices, and ConvLSTM2D at
+    B 8, T 10, 64x64x1 -> 64 filters, 3x3, with and without
+    ``return_sequences`` (the conv kernel on the B*T images and once a
+    step, its dgrad and wgrad in the backward). Every K1, dgrad, K3 and K4
+    launch checked, none plain, the counts against the ones worked out
+    from the code (expected_recurrent_launches).
+17. graves_char_rnn: BASELINE #3's form, the GravesLSTM char-RNN on
+    MultiLayerNetwork (two GravesLSTM of 200, softmax over CHAR_SET) at the
+    char_rnn_train shape: a segment's step against ``exact`` and fp64,
+    CHAR_FITS ``fit`` calls whose loss falls, no kernel launched (the
+    reference's GravesLSTM is a jnp scan), a bf16 ``fit`` call, train
+    characters/sec fp32 and bf16 beside char_rnn_train's K4 rates, a
+    profiled segment, sampled characters/sec.
+18. seq_graph: the masked ComputationGraph on K4 at dl4j-examples'
+    Word2VecSentimentRNN shape (batch 64, reviews of 32-256 steps, 300
+    features, LSTM 256, 2 classes; seeded data): (i) LSTM -> RnnOutputLayer
+    with the label at each review's last step, (ii) Bidirectional(LSTM) ->
+    masked average -> OutputLayer. For each: a step against ``exact`` and
+    fp64, two epochs of ``fit(iterator)`` over 32 batches with every K4
+    launch checked (1 a step, 2 a step) and the loss falling, ``evaluate``
+    and ``score`` with masks against ``exact``, a checked bf16 step, train
+    sequences/sec fp32 and bf16, a profiled step. Then TextGenerationLSTM
+    rebuilt as a graph with TBPTT 50: one ``fit`` call (40 K4 launches)
+    and ``rnn_time_step`` against the MultiLayerNetwork's.
+19. timing: the seconds each phase took, and the whole run's.
+20. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
-    ``lenet``.
+    ``lenet`` and ConvLSTM2D's launches under ``launches_convlstm``, K4's
+    the recurrent slice's under ``launches_recurrent_layers`` and
+    ``launches_seq_graph``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -269,6 +302,34 @@ LENET_STEP = {"conv2d_fwd": 2, "conv2d_dgrad": 1, "conv2d_wgrad": 2}
 LENET_ACCURACY = 0.97  # the reference's own bar (tests/test_multilayer.py)
 LENET_WINDOW, LENET_SYNC_STEPS, LENET_SYNC_EVERY = 200, 200, 16
 LENET_ES_TRAIN, LENET_EVAL_BATCH = 6000, 1024
+# The recurrent slice. recurrent_layers: each new layer at (B, T, F) and H
+# (H 256: K4's resident body for Bidirectional(LSTM)), ConvLSTM2D at B 8,
+# T 10, 64x64x1 -> 64 filters, 3x3; the card against the CPU, gated on the
+# error over the largest CPU value, (forward, gradients). fp32: the same
+# fp32 arithmetic in other orders (K4 and the conv kernels against the
+# plain step, cuBLAS against the CPU's GEMMs) through up to 20 recurrent
+# steps, ~1e-6 a step: 1e-4 / 1e-3, which a wrong term (a peephole, a
+# mask, a direction) exceeds. bf16: the CPU's plain step rounds every op
+# to bf16 where K4 rounds its fp32 gates once a step, so the two drift
+# some bf16 ulps (2^-8) apart over 20 steps: 2^-4 / 2^-3.
+RL_B, RL_T, RL_F, RL_H = 16, 20, 64, 256
+CONVLSTM_B, CONVLSTM_T, CONVLSTM_HW, CONVLSTM_FILTERS = 8, 10, 64, 64
+LAYER_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2.0 ** -4, 2.0 ** -3)}
+# graves_char_rnn: dl4j-examples' GravesLSTMCharModellingExample widths;
+# its rate windows are fit calls over the first 500 characters (10
+# segments), half the phase's time at some 16,000 characters/sec
+GRAVES_UNITS, GRAVES_RATE_SEQ = 200, 500
+# seq_graph: dl4j-examples' Word2VecSentimentRNN shape (minibatch 64,
+# reviews truncated at 256 steps, 300 features a step, LSTM 256, 2
+# classes) on seeded reviews of 32-256 steps; two epochs over 32 batches;
+# evaluate and score on the first 4, rates over windows of 3
+SENT_BATCH, SENT_FEATURES, SENT_UNITS = 64, 300, 256
+SENT_MIN_LEN, SENT_MAX_LEN = 32, 256
+SENT_BATCHES, SENT_EPOCHS, SENT_LR = 32, 2, 5e-3
+SENT_EVAL_BATCHES, SENT_WINDOW_BATCHES = 4, 3
+# the graph's TBPTT and rnn_time_step against the MultiLayerNetwork's: the
+# same ops in the same order on the same card
+GRAPH_MLN_RTOL = 1e-6
 
 
 def emit(phase, **fields):
@@ -1231,7 +1292,7 @@ def train_phase(torch, np, card):
         g_exact, l_exact = net.compute_gradient_and_score(x, y)
         # the same step on fp64 activations (the entry points take fp32,
         # as the reference's do with x64 off, so this goes one level in)
-        l_64, g_64, _ = net._gradients(
+        l_64, g_64, _, _ = net._gradients(
             {"input": x.double()}, {"output": y},
             torch.ones(batch, dtype=torch.float64, device="cuda"))
     loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
@@ -2476,8 +2537,8 @@ def char_rnn_train_phase(torch, np, card):
     one per segment and layer, every one held against its plain version on
     its own tensors), whose loss must fall; one checked bf16 ``fit`` call;
     train characters/sec fp32 and bf16; one profiled segment. Returns the
-    net, the main path's launches, their checks and their bodies, and the
-    bf16 net."""
+    net, the main path's launches, their checks and their bodies, the bf16
+    net, and the train characters/sec."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
 
     corpus = char_corpus(np)
@@ -2590,16 +2651,18 @@ def char_rnn_train_phase(torch, np, card):
 
     # (d) train characters/sec and one profiled segment
     x, y = batches[0]
+    rates = {"fp32": chars_per_sec(torch, net, x, y),
+             "bf16": chars_per_sec(torch, net16, x, y)}
     emit("char_rnn_throughput", model="TextGenerationLSTM", batch=CHAR_BATCH,
          seq=CHAR_SEQ, tbptt=CHAR_TBPTT, path="net.fit",
-         train_chars_per_sec_fp32=chars_per_sec(torch, net, x, y),
-         train_chars_per_sec_bf16=chars_per_sec(torch, net16, x, y),
+         train_chars_per_sec_fp32=rates["fp32"],
+         train_chars_per_sec_bf16=rates["bf16"],
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     emit("char_rnn_profile", model="TextGenerationLSTM", dtype="fp32",
          batch=CHAR_BATCH, card=card,
          **profile_char_segment(torch, net, x, y))
     kern.reset_counts()
-    return net, launches, checked, bodies, net16
+    return net, launches, checked, bodies, net16, rates
 
 
 def sample_chars(torch, np, net, rng, tol):
@@ -2988,6 +3051,721 @@ def lenet_phase(torch, np, card):
     return launches, checked, bodies16
 
 
+# ---------------------------------------------------- the recurrent slice
+
+
+def _flat_grads(grads):
+    """{node: {"a/b": tensor}} of a graph's or network's nested gradients,
+    for :func:`_grad_parity`."""
+    from deeplearning4j_tpu_torch.tree import tree_items
+
+    return {node: {"/".join(map(str, path)): g
+                   for path, g in tree_items(tree)}
+            for node, tree in grads.items()}
+
+
+@contextlib.contextmanager
+def recording_losses(net):
+    """While active, each training step's loss (what the net's
+    ``_gradients`` returns) is appended to the yielded list."""
+    losses, inner = [], net._gradients
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        losses.append(out[0])
+        return out
+
+    net._gradients = recording
+    try:
+        yield losses
+    finally:
+        del net._gradients
+
+
+def step_against_exact(torch, net, args, args64, after_auto):
+    """One training step's loss and gradients under ``auto`` against
+    ``exact`` on the same params, and the same step on fp64 activations
+    (``args64``), by TRAIN_LOSS_RTOL and the gate of :func:`_grad_parity`;
+    ``after_auto()`` checks the auto step's launches before ``exact`` adds
+    its plain calls. Returns the line's fields."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    kern.reset_counts()
+    l_auto, g_auto, _, _ = net._gradients(*args)
+    torch.cuda.synchronize()
+    after_auto()
+    with kern.impl_scope("exact"):
+        l_exact, g_exact, _, _ = net._gradients(*args)
+        l_64, g_64, _, _ = net._gradients(*args64)
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), _, failures = _grad_parity(
+        _flat_grads(g_auto), _flat_grads(g_exact), _flat_grads(g_64))
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"step off exact: loss rel {loss_rel}, "
+                             f"gradients past the gate {failures[:4]}")
+    return {"step_loss_auto": float(l_auto), "step_loss_exact":
+            float(l_exact), "step_loss_fp64": float(l_64),
+            "step_loss_rel_err": loss_rel, "worst_grad": worst_name,
+            "worst_grad_rel_l2": worst}
+
+
+def recurrent_cases(torch):
+    """(name, layer, input shape, run) of each layer, wrapper, head and
+    vertex the recurrent_layers phase holds on the card against the CPU;
+    ``run(layer, params, x, mask)`` gives the output to compare."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import recurrent as R
+    from deeplearning4j_tpu_torch.nn import vertices as V
+
+    seq = (RL_B, RL_T, RL_F)
+    img = (CONVLSTM_B, CONVLSTM_T, CONVLSTM_HW, CONVLSTM_HW, 1)
+
+    def apply(layer, p, x, m):
+        return layer.apply(p, {}, x, mask=m)[0]
+
+    def rnn_loss(layer, p, x, m):
+        labels = torch.eye(RL_F, device=x.device, dtype=x.dtype)[
+            torch.arange(RL_B * RL_T, device=x.device).reshape(RL_B, RL_T)
+            % RL_F]
+        weights = torch.linspace(1.0, 0.0, RL_B, device=x.device)
+        return layer.compute_loss(p, {}, x, labels, weights=weights, mask=m)
+
+    cases = [
+        ("GravesLSTM", R.GravesLSTM(n_in=RL_F, n_out=RL_H), seq, apply),
+        ("GRU", R.GRU(n_in=RL_F, n_out=RL_H), seq, apply),
+        ("GRU_b_rec", R.GRU(n_in=RL_F, n_out=RL_H, recurrent_bias=True), seq,
+         apply),
+        ("SimpleRnn", R.SimpleRnn(n_in=RL_F, n_out=RL_H), seq, apply)]
+    cases += [(f"Bidirectional_LSTM_{mode}",
+               R.Bidirectional(layer=R.LSTM(n_in=RL_F, n_out=RL_H),
+                               mode=mode), seq, apply)
+              for mode in ("concat", "add", "mul", "ave")]
+    cases += [
+        ("GravesBidirectionalLSTM",
+         R.GravesBidirectionalLSTM(n_in=RL_F, n_out=RL_H), seq, apply),
+        ("LastTimeStep", R.LastTimeStep(), seq, apply),
+        ("RnnLossLayer", R.RnnLossLayer(), seq, rnn_loss)]
+    cases += [(f"GlobalPooling_{pt}", L.GlobalPoolingLayer(pooling_type=pt),
+               seq, apply) for pt in ("avg", "sum", "pnorm", "max")]
+    cases += [
+        ("LastTimeStepVertex", V.LastTimeStepVertex(), seq,
+         lambda v, p, x, m: v.apply(x)),
+        ("DuplicateToTimeSeriesVertex", V.DuplicateToTimeSeriesVertex(), seq,
+         lambda v, p, x, m: v.apply(x[:, 0], x))]
+    cases += [(f"ConvLSTM2D_{'seq' if rs else 'last'}",
+               R.ConvLSTM2D(n_in=1, n_out=CONVLSTM_FILTERS,
+                            return_sequences=rs), img, apply)
+              for rs in (True, False)]
+    return cases
+
+
+def expected_recurrent_launches():
+    """The phase's launches, worked out from the code, fp32 and bf16
+    together: each Bidirectional(LSTM) pass launches K4 once a direction
+    (``Bidirectional.apply``: two ``apply_seq`` calls, each one
+    ``LSTMSequenceFunction`` forward; its backward is torch); each
+    ConvLSTM2D pass launches the conv kernel once on the B*T images and
+    once a step, and its backward (x needs no gradient) one wgrad a conv
+    and one dgrad a recurrent conv after the first (h_0 is zeros and needs
+    none). GravesLSTM, GRU, SimpleRnn, the heads and the vertices launch
+    no kernel."""
+    passes = 2  # fp32, bf16
+    convlstms = 2  # return_sequences True and False
+    return {"lstm_seq_fwd": passes * 4 * 2,
+            "conv2d_fwd": passes * convlstms * (1 + CONVLSTM_T),
+            "conv2d_wgrad": passes * convlstms * (1 + CONVLSTM_T),
+            "conv2d_dgrad": passes * convlstms * (CONVLSTM_T - 1),
+            "lstm_cell_fwd": 0, "flash_attention_fwd": 0}
+
+
+def recurrent_layers_phase(torch, np, card):
+    """Each new recurrent layer, wrapper, head and vertex (recurrent_cases)
+    on CUDA tensors against the same layer on the CPU: the same params
+    (drawn from a seed on the CPU), a seeded input and a (B, T) ragged
+    mask, fp32 and bf16 (params cast inside autograd, as the nets do), the
+    output and the gradients of a fixed random projection of it with
+    respect to every param and the input (not ConvLSTM2D's input, a
+    network's input needing none), gated by LAYER_TOL. Every K1, dgrad,
+    K3 and K4 launch is held against its plain version
+    (check_every_launch); none is plain on CUDA; the launch counts must be
+    expected_recurrent_launches(). Returns the launches and the checks."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves, tree_map
+
+    cases = recurrent_cases(torch)
+    checked, rows = {}, []
+    kern.reset_counts()
+    for ci, (name, layer, shape, run) in enumerate(cases):
+        gen = torch.Generator().manual_seed(12345 + ci)
+        params = (layer.initialize(gen, shape[1:])[0]
+                  if hasattr(layer, "initialize") else {})
+        x = torch.randn(shape, generator=gen)
+        lens = torch.randint(1, shape[1] + 1, (shape[0],), generator=gen)
+        lens[0] = shape[1]
+        mask = (torch.arange(shape[1])[None] < lens[:, None]).float()
+        x_grad = not name.startswith("ConvLSTM2D")
+        rec = {"case": name, "input": list(shape)}
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            outs = {}
+            for on_card in (False, True):
+                dev = "cuda" if on_card else "cpu"
+                p = tree_map(lambda v: v.to(dev).requires_grad_(True), params)
+                xx = x.to(dev).requires_grad_(x_grad)
+                ctx = (check_every_launch(torch, checked) if on_card
+                       else contextlib.nullcontext())
+                with ctx:
+                    y = run(layer, tree_map(lambda v: v.to(dt), p),
+                            xx.to(dt), mask.to(dev))
+                    proj = torch.randn(y.shape, generator=torch.Generator(
+                        ).manual_seed(ci)).to(dev)
+                    leaves = tree_leaves(p) + ([xx] if x_grad else [])
+                    grads = torch.autograd.grad((y.float() * proj).sum(),
+                                                leaves, allow_unused=True)
+                outs[on_card] = (y.detach().float().cpu(),
+                                 [None if g is None else g.float().cpu()
+                                  for g in grads])
+                if on_card:
+                    torch.cuda.synchronize()
+            (y_cpu, g_cpu), (y_gpu, g_gpu) = outs[False], outs[True]
+            if (y_gpu.shape != y_cpu.shape
+                    or not torch.isfinite(y_gpu).all()
+                    or any((a is None) != (b is None)
+                           for a, b in zip(g_gpu, g_cpu))):
+                raise AssertionError(f"recurrent_layers {name} {tag}: the "
+                                     "card gave another shape, non-finite "
+                                     "values or other gradients")
+            fwd = _grad_error(y_gpu, y_cpu)[1]
+            grad = max([_grad_error(a, b)[1] for a, b in zip(g_gpu, g_cpu)
+                        if a is not None] or [0.0])
+            gate_f, gate_g = LAYER_TOL[tag]
+            if fwd > gate_f or grad > gate_g:
+                raise AssertionError(
+                    f"recurrent_layers {name} {tag}: card against CPU, "
+                    f"forward {fwd:.3g} (gate {gate_f}), gradients "
+                    f"{grad:.3g} (gate {gate_g})")
+            rec[tag] = {"forward_err": fwd, "grad_err": grad,
+                        "gradients": sum(g is not None for g in g_gpu)}
+        rows.append(rec)
+    launches = {k: v for k, v in kern.LAUNCHES.items()}
+    want = expected_recurrent_launches()
+    plain = dict(kern.PLAIN_ON_CUDA)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"recurrent_layers launched {launches}, "
+                             f"expected {want}; plain on CUDA {plain}")
+    calls = {k: v["calls"] for k, v in _checked_summary(checked).items()}
+    for kname, n in want.items():
+        if n and sum(c for key, c in calls.items()
+                     if key.startswith(kname + "_")) != n:
+            raise AssertionError(f"{kname}: {n} launches, checked {calls}")
+    emit("recurrent_layers", cases=rows, tolerance=LAYER_TOL,
+         seq_shape=[RL_B, RL_T, RL_F], hidden=RL_H,
+         convlstm={"batch": CONVLSTM_B, "steps": CONVLSTM_T,
+                   "image": [CONVLSTM_HW, CONVLSTM_HW, 1],
+                   "filters": CONVLSTM_FILTERS, "kernel": [3, 3]},
+         launches=launches, launches_expected=want, plain_on_cuda=plain,
+         bodies=dict(kern.BODY_LAUNCHES),
+         launches_checked=_checked_summary(checked), card=card)
+    kern.reset_counts()
+    return launches, checked
+
+
+def graves_net(dtype="float32"):
+    """BASELINE #3's GravesLSTM char-RNN at dl4j-examples'
+    GravesLSTMCharModellingExample widths: two GravesLSTM layers of
+    GRAVES_UNITS (tanh) and a softmax/MCXENT RnnOutputLayer over CHAR_SET,
+    TBPTT CHAR_TBPTT, Adam(1e-3), seed 12345, on the card."""
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.recurrent import (GravesLSTM,
+                                                       RnnOutputLayer)
+
+    v = len(CHAR_SET)
+    conf = (NeuralNetConfiguration.builder().seed(12345)
+            .updater({"@updater": "Adam", "learning_rate": 1e-3})
+            .compute_dtype(dtype).tbptt_length(CHAR_TBPTT).list()
+            .layer(GravesLSTM(n_in=v, n_out=GRAVES_UNITS, activation="tanh"))
+            .layer(GravesLSTM(n_in=GRAVES_UNITS, n_out=GRAVES_UNITS,
+                              activation="tanh"))
+            .layer(RnnOutputLayer(n_in=GRAVES_UNITS, n_out=v, loss="mcxent",
+                                  activation="softmax"))
+            .set_input_type((CHAR_SEQ, v)).build())
+    return MultiLayerNetwork(conf).init(device="cuda")
+
+
+def no_kernel(counts, what):
+    """GravesLSTM has no kernel (the reference's is a jnp scan): every
+    count must be 0."""
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched {counts}")
+    return 0
+
+
+def graves_char_rnn_phase(torch, np, card, k4_rates):
+    """BASELINE #3's form, the GravesLSTM char-RNN on MultiLayerNetwork
+    (graves_net) at the char_rnn_train shape (batch 32, 1000 characters
+    of SURVEY.md, TBPTT 50): (a) one segment's step under ``auto`` against
+    ``exact`` and fp64 (the gradient gate); (b) the main path, CHAR_FITS
+    ``fit`` calls whose loss falls (the last five segments' mean below the
+    first five's), no kernel launched; (c) one bf16 ``fit`` call; (d)
+    train characters/sec fp32 and bf16 (five windows), one profiled
+    segment, and SAMPLES x SAMPLE_LEN sampled characters with
+    ``rnn_time_step``, beside char_rnn_train's K4 rates (``k4_rates``)."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    corpus = char_corpus(np)
+    rng = np.random.default_rng(12345)
+    batches = [char_batch(torch, np, corpus, rng) for _ in range(CHAR_FITS)]
+
+    # (a) one segment, auto against exact and fp64
+    xs, ys = batches[0][0][:, :CHAR_TBPTT], batches[0][1][:, :CHAR_TBPTT]
+    ones = torch.ones(CHAR_BATCH, device="cuda")
+    parity = step_against_exact(
+        torch, graves_net(), (None, xs, ys, ones),
+        (None, xs.double(), ys.double(), ones.double()),
+        lambda: no_kernel(dict(kern.LAUNCHES), "the GravesLSTM auto step"))
+
+    # (b) the main path
+    net = graves_net()
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with recording_losses(net) as seg_losses:
+        for x, y in batches:
+            net.fit(x, y)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    no_kernel(dict(kern.LAUNCHES), "the GravesLSTM fit calls")
+    plain = dict(kern.PLAIN_ON_CUDA)
+    losses = [float(v) for v in seg_losses]
+    segments = CHAR_FITS * CHAR_SEQ // CHAR_TBPTT
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if (len(losses) != segments or any(plain.values())
+            or not all(math.isfinite(v) for v in losses) or last5 >= first5):
+        raise AssertionError(f"GravesLSTM char-RNN: {len(losses)} segments, "
+                             f"plain on CUDA {plain}, losses {losses}")
+
+    # (c) one bf16 fit call
+    net16 = graves_net("bfloat16")
+    kern.reset_counts()
+    net16.fit(*batches[0])
+    torch.cuda.synchronize()
+    no_kernel(dict(kern.LAUNCHES), "the bf16 GravesLSTM fit call")
+    loss16 = net16.get_score()
+    if not math.isfinite(loss16):
+        raise AssertionError(f"bf16 GravesLSTM loss {loss16}")
+
+    # (d) rates (windows of one fit call over the first GRAVES_RATE_SEQ
+    # characters: the rate is per character, the same for any number of
+    # segments), a profiled segment, sampling
+    x, y = batches[0]
+    xr, yr = x[:, :GRAVES_RATE_SEQ], y[:, :GRAVES_RATE_SEQ]
+    rates = {"fp32": chars_per_sec(torch, net, xr, yr),
+             "bf16": chars_per_sec(torch, net16, xr, yr)}
+    prof = profile_char_segment(torch, net, x, y)
+    t0 = time.perf_counter()
+    texts = sample_chars(torch, np, net, np.random.default_rng(12345), 1e-4)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    emit("graves_char_rnn", model="GravesLSTM char-RNN (BASELINE #3)",
+         source="dl4j-examples GravesLSTMCharModellingExample: 2 x "
+                "GravesLSTM(200, tanh), RnnOutputLayer softmax/MCXENT, "
+                "minibatch 32, 1000 characters, TBPTT 50",
+         reduced=["corpus: SURVEY.md on 47 symbols, not the example's "
+                  "Shakespeare", "updater: Adam(1e-3), as char_rnn_train, "
+                  "not the example's RmsProp(0.1) with l2 0.001",
+                  "no gradient clipping (the reference has none)"],
+         characters=len(CHAR_SET), units=GRAVES_UNITS,
+         params=net.num_params(), batch=CHAR_BATCH, seq=CHAR_SEQ,
+         tbptt=CHAR_TBPTT, **parity, fit_calls=CHAR_FITS,
+         segments=len(losses), loss_first5=first5, loss_last5=last5,
+         segment_losses=losses, checked_fit_wall_s=fit_s,
+         launches=0, plain_on_cuda=plain, loss_bf16_fit_call=loss16,
+         train_chars_per_sec_fp32=rates["fp32"],
+         train_chars_per_sec_bf16=rates["bf16"], rate_seq=GRAVES_RATE_SEQ,
+         k4_lstm_train_chars_per_sec=k4_rates,
+         graves_over_k4_fp32=rates["fp32"]["median"]
+         / k4_rates["fp32"]["median"],
+         graves_over_k4_bf16=rates["bf16"]["median"]
+         / k4_rates["bf16"]["median"],
+         profile=prof, sample_wall_s=sample_s,
+         sample_chars_per_sec=SAMPLES * SAMPLE_LEN / sample_s,
+         excerpt=texts[0][:60], card=card)
+    kern.reset_counts()
+
+
+def review_batches(torch, np, n=SENT_BATCHES):
+    """Word2VecSentimentRNN's shape on seeded data: ``n`` batches of
+    SENT_BATCH reviews of 32-256 steps (numpy seed 12345; each batch padded
+    to its longest review, as the example's iterator pads), SENT_FEATURES
+    N(0, 1) features a step on the card, the feature mask, and the label:
+    the sign of the review's masked mean projected on a fixed seeded unit
+    vector. Returns [(x, mask, class index, lengths)]."""
+    rng = np.random.default_rng(12345)
+    gen = torch.Generator(device="cuda").manual_seed(12345)
+    u = torch.randn(SENT_FEATURES, device="cuda", generator=gen)
+    u = u / u.norm()
+    out = []
+    for _ in range(n):
+        lens = torch.from_numpy(rng.integers(SENT_MIN_LEN, SENT_MAX_LEN + 1,
+                                             size=SENT_BATCH)).cuda()
+        t = int(lens.max())
+        mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).float()
+        x = torch.randn((SENT_BATCH, t, SENT_FEATURES), device="cuda",
+                        generator=gen) * mask[..., None]
+        cls = ((x.sum(1) / lens[:, None]) @ u > 0).long()
+        out.append((x, mask, cls, lens))
+    return out
+
+
+def sent_datasets(torch, kind, reviews):
+    """DataSets of ``reviews`` for graph ``kind``: "last" (labels and label
+    mask at each review's last real step, as the example places them) or
+    "pool" (one label a review)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    out = []
+    for x, mask, cls, lens in reviews:
+        if kind == "pool":
+            out.append(DataSet(x, torch.eye(2, device="cuda")[cls], mask))
+            continue
+        rows = torch.arange(x.shape[0], device="cuda")
+        y = torch.zeros((x.shape[0], x.shape[1], 2), device="cuda")
+        y[rows, lens - 1, cls] = 1.0
+        lmask = torch.zeros_like(mask)
+        lmask[rows, lens - 1] = 1.0
+        out.append(DataSet(x, y, mask, lmask))
+    return out
+
+
+def sent_graph(kind, dtype="float32"):
+    """The sentiment graphs: "last" is in -> LSTM(300 -> 256) ->
+    RnnOutputLayer(2); "pool" is in -> Bidirectional(LSTM(300 -> 256),
+    concat) -> GlobalPoolingLayer(avg, masked) -> OutputLayer(2). Adam
+    SENT_LR, seed 12345, on the card."""
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import recurrent as R
+
+    gb = (NeuralNetConfiguration.builder().seed(12345)
+          .updater({"@updater": "Adam", "learning_rate": SENT_LR})
+          .compute_dtype(dtype).graph_builder().add_inputs("in"))
+    lstm = R.LSTM(n_in=SENT_FEATURES, n_out=SENT_UNITS)
+    if kind == "last":
+        gb.add_layer("lstm", lstm, "in")
+        gb.add_layer("out", R.RnnOutputLayer(n_in=SENT_UNITS, n_out=2),
+                     "lstm")
+    else:
+        gb.add_layer("bi", R.Bidirectional(layer=lstm, mode="concat"), "in")
+        gb.add_layer("pool", L.GlobalPoolingLayer(pooling_type="avg"), "bi")
+        gb.add_layer("out", L.OutputLayer(n_in=2 * SENT_UNITS, n_out=2),
+                     "pool")
+    conf = gb.set_outputs("out").set_input_types(
+        (SENT_MAX_LEN, SENT_FEATURES)).build()
+    return ComputationGraph(conf).init(device="cuda")
+
+
+def seqs_per_sec(torch, net, data, windows=5):
+    """``net.fit`` sequences/sec: ``windows`` windows of one epoch over
+    ``data`` each, closed by a device sync."""
+    net.fit(data[:1])
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        net.fit(data)
+        torch.cuda.synchronize()
+        rates.append(sum(ds.features.shape[0] for ds in data)
+                     / (time.perf_counter() - t0))
+    if not math.isfinite(net.get_score()):
+        raise AssertionError(f"non-finite loss {net.get_score()}")
+    rates.sort()
+    return {"median": rates[len(rates) // 2], "min": rates[0],
+            "max": rates[-1], "windows": rates}
+
+
+def profile_graph_step(torch, net, ds, top=8):
+    """One ``fit`` step under torch.profiler: wall, device busy, idle
+    share, K4's launches (the wrapper's count and the trace's) and share.
+    The tracer drops ctypes launches from some traces (PERF.md §7), so
+    K4's device time is also taken by CUDA events: each of the step's K4
+    launches again on its own inputs in a CUDA graph (:func:`time_ms`).
+    Where the trace lost a launch, its event time is added to the busy
+    time; ``lstm_kernel_ms`` is the event time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.ops.kernels import lstm as klstm
+
+    net.fit(ds)
+    torch.cuda.synchronize()
+    calls, launch = [], klstm.lstm_seq_fwd
+
+    def capturing(*args, **kwargs):
+        calls.append((args, kwargs))
+        return launch(*args, **kwargs)
+
+    kern.reset_counts()
+    klstm.lstm_seq_fwd = capturing
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        klstm.lstm_seq_fwd = launch
+    launches = lstm_only(dict(kern.LAUNCHES), "the profiled graph step")
+    kernels = device_kernels(torch, prof)
+    traced = sum(n for _, n, name in kernels if _is_k4(name))
+    event_ms = [time_ms(torch, lambda a=a, k=k: launch(*a, **k), reps=5)
+                for a, k in calls]
+    k4 = sum(event_ms)
+    traced_ms = sum(ms for ms, _, name in kernels if _is_k4(name))
+    busy = sum(k[0] for k in kernels) - traced_ms + k4
+    kern.reset_counts()
+    return {"steps": int(ds.features.shape[1]), "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "lstm_kernel_ms": k4, "lstm_kernel_traced_ms": traced_ms,
+            "lstm_kernel_launches": launches,
+            "lstm_kernel_traced_launches": traced,
+            "lstm_kernel_share_of_busy": k4 / busy if busy else None,
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:top]]}
+
+
+def sentiment_graph(torch, np, card, kind, reviews):
+    """One sentiment graph (sent_graph ``kind``): a step under ``auto``
+    against ``exact`` and fp64; the main path, SENT_EPOCHS epochs of
+    ``fit(iterator)`` with every K4 launch checked (1 a step for "last", 2
+    for "pool"), none plain, the last 10 steps' mean loss below the first
+    10's; ``evaluate`` and ``score`` with masks against ``exact``; train
+    sequences/sec fp32 and bf16; one profiled step. Returns (launches,
+    checks)."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    data = sent_datasets(torch, kind, reviews)
+    per_step = 1 if kind == "last" else 2
+
+    # (a) one step, auto against exact and fp64, the same params
+    def auto_launches():
+        if lstm_only(dict(kern.LAUNCHES), "the auto step") != per_step or \
+                any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{kind} auto step: {dict(kern.LAUNCHES)}")
+
+    net0 = sent_graph(kind)
+    ds = data[0]
+    args = net0._batch(ds.features, ds.labels, ds.features_mask,
+                       ds.labels_mask)
+    inputs, labels, weights, mask, lmask = args
+    dbl = {k: v.double() for k, v in inputs.items()}
+    parity = step_against_exact(
+        torch, net0, args, (dbl, {k: v.double() for k, v in labels.items()},
+                            weights.double(), mask, lmask), auto_launches)
+    del net0
+
+    # (b) the main path: fit(iterator), every K4 launch checked
+    net = sent_graph(kind)
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with recording_losses(net) as step_losses, \
+            check_every_launch(torch, checked):
+        net.fit(data, epochs=SENT_EPOCHS)
+        torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    launches = lstm_only(dict(kern.LAUNCHES), f"the {kind} graph's fit")
+    plain = dict(kern.PLAIN_ON_CUDA)
+    steps = SENT_EPOCHS * len(data)
+    if (launches != per_step * steps or any(plain.values())
+            or checked[("lstm_seq_fwd", "fp32")]["calls"] != launches):
+        raise AssertionError(f"{kind}: {launches} K4 launches over {steps} "
+                             f"steps (expected {per_step} a step), plain "
+                             f"{plain}, checked {_checked_summary(checked)}")
+    losses = [float(v) for v in step_losses]
+    first10, last10 = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if (len(losses) != steps or not all(math.isfinite(v) for v in losses)
+            or last10 >= first10):
+        raise AssertionError(f"{kind}: losses did not fall: {losses}")
+
+    # (c) evaluate and score with masks, against exact
+    held = data[:SENT_EVAL_BATCHES]
+    ev = net.evaluate(held)
+    sc = net.score(held[0])
+    with kern.impl_scope("exact"):
+        ev_x = net.evaluate(held)
+        sc_x = net.score(held[0])
+    score_rel = abs(sc - sc_x) / abs(sc_x)
+    if score_rel > TRAIN_LOSS_RTOL or abs(ev.accuracy()
+                                          - ev_x.accuracy()) > 2e-3:
+        raise AssertionError(f"{kind}: score {sc} vs exact {sc_x}, "
+                             f"accuracy {ev.accuracy()} vs "
+                             f"{ev_x.accuracy()}")
+
+    # (d) one checked bf16 step, rates and a profiled step
+    net16 = sent_graph(kind, "bfloat16")
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        net16.fit(data[0])
+    torch.cuda.synchronize()
+    got16 = checked.get(("lstm_seq_fwd", "bf16"), {}).get("calls")
+    loss16 = net16.get_score()
+    if got16 != per_step or not math.isfinite(loss16):
+        raise AssertionError(f"{kind} bf16 step: {got16} launches checked, "
+                             f"loss {loss16}")
+    window = data[:SENT_WINDOW_BATCHES]
+    rates = {"fp32": seqs_per_sec(torch, net, window),
+             "bf16": seqs_per_sec(torch, net16, window)}
+    prof = {"fp32": profile_graph_step(torch, net, data[0]),
+            "bf16": profile_graph_step(torch, net16, data[0])}
+    emit("seq_graph", graph=kind, batch=SENT_BATCH,
+         source="dl4j-examples Word2VecSentimentRNN: minibatch 64, reviews "
+                "truncated at 256 steps, 300 features a step, "
+                "LSTM(256), 2 classes",
+         reduced=["seeded N(0, 1) vectors in place of the Google News "
+                  "word vectors (nothing may be fetched)",
+                  "label: sign of the masked mean projected on a seeded unit "
+                  "vector (learnable), not IMDB's",
+                  f"Adam({SENT_LR}), no gradient normalization",
+                  f"{len(data)} batches a epoch"],
+         lengths=[SENT_MIN_LEN, SENT_MAX_LEN],
+         params=net.num_params(), **parity, epochs=SENT_EPOCHS, steps=steps,
+         loss_first10=first10, loss_last10=last10, step_losses=losses,
+         launches=launches, launches_per_step=per_step,
+         plain_on_cuda=plain, bodies=dict(kern.BODY_LAUNCHES),
+         launches_checked=_checked_summary(checked),
+         checked_wall_s=checked_s, score=sc, score_exact=sc_x,
+         score_rel_err=score_rel, eval_accuracy=ev.accuracy(),
+         eval_accuracy_exact=ev_x.accuracy(),
+         eval_batches=len(held), loss_bf16_step=loss16,
+         train_seqs_per_sec_fp32=rates["fp32"],
+         train_seqs_per_sec_bf16=rates["bf16"], profile_fp32=prof["fp32"],
+         profile_bf16=prof["bf16"], card=card)
+    kern.reset_counts()
+    return launches, checked
+
+
+def char_graph(dropout=0.2):
+    """TextGenerationLSTM's conf (char_net's) rebuilt as a ComputationGraph
+    with ``tbptt_length(CHAR_TBPTT)``: in -> LSTM -> LSTM -> RnnOutputLayer,
+    on the card."""
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.recurrent import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    v = len(CHAR_SET)
+    zoo = TextGenerationLSTM(total_unique_characters=v, units=CHAR_UNITS,
+                             dropout=dropout, max_length=CHAR_SEQ)
+    gb = zoo._builder().graph_builder().add_inputs("in")
+    gb.add_layer("l0", LSTM(n_in=v, n_out=CHAR_UNITS), "in")
+    gb.add_layer("l1", LSTM(n_in=CHAR_UNITS, n_out=CHAR_UNITS,
+                            dropout=dropout), "l0")
+    gb.add_layer("out", RnnOutputLayer(n_in=CHAR_UNITS, n_out=v,
+                                       dropout=dropout), "l1")
+    conf = (gb.set_outputs("out").set_input_types((CHAR_SEQ, v))
+            .tbptt_length(CHAR_TBPTT).build())
+    return ComputationGraph(conf).init(device="cuda")
+
+
+def graph_tbptt(torch, np, card):
+    """TBPTT and stateful inference in the graph: char_graph against the
+    char_rnn_train MultiLayerNetwork (char_net) from the same params, on
+    the char_rnn_train phase's first batch: one ``fit`` call (40 K4
+    launches, every one checked), each segment's loss and the params after
+    it within GRAPH_MLN_RTOL of the network's; then ``rnn_time_step`` over
+    SAMPLE_PRIME and 20 steps (2 K4 launches a call), its distributions
+    within GRAPH_MLN_RTOL of the network's. Returns the launches and the
+    checks."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_items
+
+    corpus = char_corpus(np)
+    x, y = char_batch(torch, np, corpus, np.random.default_rng(12345))
+    mln, graph = char_net(), char_graph()
+    for name, i in (("l0", 0), ("l1", 1), ("out", 2)):
+        graph.params[name] = {k: v.clone() for k, v in mln.params[i].items()}
+    checked = {}
+    kern.reset_counts()
+    with recording_losses(graph) as g_losses, \
+            check_every_launch(torch, checked):
+        graph.fit(x, y)
+        torch.cuda.synchronize()
+    fit_launches = lstm_only(dict(kern.LAUNCHES), "the graph's TBPTT fit")
+    plain = dict(kern.PLAIN_ON_CUDA)
+    with recording_losses(mln) as m_losses:
+        mln.fit(x, y)
+    losses = {"graph": [float(v) for v in g_losses],
+              "mln": [float(v) for v in m_losses]}
+    want = 2 * (CHAR_SEQ // CHAR_TBPTT)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["graph"], losses["mln"]))
+    param_err = max(_grad_error(v, mln.params[i][k])[1]
+                    for name, i in (("l0", 0), ("l1", 1), ("out", 2))
+                    for (k,), v in tree_items(graph.params[name]))
+    if (fit_launches != want or any(plain.values())
+            or len(losses["graph"]) != want // 2
+            or graph.iteration != mln.iteration or loss_err > GRAPH_MLN_RTOL
+            or param_err > GRAPH_MLN_RTOL):
+        raise AssertionError(f"graph TBPTT: {fit_launches} K4 launches "
+                             f"(expected {want}), plain {plain}, loss err "
+                             f"{loss_err}, param err {param_err}")
+
+    # rnn_time_step: the prime in one call, then one step a call
+    lut = {ch: i for i, ch in enumerate(CHAR_SET)}
+    eye = torch.eye(len(CHAR_SET), device="cuda")
+    prime = eye[torch.tensor([lut[c] for c in SAMPLE_PRIME],
+                             device="cuda")][None].expand(SAMPLES, -1, -1)
+    steps = eye[torch.randint(0, len(CHAR_SET), (20, SAMPLES),
+                              generator=torch.Generator().manual_seed(3))
+                .cuda()]
+    outs = {}
+    kern.reset_counts()
+    for tag, net in (("graph", graph), ("mln", mln)):
+        net.rnn_clear_previous_state()
+        ctx = (check_every_launch(torch, checked) if tag == "graph"
+               else contextlib.nullcontext())
+        with ctx:
+            o = [net.rnn_time_step(prime)[:, -1]]
+            o += [net.rnn_time_step(s) for s in steps]
+        outs[tag] = torch.stack(o)
+        if tag == "graph":
+            torch.cuda.synchronize()
+            step_launches = lstm_only(dict(kern.LAUNCHES),
+                                      "the graph's rnn_time_step")
+    step_err = _grad_error(outs["graph"], outs["mln"])[1]
+    if step_launches != 2 * 21 or step_err > GRAPH_MLN_RTOL:
+        raise AssertionError(f"graph rnn_time_step: {step_launches} K4 "
+                             f"launches (expected 42), err {step_err}")
+    emit("seq_graph_tbptt", model="TextGenerationLSTM as a graph",
+         batch=CHAR_BATCH, seq=CHAR_SEQ, tbptt=CHAR_TBPTT,
+         fit_launches=fit_launches, segment_losses=losses["graph"],
+         loss_rel_err=loss_err, param_rel_err=param_err,
+         rnn_time_step_launches=step_launches,
+         rnn_time_step_rel_err=step_err, tolerance=GRAPH_MLN_RTOL,
+         launches_checked=_checked_summary(checked), card=card)
+    kern.reset_counts()
+    return {"fit": fit_launches, "rnn_time_step": step_launches}, checked
+
+
+def seq_graph_phase(torch, np, card):
+    """The masked sequence ComputationGraph on K4: the two sentiment graphs
+    (sentiment_graph), then TBPTT and ``rnn_time_step`` in the graph
+    (graph_tbptt). Returns the launches by path and every check."""
+    reviews = review_batches(torch, np)
+    launches, checked = {}, {}
+    for kind in ("last", "pool"):
+        launches[kind], c = sentiment_graph(torch, np, card, kind, reviews)
+        checked[kind] = c
+    del reviews
+    torch.cuda.empty_cache()
+    tb, checked["tbptt"] = graph_tbptt(torch, np, card)
+    launches.update({f"tbptt_{k}": v for k, v in tb.items()})
+    return launches, checked
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -3189,14 +3967,22 @@ def main() -> int:
         "bert_train", bert_train_phase, torch, np, smi)
     lstm_records, lstm_seq_records = timed("lstm_kernel", lstm_kernel_phase,
                                            torch, np)
-    char_net_trained, char_launches, char_checked, char_bodies, char_net16 = \
-        timed("char_rnn_train", char_rnn_train_phase, torch, np, smi)
+    (char_net_trained, char_launches, char_checked, char_bodies, char_net16,
+     char_rates) = timed("char_rnn_train", char_rnn_train_phase, torch, np,
+                         smi)
     sample_launches, sample_checked = timed(
         "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
         char_net_trained, char_net16)
     del char_net_trained, char_net16
     lenet_launches, lenet_checked, lenet_bodies16 = timed(
         "lenet", lenet_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    rec_launches, rec_checked = timed("recurrent_layers",
+                                      recurrent_layers_phase, torch, np, smi)
+    timed("graves_char_rnn", graves_char_rnn_phase, torch, np, smi,
+          char_rates)
+    seq_launches, seq_checked = timed("seq_graph", seq_graph_phase, torch,
+                                      np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
 
     def checked_fields(name, checked):
@@ -3240,6 +4026,14 @@ def main() -> int:
                 out[f + sfx] = tot(tag, f)
         return out
 
+    def convlstm_fields(kname):
+        """ConvLSTM2D's launches of one conv kernel in recurrent_layers
+        (B 8, T 10, 64x64x1 -> 64 filters; fp32 and bf16, forward and
+        backward), every one checked."""
+        return {"launches_convlstm": rec_launches[kname],
+                **{f"convlstm_{k}": v for k, v in checked_fields(
+                    kname, rec_checked).items()}}
+
     def grad_entry(kname, source, replaces, per_step):
         def tot(tag, field):
             return sum(r[f"{kname}_{tag}"][field] * r[per_step]
@@ -3275,6 +4069,7 @@ def main() -> int:
             "lenet": lenet_fields(f"conv2d_{kname}", grad_records,
                                   lambda tag: f"{kname}_{tag}",
                                   f"lenet_{kname}_per_step"),
+            **convlstm_fields(f"conv2d_{kname}"),
             "per": "one 224x224 ResNet-50 train step at batch 8 (its "
                    f"{sum(r[per_step] for r in grad_records)} launches "
                    "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
@@ -3313,6 +4108,7 @@ def main() -> int:
             "conv2d_fwd", train_checked).items()},
         "lenet": lenet_fields("conv2d_fwd", records, lambda tag: tag,
                               "lenet_per_step"),
+        **convlstm_fields("conv2d_fwd"),
         "per": "one 224x224 ResNet-50 forward at batch 8 (its 53 launches "
                "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
                "replay, eager_ms by a Python loop; launches from the serve "
@@ -3325,9 +4121,15 @@ def main() -> int:
         flash_entry(att_records, bert_launches, bert_checked,
                     masked_launches, masked_checked, bert_train_launches,
                     bert_train_checked, bwd_records, smi),
-        lstm_entry(lstm_records, lstm_seq_records, char_launches,
-                   char_checked, sample_launches, sample_checked,
-                   char_bodies, smi),
+        {**lstm_entry(lstm_records, lstm_seq_records, char_launches,
+                      char_checked, sample_launches, sample_checked,
+                      char_bodies, smi),
+         "launches_recurrent_layers": rec_launches["lstm_seq_fwd"],
+         "recurrent_layers_checked": checked_fields("lstm_seq_fwd",
+                                                    rec_checked),
+         "launches_seq_graph": seq_launches,
+         "seq_graph_checked": {k: checked_fields("lstm_seq_fwd", c)
+                               for k, c in seq_checked.items()}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

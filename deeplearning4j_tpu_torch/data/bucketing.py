@@ -9,10 +9,11 @@ Padding works on numpy arrays and on tensors alike. A MultiLayerNetwork
 batch pads on both axes (:meth:`BucketingPolicy.pad_batch`: the time axis
 to its ``seq_buckets`` bucket with zero mask entries over the padding), and
 each TBPTT segment onto one (B, seg_len) shape
-(:meth:`BucketingPolicy.pad_segment`). Time-axis padding of a
-ComputationGraph batch needs graph masks, which are not ported yet
-(ROADMAP.md Queue 1 item 14): a 3-D graph batch under ``seq_buckets``
-raises.
+(:meth:`BucketingPolicy.pad_segment`). A ComputationGraph batch pads its
+3-D features, labels and masks (one array, or a dict by name) on the time
+axis and all of them on the batch axis
+(:meth:`BucketingPolicy.pad_graph_batch`); as in the reference, a graph
+batch without masks gets none.
 """
 
 from __future__ import annotations
@@ -40,6 +41,16 @@ def dev_weights(cache: dict, size: int, real: int, device):
         w = torch.from_numpy(arr).to(device)
         cache[key] = w
     return w
+
+
+def map_mask(m, fn):
+    """``fn`` on a mask: one array, each array of a dict by name (None
+    entries kept), or None."""
+    if m is None:
+        return None
+    if isinstance(m, dict):
+        return {k: None if v is None else fn(v) for k, v in m.items()}
+    return fn(m)
 
 
 def next_pow2(n: int) -> int:
@@ -196,14 +207,16 @@ class BucketingPolicy:
         ``:319``): a tail shorter than ``seg_len`` pads with zero features,
         labels and mask entries, and every segment gets masks (ones where
         the batch had none), so the tail and full segments share one shape.
-        ``arrays`` is the (x, y) tuple; returns ((x, y), mask,
-        label_mask)."""
+        ``arrays`` is the (x, y) tuple of a MultiLayerNetwork or a dict by
+        name of a ComputationGraph, whose masks may be dicts by name too;
+        returns (arrays, mask, label_mask) in the same forms."""
         def pad_t(a):
             if a is None or a.ndim != 3 or a.shape[1] >= seg_len:
                 return a
             return self._pad_axis(a, 1, seg_len)
 
-        ref = next((a for a in arrays if a.ndim == 3), arrays[0])
+        leaves = list(arrays.values()) if isinstance(arrays, dict) else arrays
+        ref = next((a for a in leaves if a.ndim == 3), leaves[0])
         n, t = ref.shape[0], min(ref.shape[1], seg_len)
         if mask is None:
             mask = self._ones(ref, (n, t))
@@ -214,24 +227,38 @@ class BucketingPolicy:
             return self._pad_axis(m, 1, seg_len) if m.shape[1] < seg_len \
                 else m
 
-        return (tuple(pad_t(a) for a in arrays), pad_m(mask),
-                pad_m(label_mask))
+        if isinstance(arrays, dict):
+            out = {k: pad_t(v) for k, v in arrays.items()}
+        else:
+            out = tuple(pad_t(a) for a in arrays)
+        return out, map_mask(mask, pad_m), map_mask(label_mask, pad_m)
 
-    def pad_graph_batch(self, features: Sequence, labels: Sequence):
+    def pad_graph_batch(self, features: Sequence, labels: Sequence,
+                        mask=None, label_mask=None):
         """Pad one ComputationGraph training batch (lists of (B, ...) arrays
-        or tensors) to its batch bucket with zero rows; returns (features,
-        labels). The caller keeps the padding out of the loss with
-        :func:`dev_weights` over the real row count."""
+        or tensors; masks one (B, T) array, a dict by name, or None) to its
+        buckets (reference ``:267-297``): under ``seq_buckets`` the 3-D
+        features and labels and the masks pad their time axis to its
+        bucket with zeros, then every array its rows to the batch bucket.
+        Returns (features, labels, mask, label_mask); the caller keeps the
+        padding rows out of the loss with :func:`dev_weights` over the real
+        row count."""
         feats, labs = list(features), list(labels)
-        if self.seq_buckets is not None and any(
-                a.ndim == 3 for a in feats + labs):
-            raise NotImplementedError(
-                "seq_buckets padding of a ComputationGraph batch needs graph "
-                "masks, which are not ported yet (ROADMAP.md Queue 1 item "
-                "14); MultiLayerNetwork.fit pads the time axis")
+        if self.seq_buckets is not None:
+            def pad_seq(a):
+                return self._pad_axis(a, 1, self.bucket_seq(a.shape[1]))
+
+            feats = [pad_seq(f) if f.ndim == 3 else f for f in feats]
+            labs = [pad_seq(y) if y.ndim == 3 else y for y in labs]
+            mask = map_mask(mask, pad_seq)
+            label_mask = map_mask(label_mask, pad_seq)
         np_ = self.bucket_batch(feats[0].shape[0])
-        return ([self._pad_axis(f, 0, np_) for f in feats],
-                [self._pad_axis(y, 0, np_) for y in labs])
+
+        def pad_rows(a):
+            return self._pad_axis(a, 0, np_)
+
+        return ([pad_rows(f) for f in feats], [pad_rows(y) for y in labs],
+                map_mask(mask, pad_rows), map_mask(label_mask, pad_rows))
 
     def pad_inference_batch(self, x) -> Tuple[np.ndarray, int]:
         """Pad a forward batch (rows only); returns (padded, real_n).

@@ -2,10 +2,11 @@
 deeplearning4j_tpu/data/dataset.py; org/nd4j/linalg/dataset/DataSet.java and
 MultiDataSet). Numpy arrays, or tensors; ``fit`` takes one, a list of
 them, or any iterable of them (the iterators of ``data/iterators.py``),
-``evaluate`` an iterable and ``score`` one. ``MultiLayerNetwork`` applies the
-(B, T) feature and label masks; ``ComputationGraph.fit`` refuses masks
-until graph masks are ported (ROADMAP.md Queue 1 item 14). The async
-prefetching iterator and the image iterator are not ported yet (item 9).
+``evaluate`` an iterable and ``score`` one. Both networks apply the (B, T)
+feature and label masks; a ComputationGraph shares a DataSet's masks among
+its inputs and outputs, and keys a MultiDataSet's mask lists by input and
+output name. The async prefetching iterator and the image iterator are not
+ported yet (item 9).
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@ a trajectory compares leaf by leaf and can continue in either package.
 
 A ``MultiLayerNetwork``'s params, states and optimizer states are lists
 with one entry per layer (``{}`` for a layer without params), keyed as the
-reference keys them (``W``/``U``/``b`` for an LSTM; ``nn/transformer.py:57-63``
-and ``:140-149`` for BERT); they copy across with
-:func:`load_reference_mln`, with the iteration and epoch, so a test can
-start both packages from the same point.
+reference keys them (``W``/``U``/``b`` for an LSTM, with ``peep`` for a
+GravesLSTM; ``nn/transformer.py:57-63`` and ``:140-149`` for BERT); they
+copy across with :func:`load_reference_mln`, with the iteration and epoch,
+so a test can start both packages from the same point. A wrapper's params
+are nested in both packages (Bidirectional's and GravesBidirectionalLSTM's
+``{"fwd": {...}, "bwd": {...}}``) and copy leaf by leaf.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from deeplearning4j_tpu_torch.nn.computation_graph import (
     ComputationGraph, ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.tree import tree_items, tree_map, tree_set
 
 
 def _copy_tree(name: str, dst: Dict[str, dict], src: Dict[str, dict],
@@ -41,18 +44,21 @@ def _copy_tree(name: str, dst: Dict[str, dict], src: Dict[str, dict],
             f"{name}: node sets differ; missing "
             f"{sorted(set(dst) - set(src))}, unexpected "
             f"{sorted(set(src) - set(dst))}")
-    for node, leaves in src.items():
-        if set(leaves) != set(dst[node]):
-            raise ValueError(f"{name}[{node!r}]: keys {sorted(leaves)} != "
-                             f"{sorted(dst[node])}")
-        for key, arr in leaves.items():
+    for node, tree in src.items():
+        have = dict(tree_items(dst[node]))
+        leaves = tree_items(tree)
+        if {p for p, _ in leaves} != set(have):
+            raise ValueError(f"{name}[{node!r}]: leaves "
+                             f"{sorted(p for p, _ in leaves)} != "
+                             f"{sorted(have)}")
+        for path, arr in leaves:
             a = np.asarray(arr)
-            want = tuple(dst[node][key].shape)
+            want = tuple(have[path].shape)
             if a.shape != want:
-                raise ValueError(f"{name}[{node!r}][{key!r}]: shape "
+                raise ValueError(f"{name}[{node!r}]{list(path)}: shape "
                                  f"{a.shape} != {want}")
-            dst[node][key] = torch.from_numpy(
-                np.array(a, np.float32, copy=True)).to(device)
+            tree_set(dst[node], path, torch.from_numpy(
+                np.array(a, np.float32, copy=True)).to(device))
 
 
 def _copy_opt_tree(path: str, dst, src, device):
@@ -136,11 +142,7 @@ def load_reference_mln(net: MultiLayerNetwork, params, states,
 
 
 def _numpy_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _numpy_tree(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_numpy_tree(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def to_numpy(net) -> dict:

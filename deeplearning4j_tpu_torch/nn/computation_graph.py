@@ -34,25 +34,41 @@ Dropout applies in training, drawn from the graph's ``torch.Generator``
 (seeded from ``conf.seed`` on its device at ``init``), as the layers'
 ``dropout`` says (``nn/layers.py``).
 
+Masks (``:318-349``, ``:577-612``): a (B, T) feature mask is one array
+shared by every node, or a dict by input name (a MultiDataSet's mask list,
+``_mask_dict``), where each node inherits the first mask among its inputs
+(``_arriving_mask``). A node gets the mask while its input is (B, T, F)
+and its ``apply`` takes one; an output's loss gets its label mask (a dict
+by output name, or one array), else the arriving feature mask. ``output``
+and ``evaluate`` take the shared feature mask, as in the reference.
+
+Truncated BPTT (``tbptt_length`` k, ``:822-1010``): a batch whose first
+sequence input is longer than k, with per-step labels, trains as k-step
+segments, one update each; the recurrent nodes' carries flow forward
+detached, per-input masks are sliced independently, and under bucketing
+the ragged tail pads to k. ``rnn_time_step`` (``:1078``) keeps the
+recurrent nodes' carries between calls until ``rnn_clear_previous_state``;
+a Bidirectional node raises there.
+
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
-loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), masks,
-TBPTT and ``rnn_time_step`` in the graph (item 14; the MultiLayerNetwork
-has them), SharedLayer (item 4), telemetry and AOT warmup (item 12), remat
-segments (item 12: ``remat_policy`` and ``stage_barriers`` are kept as
-config and leave the step's arithmetic as it is, as they do in the
-reference), pipelining (item 10).
+loss scaling (``fused_update``/``loss_scale`` raise in ``fit``),
+SharedLayer (item 4), telemetry and AOT warmup (item 12), remat segments
+(item 12: ``remat_policy`` and ``stage_barriers`` are kept as config and
+leave the step's arithmetic as it is, as they do in the reference; the
+reference's masked graphs take its plain path), pipelining (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
-                                                     dev_weights)
+                                                     dev_weights, map_mask)
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.eval import Evaluation
@@ -66,7 +82,10 @@ from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               kernel_impl_from_json,
                                               kernel_impl_to_json)
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
+from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
+from deeplearning4j_tpu_torch.tree import (tree_items, tree_leaves, tree_map,
+                                           tree_set)
 
 
 @dataclasses.dataclass
@@ -106,6 +125,15 @@ class ComputationGraphConfiguration:
         """The single input's shape (excl. batch), for serving warmup."""
         return tuple(self.input_shapes[0]) if self.input_shapes else None
 
+    @property
+    def tbptt_length(self) -> int:
+        """The truncated-BPTT segment length (0: whole-sequence BPTT)."""
+        return int(self.knobs.get("tbptt_length") or 0)
+
+    @tbptt_length.setter
+    def tbptt_length(self, k: int) -> None:
+        self.knobs["tbptt_length"] = int(k)
+
     # -- serialization: the reference's JSON, key for key ------------------
     def to_dict(self) -> dict:
         k = {**INERT_KNOBS, **self.knobs}
@@ -138,11 +166,15 @@ class ComputationGraphConfiguration:
     def from_json(s: str) -> "ComputationGraphConfiguration":
         d = json.loads(s)
 
+        def fix(nd):
+            # a wrapper (Bidirectional) holds its inner layer's dict
+            return {k: fix(v) if isinstance(v, dict) and "@layer" in v
+                    else _detuple(v) if isinstance(v, list) else v
+                    for k, v in nd.items()}
+
         def denode(nd):
             if "@layer" in nd:
-                nd = {k: _detuple(v) if isinstance(v, list) else v
-                      for k, v in nd.items()}
-                return L.layer_from_dict(nd)
+                return L.layer_from_dict(fix(nd))
             return V.vertex_from_dict(nd)
 
         return ComputationGraphConfiguration(
@@ -198,6 +230,7 @@ class GraphBuilder:
         self._nodes: List[GraphNode] = []
         self._outputs: List[str] = []
         self._input_shapes: Optional[List[tuple]] = None
+        self._tbptt: Optional[int] = None
         self._stage_ends: List[str] = []
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
@@ -222,6 +255,12 @@ class GraphBuilder:
         self._input_shapes = [tuple(s) for s in shapes]
         return self
 
+    def tbptt_length(self, k: int) -> "GraphBuilder":
+        """Truncated-BPTT segment length (``:263``; over the parent
+        builder's)."""
+        self._tbptt = int(k)
+        return self
+
     def stage_boundary(self, *node_names: str) -> "GraphBuilder":
         """Record remat/fusion stage boundaries: each named node ENDS a
         stage (the last added node when none is named). Kept as config."""
@@ -240,6 +279,9 @@ class GraphBuilder:
         if not self._outputs:
             raise ValueError("set_outputs required")
         p = self._p or Builder()
+        knobs = dict(p._knobs)
+        if self._tbptt is not None:
+            knobs["tbptt_length"] = self._tbptt
         return ComputationGraphConfiguration(
             inputs=list(self._inputs),
             nodes=list(self._nodes),
@@ -250,7 +292,7 @@ class GraphBuilder:
             compute_dtype=p._compute_dtype,
             kernel_impl=p._kernel_impl,
             remat_stages=tuple(self._stage_ends) or None,
-            knobs=dict(p._knobs),
+            knobs=knobs,
         )
 
 
@@ -294,6 +336,16 @@ class ComputationGraph:
                     f"output {name!r} is consumed by another node — outputs "
                     "must be terminal (IOutputLayer semantics)")
         self._bucketing = BucketingPolicy.from_conf(conf)
+        # which nodes' apply()/compute_loss() take a mask
+        # (feedForwardMaskArrays parity)
+        self._takes_mask = {
+            n.name: "mask" in inspect.signature(n.node.apply).parameters
+            for n in self.topo if n.is_layer}
+        self._loss_takes_mask = {
+            n.name: "mask" in inspect.signature(
+                n.node.compute_loss).parameters
+            for n in self.topo if hasattr(n.node, "compute_loss")}
+        self._rnn_carries: Optional[dict] = None
 
     # ------------------------------------------------------------------ init
     def init(self, input_shapes=None, device=None) -> "ComputationGraph":
@@ -325,10 +377,11 @@ class ComputationGraph:
                            for name, u in self._updaters.items()}
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
+        self._rnn_carries = None
         return self
 
     def _place(self, tree: dict) -> dict:
-        return {k: v.to(self.device) for k, v in tree.items()}
+        return tree_map(lambda v: v.to(self.device), tree)
 
     @staticmethod
     def _merged_shape(in_shapes):
@@ -339,8 +392,7 @@ class ComputationGraph:
         return tuple(base)
 
     def num_params(self) -> int:
-        return sum(int(t.numel()) for p in self.params.values()
-                   for t in p.values())
+        return sum(int(t.numel()) for t in tree_leaves(self.params))
 
     # --------------------------------------------------------------- forward
     def _cast(self, x):
@@ -357,12 +409,12 @@ class ComputationGraph:
         out = {}
         for name, p in params.items():
             out[name] = {}
-            for k, v in p.items():
-                hit = self._cast_cache.get((name, k))
+            for path, v in tree_items(p):
+                hit = self._cast_cache.get((name, path))
                 if hit is None or hit[0] is not v or hit[1] != v._version:
                     hit = (v, v._version, self._cast(v))
-                    self._cast_cache[(name, k)] = hit
-                out[name][k] = hit[2]
+                    self._cast_cache[(name, path)] = hit
+                tree_set(out[name], path, hit[2])
         return out
 
     def _kscope(self):
@@ -375,19 +427,40 @@ class ComputationGraph:
             return xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
         return xs
 
-    def _forward(self, params, states, inputs, *, training=False):
-        """inputs: dict name->tensor. Returns dict name->activation (the
-        inference forward leaves ``states`` as they are)."""
+    def _mask_kw(self, node, mask, x):
+        """The mask threading rule (``:596``): a (B, T) mask reaches a node
+        that takes one while its input keeps the (B, T, ...) shape."""
+        if (mask is not None and x.dim() == 3
+                and tuple(mask.shape[:2]) == tuple(x.shape[:2])
+                and self._takes_mask[node.name]):
+            return {"mask": mask}
+        return {}
+
+    def _loss_mask_kw(self, node, mask, label_mask, x):
+        """An output's loss mask (``:585``): its label mask, else the
+        arriving feature mask, by the same shape rule."""
+        lm = label_mask if label_mask is not None else mask
+        if (lm is not None and x.dim() == 3
+                and tuple(lm.shape[:2]) == tuple(x.shape[:2])
+                and self._loss_takes_mask[node.name]):
+            return {"mask": lm}
+        return {}
+
+    def _forward(self, params, states, inputs, *, training=False, mask=None):
+        """inputs: dict name->tensor, ``mask`` one (B, T) feature mask for
+        every node. Returns dict name->activation (the inference forward
+        leaves ``states`` as they are)."""
         with self._kscope(), torch.inference_mode():
             acts = {k: self._cast(v) for k, v in inputs.items()}
             cparams = self._cast_params(params)
             for n in self.topo:
+                x = self._gather_input(acts, n)
                 if n.is_layer:
                     acts[n.name], _ = n.node.apply(
-                        cparams[n.name], states[n.name],
-                        self._gather_input(acts, n), training=training)
+                        cparams[n.name], states[n.name], x,
+                        training=training, **self._mask_kw(n, mask, x))
                 else:
-                    acts[n.name] = n.node.apply(*self._gather_input(acts, n))
+                    acts[n.name] = n.node.apply(*x)
             return acts
 
     def _require_init(self):
@@ -405,9 +478,10 @@ class ComputationGraph:
 
         return fwd
 
-    def output(self, *inputs, train: bool = False):
+    def output(self, *inputs, train: bool = False, mask=None):
         """Forward pass; a list of output activations, or one tensor when
-        the graph has one output. With ``batch_buckets`` on the conf the
+        the graph has one output. ``mask``: the (B, T) feature mask of a
+        sequence graph. With ``batch_buckets`` on the conf an unmasked
         batch pads up to its bucket and the padding rows are sliced off.
         ``train=True`` uses training-mode (batch) statistics and no
         dropout, and leaves the running statistics as they are, as the
@@ -415,7 +489,7 @@ class ComputationGraph:
         self._require_init()
         ins = [as_tensor(x, self.device) for x in inputs]
         real_n = None
-        if self._bucketing is not None:
+        if self._bucketing is not None and mask is None:
             n = ins[0].shape[0]
             size = self._bucketing.bucket_batch(n)
             if size != n:
@@ -423,7 +497,8 @@ class ComputationGraph:
                 ins = [torch.cat([t, t.new_zeros((size - n,) + t.shape[1:])])
                        for t in ins]
         acts = self._forward(self.params, self.states,
-                             dict(zip(self.conf.inputs, ins)), training=train)
+                             dict(zip(self.conf.inputs, ins)), training=train,
+                             mask=_as_mask(mask, self.device))
         outs = [acts[name] for name in self.conf.outputs]
         if real_n is not None:
             outs = [o[:real_n] for o in outs]
@@ -446,89 +521,121 @@ class ComputationGraph:
                 "optimizer (FusedUpdateEngine) and loss scaling come with the "
                 "parallel-training slice (ROADMAP Queue 1 item 10)")
 
-    def _loss(self, inputs, labels, weights, *, training=True):
+    def _loss(self, inputs, labels, weights, mask=None, label_mask=None,
+              carries=None, *, training=True):
         """Sum of the output layers' losses (+ the l1/l2 penalty in
-        training) and the new states (:667-723). The training forward
-        casts the fp32 params inside autograd (bf16 compute), the
+        training), the new states and the new carries (``_loss_body``
+        ``:667-723``, ``_loss_tbptt_body`` ``:850-905``, ``_loss_eval``
+        ``:1572-1612``). ``mask``/``label_mask``: one (B, T) array or a
+        dict by input/output name. ``carries``: None for the whole-sequence
+        step, else the recurrent nodes' carries by name, each node running
+        ``apply_seq`` on its own after its input dropout. The training
+        forward casts the fp32 params inside autograd (bf16 compute), the
         inference loss takes them through the cast cache."""
         params, states = self.params, self.states
         acts = {k: self._cast(v) for k, v in inputs.items()}
         if training:
-            cparams = {name: {k: self._cast(v) for k, v in p.items()}
+            cparams = {name: tree_map(self._cast, p)
                        for name, p in params.items()}
         else:
             cparams = self._cast_params(params)
         new_states = dict(states)
+        new_carries = None if carries is None else dict(carries)
         out_names = set(self.conf.outputs)
+        produced = dict(mask) if isinstance(mask, dict) else None
         gen = self._gen if training else None
         loss = 0.0
         for n in self.topo:
-            if not n.is_layer:
-                acts[n.name] = n.node.apply(*self._gather_input(acts, n))
-                continue
+            mk = _arriving_mask(produced, n, mask)
+            if produced is not None:
+                produced[n.name] = mk
             x = self._gather_input(acts, n)
+            if not n.is_layer:
+                acts[n.name] = n.node.apply(*x)
+                continue
             if n.name in out_names:
                 if not hasattr(n.node, "compute_loss"):
                     raise ValueError(
                         f"output {n.name!r} must be an OutputLayer/LossLayer")
+                lm = (label_mask.get(n.name) if isinstance(label_mask, dict)
+                      else label_mask)
                 out_loss = n.node.compute_loss(
                     cparams[n.name], states[n.name], x, labels[n.name],
-                    training=training, gen=gen, weights=weights)
+                    training=training, gen=gen, weights=weights,
+                    **self._loss_mask_kw(n, mk, lm, x))
                 loss = loss + out_loss.to(
                     torch.promote_types(out_loss.dtype, torch.float32))
                 acts[n.name] = x  # terminal; activation unused downstream
+            elif carries is not None and n.name in carries:
+                seg_mask = (mk if (mk is not None and x.dim() == 3
+                                   and tuple(mk.shape[:2])
+                                   == tuple(x.shape[:2])) else None)
+                x = n.node._maybe_dropout(x, training, gen)
+                acts[n.name], new_carries[n.name] = n.node.apply_seq(
+                    cparams[n.name], x, carries[n.name], mask=seg_mask,
+                    training=training)
             else:
                 acts[n.name], new_states[n.name] = n.node.apply(
                     cparams[n.name], states[n.name], x, training=training,
-                    gen=gen)
+                    gen=gen, **self._mask_kw(n, mk, x))
         if training:
             for n in self.topo:
                 if n.is_layer:
                     loss = loss + n.node.regularization(params[n.name])
-        return loss, new_states
+        return loss, new_states, new_carries
 
-    def _batch(self, features, labels):
+    def _batch(self, features, labels, mask=None, label_mask=None):
         """Inputs/labels as tensors on this graph's device, padded to the
-        batch bucket, and the 0/1 row weights."""
+        batch (and sequence) buckets, the 0/1 row weights, and the masks
+        as float tensors (one array or a dict by name)."""
         if not isinstance(features, (list, tuple)):
             features = [features]
         if not isinstance(labels, (list, tuple)):
             labels = [labels]
         feats = [as_tensor(f, self.device) for f in features]
         labs = [as_tensor(y, self.device) for y in labels]
+        mask = _as_mask(mask, self.device)
+        label_mask = _as_mask(label_mask, self.device)
         real_n = feats[0].shape[0]
         if self._bucketing is not None:
-            feats, labs = self._bucketing.pad_graph_batch(feats, labs)
+            feats, labs, mask, label_mask = self._bucketing.pad_graph_batch(
+                feats, labs, mask, label_mask)
         weights = dev_weights(self._w_cache, feats[0].shape[0], real_n,
                               self.device)
         return (dict(zip(self.conf.inputs, feats)),
-                dict(zip(self.conf.outputs, labs)), weights)
+                dict(zip(self.conf.outputs, labs)), weights, mask, label_mask)
 
-    def _gradients(self, inputs, labels, weights):
-        """(loss, grads, new_states) of one training forward + backward,
-        leaving params, states and optimizer states as they are. Nodes
-        whose updater is NoOp are frozen: their params get no gradient."""
-        leaves = [(name, k, t) for name, u in self._updaters.items()
+    def _gradients(self, inputs, labels, weights, mask=None, label_mask=None,
+                   carries=None):
+        """(loss, grads, new_states, new_carries) of one training forward +
+        backward, leaving params, states and optimizer states as they are.
+        Nodes whose updater is NoOp are frozen: their params get no
+        gradient. The new states and carries come back detached: a carry
+        handed to the next segment starts a new graph."""
+        leaves = [(name, path, t) for name, u in self._updaters.items()
                   if not isinstance(u, upd.NoOp)
-                  for k, t in self.params[name].items()
+                  for path, t in tree_items(self.params[name])
                   if t.is_floating_point()]
         for _, _, t in leaves:
             t.requires_grad_(True)
         try:
             with self._kscope():
-                loss, new_states = self._loss(inputs, labels, weights)
+                loss, new_states, new_carries = self._loss(
+                    inputs, labels, weights, mask, label_mask, carries)
                 gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
                                          allow_unused=True)
         finally:
             for _, _, t in leaves:
                 t.requires_grad_(False)
         grads: Dict[str, dict] = {}
-        for (name, k, t), g in zip(leaves, gs):
-            grads.setdefault(name, {})[k] = (torch.zeros_like(t) if g is None
-                                             else g)
-        new_states = {name: {k: v.detach() for k, v in s.items()}
+        for (name, path, t), g in zip(leaves, gs):
+            tree_set(grads.setdefault(name, {}), path,
+                     torch.zeros_like(t) if g is None else g)
+        detach = lambda v: v.detach()  # noqa: E731
+        new_states = {name: tree_map(detach, s)
                       for name, s in new_states.items()}
-        return loss.detach(), grads, new_states
+        return (loss.detach(), grads, new_states,
+                tree_map(detach, new_carries))
 
     def compute_gradient_and_score(self, features, labels):
         """(grads, score) of one training step on this batch without
@@ -536,12 +643,14 @@ class ComputationGraph:
         node-name -> {key: tensor}, score the loss as a 0-d tensor. Params,
         states and optimizer states are left as they are."""
         self._check_trainable()
-        loss, grads, _ = self._gradients(*self._batch(features, labels))
+        loss, grads, _, _ = self._gradients(*self._batch(features, labels))
         return grads, loss
 
     def fit(self, data, labels=None, epochs: int = 1):
         """fit(x, y) | fit([x1, x2], [y1, ...]) | fit(DataSet) |
-        fit(iterable of DataSet/MultiDataSet) — :1200 parity."""
+        fit(iterable of DataSet/MultiDataSet) — :1200 parity. A DataSet's
+        masks are shared by every input and output; a MultiDataSet's mask
+        lists become dicts by input and output name."""
         if labels is not None:
             for _ in range(epochs):
                 self._fit_batch(data, labels)
@@ -553,8 +662,12 @@ class ComputationGraph:
             if hasattr(data, "reset"):
                 data.reset()
             for ds in data:
-                _refuse_masks(ds)
-                self._fit_batch(ds.features, ds.labels)
+                self._fit_batch(
+                    ds.features, ds.labels,
+                    mask=_mask_dict(ds, self.conf.inputs, "features_mask",
+                                    "features_masks"),
+                    label_mask=_mask_dict(ds, self.conf.outputs,
+                                          "labels_mask", "labels_masks"))
             self._end_epoch()
         return self
 
@@ -567,44 +680,181 @@ class ComputationGraph:
             if hasattr(lst, "on_epoch_end"):
                 lst.on_epoch_end(self)
 
-    def _fit_batch(self, features, labels):
-        """One step (:1236): forward, loss, backward, updaters in place.
-        ``score_value`` keeps the loss as a device tensor (no host sync per
-        step); ``get_score()`` reads it. The listeners get the iteration
-        through the dispatcher (``:1301-1308``)."""
-        self._check_trainable()
-        loss, grads, new_states = self._gradients(
-            *self._batch(features, labels))
+    def _apply_step(self, grads, new_states):
         upd.step_groups(self._update_groups, self.params, grads,
                         self.opt_states, self.iteration)
         self.states = new_states
-        self.score_value = loss
         self.iteration += 1
+
+    def _fit_batch(self, features, labels, mask=None, label_mask=None):
+        """One step (:1236): forward, loss, backward, updaters in place;
+        the TBPTT segment loop when ``tbptt_length`` cuts the sequence
+        (per-sequence 2-D labels cannot be cut: whole-sequence BPTT, as
+        the reference's doTruncatedBPTT). ``score_value`` keeps the loss
+        as a device tensor (no host sync per step); ``get_score()`` reads
+        it. The listeners get the iteration through the dispatcher
+        (``:1301-1308``)."""
+        self._check_trainable()
+        if not isinstance(features, (list, tuple)):
+            features = [features]
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        k = self.conf.tbptt_length
+        seq = [f for f in features if f.ndim == 3]
+        if (k and seq and all(y.ndim == 3 for y in labels)
+                and seq[0].shape[1] > k):
+            return self._fit_batch_tbptt(features, labels, mask, label_mask)
+        loss, grads, new_states, _ = self._gradients(
+            *self._batch(features, labels, mask, label_mask))
+        self._apply_step(grads, new_states)
+        self.score_value = loss
         self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
 
-    def score(self, dataset=None, x=None, y=None) -> float:
+    def _init_carries(self, batch_size, dtype):
+        """The recurrent layer nodes' zero carries by name (the reference's
+        tbpttStateMap)."""
+        return {n.name: n.node.init_carry(batch_size, dtype, self.device)
+                for n in self.topo if n.is_layer and is_recurrent(n.node)}
+
+    def _fit_batch_tbptt(self, features, labels, mask=None, label_mask=None):
+        """The segment loop (``:907-1010``): each k-step segment is one
+        update and one iteration, the carries flow forward detached (in the
+        compute type), each input's and output's mask is sliced on its own,
+        and ``score_value`` is the mean of the segments' losses; the
+        listeners are called once, after the last segment (the window
+        flushed first). Under bucketing the batch rows pad to their bucket
+        once, and each segment pads onto the (B, k) shape
+        (``pad_segment``)."""
+        k = self.conf.tbptt_length
+        dev = self.device
+        feats = [as_tensor(f, dev) for f in features]
+        labs = [as_tensor(y, dev) for y in labels]
+        mask, label_mask = _as_mask(mask, dev), _as_mask(label_mask, dev)
+        real_n = feats[0].shape[0]
+        bucketing = self._bucketing
+        if bucketing is not None:
+            npad = bucketing.bucket_batch(real_n)
+            if npad != real_n:
+                pad = lambda a: BucketingPolicy._pad_axis(a, 0, npad)  # noqa
+                feats, labs = [pad(f) for f in feats], [pad(y) for y in labs]
+                mask, label_mask = (map_mask(m, pad)
+                                    for m in (mask, label_mask))
+        weights = dev_weights(self._w_cache, feats[0].shape[0], real_n, dev)
+        inputs = dict(zip(self.conf.inputs, feats))
+        labels = dict(zip(self.conf.outputs, labs))
+        ref = next(f for f in feats if f.dim() == 3)
+        carries = self._init_carries(ref.shape[0], self._cast(ref).dtype)
+
+        def seg(d, s):
+            return {name: (v[:, s:s + k] if v.dim() == 3 else v)
+                    for name, v in d.items()}
+
+        losses = []
+        for s in range(0, ref.shape[1], k):
+            ms = map_mask(mask, lambda m: m[:, s:s + k])
+            lms = map_mask(label_mask, lambda m: m[:, s:s + k])
+            seg_in, seg_lab = seg(inputs, s), seg(labels, s)
+            if bucketing is not None:
+                seg_in, ms, lms = bucketing.pad_segment(seg_in, ms, lms, k)
+                seg_lab, _, _ = bucketing.pad_segment(seg_lab, None, None, k)
+            loss, grads, new_states, carries = self._gradients(
+                seg_in, seg_lab, weights, ms, lms, carries)
+            self._apply_step(grads, new_states)
+            losses.append(loss)
+        self._dispatcher.flush()
+        self.score_value = torch.stack(losses).mean()
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
+    # ------------------------------------------------- stateful rnn inference
+    def rnn_time_step(self, *inputs):
+        """Stateful step-by-step inference over the DAG (rnnTimeStep parity,
+        ``:1078``): the recurrent nodes' carries persist across calls.
+        Each input is (B, T, F), or (B, F) for one step (then the outputs
+        have no time axis). A Bidirectional node raises, as in the
+        reference; so does a batch size other than the carried one."""
+        if any(n.is_layer and isinstance(n.node, Bidirectional)
+               for n in self.topo):
+            raise ValueError(
+                "rnn_time_step does not support Bidirectional layers")
+        self._require_init()
+        ins, squeeze = {}, False
+        for name, x in zip(self.conf.inputs, inputs):
+            x = self._cast(as_tensor(x, self.device))
+            if x.dim() == 2:
+                squeeze = True
+                x = x[:, None]
+            ins[name] = x
+        first = next(iter(ins.values()))
+        carries = self._rnn_carries
+        if carries is not None:
+            for leaf in tree_leaves(carries):
+                if leaf.shape[0] != first.shape[0]:
+                    raise ValueError(
+                        f"rnn_time_step batch size changed "
+                        f"({leaf.shape[0]} -> {first.shape[0]}); call "
+                        "rnn_clear_previous_state()")
+        else:
+            carries = self._init_carries(first.shape[0], first.dtype)
+        new_carries = dict(carries)
+        with self._kscope(), torch.inference_mode():
+            cparams = self._cast_params(self.params)
+            acts = dict(ins)
+            for n in self.topo:
+                x = self._gather_input(acts, n)
+                if not n.is_layer:
+                    acts[n.name] = n.node.apply(*x)
+                elif n.name in carries:
+                    acts[n.name], new_carries[n.name] = n.node.apply_seq(
+                        cparams[n.name], x, carries[n.name], training=False)
+                else:
+                    acts[n.name], _ = n.node.apply(
+                        cparams[n.name], self.states[n.name], x,
+                        training=False)
+        self._rnn_carries = new_carries
+        outs = [acts[o] for o in self.conf.outputs]
+        if squeeze:
+            outs = [o[:, -1] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self):
+        """rnnClearPreviousState parity (``:1121``)."""
+        self._rnn_carries = None
+
+    # ------------------------------------------------------- score, evaluate
+    def score(self, dataset=None, x=None, y=None, mask=None,
+              label_mask=None) -> float:
         """Inference-mode loss (running batchnorm statistics, no penalty)
-        of a batch, as a float (:1546-1612)."""
+        of a batch, as a float (:1546-1612), its masks as ``fit`` takes
+        them."""
         self._require_init()
         if dataset is not None:
             x, y = dataset.features, dataset.labels
-        inputs, labels, weights = self._batch(x, y)
+            if mask is None:
+                mask = _mask_dict(dataset, self.conf.inputs, "features_mask",
+                                  "features_masks")
+            if label_mask is None:
+                label_mask = _mask_dict(dataset, self.conf.outputs,
+                                        "labels_mask", "labels_masks")
+        inputs, labels, weights, mask, label_mask = self._batch(
+            x, y, mask, label_mask)
         with self._kscope(), torch.inference_mode():
-            loss, _ = self._loss(inputs, labels, weights, training=False)
+            loss, _, _ = self._loss(inputs, labels, weights, mask,
+                                    label_mask, training=False)
         return float(loss)
 
     def evaluate(self, iterator) -> Evaluation:
         """Classification metrics of the first output over an iterator of
-        DataSets or MultiDataSets (``:1615``); masked data is refused, as
-        in ``fit``."""
+        DataSets or MultiDataSets (``:1615``); the DataSet's
+        ``features_mask`` goes to ``output``, as in the reference."""
         ev = Evaluation()
         if hasattr(iterator, "reset"):
             iterator.reset()
         for ds in iterator:
-            _refuse_masks(ds)
             feats = (ds.features if isinstance(ds.features, (list, tuple))
                      else [ds.features])
-            preds = self.output(*feats)
+            preds = self.output(*feats,
+                                mask=getattr(ds, "features_mask", None))
             p0 = preds[0] if isinstance(preds, list) else preds
             l0 = (ds.labels[0] if isinstance(ds.labels, (list, tuple))
                   else ds.labels)
@@ -619,13 +869,30 @@ class ComputationGraph:
         return float(self.score_value)
 
 
-def _refuse_masks(ds):
-    masks = (getattr(ds, "features_mask", None),
-             getattr(ds, "labels_mask", None),
-             getattr(ds, "features_masks", None),
-             getattr(ds, "labels_masks", None))
-    if any(m is not None for m in masks):
-        raise NotImplementedError(
-            "masked training and TBPTT in ComputationGraph are not ported "
-            "yet (ROADMAP.md Queue 1 item 14); MultiLayerNetwork.fit takes "
-            "masks")
+def _arriving_mask(produced, n, mask):
+    """The mask arriving at node ``n`` (``:577``): with per-input dict masks
+    each node inherits the first non-None mask among its inputs, and
+    vertices pass it on; a shared mask applies everywhere."""
+    if produced is None:
+        return mask
+    return next((produced.get(i) for i in n.inputs
+                 if produced.get(i) is not None), None)
+
+
+def _mask_dict(ds, names, singular: str, plural: str):
+    """A batch's masks (``:331``): a DataSet's one mask stays one array; a
+    MultiDataSet's mask list becomes a dict by input/output name, so each
+    stream keeps its own mask."""
+    m = getattr(ds, singular, None)
+    if m is not None:
+        return m
+    ms = getattr(ds, plural, None)
+    if not ms:
+        return None
+    return dict(zip(names, ms))
+
+
+def _as_mask(m, device):
+    """A mask argument (array | dict name->array | None) as float tensors
+    on ``device`` (``:320``)."""
+    return map_mask(m, lambda v: as_tensor(v, device).float())

@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.ops import nn as nnops
 from deeplearning4j_tpu_torch.ops import random as randops
+from deeplearning4j_tpu_torch.tree import tree_items
 
 _LAYER_TYPES: Dict[str, type] = {}
 
@@ -51,6 +52,9 @@ def layer_from_dict(d: dict) -> "Layer":
     if cls is None:
         raise KeyError(f"layer type {kind!r} is not ported yet; ported: "
                        f"{sorted(_LAYER_TYPES)}")
+    for k, v in list(d.items()):
+        if isinstance(v, dict) and "@layer" in v:  # a wrapper's layer
+            d[k] = layer_from_dict(v)
     return cls(**d)
 
 
@@ -86,11 +90,14 @@ class Layer:
     def regularization(self, params):
         """L1/L2 penalty on weight params (DL4J applies it to W, not biases
         or batchnorm params), summed in the params' type; 0.0 when the
-        layer has neither."""
+        layer has neither. It walks nested params (Bidirectional's fwd/bwd)
+        with this layer's own rates, as the reference's does, so the bias
+        rule sees leaf names only."""
         reg = 0.0
         if not (self.l1 or self.l2):
             return reg
-        for name, p in params.items():
+        for path, p in tree_items(params):
+            name = path[-1]
             if name.startswith("b") or name in ("gamma", "beta", "mean",
                                                 "var"):
                 continue
@@ -284,30 +291,42 @@ class ActivationLayer(Layer):
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class GlobalPoolingLayer(Layer):
-    """Global pooling (conf/layers/GlobalPoolingLayer.java) over the
-    spatial axes of CNN input. The recurrent (B, T, F) branch comes with
-    the recurrent slice."""
+    """Global pooling (conf/layers/GlobalPoolingLayer.java, reference
+    ``nn/layers.py:327``): over the spatial axes of CNN (B, H, W, C) input,
+    and over time for recurrent (B, T, F) input, where a (B, T) mask keeps
+    the masked steps out (the max fills them with the type's lowest
+    value, and an all-masked row of ``avg`` divides by 1e-9)."""
 
     pooling_type: str = "avg"
     pnorm: int = 2
 
-    def apply(self, params, state, x, *, training=False, gen=None):
+    def apply(self, params, state, x, *, training=False, gen=None,
+              mask=None):
         pt = self.pooling_type.lower()
         if pt not in ("avg", "max", "sum", "pnorm"):
             raise ValueError(f"unknown pooling_type {self.pooling_type!r}")
-        if x.dim() == 3:
-            raise NotImplementedError(
-                "GlobalPoolingLayer over time (B, T, F) is not ported yet: "
-                "it comes with the recurrent slice")
-        spatial = tuple(range(1, x.dim() - 1))
+        if x.dim() == 3 and mask is not None:
+            m = mask[:, :, None].to(x.dtype)
+            if pt == "avg":
+                return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1),
+                                                        min=1e-9), state
+            if pt == "sum":
+                return (x * m).sum(dim=1), state
+            if pt == "pnorm":
+                return torch.pow(torch.pow(x.abs() * m, self.pnorm).sum(
+                    dim=1), 1.0 / self.pnorm), state
+            low = torch.finfo(x.dtype).min
+            return torch.where(m > 0, x, x.new_full((), low)).amax(
+                dim=1), state
+        axes = tuple(range(1, x.dim() - 1))  # time, or the spatial axes
         if pt == "avg":
-            return x.mean(dim=spatial), state
+            return x.mean(dim=axes), state
         if pt == "sum":
-            return x.sum(dim=spatial), state
+            return x.sum(dim=axes), state
         if pt == "pnorm":
-            return torch.pow(torch.pow(x.abs(), self.pnorm).sum(dim=spatial),
+            return torch.pow(torch.pow(x.abs(), self.pnorm).sum(dim=axes),
                              1.0 / self.pnorm), state
-        return x.amax(dim=spatial), state
+        return x.amax(dim=axes), state
 
     def output_shape(self, input_shape):
         return (input_shape[-1],)

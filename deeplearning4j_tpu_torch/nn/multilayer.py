@@ -78,11 +78,10 @@ from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
+from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
-
-
-def _is_recurrent(lyr) -> bool:
-    return hasattr(lyr, "apply_seq") and hasattr(lyr, "init_carry")
+from deeplearning4j_tpu_torch.tree import (tree_items, tree_leaves, tree_map,
+                                           tree_set)
 
 
 class MultiLayerNetwork:
@@ -141,8 +140,8 @@ class MultiLayerNetwork:
         cur = shape
         for lyr in self.layers:
             p, s = lyr.initialize(gen, cur)
-            self.params.append({k: v.to(self.device) for k, v in p.items()})
-            self.states.append({k: v.to(self.device) for k, v in s.items()})
+            self.params.append(tree_map(lambda v: v.to(self.device), p))
+            self.states.append(tree_map(lambda v: v.to(self.device), s))
             cur = lyr.output_shape(cur)
         self.opt_states = [u.init_state(p)
                            for u, p in zip(self._updaters, self.params)]
@@ -153,7 +152,7 @@ class MultiLayerNetwork:
         return self
 
     def num_params(self) -> int:
-        return sum(int(t.numel()) for p in self.params for t in p.values())
+        return sum(int(t.numel()) for t in tree_leaves(self.params))
 
     def _require_init(self):
         if self.device is None:
@@ -177,12 +176,12 @@ class MultiLayerNetwork:
         out = []
         for i, p in enumerate(params):
             layer = {}
-            for k, v in p.items():
-                hit = self._cast_cache.get((i, k))
+            for path, v in tree_items(p):
+                hit = self._cast_cache.get((i, path))
                 if hit is None or hit[0] is not v or hit[1] != v._version:
                     hit = (v, v._version, self._cast(v))
-                    self._cast_cache[(i, k)] = hit
-                layer[k] = hit[2]
+                    self._cast_cache[(i, path)] = hit
+                tree_set(layer, path, hit[2])
             out.append(layer)
         return out
 
@@ -250,8 +249,7 @@ class MultiLayerNetwork:
         gen = self._gen if training else None
         h = self._cast(x)
         if training:
-            cparams = [{k: self._cast(v) for k, v in p.items()}
-                       for p in self.params]
+            cparams = [tree_map(self._cast, p) for p in self.params]
         else:
             cparams = self._cast_params(self.params)
         new_states, new_carries = [], []
@@ -260,7 +258,7 @@ class MultiLayerNetwork:
             seg_mask = (fmask if (fmask is not None and h.dim() == 3
                                   and tuple(fmask.shape[:2])
                                   == tuple(h.shape[:2])) else None)
-            if carries is not None and _is_recurrent(lyr):
+            if carries is not None and is_recurrent(lyr):
                 h = lyr._maybe_dropout(h, training, gen)
                 h, c = lyr.apply_seq(cparams[i], h, carries[i],
                                      mask=seg_mask, training=training)
@@ -310,9 +308,9 @@ class MultiLayerNetwork:
         ``grads`` is {layer index: {key: tensor}}; layers whose updater is
         NoOp are frozen and get none. The new states and carries come back
         detached: a carry handed to the next segment starts a new graph."""
-        leaves = [(i, k, t) for i, u in enumerate(self._updaters)
+        leaves = [(i, path, t) for i, u in enumerate(self._updaters)
                   if not isinstance(u, upd.NoOp)
-                  for k, t in self.params[i].items()
+                  for path, t in tree_items(self.params[i])
                   if t.is_floating_point()]
         for _, _, t in leaves:
             t.requires_grad_(True)
@@ -326,13 +324,12 @@ class MultiLayerNetwork:
             for _, _, t in leaves:
                 t.requires_grad_(False)
         grads: Dict[int, dict] = {}
-        for (i, k, t), g in zip(leaves, gs):
-            grads.setdefault(i, {})[k] = (torch.zeros_like(t) if g is None
-                                          else g)
-        new_states = [{k: v.detach() for k, v in s.items()}
-                      for s in new_states]
-        new_carries = [None if c is None else tuple(t.detach() for t in c)
-                       for c in new_carries]
+        for (i, path, t), g in zip(leaves, gs):
+            tree_set(grads.setdefault(i, {}), path,
+                     torch.zeros_like(t) if g is None else g)
+        detach = lambda v: v.detach()  # noqa: E731
+        new_states = [tree_map(detach, s) for s in new_states]
+        new_carries = [tree_map(detach, c) for c in new_carries]
         return loss.detach(), grads, new_states, new_carries
 
     def _apply_step(self, grads, new_states):
@@ -404,7 +401,7 @@ class MultiLayerNetwork:
 
     def _init_carries(self, batch_size, dtype):
         return [lyr.init_carry(batch_size, dtype, self.device)
-                if _is_recurrent(lyr) else None for lyr in self.layers]
+                if is_recurrent(lyr) else None for lyr in self.layers]
 
     def _fit_batch_tbptt(self, x, y, mask=None, label_mask=None):
         """The segment loop (``:529-589``): each k-step segment is one
@@ -450,7 +447,12 @@ class MultiLayerNetwork:
         """Stateful step-by-step inference (rnnTimeStep parity, ``:591``):
         the recurrent carries persist across calls. ``x`` is (B, T, F), or
         (B, F) for one step (the output then has no time axis). A batch
-        size other than the carried one raises."""
+        size other than the carried one raises, and so does a
+        Bidirectional layer, which needs the sequence's future (the
+        reference's ``:594-600``)."""
+        if any(isinstance(lyr, Bidirectional) for lyr in self.layers):
+            raise ValueError(
+                "rnn_time_step does not support Bidirectional layers")
         self._require_init()
         x = self._cast(as_tensor(x, self.device))
         squeeze = x.dim() == 2
@@ -458,13 +460,12 @@ class MultiLayerNetwork:
             x = x[:, None]
         carries = self._rnn_carries
         if carries is not None:
-            for c in carries:
-                for leaf in c or ():
-                    if leaf.shape[0] != x.shape[0]:
-                        raise ValueError(
-                            f"rnn_time_step batch size changed "
-                            f"({leaf.shape[0]} -> {x.shape[0]}); call "
-                            "rnn_clear_previous_state()")
+            for leaf in tree_leaves(carries):
+                if leaf.shape[0] != x.shape[0]:
+                    raise ValueError(
+                        f"rnn_time_step batch size changed "
+                        f"({leaf.shape[0]} -> {x.shape[0]}); call "
+                        "rnn_clear_previous_state()")
         else:
             carries = self._init_carries(x.shape[0], x.dtype)
         new_carries = []
@@ -472,7 +473,7 @@ class MultiLayerNetwork:
             cparams = self._cast_params(self.params)
             h = x
             for i, lyr in enumerate(self.layers):
-                if _is_recurrent(lyr):
+                if is_recurrent(lyr):
                     h, c = lyr.apply_seq(cparams[i], h, carries[i],
                                          training=False)
                     new_carries.append(c)

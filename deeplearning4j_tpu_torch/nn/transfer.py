@@ -29,9 +29,12 @@ import dataclasses
 import inspect
 from typing import Any, List, Optional
 
+import torch
+
 from deeplearning4j_tpu_torch.nn.conf import _updater_dict
 from deeplearning4j_tpu_torch.nn.layers import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.tree import tree_map
 
 
 @register_layer
@@ -48,7 +51,7 @@ class FrozenLayer(Layer):
         return self.inner.initialize(gen, input_shape)
 
     def apply(self, params, state, x, *, training=False, gen=None, mask=None):
-        frozen = {k: v.detach() for k, v in params.items()}
+        frozen = tree_map(lambda v: v.detach(), params)
         kw = {}
         if "mask" in inspect.signature(self.inner.apply).parameters:
             kw["mask"] = mask
@@ -79,7 +82,7 @@ class FineTuneConfiguration:
 
 
 def _shapes(tree: dict):
-    return {k: tuple(v.shape) for k, v in tree.items()}
+    return tree_map(lambda v: tuple(v.shape), tree)
 
 
 class TransferLearning:
@@ -127,10 +130,8 @@ class TransferLearning:
         def build(self) -> MultiLayerNetwork:
             src = self._net
             layers = list(src.conf.layers)
-            params = [{k: v.clone() for k, v in p.items()}
-                      for p in src.params]
-            states = [{k: v.clone() for k, v in s.items()}
-                      for s in src.states]
+            params = [tree_map(torch.clone, p) for p in src.params]
+            states = [tree_map(torch.clone, s) for s in src.states]
             if self._remove_from:
                 layers = layers[:-self._remove_from]
                 params = params[:-self._remove_from]

@@ -31,6 +31,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.nn import schedules as sched
+from deeplearning4j_tpu_torch.tree import tree_get, tree_items, tree_map, \
+    tree_set
 
 _add, _sub = torch._foreach_add, torch._foreach_sub
 _mul, _div = torch._foreach_mul, torch._foreach_div
@@ -54,8 +56,7 @@ class Updater:
         """The reference's state tree for one node's params."""
         if not self.slots:
             return ()
-        return {s: {k: torch.zeros_like(v) for k, v in params.items()}
-                for s in self.slots}
+        return {s: tree_map(torch.zeros_like, params) for s in self.slots}
 
     def apply(self, grads: Leaves, state: Dict[str, Leaves], iteration,
               epoch=0):
@@ -266,15 +267,20 @@ def apply_updates(updater: Updater, params: Sequence[dict],
                   grads: Sequence[dict], states: Sequence[Any], iteration,
                   epoch=0) -> list:
     """One optimizer step for several nodes that share ``updater``:
-    ``params``/``grads`` are the nodes' {key: tensor} dicts, ``states`` their
-    state trees. Each param is updated in place, ``p -= update`` in p's
-    type; returns the nodes' new state trees."""
-    keys = [[k for k in p if k in g] for p, g in zip(params, grads)]
-    leaves_p = [p[k] for p, ks in zip(params, keys) for k in ks]
+    ``params``/``grads`` are the nodes' param trees (nested dicts of
+    tensors), ``states`` their state trees. Each param is updated in
+    place, ``p -= update`` in p's type; returns the nodes' new state
+    trees."""
+    paths = [[path for path, _ in tree_items(p) if _has(g, path)]
+             for p, g in zip(params, grads)]
+    leaves_p = [tree_get(p, path) for p, ps in zip(params, paths)
+                for path in ps]
     if not leaves_p or isinstance(updater, NoOp):
         return list(states)
-    leaves_g = [g[k] for g, ks in zip(grads, keys) for k in ks]
-    slot_in = {s: [st[s][k] for st, ks in zip(states, keys) for k in ks]
+    leaves_g = [tree_get(g, path) for g, ps in zip(grads, paths)
+                for path in ps]
+    slot_in = {s: [tree_get(st[s], path) for st, ps in zip(states, paths)
+                   for path in ps]
                for s in updater.slots}
     if hasattr(updater, "apply_with_params"):
         updates, slot_out = updater.apply_with_params(
@@ -287,14 +293,22 @@ def apply_updates(updater: Updater, params: Sequence[dict],
     if not updater.slots:
         return list(states)
     new_states, i = [], 0
-    for st, ks in zip(states, keys):
-        tree = {s: dict(st[s]) for s in updater.slots}
-        for k in ks:
+    for st, ps in zip(states, paths):
+        tree = {s: tree_map(lambda t: t, st[s]) for s in updater.slots}
+        for path in ps:
             for s in updater.slots:
-                tree[s][k] = slot_out[s][i]
+                tree_set(tree[s], path, slot_out[s][i])
             i += 1
         new_states.append(tree)
     return new_states
+
+
+def _has(tree, path) -> bool:
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return False
+        tree = tree[k]
+    return True
 
 
 def apply_updater(updater: Updater, params: dict, grads: dict, state,

@@ -1,6 +1,7 @@
 """Graph vertices (counterpart of deeplearning4j_tpu/nn/vertices.py): the
-parameter-free DAG combinators of ComputationGraph, the subset on the
-ResNet-50 path. Shapes exclude the batch dim; CNN format NHWC.
+parameter-free DAG combinators of ComputationGraph: the element-wise
+combine of ResNet-50's residual adds, and the two recurrent vertices.
+Shapes exclude the batch dim; CNN format NHWC.
 """
 
 from __future__ import annotations
@@ -86,3 +87,35 @@ class ElementWiseVertex(GraphVertex):
 
     def output_shape(self, *input_shapes):
         return tuple(input_shapes[0])
+
+
+@register_vertex
+@dataclasses.dataclass(frozen=True)
+class LastTimeStepVertex(GraphVertex):
+    """(B, T, C) -> (B, C), the last step (conf/graph/rnn/
+    LastTimeStepVertex.java; reference ``nn/vertices.py:279``). It sees no
+    mask: the masked form is the LastTimeStep layer."""
+
+    def apply(self, *inputs):
+        (x,) = inputs
+        return x[:, -1]
+
+    def output_shape(self, *input_shapes):
+        _, c = input_shapes[0]
+        return (c,)
+
+
+@register_vertex
+@dataclasses.dataclass(frozen=True)
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """(B, C) repeated along a sequence's time axis -> (B, T, C)
+    (conf/graph/rnn/DuplicateToTimeSeriesVertex.java; reference ``:295``).
+    Inputs (static, sequence): T is the second input's."""
+
+    def apply(self, *inputs):
+        x, seq = inputs
+        return x[:, None, :].expand(x.shape[0], seq.shape[1], x.shape[1])
+
+    def output_shape(self, *input_shapes):
+        (c,), (t, _) = input_shapes[0], input_shapes[1]
+        return (t, c)

@@ -2,7 +2,8 @@
 deeplearning4j_tpu/nn/weights.py), the schemes ResNet-50's layers use:
 ``relu`` (He normal, the ConvolutionLayer default) and ``xavier`` (Glorot
 normal, the Dense/Output default), with the reference's fan conventions
-(for a conv, fan_in = kH*kW*Cin and fan_out = kH*kW*Cout). The other
+(for a conv, fan_in = kH*kW*Cin and fan_out = kH*kW*Cout), and ``normal``
+(unit normal over sqrt(fan_in): GravesLSTM's peepholes). The other
 schemes come with the slices whose layers use them.
 
 Draws come from a ``torch.Generator`` on the CPU, so a seed gives the same
@@ -37,7 +38,9 @@ def init(gen: torch.Generator, name: str, shape,
         std = math.sqrt(2.0 / fan_in)
     elif name in ("xavier", "glorot_normal"):
         std = math.sqrt(2.0 / (fan_in + fan_out))
+    elif name in ("normal", "distribution"):
+        std = 1.0 / math.sqrt(fan_in)
     else:
         raise ValueError(f"weight init {name!r} is not ported yet "
-                         "(ported: relu, xavier)")
+                         "(ported: relu, xavier, normal)")
     return torch.randn(shape, generator=gen, dtype=dtype) * std

@@ -760,3 +760,116 @@ def test_graph_listeners_early_stopping_and_regression_on_card(card):
     for m in ("mean_squared_error", "mean_absolute_error", "r_squared"):
         np.testing.assert_allclose(getattr(evs[1], m)(), getattr(evs[0], m)(),
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------- the recurrent slice
+
+
+def _recurrent_layer(kind):
+    from deeplearning4j_tpu_torch.nn import layers as TL
+    from deeplearning4j_tpu_torch.nn import recurrent as TR
+
+    return {
+        "graves": (TR.GravesLSTM(n_in=8, n_out=32), (4, 9, 8)),
+        "gru": (TR.GRU(n_in=8, n_out=32, recurrent_bias=True), (4, 9, 8)),
+        "bidir-lstm": (TR.Bidirectional(layer=TR.LSTM(n_in=8, n_out=256)),
+                       (4, 9, 8)),
+        "pool-max": (TL.GlobalPoolingLayer(pooling_type="max"), (4, 9, 8)),
+        "convlstm": (TR.ConvLSTM2D(n_in=2, n_out=8), (2, 3, 8, 8, 2)),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["graves", "gru", "bidir-lstm", "pool-max",
+                                  "convlstm"])
+def test_recurrent_layers_on_card_match_cpu(card, kind):
+    """A new recurrent layer on CUDA tensors against the same layer on the
+    CPU (the same params, a right-padded ragged mask: Bidirectional's
+    reversed mask starts with masked steps, which must keep K4's zero
+    state): the output within 1e-4 and the gradients (the params', and
+    the input's but ConvLSTM2D's) within 1e-3 of the largest CPU value;
+    Bidirectional(LSTM) launches K4 once a direction, ConvLSTM2D (T 3)
+    the conv kernel once on the B*T images and once a step, and in its
+    backward a wgrad for each of those 4 convs and a dgrad for each
+    recurrent conv after the first; none plain."""
+    from deeplearning4j_tpu_torch import tree as ttree
+
+    layer, shape = _recurrent_layer(kind)
+    gen = torch.Generator().manual_seed(7)
+    params = layer.initialize(gen, shape[1:])[0]
+    x = torch.randn(shape, generator=gen)
+    mask = (torch.arange(shape[1])[None]
+            < torch.tensor([shape[1], 2, 5, 1][:shape[0]])[:, None]).float()
+    outs = []
+    for dev in ("cpu", card):
+        TK.reset_counts()
+        p = ttree.tree_map(lambda v: v.to(dev).requires_grad_(True), params)
+        xx = x.to(dev).requires_grad_(kind != "convlstm")
+        y, _ = layer.apply(p, {}, xx, mask=mask.to(dev))
+        leaves = ttree.tree_leaves(p) + ([xx] if xx.requires_grad else [])
+        gs = torch.autograd.grad(y.square().sum(), leaves, allow_unused=True)
+        outs.append((y.detach().cpu(), [None if g is None else g.cpu()
+                                        for g in gs]))
+    (y_c, g_c), (y_g, g_g) = outs
+    assert float((y_g - y_c).abs().max()) <= 1e-4 * float(y_c.abs().max())
+    for a, b in zip(g_g, g_c):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).abs().max()) <= 1e-3 * float(
+                b.abs().max())
+    want = {"bidir-lstm": {"lstm_seq_fwd": 2},
+            "convlstm": {"conv2d_fwd": 4, "conv2d_wgrad": 4,
+                         "conv2d_dgrad": 2}}.get(kind, {})
+    assert {k: v for k, v in TK.LAUNCHES.items() if v} == want
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_masked_graph_fit_and_tbptt_on_card_match_cpu(card):
+    """A masked sequence graph (Bidirectional LSTM -> masked average ->
+    OutputLayer) and a TBPTT graph (LSTM -> RnnOutputLayer, k 4 over 10
+    steps) trained on the card and on the CPU from the same params: losses
+    and params within 1e-4; K4 twice a masked step, once a segment."""
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as TL
+    from deeplearning4j_tpu_torch.nn import recurrent as TR
+    from deeplearning4j_tpu_torch.tree import tree_items
+
+    def graph(kind, dev):
+        gb = (NeuralNetConfiguration.builder().seed(5)
+              .updater(Adam(1e-2, epsilon=1e-3)).graph_builder()
+              .add_inputs("in"))
+        if kind == "pool":
+            gb.add_layer("bi", TR.Bidirectional(layer=TR.LSTM(n_in=6,
+                                                             n_out=32)),
+                         "in")
+            gb.add_layer("pool", TL.GlobalPoolingLayer(), "bi")
+            gb.add_layer("out", TL.OutputLayer(n_in=64, n_out=2), "pool")
+        else:
+            gb.add_layer("lstm", TR.LSTM(n_in=6, n_out=32), "in")
+            gb.add_layer("out", TR.RnnOutputLayer(n_in=32, n_out=3), "lstm")
+            gb.tbptt_length(4)
+        conf = gb.set_outputs("out").set_input_types((10, 6)).build()
+        return ComputationGraph(conf).init(device=dev)
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(5, 10, 6)).astype(np.float32)
+    m = (np.arange(10)[None] < np.array([10, 3, 7, 1, 9])[:, None]).astype(
+        np.float32)
+    for kind, y, per_fit in (
+            ("pool", np.eye(2, dtype=np.float32)[[0, 1, 1, 0, 1]], 2),
+            ("tbptt", np.eye(3, dtype=np.float32)[rng.integers(0, 3, (5, 10))],
+             3)):
+        nets = [graph(kind, "cpu"), graph(kind, card)]
+        TK.reset_counts()
+        for _ in range(3):
+            for net in nets:
+                net.fit(DataSet(x, y, m, m if kind == "tbptt" else None))
+            np.testing.assert_allclose(nets[1].get_score(),
+                                       nets[0].get_score(), rtol=1e-4)
+        assert TK.LAUNCHES["lstm_seq_fwd"] == 3 * per_fit
+        assert not any(TK.PLAIN_ON_CUDA.values())
+        for name, tree in nets[0].params.items():
+            for path, v in tree_items(tree):
+                got = dict(tree_items(nets[1].params[name]))[path]
+                np.testing.assert_allclose(got.cpu().numpy(), v.numpy(),
+                                           rtol=1e-4, atol=1e-6)

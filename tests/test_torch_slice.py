@@ -402,7 +402,7 @@ def test_package_imports_without_jax():
         "'nn.recurrent', 'data.iterators', 'data.normalizers', "
         "'eval', 'eval.classification', 'eval.regression', "
         "'nn.listeners', 'earlystopping', 'nlp', 'nlp.tokenization', "
-        "'nlp.bert_iterator', 'nn.transfer', 'nn.attention')}\n"
+        "'nlp.bert_iterator', 'nn.transfer', 'nn.attention', 'tree')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

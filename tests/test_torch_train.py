@@ -539,9 +539,25 @@ def test_unported_training_paths_name_their_slice():
     conf.knobs["fused_update"] = True
     with pytest.raises(NotImplementedError, match="slice"):
         TGraph(conf).init(device="cpu").fit(x, y)
+    # a masked DataSet trains as the reference
+    # does; on this CNN the (B, T) masks reach no node (the shape rule)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 6, 6, 2)).astype(np.float32)
+    m = np.array([[1, 1, 1, 1, 1, 1], [1, 1, 1, 0, 0, 0]], np.float32)
+    jnet = JGraph(JConf.from_json(_small_conf().to_json())).init()
     net = TGraph(_small_conf()).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        net.fit(DataSet(x, y, features_mask=np.ones((2, 6))))
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    interop.load_reference(net, tree(jnet.params), tree(jnet.states),
+                           tree(jnet.opt_states), jnet.iteration)
+    from deeplearning4j_tpu.data.dataset import DataSet as JDataSet
+    for _ in range(2):
+        net.fit(DataSet(x, y, features_mask=m, labels_mask=m))
+        jnet.fit(JDataSet(x, y, features_mask=m, labels_mask=m))
+        np.testing.assert_allclose(net.get_score(), jnet.get_score(),
+                                   rtol=TRAJ_RTOL)
+    for (_, a), (_, b) in zip(_flat(interop.to_numpy(net)["params"]),
+                              _flat(tree(jnet.params))):
+        np.testing.assert_allclose(a, b, rtol=TRAJ_RTOL, atol=1e-6)
 
 
 def test_fit_never_drifts_to_cpu(monkeypatch):
