@@ -4,7 +4,11 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Drives the port (``deeplearning4j_tpu_torch``) only, and imports nothing
-of the JAX package. Phases, each printing one JSON line:
+of the JAX package. Phases 3-18 run under ``capture.disabled()``, eagerly,
+as they did before the compiled step (their per-launch checks need every
+launch to go through a wrapper, and their rates are the eager ones);
+phases 19-22 drive the compiled step (``nn/capture.py``). Phases, each
+printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs.
 2. build: the CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` with nvcc
@@ -173,18 +177,49 @@ of the JAX package. Phases, each printing one JSON line:
     sequences/sec fp32 and bf16, a profiled step. Then TextGenerationLSTM
     rebuilt as a graph with TBPTT 50: one ``fit`` call (40 K4 launches)
     and ``rnn_time_step`` against the MultiLayerNetwork's.
-19. timing: the seconds each phase took, and the whole run's.
-20. kernels: one JSON line per the kernel table in PERF.md; the conv
+19. capture_serve: full-width ResNet-50 behind the ModelServer, its
+    forwards captured: ``warmup`` (the server's start) captures a CUDA
+    graph a batch bucket (1-32; each program's pool bytes printed); the
+    ``serve`` requests again, every chunk the server ran equal to the bit
+    to the eager forward of the same chunk, 53 K1 launches a chunk under
+    replay, none plain; served rows/s and forward images/sec at batch 32,
+    fp32 and bf16, beside the eager ones of phase 5; a bf16 net's forward
+    after a captured ``fit`` step equal to its eager forward.
+20. capture_train: ResNet-50 ``fit`` at batch 32, Adam(1e-3), fp32 and
+    bf16: CAPTURE_STEPS steps under the captured-against-eager gate
+    (``capture_gate``: eager twice, then captured, from one state; bit for
+    bit where the eager runs agree, else the nondeterministic kernels are
+    named and the gate is made again under deterministic algorithms), 53 /
+    52 / 53 K1 / dgrad / K3 launches a step under replay, none plain; train
+    images/sec (``captured_rate``) and a profiled captured step (busy, idle
+    share, wall) beside phase 6's eager ones.
+21. capture_bert_train: BERT-base ``fit`` at batch 32, S 128, dropout 0.1,
+    fp32 and bf16, CAPTURE_STEPS BertIterator batches under the gate (the
+    first loss, its dropout masks drawn under replay, equal to the bit), 12
+    K5 launches a step under replay; train sequences/sec and a profiled
+    captured step beside phase 11's.
+22. capture_small: the char-RNN's TBPTT (a fit call: 40 K4 launches),
+    LeNet, the GravesLSTM char-RNN (the gate on 200 characters) and the
+    two sentiment graphs (a program a ``seq_buckets`` bucket), each under
+    the gate with its launches, its captured rate and a profiled captured
+    step beside its eager phase's; the RecompileListener over a ragged
+    LeNet epoch (no event with ``batch_buckets``, one without), and the
+    CompileWatcher's counts (every phase line carries the programs it
+    built under ``built``).
+23. timing: the seconds each phase took, and the whole run's.
+24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
     ``lenet`` and ConvLSTM2D's launches under ``launches_convlstm``, K4's
     the recurrent slice's under ``launches_recurrent_layers`` and
-    ``launches_seq_graph``.
+    ``launches_seq_graph``; every kernel's captured launches (phases
+    19-22) under ``launches_captured``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
 """
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -330,9 +365,24 @@ SENT_EVAL_BATCHES, SENT_WINDOW_BATCHES = 4, 3
 # the graph's TBPTT and rnn_time_step against the MultiLayerNetwork's: the
 # same ops in the same order on the same card
 GRAPH_MLN_RTOL = 1e-6
+# the compiled step (nn/capture.py): CAPTURE_STEPS steps of each path under
+# the captured-against-eager gate, captured rates over five windows of
+# CAPTURE_WINDOW_S (the eager rates are the earlier phases'); reduced: the
+# GravesLSTM gate's fit call of GRAVES_GATE_SEQ characters, LeNet's rate
+# windows over LENET_CAPTURE_BATCHES batches; the sentiment graphs in
+# SENT_SEQ_BUCKETS
+CAPTURE_STEPS, CAPTURE_WINDOW_S = 4, 1.0
+GRAVES_GATE_SEQ, LENET_CAPTURE_BATCHES = 200, 50
+SENT_SEQ_BUCKETS = (64, 128, 192, 256)
+
+
+#: every line's fields by phase, in order: the capture phases read the
+#: eager phases' rates and profiles of the same run here
+EMITTED = {}
 
 
 def emit(phase, **fields):
+    EMITTED.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -3436,11 +3486,11 @@ def sent_datasets(torch, kind, reviews):
     return out
 
 
-def sent_graph(kind, dtype="float32"):
+def sent_graph(kind, dtype="float32", seq_buckets=None):
     """The sentiment graphs: "last" is in -> LSTM(300 -> 256) ->
     RnnOutputLayer(2); "pool" is in -> Bidirectional(LSTM(300 -> 256),
     concat) -> GlobalPoolingLayer(avg, masked) -> OutputLayer(2). Adam
-    SENT_LR, seed 12345, on the card."""
+    SENT_LR, seed 12345, on the card; ``seq_buckets`` on the conf."""
     from deeplearning4j_tpu_torch.nn import (ComputationGraph,
                                              NeuralNetConfiguration)
     from deeplearning4j_tpu_torch.nn import layers as L
@@ -3461,6 +3511,7 @@ def sent_graph(kind, dtype="float32"):
                      "pool")
     conf = gb.set_outputs("out").set_input_types(
         (SENT_MAX_LEN, SENT_FEATURES)).build()
+    conf = dataclasses.replace(conf, seq_buckets=seq_buckets)
     return ComputationGraph(conf).init(device="cuda")
 
 
@@ -3766,6 +3817,619 @@ def seq_graph_phase(torch, np, card):
     return launches, checked
 
 
+# ------------------------------------------------------- the compiled step
+
+
+def copy_net(net, conf=None):
+    """A copy of ``net`` at its state (params, layer and optimizer states,
+    iteration, dropout generator), with no programs (early stopping's
+    snapshot, on the card); ``conf`` in place of its conf (another compute
+    type)."""
+    from deeplearning4j_tpu_torch.earlystopping import _with_state
+
+    snap = _with_state(net, lambda t: t.detach().clone())
+    if conf is not None:
+        snap.conf = conf
+    return snap
+
+
+def fit_losses(net, calls):
+    """``net.fit(*args)`` for each of ``calls``, and the loss after each,
+    as the device tensors ``score_value`` holds."""
+    out = []
+    for args in calls:
+        net.fit(*args)
+        out.append(net.score_value)
+    return out
+
+
+def bf16_conf(net):
+    return dataclasses.replace(net.conf, compute_dtype="bfloat16")
+
+
+def watcher_counts(before):
+    """What the CompileWatcher counted since ``before`` (a
+    :func:`watcher_counts` of None): programs built by function, graphs
+    captured and their warm-up and capture seconds."""
+    from deeplearning4j_tpu_torch.util import get_watcher
+
+    w = get_watcher()
+    now = {"traces": dict(w.traces), "captures": w.backend_compiles,
+           "capture_s": w.backend_compile_seconds}
+    if before is None:
+        return now
+    return {"traces": {k: n - before["traces"].get(k, 0)
+                       for k, n in now["traces"].items()
+                       if n != before["traces"].get(k, 0)},
+            "captures": now["captures"] - before["captures"],
+            "capture_s": now["capture_s"] - before["capture_s"]}
+
+
+def nondeterministic_ops(torch, make, steps):
+    """What makes the path's eager steps nondeterministic: the kernels an
+    eager run launches that it no longer launches under
+    ``torch.use_deterministic_algorithms`` (the ops that take another,
+    deterministic, kernel there), and PyTorch's warnings for ops with no
+    deterministic CUDA kernel at all (the cuBLAS workspace notice aside);
+    one profiled run of ``steps`` on a copy in each mode."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.nn import capture
+
+    def kernel_names(deterministic):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    capture.disabled(), \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                warnings.simplefilter("always")
+                steps(make())
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        return names, {str(w.message).split(" does not have")[0]
+                       for w in caught if "does not have a deterministic"
+                       in str(w.message)}
+
+    default, _ = kernel_names(False)
+    deterministic, no_kernel = kernel_names(True)
+    return {"kernels_replaced_under_deterministic_algorithms": sorted(
+        name[:120] for name in default - deterministic),
+        "ops_without_a_deterministic_kernel": sorted(no_kernel)}
+
+
+def captured_rate(torch, call, rows, windows=5):
+    """``rows`` a call per second of ``call()``, a replay of a warm
+    program: each window holds as many calls as fit in CAPTURE_WINDOW_S by
+    a timed first call, run back to back and closed by a device sync. (A
+    replay returns long before the device has run it, so a window that
+    stopped on the host's clock would queue work far past its end.)"""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    n = max(1, int(CAPTURE_WINDOW_S / (time.perf_counter() - t0)))
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        rates.append(rows * n / (time.perf_counter() - t0))
+    rates.sort()
+    return {"median": rates[len(rates) // 2], "min": rates[0],
+            "max": rates[-1], "windows": rates, "calls_a_window": n}
+
+
+def capture_gate(torch, make, steps, what):
+    """The captured-against-eager gate: ``steps(net)`` (which returns its
+    losses as tensors) on three copies from ``make()``, eager, eager again,
+    then captured (``nn/capture.py``). Where the two eager runs agree to
+    the bit (losses, params, layer and optimizer states), the captured run
+    must too. Where they do not, the ops that make the path
+    nondeterministic are named, and the three runs are made again under
+    ``torch.use_deterministic_algorithms``: where its eager runs agree to
+    the bit, the captured run must too; where they still do not, it may be
+    no farther from the first eager run than the repeat is. The first loss
+    is held to the bit either way: it is the first step's forward, dropout
+    masks included, before any gradient. Returns (the captured net, its
+    run's launches and plain-on-CUDA counts, the gate's record)."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_items
+
+    def run(eager):
+        net = make()
+        kern.reset_counts()
+        with capture.disabled() if eager else contextlib.nullcontext():
+            losses = steps(net)
+        torch.cuda.synchronize()
+        counts = ({k: v for k, v in kern.LAUNCHES.items() if v},
+                  {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v})
+        state = [torch.stack([torch.as_tensor(v).float() for v in losses])]
+        state += [t.detach() for _, t in tree_items(
+            {"p": net.params, "s": net.states, "o": net.opt_states})]
+        return net, state, counts
+
+    def dist(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+
+    def three():
+        _, e1, _ = run(True)
+        _, e2, _ = run(True)
+        net, cap, counts = run(False)
+        return net, e1, cap, counts, dist(e1, e2), dist(e1, cap)
+
+    net, e1, cap, (launches, plain), rep, got = three()
+    rec = {"steps": int(e1[0].numel()), "eager_repeat_max_diff": rep,
+           "captured_max_diff": got, "eager_deterministic": rep == 0.0,
+           "bit_equal": got == 0.0,
+           "first_loss_bit_equal": bool(cap[0][0] == e1[0][0]),
+           "losses_eager": e1[0].tolist(), "losses_captured": cap[0].tolist()}
+    if rep > 0.0:
+        rec["nondeterministic_ops"] = nondeterministic_ops(torch, make,
+                                                           steps)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _, e1d, capd, _, rep_d, got_d = three()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rec["deterministic_algorithms"] = {
+            "eager_repeat_max_diff": rep_d, "captured_max_diff": got_d,
+            "bit_equal": got_d == 0.0,
+            "first_loss_bit_equal": bool(capd[0][0] == e1d[0][0])}
+        if got_d > rep_d or not rec["deterministic_algorithms"][
+                "first_loss_bit_equal"]:
+            raise AssertionError(
+                f"{what} under deterministic algorithms: the captured run "
+                f"is {got_d} from the eager run, its repeat {rep_d}")
+    elif got > 0.0:
+        raise AssertionError(f"{what}: two eager runs agree to the bit, "
+                             f"the captured run is {got} from them")
+    if not rec["first_loss_bit_equal"]:
+        raise AssertionError(f"{what}: first losses {cap[0][0]} captured, "
+                             f"{e1[0][0]} eager")
+    progs = net.programs()
+    rec["programs"] = {name: {"pool_bytes": p.pool_bytes,
+                              "replays": p.replays}
+                       for name, p in progs.items()}
+    if not progs or any(p.graph is None for p in progs.values()):
+        raise AssertionError(f"{what}: no captured program ran ({progs})")
+    if not all(math.isfinite(v) for v in rec["losses_captured"]):
+        raise AssertionError(f"{what}: losses {rec['losses_captured']}")
+    return net, launches, plain, rec
+
+
+def profile_captured_step(torch, step, top=8):
+    """One call of ``step`` (a step of a warm program) under
+    torch.profiler: its wall, the device's busy time (the traced kernels'
+    sum) and idle share, and the step's device span by CUDA events beside
+    them (first kernel to last, gaps included). Where the trace holds no
+    kernel of the replayed graph, the busy time is the event span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    traced = sum(k[0] for k in kernels)
+    span = start.elapsed_time(end)
+    busy = traced if traced > 0.0 else span
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_from": "trace" if traced > 0.0 else "events",
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "event_span_ms": span,
+            "traced_kernels": sum(k[1] for k in kernels),
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:top]]}
+
+
+def eager(phase, **match):
+    """The fields of this run's earlier (eager) ``phase`` line whose fields
+    match ``match``."""
+    for fields in EMITTED.get(phase, []):
+        if all(fields.get(k) == v for k, v in match.items()):
+            return fields
+    raise AssertionError(f"no {phase} line with {match}")
+
+
+def rate_pair(captured, eager_rate):
+    """A captured rate beside the eager one, and their ratio (medians)."""
+    return {"captured": captured, "eager": eager_rate,
+            "captured_over_eager": captured["median"] / eager_rate["median"]}
+
+
+def capture_serve_phase(torch, np, card):
+    """ResNet-50 served from captured forwards: ``warmup`` (through the
+    server's start) captures one forward a batch bucket; the same requests
+    as ``serve``; every chunk the program answered equal to the bit to the
+    eager forward of the same chunk, 53 K1 launches a chunk under replay,
+    none plain; forward images/sec at batch 32 captured, fp32 and bf16,
+    beside ``throughput``'s eager ones; a bf16 net's forward after a
+    captured ``fit`` step equal to the eager forward, the eager cast cache
+    filled before the step (the cast-cache hazard)."""
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import (ModelRouter, ModelServer,
+                                                  ServingModel)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    model = ServingModel(net, "resnet50",
+                         bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+    router = ModelRouter()
+    router.register(model, max_wait_ms=100.0, queue_limit=64)
+    w0 = watcher_counts(None)
+    t0 = time.perf_counter()
+    server = ModelServer(router, port=0).start()  # captures every bucket
+    warm_s = time.perf_counter() - t0
+    built = watcher_counts(w0)
+    progs = {p.inputs[0]["input"].shape[0]: p
+             for p in net._aot_forward.values()}
+    if (sorted(progs) != sorted(BUCKETS) or model.warmed is not True
+            or any(p.graph is None for p in progs.values())):
+        raise AssertionError(f"warmup captured {sorted(progs)}")
+    parts = {"warmup": warm_s}
+    t = time.perf_counter()
+    rng = np.random.default_rng(12345)
+    xs = [rng.integers(-8, 9, size=(r, 224, 224, 3)).astype(np.float32) / 4
+          for r in SERVE_ROWS]
+    bodies = [{"inputs": x.tolist()} for x in xs]
+    url = f"{server.url}/v1/models/resnet50/infer"
+    served, output = [], net.output
+    parts["requests_json"] = time.perf_counter() - t
+
+    def recording(x, *a, **k):
+        out = output(x, *a, **k)
+        served.append((x, out))
+        return out
+
+    net.output = recording
+    try:
+        kern.reset_counts()
+        chunks0 = model.chunks_executed
+        replays0 = sum(p.replays for p in progs.values())
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:  # two waves of 4 concurrent
+            answers = list(pool.map(lambda b: _post(url, b), bodies[:4]))
+            answers += list(pool.map(lambda b: _post(url, b), bodies[4:]))
+        serve_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = kern.LAUNCHES["conv2d_fwd"]
+        plain = kern.PLAIN_ON_CUDA["conv2d_fwd"]
+        chunks = model.chunks_executed - chunks0
+    finally:
+        server.stop()
+        del net.output
+    if chunks < 1 or launches != 53 * chunks or plain:
+        raise AssertionError(f"{launches} K1 launches for {chunks} chunks, "
+                             f"{plain} plain on CUDA")
+    parts["serve"] = serve_s
+    t = time.perf_counter()
+    replays = sum(p.replays for p in progs.values()) - replays0
+    if replays != chunks or len(served) != chunks:
+        raise AssertionError(f"{replays} replays, {len(served)} outputs for "
+                             f"{chunks} chunks")
+    with capture.disabled():
+        chunk_diff = max(float((out - net.output(x)).abs().max())
+                         for x, out in served)
+        max_err = 0.0
+        for x, (body, _lat) in zip(xs, answers):
+            got = np.asarray(body["outputs"], np.float32)
+            ref = net.output(x).cpu().numpy()
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                raise AssertionError(f"response shape {got.shape}")
+            max_err = max(max_err, float(np.abs(got - ref).max()))
+    if chunk_diff != 0.0 or max_err > 1e-4:
+        raise AssertionError(f"served chunks {chunk_diff} from the eager "
+                             f"forward, requests {max_err}")
+
+    parts["checks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    net16 = copy_net(net, bf16_conf(net))
+    x = torch.randn((32, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    rates = {tag: captured_rate(torch, lambda n=n: n.output(x), 32)
+             for tag, n in (("fp32", net), ("bf16", net16))}
+    parts["rates"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((32, 224, 224, 3), device="cuda", generator=gen)
+    y = torch.eye(1000, device="cuda")[torch.arange(32, device="cuda")]
+    with capture.disabled():
+        net16.output(x)  # fills the eager cast cache
+    before = net16.output(x)
+    net16.fit(x, y)  # a captured step: the params move inside the graph
+    after = net16.output(x)
+    with capture.disabled():
+        after_eager = net16.output(x)
+    if torch.equal(after, before) or not torch.equal(after, after_eager):
+        raise AssertionError("bf16 forward after a captured step: moved "
+                             f"{not torch.equal(after, before)}, equal to "
+                             f"eager {torch.equal(after, after_eager)}")
+    parts["bf16_after_fit"] = time.perf_counter() - t
+    thr = eager("throughput")
+    emit("capture_serve", model="ResNet50", buckets=list(BUCKETS),
+         warmup_s=warm_s, built=built, seconds=parts,
+         pool_bytes={b: progs[b].pool_bytes for b in sorted(progs)},
+         requests=len(SERVE_ROWS), chunks=chunks, conv_launches=launches,
+         plain_on_cuda=plain, chunks_bit_equal_to_eager=True,
+         max_abs_err_requests_vs_eager=max_err, serve_wall_s=serve_s,
+         served_rows_per_s={
+             "captured": sum(SERVE_ROWS) / serve_s,
+             "eager": eager("serve")["served_rows_per_s"]},
+         forward_images_per_sec_fp32=rate_pair(
+             rates["fp32"], thr["forward_images_per_sec_fp32"]),
+         forward_images_per_sec_bf16=rate_pair(
+             rates["bf16"], thr["forward_images_per_sec_bf16"]),
+         window_s=CAPTURE_WINDOW_S, bf16_forward_after_captured_fit=
+         "moved, and equal to the eager forward (cast cache refilled)",
+         card=card)
+    return launches
+
+
+def capture_train_phase(torch, np, card):
+    """ResNet-50 ``fit`` at batch 32, Adam(1e-3), fp32 and bf16, captured:
+    CAPTURE_STEPS steps under the gate, 53 / 52 / 53 K1 / dgrad / K3
+    launches a step under replay, none plain; train images/sec and one
+    profiled captured step beside ``train_throughput``'s and
+    ``train_profile``'s eager ones."""
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    batch = 32
+    proto = ResNet50().init(device="cuda")
+    _calm_residual_branches(proto)
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, 1000, batch)]).cuda()
+    per_step = {"conv2d_fwd": 53, "conv2d_dgrad": 52, "conv2d_wgrad": 53}
+
+    def steps(net):
+        return fit_losses(net, [(x, y)] * CAPTURE_STEPS)
+
+    thr, launches = eager("train_throughput"), {}
+    for tag, conf in (("fp32", None), ("bf16", bf16_conf(proto))):
+        w0 = watcher_counts(None)
+        net, got, plain, gate = capture_gate(
+            torch, lambda: copy_net(proto, conf), steps, f"ResNet-50 {tag}")
+        if got != {k: CAPTURE_STEPS * v for k, v in per_step.items()} \
+                or plain:
+            raise AssertionError(f"{tag}: {got} launches in "
+                                 f"{CAPTURE_STEPS} captured steps, plain "
+                                 f"{plain}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        rate = captured_rate(torch, lambda: net.fit(x, y), batch)
+        if not math.isfinite(net.get_score()):
+            raise AssertionError(f"ResNet-50 {tag}: {net.get_score()}")
+        prof = profile_captured_step(torch, lambda: net.fit(x, y))
+        ep = eager("train_profile", dtype=tag)
+        emit("capture_train", model="ResNet50", dtype=tag, batch=batch,
+             updater=proto.conf.updater, gate=gate, launches=got,
+             launches_per_step=per_step, plain_on_cuda=plain,
+             built=watcher_counts(w0),
+             train_images_per_sec=rate_pair(
+                 rate, thr[f"train_images_per_sec_{tag}"]),
+             window_s=CAPTURE_WINDOW_S, profile_captured=prof,
+             eager_profile={k: ep[k] for k in ("wall_ms", "device_busy_ms",
+                                               "idle_share")},
+             replay_wall_over_eager_wall=prof["wall_ms"] / ep["wall_ms"],
+             card=card)
+        del net
+        torch.cuda.empty_cache()
+    return launches
+
+
+def capture_bert_train_phase(torch, np, card):
+    """BERT-base ``fit`` at batch 32, S 128, hidden dropout 0.1, Adam,
+    fp32 and bf16 (integer ids), captured: CAPTURE_STEPS steps of
+    BertIterator batches under the gate (the first loss, with its dropout
+    masks, equal to the bit), 12 K5 launches a step under replay, none
+    plain; train sequences/sec at S 128 and one profiled captured step
+    beside ``bert_train_throughput``'s and ``bert_train_profile``'s."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nlp import Vocab
+
+    text, labels = bert_corpus()
+    data = [_ds_on_card(torch, b, torch.int64) for b in
+            itertools.islice(bert_iterator(Vocab.build(text), text, labels),
+                             CAPTURE_STEPS)]
+    proto = bert_train_net(torch, num_classes=2)
+    if proto.conf.layers[1].hidden_dropout != 0.1:
+        raise AssertionError("BERT-base trains with hidden dropout 0.1")
+
+    def steps(net):
+        return fit_losses(net, [(DataSet(x, y, m),) for x, y, m in data])
+
+    rng = np.random.default_rng(11)
+    xs = torch.from_numpy(bert_rows(np, BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, rng,
+                                    np.int64)).cuda()
+    ys = torch.eye(2, device="cuda")[torch.from_numpy(
+        rng.integers(0, 2, size=BERT_TRAIN_BATCH)).cuda()]
+    thr, launches = eager("bert_train_throughput"), 0
+    for tag, conf in (("fp32", None), ("bf16", bf16_conf(proto))):
+        w0 = watcher_counts(None)
+        net, got, plain, gate = capture_gate(
+            torch, lambda: copy_net(proto, conf), steps, f"BERT-base {tag}")
+        if got != {"flash_attention_fwd": BERT_LAYERS * CAPTURE_STEPS} \
+                or plain:
+            raise AssertionError(f"{tag}: {got} launches in "
+                                 f"{CAPTURE_STEPS} captured steps, plain "
+                                 f"{plain}")
+        launches += got["flash_attention_fwd"]
+        rate = captured_rate(torch, lambda: net.fit(xs, ys),
+                             BERT_TRAIN_BATCH)
+        if not math.isfinite(net.get_score()):
+            raise AssertionError(f"BERT-base {tag}: {net.get_score()}")
+        prof = profile_captured_step(torch, lambda: net.fit(xs, ys))
+        ep = eager("bert_train_profile", dtype=tag)
+        emit("capture_bert_train", model="Bert.base", dtype=tag,
+             batch=BERT_TRAIN_BATCH, seq=BERT_TRAIN_SEQ, hidden_dropout=0.1,
+             gate=gate, launches=got, launches_per_step=BERT_LAYERS,
+             plain_on_cuda=plain, built=watcher_counts(w0),
+             train_sequences_per_sec=rate_pair(
+                 rate, thr["sequences_per_sec"][f"seq128_{tag}"]),
+             window_s=CAPTURE_WINDOW_S, profile_captured=prof,
+             eager_profile={k: ep.get(k) for k in ("wall_ms",
+                                                   "device_busy_ms",
+                                                   "idle_share")},
+             card=card)
+        del net
+        torch.cuda.empty_cache()
+    return launches
+
+
+def capture_small_phase(torch, np, card):
+    """The smaller paths captured, fp32, each under the gate with its
+    launch counts, its captured rate and a profiled captured step beside
+    its eager phase's: the char-RNN's TBPTT (a fit call of 1000 characters:
+    20 segments, 40 K4 launches), LeNet (4 steps, 2 / 1 / 2 conv launches
+    a step; rates over LENET_CAPTURE_BATCHES batches), the GravesLSTM
+    char-RNN (reduced: a fit call of GRAVES_GATE_SEQ characters in the
+    gate, GRAVES_RATE_SEQ in the rate, as graves_char_rnn's), the two
+    sentiment graphs (4 batches, K4 once / twice a step, a program a
+    ``seq_buckets`` bucket the batches fall in). Then the RecompileListener
+    over a ragged LeNet epoch (10 batches of 64 and one of 32), with and
+    without ``batch_buckets`` (64,). Returns each path's captured
+    launches."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.listeners import RecompileListener
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    launches = {}
+
+    def path(name, make, steps, want, rate_fn, step_fn, eager_rate,
+             eager_prof, **extra):
+        w0 = watcher_counts(None)
+        net, got, plain, gate = capture_gate(torch, make, steps, name)
+        if got != want or plain:
+            raise AssertionError(f"{name}: {got} launches captured, "
+                                 f"expected {want}; plain {plain}")
+        launches[name] = got
+        rate = rate_fn(net)
+        prof = profile_captured_step(torch, lambda: step_fn(net))
+        emit("capture_path", path=name, gate=gate, launches=got,
+             plain_on_cuda=plain, built=watcher_counts(w0),
+             rate=rate_pair(rate, eager_rate), profile_captured=prof,
+             eager_profile={k: eager_prof.get(k) for k in (
+                 "wall_ms", "device_busy_ms", "idle_share")},
+             card=card, **extra)
+        return net
+
+    # the char-RNN, TBPTT 50 over 1000 characters
+    corpus = char_corpus(np)
+    x, y = char_batch(torch, np, corpus, np.random.default_rng(12345))
+    proto = char_net()
+    net = path("char_rnn_tbptt", lambda: copy_net(proto),
+               lambda n: fit_losses(n, [(x, y)]),
+               {"lstm_seq_fwd": 2 * CHAR_SEQ // CHAR_TBPTT},
+               lambda n: chars_per_sec(torch, n, x, y),
+               lambda n: n.fit(x[:, :CHAR_TBPTT], y[:, :CHAR_TBPTT]),
+               eager("char_rnn_throughput")["train_chars_per_sec_fp32"],
+               eager("char_rnn_profile"), unit="characters/sec",
+               batch=CHAR_BATCH, seq=CHAR_SEQ, tbptt=CHAR_TBPTT)
+    if len(net._tbptt_steps) != 1:
+        raise AssertionError(f"{len(net._tbptt_steps)} TBPTT programs")
+    del net, proto
+
+    # LeNet at batch 64
+    train = MnistDataSetIterator(batch=LENET_BATCH,
+                                 n_examples=LENET_BATCH
+                                 * LENET_CAPTURE_BATCHES)
+    batches = list(train)
+    xl = torch.from_numpy(batches[0].features).cuda()
+    yl = torch.from_numpy(batches[0].labels).cuda()
+    proto = LeNet().init(device="cuda")
+    path("lenet", lambda: copy_net(proto),
+         lambda n: fit_losses(n, [(ds,) for ds in batches[:CAPTURE_STEPS]]),
+         {k: CAPTURE_STEPS * v for k, v in LENET_STEP.items()},
+         lambda n: lenet_windows(torch, n, batches),
+         lambda n: n.fit(xl, yl),
+         eager("lenet_throughput")["train_images_per_sec_fp32"],
+         eager("lenet_profile", dtype="fp32"), unit="images/sec",
+         batch=LENET_BATCH, rate_batches=LENET_CAPTURE_BATCHES)
+    del proto
+
+    # the GravesLSTM char-RNN (no kernel: plain torch, captured whole)
+    proto = graves_net()
+    xg, yg = x[:, :GRAVES_GATE_SEQ], y[:, :GRAVES_GATE_SEQ]
+    xr, yr = x[:, :GRAVES_RATE_SEQ], y[:, :GRAVES_RATE_SEQ]
+    eg = eager("graves_char_rnn")
+    path("graves_char_rnn", lambda: copy_net(proto),
+         lambda n: fit_losses(n, [(xg, yg)]), {},
+         lambda n: chars_per_sec(torch, n, xr, yr),
+         lambda n: n.fit(x[:, :CHAR_TBPTT], y[:, :CHAR_TBPTT]),
+         eg["train_chars_per_sec_fp32"], eg["profile"],
+         unit="characters/sec", gate_seq=GRAVES_GATE_SEQ,
+         rate_seq=GRAVES_RATE_SEQ,
+         reduced=[f"the gate's fit call is {GRAVES_GATE_SEQ} characters "
+                  f"({GRAVES_GATE_SEQ // CHAR_TBPTT} segments), not 1000"])
+    del proto
+
+    # the sentiment graphs, one program a seq_buckets bucket
+    reviews = review_batches(torch, np, n=CAPTURE_STEPS)
+    buckets_used = sorted({next(b for b in SENT_SEQ_BUCKETS
+                                if b >= r[0].shape[1]) for r in reviews})
+    for kind, per_step in (("last", 1), ("pool", 2)):
+        proto = sent_graph(kind, seq_buckets=SENT_SEQ_BUCKETS)
+        data = sent_datasets(torch, kind, reviews)
+        es = eager("seq_graph", graph=kind)
+        net = path(f"seq_graph_{kind}", lambda: copy_net(proto),
+                   lambda n: fit_losses(n, [(ds,) for ds in data]),
+                   {"lstm_seq_fwd": per_step * CAPTURE_STEPS},
+                   lambda n: seqs_per_sec(torch, n,
+                                          data[:SENT_WINDOW_BATCHES]),
+                   lambda n: n.fit(data[0]),
+                   es["train_seqs_per_sec_fp32"], es["profile_fp32"],
+                   unit="sequences/sec", seq_buckets=SENT_SEQ_BUCKETS,
+                   buckets_used=buckets_used,
+                   reduced=["each batch pads to its seq_buckets bucket "
+                            "(the eager seq_graph rate pads to the batch's "
+                            "longest review)"])
+        if len(net._aot_steps) != len(buckets_used):
+            raise AssertionError(f"{kind}: {len(net._aot_steps)} programs "
+                                 f"for buckets {buckets_used}")
+        del net, proto
+
+    # RecompileListener over a ragged epoch
+    events = {}
+    ragged = MnistDataSetIterator(batch=LENET_BATCH,
+                                  n_examples=10 * LENET_BATCH + 32)
+    for tag, buckets in (("bucketed", (LENET_BATCH,)), ("unbucketed", None)):
+        conf = dataclasses.replace(LeNet().conf(), batch_buckets=buckets)
+        net = MultiLayerNetwork(conf).init(device="cuda")
+        listener = RecompileListener(grace=1, log_fn=lambda s: None)
+        net.set_listeners(listener)
+        net.fit(ragged)
+        events[tag] = listener.events
+    if events["bucketed"] or events["unbucketed"] != [
+            (11, "MultiLayerNetwork.train_step", 1)]:
+        raise AssertionError(f"RecompileListener events {events}")
+    emit("capture_recompile", epoch_batches=[LENET_BATCH] * 10 + [32],
+         events=events, watcher=watcher_counts(None), card=card)
+    return launches
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -3917,6 +4581,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from deeplearning4j_tpu_torch.nn import capture
     from deeplearning4j_tpu_torch.ops.kernels import _build
     from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
@@ -3949,41 +4614,56 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t
         return out
 
-    conf = ResNet50().conf()
-    records = timed("kernel", kernel_phase, torch, conf)
-    grad_records = timed("kernel_grad", kernel_grad_phase, torch, conf)
-    launches, serve_checked = timed("serve", serve_phase, torch, np, smi)
-    train_launches, train_checked, train_bodies16 = timed(
-        "train", train_phase, torch, np, smi)
-    att_records = timed("attention_kernel", attention_kernel_phase, torch, np)
-    timed("attention_sweep", attention_sweep, torch, np, smi)
-    bert, bert_launches, bert_checked = timed("bert_serve", bert_serve_phase,
-                                              torch, np, smi)
-    masked_launches, masked_checked = timed(
-        "bert_forward", bert_forward_phase, torch, np, smi, bert)
-    del bert
-    torch.cuda.empty_cache()
-    bert_train_launches, bert_train_checked, bwd_records = timed(
-        "bert_train", bert_train_phase, torch, np, smi)
-    lstm_records, lstm_seq_records = timed("lstm_kernel", lstm_kernel_phase,
-                                           torch, np)
-    (char_net_trained, char_launches, char_checked, char_bodies, char_net16,
-     char_rates) = timed("char_rnn_train", char_rnn_train_phase, torch, np,
-                         smi)
-    sample_launches, sample_checked = timed(
-        "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
-        char_net_trained, char_net16)
-    del char_net_trained, char_net16
-    lenet_launches, lenet_checked, lenet_bodies16 = timed(
-        "lenet", lenet_phase, torch, np, smi)
-    torch.cuda.empty_cache()
-    rec_launches, rec_checked = timed("recurrent_layers",
-                                      recurrent_layers_phase, torch, np, smi)
-    timed("graves_char_rnn", graves_char_rnn_phase, torch, np, smi,
-          char_rates)
-    seq_launches, seq_checked = timed("seq_graph", seq_graph_phase, torch,
-                                      np, smi)
-    emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start)
+    # the phases of the earlier slices run eagerly, as they did: their
+    # per-launch checks need every launch to go through a wrapper, and
+    # their rates are the eager ones the capture phases stand beside
+    with capture.disabled():
+        conf = ResNet50().conf()
+        records = timed("kernel", kernel_phase, torch, conf)
+        grad_records = timed("kernel_grad", kernel_grad_phase, torch, conf)
+        launches, serve_checked = timed("serve", serve_phase, torch, np, smi)
+        train_launches, train_checked, train_bodies16 = timed(
+            "train", train_phase, torch, np, smi)
+        att_records = timed("attention_kernel", attention_kernel_phase,
+                            torch, np)
+        timed("attention_sweep", attention_sweep, torch, np, smi)
+        bert, bert_launches, bert_checked = timed(
+            "bert_serve", bert_serve_phase, torch, np, smi)
+        masked_launches, masked_checked = timed(
+            "bert_forward", bert_forward_phase, torch, np, smi, bert)
+        del bert
+        torch.cuda.empty_cache()
+        bert_train_launches, bert_train_checked, bwd_records = timed(
+            "bert_train", bert_train_phase, torch, np, smi)
+        lstm_records, lstm_seq_records = timed(
+            "lstm_kernel", lstm_kernel_phase, torch, np)
+        (char_net_trained, char_launches, char_checked, char_bodies,
+         char_net16, char_rates) = timed(
+            "char_rnn_train", char_rnn_train_phase, torch, np, smi)
+        sample_launches, sample_checked = timed(
+            "char_rnn_sample", char_rnn_sample_phase, torch, np, smi,
+            char_net_trained, char_net16)
+        del char_net_trained, char_net16
+        lenet_launches, lenet_checked, lenet_bodies16 = timed(
+            "lenet", lenet_phase, torch, np, smi)
+        torch.cuda.empty_cache()
+        rec_launches, rec_checked = timed(
+            "recurrent_layers", recurrent_layers_phase, torch, np, smi)
+        timed("graves_char_rnn", graves_char_rnn_phase, torch, np, smi,
+              char_rates)
+        seq_launches, seq_checked = timed("seq_graph", seq_graph_phase, torch,
+                                          np, smi)
+    capture_launches = {
+        "serve": timed("capture_serve", capture_serve_phase, torch, np, smi),
+        "train": timed("capture_train", capture_train_phase, torch, np,
+                       smi),
+        "bert_train": timed("capture_bert_train", capture_bert_train_phase,
+                            torch, np, smi),
+        "small": timed("capture_small", capture_small_phase, torch, np, smi),
+    }
+    emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
+         capture_phases_s=sum(v for k, v in seconds.items()
+                              if k.startswith("capture_")))
 
     def checked_fields(name, checked):
         """The main path's own launches held against the plain version
@@ -4070,6 +4750,10 @@ def main() -> int:
                                   lambda tag: f"{kname}_{tag}",
                                   f"lenet_{kname}_per_step"),
             **convlstm_fields(f"conv2d_{kname}"),
+            "launches_captured": {
+                "train": capture_launches["train"][f"conv2d_{kname}"],
+                "lenet": capture_launches["small"]["lenet"][
+                    f"conv2d_{kname}"]},
             "per": "one 224x224 ResNet-50 train step at batch 8 (its "
                    f"{sum(r[per_step] for r in grad_records)} launches "
                    "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
@@ -4106,6 +4790,10 @@ def main() -> int:
             "conv2d_fwd", serve_checked).items()},
         **{f"train_{k}": v for k, v in checked_fields(
             "conv2d_fwd", train_checked).items()},
+        "launches_captured": {
+            "serve": capture_launches["serve"],
+            "train": capture_launches["train"]["conv2d_fwd"],
+            "lenet": capture_launches["small"]["lenet"]["conv2d_fwd"]},
         "lenet": lenet_fields("conv2d_fwd", records, lambda tag: tag,
                               "lenet_per_step"),
         **convlstm_fields("conv2d_fwd"),
@@ -4118,9 +4806,10 @@ def main() -> int:
         "card": smi},
         grad_entry("dgrad", CONV_SOURCE, DGRAD_REPLACES, "dgrad_per_step"),
         grad_entry("wgrad", WGRAD_SOURCE, WGRAD_REPLACES, "wgrad_per_step"),
-        flash_entry(att_records, bert_launches, bert_checked,
-                    masked_launches, masked_checked, bert_train_launches,
-                    bert_train_checked, bwd_records, smi),
+        {**flash_entry(att_records, bert_launches, bert_checked,
+                       masked_launches, masked_checked, bert_train_launches,
+                       bert_train_checked, bwd_records, smi),
+         "launches_captured": {"bert_train": capture_launches["bert_train"]}},
         {**lstm_entry(lstm_records, lstm_seq_records, char_launches,
                       char_checked, sample_launches, sample_checked,
                       char_bodies, smi),
@@ -4128,6 +4817,10 @@ def main() -> int:
          "recurrent_layers_checked": checked_fields("lstm_seq_fwd",
                                                     rec_checked),
          "launches_seq_graph": seq_launches,
+         "launches_captured": {
+             k: capture_launches["small"][k]["lstm_seq_fwd"]
+             for k in ("char_rnn_tbptt", "seq_graph_last",
+                       "seq_graph_pool")},
          "seq_graph_checked": {k: checked_fields("lstm_seq_fwd", c)
                                for k, c in seq_checked.items()}},
     ]}), flush=True)

@@ -33,7 +33,10 @@ dispatcher; ``earlystopping``; every loss of the reference), and BERT-base
 training (the flash-attention backward as an autograd Function around the
 forward kernel, the encoder's dropout, ``nlp``'s tokenizers and
 ``BertIterator``, ``nn.transfer``'s frozen layers and transfer builder,
-``nn.attention``'s attention layers). See ROADMAP.md for what is next.
+``nn.attention``'s attention layers), the recurrent slice, and the
+compiled step (``nn/capture.py``: each train step, TBPTT segment and
+forward captured as a CUDA graph per shape signature, ``warmup``,
+``util/compile_watcher.py``). See ROADMAP.md for what is next.
 """
 
 __version__ = "0.1.0"

@@ -131,8 +131,8 @@ def _map_tensors(tree, fn):
 def _with_state(model, fn):
     """A shallow copy of ``model`` whose params, states and optimizer
     states are ``fn`` of its own, with no listeners, an empty dispatch
-    window and cast caches, and a dropout generator of its own at the same
-    state."""
+    window, cast caches and program tables, and a dropout generator of its
+    own at the same state."""
     snap = copy.copy(model)
     snap.params = _map_tensors(model.params, fn)
     snap.states = _map_tensors(model.states, fn)
@@ -142,6 +142,7 @@ def _with_state(model, fn):
         snap, model._dispatcher.sync_every)
     snap._cast_cache = {}
     snap._w_cache = {}
+    snap._drop_programs()  # the model's read the model's own tensors
     if hasattr(model, "_rnn_carries"):
         snap._rnn_carries = None
     if model._gen is not None:

@@ -9,7 +9,8 @@ weights). Its ``opt_states`` are node-name -> the updater's state tree
 the same trees the port's updaters keep. Turned into numpy on the caller's
 side (``jax.tree_util.tree_map(np.asarray, net.opt_states)``), they copy
 into the port's graph as they are: the layouts are the same, so nothing is
-transposed. :func:`to_numpy` hands the port's trees back in that form, so
+transposed. The loaders bind new tensors, so they drop the network's
+captured programs (``nn/capture.py``), which read the old ones. :func:`to_numpy` hands the port's trees back in that form, so
 a trajectory compares leaf by leaf and can continue in either package.
 
 A ``MultiLayerNetwork``'s params, states and optimizer states are lists
@@ -107,6 +108,8 @@ def load_reference(net: ComputationGraph, params: dict, states: dict,
         net.iteration = int(iteration)
     if epoch is not None:
         net.epoch = int(epoch)
+    net._cast_cache = {}
+    net._drop_programs()
     return net
 
 
@@ -138,6 +141,7 @@ def load_reference_mln(net: MultiLayerNetwork, params, states,
     if epoch is not None:
         net.epoch = int(epoch)
     net._cast_cache = {}
+    net._drop_programs()
     return net
 
 

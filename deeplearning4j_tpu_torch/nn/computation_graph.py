@@ -3,25 +3,42 @@ deeplearning4j_tpu/nn/computation_graph.py): inference and training.
 
 The configuration, its JSON and the GraphBuilder DSL mirror the reference
 (``ComputationGraphConfiguration`` :59, ``GraphBuilder`` :221). The runtime
-walks the topological order eagerly in PyTorch: each layer's ``apply`` on
-the node's gathered input, each vertex's ``apply`` on its inputs. A layer
-node with several inputs gets the implicit feature-axis merge, as in the
+walks the topological order in PyTorch: each layer's ``apply`` on the
+node's gathered input, each vertex's ``apply`` on its inputs. A layer node
+with several inputs gets the implicit feature-axis merge, as in the
 reference.
+
+Compiled programs (``nn/capture.py``; the reference's jitted, donated
+``_train_step`` ``:1135-1143``, ``_tbptt_step`` ``:906-935`` and
+``_forward_jit`` ``:533-534``): ``fit``, the TBPTT loop and ``output``
+dispatch on the batch's shape signature (``_dispatch_sig`` of the input
+and label dicts, the row weights and the masks, one array or a dict by
+name; ``:1271``, ``:1533-1534``) to a program per signature, held in
+``_aot_steps``, ``_tbptt_steps`` and ``_aot_forward``: on a CUDA device
+a CUDA graph, captured the first time its signature comes and then
+replayed; on the CPU the same body on the same static buffers, eagerly.
+``warmup`` (``:1311-1386``) builds them per bucket before traffic;
+``capture.disabled()`` runs every step eagerly. Rebinding the params,
+states or optimizer states (``init``, ``interop.load_reference``) drops
+the programs.
 
 ``compute_dtype="bfloat16"`` casts the inputs and the params (not the
 batchnorm running statistics) to bf16 for the forward, as the reference's
-``_cast``/``_cast_params`` do (:553-568); the inference forward caches the
-casts per param version, the training forward casts inside autograd so the
-gradients reach the fp32 params.
+``_cast``/``_cast_params`` do (:553-568); the eager inference forward
+caches the casts per param version, a forward program casts inside its
+graph (so a replay after ``fit`` sees the new params), and the training
+forward casts inside autograd so the gradients reach the fp32 params.
 
 Training (``fit`` :1200, ``_fit_batch`` :1236, ``make_step_fn`` :1145, the
-non-fused per-node updater path): one eager step is the training forward
+non-fused per-node updater path): one step is the training forward
 (batch-statistics batchnorm), the loss of every output's ``compute_loss``
 (0/1 row weights always passed, so a bucket-padded batch takes the
 unpadded mean) plus the layers' l1/l2 penalty, ``torch.autograd.grad`` of
 it with respect to the params (the conv backward on the dgrad and wgrad
 kernels), and each node's updater (its own, else the conf's, else
-Sgd(0.1)), applied in place. ``iteration``, ``epoch`` and ``score_value``
+Sgd(0.1)), applied in place at this iteration's step sizes
+(``nn/updaters.py::StepSizes``), with the new layer states copied into the
+graph's own tensors. ``iteration``, ``epoch`` and ``score_value``
 follow the reference; ``score`` is the inference-mode loss (without the
 penalty, as the reference's ``_loss_eval`` ``:1572-1612``), ``evaluate``
 (``:1615``) runs ``output`` over an iterator into an ``Evaluation`` of
@@ -52,7 +69,9 @@ a Bidirectional node raises there.
 
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
 loss scaling (``fused_update``/``loss_scale`` raise in ``fit``),
-SharedLayer (item 4), telemetry and AOT warmup (item 12), remat segments
+SharedLayer (item 4), telemetry and the AOT store behind ``warmup``'s
+``export_dir`` (item 12; ``score``, ``feed_forward`` and
+``rnn_time_step`` run eagerly), remat segments
 (item 12: ``remat_policy`` and ``stage_barriers`` are kept as config and
 leave the step's arithmetic as it is, as they do in the reference; the
 reference's masked graphs take its plain path), pipelining (item 10).
@@ -72,6 +91,7 @@ from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.eval import Evaluation
+from deeplearning4j_tpu_torch.nn import capture
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn import vertices as V
@@ -84,8 +104,10 @@ from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
 from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
-from deeplearning4j_tpu_torch.tree import (tree_items, tree_leaves, tree_map,
-                                           tree_set)
+from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
+                                           tree_leaves, tree_map, tree_set)
+
+_dispatch_sig = capture.dispatch_sig
 
 
 @dataclasses.dataclass
@@ -296,7 +318,7 @@ class GraphBuilder:
         )
 
 
-class ComputationGraph:
+class ComputationGraph(capture.CompiledSteps):
     """DAG network runtime (ComputationGraph.java parity).
     ``params``/``states``/``opt_states`` are dicts node-name -> the node's
     tree, keyed as the reference keys them; params are plain tensors,
@@ -346,6 +368,8 @@ class ComputationGraph:
                 n.node.compute_loss).parameters
             for n in self.topo if hasattr(n.node, "compute_loss")}
         self._rnn_carries: Optional[dict] = None
+        self._shape_of: Dict[str, tuple] = {}
+        self._drop_programs()
 
     # ------------------------------------------------------------------ init
     def init(self, input_shapes=None, device=None) -> "ComputationGraph":
@@ -378,6 +402,8 @@ class ComputationGraph:
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
         self._rnn_carries = None
+        self._shape_of = shape_of
+        self._drop_programs()
         return self
 
     def _place(self, tree: dict) -> dict:
@@ -446,13 +472,17 @@ class ComputationGraph:
             return {"mask": lm}
         return {}
 
-    def _forward(self, params, states, inputs, *, training=False, mask=None):
+    def _forward(self, params, states, inputs, *, training=False, mask=None,
+                 cached_cast=True):
         """inputs: dict name->tensor, ``mask`` one (B, T) feature mask for
         every node. Returns dict name->activation (the inference forward
-        leaves ``states`` as they are)."""
+        leaves ``states`` as they are). ``cached_cast=False`` casts the
+        params afresh (a forward program's, inside its graph)."""
         with self._kscope(), torch.inference_mode():
             acts = {k: self._cast(v) for k, v in inputs.items()}
-            cparams = self._cast_params(params)
+            cparams = (self._cast_params(params) if cached_cast else
+                       {name: tree_map(self._cast, p)
+                        for name, p in params.items()})
             for n in self.topo:
                 x = self._gather_input(acts, n)
                 if n.is_layer:
@@ -496,13 +526,31 @@ class ComputationGraph:
                 real_n = n
                 ins = [torch.cat([t, t.new_zeros((size - n,) + t.shape[1:])])
                        for t in ins]
-        acts = self._forward(self.params, self.states,
-                             dict(zip(self.conf.inputs, ins)), training=train,
-                             mask=_as_mask(mask, self.device))
-        outs = [acts[name] for name in self.conf.outputs]
+        ins = dict(zip(self.conf.inputs, ins))
+        mk = _as_mask(mask, self.device)
+        if capture.enabled():
+            key = (bool(train), _dispatch_sig(ins, mk))
+            outs = [o.clone() for o in self._program(
+                self._aot_forward, key, "ComputationGraph.forward",
+                self._forward_program_body(bool(train)), (ins, mk),
+                train=False)(ins, mk)]
+        else:
+            acts = self._forward(self.params, self.states, ins,
+                                 training=train, mask=mk)
+            outs = [acts[name] for name in self.conf.outputs]
         if real_n is not None:
             outs = [o[:real_n] for o in outs]
         return outs[0] if len(outs) == 1 else outs
+
+    def _forward_program_body(self, training):
+        """The forward a program captures: the outputs' activations, the
+        params cast inside the graph."""
+        def body(inputs, mask):
+            acts = self._forward(self.params, self.states, inputs,
+                                 training=training, mask=mask,
+                                 cached_cast=False)
+            return tuple(acts[name] for name in self.conf.outputs)
+        return body
 
     def feed_forward(self, *inputs) -> Dict[str, torch.Tensor]:
         """All vertex activations by name (ComputationGraph.feedForward)."""
@@ -680,11 +728,22 @@ class ComputationGraph:
             if hasattr(lst, "on_epoch_end"):
                 lst.on_epoch_end(self)
 
-    def _apply_step(self, grads, new_states):
-        upd.step_groups(self._update_groups, self.params, grads,
-                        self.opt_states, self.iteration)
-        self.states = new_states
-        self.iteration += 1
+    def _train_body(self, inputs, labels, weights, mask, label_mask):
+        """One update, in place; returns the loss."""
+        loss, grads, new_states, _ = self._gradients(
+            inputs, labels, weights, mask, label_mask)
+        self._update(grads, new_states)
+        return loss
+
+    def _tbptt_body(self, carries, inputs, labels, weights, mask,
+                    label_mask):
+        """One segment's update, in place, the carries included; returns
+        the loss."""
+        loss, grads, new_states, new_carries = self._gradients(
+            inputs, labels, weights, mask, label_mask, carries)
+        self._update(grads, new_states)
+        tree_copy_(carries, new_carries)
+        return loss
 
     def _fit_batch(self, features, labels, mask=None, label_mask=None):
         """One step (:1236): forward, loss, backward, updaters in place;
@@ -704,9 +763,15 @@ class ComputationGraph:
         if (k and seq and all(y.ndim == 3 for y in labels)
                 and seq[0].shape[1] > k):
             return self._fit_batch_tbptt(features, labels, mask, label_mask)
-        loss, grads, new_states, _ = self._gradients(
-            *self._batch(features, labels, mask, label_mask))
-        self._apply_step(grads, new_states)
+        args = self._batch(features, labels, mask, label_mask)
+        self._step_sizes()
+        if capture.enabled():
+            loss, _ = self._replay_step(self._aot_steps,
+                                        "ComputationGraph.train_step",
+                                        self._train_body, args)
+        else:
+            loss = self._train_body(*args)
+        self.iteration += 1
         self.score_value = loss
         self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
 
@@ -746,25 +811,100 @@ class ComputationGraph:
         carries = self._init_carries(ref.shape[0], self._cast(ref).dtype)
 
         def seg(d, s):
-            return {name: (v[:, s:s + k] if v.dim() == 3 else v)
+            return {name: (v[:, s:s + k].contiguous() if v.dim() == 3 else v)
                     for name, v in d.items()}
 
         losses = []
         for s in range(0, ref.shape[1], k):
-            ms = map_mask(mask, lambda m: m[:, s:s + k])
-            lms = map_mask(label_mask, lambda m: m[:, s:s + k])
+            ms = map_mask(mask, lambda m: m[:, s:s + k].contiguous())
+            lms = map_mask(label_mask, lambda m: m[:, s:s + k].contiguous())
             seg_in, seg_lab = seg(inputs, s), seg(labels, s)
             if bucketing is not None:
                 seg_in, ms, lms = bucketing.pad_segment(seg_in, ms, lms, k)
                 seg_lab, _, _ = bucketing.pad_segment(seg_lab, None, None, k)
-            loss, grads, new_states, carries = self._gradients(
-                seg_in, seg_lab, weights, ms, lms, carries)
-            self._apply_step(grads, new_states)
+            self._step_sizes()
+            args = (carries, seg_in, seg_lab, weights, ms, lms)
+            if capture.enabled():
+                # the ragged last segment has a program of its own; the
+                # carries flow through the programs' static buffers
+                loss, prog = self._replay_step(
+                    self._tbptt_steps, "ComputationGraph.tbptt_step",
+                    self._tbptt_body, args, trace_args=args[1:])
+                carries = prog.inputs[0]
+            else:
+                loss = self._tbptt_body(*args)
+            self.iteration += 1
             losses.append(loss)
         self._dispatcher.flush()
         self.score_value = torch.stack(losses).mean()
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.epoch)
+
+    # ---------------------------------------------------------------- warmup
+    def warmup(self, shapes=None, *, train=True, inference=True,
+               dtype=torch.float32, export_dir=None) -> int:
+        """Build the train step's and the inference forward's programs for
+        every bucket before traffic (``:1311-1386``), the graph twin of
+        :meth:`MultiLayerNetwork.warmup`. ``shapes``: each entry one shape
+        per graph input with the batch (a bare tuple for a single-input
+        graph); default the conf's explicit ``batch_buckets`` x
+        ``input_shapes``. Returns the number built (none within
+        ``capture.disabled()``). ``export_dir`` raises (ROADMAP Queue 1
+        item 12)."""
+        if export_dir is not None:
+            raise NotImplementedError(
+                "warmup(export_dir=...) is not ported: the AOT store "
+                "(util/aot_store.py, util/compile_cache.py) comes with "
+                "ROADMAP Queue 1 item 12")
+        if self.device is None:
+            raise ValueError("init() the graph before warmup()")
+        if shapes is None:
+            if self.conf.input_shapes is None:
+                raise ValueError(
+                    "warmup() needs shapes= or conf.input_shapes")
+            if (self._bucketing is None
+                    or not isinstance(self._bucketing.batch_buckets, tuple)):
+                raise ValueError(
+                    "warmup() without shapes= needs explicit batch_buckets "
+                    "on the conf (pow2 has no finite bucket list)")
+            shapes = [[(b,) + tuple(s) for s in self.conf.input_shapes]
+                      for b in self._bucketing.batch_buckets]
+        if not capture.enabled():
+            return 0  # capture.disabled(): no program is built
+        dev = self.device
+        built = 0
+        for entry in shapes:
+            if entry and not isinstance(entry[0], (list, tuple)):
+                entry = [entry]  # single-input graph, bare shape
+            if len(entry) != len(self.conf.inputs):
+                raise ValueError(
+                    f"warmup entry has {len(entry)} shapes for "
+                    f"{len(self.conf.inputs)} graph inputs")
+            b = int(entry[0][0])
+            ins = {name: torch.zeros(tuple(int(d) for d in shape),
+                                     dtype=dtype, device=dev)
+                   for name, shape in zip(self.conf.inputs, entry)}
+            if train:
+                labs = {name: torch.zeros((b,) + self._shape_of[name],
+                                          dtype=torch.float32, device=dev)
+                        for name in self.conf.outputs}
+                args = (ins, labs, dev_weights(self._w_cache, b, b, dev),
+                        None, None)
+                if _dispatch_sig(*args) not in self._aot_steps:
+                    self._step_sizes()
+                    self._program(self._aot_steps, _dispatch_sig(*args),
+                                  "ComputationGraph.train_step",
+                                  self._train_body, args)
+                    built += 1
+            if inference:
+                key = (False, _dispatch_sig(ins, None))
+                if key not in self._aot_forward:
+                    self._program(self._aot_forward, key,
+                                  "ComputationGraph.forward",
+                                  self._forward_program_body(False),
+                                  (ins, None), train=False)
+                    built += 1
+        return built
 
     # ------------------------------------------------- stateful rnn inference
     def rnn_time_step(self, *inputs):

@@ -16,11 +16,18 @@ which every listener sees every iteration of the window in order, with
 ``model.score_value`` that iteration's loss as a float. Listeners see the
 same (iteration, epoch, score) stream as at ``sync_every`` 1, up to
 ``sync_every - 1`` iterations late; a listener that times steps reads
-:func:`iteration_wall_ns`, the step's own host clock.
+:func:`iteration_wall_ns`, the step's own host clock. A captured step
+(``nn/capture.py``) hands over a copy of its loss, never the program's
+own buffer, which the next replay overwrites: each queued loss is its own
+step's.
+
+:class:`RecompileListener` reports a program built after its grace
+period: a batch, TBPTT remainder or evaluation shape that paid a warm-up
+and a capture inside the training loop.
 
 Not ported yet: ``CheckpointListener`` (it writes ModelSerializer
-archives, ROADMAP Queue 1 item 5), ``RecompileListener`` (XLA's retraces,
-item 12) and the dispatcher's telemetry spans (item 12).
+archives, ROADMAP Queue 1 item 5) and the dispatcher's telemetry spans
+(item 12).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from deeplearning4j_tpu_torch.util.compile_watcher import get_watcher
 
 
 def iteration_wall_ns(model) -> int:
@@ -91,6 +100,34 @@ class CoalescingListenerDispatcher:
                     lst.iteration_done(model, it, ep)
         finally:
             model.last_iteration_wall_ns = None
+
+
+class RecompileListener(TrainingListener):
+    """After a ``grace`` of initial iterations (the expected first builds),
+    every new trace of a watched function, a program built for a new
+    signature, is logged with the signature that caused it (reference
+    ``nn/listeners.py:105-133``). ``events`` keeps (iteration, function,
+    new traces)."""
+
+    def __init__(self, grace: int = 1, log_fn=print):
+        self.grace = grace
+        self.log = log_fn
+        self.events: list = []  # (iteration, fn_name, new_trace_count)
+        self._watcher = get_watcher()
+        self._seen: dict = dict(self._watcher.traces)
+
+    def iteration_done(self, model, iteration, epoch):
+        cur = self._watcher.traces
+        for fn, n in cur.items():
+            prev = self._seen.get(fn, 0)
+            if n > prev and iteration > self.grace:
+                self.events.append((iteration, fn, n - prev))
+                shapes = self._watcher.shapes.get(fn, {})
+                last = next(reversed(list(shapes))) if shapes else "?"
+                self.log(
+                    f"RECOMPILE at iteration {iteration}: {fn} retraced "
+                    f"(+{n - prev}, total {n}) for signature {last}")
+        self._seen = dict(cur)
 
 
 class ScoreIterationListener(TrainingListener):

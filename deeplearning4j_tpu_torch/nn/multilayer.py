@@ -4,8 +4,21 @@ BPTT, and stateful step-by-step inference.
 
 The configuration is ``nn/conf.py``'s :class:`MultiLayerConfiguration`
 (built by ``NeuralNetConfiguration.builder().list()``, JSON shared with the
-reference). The runtime runs the layers in order eagerly, each layer's
-``apply`` on the previous output, inside the conf's kernel-dispatch scope.
+reference). The runtime runs the layers in order, each layer's ``apply``
+on the previous output, inside the conf's kernel-dispatch scope.
+
+Compiled programs (``nn/capture.py``; the reference's jitted, donated
+``_train_step`` ``:421-441``, ``_tbptt_step`` ``:478-521`` and
+``_forward_jit`` ``:179-180``): ``fit``, the TBPTT loop and ``output``
+dispatch on the batch's shape signature (``_dispatch_sig``, ``:46-52``) to
+a program per signature, held in ``_aot_steps``, ``_tbptt_steps`` and
+``_aot_forward``. On a CUDA net a program is a CUDA graph captured the
+first time its signature comes, then replayed; on the CPU it runs the same
+body on the same static buffers eagerly. Bucketing pads outside the
+program. ``warmup`` (``:762-833``) builds the train and forward programs of
+every bucket before traffic; ``capture.disabled()`` runs every step
+eagerly, with no program. Rebinding the params, states or optimizer states
+(``init``, ``interop``'s loaders, the transfer builder) drops the programs.
 
 - ``init(device=)`` (reference ``:151``) draws every layer's params from
   one ``torch.Generator`` seeded with ``conf.seed``, in layer order, and
@@ -26,11 +39,13 @@ reference). The runtime runs the layers in order eagerly, each layer's
   keeps them out of the loss with 0/1 row weights (passed on every batch,
   ones when nothing was padded).
 
-Training (``fit`` ``:444``, ``_fit_batch`` ``:632``): one eager step is the
+Training (``fit`` ``:444``, ``_fit_batch`` ``:632``): one step is the
 training forward with dropout, the output layer's loss plus the layers'
 l1/l2 penalty (``_loss_body_impl`` ``:249-301``), ``torch.autograd.grad``
 with respect to the params, and each layer's updater (its own, else the
-conf's, else Sgd(0.1)), applied in place. With ``tbptt_length`` k and a
+conf's, else Sgd(0.1)), applied in place with this iteration's step sizes
+(``nn/updaters.py::StepSizes``), the new layer states copied into the
+net's own tensors. With ``tbptt_length`` k and a
 sequence longer than k with per-step labels (``_fit_batch_tbptt``
 ``:529``), the time axis is cut into k-step segments: each segment is one
 update (and one iteration), the recurrent carries flow from one segment to
@@ -57,9 +72,10 @@ batch calls them once, after its last segment, as the reference does
 Refused: ``fused_update``/``loss_scale`` (ROADMAP.md Queue 1 item 10).
 Layers wrapped in ``nn/transfer.py``'s ``FrozenLayer`` take no gradient:
 their params enter the updater with zero gradients, which leave Adam's
-update exactly zero, as in the reference. Not ported:
-telemetry, the AOT store (item 12) and ``pretrain`` (item 13); remat
-stages are kept as config.
+update exactly zero, as in the reference. Not ported: telemetry, the AOT
+store and ``warmup``'s ``export_dir`` (item 12), ``pretrain`` (item 13);
+``score`` and ``rnn_time_step`` run eagerly; remat stages are kept as
+config.
 """
 
 from __future__ import annotations
@@ -74,17 +90,20 @@ from deeplearning4j_tpu_torch.data.bucketing import (BucketingPolicy,
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.eval import Evaluation, RegressionEvaluation
+from deeplearning4j_tpu_torch.nn import capture
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
 from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
-from deeplearning4j_tpu_torch.tree import (tree_items, tree_leaves, tree_map,
-                                           tree_set)
+from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
+                                           tree_leaves, tree_map, tree_set)
+
+_dispatch_sig = capture.dispatch_sig
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(capture.CompiledSteps):
     """Layer-stack runtime (MultiLayerNetwork.java parity). ``params``,
     ``states`` and ``opt_states`` are lists with one entry per layer, keyed
     as the reference keys them; params are plain tensors, marked as needing
@@ -124,6 +143,8 @@ class MultiLayerNetwork:
         self._loss_mask_aware = hasattr(last, "compute_loss") and (
             "mask" in inspect.signature(last.compute_loss).parameters)
         self._bucketing = BucketingPolicy.from_conf(conf)
+        self._output_shape: Optional[tuple] = None
+        self._drop_programs()
 
     # ------------------------------------------------------------------ init
     def init(self, input_shape=None, device=None) -> "MultiLayerNetwork":
@@ -143,12 +164,14 @@ class MultiLayerNetwork:
             self.params.append(tree_map(lambda v: v.to(self.device), p))
             self.states.append(tree_map(lambda v: v.to(self.device), s))
             cur = lyr.output_shape(cur)
+        self._output_shape = tuple(cur)
         self.opt_states = [u.init_state(p)
                            for u, p in zip(self._updaters, self.params)]
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
         self._rnn_carries = None
         self._cast_cache = {}
+        self._drop_programs()
         return self
 
     def num_params(self) -> int:
@@ -185,9 +208,9 @@ class MultiLayerNetwork:
             out.append(layer)
         return out
 
-    def _forward_body(self, params, states, x, *, training, mask=None):
+    def _forward_body(self, cparams, states, x, *, training, mask=None):
+        """The layers on ``x`` with the (cast) params ``cparams``."""
         h = self._cast(x)
-        cparams = self._cast_params(params)
         for i, lyr in enumerate(self.layers):
             kw = {}
             if (mask is not None and self._mask_aware[i] and h.dim() == 3
@@ -201,8 +224,20 @@ class MultiLayerNetwork:
 
     def _forward(self, x, *, training=False, mask=None):
         with self._kscope(), torch.inference_mode():
-            return self._forward_body(self.params, self.states, x,
-                                      training=training, mask=mask)
+            return self._forward_body(self._cast_params(self.params),
+                                      self.states, x, training=training,
+                                      mask=mask)
+
+    def _forward_program_body(self, training):
+        """The forward a program captures: the params cast inside it (a
+        replay after ``fit`` casts the updated params; the eager forward's
+        cast cache decides on the host)."""
+        def body(x, mask):
+            with self._kscope(), torch.inference_mode():
+                cparams = [tree_map(self._cast, p) for p in self.params]
+                return self._forward_body(cparams, self.states, x,
+                                          training=training, mask=mask)
+        return body
 
     # ---------------------------------------------------------------- output
     def output(self, x, train: bool = False, mask=None):
@@ -220,7 +255,14 @@ class MultiLayerNetwork:
             if size != x.shape[0]:
                 real_n = x.shape[0]
                 x = BucketingPolicy._pad_axis(x, 0, size)
-        out = self._forward(x, training=train, mask=mk)
+        if capture.enabled():
+            key = (bool(train), _dispatch_sig(x, mk))
+            out = self._program(
+                self._aot_forward, key, "MultiLayerNetwork.forward",
+                self._forward_program_body(bool(train)), (x, mk),
+                train=False)(x, mk).clone()
+        else:
+            out = self._forward(x, training=train, mask=mk)
         return out if real_n is None else out[:real_n]
 
     def feed_forward(self, x) -> List[torch.Tensor]:
@@ -332,11 +374,21 @@ class MultiLayerNetwork:
         new_carries = [tree_map(detach, c) for c in new_carries]
         return loss.detach(), grads, new_states, new_carries
 
-    def _apply_step(self, grads, new_states):
-        upd.step_groups(self._update_groups, self.params, grads,
-                        self.opt_states, self.iteration)
-        self.states = new_states
-        self.iteration += 1
+    def _train_body(self, x, y, weights, mask, label_mask):
+        """One update, in place; returns the loss."""
+        loss, grads, new_states, _ = self._gradients(
+            None, x, y, weights, mask, label_mask)
+        self._update(grads, new_states)
+        return loss
+
+    def _tbptt_body(self, carries, x, y, weights, mask, label_mask):
+        """One segment's update, in place, the carries included; returns
+        the loss."""
+        loss, grads, new_states, new_carries = self._gradients(
+            carries, x, y, weights, mask, label_mask)
+        self._update(grads, new_states)
+        tree_copy_(carries, new_carries)
+        return loss
 
     def fit(self, data, labels=None, epochs: int = 1):
         """fit(x, y) | fit(DataSet) | fit(iterable of DataSet), each
@@ -393,9 +445,15 @@ class MultiLayerNetwork:
             x, y, mask, label_mask = self._bucketing.pad_batch(
                 x, y, mask, label_mask)
         weights = dev_weights(self._w_cache, x.shape[0], real_n, self.device)
-        loss, grads, new_states, _ = self._gradients(
-            None, x, y, weights, mask, label_mask)
-        self._apply_step(grads, new_states)
+        self._step_sizes()
+        args = (x, y, weights, mask, label_mask)
+        if capture.enabled():
+            loss, _ = self._replay_step(self._aot_steps,
+                                        "MultiLayerNetwork.train_step",
+                                        self._train_body, args)
+        else:
+            loss = self._train_body(*args)
+        self.iteration += 1
         self.score_value = loss
         self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
 
@@ -425,22 +483,95 @@ class MultiLayerNetwork:
         # carries in the compute type: an fp32 carry would promote the
         # recurrent products of a bf16 net
         carries = self._init_carries(x.shape[0], self._cast(x).dtype)
+
+        def seg(a, s):
+            return None if a is None else a[:, s:s + k].contiguous()
+
         losses = []
         for s in range(0, x.shape[1], k):
-            xs = x[:, s:s + k]
-            ys = y[:, s:s + k]
-            ms = None if mask is None else mask[:, s:s + k]
-            lms = None if label_mask is None else label_mask[:, s:s + k]
+            xs, ys, ms, lms = (seg(a, s) for a in (x, y, mask, label_mask))
             if bucketing is not None:
                 (xs, ys), ms, lms = bucketing.pad_segment((xs, ys), ms, lms, k)
-            loss, grads, new_states, carries = self._gradients(
-                carries, xs, ys, weights, ms, lms)
-            self._apply_step(grads, new_states)
+            self._step_sizes()
+            args = (carries, xs, ys, weights, ms, lms)
+            if capture.enabled():
+                # the ragged last segment has a signature, and a program,
+                # of its own; the carries flow through the programs'
+                # static buffers, updated in place at each segment's end
+                loss, prog = self._replay_step(
+                    self._tbptt_steps, "MultiLayerNetwork.tbptt_step",
+                    self._tbptt_body, args, trace_args=args[1:])
+                carries = prog.inputs[0]
+            else:
+                loss = self._tbptt_body(*args)
+            self.iteration += 1
             losses.append(loss)
         self._dispatcher.flush()
         self.score_value = torch.stack(losses).mean()
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.epoch)
+
+    # ---------------------------------------------------------------- warmup
+    def warmup(self, shapes=None, *, train=True, inference=True,
+               dtype=torch.float32, export_dir=None) -> int:
+        """Build the train step's and the inference forward's programs for
+        every bucket before traffic (``:762-833``), so the first real batch
+        of each replays a captured graph. ``shapes``: full input shapes
+        with the batch, e.g. ``[(8, 28, 28, 1), (16, 28, 28, 1)]``;
+        default the conf's explicit ``batch_buckets`` x its
+        ``input_shape``. The train program's signature is the one ``fit``
+        gives an unmasked batch (fp32 labels of the output's shape, the row
+        weights); the forward's, ``output``'s without a mask. Programs
+        already built are kept. Returns the number built (none within
+        ``capture.disabled()``).
+
+        ``export_dir`` (the reference's on-disk AOT store) raises: a CUDA
+        graph holds one process's device addresses, so storing programs
+        waits for ROADMAP Queue 1 item 12."""
+        if export_dir is not None:
+            raise NotImplementedError(
+                "warmup(export_dir=...) is not ported: the AOT store "
+                "(util/aot_store.py, util/compile_cache.py) comes with "
+                "ROADMAP Queue 1 item 12")
+        if self.device is None:
+            raise ValueError("init() the network before warmup()")
+        if shapes is None:
+            if self.conf.input_shape is None:
+                raise ValueError("warmup() needs shapes= or conf.input_shape")
+            if (self._bucketing is None
+                    or not isinstance(self._bucketing.batch_buckets, tuple)):
+                raise ValueError(
+                    "warmup() without shapes= needs explicit batch_buckets "
+                    "on the conf (pow2 has no finite bucket list)")
+            shapes = [(b,) + tuple(self.conf.input_shape)
+                      for b in self._bucketing.batch_buckets]
+        if not capture.enabled():
+            return 0  # capture.disabled(): no program is built
+        built = 0
+        for shape in shapes:
+            shape = tuple(int(d) for d in shape)
+            b = shape[0]
+            x = torch.zeros(shape, dtype=dtype, device=self.device)
+            if train:
+                y = torch.zeros((b,) + self._output_shape,
+                                dtype=torch.float32, device=self.device)
+                w = dev_weights(self._w_cache, b, b, self.device)
+                args = (x, y, w, None, None)
+                if _dispatch_sig(*args) not in self._aot_steps:
+                    self._step_sizes()
+                    self._program(self._aot_steps, _dispatch_sig(*args),
+                                  "MultiLayerNetwork.train_step",
+                                  self._train_body, args)
+                    built += 1
+            if inference:
+                key = (False, _dispatch_sig(x, None))
+                if key not in self._aot_forward:
+                    self._program(self._aot_forward, key,
+                                  "MultiLayerNetwork.forward",
+                                  self._forward_program_body(False),
+                                  (x, None), train=False)
+                    built += 1
+        return built
 
     # ------------------------------------------------- stateful rnn inference
     def rnn_time_step(self, x):

@@ -178,4 +178,5 @@ class TransferLearning:
                         and _shapes(states[i]) == _shapes(new_net.states[i])):
                     new_net.params[i] = params[i]
                     new_net.states[i] = states[i]
+            new_net._drop_programs()  # they would read the replaced trees
             return new_net

@@ -11,10 +11,20 @@ across leaf for leaf (``interop``).
 update) over flat lists of tensors with PyTorch's multi-tensor ``_foreach``
 ops, in the reference's order of operations, so one call serves every node
 that shares an updater. :func:`apply_updates` subtracts the updates from
-the params IN PLACE (the params stay the same leaf tensors, and a cached
-bf16 copy of a param sees the change through its version counter) and
-returns the new state trees. The learning rate, a float or a schedule of
-the iteration, is a Python float per step.
+the params and copies the new state into the state tensors, both IN PLACE:
+the params, the optimizer states and their trees stay the same tensors, so
+a captured step (``nn/capture.py``) that reads them keeps reading the
+live ones, and a cached bf16 copy of a param sees the change through its
+version counter.
+
+Step sizes: what depends on the iteration (the learning rate, a float or a
+schedule of the iteration; Adam's bias-corrected step; AdamW's decay) is
+worked out on the host in double precision by :meth:`Updater.step_sizes`
+and written, as fp32, into one small tensor on the params' device before
+each step (:class:`StepSizes`); ``apply`` reads it there as 0-d tensors.
+A replayed program therefore steps with its own iteration's sizes, and the
+eager step does the same arithmetic: a size rounds to fp32 once, as a
+Python float does where a ``_foreach`` op takes it as a scalar.
 
 Not ported: ``FusedUpdateEngine`` (the reference's flat-buffer optimizer
 with loss scaling); ``fused_update=True`` or a ``loss_scale`` on the conf
@@ -52,15 +62,21 @@ class Updater:
     def lr(self, iteration, epoch=0) -> float:
         return float(sched.resolve(self.learning_rate)(iteration, epoch))
 
+    def step_sizes(self, iteration, epoch=0) -> Tuple[float, ...]:
+        """The iteration's scalars that :meth:`apply` reads, in double
+        precision: the learning rate, unless a rule says otherwise."""
+        return (self.lr(iteration, epoch),)
+
     def init_state(self, params: dict):
         """The reference's state tree for one node's params."""
         if not self.slots:
             return ()
         return {s: tree_map(torch.zeros_like, params) for s in self.slots}
 
-    def apply(self, grads: Leaves, state: Dict[str, Leaves], iteration,
-              epoch=0):
-        """-> (updates to subtract, new state as slot -> leaves)."""
+    def apply(self, grads: Leaves, state: Dict[str, Leaves], s: Leaves,
+              params: Leaves):
+        """-> (updates to subtract, new state as slot -> leaves). ``s``:
+        :meth:`step_sizes` as 0-d fp32 tensors on the params' device."""
         raise NotImplementedError
 
     def to_dict(self):
@@ -99,7 +115,10 @@ def updater_from_dict(d) -> Updater:
 class NoOp(Updater):
     """Frozen params (DL4J NoOp updater for pretrained/frozen layers)."""
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def step_sizes(self, iteration, epoch=0):
+        return ()
+
+    def apply(self, grads, state, s, params):
         return [torch.zeros_like(g) for g in grads], state
 
 
@@ -108,8 +127,8 @@ class NoOp(Updater):
 class Sgd(Updater):
     learning_rate: Any = 0.1
 
-    def apply(self, grads, state, iteration, epoch=0):
-        return _mul(grads, self.lr(iteration, epoch)), state
+    def apply(self, grads, state, s, params):
+        return _mul(grads, s[0]), state
 
 
 @_register
@@ -122,9 +141,9 @@ class Nesterovs(Updater):
     momentum: float = 0.9
     slots = ("v",)
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def apply(self, grads, state, s, params):
         mu = self.momentum
-        lg = _mul(grads, self.lr(iteration, epoch))
+        lg = _mul(grads, s[0])
         v_new = _sub(_mul(state["v"], mu), lg)
         updates = torch._foreach_neg(_sub(_mul(v_new, mu), lg))
         return updates, {"v": v_new}
@@ -137,10 +156,9 @@ class AdaGrad(Updater):
     epsilon: float = 1e-6
     slots = ("h",)
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def apply(self, grads, state, s, params):
         h_new = _add(state["h"], _mul(grads, grads))
-        updates = _div(_mul(grads, self.lr(iteration, epoch)),
-                       _add(_sqrt(h_new), self.epsilon))
+        updates = _div(_mul(grads, s[0]), _add(_sqrt(h_new), self.epsilon))
         return updates, {"h": h_new}
 
 
@@ -152,10 +170,10 @@ class RmsProp(Updater):
     epsilon: float = 1e-8
     slots = ("g2",)
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def apply(self, grads, state, s, params):
         d = self.rms_decay
         g2_new = _add(_mul(state["g2"], d), _mul(_mul(grads, 1 - d), grads))
-        updates = _div(_mul(grads, self.lr(iteration, epoch)),
+        updates = _div(_mul(grads, s[0]),
                        _sqrt(_add(g2_new, self.epsilon)))
         return updates, {"g2": g2_new}
 
@@ -170,7 +188,10 @@ class AdaDelta(Updater):
     epsilon: float = 1e-6
     slots = ("g2", "dx2")
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def step_sizes(self, iteration, epoch=0):
+        return ()
+
+    def apply(self, grads, state, s, params):
         rho, eps = self.rho, self.epsilon
         g2 = _add(_mul(state["g2"], rho), _mul(_mul(grads, 1 - rho), grads))
         updates = _div(_mul(grads, _sqrt(_add(state["dx2"], eps))),
@@ -195,16 +216,16 @@ class Adam(Updater):
                  _mul(_mul(grads, 1 - self.beta2), grads))
         return m, v
 
-    def _alpha(self, iteration, epoch):
-        """lr * sqrt(1 - beta2^t) / (1 - beta1^t), t = iteration + 1."""
+    def step_sizes(self, iteration, epoch=0):
+        """(alpha,): lr * sqrt(1 - beta2^t) / (1 - beta1^t), t =
+        iteration + 1."""
         t = iteration + 1
         return (self.lr(iteration, epoch) * math.sqrt(1 - self.beta2 ** t)
-                / (1 - self.beta1 ** t))
+                / (1 - self.beta1 ** t),)
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def apply(self, grads, state, s, params):
         m, v = self._moments(grads, state)
-        updates = _div(_mul(m, self._alpha(iteration, epoch)),
-                       _add(_sqrt(v), self.epsilon))
+        updates = _div(_mul(m, s[0]), _add(_sqrt(v), self.epsilon))
         return updates, {"m": m, "v": v}
 
 
@@ -215,10 +236,14 @@ class AdamW(Adam):
 
     weight_decay: float = 0.01
 
-    def apply_with_params(self, grads, state, params, iteration, epoch=0):
-        updates, new_state = super().apply(grads, state, iteration, epoch)
-        decay = self.lr(iteration, epoch) * self.weight_decay
-        return _add(updates, _mul(params, decay)), new_state
+    def step_sizes(self, iteration, epoch=0):
+        """(alpha, lr * weight_decay)."""
+        return super().step_sizes(iteration, epoch) + (
+            self.lr(iteration, epoch) * self.weight_decay,)
+
+    def apply(self, grads, state, s, params):
+        updates, new_state = super().apply(grads, state, s, params)
+        return _add(updates, _mul(params, s[1])), new_state
 
 
 @_register
@@ -226,81 +251,72 @@ class AdamW(Adam):
 class AMSGrad(Adam):
     slots = ("m", "v", "vhat")
 
-    def apply(self, grads, state, iteration, epoch=0):
+    def apply(self, grads, state, s, params):
         m, v = self._moments(grads, state)
         vhat = torch._foreach_maximum(state["vhat"], v)
-        updates = _div(_mul(m, self._alpha(iteration, epoch)),
-                       _add(_sqrt(vhat), self.epsilon))
+        updates = _div(_mul(m, s[0]), _add(_sqrt(vhat), self.epsilon))
         return updates, {"m": m, "v": v, "vhat": vhat}
 
 
 @_register
 @dataclasses.dataclass(frozen=True)
 class AdaMax(Adam):
-    def apply(self, grads, state, iteration, epoch=0):
-        t = iteration + 1
+    def step_sizes(self, iteration, epoch=0):
+        """(lr, 1 - beta1^t), t = iteration + 1."""
+        return (self.lr(iteration, epoch), 1 - self.beta1 ** (iteration + 1))
+
+    def apply(self, grads, state, s, params):
         m = _add(_mul(state["m"], self.beta1), _mul(grads, 1 - self.beta1))
         u = torch._foreach_maximum(_mul(state["v"], self.beta2),
                                    torch._foreach_abs(grads))
-        bc1 = 1 - self.beta1 ** t
-        updates = _div(_mul(m, self.lr(iteration, epoch)),
-                       _mul(_add(u, self.epsilon), bc1))
+        updates = _div(_mul(m, s[0]), _mul(_add(u, self.epsilon), s[1]))
         return updates, {"m": m, "v": u}
 
 
 @_register
 @dataclasses.dataclass(frozen=True)
 class Nadam(Adam):
-    def apply(self, grads, state, iteration, epoch=0):
+    def step_sizes(self, iteration, epoch=0):
+        """(lr, 1 - beta1^t, 1 - beta2^t), t = iteration + 1."""
         t = iteration + 1
+        return (self.lr(iteration, epoch), 1 - self.beta1 ** t,
+                1 - self.beta2 ** t)
+
+    def apply(self, grads, state, s, params):
         m, v = self._moments(grads, state)
-        bc1 = 1 - self.beta1 ** t
-        bc2 = 1 - self.beta2 ** t
-        num = _add(_div(_mul(m, self.beta1), bc1),
-                   _div(_mul(grads, 1 - self.beta1), bc1))
-        updates = _div(_mul(num, self.lr(iteration, epoch)),
-                       _add(_sqrt(_div(v, bc2)), self.epsilon))
+        num = _add(_div(_mul(m, self.beta1), s[1]),
+                   _div(_mul(grads, 1 - self.beta1), s[1]))
+        updates = _div(_mul(num, s[0]),
+                       _add(_sqrt(_div(v, s[2])), self.epsilon))
         return updates, {"m": m, "v": v}
 
 
 def apply_updates(updater: Updater, params: Sequence[dict],
-                  grads: Sequence[dict], states: Sequence[Any], iteration,
-                  epoch=0) -> list:
+                  grads: Sequence[dict], states: Sequence[Any],
+                  s: Leaves) -> None:
     """One optimizer step for several nodes that share ``updater``:
     ``params``/``grads`` are the nodes' param trees (nested dicts of
-    tensors), ``states`` their state trees. Each param is updated in
-    place, ``p -= update`` in p's type; returns the nodes' new state
-    trees."""
+    tensors), ``states`` their state trees, ``s`` the updater's step sizes
+    for this iteration as 0-d tensors. Each param is updated in place,
+    ``p -= update`` in p's type, and each state leaf takes its new value in
+    place."""
     paths = [[path for path, _ in tree_items(p) if _has(g, path)]
              for p, g in zip(params, grads)]
     leaves_p = [tree_get(p, path) for p, ps in zip(params, paths)
                 for path in ps]
     if not leaves_p or isinstance(updater, NoOp):
-        return list(states)
+        return
     leaves_g = [tree_get(g, path) for g, ps in zip(grads, paths)
                 for path in ps]
-    slot_in = {s: [tree_get(st[s], path) for st, ps in zip(states, paths)
-                   for path in ps]
-               for s in updater.slots}
-    if hasattr(updater, "apply_with_params"):
-        updates, slot_out = updater.apply_with_params(
-            leaves_g, slot_in, leaves_p, iteration, epoch)
-    else:
-        updates, slot_out = updater.apply(leaves_g, slot_in, iteration, epoch)
+    slot_in = {slot: [tree_get(st[slot], path)
+                      for st, ps in zip(states, paths) for path in ps]
+               for slot in updater.slots}
+    updates, slot_out = updater.apply(leaves_g, slot_in, s, leaves_p)
     with torch.no_grad():
         torch._foreach_sub_(leaves_p,
                             [u.to(p.dtype) for u, p in zip(updates, leaves_p)])
-    if not updater.slots:
-        return list(states)
-    new_states, i = [], 0
-    for st, ps in zip(states, paths):
-        tree = {s: tree_map(lambda t: t, st[s]) for s in updater.slots}
-        for path in ps:
-            for s in updater.slots:
-                tree_set(tree[s], path, slot_out[s][i])
-            i += 1
-        new_states.append(tree)
-    return new_states
+        for slot in updater.slots:
+            torch._foreach_copy_(slot_in[slot], slot_out[slot])
 
 
 def _has(tree, path) -> bool:
@@ -311,12 +327,22 @@ def _has(tree, path) -> bool:
     return True
 
 
+def step_size_tensors(updater: Updater, iteration, device, epoch=0
+                      ) -> Leaves:
+    """:meth:`Updater.step_sizes` as 0-d fp32 tensors on ``device``."""
+    return list(torch.tensor(updater.step_sizes(iteration, epoch),
+                             dtype=torch.float32, device=device))
+
+
 def apply_updater(updater: Updater, params: dict, grads: dict, state,
                   iteration, epoch=0):
-    """One optimizer step on one node: ``params -= update`` in place.
-    Returns (params, new_state), the reference's signature."""
-    return params, apply_updates(updater, [params], [grads], [state],
-                                 iteration, epoch)[0]
+    """One optimizer step on one node: ``params -= update`` and the state
+    updated, in place. Returns (params, state), the reference's
+    signature."""
+    device = next(t for _, t in tree_items(params)).device
+    apply_updates(updater, [params], [grads], [state],
+                  step_size_tensors(updater, iteration, device, epoch))
+    return params, state
 
 
 def group_by_rule(updaters: Dict[Any, Updater]
@@ -331,16 +357,44 @@ def group_by_rule(updaters: Dict[Any, Updater]
     return list(groups.values())
 
 
-def step_groups(groups, params, grads: dict, opt_states, iteration) -> None:
-    """One optimizer step over :func:`group_by_rule`'s groups. ``params``
-    and ``opt_states`` are indexed by the groups' keys (a dict by node
-    name, or a list by layer index); the params are updated in place and
-    each stepped key's state replaced in ``opt_states``. Keys without
-    gradients (``grads.get(key)`` empty) are left as they are."""
-    for updater, keys in groups:
+class StepSizes:
+    """The step sizes of every group of :func:`group_by_rule` for the
+    iteration about to run, in one fp32 tensor on the network's device.
+    :meth:`write` works them out on the host and copies them over before
+    the step (from pinned memory on CUDA, so the host does not wait);
+    ``views`` are each group's 0-d views of the tensor, which the step
+    reads, eager or captured."""
+
+    def __init__(self, groups, device):
+        self._updaters = [u for u, _ in groups]
+        counts = [len(u.step_sizes(0)) for u in self._updaters]
+        self.buf = torch.zeros(max(1, sum(counts)), dtype=torch.float32,
+                               device=device)
+        self.views, at = [], 0
+        for n in counts:
+            self.views.append([self.buf[at + j] for j in range(n)])
+            at += n
+        self._n = at
+
+    def write(self, iteration, epoch=0) -> None:
+        if not self._n:
+            return
+        vals = [v for u in self._updaters
+                for v in u.step_sizes(iteration, epoch)]
+        host = torch.tensor(vals, dtype=torch.float32,
+                            pin_memory=self.buf.is_cuda)
+        self.buf[:self._n].copy_(host, non_blocking=True)
+
+
+def step_groups(groups, params, grads: dict, opt_states, sizes) -> None:
+    """One optimizer step over :func:`group_by_rule`'s groups, with
+    :class:`StepSizes`' ``views`` (``sizes``, one list per group).
+    ``params`` and ``opt_states`` are indexed by the groups' keys (a dict by
+    node name, or a list by layer index); both are updated in place. Keys
+    without gradients (``grads.get(key)`` empty) are left as they are."""
+    for (updater, keys), s in zip(groups, sizes):
         keys = [k for k in keys if grads.get(k)]
-        new = apply_updates(updater, [params[k] for k in keys],
-                            [grads[k] for k in keys],
-                            [opt_states[k] for k in keys], iteration)
-        for k, state in zip(keys, new):
-            opt_states[k] = state
+        if keys:
+            apply_updates(updater, [params[k] for k in keys],
+                          [grads[k] for k in keys],
+                          [opt_states[k] for k in keys], s)

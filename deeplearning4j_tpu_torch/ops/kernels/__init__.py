@@ -19,7 +19,12 @@ Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
 made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
 plain path (only ``exact`` sends one there); :data:`BODY_LAUNCHES` splits
 the conv, wgrad and LSTM segment kernels' launches by the body that ran.
-All are plain integers, reset with :func:`reset_counts`.
+All are plain integers, reset with :func:`reset_counts`. A captured
+program (``nn/capture.py``) launches nothing through the wrappers when it
+replays: it takes the counts its capture made (:func:`snapshot_counts`,
+:func:`counts_since`), puts the tables back as they were
+(:func:`restore_counts`), and adds those counts again at each replay
+(:func:`add_counts`), so the tables count the launches that ran.
 
 Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
 ``VMEM_BUDGET_BYTES``, conv.py:57-114) sizes a TPU program's whole-image
@@ -61,6 +66,34 @@ def reset_counts() -> None:
         for k in table:
             table[k] = 0
     BODY_LAUNCHES.clear()
+
+
+def snapshot_counts() -> tuple:
+    """Copies of (LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES)."""
+    return dict(LAUNCHES), dict(PLAIN_ON_CUDA), dict(BODY_LAUNCHES)
+
+
+def counts_since(snap: tuple) -> tuple:
+    """The counts added to each table since ``snap``, nonzero entries
+    only."""
+    return tuple({k: n - old.get(k, 0) for k, n in table.items()
+                  if n != old.get(k, 0)}
+                 for table, old in zip((LAUNCHES, PLAIN_ON_CUDA,
+                                        BODY_LAUNCHES), snap))
+
+
+def restore_counts(snap: tuple) -> None:
+    """Put every table back to ``snap``."""
+    for table, old in zip((LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES), snap):
+        table.clear()
+        table.update(old)
+
+
+def add_counts(delta: tuple) -> None:
+    """Add :func:`counts_since`'s counts to the tables."""
+    for table, add in zip((LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES), delta):
+        for k, n in add.items():
+            table[k] = table.get(k, 0) + n
 
 
 def validate_impl(impl: Optional[str]) -> Optional[str]:

@@ -4,10 +4,12 @@
 A trained ``ComputationGraph`` or ``MultiLayerNetwork`` (the reference
 binds either) is bound to the serving tier with ONE
 :class:`~deeplearning4j_tpu_torch.data.bucketing.BucketingPolicy` for every
-shape decision: warmup runs each batch bucket once, the scheduler coalesces
-up to the largest bucket, and a coalesced batch is split by
+shape decision: warmup builds the net's forward program of each batch
+bucket (``net.warmup``; on the card a CUDA graph each), the scheduler
+coalesces up to the largest bucket, and a coalesced batch is split by
 ``plan_serving_batch`` into chunks padded up to a bucket, run through
-``net.output`` and split back per request. Rows are independent, so a
+``net.output`` (a replay of the bucket's program) and split back per
+request. Rows are independent, so a
 request's result does not depend on what it was batched with.
 
 Not ported yet: ``kind="generate"`` (paged-KV decode, the generate
@@ -85,14 +87,18 @@ class ServingModel:
 
     # -------------------------------------------------------------- warmup
     def warmup(self) -> int:
-        """Run every batch bucket once before traffic (on the card this
-        builds the kernels and warms the allocator). Returns the number of
-        buckets run."""
+        """Build the net's forward program of every batch bucket before
+        traffic (reference ``:175-212``: ``net.warmup(train=False,
+        inference=True)``), then run each bucket once through ``output``.
+        Returns the number of programs built."""
         shape = self._input_shape()
+        primed = self.net.warmup(
+            shapes=[(int(b),) + shape for b in self.policy.batch_buckets],
+            train=False, inference=True)
         for b in self.policy.batch_buckets:
             self.net.output(np.zeros((int(b),) + shape, np.float32))
         self.warmed = True
-        return len(self.policy.batch_buckets)
+        return primed
 
     # ------------------------------------------------------------- execute
     def execute(self, payloads: List[Any]

@@ -66,3 +66,11 @@ def tree_set(tree: dict, path: Path, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
+
+
+def tree_copy_(dst, src) -> None:
+    """Copy each leaf of ``src`` into the leaf of ``dst`` at the same
+    place, in place, skipping leaves that already share their memory."""
+    for (_, d), (_, s) in zip(tree_items(dst), tree_items(src)):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)

@@ -20,8 +20,14 @@ conv kernel's forward within rtol/atol 1e-4 (fp32) or rtol 8e-3 + atol
 kernel's dW within 1e-4 (fp32) or 2^-7 (bf16) of the largest plain output
 (PERF.md §2); LeNet's fit against the CPU's within 1e-4, its score within
 1e-5 (``-k lenet``: the conv kernels at LeNet's geometries and LeNet on
-the card).
+the card). The compiled step (``-k capture``, ``nn/capture.py``): a
+captured run against the eager run of the same net from the same state,
+equal to the bit wherever two eager runs are, the launch counters under
+replay, a host sync inside a step failing its capture by name, dropout
+under replay.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -29,6 +35,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from deeplearning4j_tpu_torch.data import DataSet  # noqa: E402
+from deeplearning4j_tpu_torch.nn import capture  # noqa: E402
 from deeplearning4j_tpu_torch.nn.updaters import Adam  # noqa: E402
 from deeplearning4j_tpu_torch.ops import attention as TA  # noqa: E402
 from deeplearning4j_tpu_torch.ops import kernels as TK  # noqa: E402
@@ -873,3 +880,231 @@ def test_masked_graph_fit_and_tbptt_on_card_match_cpu(card):
                 got = dict(tree_items(nets[1].params[name]))[path]
                 np.testing.assert_allclose(got.cpu().numpy(), v.numpy(),
                                            rtol=1e-4, atol=1e-6)
+
+
+# ------------------------------------------------------ the compiled step
+
+
+def _state_of(net):
+    """Every param, layer state and optimizer state, copied to the host."""
+    from deeplearning4j_tpu_torch.tree import tree_items
+
+    return [t.detach().float().cpu().clone() for _, t in tree_items(
+        {"p": net.params, "s": net.states, "o": net.opt_states})]
+
+
+def _run(make, batches, fit, eager):
+    net = make()
+    losses = []
+    with capture.disabled() if eager else contextlib.nullcontext():
+        for b in batches:
+            fit(net, b)
+            losses.append(torch.as_tensor(net.score_value).float().cpu())
+    torch.cuda.synchronize()
+    return net, [torch.stack(losses)] + _state_of(net)
+
+
+def _gate(make, batches, fit=lambda n, b: n.fit(*b)):
+    """Eager twice, then captured, each from ``make()``'s state: where the
+    two eager runs agree to the bit the captured run must too, elsewhere it
+    may be no farther from eager than eager is from its repeat. Returns
+    the captured net."""
+    _, e1 = _run(make, batches, fit, True)
+    _, e2 = _run(make, batches, fit, True)
+    net, c = _run(make, batches, fit, False)
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    rep, cap = dist(e1, e2), dist(e1, c)
+    assert cap <= rep, (cap, rep)
+    assert net.programs() and all(p.graph is not None
+                                  for p in net.programs().values())
+    return net
+
+
+def _dense_net(dev, dropout=0.3, dtype="float32"):
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as TL
+    from deeplearning4j_tpu_torch.nn.updaters import updater_from_dict
+
+    step = {"@schedule": "StepSchedule", "initial_value": 1e-2,
+            "decay_rate": 0.5, "step": 2}
+    conf = (NeuralNetConfiguration.builder().seed(6)
+            .updater(updater_from_dict({"@updater": "Adam",
+                                        "learning_rate": step,
+                                        "epsilon": 1e-3}))
+            .compute_dtype(dtype).list()
+            .layer(TL.DenseLayer(n_in=16, n_out=64, activation="tanh"))
+            .layer(TL.BatchNormalization())
+            .layer(TL.DenseLayer(n_in=64, n_out=32, activation="relu",
+                                 dropout=dropout))
+            .layer(TL.OutputLayer(n_in=32, n_out=5))
+            .set_input_type((16,)).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def _dense_batches(n=4, b=32):
+    rng = np.random.default_rng(12)
+    return [(rng.normal(size=(b, 16)).astype(np.float32),
+             np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)])
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_capture_mln_step_and_forward_equal_eager(card, dtype):
+    """Adam under a step schedule, batchnorm, dropout 0.3: 4 captured
+    steps against eager; then the captured forward (train and inference)
+    against the eager forward of the same net, bf16 included (the params
+    are cast inside the forward's graph, so a replay after ``fit`` sees the
+    updated params)."""
+    batches = _dense_batches()
+    net = _gate(lambda: _dense_net(card, dtype=dtype), batches)
+    assert len(net._aot_steps) == 1
+    x = batches[0][0]
+    for train in (False, True):
+        got = net.output(x, train=train)
+        with capture.disabled():
+            want = net.output(x, train=train)
+        assert torch.equal(got, want)
+    net.fit(*batches[1])
+    with capture.disabled():
+        want = net.output(x)
+    assert torch.equal(net.output(x), want)  # a replay after the update
+
+
+def test_capture_dropout_draws_the_eager_masks(card):
+    """Dropout 0.5, 6 steps: the generator registered on the graph makes
+    each replay draw the eager step's masks, and leaves the generator
+    where the eager run leaves it."""
+    batches = _dense_batches(6)
+    make = lambda: _dense_net(card, dropout=0.5)  # noqa: E731
+    net = _gate(make, batches)
+    eager = make()
+    with capture.disabled():
+        for b in batches:
+            eager.fit(*b)
+    assert torch.equal(net._gen.get_state(), eager._gen.get_state())
+    plain = _dense_net(card, dropout=0.0)
+    with capture.disabled():
+        plain.fit(*batches[0])
+    first = make()
+    first.fit(*batches[0])
+    assert plain.get_score() != first.get_score()  # dropout is on
+
+
+def test_capture_graph_per_input_masks_and_tbptt_equal_eager(card):
+    """A two-input graph (LSTM on K4 and GRU, each its own mask) and the
+    char-RNN's TBPTT (k 4 over 10 steps: programs for 4 and for the ragged
+    2, the carries through their static buffers; dropout 0.2)."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import recurrent as TR
+
+    def graph():
+        gb = (NeuralNetConfiguration.builder().seed(5)
+              .updater(Adam(1e-2, epsilon=1e-3)).graph_builder()
+              .add_inputs("a", "b")
+              .add_layer("ra", TR.LSTM(n_in=6, n_out=32), "a")
+              .add_layer("rb", TR.GRU(n_in=3, n_out=32), "b")
+              .add_layer("out", TR.RnnOutputLayer(n_in=64, n_out=3),
+                         "ra", "rb"))
+        conf = gb.set_outputs("out").set_input_types((10, 6),
+                                                     (10, 3)).build()
+        return ComputationGraph(conf).init(device=card)
+
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(4):
+        ma = (np.arange(10)[None] < rng.integers(1, 11, (5, 1))).astype(
+            np.float32)
+        mb = (np.arange(10)[None] < rng.integers(1, 11, (5, 1))).astype(
+            np.float32)
+        ma[0], mb[0] = 1.0, 1.0
+        batches.append(MultiDataSet(
+            [rng.normal(size=(5, 10, 6)).astype(np.float32),
+             rng.normal(size=(5, 10, 3)).astype(np.float32)],
+            [np.eye(3, dtype=np.float32)[rng.integers(0, 3, (5, 10))]],
+            [ma, mb], [ma * mb]))
+    g = _gate(graph, batches, lambda n, b: n.fit(b))
+    assert len(g._aot_steps) == 1
+
+    def char_net():
+        net = TextGenerationLSTM(total_unique_characters=11, units=16,
+                                 dropout=0.2).init(device=card)
+        net.conf.tbptt_length = 4
+        return net
+
+    eye = np.eye(11, dtype=np.float32)
+    ids = [rng.integers(0, 11, size=(3, 11)) for _ in range(3)]
+    net = _gate(char_net, [(eye[i[:, :-1]], eye[i[:, 1:]]) for i in ids])
+    assert len(net._tbptt_steps) == 2
+
+
+def test_capture_replays_count_their_launches(card):
+    """The counters count the launches that ran: a program's warm-up and
+    capture add nothing, each replay adds one step's launches (LeNet: 2 /
+    1 / 2 conv launches a step; the char-RNN: one K4 launch a segment and
+    layer), none plain."""
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    net = LeNet().init(device=card)
+    TK.reset_counts()
+    x = rng.random((16, 28, 28, 1), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+    for _ in range(3):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in TK.LAUNCHES.items() if v} == {
+        "conv2d_fwd": 6, "conv2d_dgrad": 3, "conv2d_wgrad": 6}
+    (prog,) = net._aot_steps.values()
+    assert prog.replays == 3 and prog.counts[0] == {
+        "conv2d_fwd": 2, "conv2d_dgrad": 1, "conv2d_wgrad": 2}
+    net.output(x)
+    net.output(x)
+    assert TK.LAUNCHES["conv2d_fwd"] == 6 + 2 * 2
+    TK.reset_counts()
+    char = TextGenerationLSTM(total_unique_characters=11, units=16,
+                              dropout=0.0).init(device=card)
+    char.conf.tbptt_length = 4
+    eye = np.eye(11, dtype=np.float32)
+    for _ in range(3):
+        ids = rng.integers(0, 11, size=(3, 11))
+        char.fit(eye[ids[:, :-1]], eye[ids[:, 1:]])
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 3 * 3 * 2
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_capture_fails_by_name_on_a_host_sync(card, monkeypatch):
+    """A loss that reads itself on the host (``float``) inside the step:
+    the warm-up runs, the capture raises CaptureError naming the function,
+    the signature and the line; nothing carries on eagerly, and the net
+    still trains eagerly afterwards."""
+    from deeplearning4j_tpu_torch.nn import layers as TL
+
+    orig = TL.OutputLayer.compute_loss
+
+    def syncing(self, *a, **k):
+        loss = orig(self, *a, **k)
+        float(loss)  # a host sync: the capture cannot hold it
+        return loss
+
+    monkeypatch.setattr(TL.OutputLayer, "compute_loss", syncing)
+    net = _dense_net(card)
+    x, y = _dense_batches(1)[0]
+    it = net.iteration
+    with pytest.raises(capture.CaptureError) as e:
+        net.fit(x, y)
+    msg = str(e.value)
+    assert "MultiLayerNetwork.train_step" in msg and "float(loss)" in msg
+    assert "(32, 16)" in msg
+    assert net.iteration == it and not net._aot_steps
+    with capture.disabled():
+        net.fit(x, y)
+    assert net.iteration == it + 1 and np.isfinite(net.get_score())

@@ -247,21 +247,30 @@ def test_updater_matches_reference(d):
 
 def test_apply_updates_steps_nodes_in_place_together():
     """One call over two nodes equals one call per node, and updates the
-    param tensors themselves."""
+    param and optimizer-state tensors themselves."""
     u = tupd.updater_from_dict(_UPDATERS[8])
     rng = np.random.default_rng(8)
     trees = [{k: _t(v) for k, v in _tree(rng).items()} for _ in range(2)]
     grads = [{k: _t(v) for k, v in _tree(rng).items()} for _ in range(2)]
     ids = [id(t["W"]) for t in trees]
     copies = [{k: v.clone() for k, v in t.items()} for t in trees]
-    states = tupd.apply_updates(u, trees, grads,
-                                [u.init_state(t) for t in trees], 0)
+    states = [u.init_state(t) for t in trees]
+    state_ids = [id(st["m"]["W"]) for st in states]
+    tupd.apply_updates(u, trees, grads, states,
+                       tupd.step_size_tensors(u, 0, torch.device("cpu")))
+    per_node = []
     for c, g in zip(copies, grads):
         _, s = tupd.apply_updater(u, c, g, u.init_state(c), 0)
+        per_node.append(s)
     assert [id(t["W"]) for t in trees] == ids
+    assert [id(st["m"]["W"]) for st in states] == state_ids
     for t, c in zip(trees, copies):
         for k in t:
             assert torch.equal(t[k], c[k])
+    for st, s in zip(states, per_node):
+        for slot in ("m", "v"):
+            for k in st[slot]:
+                assert torch.equal(st[slot][k], s[slot][k])
     assert set(states[0]) == {"m", "v"}
 
 

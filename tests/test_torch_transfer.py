@@ -227,3 +227,54 @@ def test_n_out_replace_and_removal_match_reference():
         assert torch.equal(net.params[3][k], v)
     x = np.random.default_rng(1).normal(size=(6, 4)).astype(np.float32)
     assert net.output(x).shape == (6, 2)
+
+
+def _adamw_frozen(pkg):
+    """The Dense 4->8->6->3 stack, layer 0 frozen, fine-tuned by
+    AdamW(1e-2, weight_decay=0.1)."""
+    if pkg == "ref":
+        nnc, lmod, tl, ftc = JNNC, JL, JT.TransferLearning, \
+            JT.FineTuneConfiguration
+        from deeplearning4j_tpu.nn.updaters import AdamW as adamw
+    else:
+        from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+        from deeplearning4j_tpu_torch.nn.updaters import AdamW as adamw
+        nnc, lmod, tl, ftc = (NeuralNetConfiguration, L, TransferLearning,
+                              FineTuneConfiguration)
+    conf = (nnc.builder().seed(3).list()
+            .layer(lmod.DenseLayer(n_in=4, n_out=8, activation="relu"))
+            .layer(lmod.DenseLayer(n_in=8, n_out=6, activation="relu"))
+            .layer(lmod.OutputLayer(n_in=6, n_out=3))
+            .set_input_type((4,)).build())
+    return conf, tl, ftc(updater=adamw(1e-2, weight_decay=0.1))
+
+
+def test_frozen_layer_drifts_under_adamw_equally_in_both_packages():
+    """ROADMAP Queue 3: a FrozenLayer takes the net's updater, and AdamW
+    adds lr*wd*param to its zero gradient's update, so the frozen W moves
+    (by up to 2.392e-3 after 3 steps here) in both packages alike."""
+    jconf, jtl, jft = _adamw_frozen("ref")
+    jsrc = JMLN(jconf).init()
+    jnet = jtl.Builder(jsrc).fine_tune_configuration(jft) \
+        .set_feature_extractor(0).build()
+    conf, tl, ft = _adamw_frozen("port")
+    src = interop.from_reference_json(jconf.to_json(), _tree(jsrc.params),
+                                      _tree(jsrc.states), device="cpu")
+    net = tl.Builder(src).fine_tune_configuration(ft) \
+        .set_feature_extractor(0).build()
+    interop.load_reference_mln(net, _tree(jnet.params), _tree(jnet.states))
+    w0 = net.params[0]["W"].clone()
+    jw0 = np.asarray(jnet.params[0]["W"])
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(8, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+    for _ in range(3):
+        jnet.fit(x, y)
+        net.fit(x, y)
+    moved = (net.params[0]["W"] - w0).abs().max().item()
+    jmoved = float(np.abs(np.asarray(jnet.params[0]["W"]) - jw0).max())
+    np.testing.assert_allclose(moved, 2.392e-3, rtol=1e-3)
+    np.testing.assert_allclose(moved, jmoved, rtol=1e-5)
+    np.testing.assert_allclose(net.params[0]["W"].numpy(),
+                               np.asarray(jnet.params[0]["W"]), rtol=1e-6,
+                               atol=1e-7)
