@@ -4,11 +4,11 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Drives the port (``deeplearning4j_tpu_torch``) only, and imports nothing
-of the JAX package. Phases 3-18 run under ``capture.disabled()``, eagerly,
-as they did before the compiled step (their per-launch checks need every
-launch to go through a wrapper, and their rates are the eager ones);
-phases 19-22 drive the compiled step (``nn/capture.py``). Phases, each
-printing one JSON line:
+of the JAX package. Phases 3-18b run under ``capture.disabled()``,
+eagerly, as they did before the compiled step (their per-launch checks
+need every launch to go through a wrapper, and their rates are the eager
+ones); phases 19-22c run with the compiled step (``nn/capture.py``) on.
+Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs.
 2. build: the CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` with nvcc
@@ -177,6 +177,17 @@ printing one JSON line:
     sequences/sec fp32 and bf16, a profiled step. Then TextGenerationLSTM
     rebuilt as a graph with TBPTT 50: one ``fit`` call (40 K4 launches)
     and ``rnn_time_step`` against the MultiLayerNetwork's.
+18b. op_table: every registered op name and alias (ops/op_cases.py's
+    seeded case) on CUDA tensors against the same call on the CPU, to its
+    family's tolerance (op_cases.TOLERANCES; random ops by moments,
+    decompositions by reconstruction); then the kernel-backed ops by name
+    at full width, fp32 and bf16: conv2d_backprop_input/filter at every
+    ResNet-50 conv geometry at batch 8 (dgrad, K3), depthwise_conv2d and
+    separable_conv2d at Xception's first separable block (K1),
+    lstm_layer at the char-RNN's width in every direction and layout with
+    ragged seq_lens (K4 once a direction; fp32 also against the CPU, its
+    gradients too), conv_lstm_2d at ConvLSTM2D's shape (K1). Every launch checked, none
+    plain, the counts against expected_op_table_launches.
 19. capture_serve: full-width ResNet-50 behind the ModelServer, its
     forwards captured: ``warmup`` (the server's start) captures a CUDA
     graph a batch bucket (1-32; each program's pool bytes printed); the
@@ -205,14 +216,29 @@ printing one JSON line:
     step beside its eager phase's; the RecompileListener over a ragged
     LeNet epoch (no event with ``batch_buckets``, one without), and the
     CompileWatcher's counts (every phase line carries the programs it
-    built under ``built``).
+    built under ``built``); capture_gc: LeNet captured while a dead
+    captured LeNet waits for the collector, a collection forced wherever
+    the collector is on inside the capture (it must be off).
+22b. serialize, after the capture phases (so ResNet-50's train step is
+    captured after dozens of captured networks have died, the order in
+    which a collection inside a capture once broke it): ModelSerializer on
+    the card (serialize_resnet, serialize_bert, serialize_lenet), the
+    compiled step on: ResNet-50 restored and resumed bit for bit;
+    BERT-base (S 512) served from an archive over HTTP bit for bit to its
+    writer, reloaded to a newer archive (version 2), a truncated archive
+    refused with version 2 still answering; LeNet's CheckpointListener
+    (keep 2), normalizer and LocalFileModelSaver.
+22c. checkpoint: ShardedCheckpointer(keep=3) with async saves on LeNet,
+    a corrupted newest step skipped, and a FaultTolerantTrainer run
+    stopped by a fault and resumed bit for bit to an uninterrupted one.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
     ``lenet`` and ConvLSTM2D's launches under ``launches_convlstm``, K4's
     the recurrent slice's under ``launches_recurrent_layers`` and
     ``launches_seq_graph``; every kernel's captured launches (phases
-    19-22) under ``launches_captured``.
+    19-22) under ``launches_captured``, the op table's (phase 18b) under
+    ``launches_op_table`` with its checks under ``op_table_checked_*``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -3552,7 +3578,10 @@ def profile_graph_step(torch, net, ds, top=8):
     calls, launch = [], klstm.lstm_seq_fwd
 
     def capturing(*args, **kwargs):
-        calls.append((args, kwargs))
+        # timed again below, outside the autograd Function that launched
+        # it: the raw launch refuses inputs that require grad
+        calls.append((tuple(a.detach() if torch.is_tensor(a) else a
+                            for a in args), kwargs))
         return launch(*args, **kwargs)
 
     kern.reset_counts()
@@ -4427,7 +4456,628 @@ def capture_small_phase(torch, np, card):
         raise AssertionError(f"RecompileListener events {events}")
     emit("capture_recompile", epoch_batches=[LENET_BATCH] * 10 + [32],
          events=events, watcher=watcher_counts(None), card=card)
+    emit("capture_gc", **capture_after_dead_net(torch, np), card=card)
     return launches
+
+
+def capture_after_dead_net(torch, np):
+    """LeNet A captured, then dropped: it is cyclic garbage (net ->
+    program -> body -> net), freed only by the cyclic collector. LeNet B's
+    train step is then captured with a hook inside the captured loss that
+    drops A's last reference and collects wherever the collector is on, as
+    it may at any allocation (a collection inside a capture destroys A's
+    graph there and breaks the capture: CUDA error 901, PR 13's call 13).
+    The collector must be off inside, A freed after, and B's first loss
+    equal to the bit to an eager twin's."""
+    import gc
+    import weakref
+
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.nn import layers as TL
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((LENET_BATCH, 28, 28, 1),
+                                    dtype=np.float32)).cuda()
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, LENET_BATCH)]).cuda()
+    dead = [LeNet().init(device="cuda")]
+    dead[0].fit(x, y)
+    gone = weakref.ref(dead[0])
+    orig, seen = TL.OutputLayer.compute_loss, []
+
+    def collecting(self, *a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            dead.clear()
+            seen.append(gc.isenabled())
+            if gc.isenabled():
+                gc.collect()
+        return orig(self, *a, **k)
+
+    TL.OutputLayer.compute_loss = collecting
+    try:
+        net = LeNet().init(device="cuda")
+        net.fit(x, y)
+    finally:
+        TL.OutputLayer.compute_loss = orig
+    gc.collect()
+    eager = LeNet().init(device="cuda")
+    with capture.disabled():
+        eager.fit(x, y)
+    rec = {"collector_on_inside_capture": seen,
+           "dead_net_freed_after": gone() is None,
+           "programs": len(net._aot_steps), "loss_captured": net.get_score(),
+           "loss_eager": eager.get_score()}
+    if (seen != [False] or not rec["dead_net_freed_after"]
+            or not rec["programs"]
+            or rec["loss_captured"] != rec["loss_eager"]):
+        raise AssertionError(f"capture after a dead captured net: {rec}")
+    return rec
+
+
+# ------------------------------------------------------------ op table
+
+# the first separable block of the reference's Xception
+# (deeplearning4j_tpu/zoo/models.py:389) at 299x299x3: its two 3x3
+# separable convs on the 150x150 map after the stem, 64 -> 128 and
+# 128 -> 128, batch 8
+XCEPTION_SEPARABLE = ((8, 150, 150, 64, 128), (8, 150, 150, 128, 128))
+OP_LSTM = (32, 50, 47, 256)      # the char-RNN's B, T, inputs, H
+OP_LSTM_LAYOUTS = tuple((d, layout) for d in ("forward", "reverse",
+                                              "bidirectional")
+                        for layout in (0, 1))
+
+
+def expected_op_table_launches(registry, geometries):
+    """The op_table phase's launches, worked out from the code: the sweep
+    (every name and alias once: op_cases.KERNEL_LAUNCHES of its op), then
+    the full-width calls in fp32 and bf16 (the ResNet-50 geometries' dgrad and
+    wgrad once each, the Xception depthwise conv once and its two
+    separable convs twice each, lstm_layer in 3 directions x 2 layouts with
+    2 launches bidirectional, conv_lstm_2d 1 + CONVLSTM_T)."""
+    from deeplearning4j_tpu_torch.ops import op_cases as oc
+
+    want = {}
+
+    def add(kname, n):
+        want[kname] = want.get(kname, 0) + n
+
+    names = registry.list_ops() + [registry.aliases()[a]
+                                   for a in sorted(registry.aliases())]
+    for name in names:
+        for kname, n in oc.KERNEL_LAUNCHES.get(name, {}).items():
+            add(kname, n)
+    dtypes = 2
+    add("conv2d_dgrad", dtypes * len(geometries))
+    add("conv2d_wgrad", dtypes * len(geometries))
+    add("conv2d_fwd", dtypes * (1 + 2 * len(XCEPTION_SEPARABLE)))
+    add("lstm_seq_fwd", dtypes * 2 * (1 + 1 + 2))
+    add("conv2d_fwd", dtypes * (1 + CONVLSTM_T))
+    return want
+
+
+def op_table_sweep(torch, np):
+    """Every registered name and alias on CUDA tensors against the same
+    call on the CPU, from the seeded cases, held to the family's tolerance
+    (op_cases.compare; random ops by their moments, decompositions by
+    reconstruction). Returns {family: max err}, {category: ops checked},
+    the names run."""
+    import deeplearning4j_tpu_torch.ops as ops
+    from deeplearning4j_tpu_torch.ops import op_cases as oc
+
+    cases = oc.build(0)
+    aliases = ops.aliases()
+    runs = [(n, n) for n in ops.list_ops()] + [(a, aliases[a])
+                                               for a in sorted(aliases)]
+
+    def on(device):
+        def tensor(a):
+            return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+        def key(k):
+            return torch.Generator(device=device).manual_seed(k.seed)
+        return tensor, key
+
+    errs, by_cat, failures = {}, {}, []
+    for name, canonical in runs:
+        case = cases[canonical]
+        try:
+            got = oc.to_numpy(oc.run(ops.exec_op, name, case, *on("cuda")))
+            want = oc.to_numpy(oc.run(ops.exec_op, canonical, case,
+                                      *on("cpu")))
+            err = oc.compare(case, got, want)
+        except Exception as e:  # noqa: BLE001 - collected, then raised
+            failures.append(f"{name}: {type(e).__name__}: {e}"[:300])
+            continue
+        errs[case.family] = max(errs.get(case.family, 0.0), err)
+        if name == canonical:
+            cat = ops.get_op(name).category
+            by_cat[cat] = by_cat.get(cat, 0) + 1
+    if failures:
+        raise AssertionError(f"op_table: {len(failures)} ops disagree on "
+                             f"the card: {failures[:12]}")
+    return errs, by_cat, len(runs)
+
+
+def op_table_full_width(torch, np, geometries):
+    """The kernel-backed ops by name at full width, fp32 and bf16:
+    conv2d_backprop_input/filter at each ResNet-50 conv geometry at batch
+    8, depthwise_conv2d and separable_conv2d at Xception's first separable
+    block, lstm_layer at the char-RNN's width in every direction and
+    layout with ragged seq_lens (fp32 also against the CPU within 1e-4,
+    and its gradients of x, W, R and b within 1e-4 of the largest),
+    conv_lstm_2d at ConvLSTM2D's B 8, T 10, 64x64x1 -> 64. Returns a
+    record per group."""
+    import deeplearning4j_tpu_torch.ops as ops
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    ct_gen = torch.Generator().manual_seed(2025)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    out = {"resnet50_grads": 0, "xception": 0, "lstm_layer": [],
+           "conv_lstm_2d": 0}
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for key in geometries:
+            n, h, w, cin, kh, kw, cout, stride, padding, dil, _ = key
+            strides = (stride, stride) if isinstance(stride, int) else stride
+            pads = kconv.resolve_padding(padding, (h, w), (kh, kw), strides,
+                                         dil)
+            oh = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
+            ow = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
+            x, dy = rand(n, h, w, cin).to(dt), rand(n, oh, ow, cout).to(dt)
+            wt = rand(kh, kw, cin, cout,
+                      scale=math.sqrt(2.0 / (kh * kw * cin))).to(dt)
+            dx = ops.exec_op("conv2d_backprop_input", wt, dy, x.shape,
+                             strides=strides, padding=padding, dilation=dil)
+            dw = ops.exec_op("conv2d_backprop_filter", x, dy, wt.shape,
+                             strides=strides, padding=padding, dilation=dil)
+            if (tuple(dx.shape) != tuple(x.shape) or dx.dtype != dt
+                    or tuple(dw.shape) != tuple(wt.shape)
+                    or not torch.isfinite(dx.float()).all()
+                    or not torch.isfinite(dw.float()).all()):
+                raise AssertionError(f"conv backprop ops {key} {tag}")
+            out["resnet50_grads"] += 1
+        for n, h, w, cin, cout in XCEPTION_SEPARABLE:
+            x = rand(n, h, w, cin).to(dt)
+            dw_ = rand(3, 3, cin, 1, scale=1 / 3).to(dt)
+            pw = rand(1, 1, cin, cout, scale=math.sqrt(1 / cin)).to(dt)
+            if cin == XCEPTION_SEPARABLE[0][3]:
+                y = ops.exec_op("depthwise_conv2d", x, dw_)
+                assert tuple(y.shape) == (n, h, w, cin)
+            y = ops.exec_op("separable_conv2d", x, dw_, pw)
+            if tuple(y.shape) != (n, h, w, cout) or not torch.isfinite(
+                    y.float()).all():
+                raise AssertionError(f"separable {tag}: {tuple(y.shape)}")
+            out["xception"] += 1
+        b, t, f, hid = OP_LSTM
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        lens[0] = t
+        for direction, layout in OP_LSTM_LAYOUTS:
+            d = 2 if direction == "bidirectional" else 1
+            x = rand(t, b, f) if layout == 0 else rand(b, t, f)
+            args = [x, rand(d, 4 * hid, f, scale=0.1),
+                    rand(d, 4 * hid, hid, scale=0.06), rand(d, 8 * hid,
+                                                           scale=0.1),
+                    lens.to(torch.int32)]
+            kw = dict(hidden_size=hid, direction=direction, layout=layout)
+            if tag == "fp32":  # its gradient too, below
+                for a in args[:4]:
+                    a.requires_grad_(True)
+            got = ops.exec_op("lstm_layer", *[a.to(dt) if a.is_floating_point()
+                                              else a for a in args], **kw)
+            rec = {"dtype": tag, "direction": direction, "layout": layout}
+            if tag == "fp32":
+                cpu = [a.detach().cpu().requires_grad_(a.requires_grad)
+                       for a in args]
+                ref = ops.exec_op("lstm_layer", *cpu, **kw)
+                rec["max_abs_err_vs_cpu"] = max(
+                    float((g.detach().cpu() - r.detach()).abs().max())
+                    for g, r in zip(got, ref))
+                # d(sum(out * ct)) / d(x, W, R, b): the kernel route's
+                # adjoint (LSTMSequenceFunction) against the CPU's autograd
+                # through the plain step loop
+                cts = [torch.randn(o.shape, generator=ct_gen)
+                       for o in ref]
+                sum((o * c.cuda()).sum() for o, c in zip(got, cts)).backward()
+                sum((o * c).sum() for o, c in zip(ref, cts)).backward()
+                rec["max_grad_err_vs_cpu"] = max(
+                    float((a.grad.cpu() - c.grad).abs().max())
+                    / max(float(c.grad.abs().max()), 1.0)
+                    for a, c in zip(args[:4], cpu[:4]))
+                if rec["max_abs_err_vs_cpu"] > 1e-4 or \
+                        rec["max_grad_err_vs_cpu"] > 1e-4:
+                    raise AssertionError(f"lstm_layer {rec}")
+            elif not all(torch.isfinite(g.float()).all() for g in got):
+                raise AssertionError(f"lstm_layer {rec}: non-finite")
+            out["lstm_layer"].append(rec)
+        x = rand(CONVLSTM_B, CONVLSTM_T, CONVLSTM_HW, CONVLSTM_HW, 1).to(dt)
+        f4 = 4 * CONVLSTM_FILTERS
+        y, _ = ops.exec_op("conv_lstm_2d", x, rand(3, 3, 1, f4,
+                                                    scale=0.3).to(dt),
+                           rand(3, 3, CONVLSTM_FILTERS, f4,
+                                scale=0.04).to(dt),
+                           rand(f4, scale=0.1).to(dt))
+        if tuple(y.shape) != (CONVLSTM_B, CONVLSTM_T, CONVLSTM_HW,
+                              CONVLSTM_HW, CONVLSTM_FILTERS) or \
+                not torch.isfinite(y.float()).all():
+            raise AssertionError(f"conv_lstm_2d {tag}: {tuple(y.shape)}")
+        out["conv_lstm_2d"] += 1
+    return out
+
+
+def op_table_phase(torch, np, card):
+    """The whole op table by name on the card (op_table_sweep), then the
+    kernel-backed ops at full width (op_table_full_width), every K1,
+    dgrad, K3, K4 and K5 launch held against its plain version
+    (check_every_launch), none plain on CUDA, the launches equal to
+    expected_op_table_launches. Returns the launches and the checks."""
+    import deeplearning4j_tpu_torch.ops as ops
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.ops import op_cases as oc
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    geometries = sorted(conv_geometries(ResNet50().conf(), 8), key=repr)
+    want = expected_op_table_launches(ops.registry, geometries)
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with check_every_launch(torch, checked):
+        errs, by_cat, n_runs = op_table_sweep(torch, np)
+        t1 = time.perf_counter()
+        full = op_table_full_width(torch, np, geometries)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    if launches != want or plain:
+        raise AssertionError(f"op_table launched {launches}, expected "
+                             f"{want}; plain on CUDA {plain}")
+    calls = {k: v["calls"] for k, v in _checked_summary(checked).items()}
+    for kname, n in want.items():
+        if sum(c for key, c in calls.items()
+               if key.startswith(kname + "_")) != n:
+            raise AssertionError(f"{kname}: {n} launches, checked {calls}")
+    emit("op_table", ops=ops.op_count(), names_and_aliases_run=n_runs,
+         checked_by_category=by_cat, max_err_by_family=errs,
+         tolerance_by_family=oc.TOLERANCES, sweep_s=t1 - t0,
+         full_width_s=time.perf_counter() - t1,
+         full_width={"resnet50_backprop_geometries": len(geometries),
+                     **full},
+         launches=launches, launches_expected=want, plain_on_cuda=plain,
+         bodies=dict(kern.BODY_LAUNCHES),
+         launches_checked=_checked_summary(checked), card=card)
+    kern.reset_counts()
+    return launches, checked
+
+
+# ----------------------------------------------------- serialize, checkpoint
+
+SER_DIR = os.path.join(ROOT, "build", "smoke_archives")
+SER_LENET_TRAIN = 6400
+SER_BUCKETS = (1, 2, 4)
+SER_ROWS = (1, 3, 2)
+
+
+def _state_tensors(net):
+    from deeplearning4j_tpu_torch.util.model_serializer import jax_items
+
+    return [t for tree in (net.params, net.states, net.opt_states)
+            for _, t in jax_items(tree)]
+
+
+def _bit_equal(a, b):
+    return len(a) == len(b) and all(torch_equal(x, y) for x, y in zip(a, b))
+
+
+def torch_equal(x, y):
+    return x.shape == y.shape and x.dtype == y.dtype and bool((x == y).all())
+
+
+def _timed_ms(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def serialize_resnet(torch, np, tmp):
+    """ResNet-50 fp32 with Adam after 2 captured fit steps at batch 32:
+    archived with its updater, restored onto the card; its forward bit for
+    bit the writer's, then 2 more steps of each bit for bit (losses,
+    params, layer and optimizer states)."""
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    batch = 32
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(7).integers(0, 1000, batch)]).cuda()
+    fit_losses(net, [(x, y)] * 2)
+    path = os.path.join(tmp, "resnet50.zip")
+    _, write_ms = _timed_ms(lambda: ModelSerializer.write_model(net, path))
+    back, restore_ms = _timed_ms(
+        lambda: ModelSerializer.restore_computation_graph(path))
+    torch.cuda.synchronize()
+    fwd_equal = torch_equal(back.output(x), net.output(x))
+    la = torch.stack(fit_losses(net, [(x, y)] * 2))
+    lb = torch.stack(fit_losses(back, [(x, y)] * 2))
+    torch.cuda.synchronize()
+    resume_equal = torch_equal(la, lb) and _bit_equal(
+        _state_tensors(net), _state_tensors(back))
+    rec = {"model": "ResNet50", "params": net.num_params(), "batch": batch,
+           "updater": net.conf.updater, "archive_bytes":
+           os.path.getsize(path), "write_ms": write_ms,
+           "restore_ms": restore_ms, "restored_device": str(back.device),
+           "forward_bit_equal": fwd_equal, "resume_bit_equal": resume_equal,
+           "losses_writer": la.tolist(), "losses_restored": lb.tolist()}
+    if not (fwd_equal and resume_equal) or back.device.type != "cuda":
+        raise AssertionError(f"serialize ResNet-50: {rec}")
+    return rec
+
+
+def serialize_bert(torch, np, tmp):
+    """BERT-base (max length 512) archived without its updater, served
+    through ModelRouter.load over HTTP: each answer bit for bit what the
+    writer's own ServingModel gives for the same rows; reload to an archive
+    written after one fit step advances the version and the answers follow
+    the new weights; a truncated archive's reload is refused and the old
+    version keeps answering."""
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.serving import (ModelLoadError,
+                                                  ModelRouter, ModelServer,
+                                                  ServingModel)
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    net = Bert.base(max_length=512).init(device="cuda")
+    policy = BucketingPolicy(batch_buckets=SER_BUCKETS)
+    p1, p2 = os.path.join(tmp, "bert_v1.zip"), os.path.join(tmp,
+                                                            "bert_v2.zip")
+    _, write_ms = _timed_ms(lambda: ModelSerializer.write_model(
+        net, p1, save_updater=False))
+    router = ModelRouter()
+    _, load_ms = _timed_ms(lambda: router.load(
+        "bert", p1, bucketing=policy, max_wait_ms=1.0, queue_limit=16))
+    served, _ = router.get("bert")
+    writer = ServingModel(net, "writer", bucketing=policy)
+    server = ModelServer(router, port=0).start()
+    url = f"{server.url}/v1/models/bert/infer"
+    rng = np.random.default_rng(99)
+    xs = [bert_rows(np, r, 512, rng) for r in SER_ROWS]
+
+    def answers_equal():
+        ok = True
+        for x in xs:
+            body, _ = _post(url, {"inputs": x.tolist()})
+            got = np.asarray(body["outputs"], np.float64)
+            want = writer.execute([x])[0][0].astype(np.float64)
+            ok = ok and got.shape == want.shape and bool((got == want).all())
+        return ok
+
+    try:
+        v1_equal = answers_equal()
+        xt = bert_rows(np, 4, 512, rng)
+        yt = np.eye(2, dtype=np.float32)[[0, 1, 1, 0]]
+        with capture.disabled():
+            net.fit(xt, yt)
+        ModelSerializer.write_model(net, p2, save_updater=False)
+        version, reload_ms = _timed_ms(lambda: router.reload("bert", p2))
+        v2_equal = answers_equal()
+        bad = os.path.join(tmp, "bert_truncated.zip")
+        with open(p2, "rb") as src, open(bad, "wb") as dst:
+            dst.write(src.read()[:os.path.getsize(p2) // 2])
+        try:
+            router.reload("bert", bad)
+            rejected = False
+        except ModelLoadError:
+            rejected = True
+        still_equal = answers_equal()
+    finally:
+        server.stop()
+    rec = {"model": "Bert.base", "seq": 512, "params": net.num_params(),
+           "archive_bytes": os.path.getsize(p1), "write_ms": write_ms,
+           "load_ms": load_ms, "reload_ms": reload_ms,
+           "requests_rows": list(SER_ROWS), "buckets": list(SER_BUCKETS),
+           "v1_answers_bit_equal": v1_equal, "version_after_reload": version,
+           "v2_answers_bit_equal": v2_equal,
+           "truncated_reload_rejected": rejected,
+           "version_after_rejected_reload": served.version,
+           "old_version_still_answers": still_equal}
+    if not (v1_equal and v2_equal and rejected and still_equal
+            and version == 2 and served.version == 2):
+        raise AssertionError(f"serialize BERT: {rec}")
+    return rec
+
+
+def _mnist(n, train=True):
+    """(features, one-hot labels) of ``n`` synthetic digits."""
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+
+    it = MnistDataSetIterator(batch=LENET_BATCH, n_examples=n, train=train)
+    return it.features, it.labels
+
+
+def serialize_lenet(torch, np, tmp):
+    """LeNet: one fit(iterator) epoch on synthetic digits scaled to [-1, 1]
+    under CheckpointListener(keep_last=2), exactly 2 archives left; the
+    normalizer archived and restored; early stopping with a
+    LocalFileModelSaver, the restored best model scoring exactly what the
+    trainer reported."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DataSet
+    from deeplearning4j_tpu_torch.data.normalizers import \
+        ImagePreProcessingScaler
+    from deeplearning4j_tpu_torch.nn.listeners import CheckpointListener
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    xtr, ytr = _mnist(SER_LENET_TRAIN)
+    xte, yte = _mnist(1024, train=False)
+    norm = ImagePreProcessingScaler(-1.0, 1.0, 1.0).fit(DataSet(xtr, ytr))
+    xtr, xte = norm.normalize(xtr), norm.normalize(xte)
+    ckdir = os.path.join(tmp, "lenet_ckpt")
+    net = LeNet().init(device="cuda")
+    lst = CheckpointListener(ckdir, save_every_n_iterations=25, keep_last=2)
+    net.listeners.append(lst)
+    net.fit(ArrayDataSetIterator(xtr, ytr, batch=LENET_BATCH))
+    on_disk = sorted(os.listdir(ckdir))
+    path = os.path.join(tmp, "lenet.zip")
+    ModelSerializer.write_model(net, path, normalizer=norm)
+    back_norm = ModelSerializer.restore_normalizer_from_file(path)
+    norm_equal = back_norm.to_dict() == norm.to_dict()
+    val = ArrayDataSetIterator(xte, yte, batch=LENET_BATCH)
+    saver = es.LocalFileModelSaver(os.path.join(tmp, "lenet_es"))
+    conf = (es.EarlyStoppingConfiguration.builder()
+            .score_calculator(es.DataSetLossCalculator(val))
+            .model_saver(saver)
+            .epoch_termination_conditions(es.MaxEpochsTerminationCondition(2))
+            .build())
+    result = es.EarlyStoppingTrainer(
+        conf, LeNet().init(device="cuda"),
+        ArrayDataSetIterator(xtr, ytr, batch=LENET_BATCH)).fit()
+    best = result.best_model
+    score = es.DataSetLossCalculator(val).calculate_score(best)
+    acc = best.evaluate(val).accuracy()
+    rec = {"model": "LeNet", "steps": net.iteration,
+           "checkpoints_on_disk": on_disk, "checkpoints_written":
+           net.iteration // 25, "normalizer_restored": norm_equal,
+           "early_stopping_epochs": result.total_epochs,
+           "best_epoch": result.best_model_epoch,
+           "best_score_reported": result.best_model_score,
+           "best_score_restored": score, "best_accuracy": acc,
+           "best_device": str(best.device)}
+    if (len(on_disk) != 2 or not norm_equal
+            or score != result.best_model_score
+            or best.device.type != "cuda"):
+        raise AssertionError(f"serialize LeNet: {rec}")
+    return rec
+
+
+def serialize_phase(torch, np, card):
+    """ModelSerializer archives on the card: ResNet-50 restore and resume,
+    BERT-base served from archives with a rolling reload, LeNet's
+    checkpoint listener, normalizer and early stopping (the three
+    serialize_* functions; their archives under the git-ignored build/,
+    removed after)."""
+    import gc
+    import shutil
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SER_DIR, ignore_errors=True)
+    os.makedirs(SER_DIR)
+    try:
+        recs = {"reserved_bytes_at_start": torch.cuda.memory_reserved()}
+        for name, fn in (("resnet50", serialize_resnet),
+                         ("bert", serialize_bert),
+                         ("lenet", serialize_lenet)):
+            t = time.perf_counter()
+            recs[name] = fn(torch, np, SER_DIR)
+            recs[name]["wall_s"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(SER_DIR, ignore_errors=True)
+    emit("serialize", **recs, card=card)
+    return recs
+
+
+class _FaultAt:
+    """A listener that raises once, at ``iteration``."""
+
+    def __init__(self, iteration):
+        self.iteration, self.fired = iteration, False
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration == self.iteration and not self.fired:
+            self.fired = True
+            raise RuntimeError("injected fault")
+
+
+def checkpoint_phase(torch, np, card):
+    """ShardedCheckpointer(keep=3) on LeNet fit, saving every step async:
+    the newest step corrupted on disk, restore_latest_good returns the one
+    before it, with the arrays that step saved; a FaultTolerantTrainer run
+    stopped by a fault at the first step of its second epoch and resumed,
+    its params, states, optimizer states and dropout generator bit for bit
+    an uninterrupted run's."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.util import (FaultTolerantTrainer,
+                                               ShardedCheckpointer,
+                                               ShardedCheckpointListener)
+    from deeplearning4j_tpu_torch.util.checkpoint import load_tree_npz
+    from deeplearning4j_tpu_torch.util.model_serializer import jax_items
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    root = os.path.join(ROOT, "build", "smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    xtr, ytr = _mnist(1280)
+    steps = len(xtr) // LENET_BATCH
+
+    def it():
+        return ArrayDataSetIterator(xtr, ytr, batch=LENET_BATCH)
+
+    try:
+        ckpt = ShardedCheckpointer(os.path.join(root, "a"), keep=3,
+                                   log_fn=None)
+        net = LeNet().init(device="cuda")
+        net.listeners.append(ShardedCheckpointListener(ckpt, frequency=1,
+                                                       block=False))
+        t = time.perf_counter()
+        net.fit(it())
+        ckpt.wait_until_finished()
+        fit_s = time.perf_counter() - t
+        kept = ckpt.all_steps()
+        newest = os.path.join(ckpt.directory, str(kept[-1]), "state.npz")
+        with open(newest, "r+b") as f:
+            f.truncate(os.path.getsize(newest) // 3)
+        saved = load_tree_npz(os.path.join(ckpt.directory, str(kept[-2]),
+                                           "state.npz"))
+        fresh = LeNet().init(device="cuda")
+        got = ckpt.restore_latest_good(fresh)
+        arrays_equal = all(
+            np.array_equal(t_.cpu().numpy(), np.asarray(s))
+            for (_, t_), (_, s) in zip(jax_items(fresh.params),
+                                       jax_items(saved["params"])))
+        steady = LeNet().init(device="cuda")
+        steady.fit(it(), epochs=2)
+        faulty = LeNet().init(device="cuda")
+        fault = _FaultAt(steps + 1)
+        faulty.listeners.append(fault)
+        trainer = FaultTolerantTrainer(faulty, os.path.join(root, "b"),
+                                       checkpoint_every=1, keep=3)
+        trainer.listener.block = False
+        t = time.perf_counter()
+        trainer.fit(it(), epochs=2)
+        ft_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        resumed_equal = (faulty.iteration == steady.iteration
+                         and _bit_equal(_state_tensors(faulty),
+                                        _state_tensors(steady))
+                         and torch_equal(faulty._gen.get_state(),
+                                         steady._gen.get_state()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = {"model": "LeNet", "steps_per_epoch": steps, "keep": 3,
+           "steps_kept": kept, "fit_with_async_saves_s": fit_s,
+           "restored_step": got, "corrupt_skipped": ckpt.corrupt_skipped_total,
+           "restored_arrays_equal_saved": arrays_equal,
+           "fault_at_iteration": steps + 1, "fault_fired": fault.fired,
+           "restarts": trainer.restarts, "fault_tolerant_fit_s": ft_s,
+           "resumed_bit_equal_uninterrupted": resumed_equal}
+    if (kept != [steps - 2, steps - 1, steps] or got != steps - 1
+            or ckpt.corrupt_skipped_total != 1 or not arrays_equal
+            or not fault.fired or trainer.restarts != 1
+            or not resumed_equal):
+        raise AssertionError(f"checkpoint: {rec}")
+    emit("checkpoint", **rec, card=card)
+    return rec
 
 
 def lstm_entry(cell_records, seq_records, launches, train_checked,
@@ -4653,6 +5303,8 @@ def main() -> int:
               char_rates)
         seq_launches, seq_checked = timed("seq_graph", seq_graph_phase, torch,
                                           np, smi)
+        op_launches, op_checked = timed("op_table", op_table_phase, torch, np,
+                                        smi)
     capture_launches = {
         "serve": timed("capture_serve", capture_serve_phase, torch, np, smi),
         "train": timed("capture_train", capture_train_phase, torch, np,
@@ -4661,6 +5313,8 @@ def main() -> int:
                             torch, np, smi),
         "small": timed("capture_small", capture_small_phase, torch, np, smi),
     }
+    timed("serialize", serialize_phase, torch, np, smi)
+    timed("checkpoint", checkpoint_phase, torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -4762,7 +5416,7 @@ def main() -> int:
                    "and of one bf16 step against the plain version",
             "card": smi}
 
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "conv2d_fwd", "route": "cuda", "source": CONV_SOURCE,
         "replaces": CONV_REPLACES, "replaces_also": CONV_REPLACES_TILED,
         "replaces_ids": ["K1", "K2"], "launches": launches,
@@ -4823,7 +5477,12 @@ def main() -> int:
                        "seq_graph_pool")},
          "seq_graph_checked": {k: checked_fields("lstm_seq_fwd", c)
                                for k, c in seq_checked.items()}},
-    ]}), flush=True)
+    ]
+    for e in entries:  # the op table's launches by name, every one checked
+        e["launches_op_table"] = op_launches.get(e["name"], 0)
+        e.update({f"op_table_{k}": v for k, v in checked_fields(
+            e["name"], op_checked).items()})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -509,7 +509,9 @@ Plan plan_of(int dtype, int b, int h, int body) {
   pl.body = body < 0 ? pick_body(dtype, b, h) : body;
   pl.rows = rows_per_cluster(b);
   pl.clusters = (b + pl.rows - 1) / pl.rows;
-  pl.smem = (int)resident_smem(dtype == 0 ? 4 : 2, h, pl.rows);
+  // only the resident body has a shared-memory plan: below H = CLUSTER units J is 0, and
+  // k_slices would divide by it
+  pl.smem = pl.body == BODY_RESIDENT ? (int)resident_smem(dtype == 0 ? 4 : 2, h, pl.rows) : 0;
   return pl;
 }
 

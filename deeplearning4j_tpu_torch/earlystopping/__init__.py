@@ -10,14 +10,16 @@ Scores are the only values that come to the host. ``InMemoryModelSaver``
 keeps its snapshots as CPU tensors (params, states and optimizer states
 cloned, so the training that goes on in place leaves them as they were);
 ``get_best_model`` returns a network on the trained net's own device,
-with no listeners. ``LocalFileModelSaver`` waits for ModelSerializer
-(ROADMAP.md Queue 1 item 5).
+with no listeners. ``LocalFileModelSaver`` writes ``bestModel.zip`` and
+``latestModel.zip`` ModelSerializer archives (``util/model_serializer.py``)
+into a directory and restores the best one onto the trained net's device.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from enum import Enum
@@ -176,6 +178,42 @@ class InMemoryModelSaver:
             return None
         dev = self.best.device
         return _with_state(self.best, lambda t: t.to(dev, copy=True))
+
+
+class LocalFileModelSaver:
+    """The best and latest models as ModelSerializer archives in
+    ``directory``; ``get_best_model`` restores the best onto the device of
+    the net that was saved (None when none was saved)."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._device = None
+
+    def _path(self, name):
+        return os.path.join(self.directory, name)
+
+    def _write(self, model, name):
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+
+        self._device = model.device
+        ModelSerializer.write_model(model, self._path(name))
+
+    def save_best_model(self, model, score):
+        self._write(model, "bestModel.zip")
+
+    def save_latest_model(self, model, score):
+        self._write(model, "latestModel.zip")
+
+    def get_best_model(self):
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+
+        path = self._path("bestModel.zip")
+        if not os.path.exists(path):
+            return None
+        return ModelSerializer.restore_model(path, device=self._device)
 
 
 # --------------------------------------------------------------------- config

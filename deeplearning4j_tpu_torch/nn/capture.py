@@ -24,7 +24,9 @@ Building a program (the first batch of a signature, or ``warmup``):
   optimizer states; and the static inputs) is put back afterwards, and so
   is each dropout generator's state. No update is lost or doubled, and
   the iteration count and the generators' draws come out as an eager
-  run's. Then the body is captured into the network's graph pool (one
+  run's. Then, with dead networks collected and the cache emptied (as
+  ``torch.cuda.graph`` does) and the cyclic collector off until it ends,
+  the body is captured into the network's graph pool (one
   ``torch.cuda.graph_pool_handle()`` a network, shared by its programs),
   with each generator registered on the graph
   (``CUDAGraph.register_generator_state``), so every replay draws what the
@@ -49,6 +51,7 @@ the process (a server's scheduler thread included).
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import threading
 import time
@@ -204,8 +207,17 @@ class Program:
         backups = [(g, g.clone_state()) for g in (
             *generators, torch.cuda.default_generators[device.index or 0])]
         warmed = _kern.snapshot_counts()
+        # dead networks in reference cycles (net -> program -> body -> net)
+        # are freed here, and the collector stays off while capturing: a
+        # collection inside the capture would destroy their graphs and
+        # free their pinned step-size buffers in the middle of it, which
+        # invalidates the capture (CUDA error 901 at the next launch)
+        gc.collect()
+        torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         err, outputs = None, None
+        collecting = gc.isenabled()
+        gc.disable()
         with torch.cuda.stream(side):
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
@@ -217,6 +229,8 @@ class Program:
                     graph.capture_end()
                 except RuntimeError as e:
                     err = err or e
+                if collecting:
+                    gc.enable()
         self.counts = _kern.counts_since(warmed)
         _kern.restore_counts(before)
         if err is not None:

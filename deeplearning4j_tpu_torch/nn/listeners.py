@@ -25,9 +25,14 @@ step's.
 period: a batch, TBPTT remainder or evaluation shape that paid a warm-up
 and a capture inside the training loop.
 
-Not ported yet: ``CheckpointListener`` (it writes ModelSerializer
-archives, ROADMAP Queue 1 item 5) and the dispatcher's telemetry spans
-(item 12).
+:class:`CheckpointListener` writes ModelSerializer archives
+(``util/model_serializer.py``) every N iterations or epochs and keeps the
+last N. Under a coalescing window it runs when the window flushes, as
+every listener does, so it adds no host wait beyond ``sync_every``'s; the
+archive then holds the net as it stands at the flush (at ``sync_every`` 1,
+that iteration's state).
+
+Not ported yet: the dispatcher's telemetry spans (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -177,6 +182,54 @@ class CollectScoresListener(TrainingListener):
     def iteration_done(self, model, iteration, epoch):
         if iteration % self.frequency == 0:
             self.scores.append((iteration, model.get_score()))
+
+
+class CheckpointListener(TrainingListener):
+    """Periodic keep-N ModelSerializer checkpoints
+    (CheckpointListener.java: saveEveryNIterations, saveEveryNEpochs,
+    keepLast), named ``checkpoint_iter<i>_epoch<e>.zip``."""
+
+    def __init__(self, directory: str, save_every_n_iterations: int = 0,
+                 save_every_n_epochs: int = 0, keep_last: int = 0,
+                 save_updater: bool = True):
+        import os
+
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self.save_every_n_iterations = save_every_n_iterations
+        self.save_every_n_epochs = save_every_n_epochs
+        self.keep_last = keep_last
+        self.save_updater = save_updater
+        self.saved: list = []
+
+    def _save(self, model, iteration, epoch):
+        import os
+
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+
+        path = os.path.join(self.directory,
+                            f"checkpoint_iter{iteration}_epoch{epoch}.zip")
+        ModelSerializer.write_model(model, path,
+                                    save_updater=self.save_updater)
+        self.saved.append(path)
+        while self.keep_last and len(self.saved) > self.keep_last:
+            old = self.saved.pop(0)
+            if os.path.exists(old):
+                os.remove(old)
+
+    def iteration_done(self, model, iteration, epoch):
+        if (self.save_every_n_iterations
+                and iteration % self.save_every_n_iterations == 0):
+            self._save(model, iteration, epoch)
+
+    def on_epoch_end(self, model):
+        if (self.save_every_n_epochs
+                and model.epoch % self.save_every_n_epochs == 0):
+            self._save(model, model.iteration, model.epoch)
+
+    def last_checkpoint(self):
+        return self.saved[-1] if self.saved else None
 
 
 class EvaluativeListener(TrainingListener):

@@ -62,6 +62,12 @@ from deeplearning4j_tpu_torch.ops.kernels import _build
 ORDER_IFOG: Tuple[str, ...] = ("i", "f", "o", "g")   # DL4J layer order
 ORDER_IOFG: Tuple[str, ...] = ("i", "o", "f", "g")   # ONNX lstm_layer order
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: why the raw launches refuse inputs that need a gradient: they write
+#: their outputs through ctypes, so those would carry no grad_fn and
+#: training would silently get no gradient through the LSTM
+RAW_LAUNCH_NO_GRAD = (
+    "{} is the raw kernel launch and has no backward: call it on inputs "
+    "that require grad through its autograd Function ({})")
 
 
 def supports(xp, u, gate_activation: str, activation: str) -> bool:
@@ -122,10 +128,16 @@ def lstm_cell_fwd(xp, h, c, u, order=ORDER_IFOG):
     """(h', c') of one LSTM step on the CUDA kernel. ``xp`` may be a strided
     time slice of the (B, T, 4H) projection (its rows contiguous): it is
     read in place, not copied. Tensors on the CPU take
-    :func:`lstm_cell_reference`."""
+    :func:`lstm_cell_reference`. On the card it raises
+    :data:`RAW_LAUNCH_NO_GRAD` when grad is enabled and an input requires
+    grad: :class:`LSTMCellFunction` launches it under no-grad."""
     if all(t.device.type == "cpu" for t in (xp, h, c, u)):
         return lstm_cell_reference(xp, h, c, u, order)
     _check_cuda(xp, h, c, u)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xp, h, c, u)):
+        raise NotImplementedError(RAW_LAUNCH_NO_GRAD.format(
+            "lstm_cell_fwd", "LSTMCellFunction, or lstm_cell"))
     b, four_h = xp.shape if xp.dim() == 2 else (None, None)
     hidden = u.shape[0]
     if (not supports(xp, u, "sigmoid", "tanh") or h.dtype != xp.dtype
@@ -311,7 +323,9 @@ def lstm_seq_fwd(xp, h0, c0, u, order=ORDER_IFOG, mask=None, body=None):
     it). ``body`` forces ``"resident"`` or ``"step"`` (the resident body
     must fit); None takes :func:`seq_body`'s. Returns (y, h carries, c
     carries, h_fin, c_fin) as :func:`lstm_seq_reference` does. Tensors on
-    the CPU take :func:`lstm_seq_reference`."""
+    the CPU take :func:`lstm_seq_reference`. On the card it raises
+    :data:`RAW_LAUNCH_NO_GRAD` when grad is enabled and an input requires
+    grad: :class:`LSTMSequenceFunction` launches it under no-grad."""
     tensors = [t for t in (xp, h0, c0, u, mask) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return lstm_seq_reference(xp, h0, c0, u, order, mask)
@@ -319,6 +333,9 @@ def lstm_seq_fwd(xp, h0, c0, u, order=ORDER_IFOG, mask=None, body=None):
     if len(devs) != 1 or not xp.is_cuda:
         raise ValueError(f"lstm_seq_fwd: tensors on {sorted(map(str, devs))}"
                          "; all must be on one CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(RAW_LAUNCH_NO_GRAD.format(
+            "lstm_seq_fwd", "LSTMSequenceFunction, or lstm_seq"))
     hidden = u.shape[0] if u.dim() == 2 else None
     b, steps = xp.shape[:2] if xp.dim() == 3 else (None, None)
     if (xp.dim() != 3 or not supports(xp[:, 0], u, "sigmoid", "tanh")
@@ -373,25 +390,29 @@ class LSTMSequenceFunction(torch.autograd.Function):
     """One differentiable LSTM segment, mask included (the reference's layer
     scan of ``lstm_cell_fused`` steps): forward through :func:`lstm_seq_fwd`,
     backward by the reference's adjoint ``_cell_vjp_bwd`` in reverse time
-    from the saved xp, states, U, carries and mask."""
+    from the saved xp, states, U, carries and mask. Its per-step output is
+    y (``m * h'``, the layers' scan), or with ``carries`` the h carries
+    (the frozen h past a sequence's end, ``ops/rnn.py::lstm_layer``'s Y)."""
 
     @staticmethod
-    def forward(ctx, xp, h0, c0, u, mask, order):
+    def forward(ctx, xp, h0, c0, u, mask, order, carries=False):
         y, hseq, cseq, h_fin, c_fin = lstm_seq_fwd(xp, h0, c0, u, order, mask)
         ctx.save_for_backward(xp, h0, c0, u, hseq, cseq, mask)
-        ctx.order = order
-        return y, h_fin, c_fin
+        ctx.order, ctx.carries = order, carries
+        return (hseq if carries else y), h_fin, c_fin
 
     @staticmethod
     def backward(ctx, dy, dh_fin, dc_fin):
         """``_cell_vjp_bwd`` per step, chained in reverse through the carries
         and the mask's passthrough (h_t = m h'_t + (1 - m) h_{t-1}, y_t =
-        m h'_t). Off the chain: the gates of every step from one product
-        H_prev (T x B, H) @ U, dU = H_prev^T @ dZ, dxp = dZ. On it, per step:
-        dct, the gate adjoints and dz_t @ U^T. dxp in xp's type, dh0 and dc0
-        in the states', dU in U's."""
+        m h'_t; with ``carries`` the output is h_t itself, so its cotangent
+        joins the carry's and passes through with it). Off the chain: the
+        gates of every step from one product H_prev (T x B, H) @ U, dU =
+        H_prev^T @ dZ, dxp = dZ. On it, per step: dct, the gate adjoints and
+        dz_t @ U^T. dxp in xp's type, dh0 and dc0 in the states', dU in
+        U's."""
         xp, h0, c0, u, hseq, cseq, mask = ctx.saved_tensors
-        order = ctx.order
+        order, carries = ctx.order, ctx.carries
         b, steps, hidden = hseq.shape
         hs, cs = _acc(hseq).transpose(0, 1), _acc(cseq).transpose(0, 1)
         h_prev = torch.cat([_acc(h0)[None], hs[:-1]])       # (T, B, H)
@@ -420,7 +441,7 @@ class LSTMSequenceFunction(torch.autograd.Function):
             dhp, dcp = dys[t] + dh, dc
             if m is not None:
                 keep = 1.0 - m[t]
-                pass_h, pass_c = keep * dh, keep * dc
+                pass_h, pass_c = keep * (dhp if carries else dh), keep * dc
                 dhp, dcp = m[t] * dhp, m[t] * dcp
             dct = torch.addcmul(dcp, dhp, a_c[t])
             torch.mul(dct[:, None], k_c[t], out=dz[t])
@@ -433,7 +454,7 @@ class LSTMSequenceFunction(torch.autograd.Function):
         du = torch.matmul(h_prev.reshape(steps * b, hidden).transpose(0, 1),
                           dz.reshape(steps * b, 4 * hidden))
         return (dz.transpose(0, 1).to(xp.dtype), dh.to(h0.dtype),
-                dc.to(c0.dtype), du.to(u.dtype), None, None)
+                dc.to(c0.dtype), du.to(u.dtype), None, None, None)
 
 
 def lstm_seq(xp, h0, c0, u, order=ORDER_IFOG, mask=None):

@@ -2,6 +2,8 @@
 ModelServer -> ModelRouter -> BatchScheduler -> ServingModel (classify)."""
 
 from deeplearning4j_tpu_torch.serving.model import ServingModel
+from deeplearning4j_tpu_torch.serving.resilience import (ModelLoadError,
+                                                         ReloadRejectedError)
 from deeplearning4j_tpu_torch.serving.router import (ModelRouter,
                                                      UnknownModelError)
 from deeplearning4j_tpu_torch.serving.scheduler import (BatchScheduler,
@@ -11,6 +13,7 @@ from deeplearning4j_tpu_torch.serving.scheduler import (BatchScheduler,
                                                         ShedError)
 from deeplearning4j_tpu_torch.serving.server import ModelServer
 
-__all__ = ["BatchScheduler", "DeadlineExceededError", "ModelRouter",
-           "ModelServer", "QueueFullError", "SchedulerStoppedError",
+__all__ = ["BatchScheduler", "DeadlineExceededError", "ModelLoadError",
+           "ModelRouter", "ModelServer", "QueueFullError",
+           "ReloadRejectedError", "SchedulerStoppedError",
            "ServingModel", "ShedError", "UnknownModelError"]

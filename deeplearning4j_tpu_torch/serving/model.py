@@ -12,15 +12,22 @@ coalesces up to the largest bucket, and a coalesced batch is split by
 request. Rows are independent, so a
 request's result does not depend on what it was batched with.
 
+Rolling reload (``ModelRouter.reload``): :meth:`ServingModel.clone_with_net`
+makes a shadow with this model's serving configuration,
+:meth:`ServingModel.canary_check` runs a batch through it, and
+:meth:`ServingModel.swap_from` adopts its net between batch cycles (under
+the lock ``execute`` holds) and advances ``version``.
+
 Not ported yet: ``kind="generate"`` (paged-KV decode, the generate
-serving slice), ``quantize`` (int8 serving), ``use_mesh`` (multi-device
-inference) and rolling reload; each raises ``NotImplementedError`` naming
-its slice.
+serving slice), ``quantize`` (int8 serving, ROADMAP item 11) and
+``use_mesh`` (multi-device inference); each raises
+``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,6 +71,9 @@ class ServingModel:
         self.warmed = False
         #: chunks run through ``net.output`` since construction
         self.chunks_executed = 0
+        #: the weights' version: 1 at registration, +1 per reload
+        self.version = 1
+        self.reload_time: Optional[float] = None
         self._lock = threading.Lock()
 
     # -------------------------------------------------------------- shapes
@@ -129,10 +139,51 @@ class ServingModel:
             off += k
         return results, xs.shape[0], sum(p for _, p in plan), len(plan)
 
+    # -------------------------------------------------------------- reload
+    def clone_with_net(self, net) -> "ServingModel":
+        """A shadow around ``net`` with this model's serving configuration
+        (kind, bucket policy), warmed and checked without touching the
+        live model."""
+        return ServingModel(net, self.model_id, kind=self.kind,
+                            bucketing=self.policy)
+
+    def structure_matches(self, net) -> bool:
+        """Whether ``net``'s param tree is swap-compatible with the live
+        one: the same paths and leaf shapes."""
+        from deeplearning4j_tpu_torch.util.model_serializer import (
+            fingerprint, jax_items)
+
+        if fingerprint(self.net.params) != fingerprint(net.params):
+            return False
+        return all(tuple(a.shape) == tuple(b.shape) for (_, a), (_, b) in
+                   zip(jax_items(self.net.params), jax_items(net.params)))
+
+    def canary_check(self, payload=None) -> Tuple[bool, str]:
+        """One batch through this model: the forward must finish and give
+        finite values. Returns (ok, detail)."""
+        try:
+            if payload is None:
+                payload = np.zeros((1,) + self._input_shape(), np.float32)
+            out, _ = self.execute([payload])
+            arr = np.asarray(out[0])
+            if not np.all(np.isfinite(arr)):
+                bad = int(arr.size - np.isfinite(arr).sum())
+                return False, (f"canary output has {bad} non-finite "
+                               f"value(s) of {arr.size}")
+        except Exception as e:  # noqa: BLE001 - a verdict, not a crash
+            return False, f"canary raised {type(e).__name__}: {e}"
+        return True, ""
+
     def swap_from(self, shadow) -> int:
-        raise NotImplementedError(
-            "rolling reload is not ported yet: it comes with the serving "
-            "resilience slice")
+        """Adopt the shadow's warmed, checked net between batch cycles (the
+        lock ``execute`` holds); returns the new version."""
+        with self._lock:
+            self.net = shadow.net
+            self.policy = shadow.policy
+            self.warmed = shadow.warmed
+            self.version += 1
+            self.reload_time = time.time()
+        return self.version
 
     def describe(self) -> dict:
         return {
@@ -140,6 +191,8 @@ class ServingModel:
             "buckets": self.policy.to_spec(),
             "coalesce_limit": self.coalesce_limit(),
             "warmed": self.warmed,
+            "version": self.version,
+            "reload_time": self.reload_time,
             "chunks_executed": self.chunks_executed,
             "device": str(getattr(self.net, "device", None)),
             "params": int(self.net.num_params())

@@ -295,12 +295,18 @@ def test_dispatch_on_cpu_runs_plain_and_counts_nothing():
 
 
 def test_ops_registered_by_name():
+    """flash_attention by name is the port's; dot_product_attention by name
+    is the ops/nn.py form, the reference's last registration of the name,
+    which agrees with ops/attention.py's on an unmasked call."""
+    from deeplearning4j_tpu_torch.ops import nn as TN
+
     assert registry.get_op("flash_attention").fn is TA.flash_attention
     assert registry.get_op("dotProductAttention").fn is \
-        TA.dot_product_attention
+        TN.dot_product_attention
     q = torch.randn(1, 1, 8, 8)
-    assert torch.equal(registry.exec_op("dot_product_attention", q, q, q),
-                       TA.dot_product_attention(q, q, q))
+    torch.testing.assert_close(
+        registry.exec_op("dot_product_attention", q, q, q),
+        TA.dot_product_attention(q, q, q), rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------ chip_smoke helpers

@@ -310,7 +310,7 @@ def test_char_rnn_on_card_matches_cpu(card):
 # under one n8 tile, a batch over one cluster's rows, H 512 (bf16: two m16
 # tiles a column block; fp32: the step body), and H 100 (the step body)
 _SEQ_CASES = [(32, 256, 50), (4, 256, 1), (3, 256, 7), (33, 256, 5),
-              (32, 512, 10), (5, 100, 6)]
+              (32, 512, 10), (5, 100, 6), (3, 6, 4)]
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
@@ -342,8 +342,9 @@ def test_lstm_seq_kernel_matches_plain(card, dtype, tol, order, b, h, t,
         mask = (torch.arange(t, device=card)[None]
                 < lengths[:, None]).float()
     body = KL.seq_body(dtype, b, h)
-    assert body == ("step" if h == 100 or (h == 512 and dtype ==
-                                           torch.float32) else "resident")
+    assert body == ("step" if h in (100, 6) or (h == 512 and dtype ==
+                                                torch.float32)
+                    else "resident")
     ref = KL.lstm_seq_reference(xp, h0, c0, u, ordr, mask)
     poison = [torch.full(r.shape, float("nan"), dtype=dtype, device=card)
               for r in ref]
@@ -1108,3 +1109,173 @@ def test_capture_fails_by_name_on_a_host_sync(card, monkeypatch):
     with capture.disabled():
         net.fit(x, y)
     assert net.iteration == it + 1 and np.isfinite(net.get_score())
+
+
+def test_capture_collects_dead_nets_outside_the_capture(card, monkeypatch):
+    """A net whose step was captured, then dropped: it sits in a reference
+    cycle (net -> program -> body -> net), so only the cyclic collector
+    frees it. Another net's step is then captured with a hook inside the
+    captured body that drops the last reference and collects wherever the
+    collector is on, as the collector may at any allocation. The capture
+    keeps it off, so the dead net's graph and pinned buffers are freed after
+    the capture, not inside it (inside, that invalidates the capture: CUDA
+    error 901 at the next launch, as a ResNet-50 step captured after the
+    smoke's capture phases once failed), and the step's loss is the eager
+    step's within 1e-5."""
+    import gc
+    import weakref
+
+    from deeplearning4j_tpu_torch.nn import layers as TL
+
+    x, y = _dense_batches(1)[0]
+    dead = [_dense_net(card)]
+    dead[0].fit(x, y)
+    assert dead[0]._aot_steps
+    gone = weakref.ref(dead[0])
+    orig = TL.OutputLayer.compute_loss
+    seen = []
+
+    def collecting(self, *a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            dead.clear()
+            seen.append(gc.isenabled())
+            if gc.isenabled():
+                gc.collect()
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(TL.OutputLayer, "compute_loss", collecting)
+    net, ref = _dense_net(card), _dense_net(card)
+    net.fit(x, y)
+    assert seen == [False] and gc.isenabled() and net._aot_steps
+    gc.collect()
+    assert gone() is None
+    with capture.disabled():
+        ref.fit(x, y)
+    assert np.isclose(net.get_score(), ref.get_score(), rtol=1e-5)
+
+
+# ----------------------------------------------------------- the op table
+
+def _op_cases():
+    from deeplearning4j_tpu_torch.ops import op_cases
+
+    return op_cases, op_cases.build(0)
+
+
+_OC, _CASES = _op_cases()
+
+
+def _run_case(name, case, device):
+    import deeplearning4j_tpu_torch.ops as ops
+
+    return _OC.to_numpy(_OC.run(
+        ops.exec_op, name, case,
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
+        lambda k: torch.Generator(device=device).manual_seed(k.seed)))
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_op_table_on_card_matches_cpu(card, name):
+    """Every op by name on CUDA tensors against the same call on the CPU,
+    to its family's tolerance (op_cases.TOLERANCES); random ops by their
+    moments."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    case = _CASES[name]
+    _OC.compare(case, _run_case(name, case, card), _run_case(name, case,
+                                                              "cpu"))
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+# (op, {kernel: launches of its case}), worked out in
+# op_cases.KERNEL_LAUNCHES
+_KERNEL_OPS = sorted(_OC.KERNEL_LAUNCHES.items())
+
+
+@pytest.mark.parametrize("name,want", _KERNEL_OPS,
+                         ids=[n for n, _ in _KERNEL_OPS])
+def test_kernel_ops_by_name_launch_their_kernels(card, name, want):
+    TK.reset_counts()
+    _run_case(name, _CASES[name], card)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in TK.LAUNCHES.items() if v} == want
+    assert not any(TK.PLAIN_ON_CUDA.values())
+    with TK.impl_scope("exact"):
+        TK.reset_counts()
+        _run_case(name, _CASES[name], card)
+        assert not any(TK.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("direction", ["forward", "reverse",
+                                       "bidirectional"])
+def test_lstm_layer_grads_on_card_match_cpu(card, direction, layout):
+    """``lstm_layer`` by name on the card (K4 once a direction, inside
+    ``LSTMSequenceFunction``) is differentiable: with ragged seq_lens and
+    initial states, its outputs and the gradients of x, W, R, b, h0 and c0
+    against the plain step loop's on the CPU, within 1e-4 of the largest
+    gradient (fp32: the kernel's sums in another order)."""
+    import deeplearning4j_tpu_torch.ops as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(31)
+    d = 2 if direction == "bidirectional" else 1
+    t_, b_, i_, h_ = 9, 6, 5, 32
+    lens = np.array([9, 1, 4, 7, 9, 2], np.int32)
+    x = rng.standard_normal((t_, b_, i_) if layout == 0 else (b_, t_, i_))
+    states = (d, b_, h_) if layout == 0 else (b_, d, h_)
+    args = [x, rng.standard_normal((d, 4 * h_, i_)) * 0.3,
+            rng.standard_normal((d, 4 * h_, h_)) * 0.2,
+            rng.standard_normal((d, 8 * h_)) * 0.1, lens,
+            rng.standard_normal(states), rng.standard_normal(states)]
+    kw = dict(hidden_size=h_, direction=direction, layout=layout)
+
+    def run(dev):
+        ts = [torch.from_numpy(np.asarray(
+            a, np.float32 if a.dtype != np.int32 else np.int32)).to(dev)
+              for a in args]
+        for i in (0, 1, 2, 3, 5, 6):
+            ts[i].requires_grad_(True)
+        TK.reset_counts()
+        outs = ops.exec_op("lstm_layer", *ts, **kw)
+        crng = np.random.default_rng(32)
+        sum((o * torch.from_numpy(crng.standard_normal(o.shape).astype(
+            np.float32)).to(dev)).sum() for o in outs).backward()
+        launched = dict(TK.LAUNCHES)
+        return ([o.detach().cpu() for o in outs],
+                [ts[i].grad.cpu() for i in (0, 1, 2, 3, 5, 6)], launched)
+
+    outs, grads, launched = run(card)
+    assert launched["lstm_seq_fwd"] == d
+    assert not any(TK.PLAIN_ON_CUDA.values())
+    want_outs, want_grads, _ = run("cpu")
+    for g, w in zip(outs + grads, want_outs + want_grads):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            float(w.abs().max()), 1.0)
+
+
+def test_serializer_round_trip_on_card(card, tmp_path):
+    """A LeNet trained on the card, archived and restored onto the card
+    (bit for bit) and onto the CPU (within 1e-5)."""
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    x = rng.random((16, 28, 28, 1), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+    net = LeNet().init(device=card)
+    net.fit(x, y)
+    path = str(tmp_path / "lenet.zip")
+    ModelSerializer.write_model(net, path)
+    back = ModelSerializer.restore_multi_layer_network(path)
+    assert back.device.type == "cuda"
+    written = net.output(x)
+    assert torch.equal(back.output(x), written)
+    cpu = ModelSerializer.restore_multi_layer_network(path, device="cpu")
+    torch.testing.assert_close(cpu.output(x).float(),
+                               written.float().cpu(), rtol=1e-4, atol=1e-5)
+    back.fit(x, y)
+    net.fit(x, y)
+    assert back.get_score() == net.get_score()

@@ -98,4 +98,4 @@ def test_registry_by_name_and_aliases():
         assert registry.has_op(name)
     assert "conv2d" in registry.list_ops("conv")
     with pytest.raises(registry.OpNotFoundError):
-        registry.get_op("lstm_layer")
+        registry.get_op("no_such_op")

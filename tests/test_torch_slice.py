@@ -402,8 +402,16 @@ def test_package_imports_without_jax():
         "'nn.recurrent', 'data.iterators', 'data.normalizers', "
         "'eval', 'eval.classification', 'eval.regression', "
         "'nn.listeners', 'earlystopping', 'nlp', 'nlp.tokenization', "
-        "'nlp.bert_iterator', 'nn.transfer', 'nn.attention', 'tree')}\n"
-        "assert new <= set(mods), sorted(new - set(mods))\n")
+        "'nlp.bert_iterator', 'nn.transfer', 'nn.attention', 'tree', "
+        "'ops.elementwise', 'ops.reduce', 'ops.shape_ops', 'ops.rnn', "
+        "'ops.linalg', 'ops.image', 'ops.signal', 'ops.updater_ops', "
+        "'ops.compression', 'ops.nlp_ops', 'ops.op_cases', 'ops._compat', "
+        "'util.model_serializer', 'util.checkpoint', "
+        "'serving.resilience')}\n"
+        "assert new <= set(mods), sorted(new - set(mods))\n"
+        "bad = [k for k in sys.modules if k == 'orbax' or "
+        "k.startswith('orbax.')]\n"
+        "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
