@@ -231,6 +231,35 @@ Phases, each printing one JSON line:
 22c. checkpoint: ShardedCheckpointer(keep=3) with async saves on LeNet,
     a corrupted newest step skipped, and a FaultTolerantTrainer run
     stopped by a fault and resumed bit for bit to an uninterrupted one.
+22d. samediff_tf_bert: full-width BERT-base (hidden 768, 12 layers, 12
+    heads, FFN 3072, vocabulary 30,522, 512 positions, 2 classes; seed
+    12345) written as a frozen TF GraphDef (``imports/graph_cases.py``,
+    from the zoo net's params) and imported from bytes by
+    ``import_graph_def``: its probabilities at batch 32, S 128 within 1e-4
+    of ``net.output`` (flash off) and of the same graph in fp64 on the
+    card, no kernel launched (the imported attention is MatMul/Softmax);
+    every weight made a variable, a softmaxCrossEntropy head on a label
+    placeholder, Adam(1e-5): the first step's gradients by the fp64 step
+    gate, then ``fit`` (captured) for BERT_TRAIN_EPOCHS epochs of the
+    bert_train batches, the last 10 steps' mean loss below the first
+    10's; SameDiff BERT samples/sec of ``output`` and ``fit``, eager and
+    captured (five windows); one profiled eager step by class.
+22e. samediff_save: that trained graph saved with its updater state and
+    loaded on the card: arrays, Adam moments and the iteration bit for
+    bit; outputs (captured and eager) and one more eager ``fit`` step
+    (under deterministic algorithms) bit for bit the writer's.
+22f. samediff_tf_resnet: full-width ResNet-50 (224x224x3, 1000 classes)
+    as a frozen TF GraphDef from ``graph_cases`` at batch 32: the forward's
+    53 K1 launches each checked, within 1e-4 of the ``exact`` route; the
+    53 conv kernels made variables, 4 eager ``fit`` steps with 53 / 52 /
+    53 K1 / dgrad / K3 launches each, every one checked, the loss falling;
+    images/sec forward and ``fit``, eager and captured; a captured step's
+    launches under replay.
+22g. samediff_onnx_lstm: the char-RNN's LSTM (47 -> 256, B 32, T 50) as an
+    ONNX model from ``graph_cases``, on the card against the CPU:
+    ``output`` and ``calculate_gradients`` (W, R, B) within 1e-4 of the
+    largest CPU value, K4 once in each, every launch checked, eager and
+    captured.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -238,7 +267,9 @@ Phases, each printing one JSON line:
     the recurrent slice's under ``launches_recurrent_layers`` and
     ``launches_seq_graph``; every kernel's captured launches (phases
     19-22) under ``launches_captured``, the op table's (phase 18b) under
-    ``launches_op_table`` with its checks under ``op_table_checked_*``.
+    ``launches_op_table`` with its checks under ``op_table_checked_*``,
+    the SameDiff phases' (22d-22g) under ``launches_samediff`` with
+    theirs under ``samediff_*checked_*``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -5080,6 +5111,521 @@ def checkpoint_phase(torch, np, card):
     return rec
 
 
+# --------------------------------------------------------------- SameDiff
+
+SD_DIR = os.path.join(ROOT, "build", "smoke_samediff")
+SD_TOL = 1e-4
+SD_RESNET_BATCH, SD_RESNET_STEPS = 32, 4
+SD_RESNET_STEP = {"conv2d_fwd": 53, "conv2d_dgrad": 52, "conv2d_wgrad": 53}
+SD_LSTM = (32, 50, 47, 256)  # the char-RNN's B, T, inputs, H
+SD_FIT_WINDOW_BATCHES = 4
+
+
+class _StepLosses:
+    """A SameDiff listener keeping each step's loss."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, sd, it, loss):
+        self.losses.append(loss)
+
+
+class _DataSets:
+    """A list of DataSets as an iterator ``SameDiff.fit`` takes."""
+
+    def __init__(self, sets):
+        self.sets = list(sets)
+
+    def __iter__(self):
+        return iter(self.sets)
+
+    def reset(self):
+        pass
+
+
+def _sd_values(torch, sd, feeds, dtype):
+    """The graph's stored arrays and ``feeds`` on the card, floats as
+    ``dtype`` (integers as they are)."""
+    from deeplearning4j_tpu_torch.samediff import core
+
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    vals = {k: cast(v) for k, v in sd._device_arrays().items()}
+    vals.update({k: cast(core._to_device(a, sd.device))
+                 for k, a in feeds.items()})
+    return vals
+
+
+def _sd_run64(torch, sd, feeds, outs):
+    """The same recorded nodes on the card in fp64."""
+    from deeplearning4j_tpu_torch.samediff import core
+
+    with torch.no_grad():
+        return core._trace_nodes(sd._nodes, _sd_values(
+            torch, sd, feeds, torch.float64), outs)
+
+
+def _sd_grads64(torch, sd, feeds, names):
+    """(loss, d(loss)/d(names)) of the graph on the card in fp64, as CPU
+    tensors: the gradient gate's reference step."""
+    vals = _sd_values(torch, sd, feeds, torch.float64)
+    for n in names:
+        vals[n] = vals[n].detach().requires_grad_(True)
+    loss = sd._loss_value(vals)
+    grads = torch.autograd.grad(loss, [vals[n] for n in names])
+    return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+
+def _sd_class(kernel, names):
+    """Profile bucket of a device kernel of a SameDiff BERT step, by its
+    name and the CPU ops it ran under."""
+    if "multi_tensor_apply" in kernel or "foreach" in kernel:
+        return "adam"
+    if names & {"aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"}:
+        return "matmul"
+    if names & {"aten::_softmax", "aten::_softmax_backward_data",
+                "aten::_log_softmax", "aten::_log_softmax_backward_data"}:
+        return "softmax"
+    if names & {"aten::index_select", "aten::index_add_",
+                "aten::index_select_backward"}:
+        return "gather"
+    if names & {"aten::erf"}:
+        return "gelu_erf"
+    if names & {"aten::mean", "aten::rsqrt", "aten::sub", "aten::pow"}:
+        return "layer_norm_parts"
+    return "other"
+
+
+def profile_samediff_step(torch, sd, ds):
+    """One eager ``fit`` step of a SameDiff graph under torch.profiler:
+    wall, device busy, idle share, device ms by :func:`_sd_class`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.nn import capture
+
+    with capture.disabled():
+        sd.fit(ds)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd.fit(ds)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kernels)
+    by_class = {}
+    for evt in prof.events():
+        names = {evt.name} | {p.name for p in _parents(evt)}
+        for k in evt.kernels:
+            cls = _sd_class(k.name, names)
+            by_class[cls] = by_class.get(cls, 0.0) + k.duration / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            **{f"{c}_ms": v for c, v in sorted(by_class.items())},
+            **{f"{c}_share_of_busy": v / busy for c, v in by_class.items()
+               if busy},
+            "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
+                    for ms, n, name in kernels[:8]]}
+
+
+def _no_kernels(kern, what):
+    if any(kern.LAUNCHES.values()) or any(kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"{what}: kernels {kern.LAUNCHES}, plain on "
+                             f"CUDA {kern.PLAIN_ON_CUDA}")
+
+
+def _bert_feeds(np, ds):
+    """A BertIterator batch as the frozen BERT graph's three int32
+    placeholders."""
+    return {"input_ids": ds.features[..., 0].astype(np.int32),
+            "input_mask": ds.features_mask.astype(np.int32),
+            "segment_ids": ds.features[..., 1].astype(np.int32)}
+
+
+def samediff_tf_bert_phase(torch, np, card):
+    """BERT-base (hidden 768, 12 layers, 12 heads, FFN 3072, vocabulary
+    30,522, 512 positions, 2 classes; seed 12345) written as a frozen TF
+    GraphDef by ``graph_cases.bert_graph_def`` from the zoo net's params,
+    imported from bytes: its probabilities at batch 32, S 128 against
+    ``net.output`` (flash off) and against the same graph in fp64; every
+    weight converted to a variable, a softmaxCrossEntropy head on a label
+    placeholder, Adam(BERT_TRAIN_LR): the first step's gradients by the
+    fp64 step gate, BERT_TRAIN_EPOCHS epochs of ``fit`` on the bert_train
+    phase's batches (captured) with the last 10 steps' mean loss below
+    the first 10's; SameDiff BERT samples/sec of ``output`` and ``fit``,
+    eager and captured; one profiled eager step by class. Returns what
+    samediff_save needs."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.imports import graph_cases, import_graph_def
+    from deeplearning4j_tpu_torch.nlp import Vocab
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.samediff import TrainingConfig
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    rec = {"model": "Bert.base", "batch": BERT_TRAIN_BATCH,
+           "seq": BERT_TRAIN_SEQ}
+    net = Bert.base(max_length=512, num_classes=2, hidden_dropout=0.0,
+                    flash=False).init(device="cuda")
+    t0 = time.perf_counter()
+    gd, _ = graph_cases.bert_graph_def(net, BERT_TRAIN_SEQ)
+    rec["graph_def_mb"] = len(gd) / 2 ** 20
+    rec["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = import_graph_def(gd, device="cuda")
+    rec["import_s"] = time.perf_counter() - t0
+    del gd
+    rec["nodes"], rec["arrays"] = len(sd._nodes), len(sd._arrays)
+    text, labels = bert_corpus()
+    batches = list(bert_iterator(Vocab.build(text), text, labels))
+    feeds = [_bert_feeds(np, ds) for ds in batches]
+    logits = sd.tf_name_map["logits:0"]
+    probs = sd.tf_name_map["probabilities:0"]
+
+    # (a) the forward against net.output and against fp64
+    f0 = feeds[0]
+    x, _, m = _ds_on_card(torch, batches[0])
+    kern.reset_counts()
+    with capture.disabled():
+        out = sd.output(f0, [probs, logits])
+        want = net.output(x, mask=m).double().cpu()
+    torch.cuda.synchronize()
+    _no_kernels(kern, "the imported BERT forward")
+    r64 = [t.cpu() for t in _sd_run64(torch, sd, f0, [probs, logits])]
+    got = torch.from_numpy(out[probs]).double()
+    net_err, net_norm = _grad_error(got, want)
+    p64_err, p64_norm = _grad_error(got, r64[0])
+    l64_err, l64_norm = _grad_error(torch.from_numpy(out[logits]).double(),
+                                    r64[1])
+    rec.update(probs_vs_net_output=net_err, probs_vs_net_output_norm=net_norm,
+               probs_vs_fp64=p64_err, logits_vs_fp64_norm=l64_norm,
+               tol=SD_TOL)
+    if max(net_norm, p64_norm, l64_norm) > SD_TOL:
+        raise AssertionError(f"imported BERT forward: {rec}")
+    del net, x, m, want
+    torch.cuda.empty_cache()
+
+    # (b) fine-tune: every weight a variable, a cross-entropy head
+    weights = [n for n, a in sd._arrays.items()
+               if a.dtype == np.float32 and a.ndim >= 1]
+    sd.convert_to_variable(*weights)
+    label = sd.placeholder("label", shape=(-1, 2))
+    loss = sd.loss.softmaxCrossEntropy(sd.get_variable(logits), label)
+    sd.set_loss_variables(loss)
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(BERT_TRAIN_LR),
+        data_set_feature_mapping=["input_ids", "input_mask", "segment_ids"],
+        data_set_label_mapping=["label"]))
+    rec["variables"] = len(weights)
+    rec["parameters"] = int(sum(sd._arrays[n].size for n in weights))
+    fl = dict(f0, label=batches[0].labels)
+    with capture.disabled():
+        g_auto = sd.calculate_gradients(fl, *weights)
+        with kern.impl_scope("exact"):
+            g_exact = sd.calculate_gradients(fl, *weights)
+        l32 = sd.score(fl)
+    l64, g_64 = _sd_grads64(torch, sd, fl, weights)
+
+    def as_t(g):
+        return {"sd": {k: torch.from_numpy(v) for k, v in g.items()}}
+
+    (worst_name, worst), rows, failures = _grad_parity(
+        as_t(g_auto), as_t(g_exact), {"sd": g_64}, top=None)
+    loss_rel = abs(l32 - l64) / abs(l64)
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"imported BERT step off fp64: loss rel "
+                             f"{loss_rel}, gradients past the gate "
+                             f"{failures[:4]}")
+    rec.update(first_step_loss=l32, first_step_loss_fp64=l64,
+               loss_rel_err=loss_rel, worst_grad=worst_name,
+               worst_grad_auto_vs_exact=worst,
+               max_gate_use=max(r["gate_use"] for r in rows),
+               worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3])
+    del g_auto, g_exact, g_64, rows
+    torch.cuda.empty_cache()
+
+    # (c) the main path: fit on the bert_train batches, captured
+    sets = [DataSet([f["input_ids"], f["input_mask"], f["segment_ids"]],
+                    ds.labels) for f, ds in zip(feeds, batches)]
+    steps = _StepLosses()
+    sd.add_listener(steps)
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    hist = sd.fit(_DataSets(sets), epochs=BERT_TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    rec["fit_s"] = time.perf_counter() - t0
+    _no_kernels(kern, "the imported BERT fit")
+    sd._listeners.remove(steps)
+    ls = steps.losses
+    first, last = float(np.mean(ls[:10])), float(np.mean(ls[-10:]))
+    if not np.isfinite(ls).all() or not last < first:
+        raise AssertionError(f"imported BERT fit: first 10 {first}, last "
+                             f"10 {last}")
+    rec.update(fit_steps=len(ls), epoch_losses=hist, first10_mean=first,
+               last10_mean=last, programs={
+                   k: {"eager": p.eager, "captured": p.graph is not None,
+                       "pool_mb": p.pool_bytes / 2 ** 20}
+                   for k, p in sd.programs().items()})
+
+    # (d) samples/sec, output and fit, eager and captured
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = _DataSets(sets[:SD_FIT_WINDOW_BATCHES])
+    rows_fit = SD_FIT_WINDOW_BATCHES * BERT_TRAIN_BATCH
+    with capture.disabled():
+        rec["output_samples_per_sec_eager"] = captured_rate(
+            torch, lambda: sd.output(f0, [probs]), BERT_TRAIN_BATCH)
+        rec["fit_samples_per_sec_eager"] = captured_rate(
+            torch, lambda: sd.fit(window), rows_fit)
+    torch.cuda.empty_cache()
+    rec["output_samples_per_sec_captured"] = captured_rate(
+        torch, lambda: sd.output(f0, [probs]), BERT_TRAIN_BATCH)
+    rec["fit_samples_per_sec_captured"] = captured_rate(
+        torch, lambda: sd.fit(window), rows_fit)
+    rec["profile_eager_step"] = profile_samediff_step(
+        torch, sd, _DataSets(sets[:1]))
+    emit("samediff_tf_bert", **rec, card=card)
+    return sd, sets, f0, probs, logits
+
+
+def samediff_save_phase(torch, np, card, sd, sets, f0, probs, logits):
+    """``save`` (with the updater state) of the trained BERT-base graph and
+    ``load`` on the card: arrays, the Adam moments and the iteration bit
+    for bit, the outputs bit for bit the writer's (captured, and eager),
+    and one more eager ``fit`` step on each under deterministic algorithms
+    bit for bit (loss, every trainable, the moments)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.samediff import SameDiff
+    from deeplearning4j_tpu_torch.util.model_serializer import jax_items
+
+    shutil.rmtree(SD_DIR, ignore_errors=True)
+    os.makedirs(SD_DIR)
+    path = os.path.join(SD_DIR, "bert_base.sdz")
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        sd.save(path, save_updater_state=True)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["file_mb"] = os.path.getsize(path) / 2 ** 20
+        t0 = time.perf_counter()
+        sd2 = SameDiff.load(path, device="cuda")
+        rec["load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(SD_DIR, ignore_errors=True)
+    bad = [k for k in sd._arrays
+           if not np.array_equal(sd._arrays[k], sd2._arrays[k])]
+    moments = [torch_equal(a, b) for (_, a), (_, b) in zip(
+        jax_items(sd._opt_state), jax_items(sd2._opt_state))]
+    if bad or not all(moments) or sd._it_count != sd2._it_count:
+        raise AssertionError(f"load: arrays off {bad[:4]}, moments equal "
+                             f"{sum(moments)}/{len(moments)}, iterations "
+                             f"{sd._it_count} vs {sd2._it_count}")
+    outs = [s.output(f0, [probs, logits]) for s in (sd, sd2)]
+    with capture.disabled():
+        outs += [s.output(f0, [probs, logits]) for s in (sd, sd2)]
+    for a in outs[1:]:
+        for k in (probs, logits):
+            if not np.array_equal(a[k], outs[0][k]):
+                raise AssertionError(f"loaded graph's {k} differs")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with capture.disabled():
+            hist = [s.fit(_DataSets(sets[:1])) for s in (sd, sd2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = [n for n in sd.trainable_names()
+           if not np.array_equal(sd._arrays[n], sd2._arrays[n])]
+    moments = [torch_equal(a, b) for (_, a), (_, b) in zip(
+        jax_items(sd._opt_state), jax_items(sd2._opt_state))]
+    if hist[0] != hist[1] or bad or not all(moments):
+        raise AssertionError(f"step after load: losses {hist}, trainables "
+                             f"off {bad[:4]}, moments equal "
+                             f"{sum(moments)}/{len(moments)}")
+    rec.update(arrays=len(sd._arrays), updater_leaves=len(moments),
+               it_count=sd2._it_count, outputs_bit_equal=True,
+               step_loss=hist[0][0], step_bit_equal=True)
+    emit("samediff_save", **rec, card=card)
+
+
+def samediff_tf_resnet_phase(torch, np, card):
+    """ResNet-50 (224x224x3, 1000 classes) as the frozen TF GraphDef of
+    ``graph_cases.resnet50_graph_def`` (seed 12345), imported from bytes,
+    at batch 32: the forward with its 53 K1 launches each checked and the
+    answer within SD_TOL of the ``exact`` route's; the 53 conv kernels
+    converted to variables, a softmaxCrossEntropy head, Adam(1e-3),
+    SD_RESNET_STEPS eager ``fit`` steps each with its 53 / 52 / 53 K1 /
+    dgrad / K3 launches checked and the loss falling; images/sec of the
+    forward and of ``fit``, eager and captured, and a captured step's
+    launches under replay. Returns the launches and checks."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.imports import graph_cases, import_graph_def
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.samediff import TrainingConfig
+
+    rec = {"model": "ResNet50 (TF GraphDef)", "batch": SD_RESNET_BATCH}
+    t0 = time.perf_counter()
+    gd, names = graph_cases.resnet50_graph_def(seed=12345)
+    sd = import_graph_def(gd, device="cuda")
+    rec["graph_def_mb"], rec["import_s"] = (len(gd) / 2 ** 20,
+                                            time.perf_counter() - t0)
+    del gd
+    logits = sd.tf_name_map[names["logits"] + ":0"]
+    rng = np.random.default_rng(12345)
+    x = rng.standard_normal((SD_RESNET_BATCH, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000,
+                                                    SD_RESNET_BATCH)]
+    feeds = {names["input"]: x}
+    checked = {}
+    with capture.disabled():
+        kern.reset_counts()
+        with check_every_launch(torch, checked):
+            out = sd.output(feeds, [logits])[logits]
+        torch.cuda.synchronize()
+        fwd = {k: v for k, v in kern.LAUNCHES.items() if v}
+        if fwd != {"conv2d_fwd": 53} or any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"imported ResNet-50 forward: {fwd}, plain "
+                                 f"{kern.PLAIN_ON_CUDA}")
+        with kern.impl_scope("exact"):
+            ex = sd.output(feeds, [logits])[logits]
+    err, norm = _grad_error(torch.from_numpy(out), torch.from_numpy(ex))
+    if norm > SD_TOL or not np.isfinite(out).all():
+        raise AssertionError(f"imported ResNet-50 vs exact: {norm}")
+    rec.update(forward_launches=fwd, forward_vs_exact=err,
+               forward_vs_exact_norm=norm,
+               forward_checked=_checked_summary(checked))
+    kernels = [n for n, a in sd._arrays.items() if a.ndim == 4]
+    sd.convert_to_variable(*kernels)
+    label = sd.placeholder("label", shape=(-1, 1000))
+    loss = sd.loss.softmaxCrossEntropy(sd.get_variable(logits), label)
+    sd.set_loss_variables(loss)
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(1e-3), data_set_feature_mapping=[names["input"]],
+        data_set_label_mapping=["label"]))
+    ds = DataSet(x, y)
+    losses, step_launches, train_checked = [], [], {}
+    with capture.disabled():
+        for _ in range(SD_RESNET_STEPS):
+            kern.reset_counts()
+            with check_every_launch(torch, train_checked):
+                losses += sd.fit(ds)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in kern.LAUNCHES.items() if v}
+            if got != SD_RESNET_STEP or any(kern.PLAIN_ON_CUDA.values()):
+                raise AssertionError(f"imported ResNet-50 step: {got}, plain "
+                                     f"{kern.PLAIN_ON_CUDA}")
+            step_launches.append(got)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"imported ResNet-50 fit losses {losses}")
+    launches = {k: sum(s[k] for s in step_launches) for k in SD_RESNET_STEP}
+    with capture.disabled():
+        rec["forward_images_per_sec_eager"] = captured_rate(
+            torch, lambda: sd.output(feeds, [logits]), SD_RESNET_BATCH)
+        rec["fit_images_per_sec_eager"] = captured_rate(
+            torch, lambda: sd.fit(ds), SD_RESNET_BATCH)
+    rec["forward_images_per_sec_captured"] = captured_rate(
+        torch, lambda: sd.output(feeds, [logits]), SD_RESNET_BATCH)
+    rec["fit_images_per_sec_captured"] = captured_rate(
+        torch, lambda: sd.fit(ds), SD_RESNET_BATCH)
+    kern.reset_counts()
+    sd.fit(ds)
+    torch.cuda.synchronize()
+    captured = {k: v for k, v in kern.LAUNCHES.items() if v}
+    if captured != SD_RESNET_STEP:
+        raise AssertionError(f"captured imported ResNet-50 step: {captured}")
+    rec.update(fit_losses=losses, step_launches=step_launches[0],
+               launches=launches, launches_captured_step=captured,
+               train_checked=_checked_summary(train_checked),
+               programs={k: {"eager": p.eager, "captured": p.graph is not None}
+                         for k, p in sd.programs().items()})
+    emit("samediff_tf_resnet", **rec, card=card)
+    return {"forward": fwd, "fit": launches, "captured_step": captured,
+            "forward_checked": checked, "fit_checked": train_checked}
+
+
+def samediff_onnx_lstm_phase(torch, np, card):
+    """The char-RNN's LSTM (47 -> 256, B 32, T 50, one-hot characters) as
+    the ONNX model of ``graph_cases.lstm_onnx`` (seed 12345) on the card
+    and on the CPU: ``output`` (K4 once) and, with W/R/B converted to
+    variables and a mean-squared-error loss, ``calculate_gradients`` (K4
+    once, its backward plain), every launch checked, eager and then
+    captured (a replay's launches counted, not checked); the answer and
+    the gradients within SD_TOL of the largest CPU value."""
+    from deeplearning4j_tpu_torch.imports import graph_cases, import_onnx
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    b, t, n_in, h = SD_LSTM
+    blob = graph_cases.lstm_onnx(seed=12345, input_size=n_in, hidden=h,
+                                 batch=b, seq_len=t)
+    rng = np.random.default_rng(12345)
+    x = np.eye(n_in, dtype=np.float32)[rng.integers(0, n_in, (b, t))]
+    target = rng.uniform(-0.5, 0.5, (b, t, h)).astype(np.float32)
+    graphs = []
+    for dev in ("cuda", "cpu"):
+        sd = import_onnx(blob, device=dev)
+        sd.convert_to_variable("W", "R", "B")
+        tgt = sd.placeholder("target", shape=(b, t, h))
+        sd.set_loss_variables(sd.loss.meanSquaredError(
+            sd.get_variable("y"), tgt))
+        graphs.append(sd)
+    sd, cpu = graphs
+    feeds = {"x": x, "target": target}
+    want_y = cpu.output(feeds, ["y"])["y"]
+    want_g = cpu.calculate_gradients(feeds, "W", "R", "B")
+    rec, checked, launches = {"batch": b, "seq": t, "inputs": n_in,
+                              "hidden": h}, {}, {}
+    for mode in ("eager", "captured"):
+        # eager: every launch checked; captured: the launches a replay
+        # counts (a check reads values on the host, which no capture holds)
+        ctx = capture.disabled() if mode == "eager" else \
+            contextlib.nullcontext()
+        check = (lambda: check_every_launch(torch, checked)) \
+            if mode == "eager" else contextlib.nullcontext
+        with ctx:
+            kern.reset_counts()
+            with check():
+                y = sd.output(feeds, ["y"])["y"]
+            torch.cuda.synchronize()
+            n_out = dict(kern.LAUNCHES)
+            kern.reset_counts()
+            with check():
+                g = sd.calculate_gradients(feeds, "W", "R", "B")
+            torch.cuda.synchronize()
+            n_grad = dict(kern.LAUNCHES)
+        for what, n in (("output", n_out), ("gradients", n_grad)):
+            got = {k: v for k, v in n.items() if v}
+            if got != {"lstm_seq_fwd": 1} or any(kern.PLAIN_ON_CUDA.values()):
+                raise AssertionError(f"ONNX LSTM {what} ({mode}): {got}")
+            launches[f"{what}_{mode}"] = got["lstm_seq_fwd"]
+        y_err, y_norm = _grad_error(torch.from_numpy(y),
+                                    torch.from_numpy(want_y))
+        g_norm = max(_grad_error(torch.from_numpy(g[k]),
+                                 torch.from_numpy(want_g[k]))[1]
+                     for k in want_g)
+        if y_norm > SD_TOL or g_norm > SD_TOL:
+            raise AssertionError(f"ONNX LSTM vs CPU ({mode}): y {y_norm}, "
+                                 f"gradients {g_norm}")
+        rec[mode] = {"y_vs_cpu_norm": y_norm, "y_vs_cpu": y_err,
+                     "grads_vs_cpu_norm": g_norm}
+    rec.update(launches=launches, checked=_checked_summary(checked),
+               programs={k: {"eager": p.eager, "captured": p.graph is not None}
+                         for k, p in sd.programs().items()})
+    emit("samediff_onnx_lstm", **rec, card=card)
+    return launches, checked
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -5315,6 +5861,17 @@ def main() -> int:
     }
     timed("serialize", serialize_phase, torch, np, smi)
     timed("checkpoint", checkpoint_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    sd_bert = timed("samediff_tf_bert", samediff_tf_bert_phase, torch, np,
+                    smi)
+    timed("samediff_save", samediff_save_phase, torch, np, smi, *sd_bert)
+    del sd_bert
+    torch.cuda.empty_cache()
+    sd_resnet = timed("samediff_tf_resnet", samediff_tf_resnet_phase, torch,
+                      np, smi)
+    torch.cuda.empty_cache()
+    sd_lstm_launches, sd_lstm_checked = timed(
+        "samediff_onnx_lstm", samediff_onnx_lstm_phase, torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -5478,6 +6035,24 @@ def main() -> int:
          "seq_graph_checked": {k: checked_fields("lstm_seq_fwd", c)
                                for k, c in seq_checked.items()}},
     ]
+    for e in entries:  # the imported graphs' launches (SameDiff phases)
+        name = e["name"]
+        if name in SD_RESNET_STEP:
+            e["launches_samediff"] = {
+                "tf_resnet_forward": sd_resnet["forward"].get(name, 0),
+                "tf_resnet_fit": sd_resnet["fit"][name],
+                "tf_resnet_captured_step": sd_resnet["captured_step"][name]}
+            e.update({f"samediff_forward_{k}": v for k, v in checked_fields(
+                name, sd_resnet["forward_checked"]).items()})
+            e.update({f"samediff_fit_{k}": v for k, v in checked_fields(
+                name, sd_resnet["fit_checked"]).items()})
+        elif name == "lstm_seq_fwd":
+            e["launches_samediff"] = {f"onnx_lstm_{k}": v
+                                      for k, v in sd_lstm_launches.items()}
+            e.update({f"samediff_{k}": v for k, v in checked_fields(
+                name, sd_lstm_checked).items()})
+        else:
+            e["launches_samediff"] = {"tf_bert": 0}
     for e in entries:  # the op table's launches by name, every one checked
         e["launches_op_table"] = op_launches.get(e["name"], 0)
         e.update({f"op_table_{k}": v for k, v in checked_fields(

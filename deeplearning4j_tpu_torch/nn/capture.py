@@ -36,7 +36,12 @@ Building a program (the first batch of a signature, or ``warmup``):
   nothing; what the capture counted is added again at each replay, so the
   tables count the launches of the steps the network took;
 - on the CPU nothing is captured: the caller asked for the CPU, and each
-  call runs the body eagerly on the same static buffers.
+  call runs the body eagerly on the same static buffers;
+- a program built with an ``eager`` reason is not captured on CUDA either:
+  its body needs a value on the host at each call (a SameDiff graph whose
+  control flow branches or loops on a predicate it computes), so each call
+  runs the body eagerly, by design and from the start, and ``eager`` says
+  why (``samediff/core.py``).
 
 A capture that fails raises :class:`CaptureError`, naming the function,
 the signature and the operation that broke the capture (a host sync such
@@ -152,7 +157,8 @@ class Program:
                  device: torch.device, pool=None,
                  state: Sequence[torch.Tensor] = (),
                  generators: Sequence[torch.Generator] = (),
-                 trace_args: Optional[tuple] = None):
+                 trace_args: Optional[tuple] = None,
+                 eager: Optional[str] = None):
         trace_args = example if trace_args is None else trace_args
         note_trace(fn_name, *trace_args)
         self.fn_name = fn_name
@@ -167,13 +173,16 @@ class Program:
         #: launch counts of one replay (LAUNCHES, PLAIN_ON_CUDA, bodies)
         self.counts: tuple = ({}, {}, {})
         self.replays = 0
-        if torch.device(device).type == "cuda":
+        #: why the body runs eagerly at every call on CUDA (None: captured)
+        self.eager = eager
+        if torch.device(device).type == "cuda" and eager is None:
             self._capture(torch.device(device), pool, state, generators)
 
     def __call__(self, *args):
-        for buf, src in zip(self._flat, _leaves(args)):
-            if buf.data_ptr() != src.data_ptr():
-                buf.copy_(src)
+        pairs = [(buf, src) for buf, src in zip(self._flat, _leaves(args))
+                 if buf.data_ptr() != src.data_ptr()]
+        if pairs:  # one multi-tensor copy (a SameDiff call copies hundreds)
+            torch._foreach_copy_([b for b, _ in pairs], [s for _, s in pairs])
         if self.graph is None:
             return self._body(*self.inputs)
         self.graph.replay()

@@ -71,6 +71,11 @@ def lognormal(gen, shape, mean=0.0, stddev=1.0, dtype="float32"):
 @op("random_bernoulli", "random", aliases=("bernoulli",),
     differentiable=False)
 def bernoulli(gen, shape, p=0.5, dtype="float32"):
+    """``shape=None``: p's shape (``jax.random.bernoulli``'s default)."""
+    if isinstance(p, torch.Tensor):
+        p = p.to(gen.device)
+    if shape is None:
+        shape = tuple(torch.as_tensor(p).shape)
     return (_uniform(gen, shape) < p).to(C.dtype(dtype))
 
 

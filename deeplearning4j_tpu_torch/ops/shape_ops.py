@@ -167,8 +167,8 @@ def _take_fill(x, idx, axis):
                              .reshape(-1))
     out = out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
                       + tuple(x.shape[axis + 1:]))
-    if bool(ok.all()):
-        return out
+    # always the select (no host read of ``ok``), so a captured program
+    # can hold it
     fill = (float("nan") if x.is_floating_point() or x.is_complex()
             else (False if x.dtype == torch.bool
                   else torch.iinfo(x.dtype).min))

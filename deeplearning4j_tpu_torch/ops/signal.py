@@ -121,7 +121,8 @@ def mel_weight_matrix(num_mel_bins, dft_length, sample_rate,
             for j in range(center, hi):
                 out[j, i] = (hi - j) / float(hi - center)
     name = dtype if isinstance(dtype, str) else str(dtype).replace(
-        "torch.", "")
+        "torch.", "") if isinstance(dtype, torch.dtype) else np.dtype(
+        dtype).name
     return out[:num_spectrogram_bins].astype(np.dtype(name))
 
 

@@ -1279,3 +1279,116 @@ def test_serializer_round_trip_on_card(card, tmp_path):
     back.fit(x, y)
     net.fit(x, y)
     assert back.get_score() == net.get_score()
+
+
+# ---------------------------------------------------- SameDiff on the card
+
+
+def _sd_conv_lstm_graph(device):
+    """A SameDiff graph with a conv (K1; dgrad and K3 in its gradient) and
+    an ``lstm_layer`` (K4 once): x (2, 8, 8, 4) -> conv 3x3 -> 6 channels
+    -> reshape to (T 8, B 2, 48) -> LSTM 16 -> sum of squares."""
+    from deeplearning4j_tpu_torch.samediff import SameDiff
+
+    rng = np.random.default_rng(4)
+    sd = SameDiff(device=device)
+    x = sd.placeholder("x", shape=(2, 8, 8, 4))
+    w = sd.var("w", (rng.standard_normal((3, 3, 4, 6)) * 0.2)
+               .astype(np.float32))
+    h = sd.cnn.conv2d(x, w, padding="SAME")
+    h = sd.nn.tanh(h)
+    seq = sd.math.permute(sd.math.reshape(h, shape=(2, 8, 48)),
+                          axes=(1, 0, 2))
+    W = sd.var("W", (rng.standard_normal((1, 64, 48)) * 0.1)
+               .astype(np.float32))
+    R = sd.var("R", (rng.standard_normal((1, 64, 16)) * 0.1)
+               .astype(np.float32))
+    y, _, _ = sd.rnn.lstmLayer(seq, W, R, hidden_size=16)
+    loss = sd.math.sum(y * y)
+    sd.set_loss_variables(loss)
+    return sd, y, rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+
+
+def test_samediff_conv_lstm_on_card_match_cpu(card):
+    """output and calculate_gradients of the graph on the card (captured
+    programs) against the CPU within 1e-4 of the largest value, and the
+    kernels each launched: K1 once a forward, K4 once; in the gradient K1,
+    dgrad, K3 and K4 once each (the input needs no gradient, the LSTM's
+    backward is plain)."""
+    sd_gpu, y, xv = _sd_conv_lstm_graph("cuda")
+    sd_cpu, _, _ = _sd_conv_lstm_graph("cpu")
+    TK.reset_counts()
+    out = sd_gpu.output({"x": xv}, [y.name])[y.name]
+    torch.cuda.synchronize()
+    fwd = dict(TK.LAUNCHES)
+    ref = sd_cpu.output({"x": xv}, [y.name])[y.name]
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+    assert fwd["conv2d_fwd"] == 1 and fwd["lstm_seq_fwd"] == 1, fwd
+    TK.reset_counts()
+    g = sd_gpu.calculate_gradients({"x": xv}, "w", "W", "R")
+    torch.cuda.synchronize()
+    launches = dict(TK.LAUNCHES)
+    want = sd_cpu.calculate_gradients({"x": xv}, "w", "W", "R")
+    for k in want:
+        np.testing.assert_allclose(g[k], want[k], rtol=0,
+                                   atol=1e-4 * np.abs(want[k]).max())
+    assert launches["conv2d_fwd"] == 1 and launches["conv2d_wgrad"] == 1
+    assert launches["conv2d_dgrad"] == 0 and launches["lstm_seq_fwd"] == 1
+    assert not any(TK.PLAIN_ON_CUDA.values()), TK.PLAIN_ON_CUDA
+    progs = sd_gpu.programs()
+    assert progs and all(p.eager is None and p.graph is not None
+                         for p in progs.values())
+
+
+def test_samediff_instances_share_a_captured_program(card):
+    """Two graphs of one structure with different weights share one
+    captured output program; each gets its own answer, bit-equal to its
+    eager run."""
+    from deeplearning4j_tpu_torch.samediff import SameDiff
+
+    rng = np.random.default_rng(5)
+
+    def build(wv):
+        sd = SameDiff(device="cuda")
+        x = sd.placeholder("x", shape=(4, 8))
+        w = sd.var("w", wv)
+        sd.math.tanh(x @ w, name_out="y")
+        return sd
+
+    a = build(rng.standard_normal((8, 3)).astype(np.float32))
+    b = build(rng.standard_normal((8, 3)).astype(np.float32))
+    xv = rng.standard_normal((4, 8)).astype(np.float32)
+    ya, yb = (s.output({"x": xv}, ["y"])["y"] for s in (a, b))
+    (pa,), (pb,) = a.programs().values(), b.programs().values()
+    assert pa is pb and pa.graph is not None
+    with capture.disabled():
+        ea, eb = (s.output({"x": xv}, ["y"])["y"] for s in (a, b))
+    np.testing.assert_array_equal(ya, ea)
+    np.testing.assert_array_equal(yb, eb)
+    assert not np.array_equal(ya, yb)
+
+
+def test_samediff_while_runs_eagerly_on_card(card):
+    """A ``__cf_while__`` graph runs on the card eagerly by its stated
+    rule (its program carries the reason and holds no CUDA graph)."""
+    from deeplearning4j_tpu_torch.samediff import SameDiff
+
+    cond = SameDiff(device="cpu")
+    ci = cond.placeholder("i", shape=(), dtype=np.int32)
+    ca = cond.placeholder("a", shape=(3,))
+    cout = cond._op("less", [ci, cond.constant(np.int32(5), "lim")])
+    body = SameDiff(device="cpu")
+    bi = body.placeholder("i", shape=(), dtype=np.int32)
+    ba = body.placeholder("a", shape=(3,))
+    i2 = body._op("add", [bi, body.constant(np.int32(1), "one")])
+    a2 = body._op("multiply", [ba, body.constant(np.float32(2.0), "two")])
+    sd = SameDiff(device="cuda")
+    x = sd.placeholder("x", shape=(3,))
+    _, acc = sd.while_loop_graph(cond, [ci, ca], cout, body, [bi, ba],
+                                 [i2, a2], sd.constant(np.int32(0), "i0"), x)
+    xv = np.asarray([1.0, -2.0, 0.5], np.float32)
+    out = sd.output({"x": xv}, [acc.name])[acc.name]
+    np.testing.assert_array_equal(out, xv * 32.0)
+    (prog,) = sd.programs().values()
+    assert prog.eager and "__cf_while__" in prog.eager and prog.graph is None

@@ -407,10 +407,53 @@ def test_package_imports_without_jax():
         "'ops.linalg', 'ops.image', 'ops.signal', 'ops.updater_ops', "
         "'ops.compression', 'ops.nlp_ops', 'ops.op_cases', 'ops._compat', "
         "'util.model_serializer', 'util.checkpoint', "
-        "'serving.resilience')}\n"
+        "'serving.resilience', 'samediff', 'samediff.core', 'imports', "
+        "'imports.protomini', 'imports.tf_proto', 'imports.tf_import', "
+        "'imports.onnx_import', 'imports.graph_cases')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "bad = [k for k in sys.modules if k == 'orbax' or "
         "k.startswith('orbax.')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_samediff_and_imports_load_without_frameworks():
+    """SameDiff and both importers import and run with jax, tensorflow,
+    google.protobuf, onnx and the JAX package made unimportable."""
+    code = (
+        "import sys\n"
+        "BLOCK = ('jax', 'jaxlib', 'tensorflow', 'google.protobuf', 'onnx',"
+        " 'deeplearning4j_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if any(name == b or name.startswith(b + '.') for b in BLOCK):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "from deeplearning4j_tpu_torch.samediff import SameDiff\n"
+        "from deeplearning4j_tpu_torch.imports import (import_graph_def, "
+        "import_onnx, graph_cases, KerasModelImport)\n"
+        "sd = import_onnx(graph_cases.lstm_onnx(input_size=3, hidden=4, "
+        "batch=2, seq_len=5), device='cpu')\n"
+        "y = sd.output({'x': np.ones((2, 5, 3), np.float32)}, ['y'])['y']\n"
+        "assert y.shape == (2, 5, 4)\n"
+        "gd, names = graph_cases.resnet50_graph_def(image_size=32, "
+        "classes=3)\n"
+        "sd = import_graph_def(gd, device='cpu')\n"
+        "k = sd.tf_name_map[names['probabilities'] + ':0']\n"
+        "p = sd.output({'input_1': np.ones((1, 32, 32, 3), np.float32)}, "
+        "[k])[k]\n"
+        "assert p.shape == (1, 3) and abs(p.sum() - 1) < 1e-5\n"
+        "try:\n"
+        "    KerasModelImport()\n"
+        "except NotImplementedError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('KerasModelImport must raise')\n"
+        "bad = [k for k in sys.modules if any(k == b or k.startswith(b + '.')"
+        " for b in BLOCK)]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
