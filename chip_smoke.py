@@ -1019,18 +1019,21 @@ def profile_forward(torch, net, batch=32, top=8):
                     for ms, n, name in kernels[:top]]}
 
 
-def serve_phase(torch, np, card):
+def serve_and_check(torch, np, net, model_id, input_shape, per_chunk):
+    """``net`` served over HTTP (ModelServer -> ModelRouter ->
+    BatchScheduler -> ServingModel, buckets BUCKETS): SERVE_ROWS requests
+    in two waves of four concurrent, every conv launch held against its
+    plain version, ``per_chunk`` K1 launches each executed chunk, none
+    plain on CUDA; the answers' probabilities within 1e-4 of the plain
+    path's and their rows summing to 1 within 1e-5. Returns (the fields
+    of the line, the launches, the checks)."""
     from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.serving import (ModelRouter, ModelServer,
                                                   ServingModel)
-    from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
     t0 = time.perf_counter()
-    net = ResNet50().init(device="cuda")
-    _calm_residual_branches(net)
-    n_params = net.num_params()
-    model = ServingModel(net, "resnet50",
+    model = ServingModel(net, model_id,
                          bucketing=BucketingPolicy(batch_buckets=BUCKETS))
     router = ModelRouter()
     router.register(model, max_wait_ms=100.0, queue_limit=64)
@@ -1038,10 +1041,10 @@ def serve_phase(torch, np, card):
     warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(12345)
     # inputs on a quarter grid in [-2, 2]: short JSON, exact in fp32
-    xs = [rng.integers(-8, 9, size=(r, 224, 224, 3)).astype(np.float32) / 4
-          for r in SERVE_ROWS]
+    xs = [rng.integers(-8, 9, size=(r,) + tuple(input_shape)).astype(
+        np.float32) / 4 for r in SERVE_ROWS]
     bodies = [{"inputs": x.tolist()} for x in xs]
-    url = f"{server.url}/v1/models/resnet50/infer"
+    url = f"{server.url}/v1/models/{model_id}/infer"
     checked = {}
     try:
         kern.reset_counts()
@@ -1055,20 +1058,21 @@ def serve_phase(torch, np, card):
         launches = kern.LAUNCHES["conv2d_fwd"]
         plain_on_cuda = kern.PLAIN_ON_CUDA["conv2d_fwd"]
         chunks = model.chunks_executed - chunks0
-        _, sched = router.get("resnet50")
+        _, sched = router.get(model_id)
         batches = sched.counts["batches"]
     finally:
         server.stop()
-    if chunks < 1 or launches != 53 * chunks:
+    if chunks < 1 or launches != per_chunk * chunks:
         raise AssertionError(f"conv kernel launched {launches} times for "
-                             f"{chunks} chunks, expected 53 per chunk")
+                             f"{chunks} chunks, expected {per_chunk} per "
+                             "chunk")
     if plain_on_cuda:
         raise AssertionError(f"{plain_on_cuda} conv calls on CUDA tensors "
                              "took the plain path")
     if checked[("conv2d_fwd", "fp32")]["calls"] != launches:
         raise AssertionError(f"{launches} launches, "
                              f"{_checked_summary(checked)} checked")
-    max_err, max_sum_err = 0.0, 0.0
+    max_err, max_sum_err, max_prob = 0.0, 0.0, 0.0
     for x, (body, _lat) in zip(xs, answers):
         got = np.asarray(body["outputs"], np.float64)
         if got.shape != (x.shape[0], 1000) or not np.isfinite(got).all():
@@ -1077,18 +1081,31 @@ def serve_phase(torch, np, card):
         with kern.impl_scope("exact"):
             ref = net.output(x).double().cpu().numpy()
         max_err = max(max_err, float(np.abs(got - ref).max()))
+        max_prob = max(max_prob, float(ref.max()))
     if max_sum_err > 1e-5 or max_err > 1e-4:
         raise AssertionError(f"served probabilities off: sum err "
                              f"{max_sum_err}, vs exact {max_err}")
+    fields = {"requests": len(SERVE_ROWS), "rows": list(SERVE_ROWS),
+              "batches": batches, "chunks": chunks,
+              "conv_launches": launches, "plain_on_cuda": plain_on_cuda,
+              "launches_checked": _checked_summary(checked),
+              "max_abs_err_vs_exact": max_err,
+              "max_row_sum_err": max_sum_err, "max_prob": max_prob,
+              "warmup_s": warm_s, "serve_wall_s": serve_s,
+              "served_rows_per_s": sum(SERVE_ROWS) / serve_s,
+              "request_latency_s": [lat for _, lat in answers]}
+    return fields, launches, checked
+
+
+def serve_phase(torch, np, card):
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    fields, launches, checked = serve_and_check(torch, np, net, "resnet50",
+                                                (224, 224, 3), 53)
     emit("serve", model="ResNet50", input=[224, 224, 3], classes=1000,
-         params=n_params, requests=len(SERVE_ROWS), rows=list(SERVE_ROWS),
-         batches=batches, chunks=chunks, conv_launches=launches,
-         plain_on_cuda=plain_on_cuda,
-         launches_checked=_checked_summary(checked),
-         max_abs_err_vs_exact=max_err,
-         max_row_sum_err=max_sum_err, warmup_s=warm_s,
-         serve_wall_s=serve_s, served_rows_per_s=sum(SERVE_ROWS) / serve_s,
-         request_latency_s=[lat for _, lat in answers], card=card)
+         params=net.num_params(), **fields, card=card)
 
     net16 = ResNet50(compute_dtype="bfloat16").init(device="cuda")
     net16.params, net16.states = net.params, net.states  # cast per forward
@@ -1185,11 +1202,16 @@ def profile_train_step(torch, net, x, y, top=8):
     batchnorm = the kernels under the training batchnorm's autograd
     Function and its backward; other), wall time and the device's idle
     share. One warm-up kernel runs inside the profiler's window before the
-    step, and every kernel of the conv library must fall in a class."""
+    step, and every kernel of the conv library must fall in a class. The
+    grouped launches of K1, dgrad and K3 (Xception's depthwise convs: the
+    same kernels, so the trace cannot tell them apart) are timed by CUDA
+    events around each in the same step (time_grouped_launches), a class
+    of their own beside the trace's."""
     from torch.profiler import ProfilerActivity, profile
 
     net.fit(x, y)
     torch.cuda.synchronize()
+    pairs = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # the tracer can miss the first kernels after it starts: give it
@@ -1197,7 +1219,8 @@ def profile_train_step(torch, net, x, y, top=8):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        net.fit(x, y)
+        with time_grouped_launches(torch, pairs):
+            net.fit(x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(torch, prof)
@@ -1222,7 +1245,13 @@ def profile_train_step(torch, net, x, y, top=8):
     bn_ms = sum(us for _, us in _range_kernels(events,
                                                 "_BatchNormTrain")) / 1e3
     conv_like = sum(by_class.values())
+    grouped = events_ms(pairs)
+    dw_ms = sum(ms for ms, _ in grouped.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "depthwise_ms": dw_ms,
+            "depthwise_share_of_busy": dw_ms / busy if busy else None,
+            "depthwise_by_kernel": {k: {"ms": ms, "launches": n}
+                                    for k, (ms, n) in grouped.items()},
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "fwd_ms": by_class.get("fwd", 0.0) - dgrad_ms,
             "dgrad_ms": dgrad_ms,
@@ -1360,6 +1389,73 @@ def gate_controls(torch, net, x, y, g_exact, g_64):
     return out
 
 
+def step_parity(torch, net, x, y, want, what):
+    """One step's gradients under auto (its launches ``want``, none plain)
+    and under exact, and the same step on fp64 activations: the loss
+    within TRAIN_LOSS_RTOL and each gradient through the gate
+    (_grad_parity), whose controls must fail (gate_controls). Returns the
+    fields of the parity line."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    kern.reset_counts()
+    g_auto, l_auto = net.compute_gradient_and_score(x, y)
+    torch.cuda.synchronize()
+    step_launches = conv_only(kern.LAUNCHES, want, f"{what}'s step")
+    step_plain = dict(kern.PLAIN_ON_CUDA)
+    if step_launches != want or any(step_plain.values()):
+        raise AssertionError(f"{what}: auto step launched {step_launches} "
+                             f"(expected {want}), plain on CUDA {step_plain}")
+    with kern.impl_scope("exact"):
+        g_exact, l_exact = net.compute_gradient_and_score(x, y)
+        # the same step on fp64 activations (the entry points take fp32,
+        # as the reference's do with x64 off, so this goes one level in)
+        l_64, g_64, _, _ = net._gradients(
+            {net.conf.inputs[0]: x.double()}, {net.conf.outputs[0]: y},
+            torch.ones(x.shape[0], dtype=torch.float64, device="cuda"))
+    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_auto, g_exact, g_64, top=None)
+    if loss_rel > TRAIN_LOSS_RTOL or failures:
+        raise AssertionError(f"{what}: auto step off exact: loss rel "
+                             f"{loss_rel}, gradients past the gate: "
+                             f"{failures[:4]}")
+    del g_auto
+    controls = gate_controls(torch, net, x, y, g_exact, g_64)
+    return {"loss_auto": float(l_auto), "loss_exact": float(l_exact),
+            "loss_fp64": float(l_64), "loss_rel_err": loss_rel,
+            "loss_rtol": TRAIN_LOSS_RTOL, "worst_grad": worst_name,
+            "worst_grad_rel_l2": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+            "worst_tensors": rows[:8],
+            "max_gate_use": max(r["gate_use"] for r in rows),
+            "worst_gate_use": sorted(rows, key=lambda r: -r["gate_use"])[:3],
+            "gate_controls": controls, "launches_per_step": step_launches,
+            "plain_on_cuda": step_plain}
+
+
+def checked_fit(torch, net, x, y, want, steps, what):
+    """``steps`` fit steps on (x, y), every launch held against its plain
+    version: ``want`` launches a step, each checked, none plain on CUDA.
+    Returns (the losses, the launches, the checks)."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    checked, losses = {}, []
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        for _ in range(steps):
+            net.fit(x, y)
+            losses.append(net.get_score())
+    torch.cuda.synchronize()
+    launches = conv_only(kern.LAUNCHES, want, f"{what}'s fit")
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    if launches != {k: steps * v for k, v in want.items()} or plain:
+        raise AssertionError(f"{what}: {steps} fit steps launched "
+                             f"{launches}, plain on CUDA {plain}")
+    if {k: checked[(k, "fp32")]["calls"] for k in want} != launches:
+        raise AssertionError(f"{what}: {launches} launches, "
+                             f"{_checked_summary(checked)} checked")
+    return losses, launches, checked
+
+
 def train_phase(torch, np, card):
     """Full-width ResNet-50 training at batch 32 (random weights from seed
     12345, random one-hot labels): auto-vs-exact step parity and the gate's
@@ -1380,66 +1476,13 @@ def train_phase(torch, np, card):
 
     # (a) one step's gradients under auto and under exact, same params
     want = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
-
-    def conv_only(counts):
-        """The conv kernels' counts; every other kernel's must be 0 here."""
-        if any(v for k, v in counts.items() if k not in want):
-            raise AssertionError(f"the ResNet step launched {counts}")
-        return {k: counts[k] for k in want}
-
-    kern.reset_counts()
-    g_auto, l_auto = net.compute_gradient_and_score(x, y)
-    torch.cuda.synchronize()
-    step_launches = conv_only(kern.LAUNCHES)
-    step_plain = dict(kern.PLAIN_ON_CUDA)
-    if step_launches != want or any(step_plain.values()):
-        raise AssertionError(f"auto step launched {step_launches} (expected "
-                             f"{want}), plain on CUDA {step_plain}")
-    with kern.impl_scope("exact"):
-        g_exact, l_exact = net.compute_gradient_and_score(x, y)
-        # the same step on fp64 activations (the entry points take fp32,
-        # as the reference's do with x64 off, so this goes one level in)
-        l_64, g_64, _, _ = net._gradients(
-            {"input": x.double()}, {"output": y},
-            torch.ones(batch, dtype=torch.float64, device="cuda"))
-    loss_rel = abs(float(l_auto) - float(l_exact)) / abs(float(l_exact))
-    (worst_name, worst), rows, failures = _grad_parity(
-        g_auto, g_exact, g_64, top=None)
-    top_rows = rows[:8]
-    if loss_rel > TRAIN_LOSS_RTOL or failures:
-        raise AssertionError(f"auto step off exact: loss rel {loss_rel}, "
-                             f"gradients past the gate: {failures[:4]}")
-    del g_auto
-    controls = gate_controls(torch, net, x, y, g_exact, g_64)
-    del g_exact, g_64
     emit("train_parity", model="ResNet50", batch=batch,
-         loss_auto=float(l_auto), loss_exact=float(l_exact),
-         loss_fp64=float(l_64), loss_rel_err=loss_rel,
-         loss_rtol=TRAIN_LOSS_RTOL, worst_grad=worst_name,
-         worst_grad_rel_l2=worst, grad_rtol=TRAIN_GRAD_RTOL,
-         worst_tensors=top_rows,
-         max_gate_use=max(r["gate_use"] for r in rows),
-         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
-         gate_controls=controls,
-         launches_per_step=step_launches, plain_on_cuda=step_plain,
-         card=card)
+         **step_parity(torch, net, x, y, want, "ResNet-50"), card=card)
 
     # (b) the main path: four Adam steps through fit, each launch checked
-    checked = {}
-    kern.reset_counts()
-    losses = []
-    with check_every_launch(torch, checked):
-        for _ in range(4):
-            net.fit(x, y)
-            losses.append(net.get_score())
-    torch.cuda.synchronize()
-    launches, plain = conv_only(kern.LAUNCHES), dict(kern.PLAIN_ON_CUDA)
-    if launches != {k: 4 * v for k, v in want.items()} or any(plain.values()):
-        raise AssertionError(f"4 fit steps launched {launches}, plain on "
-                             f"CUDA {plain}")
-    if {k: checked[(k, "fp32")]["calls"] for k in want} != launches:
-        raise AssertionError(f"{launches} launches, "
-                             f"{_checked_summary(checked)} checked")
+    losses, launches, checked = checked_fit(torch, net, x, y, want, 4,
+                                            "ResNet-50")
+    plain = dict(kern.PLAIN_ON_CUDA)
     if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"Adam losses did not fall: {losses}")
     emit("train", model="ResNet50", input=[224, 224, 3], classes=1000,
@@ -4783,6 +4826,393 @@ def op_table_phase(torch, np, card):
     return launches, checked
 
 
+# ------------------------------------------------------------ the conv zoo
+
+# Xception at its published form (reference zoo/models.py:389): 299x299x3,
+# 1000 classes, 8 middle repeats, random weights from seed 12345; served in
+# BUCKETS, trained at batch 32 under the zoo's Adam(1e-3); 74 K1, 74 K3 and
+# 73 dgrad launches a step (6 convs and 34 separable convs, each a
+# depthwise launch with one channel a group and a 1x1 pointwise launch;
+# the stem reads the input, so it has no dgrad)
+XCEPTION_INPUT, XCEPTION_BATCH = (299, 299, 3), 32
+XCEPTION_STEP = {"conv2d_fwd": 74, "conv2d_wgrad": 74, "conv2d_dgrad": 73}
+# its depthwise geometries, (H = W, C): 3x3, stride 1, SAME, groups = C,
+# whose kernel records run at batch 8 as the ResNet-50 geometries do
+DEPTHWISE = ((150, 64), (150, 128), (75, 128), (75, 256), (38, 256),
+             (38, 728), (19, 728), (10, 1024), (10, 1536))
+# the rate windows (fewer than ResNet-50's: a step takes near a second)
+# and the captured leg's steps under the gate
+ZOO_WINDOWS, ZOO_CAPTURE_STEPS = 3, 2
+# the other eight zoo models, each at the reference's default input, batch
+# 8, forward within ZOO_TOL of the plain path on the card
+ZOO_OTHERS = ("SimpleCNN", "AlexNet", "VGG16", "VGG19", "Darknet19",
+              "SqueezeNet", "InceptionResNetV1", "FaceNetNN4Small2")
+ZOO_BATCH, ZOO_TOL = 8, 1e-4
+
+
+def expected_conv_launches(conf):
+    """{kernel: launches} of one train step worked out from a conf (a graph
+    or a layer stack): one of each kernel a ConvolutionLayer, two a
+    SeparableConvolution2D (its depthwise and pointwise convs); one dgrad
+    fewer where the conv reads a network input, which needs no gradient.
+    A forward launches the step's ``conv2d_fwd`` count."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+
+    if hasattr(conf, "nodes"):
+        items = [(n.node, bool(set(n.inputs) & set(conf.inputs)))
+                 for n in conf.nodes]
+    else:
+        items = [(lyr, i == 0) for i, lyr in enumerate(conf.layers)]
+    fwd = dgrad = 0
+    for lyr, reads_input in items:
+        n = (2 if isinstance(lyr, L.SeparableConvolution2D) else
+             1 if isinstance(lyr, L.ConvolutionLayer) else 0)
+        fwd += n
+        dgrad += n - (1 if n and reads_input else 0)
+    return {"conv2d_fwd": fwd, "conv2d_wgrad": fwd, "conv2d_dgrad": dgrad}
+
+
+def conv_only(counts, want, what):
+    """The conv kernels' counts of ``counts``; any other kernel launched
+    fails."""
+    if any(v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"{what} launched {dict(counts)}")
+    return {k: counts[k] for k in want}
+
+
+def calibrate_batchnorm(torch, net, x, classes):
+    """Every batchnorm's running statistics set to the batch statistics of
+    ``x`` (one training forward with the EMA's decay at 0), so the
+    inference forward of the random-weight net normalises as training
+    does: without it each separable conv's output shrinks by ~sqrt(2/C)
+    (the He init's fan counts all C channels, a depthwise output sums 9
+    terms) and the probabilities all sit within 1e-5 of 1/1000."""
+    import dataclasses as dc
+
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.tree import tree_copy_
+
+    swapped = [(n, n.node) for n in net.topo
+               if isinstance(n.node, L.BatchNormalization)]
+    for n, bn in swapped:
+        n.node = dc.replace(bn, decay=0.0)
+    try:
+        with torch.no_grad():
+            y = torch.zeros((x.shape[0], classes), device=x.device)
+            _, states, _ = net._loss(
+                {net.conf.inputs[0]: x}, {net.conf.outputs[0]: y},
+                torch.ones(x.shape[0], device=x.device))
+        tree_copy_(net.states, states)
+    finally:
+        for n, bn in swapped:
+            n.node = bn
+
+
+@contextlib.contextmanager
+def time_grouped_launches(torch, out):
+    """While active, each launch of K1, dgrad or K3 with more than one
+    group (Xception's depthwise convs) runs between two CUDA events, and
+    ``out`` collects {kernel: [event pairs]} for :func:`events_ms`."""
+    from deeplearning4j_tpu_torch.ops.kernels import conv as kconv
+
+    where = {"conv2d_fwd": 5, "conv2d_dgrad": 6, "conv2d_wgrad": 7}
+    saved = {name: getattr(kconv, name) for name in where}
+
+    def wrap(name):
+        kernel = saved[name]
+
+        def timed_call(*args, **kwargs):
+            if args[where[name]] == 1:
+                return kernel(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = kernel(*args, **kwargs)
+            end.record()
+            out.setdefault(name, []).append((start, end))
+            return result
+        return timed_call
+
+    for name in where:
+        setattr(kconv, name, wrap(name))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(kconv, name, fn)
+
+
+def events_ms(pairs):
+    """{kernel: (device ms summed, launches)} of time_grouped_launches'
+    events (after a sync)."""
+    return {k: (sum(a.elapsed_time(b) for a, b in v), len(v))
+            for k, v in pairs.items()}
+
+
+def depthwise_records(torch):
+    """K1, dgrad and K3 against their plain versions and cuDNN at the nine
+    depthwise geometries (check_geometry, check_grad_geometry), fp32 and
+    bf16, batch 8; a conv_zoo_depthwise line each, with its launches a
+    pass (forward, dgrad and K3 alike) in Xception's conf."""
+    per_pass = depthwise_geometries(xception_conf())
+    if sorted(per_pass) != sorted(DEPTHWISE) or sum(per_pass.values()) != 34:
+        raise AssertionError(f"Xception's depthwise convs {per_pass}")
+    records = []
+    for hw, c in DEPTHWISE:
+        key = (8, hw, hw, c, 3, 3, c, (1, 1), "SAME", (1, 1), c)
+        fwd = check_geometry(torch, key, 0)
+        grad = check_grad_geometry(torch, key, 0, 0)
+        rec = {"hw": hw, "c": c, "per_pass": per_pass[(hw, c)],
+               **{f"fwd_{t}": fwd[t] for t in ("fp32", "bf16")},
+               **{f"{k}_{t}": grad[f"{k}_{t}"] for k in ("dgrad", "wgrad")
+                  for t in ("fp32", "bf16")}}
+        records.append(rec)
+        emit("conv_zoo_depthwise", batch=8, **rec)
+    return records
+
+
+def xception_conf(dtype="float32"):
+    from deeplearning4j_tpu_torch.zoo.models import Xception
+
+    return Xception(input_shape=XCEPTION_INPUT, compute_dtype=dtype).conf()
+
+
+def xception(torch, dtype="float32"):
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    return ComputationGraph(xception_conf(dtype)).init(device="cuda")
+
+
+def depthwise_geometries(conf):
+    """{(H, C): launches a pass} of the depthwise halves of a graph's
+    SeparableConvolution2D nodes (3x3, stride 1, SAME, one channel a
+    group), walking the conf with the layers' shape rules."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+
+    shape_of = dict(zip(conf.inputs, map(tuple, conf.input_shapes)))
+    out = {}
+    for n in conf.topological_order():
+        ins = [shape_of[i] for i in n.inputs]
+        if not n.is_layer:
+            shape_of[n.name] = tuple(n.node.output_shape(*ins))
+            continue
+        if isinstance(n.node, L.SeparableConvolution2D):
+            h, w, c = ins[0]
+            if (h != w or tuple(n.node.kernel_size) != (3, 3)
+                    or tuple(n.node.stride) != (1, 1)
+                    or n.node.padding != "SAME"
+                    or n.node.depth_multiplier != 1):
+                raise AssertionError(f"{n.name}: not Xception's depthwise "
+                                     "geometry")
+            out[(h, c)] = out.get((h, c), 0) + 1
+        shape_of[n.name] = tuple(n.node.output_shape(ins[0]))
+    return out
+
+
+def xception_batch(torch, np, batch=XCEPTION_BATCH, seed=3):
+    x = torch.randn((batch,) + XCEPTION_INPUT, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed))
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, 1000, batch)]).cuda()
+    return x, y
+
+
+def conv_zoo_phase(torch, np, card):
+    """The conv zoo (ROADMAP item 4) on the card, eagerly, every launch
+    checked: the depthwise kernel records; Xception served over HTTP; its
+    training at batch 32 (a step under auto against exact with the gate's
+    controls, four checked Adam steps, a checked bf16 step, images/sec, a
+    profiled step with the depthwise launches as their own class); the
+    other eight zoo models' checked forward and fit step. Returns the
+    launches by part, the checks, the depthwise records and the state
+    the captured leg starts from."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    launches, checked = {}, {}
+    records = depthwise_records(torch)
+    kern.reset_counts()
+
+    # Xception served: BN statistics from a calibration batch, then 8
+    # requests of 1-16 rows over HTTP, 74 K1 launches a chunk, each checked
+    net = xception(torch)
+    x, y = xception_batch(torch, np)
+    calibrate_batchnorm(torch, net, x, 1000)
+    fields, launches["serve"], serve_checked = serve_and_check(
+        torch, np, net, "xception", XCEPTION_INPUT, XCEPTION_STEP[
+            "conv2d_fwd"])
+    checked["serve"] = serve_checked
+    emit("conv_zoo_serve", model="Xception", input=list(XCEPTION_INPUT),
+         classes=1000, params=net.num_params(), calibrated_batchnorm=True,
+         **fields, card=card)
+    emit("conv_zoo_throughput", model="Xception", batch=XCEPTION_BATCH,
+         path="net.output", window_s=2.0,
+         forward_images_per_sec_fp32=forward_rows_per_sec(
+             torch, net, x, windows=ZOO_WINDOWS), card=card)
+    del net
+    torch.cuda.empty_cache()
+
+    # Xception trained at batch 32
+    torch.cuda.reset_peak_memory_stats()
+    net = xception(torch)
+    parity = step_parity(torch, net, x, y, XCEPTION_STEP, "Xception")
+    emit("conv_zoo_train_parity", model="Xception", batch=XCEPTION_BATCH,
+         **parity, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+         card=card)
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches["fit"], checked["fit"] = checked_fit(
+        torch, net, x, y, XCEPTION_STEP, 4, "Xception")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"Xception's Adam losses did not fall: "
+                             f"{losses}")
+    emit("conv_zoo_train", model="Xception", input=list(XCEPTION_INPUT),
+         classes=1000, params=net.num_params(), batch=XCEPTION_BATCH,
+         updater=net.conf.updater, steps=4, losses=losses,
+         launches=launches["fit"],
+         launches_checked=_checked_summary(checked["fit"]),
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+         card=card)
+    net16 = xception(torch, "bfloat16")
+    kern.reset_counts()
+    checked["fit_bf16"] = {}
+    with check_every_launch(torch, checked["fit_bf16"]):
+        net16.fit(x, y)
+    got16 = {k: checked["fit_bf16"].get((k, "bf16"), {}).get("calls")
+             for k in XCEPTION_STEP}
+    if got16 != XCEPTION_STEP or any(kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"Xception bf16 step checked {got16}, plain "
+                             f"{dict(kern.PLAIN_ON_CUDA)}")
+    launches["fit_bf16"] = got16
+    bodies16 = dict(kern.BODY_LAUNCHES)
+    emit("conv_zoo_train_bf16_step", model="Xception",
+         batch=XCEPTION_BATCH, loss=net16.get_score(),
+         launches_checked=_checked_summary(checked["fit_bf16"]),
+         conv_bodies=bodies16, card=card)
+    rates = {tag: train_images_per_sec(torch, n, x, y, windows=ZOO_WINDOWS)
+             for tag, n in (("fp32", net), ("bf16", net16))}
+    emit("conv_zoo_train_throughput", model="Xception",
+         batch=XCEPTION_BATCH, path="net.fit", window_s=2.0,
+         **{f"train_images_per_sec_{t}": r for t, r in rates.items()},
+         card=card)
+    for tag, n in (("fp32", net), ("bf16", net16)):
+        emit("conv_zoo_train_profile", model="Xception", dtype=tag,
+             batch=XCEPTION_BATCH, card=card,
+             **profile_train_step(torch, n, x, y))
+    proto = copy_net(net)
+    del net, net16
+    torch.cuda.empty_cache()
+
+    # the other eight models
+    launches["others"], checked["others"] = {}, {}
+    for name in ZOO_OTHERS:
+        got, chk = zoo_model_check(torch, np, name, card)
+        launches["others"][name] = got
+        for key, rec in chk.items():
+            have = checked["others"].setdefault(key, {
+                "calls": 0, "max_err_normalised": 0.0, "max_abs_err": 0.0})
+            have["calls"] += rec["calls"]
+            for f in ("max_err_normalised", "max_abs_err"):
+                have[f] = max(have[f], rec[f])
+        torch.cuda.empty_cache()
+    kern.reset_counts()
+    return launches, checked, records, proto, (x, y)
+
+
+def zoo_model_check(torch, np, name, card):
+    """One zoo model at the reference's default input and batch 8: its
+    forward (inference and train mode) within ZOO_TOL of the plain path,
+    then one fit step, every launch checked and the launches equal to the
+    conf's worked-out counts (expected_conv_launches)."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.zoo import models as zoo
+
+    t0 = time.perf_counter()
+    model = getattr(zoo, name)()
+    net = model.init(device="cuda")
+    want = expected_conv_launches(net.conf)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((ZOO_BATCH,) + tuple(model.input_shape), device="cuda",
+                    generator=gen)
+    y = torch.from_numpy(np.eye(model.num_classes, dtype=np.float32)[
+        np.random.default_rng(7).integers(0, model.num_classes,
+                                          ZOO_BATCH)]).cuda()
+    with kern.impl_scope("exact"):
+        refs = [net.output(x), net.output(x, train=True)]
+    checked = {}
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        outs = [net.output(x), net.output(x, train=True)]
+        fwd_launches = kern.LAUNCHES["conv2d_fwd"]
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    launches = conv_only(kern.LAUNCHES, want, name)
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    step = {k: launches[k] - (2 * want["conv2d_fwd"] if k == "conv2d_fwd"
+                              else 0) for k in want}
+    if fwd_launches != 2 * want["conv2d_fwd"] or step != want or plain:
+        raise AssertionError(f"{name}: forwards launched {fwd_launches}, "
+                             f"the step {step}, expected {want}; plain "
+                             f"{plain}")
+    calls = {k: sum(r["calls"] for (kk, _), r in checked.items() if kk == k)
+             for k in want}
+    if calls != launches:
+        raise AssertionError(f"{name}: {launches} launches, {calls} checked")
+    errs = [float((o.double() - r.double()).abs().max())
+            for o, r in zip(outs, refs)]
+    loss = net.get_score()
+    if max(errs) > ZOO_TOL or not math.isfinite(loss):
+        raise AssertionError(f"{name}: forward off the plain path by {errs}"
+                             f" (gate {ZOO_TOL}), loss {loss}")
+    emit("conv_zoo_model", model=name, input=list(model.input_shape),
+         classes=model.num_classes, params=net.num_params(),
+         batch=ZOO_BATCH, forward_max_abs_err_vs_exact=errs[0],
+         train_mode_forward_max_abs_err_vs_exact=errs[1],
+         max_prob=float(outs[0].max()), loss=loss,
+         launches_per_step=want, launches=launches, plain_on_cuda=plain,
+         launches_checked=_checked_summary(checked),
+         seconds=time.perf_counter() - t0, card=card)
+    return launches, checked
+
+
+def conv_zoo_captured_phase(torch, np, card, proto, batch):
+    """Xception's fit captured (nn/capture.py), fp32 and bf16, from the
+    eager phase's trained net: ZOO_CAPTURE_STEPS steps under the capture
+    gate, 74 / 73 / 74 launches a step under replay, none plain; captured
+    images/sec and a profiled captured step beside the eager ones."""
+    x, y = batch
+    thr, launches = eager("conv_zoo_train_throughput"), {}
+
+    def steps(net):
+        return fit_losses(net, [(x, y)] * ZOO_CAPTURE_STEPS)
+
+    for tag, conf in (("fp32", None), ("bf16", bf16_conf(proto))):
+        net, got, plain, gate = capture_gate(
+            torch, lambda: copy_net(proto, conf), steps, f"Xception {tag}")
+        if got != {k: ZOO_CAPTURE_STEPS * v for k, v in XCEPTION_STEP.items()
+                   } or plain:
+            raise AssertionError(f"Xception {tag}: {got} launches in "
+                                 f"{ZOO_CAPTURE_STEPS} captured steps, "
+                                 f"plain {plain}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        rate = captured_rate(torch, lambda: net.fit(x, y), XCEPTION_BATCH,
+                             windows=ZOO_WINDOWS)
+        prof = profile_captured_step(torch, lambda: net.fit(x, y))
+        ep = eager("conv_zoo_train_profile", dtype=tag)
+        emit("conv_zoo_captured", model="Xception", dtype=tag,
+             batch=XCEPTION_BATCH, gate=gate, launches=got,
+             launches_per_step=XCEPTION_STEP, plain_on_cuda=plain,
+             train_images_per_sec=rate_pair(
+                 rate, thr[f"train_images_per_sec_{tag}"]),
+             profile_captured=prof,
+             eager_profile={k: ep[k] for k in ("wall_ms", "device_busy_ms",
+                                               "idle_share")},
+             peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+             card=card)
+        del net
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------- serialize, checkpoint
 
 SER_DIR = os.path.join(ROOT, "build", "smoke_archives")
@@ -5766,6 +6196,47 @@ def flash_entry(records, launches, serve_checked, masked_launches,
         "card": card}
 
 
+def conv_zoo_fields(name, launches, checked, records, checked_fields):
+    """A kernel's conv_zoo fields for the kernels line: its launches by
+    part of the conv_zoo phases (0 for the kernels not on the path), the
+    checks of the eager parts, and, for K1, dgrad and K3, its times at the
+    nine depthwise geometries (batch 8) beside the plain version's,
+    cuDNN's and the bound, and their sum over one Xception pass."""
+    parts = {"serve": launches["serve"] if name == "conv2d_fwd" else 0,
+             "fit": launches["fit"].get(name, 0),
+             "fit_bf16": launches["fit_bf16"].get(name, 0),
+             "other_models": {m: c.get(name, 0)
+                              for m, c in launches["others"].items()},
+             "captured": launches["captured"].get(name, 0)}
+    out = {"launches_conv_zoo": parts}
+    for part in ("serve", "fit", "fit_bf16", "others"):
+        out.update({f"conv_zoo_{part}_{k}": v for k, v in checked_fields(
+            name, checked[part]).items()})
+    kname = {"conv2d_fwd": "fwd", "conv2d_dgrad": "dgrad",
+             "conv2d_wgrad": "wgrad"}.get(name)
+    if kname is None:
+        return out
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body",
+              "splits")
+    out["depthwise"] = {
+        f"{r['hw']}x{r['hw']}x{r['c']}": {
+            "per_pass": r["per_pass"],
+            **{tag: {f: r[f"{kname}_{tag}"].get(f) for f in fields}
+               for tag in ("fp32", "bf16")}}
+        for r in records}
+    for tag in ("fp32", "bf16"):
+        out[f"depthwise_pass_{tag}"] = {
+            f: sum(r[f"{kname}_{tag}"][f] * r["per_pass"] for r in records)
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["depthwise_per"] = ("one depthwise launch at batch 8 per geometry "
+                            "(3x3, stride 1, SAME, groups = C); "
+                            "depthwise_pass_*: summed over the 34 of one "
+                            "299x299 Xception pass; library: cuDNN "
+                            "(F.conv2d / torch.nn.grad with groups = C), a "
+                            "yardstick the port never calls")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5851,6 +6322,14 @@ def main() -> int:
                                           np, smi)
         op_launches, op_checked = timed("op_table", op_table_phase, torch, np,
                                         smi)
+        torch.cuda.empty_cache()
+        zoo_launches, zoo_checked, dw_records, zoo_proto, zoo_batch = timed(
+            "conv_zoo", conv_zoo_phase, torch, np, smi)
+    zoo_launches["captured"] = timed(
+        "conv_zoo_captured", conv_zoo_captured_phase, torch, np, smi,
+        zoo_proto, zoo_batch)
+    del zoo_proto, zoo_batch
+    torch.cuda.empty_cache()
     capture_launches = {
         "serve": timed("capture_serve", capture_serve_phase, torch, np, smi),
         "train": timed("capture_train", capture_train_phase, torch, np,
@@ -6057,6 +6536,9 @@ def main() -> int:
         e["launches_op_table"] = op_launches.get(e["name"], 0)
         e.update({f"op_table_{k}": v for k, v in checked_fields(
             e["name"], op_checked).items()})
+    for e in entries:  # the conv zoo's, every eager one checked
+        e.update(conv_zoo_fields(e["name"], zoo_launches, zoo_checked,
+                                 dw_records, checked_fields))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,7 +20,12 @@ GravesLSTM; ``nn/transformer.py:57-63`` and ``:140-149`` for BERT); they
 copy across with :func:`load_reference_mln`, with the iteration and epoch,
 so a test can start both packages from the same point. A wrapper's params
 are nested in both packages (Bidirectional's and GravesBidirectionalLSTM's
-``{"fwd": {...}, "bwd": {...}}``) and copy leaf by leaf.
+``{"fwd": {...}, "bwd": {...}}``) and copy leaf by leaf. The conv zoo's
+trees copy the same way: SeparableConvolution2D's ``depthW`` (kh, kw, Cin,
+multiplier), ``pointW`` (1, 1, Cin * multiplier, Cout) and ``b``,
+Deconvolution2D's ``W`` (kh, kw, Cin, Cout), EmbeddingLayer's ``W``
+(vocabulary, dimension), LayerNormalization's ``gamma``/``beta``; a
+SharedLayer node's tree is empty in both (its source holds the params).
 """
 
 from __future__ import annotations

@@ -67,9 +67,15 @@ the ragged tail pads to k. ``rnn_time_step`` (``:1078``) keeps the
 recurrent nodes' carries between calls until ``rnn_clear_previous_state``;
 a Bidirectional node raises there.
 
+A SharedLayer node (``:400-404``, ``_resolve_shared`` ``:614-620``)
+applies its ``layer`` with the params and state of its ``source`` node
+(:func:`_resolve_shared`) in ``output``, ``fit`` (and so in the captured
+programs), ``score`` and ``rnn_time_step``; it owns no params, and
+autograd sums both call sites' gradients into the source's.
+
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
 loss scaling (``fused_update``/``loss_scale`` raise in ``fit``),
-SharedLayer (item 4), telemetry and the AOT store behind ``warmup``'s
+telemetry and the AOT store behind ``warmup``'s
 ``export_dir`` (item 12; ``score``, ``feed_forward`` and
 ``rnn_time_step`` run eagerly), remat segments
 (item 12: ``remat_policy`` and ``stage_barriers`` are kept as config and
@@ -357,11 +363,19 @@ class ComputationGraph(capture.CompiledSteps):
                 raise ValueError(
                     f"output {name!r} is consumed by another node — outputs "
                     "must be terminal (IOutputLayer semantics)")
+        layer_names = {n.name for n in self.topo if n.is_layer}
+        for n in self.topo:
+            if isinstance(n.node, L.SharedLayer) \
+                    and n.node.source not in layer_names:
+                raise ValueError(
+                    f"SharedLayer {n.name!r} references unknown source "
+                    f"{n.node.source!r}")
         self._bucketing = BucketingPolicy.from_conf(conf)
         # which nodes' apply()/compute_loss() take a mask
         # (feedForwardMaskArrays parity)
         self._takes_mask = {
-            n.name: "mask" in inspect.signature(n.node.apply).parameters
+            n.name: "mask" in inspect.signature(
+                _resolve_shared(n.node, n.name)[0].apply).parameters
             for n in self.topo if n.is_layer}
         self._loss_takes_mask = {
             n.name: "mask" in inspect.signature(
@@ -486,8 +500,9 @@ class ComputationGraph(capture.CompiledSteps):
             for n in self.topo:
                 x = self._gather_input(acts, n)
                 if n.is_layer:
-                    acts[n.name], _ = n.node.apply(
-                        cparams[n.name], states[n.name], x,
+                    lyr, pkey = _resolve_shared(n.node, n.name)
+                    acts[n.name], _ = lyr.apply(
+                        cparams[pkey], states[pkey], x,
                         training=training, **self._mask_kw(n, mask, x))
                 else:
                     acts[n.name] = n.node.apply(*x)
@@ -623,8 +638,9 @@ class ComputationGraph(capture.CompiledSteps):
                     cparams[n.name], x, carries[n.name], mask=seg_mask,
                     training=training)
             else:
-                acts[n.name], new_states[n.name] = n.node.apply(
-                    cparams[n.name], states[n.name], x, training=training,
+                lyr, pkey = _resolve_shared(n.node, n.name)
+                acts[n.name], new_states[pkey] = lyr.apply(
+                    cparams[pkey], states[pkey], x, training=training,
                     gen=gen, **self._mask_kw(n, mk, x))
         if training:
             for n in self.topo:
@@ -948,8 +964,9 @@ class ComputationGraph(capture.CompiledSteps):
                     acts[n.name], new_carries[n.name] = n.node.apply_seq(
                         cparams[n.name], x, carries[n.name], training=False)
                 else:
-                    acts[n.name], _ = n.node.apply(
-                        cparams[n.name], self.states[n.name], x,
+                    lyr, pkey = _resolve_shared(n.node, n.name)
+                    acts[n.name], _ = lyr.apply(
+                        cparams[pkey], self.states[pkey], x,
                         training=False)
         self._rnn_carries = new_carries
         outs = [acts[o] for o in self.conf.outputs]
@@ -1007,6 +1024,15 @@ class ComputationGraph(capture.CompiledSteps):
 
     def get_score(self) -> float:
         return float(self.score_value)
+
+
+def _resolve_shared(node, name):
+    """(the layer to apply, the node whose params and state it takes): a
+    SharedLayer's inner layer and its source, else the node itself
+    (``:614-620``)."""
+    if isinstance(node, L.SharedLayer):
+        return node.layer, node.source
+    return node, name
 
 
 def _arriving_mask(produced, n, mask):

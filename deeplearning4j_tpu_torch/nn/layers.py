@@ -1,5 +1,5 @@
 """Layer configurations and their forward functions (counterpart of
-deeplearning4j_tpu/nn/layers.py), the subset on the ResNet-50 path.
+deeplearning4j_tpu/nn/layers.py), all eighteen of its classes.
 
 As in the reference, one frozen dataclass per layer carries the config and
 the functions (``initialize``, ``apply``, ``output_shape``); its fields and
@@ -7,6 +7,13 @@ defaults are the reference's, field for field, so a conf JSON moves between
 the two packages unchanged. Params and state are plain dicts of tensors
 keyed as the reference keys them (``W``, ``b``, ``gamma``, ``beta``,
 ``mean``, ``var``).
+
+SeparableConvolution2D's depthwise half is ``ops.nn.conv2d`` with one group
+per channel and its pointwise half a 1x1 conv, so on a CUDA tensor both
+launch the conv kernel (K1; dgrad and K3 in training). Deconvolution2D is
+``ops.nn.deconv2d`` (the reference's ``lax.conv_transpose``, no Pallas
+kernel there). SharedLayer owns no params: ComputationGraph applies its
+``layer`` with the params of the node named ``source``.
 
 Conventions: shapes exclude the batch dimension; CNN data is NHWC, so
 ``input_shape`` is (H, W, C). ``apply`` returns (output, new_state).
@@ -205,8 +212,8 @@ class ConvolutionLayer(Layer):
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class SubsamplingLayer(Layer):
-    """Pooling (conf/layers/SubsamplingLayer.java): pooling_type MAX | AVG.
-    PNORM is not ported yet."""
+    """Pooling (conf/layers/SubsamplingLayer.java): pooling_type MAX | AVG |
+    PNORM (``(sum |x|^p)^(1/p)`` over each window, ``ops.nn.pnorm_pool2d``)."""
 
     kernel_size: tuple = (2, 2)
     stride: Optional[tuple] = None
@@ -222,7 +229,8 @@ class SubsamplingLayer(Layer):
         elif pt in ("avg", "average"):
             y = nnops.avg_pool2d(x, self.kernel_size, strides, self.padding)
         elif pt == "pnorm":
-            raise NotImplementedError("pnorm pooling is not ported yet")
+            y = nnops.pnorm_pool2d(x, self.kernel_size, strides,
+                                   self.padding, p=self.pnorm)
         else:
             raise ValueError(f"unknown pooling_type {self.pooling_type}")
         return y, state
@@ -359,3 +367,260 @@ class OutputLayer(DenseLayer):
                              f"{fused_act}")
         return act_fn(act.resolve(self.activation)(logits), labels,
                       weights=weights)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Standalone dropout (conf/layers/DropoutLayer.java, reference
+    ``nn/layers.py:316``): at ``rate`` in training, from the network's
+    generator; identity otherwise."""
+
+    rate: float = 0.5
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        if training and gen is not None:
+            x = randops.dropout(x, gen, self.rate, training=True)
+        return x, state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class EmbeddingLayer(Layer):
+    """Index -> vector lookup (conf/layers/EmbeddingLayer.java, reference
+    ``:391``); the input holds integer ids (any numeric type)."""
+
+    n_in: int = 0  # vocabulary
+    n_out: int = 0  # dimension
+    weight_init: str = "normal"
+
+    def initialize(self, gen, input_shape):
+        return {"W": winit.init(gen, self.weight_init,
+                                (self.n_in, self.n_out))}, {}
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        return nnops.embedding_lookup(params["W"], x.to(torch.long)), state
+
+    def output_shape(self, input_shape):
+        return tuple(input_shape) + (self.n_out,)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LossLayer(Layer):
+    """Loss-only head without params (conf/layers/LossLayer.java, reference
+    ``:438``). The row weights go to the loss by keyword, as OutputLayer's
+    do (the reference passes them positionally, where huber's third
+    argument is its delta: ROADMAP Queue 3)."""
+
+    loss: str = "mse"
+    activation: str = "identity"
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        return act.resolve(self.activation)(x), state
+
+    def compute_loss(self, params, state, x, labels, *, training=True,
+                     gen=None, weights=None):
+        logits_fn, act_fn, fused_act = losses_mod.resolve(self.loss)
+        if logits_fn is not None and fused_act == self.activation.lower():
+            return logits_fn(x, labels, weights)
+        if act_fn is None:
+            raise ValueError(f"loss {self.loss} requires activation "
+                             f"{fused_act}")
+        return act_fn(act.resolve(self.activation)(x), labels,
+                      weights=weights)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ZeroPaddingLayer(Layer):
+    """Zeros around the spatial axes (conf/layers/ZeroPaddingLayer.java,
+    reference ``:462``): ``padding`` ((top, bottom), (left, right))."""
+
+    padding: tuple = ((1, 1), (1, 1))
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        (pt, pb), (pl, pr) = self.padding
+        return torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb)), state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        (pt, pb), (pl, pr) = self.padding
+        return (h + pt + pb, w + pl + pr, c)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling by ``size`` (conf/layers/
+    Upsampling2D.java, reference ``:482``)."""
+
+    size: int = 2
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        return nnops.upsampling2d(x, self.size), state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        return (h * self.size, w * self.size, c)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Deconvolution2D(Layer):
+    """Transposed convolution (conf/layers/Deconvolution2D.java, reference
+    ``:500``): W (kh, kw, Cin, Cout), ``ops.nn.deconv2d``."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel_size: tuple = (2, 2)
+    stride: tuple = (2, 2)
+    padding: Any = "SAME"
+    activation: str = "identity"
+    weight_init: str = "relu"
+    has_bias: bool = True
+
+    def initialize(self, gen, input_shape):
+        c_in = self.n_in or input_shape[-1]
+        kh, kw = self.kernel_size
+        params = {"W": winit.init(gen, self.weight_init,
+                                  (kh, kw, c_in, self.n_out))}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,))
+        return params, {}
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        x = self._maybe_dropout(x, training, gen)
+        y = nnops.deconv2d(x, params["W"], params.get("b"),
+                           strides=self.stride, padding=self.padding)
+        return act.resolve(self.activation)(y), state
+
+    def output_shape(self, input_shape):
+        h, w, _ = input_shape
+        sh, sw = self.stride
+        if self.padding == "SAME":
+            return (h * sh, w * sw, self.n_out)
+        kh, kw = self.kernel_size
+        return ((h - 1) * sh + kh, (w - 1) * sw + kw, self.n_out)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution2D(Layer):
+    """Depthwise then pointwise conv (conf/layers/
+    SeparableConvolution2D.java, reference ``:538``; Xception's block):
+    ``depthW`` (kh, kw, Cin, depth_multiplier), ``pointW`` (1, 1,
+    Cin * depth_multiplier, Cout), ``b``; ``ops.nn.separable_conv2d``,
+    the conv kernel twice on a CUDA tensor (groups = Cin, then 1)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel_size: tuple = (3, 3)
+    stride: tuple = (1, 1)
+    padding: Any = "SAME"
+    depth_multiplier: int = 1
+    activation: str = "identity"
+    weight_init: str = "relu"
+    has_bias: bool = True
+
+    def initialize(self, gen, input_shape):
+        c_in = self.n_in or input_shape[-1]
+        kh, kw = self.kernel_size
+        mult = self.depth_multiplier
+        params = {
+            "depthW": winit.init(gen, self.weight_init, (kh, kw, c_in, mult)),
+            "pointW": winit.init(gen, self.weight_init,
+                                 (1, 1, c_in * mult, self.n_out))}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,))
+        return params, {}
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        x = self._maybe_dropout(x, training, gen)
+        y = nnops.separable_conv2d(x, params["depthW"], params["pointW"],
+                                   params.get("b"), strides=self.stride,
+                                   padding=self.padding)
+        return act.resolve(self.activation)(y), state
+
+    def output_shape(self, input_shape):
+        h, w, _ = input_shape
+        sh, sw = self.stride
+        if self.padding == "SAME":
+            return (-(-h // sh), -(-w // sw), self.n_out)
+        kh, kw = self.kernel_size
+        return ((h - kh) // sh + 1, (w - kw) // sw + 1, self.n_out)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN (conf/layers/LocalResponseNormalization.java,
+    reference ``:583``): a window of ``n`` channels (radius n // 2)."""
+
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        return nnops.lrn(x, depth_radius=self.n // 2, bias=self.k,
+                         alpha=self.alpha, beta=self.beta), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Cropping2D(Layer):
+    """Crop the spatial axes (conf/layers/convolutional/Cropping2D.java,
+    reference ``:603``): ``cropping`` ((top, bottom), (left, right))."""
+
+    cropping: tuple = ((0, 0), (0, 0))
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        (ct, cb), (cl, cr) = self.cropping
+        return x[:, ct:x.shape[1] - cb, cl:x.shape[2] - cr, :], state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        (ct, cb), (cl, cr) = self.cropping
+        return (h - ct - cb, w - cl - cr, c)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LayerNormalization(Layer):
+    """Layer norm over the last axis (reference ``:623``): ``gamma`` and
+    ``beta`` of the last axis's size."""
+
+    n_out: int = 0
+
+    def initialize(self, gen, input_shape):
+        c = self.n_out or input_shape[-1]
+        return {"gamma": torch.ones((c,)), "beta": torch.zeros((c,))}, {}
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        return nnops.layernorm(x, params["gamma"], params["beta"]), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class SharedLayer(Layer):
+    """Weight sharing (reference ``:639``): ``layer``'s computation with the
+    params (and state) of the graph node named ``source``. It owns none;
+    ComputationGraph resolves the source at every call site, so autograd
+    sums both sites' gradients into the source's params."""
+
+    source: str = ""
+    layer: Optional[Layer] = None
+
+    def output_shape(self, input_shape):
+        return self.layer.output_shape(input_shape)
+
+    def apply(self, params, state, x, *, training=False, gen=None):
+        raise RuntimeError(
+            "SharedLayer is resolved by ComputationGraph (it needs the "
+            "source node's params); it cannot be applied standalone")
+
+    def to_dict(self):
+        d = super().to_dict()
+        d["layer"] = self.layer.to_dict()
+        return d

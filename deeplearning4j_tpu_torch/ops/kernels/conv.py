@@ -44,7 +44,8 @@ counts its own launches (``conv2d_fwd``, ``conv2d_dgrad``,
 The plain versions are the TPU kernels' own arithmetic in PyTorch:
 :func:`conv2d_fwd_reference` pads, then for each (ki, kj) tap multiplies
 one strided window reshaped to (N*OH*OW, Cg) by the (Cg, Og) weight slice
-per group, summed in fp32; :func:`conv2d_wgrad_reference` sums
+per group (all groups in one batched product; a depthwise conv's Cg = 1
+products are element-wise), summed in fp32; :func:`conv2d_wgrad_reference` sums
 patch(ki, kj)^T @ dY per tap; :func:`conv2d_dgrad_reference` dilates,
 pads (or trims) dy as ``_dy_for_input_grad`` does and runs the plain
 forward, a construction independent of the phase plan. They are the exact
@@ -316,20 +317,26 @@ def conv2d_fwd_reference(x, w, strides, pads, dilation, groups):
     xp = F.pad(x.to(acc_t), (0, 0, pads[1][0], pads[1][1],
                              pads[0][0], pads[0][1]))
     wf = w.to(acc_t)
-    outs = []
-    for g in range(groups):
-        xg = xp[..., g * cg:(g + 1) * cg]
-        acc = torch.zeros((n * oh * ow, og), dtype=acc_t, device=x.device)
-        for ki in range(kh):
-            for kj in range(kw):
-                r0, c0 = ki * dh, kj * dw
-                patch = xg[:, r0:r0 + (oh - 1) * sh + 1:sh,
-                           c0:c0 + (ow - 1) * sw + 1:sw, :]
-                acc.addmm_(patch.reshape(n * oh * ow, cg),
-                           wf[ki, kj, :, g * og:(g + 1) * og])
-        outs.append(acc)
-    out = outs[0] if groups == 1 else torch.cat(outs, dim=1)
-    return out.reshape(n, oh, ow, cout).to(x.dtype)
+    m = n * oh * ow
+    if groups == 1:
+        acc = torch.zeros((m, cout), dtype=acc_t, device=x.device)
+    else:  # every group at once: (M, groups, Og)
+        acc = torch.zeros((m, groups, og), dtype=acc_t, device=x.device)
+        wf = wf.reshape(kh, kw, cg, groups, og)
+    for ki in range(kh):
+        for kj in range(kw):
+            r0, c0 = ki * dh, kj * dw
+            patch = xp[:, r0:r0 + (oh - 1) * sh + 1:sh,
+                       c0:c0 + (ow - 1) * sw + 1:sw, :]
+            if groups == 1:
+                acc.addmm_(patch.reshape(m, cg), wf[ki, kj])
+            elif cg == 1:  # depthwise: one product a tap and output
+                acc.addcmul_(patch.reshape(m, groups, 1), wf[ki, kj, 0])
+            else:
+                acc.add_(torch.einsum("mgc,cgo->mgo",
+                                      patch.reshape(m, groups, cg),
+                                      wf[ki, kj]))
+    return acc.reshape(n, oh, ow, cout).to(x.dtype)
 
 
 def _check_cuda_pair(name, a, b):
@@ -469,17 +476,21 @@ def conv2d_wgrad_reference(x, dy, kh, kw, strides, pads, dilation, groups):
     acc_t = torch.promote_types(x.dtype, torch.float32)
     xp = F.pad(x.to(acc_t), (0, 0, pads[1][0], pads[1][1],
                              pads[0][0], pads[0][1]))
-    dyf = dy.to(acc_t).reshape(n * oh * ow, cout)
+    m = n * oh * ow
+    dyf = dy.to(acc_t).reshape(m, groups, og)
     out = torch.empty((kh, kw, cg, cout), dtype=acc_t, device=x.device)
-    for g in range(groups):
-        dyg = dyf[:, g * og:(g + 1) * og]
-        for ki in range(kh):
-            for kj in range(kw):
-                r0, c0 = ki * dh, kj * dw
-                patch = xp[:, r0:r0 + (oh - 1) * sh + 1:sh,
-                           c0:c0 + (ow - 1) * sw + 1:sw, g * cg:(g + 1) * cg]
-                out[ki, kj, :, g * og:(g + 1) * og] = (
-                    patch.reshape(n * oh * ow, cg).t() @ dyg)
+    for ki in range(kh):
+        for kj in range(kw):
+            r0, c0 = ki * dh, kj * dw
+            patch = xp[:, r0:r0 + (oh - 1) * sh + 1:sh,
+                       c0:c0 + (ow - 1) * sw + 1:sw, :].reshape(m, groups, cg)
+            if groups == 1:
+                out[ki, kj] = patch[:, 0].t() @ dyf[:, 0]
+            elif cg == og == 1:  # depthwise: one dot product a group
+                out[ki, kj] = (patch[:, :, 0] * dyf[:, :, 0]).sum(0)
+            else:  # every group at once: (Cg, groups, Og)
+                out[ki, kj] = torch.einsum("mgc,mgo->cgo", patch,
+                                           dyf).reshape(cg, cout)
     return out
 
 

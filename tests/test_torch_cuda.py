@@ -522,6 +522,69 @@ def test_conv_wgrad_kernel_matches_plain(card, dtype, case):
         _GRAD_TOL[dtype]
 
 
+# Xception's depthwise convs (3x3, stride 1, SAME, one channel a group, as
+# SeparableConvolution2D launches them): (H = W, C) of its nine geometries
+# at 299x299, run at batch 8; the bf16 body is mma.sync (Cg = Og = 1)
+_DEPTHWISE = [(150, 64), (150, 128), (75, 128), (75, 256), (38, 256),
+              (38, 728), (19, 728), (10, 1024), (10, 1536)]
+
+
+@pytest.mark.parametrize("hw,c", _DEPTHWISE,
+                         ids=[f"{h}x{h}x{c}" for h, c in _DEPTHWISE])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_depthwise_kernels_match_plain(card, dtype, hw, c):
+    """K1, dgrad and K3 at groups = C against their plain versions: each
+    result into a block the allocator first handed out full of NaN, the
+    forward within the conv tolerances, dgrad and dW within 1e-4 (fp32) or
+    2^-7 (bf16) of the largest plain output, and dW equal to the bit over
+    two runs."""
+    n, k = 8, 3
+    gen = torch.Generator(device=card).manual_seed(hw * c)
+    x = torch.randn((n, hw, hw, c), device=card, generator=gen).to(dtype)
+    w = (torch.randn((k, k, 1, c), device=card, generator=gen) / 3).to(dtype)
+    dy = torch.randn((n, hw, hw, c), device=card, generator=gen).to(dtype)
+    pads = KC.resolve_padding("SAME", (hw, hw), (k, k), (1, 1), (1, 1))
+    geo = ((1, 1), pads, (1, 1), c)
+    body = "fma" if dtype == torch.float32 else "mma_sync"
+    assert KC.fwd_plan(x, w, *geo)[2] == body
+    assert KC.dgrad_plan(dy, w, (hw, hw), *geo)[2] == body
+    assert KC.wgrad_plan(x, dy, k, k, *geo)[1] == body
+
+    def poison(shape, dt=dtype):
+        # a NaN block, back in the cache for the next result of its size
+        torch.full(shape, float("nan"), dtype=dt, device=card)
+
+    poison(x.shape)
+    got = KC.conv2d_fwd(x, w, *geo)
+    ref = KC.conv2d_fwd_reference(x, w, *geo)
+    rtol, atol = _CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    del got
+    ref = KC.conv2d_dgrad_reference(dy, w, (hw, hw), *geo)
+    poison(x.shape)
+    got = KC.conv2d_dgrad(dy, w, (hw, hw), *geo)
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= _GRAD_TOL[dtype]
+    ref = KC.conv2d_wgrad_reference(x, dy, k, k, *geo)
+    poison(ref.shape, torch.float32)
+    got = KC.conv2d_wgrad(x, dy, k, k, *geo)
+    again = KC.conv2d_wgrad(x, dy, k, k, *geo)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (k, k, 1, c)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    err = (got.to(dtype).float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.to(dtype).float().abs().max()) <= \
+        _GRAD_TOL[dtype]
+    assert TK.LAUNCHES["conv2d_fwd"] == TK.LAUNCHES["conv2d_dgrad"] == 1
+    assert TK.LAUNCHES["conv2d_wgrad"] == 2
+    assert TK.BODY_LAUNCHES == {f"conv2d_fwd/{body}": 1,
+                                f"conv2d_dgrad/{body}": 1,
+                                f"conv2d_wgrad/{body}": 2}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_conv_dgrad_tapless_phases_write_zeros(card, dtype):
@@ -1392,3 +1455,87 @@ def test_samediff_while_runs_eagerly_on_card(card):
     np.testing.assert_array_equal(out, xv * 32.0)
     (prog,) = sd.programs().values()
     assert prog.eager and "__cf_while__" in prog.eager and prog.graph is None
+
+
+# ------------------------------------------------------------ the conv zoo
+
+
+def _xception_small(dev, dtype="float32"):
+    """Xception at 32x32 with one middle repeat (13 separable convs: 26
+    K1 launches, 6 plain convs), Adam(1e-3, epsilon 1e-3)."""
+    from deeplearning4j_tpu_torch.zoo import Xception
+
+    return Xception(num_classes=5, input_shape=(32, 32, 3),
+                    middle_repeats=1, compute_dtype=dtype,
+                    updater={"@updater": "Adam", "learning_rate": 1e-3,
+                             "epsilon": 1e-3}).init(device=dev)
+
+
+def _xception_batches(n=3, b=8):
+    rng = np.random.default_rng(15)
+    return [(rng.normal(size=(b, 32, 32, 3)).astype(np.float32),
+             np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)])
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_capture_xception_step_equals_eager(card, dtype):
+    """Three captured Xception steps against eager, bit for bit where two
+    eager runs are (_gate); under replay each step launches 32 K1, 32 K3
+    and 31 dgrad (the stem reads the input), none plain."""
+    batches = _xception_batches()
+    net = _gate(lambda: _xception_small(card, dtype), batches)
+    TK.reset_counts()
+    net.fit(*batches[0])
+    torch.cuda.synchronize()
+    assert {k: TK.LAUNCHES[k] for k in ("conv2d_fwd", "conv2d_wgrad",
+                                        "conv2d_dgrad")} == {
+        "conv2d_fwd": 32, "conv2d_wgrad": 32, "conv2d_dgrad": 31}
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_capture_shared_layer_graph_equals_eager(card):
+    """A graph whose SharedLayer applies a dense layer's params a second
+    time: four captured steps against eager (_gate), the source's params
+    trained by both call sites, the SharedLayer node owning none."""
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as TL
+
+    dense = TL.DenseLayer(n_in=16, n_out=16, activation="tanh")
+    conf = (NeuralNetConfiguration.builder().seed(8)
+            .updater({"@updater": "Adam", "learning_rate": 1e-2,
+                      "epsilon": 1e-3}).graph_builder()
+            .add_inputs("in")
+            .add_layer("d1", dense, "in")
+            .add_layer("d2", TL.SharedLayer(source="d1", layer=dense), "d1")
+            .add_layer("out", TL.OutputLayer(n_in=16, n_out=5), "d2")
+            .set_outputs("out").set_input_types((16,)).build())
+    net = _gate(lambda: ComputationGraph(conf).init(device=card),
+                _dense_batches())
+    assert net.params["d2"] == {} and len(net._aot_steps) == 1
+
+
+def test_xception_archive_restores_on_card(card, tmp_path):
+    """Xception trained a step on the card, archived, restored onto the
+    card (outputs and the next step bit for bit) and onto the CPU (within
+    1e-4 of the largest output)."""
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (x, y), = _xception_batches(1)
+    net = _xception_small(card)
+    net.fit(x, y)
+    path = str(tmp_path / "xception.zip")
+    ModelSerializer.write_model(net, path)
+    back = ModelSerializer.restore_computation_graph(path)
+    assert back.device.type == "cuda"
+    written = net.output(x)
+    assert torch.equal(back.output(x), written)
+    cpu = ModelSerializer.restore_computation_graph(path, device="cpu")
+    err = (cpu.output(x).float() - written.float().cpu()).abs().max()
+    assert float(err) <= 1e-4 * float(written.abs().max())
+    back.fit(x, y)
+    net.fit(x, y)
+    assert back.get_score() == net.get_score()
