@@ -188,6 +188,33 @@ Phases, each printing one JSON line:
     ragged seq_lens (K4 once a direction; fp32 also against the CPU, its
     gradients too), conv_lstm_2d at ConvLSTM2D's shape (K1). Every launch checked, none
     plain, the counts against expected_op_table_launches.
+18c. conv_zoo, conv_zoo_captured: Xception (299x299, batch 32) served
+    and trained on K1, dgrad and K3 at up to 1,536 groups, every launch
+    checked; the depthwise kernel records; the other eight zoo models;
+    Xception's fit captured (after 18b, the second outside
+    ``capture.disabled()``).
+18d. keras_import: tf.keras's MobileNetV2 (224x224x3, 1000 classes,
+    alpha 1.0, 3,538,984 params and statistics) written as a legacy
+    Keras HDF5 file by ``imports/keras_cases.py`` (seed 12345) and
+    imported by ``KerasModelImport`` onto the card: the forward at batch
+    32 under auto, fp32 and bf16, every K1 launch checked (52 a pass),
+    features, fp64 logits and probabilities against the exact path
+    (KERAS_TOL; bf16 LAYER_TOL's forward gate); a ModelSerializer
+    archive of it served through ``ModelRouter.load`` over HTTP (within
+    1e-4 of the exact path); its head made an OutputLayer under
+    Adam(1e-3): a step under auto against exact and fp64 with the gate's
+    controls (TF32 must fail), four checked fp32 steps whose loss must
+    fall, four checked bf16 steps, 52 / 51 / 52 K1 / dgrad / K3 launches
+    a step as the conf works out, none plain; images/sec forward and
+    fit; K1, dgrad and K3 against their plain versions and cuDNN at its
+    ten depthwise geometries (stride 1 and the four stride-2 ones, batch
+    8); the small leg (keras_small): a Conv1D stack (K1), a
+    depth_multiplier-2 stride-2 depthwise layer (K1) and the char-RNN's
+    LSTM (K4) imported from keras_cases files, the card against the CPU
+    within 1e-4, and each class of nn/layers_spatial.py forward and
+    backward on the card against the CPU (LAYER_TOL), every launch
+    checked. keras_import_captured: its fit captured, fp32 and bf16,
+    under the capture gate, with captured images/sec beside the eager.
 19. capture_serve: full-width ResNet-50 behind the ModelServer, its
     forwards captured: ``warmup`` (the server's start) captures a CUDA
     graph a batch bucket (1-32; each program's pool bytes printed); the
@@ -269,7 +296,12 @@ Phases, each printing one JSON line:
     19-22) under ``launches_captured``, the op table's (phase 18b) under
     ``launches_op_table`` with its checks under ``op_table_checked_*``,
     the SameDiff phases' (22d-22g) under ``launches_samediff`` with
-    theirs under ``samediff_*checked_*``.
+    theirs under ``samediff_*checked_*``, the conv zoo's (18c) and the
+    Keras import's (18d) under ``launches_conv_zoo`` and
+    ``launches_keras`` with theirs under ``conv_zoo_checked`` and
+    ``keras_checked`` and the depthwise times at Xception's and
+    MobileNetV2's geometries under ``conv_zoo_depthwise`` and
+    ``keras_depthwise``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -1019,9 +1051,12 @@ def profile_forward(torch, net, batch=32, top=8):
                     for ms, n, name in kernels[:top]]}
 
 
-def serve_and_check(torch, np, net, model_id, input_shape, per_chunk):
+def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
+                    archive=None):
     """``net`` served over HTTP (ModelServer -> ModelRouter ->
-    BatchScheduler -> ServingModel, buckets BUCKETS): SERVE_ROWS requests
+    BatchScheduler -> ServingModel, buckets BUCKETS), or with ``archive``
+    (a ModelSerializer archive of ``net``) the net ``ModelRouter.load``
+    restores from it: SERVE_ROWS requests
     in two waves of four concurrent, every conv launch held against its
     plain version, ``per_chunk`` K1 launches each executed chunk, none
     plain on CUDA; the answers' probabilities within 1e-4 of the plain
@@ -1033,10 +1068,16 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk):
                                                   ServingModel)
 
     t0 = time.perf_counter()
-    model = ServingModel(net, model_id,
-                         bucketing=BucketingPolicy(batch_buckets=BUCKETS))
     router = ModelRouter()
-    router.register(model, max_wait_ms=100.0, queue_limit=64)
+    if archive is None:
+        model = ServingModel(net, model_id,
+                             bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+        router.register(model, max_wait_ms=100.0, queue_limit=64)
+    else:
+        router.load(model_id, archive,
+                    bucketing=BucketingPolicy(batch_buckets=BUCKETS),
+                    max_wait_ms=100.0, queue_limit=64)
+        model, _ = router.get(model_id)
     server = ModelServer(router, port=0).start()  # warms every bucket
     warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(12345)
@@ -1194,6 +1235,11 @@ def _range_kernels(events, name):
             yield from walk(evt)
 
 
+# the tracer drops kernels from some eager steps (PERF.md §7): a train-step
+# profile takes up to this many traces for one that holds every conv launch
+PROFILE_ATTEMPTS = 6
+
+
 def profile_train_step(torch, net, x, y, top=8):
     """One train step under torch.profiler: device time by kernel class
     (conv forward; dgrad = the conv kernel's launches inside the conv's
@@ -1206,47 +1252,81 @@ def profile_train_step(torch, net, x, y, top=8):
     grouped launches of K1, dgrad and K3 (Xception's depthwise convs: the
     same kernels, so the trace cannot tell them apart) are timed by CUDA
     events around each in the same step (time_grouped_launches), a class
-    of their own beside the trace's."""
+    of their own beside the trace's. The steps run on a copy of ``net``
+    (copy_net), so the caller's state is left as it was. The tracer drops
+    kernels from some eager steps (PERF.md §7; LeNet's keeps one of its
+    three conv2d_fwd launches): a trace with fewer conv kernels than the
+    step launched (the launch counters) is taken again, up to
+    PROFILE_ATTEMPTS times, and the fullest trace with a dgrad launch
+    under the conv's backward node is the one reported, with
+    ``trace_complete`` false where even it lacks some conv launches (its
+    device times then miss those kernels); none having one fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    conv = ("conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad")
+
+    def trace():
+        pairs = {}
+        before = sum(kern.LAUNCHES.get(k, 0) for k in conv)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the tracer can miss the first kernels after it starts: give
+            # it one of its own before the step
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with time_grouped_launches(torch, pairs):
+                net.fit(x, y)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = device_kernels(torch, prof)
+        traced = {}
+        for _, n, name in kernels:
+            cls = _kernel_class(name)
+            if cls:
+                traced[cls] = traced.get(cls, 0) + n
+        events = prof.events()
+        in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
+        return {"pairs": pairs, "wall_ms": wall_ms, "kernels": kernels,
+                "traced": traced, "events": events,
+                "launched": sum(kern.LAUNCHES.get(k, 0) for k in conv)
+                - before,
+                "dgrad_ms": sum(us for k, us in in_bwd
+                                if _kernel_class(k) == "fwd") / 1e3,
+                "traced_conv": traced.get("fwd", 0) + traced.get("wgrad",
+                                                                  0)}
+
+    net = copy_net(net)
     net.fit(x, y)
     torch.cuda.synchronize()
-    pairs = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # the tracer can miss the first kernels after it starts: give it
-        # one of its own before the step
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with time_grouped_launches(torch, pairs):
-            net.fit(x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(torch, prof)
-    by_class = _by_class(kernels)
-    traced = {}
-    for _, n, name in kernels:
-        cls = _kernel_class(name)
-        if cls:
-            traced[cls] = traced.get(cls, 0) + n
-    busy = sum(k[0] for k in kernels)
-    events = prof.events()
-    in_bwd = list(_range_kernels(events, "Conv2dFunctionBackward"))
-    dgrad_ms = sum(us for k, us in in_bwd if _kernel_class(k) == "fwd") / 1e3
-    if not dgrad_ms:
-        hosts = {}
-        for evt in events:
-            for k in evt.kernels:
-                if _kernel_class(k.name) == "fwd":
-                    hosts[evt.name] = hosts.get(evt.name, 0) + 1
+    best, hosts = None, {}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        t = trace()
+        if t["dgrad_ms"] and (best is None
+                              or t["traced_conv"] > best["traced_conv"]):
+            best = t
+        if not t["dgrad_ms"]:
+            for evt in t["events"]:
+                for k in evt.kernels:
+                    if _kernel_class(k.name) == "fwd":
+                        hosts[evt.name] = hosts.get(evt.name, 0) + 1
+        if best is not None and best["traced_conv"] >= best["launched"]:
+            break
+    if best is None:
         raise AssertionError("the profile put no conv kernel under the "
-                             f"conv backward nodes; they hang on {hosts}")
-    bn_ms = sum(us for _, us in _range_kernels(events,
+                             f"conv backward nodes in {PROFILE_ATTEMPTS} "
+                             f"traces; they hang on {hosts}")
+    kernels, dgrad_ms = best["kernels"], best["dgrad_ms"]
+    by_class = _by_class(kernels)
+    busy = sum(k[0] for k in kernels)
+    bn_ms = sum(us for _, us in _range_kernels(best["events"],
                                                 "_BatchNormTrain")) / 1e3
     conv_like = sum(by_class.values())
-    grouped = events_ms(pairs)
+    grouped = events_ms(best["pairs"])
     dw_ms = sum(ms for ms, _ in grouped.values())
+    wall_ms = best["wall_ms"]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "depthwise_ms": dw_ms,
             "depthwise_share_of_busy": dw_ms / busy if busy else None,
@@ -1259,7 +1339,9 @@ def profile_train_step(torch, net, x, y, top=8):
             "split_reduce_ms": by_class.get("split_reduce", 0.0),
             "batchnorm_ms": bn_ms,
             "other_device_ms": busy - conv_like - bn_ms,
-            "conv_launches_traced": traced,
+            "conv_launches_traced": best["traced"],
+            "conv_launches": best["launched"], "profile_attempts": attempt,
+            "trace_complete": best["traced_conv"] >= best["launched"],
             "top": [{"ms": ms, "calls": n, "kernel": name[:90]}
                     for ms, n, name in kernels[:top]]}
 
@@ -4836,10 +4918,12 @@ def op_table_phase(torch, np, card):
 # the stem reads the input, so it has no dgrad)
 XCEPTION_INPUT, XCEPTION_BATCH = (299, 299, 3), 32
 XCEPTION_STEP = {"conv2d_fwd": 74, "conv2d_wgrad": 74, "conv2d_dgrad": 73}
-# its depthwise geometries, (H = W, C): 3x3, stride 1, SAME, groups = C,
-# whose kernel records run at batch 8 as the ResNet-50 geometries do
-DEPTHWISE = ((150, 64), (150, 128), (75, 128), (75, 256), (38, 256),
-             (38, 728), (19, 728), (10, 1024), (10, 1536))
+# its depthwise geometries, (H = W, C, stride): 3x3, stride 1, SAME,
+# groups = C, whose kernel records run at batch 8 as the ResNet-50
+# geometries do
+DEPTHWISE = ((150, 64, 1), (150, 128, 1), (75, 128, 1), (75, 256, 1),
+             (38, 256, 1), (38, 728, 1), (19, 728, 1), (10, 1024, 1),
+             (10, 1536, 1))
 # the rate windows (fewer than ResNet-50's: a step takes near a second)
 # and the captured leg's steps under the gate
 ZOO_WINDOWS, ZOO_CAPTURE_STEPS = 3, 2
@@ -4852,11 +4936,13 @@ ZOO_BATCH, ZOO_TOL = 8, 1e-4
 
 def expected_conv_launches(conf):
     """{kernel: launches} of one train step worked out from a conf (a graph
-    or a layer stack): one of each kernel a ConvolutionLayer, two a
+    or a layer stack): one of each kernel a ConvolutionLayer,
+    DepthwiseConvolution2D or Convolution1D, two a
     SeparableConvolution2D (its depthwise and pointwise convs); one dgrad
     fewer where the conv reads a network input, which needs no gradient.
     A forward launches the step's ``conv2d_fwd`` count."""
     from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import layers_spatial as LS
 
     if hasattr(conf, "nodes"):
         items = [(n.node, bool(set(n.inputs) & set(conf.inputs)))
@@ -4866,7 +4952,9 @@ def expected_conv_launches(conf):
     fwd = dgrad = 0
     for lyr, reads_input in items:
         n = (2 if isinstance(lyr, L.SeparableConvolution2D) else
-             1 if isinstance(lyr, L.ConvolutionLayer) else 0)
+             1 if isinstance(lyr, (L.ConvolutionLayer,
+                                   LS.DepthwiseConvolution2D,
+                                   LS.Convolution1D)) else 0)
         fwd += n
         dgrad += n - (1 if n and reads_input else 0)
     return {"conv2d_fwd": fwd, "conv2d_wgrad": fwd, "conv2d_dgrad": dgrad}
@@ -4949,25 +5037,30 @@ def events_ms(pairs):
             for k, v in pairs.items()}
 
 
-def depthwise_records(torch):
-    """K1, dgrad and K3 against their plain versions and cuDNN at the nine
-    depthwise geometries (check_geometry, check_grad_geometry), fp32 and
-    bf16, batch 8; a conv_zoo_depthwise line each, with its launches a
-    pass (forward, dgrad and K3 alike) in Xception's conf."""
-    per_pass = depthwise_geometries(xception_conf())
-    if sorted(per_pass) != sorted(DEPTHWISE) or sum(per_pass.values()) != 34:
-        raise AssertionError(f"Xception's depthwise convs {per_pass}")
+def depthwise_records(torch, conf, geometries, count, line):
+    """K1, dgrad and K3 against their plain versions and cuDNN at a
+    model's depthwise ``geometries`` (check_geometry, check_grad_geometry;
+    stride 1 SAME, stride 2 VALID), fp32 and bf16, batch 8; a ``line``
+    line each, with its launches a pass (forward, dgrad and K3 alike) in
+    ``conf``, whose ``count`` depthwise convs must have just these
+    geometries."""
+    per_pass = depthwise_geometries(conf)
+    if (sorted(per_pass) != sorted(geometries)
+            or sum(per_pass.values()) != count):
+        raise AssertionError(f"{line}: the depthwise convs {per_pass}")
     records = []
-    for hw, c in DEPTHWISE:
-        key = (8, hw, hw, c, 3, 3, c, (1, 1), "SAME", (1, 1), c)
+    for hw, c, s in geometries:
+        key = (8, hw, hw, c, 3, 3, c, (s, s), "SAME" if s == 1 else "VALID",
+               (1, 1), c)
         fwd = check_geometry(torch, key, 0)
         grad = check_grad_geometry(torch, key, 0, 0)
-        rec = {"hw": hw, "c": c, "per_pass": per_pass[(hw, c)],
+        rec = {"hw": hw, "c": c, "stride": s,
+               "per_pass": per_pass[(hw, c, s)],
                **{f"fwd_{t}": fwd[t] for t in ("fp32", "bf16")},
                **{f"{k}_{t}": grad[f"{k}_{t}"] for k in ("dgrad", "wgrad")
                   for t in ("fp32", "bf16")}}
         records.append(rec)
-        emit("conv_zoo_depthwise", batch=8, **rec)
+        emit(line, batch=8, **rec)
     return records
 
 
@@ -4984,10 +5077,13 @@ def xception(torch, dtype="float32"):
 
 
 def depthwise_geometries(conf):
-    """{(H, C): launches a pass} of the depthwise halves of a graph's
-    SeparableConvolution2D nodes (3x3, stride 1, SAME, one channel a
-    group), walking the conf with the layers' shape rules."""
+    """{(H, C, stride): launches a pass} of a graph's depthwise convs: its
+    DepthwiseConvolution2D nodes and the depthwise halves of its
+    SeparableConvolution2D nodes (3x3, one channel a group, square;
+    stride 1 SAME, stride 2 VALID on a padded map), walking the conf with
+    the layers' shape rules."""
     from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import layers_spatial as LS
 
     shape_of = dict(zip(conf.inputs, map(tuple, conf.input_shapes)))
     out = {}
@@ -4996,15 +5092,17 @@ def depthwise_geometries(conf):
         if not n.is_layer:
             shape_of[n.name] = tuple(n.node.output_shape(*ins))
             continue
-        if isinstance(n.node, L.SeparableConvolution2D):
+        if isinstance(n.node, (L.SeparableConvolution2D,
+                               LS.DepthwiseConvolution2D)):
             h, w, c = ins[0]
-            if (h != w or tuple(n.node.kernel_size) != (3, 3)
-                    or tuple(n.node.stride) != (1, 1)
-                    or n.node.padding != "SAME"
+            s = tuple(n.node.stride)
+            if (h != w or tuple(n.node.kernel_size) != (3, 3) or s[0] != s[1]
+                    or n.node.padding != ("SAME" if s == (1, 1)
+                                          else "VALID")
                     or n.node.depth_multiplier != 1):
-                raise AssertionError(f"{n.name}: not Xception's depthwise "
-                                     "geometry")
-            out[(h, c)] = out.get((h, c), 0) + 1
+                raise AssertionError(f"{n.name}: not a depthwise geometry "
+                                     "of the smoke's")
+            out[(h, c, s[0])] = out.get((h, c, s[0]), 0) + 1
         shape_of[n.name] = tuple(n.node.output_shape(ins[0]))
     return out
 
@@ -5016,6 +5114,67 @@ def xception_batch(torch, np, batch=XCEPTION_BATCH, seed=3):
     y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
         np.random.default_rng(12345).integers(0, 1000, batch)]).cuda()
     return x, y
+
+
+def eager_train_leg(torch, card, prefix, model, net, net16, x, y, per_step,
+                    steps, bf16_steps):
+    """A model's eager training on (x, y) on the card, every launch
+    checked: a step under auto against exact with the gate's controls
+    (step_parity; a ``<prefix>_train_parity`` line), ``steps`` checked
+    fp32 fit steps whose loss must fall (``<prefix>_train``),
+    ``bf16_steps`` checked steps of ``net16``, the bf16 net
+    (``<prefix>_train_bf16``), both at ``per_step`` launches a step and
+    none plain; images/sec of both (``<prefix>_train_throughput``) and a
+    profiled step of each (``<prefix>_train_profile``). Returns the
+    launches and the checks of the fp32 and bf16 steps by part."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    batch = x.shape[0]
+    launches, checked = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    parity = step_parity(torch, net, x, y, per_step, model)
+    emit(f"{prefix}_train_parity", model=model, batch=batch, **parity,
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9, card=card)
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches["fit"], checked["fit"] = checked_fit(
+        torch, net, x, y, per_step, steps, model)
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{model}'s losses did not fall: {losses}")
+    emit(f"{prefix}_train", model=model, batch=batch,
+         params=net.num_params(), updater=net.conf.updater, steps=steps,
+         losses=losses, launches=launches["fit"],
+         launches_checked=_checked_summary(checked["fit"]),
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9, card=card)
+    checked["fit_bf16"], losses16 = {}, []
+    kern.reset_counts()
+    with check_every_launch(torch, checked["fit_bf16"]):
+        for _ in range(bf16_steps):
+            net16.fit(x, y)
+            losses16.append(net16.get_score())
+    torch.cuda.synchronize()
+    got16 = _launch_summary(checked["fit_bf16"], "bf16")
+    if (got16 != {k: bf16_steps * v for k, v in per_step.items()}
+            or any(kern.PLAIN_ON_CUDA.values())
+            or not all(math.isfinite(v) for v in losses16)):
+        raise AssertionError(f"{model} bf16 steps checked {got16}, plain "
+                             f"{dict(kern.PLAIN_ON_CUDA)}, losses "
+                             f"{losses16}")
+    launches["fit_bf16"] = got16
+    emit(f"{prefix}_train_bf16", model=model, batch=batch, steps=bf16_steps,
+         losses=losses16, loss_fell=losses16[-1] < losses16[0],
+         launches_checked=_checked_summary(checked["fit_bf16"]),
+         conv_bodies=dict(kern.BODY_LAUNCHES), card=card)
+    nets = (("fp32", net), ("bf16", net16))
+    rates = {tag: train_images_per_sec(torch, n, x, y, windows=ZOO_WINDOWS)
+             for tag, n in nets}
+    emit(f"{prefix}_train_throughput", model=model, batch=batch,
+         path="net.fit", window_s=2.0,
+         **{f"train_images_per_sec_{t}": r for t, r in rates.items()},
+         card=card)
+    for tag, n in nets:
+        emit(f"{prefix}_train_profile", model=model, dtype=tag, batch=batch,
+             card=card, **profile_train_step(torch, n, x, y))
+    return launches, checked
 
 
 def conv_zoo_phase(torch, np, card):
@@ -5030,7 +5189,8 @@ def conv_zoo_phase(torch, np, card):
     from deeplearning4j_tpu_torch.ops import kernels as kern
 
     launches, checked = {}, {}
-    records = depthwise_records(torch)
+    records = depthwise_records(torch, xception_conf(), DEPTHWISE, 34,
+                                "conv_zoo_depthwise")
     kern.reset_counts()
 
     # Xception served: BN statistics from a calibration batch, then 8
@@ -5052,54 +5212,16 @@ def conv_zoo_phase(torch, np, card):
     del net
     torch.cuda.empty_cache()
 
-    # Xception trained at batch 32
-    torch.cuda.reset_peak_memory_stats()
+    # Xception trained at batch 32 under the zoo's Adam(1e-3); one bf16
+    # step
     net = xception(torch)
-    parity = step_parity(torch, net, x, y, XCEPTION_STEP, "Xception")
-    emit("conv_zoo_train_parity", model="Xception", batch=XCEPTION_BATCH,
-         **parity, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
-         card=card)
-    torch.cuda.reset_peak_memory_stats()
-    losses, launches["fit"], checked["fit"] = checked_fit(
-        torch, net, x, y, XCEPTION_STEP, 4, "Xception")
-    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"Xception's Adam losses did not fall: "
-                             f"{losses}")
-    emit("conv_zoo_train", model="Xception", input=list(XCEPTION_INPUT),
-         classes=1000, params=net.num_params(), batch=XCEPTION_BATCH,
-         updater=net.conf.updater, steps=4, losses=losses,
-         launches=launches["fit"],
-         launches_checked=_checked_summary(checked["fit"]),
-         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
-         card=card)
-    net16 = xception(torch, "bfloat16")
-    kern.reset_counts()
-    checked["fit_bf16"] = {}
-    with check_every_launch(torch, checked["fit_bf16"]):
-        net16.fit(x, y)
-    got16 = {k: checked["fit_bf16"].get((k, "bf16"), {}).get("calls")
-             for k in XCEPTION_STEP}
-    if got16 != XCEPTION_STEP or any(kern.PLAIN_ON_CUDA.values()):
-        raise AssertionError(f"Xception bf16 step checked {got16}, plain "
-                             f"{dict(kern.PLAIN_ON_CUDA)}")
-    launches["fit_bf16"] = got16
-    bodies16 = dict(kern.BODY_LAUNCHES)
-    emit("conv_zoo_train_bf16_step", model="Xception",
-         batch=XCEPTION_BATCH, loss=net16.get_score(),
-         launches_checked=_checked_summary(checked["fit_bf16"]),
-         conv_bodies=bodies16, card=card)
-    rates = {tag: train_images_per_sec(torch, n, x, y, windows=ZOO_WINDOWS)
-             for tag, n in (("fp32", net), ("bf16", net16))}
-    emit("conv_zoo_train_throughput", model="Xception",
-         batch=XCEPTION_BATCH, path="net.fit", window_s=2.0,
-         **{f"train_images_per_sec_{t}": r for t, r in rates.items()},
-         card=card)
-    for tag, n in (("fp32", net), ("bf16", net16)):
-        emit("conv_zoo_train_profile", model="Xception", dtype=tag,
-             batch=XCEPTION_BATCH, card=card,
-             **profile_train_step(torch, n, x, y))
+    got, chk = eager_train_leg(torch, card, "conv_zoo", "Xception", net,
+                               xception(torch, "bfloat16"), x, y,
+                               XCEPTION_STEP, 4, 1)
+    launches.update(got)
+    checked.update(chk)
     proto = copy_net(net)
-    del net, net16
+    del net
     torch.cuda.empty_cache()
 
     # the other eight models
@@ -5174,43 +5296,429 @@ def zoo_model_check(torch, np, name, card):
     return launches, checked
 
 
-def conv_zoo_captured_phase(torch, np, card, proto, batch):
-    """Xception's fit captured (nn/capture.py), fp32 and bf16, from the
-    eager phase's trained net: ZOO_CAPTURE_STEPS steps under the capture
-    gate, 74 / 73 / 74 launches a step under replay, none plain; captured
-    images/sec and a profiled captured step beside the eager ones."""
+def captured_train_phase(torch, card, prefix, model, proto, batch,
+                         per_step, steps):
+    """A model's fit captured (nn/capture.py), fp32 and bf16, from
+    ``proto``: ``steps`` steps on ``batch`` under the capture gate,
+    ``per_step`` launches a step under replay, none plain; captured
+    images/sec and a profiled captured step beside the eager ones (the
+    ``<prefix>_train_throughput`` and ``<prefix>_train_profile`` lines); a
+    ``<prefix>_captured`` line each. Returns the launches of both."""
     x, y = batch
-    thr, launches = eager("conv_zoo_train_throughput"), {}
+    thr, launches = eager(f"{prefix}_train_throughput"), {}
 
-    def steps(net):
-        return fit_losses(net, [(x, y)] * ZOO_CAPTURE_STEPS)
+    def run(net):
+        return fit_losses(net, [(x, y)] * steps)
 
     for tag, conf in (("fp32", None), ("bf16", bf16_conf(proto))):
         net, got, plain, gate = capture_gate(
-            torch, lambda: copy_net(proto, conf), steps, f"Xception {tag}")
-        if got != {k: ZOO_CAPTURE_STEPS * v for k, v in XCEPTION_STEP.items()
-                   } or plain:
-            raise AssertionError(f"Xception {tag}: {got} launches in "
-                                 f"{ZOO_CAPTURE_STEPS} captured steps, "
-                                 f"plain {plain}")
+            torch, lambda: copy_net(proto, conf), run, f"{model} {tag}")
+        if got != {k: steps * v for k, v in per_step.items()} or plain:
+            raise AssertionError(f"{model} {tag}: {got} launches in {steps} "
+                                 f"captured steps, plain {plain}")
         launches = {k: launches.get(k, 0) + v for k, v in got.items()}
-        rate = captured_rate(torch, lambda: net.fit(x, y), XCEPTION_BATCH,
+        rate = captured_rate(torch, lambda: net.fit(x, y), x.shape[0],
                              windows=ZOO_WINDOWS)
         prof = profile_captured_step(torch, lambda: net.fit(x, y))
-        ep = eager("conv_zoo_train_profile", dtype=tag)
-        emit("conv_zoo_captured", model="Xception", dtype=tag,
-             batch=XCEPTION_BATCH, gate=gate, launches=got,
-             launches_per_step=XCEPTION_STEP, plain_on_cuda=plain,
+        ep = eager(f"{prefix}_train_profile", dtype=tag)
+        emit(f"{prefix}_captured", model=model, dtype=tag,
+             batch=x.shape[0], gate=gate, launches=got,
+             launches_per_step=per_step, plain_on_cuda=plain,
              train_images_per_sec=rate_pair(
                  rate, thr[f"train_images_per_sec_{tag}"]),
              profile_captured=prof,
              eager_profile={k: ep[k] for k in ("wall_ms", "device_busy_ms",
-                                               "idle_share")},
+                                               "idle_share",
+                                               "trace_complete")},
              peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
              card=card)
         del net
         torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ keras import
+
+KERAS_DIR = os.path.join(ROOT, "build", "smoke_keras")
+# tf.keras.applications.MobileNetV2(weights=None) at its published width:
+# 224x224x3, 1000 classes, alpha 1.0, weights from seed 12345
+# (keras_cases.mobilenet_v2_h5), served and trained at batch 32
+MNV2_INPUT, MNV2_CLASSES, MNV2_SEED, MNV2_BATCH = (224, 224, 3), 1000, \
+    12345, 32
+MNV2_PARAMS = 3538984  # params and BN moving statistics, as Keras counts
+MNV2_STEP = {"conv2d_fwd": 52, "conv2d_wgrad": 52, "conv2d_dgrad": 51}
+# its 17 depthwise convs (3x3, groups = C) as (H = W read, C, stride): the
+# stride-2 ones read the ZeroPadding2D((0, 1), (0, 1)) output, VALID
+MNV2_DEPTHWISE = ((112, 32, 1), (56, 144, 1), (28, 192, 1), (14, 384, 1),
+                  (14, 576, 1), (7, 960, 1), (113, 96, 2), (57, 144, 2),
+                  (29, 192, 2), (15, 576, 2))
+# forward against the exact path: fp32 within 1e-4 of the largest value
+# (features of order 1); bf16 (the net's compute type) within LAYER_TOL's
+# bf16 forward gate of the fp32 exact path
+KERAS_TOL = 1e-4
+# the checked fit steps, fp32 and bf16 from one state, and the captured
+# leg's steps under the gate
+MNV2_STEPS = 4
+# the small leg: imported keras_cases files and the other new layer
+# classes, the card against the CPU
+KERAS_SMALL_B = 8
+
+
+def _launch_summary(checked, tag):
+    return {k: r["calls"] for (k, t), r in checked.items() if t == tag}
+
+
+def _normalised(a, b):
+    """max |a - b| over max |b| (the reference's own largest magnitude, so
+    near-uniform probabilities are held relative to their size), in
+    fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def mobilenet_batch(torch, np, batch=MNV2_BATCH, seed=3):
+    x = torch.randn((batch,) + MNV2_INPUT, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed))
+    y = torch.from_numpy(np.eye(MNV2_CLASSES, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, MNV2_CLASSES, batch)]).cuda()
+    return x, y
+
+
+def mobilenet_forward(torch, net, x, tag):
+    """The imported net's feed_forward and output on ``x`` under auto,
+    every K1 launch checked (check_every_launch), 52 a pass, none plain;
+    returns (features, probabilities, logits in fp64, launches,
+    checks)."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    checked = {}
+    kern.reset_counts()
+    with check_every_launch(torch, checked):
+        ff = net.feed_forward(x)
+        out = net.output(x)
+    torch.cuda.synchronize()
+    want = {"conv2d_fwd": 2 * MNV2_STEP["conv2d_fwd"]}
+    launches = conv_only(kern.LAUNCHES, want, f"MobileNetV2 {tag} forward")
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    if launches != want or plain or _launch_summary(
+            checked, tag) != want:
+        raise AssertionError(f"MobileNetV2 {tag} forward: {launches} "
+                             f"launched, {_checked_summary(checked)} "
+                             f"checked, plain {plain}")
+    feats = ff["global_average_pooling2d"].float()
+    head = net.params["predictions"]
+    logits = feats.double() @ head["W"].double() + head["b"].double()
+    return feats, out.float(), logits, launches, checked
+
+
+def mobilenet_trainable(torch, net):
+    """The imported graph with its head an OutputLayer (MCXENT) under
+    Adam(1e-3), the imported params and states copied in, on the card."""
+    from deeplearning4j_tpu_torch.imports import keras_cases
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.computation_graph import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.tree import tree_copy_
+
+    conf = ComputationGraphConfiguration.from_json(
+        keras_cases.with_output_head(net.conf.to_json(),
+                                     Adam(learning_rate=1e-3).to_dict()))
+    out = ComputationGraph(conf).init(device="cuda")
+    tree_copy_(out.params, net.params)
+    tree_copy_(out.states, net.states)
+    out._drop_programs()
+    return out
+
+
+def keras_small_cases(torch):
+    """(name, layer, input shape, mask) of each new layer class the small
+    leg runs on the card against the CPU."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import layers_spatial as LS
+    from deeplearning4j_tpu_torch.nn import recurrent as R
+
+    b = KERAS_SMALL_B
+    seq, img, vol = (b, 64, 32), (b, 28, 28, 32), (b, 8, 16, 16, 8)
+    return [
+        ("DepthwiseConvolution2D_m2_s2", LS.DepthwiseConvolution2D(
+            depth_multiplier=2, stride=(2, 2), padding="VALID"), img),
+        ("DepthwiseConvolution2D_s1", LS.DepthwiseConvolution2D(), img),
+        ("Convolution1D", LS.Convolution1D(n_out=64, kernel_size=5,
+                                           stride=2), seq),
+        ("Subsampling1DLayer", LS.Subsampling1DLayer(pooling_type="avg"),
+         seq),
+        ("Cropping1D", LS.Cropping1D(cropping=(2, 3)), seq),
+        ("ZeroPadding1DLayer", LS.ZeroPadding1DLayer(padding=(1, 2)), seq),
+        ("Upsampling1D", LS.Upsampling1D(size=2), seq),
+        ("Convolution3D", LS.Convolution3D(n_out=16), vol),
+        ("Subsampling3DLayer", LS.Subsampling3DLayer(), vol),
+        ("Cropping3D", LS.Cropping3D(), vol),
+        ("ZeroPadding3DLayer", LS.ZeroPadding3DLayer(), vol),
+        ("Upsampling3D", LS.Upsampling3D(), vol),
+        ("PReLULayer", LS.PReLULayer(), img),
+        ("RepeatVector", LS.RepeatVector(n=10), (b, 32)),
+        ("TimeDistributed", LS.TimeDistributed(
+            underlying=L.DenseLayer(n_in=32, n_out=48, activation="relu")),
+         seq),
+        ("MaskZeroLayer", LS.MaskZeroLayer(
+            underlying=R.LSTM(n_in=32, n_out=64), carry_masked_output=True),
+         seq),
+        ("LocallyConnected2D", LS.LocallyConnected2D(
+            n_out=16, kernel_size=(3, 3), stride=(2, 2)), (b, 16, 16, 8)),
+        ("LocallyConnected1D", LS.LocallyConnected1D(n_out=16,
+                                                     kernel_size=3), seq),
+        ("ElementWiseMultiplicationLayer",
+         LS.ElementWiseMultiplicationLayer(activation="tanh"), seq),
+        ("MaskLayer", LS.MaskLayer(), seq),
+    ]
+
+
+def expected_small_launches():
+    """The small layer cases' launches, fp32 and bf16 together: each
+    depthwise layer and the Conv1D one K1, one dgrad and one K3 a pass
+    (forward and backward, the input needing a gradient); MaskZeroLayer's
+    LSTM one K4 segment launch (its backward is torch)."""
+    passes = 2
+    return {"conv2d_fwd": passes * 3, "conv2d_dgrad": passes * 3,
+            "conv2d_wgrad": passes * 3, "lstm_seq_fwd": passes * 1,
+            "lstm_cell_fwd": 0, "flash_attention_fwd": 0}
+
+
+def keras_small_phase(torch, np, card):
+    """The small leg: the Conv1D stack (K1), a depth_multiplier-2 stride-2
+    depthwise layer (K1) and the char-RNN-width LSTM (K4) imported from
+    keras_cases files on the card and on the CPU, outputs within 1e-4 of
+    the largest, their launches counted and checked; then each layer
+    class of nn/layers_spatial.py forward and backward on the card against
+    the CPU (keras_small_cases, fp32 and bf16, LAYER_TOL), every launch
+    checked, the counts expected_small_launches()."""
+    from deeplearning4j_tpu_torch.imports import KerasModelImport, keras_cases
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves, tree_map
+
+    os.makedirs(KERAS_DIR, exist_ok=True)
+    files = [
+        ("conv1d", keras_cases.conv1d_h5(os.path.join(KERAS_DIR, "c.h5")),
+         (KERAS_SMALL_B, 128, 64), {"conv2d_fwd": 2}),
+        ("depthwise_m2", keras_cases.depthwise_h5(
+            os.path.join(KERAS_DIR, "d.h5"), size=56, channels=64),
+         (KERAS_SMALL_B, 56, 56, 64), {"conv2d_fwd": 1}),
+        ("lstm", keras_cases.lstm_h5(os.path.join(KERAS_DIR, "l.h5")),
+         (32, 50, 47), {"lstm_seq_fwd": 1}),
+    ]
+    checked, rows = {}, []
+    for name, path, shape, want in files:
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(5))
+        cpu = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device="cpu")
+        gpu = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device="cuda")
+        ref = cpu.output(x)
+        kern.reset_counts()
+        with check_every_launch(torch, checked):
+            got = gpu.output(x.cuda())
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+        plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+        err = _normalised(got.cpu(), ref)
+        if launches != want or plain or err > KERAS_TOL:
+            raise AssertionError(f"keras_small {name}: launched {launches} "
+                                 f"(expected {want}), plain {plain}, "
+                                 f"card against CPU {err}")
+        rows.append({"file": name, "input": list(shape),
+                     "layers": [type(lyr).__name__
+                                for lyr in gpu.conf.layers],
+                     "launches": launches, "max_err_normalised": err})
+    kern.reset_counts()
+    layer_rows = []
+    for ci, (name, layer, shape) in enumerate(keras_small_cases(torch)):
+        gen = torch.Generator().manual_seed(777 + ci)
+        params = layer.initialize(gen, shape[1:])[0]
+        x = torch.randn(shape, generator=gen)
+        if name == "MaskZeroLayer":
+            x[:, 40:] = 0.0
+        mask = (torch.arange(shape[1])[None] < torch.randint(
+            1, shape[1] + 1, (shape[0],), generator=gen)[:, None]).float()
+        rec = {"case": name, "input": list(shape)}
+        for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            outs = {}
+            for on_card in (False, True):
+                dev = "cuda" if on_card else "cpu"
+                p = tree_map(lambda v: v.to(dev).requires_grad_(True),
+                             params)
+                xx = x.to(dev).requires_grad_(True)
+                kw = {"mask": mask.to(dev)} if name == "MaskLayer" else {}
+                ctx = (check_every_launch(torch, checked) if on_card
+                       else contextlib.nullcontext())
+                with ctx:
+                    y = layer.apply(tree_map(lambda v: v.to(dt), p), {},
+                                    xx.to(dt), **kw)[0]
+                    proj = torch.randn(y.shape, generator=torch.Generator(
+                        ).manual_seed(ci)).to(dev)
+                    leaves = tree_leaves(p) + [xx]
+                    grads = torch.autograd.grad((y.float() * proj).sum(),
+                                                leaves)
+                outs[on_card] = (y.detach().float().cpu(),
+                                 [g.float().cpu() for g in grads])
+            (y_cpu, g_cpu), (y_gpu, g_gpu) = outs[False], outs[True]
+            if y_gpu.shape != y_cpu.shape or not torch.isfinite(y_gpu).all():
+                raise AssertionError(f"keras_small {name} {tag}: shape "
+                                     f"{tuple(y_gpu.shape)} or non-finite")
+            fwd = _grad_error(y_gpu, y_cpu)[1]
+            grad = max(_grad_error(a, b)[1] for a, b in zip(g_gpu, g_cpu))
+            gate_f, gate_g = LAYER_TOL[tag]
+            if fwd > gate_f or grad > gate_g:
+                raise AssertionError(
+                    f"keras_small {name} {tag}: card against CPU, forward "
+                    f"{fwd:.3g} (gate {gate_f}), gradients {grad:.3g} "
+                    f"(gate {gate_g})")
+            rec[tag] = {"forward_err": fwd, "grad_err": grad}
+        layer_rows.append(rec)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kern.LAUNCHES.items()}
+    want = expected_small_launches()
+    plain = dict(kern.PLAIN_ON_CUDA)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"keras_small layers launched {launches}, "
+                             f"expected {want}; plain on CUDA {plain}")
+    totals = {}
+    for (k, _), r in checked.items():
+        totals[k] = totals.get(k, 0) + r["calls"]
+    want_checked = {k: v + sum(f[3].get(k, 0) for f in files)
+                    for k, v in want.items() if v or any(
+                        k in f[3] for f in files)}
+    if totals != want_checked:
+        raise AssertionError(f"keras_small: checked {totals}, launched "
+                             f"{want_checked}")
+    emit("keras_small", files=rows, layers=layer_rows, tolerance=LAYER_TOL,
+         launches=want_checked, plain_on_cuda=plain,
+         launches_checked=_checked_summary(checked), card=card)
+    kern.reset_counts()
+    return want_checked, checked
+
+
+def keras_import_phase(torch, np, card):
+    """tf.keras's MobileNetV2 imported through KerasModelImport at full
+    width, eagerly, every launch checked: the file written (keras_cases)
+    and imported; forward at batch 32 in fp32 and bf16 against the exact
+    path (features, logits, probabilities); an archive of it served over
+    HTTP through ModelRouter.load; its training at batch 32 under
+    Adam(1e-3) (a step under auto against exact with the gate's controls,
+    four checked fp32 steps whose loss must fall, four checked bf16
+    steps, images/sec, a profiled step each with the depthwise launches
+    as their own class); the depthwise records at its ten geometries; the
+    small leg (keras_small_phase). Returns the launches by part, the
+    checks, the depthwise records and the state the captured leg starts
+    from."""
+    from deeplearning4j_tpu_torch.imports import KerasModelImport, keras_cases
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+
+    launches, checked = {}, {}
+    os.makedirs(KERAS_DIR, exist_ok=True)
+    path = os.path.join(KERAS_DIR, "mobilenet_v2.h5")
+    t0 = time.perf_counter()
+    keras_cases.mobilenet_v2_h5(path, MNV2_INPUT, MNV2_CLASSES, 1.0,
+                                MNV2_SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_model_and_weights(path,
+                                                          device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_params = sum(int(t.numel()) for t in tree_leaves(
+        {"p": net.params, "s": net.states}))
+    want = expected_conv_launches(net.conf)
+    classes = {}
+    for n in net.topo:
+        k = type(n.node).__name__
+        classes[k] = classes.get(k, 0) + 1
+    if n_params != MNV2_PARAMS or want != MNV2_STEP:
+        raise AssertionError(f"imported MobileNetV2: {n_params} params "
+                             f"(want {MNV2_PARAMS}), launches a step {want} "
+                             f"(want {MNV2_STEP})")
+    emit("keras_import_file", model="MobileNetV2", input=list(MNV2_INPUT),
+         classes=MNV2_CLASSES, alpha=1.0, seed=MNV2_SEED,
+         file_bytes=os.path.getsize(path), write_s=write_s,
+         import_s=import_s, params_and_states=n_params,
+         params=net.num_params(), nodes=classes,
+         launches_per_step=want, card=card)
+
+    # forward at batch 32 against the exact path, fp32 and bf16
+    x, y = mobilenet_batch(torch, np)
+    with kern.impl_scope("exact"):
+        ff = net.feed_forward(x)
+        feats_e = ff["global_average_pooling2d"].float()
+        out_e = net.output(x).float()
+        head = net.params["predictions"]
+        logits_e = feats_e.double() @ head["W"].double() + head[
+            "b"].double()
+    del ff
+    fwd = {}
+    feats, out, logits, launches["forward"], checked["forward"] = \
+        mobilenet_forward(torch, net, x, "fp32")
+    fwd["fp32"] = {"features_err": _normalised(feats, feats_e),
+                   "logits_err": _normalised(logits, logits_e),
+                   "probabilities_err": _normalised(out, out_e)}
+    net16 = copy_net(net, bf16_conf(net))
+    feats, out, logits, launches["forward_bf16"], checked[
+        "forward_bf16"] = mobilenet_forward(torch, net16, x, "bf16")
+    fwd["bf16"] = {"features_err": _normalised(feats, feats_e),
+                   "logits_err": _normalised(logits, logits_e),
+                   "probabilities_err": _normalised(out, out_e)}
+    del net16
+    gates = {"fp32": KERAS_TOL, "bf16": LAYER_TOL["bf16"][0]}
+    for tag, rec in fwd.items():
+        if max(rec.values()) > gates[tag]:
+            raise AssertionError(f"MobileNetV2 {tag} forward off exact: "
+                                 f"{rec} (gate {gates[tag]})")
+    emit("keras_import_forward", model="MobileNetV2", batch=MNV2_BATCH,
+         errors=fwd, gates=gates, max_prob=float(out_e.max()),
+         min_prob=float(out_e.min()),
+         features_absmax=float(feats_e.abs().max()),
+         logits_std=float(logits_e.std()),
+         launches_checked={t: _checked_summary(checked[p])
+                           for t, p in (("fp32", "forward"),
+                                        ("bf16", "forward_bf16"))},
+         card=card)
+    emit("keras_import_throughput", model="MobileNetV2", batch=MNV2_BATCH,
+         path="net.output", window_s=2.0,
+         forward_images_per_sec_fp32=forward_rows_per_sec(
+             torch, net, x, windows=ZOO_WINDOWS), card=card)
+
+    # an archive of the imported net, served through ModelRouter.load
+    archive = os.path.join(KERAS_DIR, "mobilenet_v2.zip")
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(net, archive, save_updater=False)
+    archive_s = time.perf_counter() - t0
+    fields, launches["serve"], checked["serve"] = serve_and_check(
+        torch, np, net, "mobilenet_v2", MNV2_INPUT, MNV2_STEP["conv2d_fwd"],
+        archive=archive)
+    emit("keras_import_serve", model="MobileNetV2", archive=archive,
+         archive_bytes=os.path.getsize(archive), archive_write_s=archive_s,
+         **fields, card=card)
+
+    # trained at batch 32 under Adam(1e-3), fp32 and bf16 from one state
+    tnet = mobilenet_trainable(torch, net)
+    del net
+    torch.cuda.empty_cache()
+    proto = copy_net(tnet)
+    got, chk = eager_train_leg(torch, card, "keras_import", "MobileNetV2",
+                               tnet, copy_net(proto, bf16_conf(proto)), x,
+                               y, MNV2_STEP, MNV2_STEPS, MNV2_STEPS)
+    launches.update(got)
+    checked.update(chk)
+    conf = tnet.conf
+    del tnet
+    torch.cuda.empty_cache()
+    records = depthwise_records(torch, conf, MNV2_DEPTHWISE, 17,
+                                "keras_depthwise")
+    launches["small"], checked["small"] = keras_small_phase(torch, np, card)
+    kern.reset_counts()
+    return launches, checked, records, proto, (x, y)
 
 
 # ----------------------------------------------------- serialize, checkpoint
@@ -6196,44 +6704,49 @@ def flash_entry(records, launches, serve_checked, masked_launches,
         "card": card}
 
 
-def conv_zoo_fields(name, launches, checked, records, checked_fields):
-    """A kernel's conv_zoo fields for the kernels line: its launches by
-    part of the conv_zoo phases (0 for the kernels not on the path), the
-    checks of the eager parts, and, for K1, dgrad and K3, its times at the
-    nine depthwise geometries (batch 8) beside the plain version's,
-    cuDNN's and the bound, and their sum over one Xception pass."""
-    parts = {"serve": launches["serve"] if name == "conv2d_fwd" else 0,
-             "fit": launches["fit"].get(name, 0),
-             "fit_bf16": launches["fit_bf16"].get(name, 0),
-             "other_models": {m: c.get(name, 0)
-                              for m, c in launches["others"].items()},
-             "captured": launches["captured"].get(name, 0)}
-    out = {"launches_conv_zoo": parts}
-    for part in ("serve", "fit", "fit_bf16", "others"):
-        out.update({f"conv_zoo_{part}_{k}": v for k, v in checked_fields(
-            name, checked[part]).items()})
+def _per_kernel(name, launches):
+    """``launches`` (a phase's counts by part) for kernel ``name``: a
+    count by kernel read for it, an int (a serve part's K1 launches) for
+    K1 only, nested parts part by part."""
+    if isinstance(launches, int):
+        return launches if name == "conv2d_fwd" else 0
+    if launches and all(isinstance(v, dict) for v in launches.values()):
+        return {k: _per_kernel(name, v) for k, v in launches.items()}
+    return launches.get(name, 0)
+
+
+def depthwise_phase_fields(prefix, name, launches, checked, records,
+                           checked_fields, per):
+    """A kernel's fields in the kernels line for a model phase with
+    depthwise convs (conv_zoo, keras_import): its launches by part
+    (``launches_<prefix>``; 0 for the kernels not on the path), the checks
+    of the eager parts (``<prefix>_checked``), and, for K1, dgrad and K3,
+    its times at the model's depthwise geometries (batch 8) beside the
+    plain version's, cuDNN's and the bound, and their sums over one pass
+    by stride (``<prefix>_depthwise*``; ``per`` says what they are)."""
+    out = {f"launches_{prefix}": {part: _per_kernel(name, c)
+                                  for part, c in launches.items()},
+           f"{prefix}_checked": {part: checked_fields(name, c)
+                                 for part, c in checked.items()}}
     kname = {"conv2d_fwd": "fwd", "conv2d_dgrad": "dgrad",
              "conv2d_wgrad": "wgrad"}.get(name)
     if kname is None:
         return out
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body",
               "splits")
-    out["depthwise"] = {
-        f"{r['hw']}x{r['hw']}x{r['c']}": {
+    out[f"{prefix}_depthwise"] = {
+        f"{r['hw']}x{r['hw']}x{r['c']}_s{r['stride']}": {
             "per_pass": r["per_pass"],
             **{tag: {f: r[f"{kname}_{tag}"].get(f) for f in fields}
                for tag in ("fp32", "bf16")}}
         for r in records}
     for tag in ("fp32", "bf16"):
-        out[f"depthwise_pass_{tag}"] = {
-            f: sum(r[f"{kname}_{tag}"][f] * r["per_pass"] for r in records)
-            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out["depthwise_per"] = ("one depthwise launch at batch 8 per geometry "
-                            "(3x3, stride 1, SAME, groups = C); "
-                            "depthwise_pass_*: summed over the 34 of one "
-                            "299x299 Xception pass; library: cuDNN "
-                            "(F.conv2d / torch.nn.grad with groups = C), a "
-                            "yardstick the port never calls")
+        for s in sorted({r["stride"] for r in records}):
+            out[f"{prefix}_depthwise_pass_s{s}_{tag}"] = {
+                f: sum(r[f"{kname}_{tag}"][f] * r["per_pass"]
+                       for r in records if r["stride"] == s)
+                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out[f"{prefix}_depthwise_per"] = per
     return out
 
 
@@ -6326,9 +6839,19 @@ def main() -> int:
         zoo_launches, zoo_checked, dw_records, zoo_proto, zoo_batch = timed(
             "conv_zoo", conv_zoo_phase, torch, np, smi)
     zoo_launches["captured"] = timed(
-        "conv_zoo_captured", conv_zoo_captured_phase, torch, np, smi,
-        zoo_proto, zoo_batch)
+        "conv_zoo_captured", captured_train_phase, torch, smi, "conv_zoo",
+        "Xception", zoo_proto, zoo_batch, XCEPTION_STEP, ZOO_CAPTURE_STEPS)
     del zoo_proto, zoo_batch
+    torch.cuda.empty_cache()
+    with capture.disabled():
+        keras_launches, keras_checked, keras_records, keras_proto, \
+            keras_batch = timed("keras_import", keras_import_phase, torch,
+                                np, smi)
+    keras_launches["captured"] = timed(
+        "keras_import_captured", captured_train_phase, torch, smi,
+        "keras_import", "MobileNetV2", keras_proto, keras_batch, MNV2_STEP,
+        MNV2_STEPS)
+    del keras_proto, keras_batch
     torch.cuda.empty_cache()
     capture_launches = {
         "serve": timed("capture_serve", capture_serve_phase, torch, np, smi),
@@ -6536,9 +7059,22 @@ def main() -> int:
         e["launches_op_table"] = op_launches.get(e["name"], 0)
         e.update({f"op_table_{k}": v for k, v in checked_fields(
             e["name"], op_checked).items()})
-    for e in entries:  # the conv zoo's, every eager one checked
-        e.update(conv_zoo_fields(e["name"], zoo_launches, zoo_checked,
-                                 dw_records, checked_fields))
+    library = ("library: cuDNN (F.conv2d / torch.nn.grad with groups = "
+               "C), a yardstick the port never calls")
+    for e in entries:  # the conv zoo's and the Keras import's, every eager
+        # one checked
+        e.update(depthwise_phase_fields(
+            "conv_zoo", e["name"], zoo_launches, zoo_checked, dw_records,
+            checked_fields, "one depthwise launch at batch 8 per geometry "
+            "(3x3, stride 1, SAME, groups = C); conv_zoo_depthwise_pass_*: "
+            f"summed over the 34 of one 299x299 Xception pass; {library}"))
+        e.update(depthwise_phase_fields(
+            "keras", e["name"], keras_launches, keras_checked, keras_records,
+            checked_fields, "one depthwise launch at batch 8 per geometry "
+            "(3x3, groups = C; stride 1 SAME, stride 2 VALID on the padded "
+            "map); keras_depthwise_pass_s*: summed over the 13 stride-1 and "
+            "the 4 stride-2 launches of one 224x224 MobileNetV2 pass; "
+            f"{library}"))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

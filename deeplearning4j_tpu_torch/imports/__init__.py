@@ -1,33 +1,15 @@
-"""Model import: TF GraphDef and ONNX -> SameDiff graphs (counterpart of
-deeplearning4j_tpu/imports/__init__.py; samediff-import-tensorflow/-onnx).
+"""Model import (counterpart of deeplearning4j_tpu/imports/__init__.py):
+TF GraphDef and ONNX -> SameDiff graphs (samediff-import-tensorflow/-onnx),
+Keras HDF5 and ``.keras`` files -> networks (deeplearning4j-modelimport).
 
-Neither ``tensorflow``, ``google.protobuf`` nor ``onnx`` is needed: both
-importers decode their protos with ``protomini``. ``KerasModelImport``
-waits for the layers it builds (ROADMAP.md Queue 1, the Keras import entry
-after item 4).
+Neither ``tensorflow``, ``google.protobuf``, ``onnx`` nor ``h5py`` is
+needed: the graph importers decode their protos with ``protomini``, the
+Keras importer reads HDF5 with ``h5mini``.
 """
 
 from deeplearning4j_tpu_torch.imports.onnx_import import (  # noqa: F401
     OnnxImporter, import_onnx)
 from deeplearning4j_tpu_torch.imports.tf_import import (  # noqa: F401
     TFGraphMapper, import_graph_def)
-
-
-class KerasModelImport:
-    """Not ported yet: Keras HDF5 import builds networks from 34 layer
-    classes, 23 of them not in the port yet (ROADMAP.md Queue 1, the
-    ``imports/keras_import.py`` entry after item 4)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "KerasModelImport is not ported yet: it waits for the Keras "
-            "import entry of ROADMAP.md Queue 1 (after item 4), which needs "
-            "the 23 layer classes it builds that the port lacks")
-
-    @staticmethod
-    def import_keras_model_and_weights(*args, **kwargs):
-        KerasModelImport()
-
-    @staticmethod
-    def import_keras_sequential_model_and_weights(*args, **kwargs):
-        KerasModelImport()
+from deeplearning4j_tpu_torch.imports.keras_import import (  # noqa: F401
+    KerasImportError, KerasModelImport)

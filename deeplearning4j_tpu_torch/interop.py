@@ -26,6 +26,14 @@ multiplier), ``pointW`` (1, 1, Cin * multiplier, Cout) and ``b``,
 Deconvolution2D's ``W`` (kh, kw, Cin, Cout), EmbeddingLayer's ``W``
 (vocabulary, dimension), LayerNormalization's ``gamma``/``beta``; a
 SharedLayer node's tree is empty in both (its source holds the params).
+So do ``nn/layers_spatial.py``'s: DepthwiseConvolution2D's ``W`` (kh, kw,
+C, multiplier) and ``b``, Convolution1D's ``W`` (k, Cin, Cout),
+Convolution3D's ``W`` (kd, kh, kw, Cin, Cout), the locally connected
+layers' ``W`` (positions, window * Cin, Cout) and ``b`` (positions,
+Cout), PReLULayer's ``alpha``, ElementWiseMultiplicationLayer's ``w`` and
+``b``; MaskZeroLayer and TimeDistributed hold their layer's tree as it
+is. A network the Keras importer built (either package's) crosses the
+same way.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Networks of the port (counterpart of deeplearning4j_tpu/nn)."""
 
 from deeplearning4j_tpu_torch.nn import (  # noqa: F401  (register their layers)
-    attention, recurrent, transfer, transformer)
+    attention, layers_spatial, recurrent, transfer, transformer)
 from deeplearning4j_tpu_torch.nn.computation_graph import (
     ComputationGraph, ComputationGraphConfiguration, GraphBuilder)
 from deeplearning4j_tpu_torch.nn.conf import (InputType, ListBuilder,

@@ -87,6 +87,9 @@ class Layer:
     def output_shape(self, input_shape):
         return tuple(input_shape)
 
+    def has_params(self) -> bool:
+        return True
+
     def _maybe_dropout(self, x, training, gen):
         """Input dropout at ``self.dropout`` in training, when the network
         passed its generator (reference ``nn/layers.py:121``)."""

@@ -11,7 +11,9 @@ leaves; ``meta.json``'s ``params_structure`` is the string
 rule, and a restore refuses an archive whose string differs from the one
 of the net its configuration builds. So either package restores an
 archive the other wrote, with the iteration, the epoch, the optimizer
-state and the normalizer.
+state and the normalizer; nothing here knows a layer, so the trees of
+every ported layer class (``nn/layers_spatial.py``'s and the Keras
+importer's networks included) cross as they are.
 
 Random streams do not cross: ``meta.json`` carries the reference's
 ``rng_key`` (``[0, seed]``, the key ``PRNGKey(conf.seed)`` is, for a net

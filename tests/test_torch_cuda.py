@@ -585,6 +585,69 @@ def test_depthwise_kernels_match_plain(card, dtype, hw, c):
                                 f"conv2d_wgrad/{body}": 2}
 
 
+# MobileNetV2's stride-2 depthwise convs (3x3, VALID after ZeroPadding2D
+# ((0, 1), (0, 1)), one channel a group): (padded H = W, C) at 224x224,
+# and a depth_multiplier-2 case (two outputs a group) at stride 2 and 1
+_DEPTHWISE_S2 = [(113, 96, 1, 2, "VALID"), (57, 144, 1, 2, "VALID"),
+                 (29, 192, 1, 2, "VALID"), (15, 576, 1, 2, "VALID"),
+                 (28, 32, 2, 2, "VALID"), (14, 32, 2, 1, "SAME")]
+
+
+@pytest.mark.parametrize(
+    "hw,c,mult,stride,padding", _DEPTHWISE_S2,
+    ids=[f"{h}x{h}x{c}-m{m}-s{s}" for h, c, m, s, _ in _DEPTHWISE_S2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_depthwise_stride2_kernels_match_plain(card, dtype, hw, c, mult,
+                                               stride, padding):
+    """K1, dgrad (by stride phase) and K3 at groups = C, stride 2, against
+    their plain versions, as test_depthwise_kernels_match_plain holds them
+    at stride 1: results into NaN blocks, dgrad and dW within 1e-4 (fp32)
+    or 2^-7 (bf16) of the largest plain output, dW equal to the bit over
+    two runs, one launch a call."""
+    n, k = 4, 3
+    gen = torch.Generator(device=card).manual_seed(hw * c + mult)
+    x = torch.randn((n, hw, hw, c), device=card, generator=gen).to(dtype)
+    w = (torch.randn((k, k, 1, c * mult), device=card, generator=gen)
+         / 3).to(dtype)
+    s = (stride, stride)
+    pads = KC.resolve_padding(padding, (hw, hw), (k, k), s, (1, 1))
+    oh = (hw + sum(pads[0]) - k) // stride + 1
+    dy = torch.randn((n, oh, oh, c * mult), device=card,
+                     generator=gen).to(dtype)
+    geo = (s, pads, (1, 1), c)
+
+    def poison(shape, dt=dtype):
+        torch.full(shape, float("nan"), dtype=dt, device=card)
+
+    poison((n, oh, oh, c * mult))
+    got = KC.conv2d_fwd(x, w, *geo)
+    ref = KC.conv2d_fwd_reference(x, w, *geo)
+    rtol, atol = _CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    del got
+    ref = KC.conv2d_dgrad_reference(dy, w, (hw, hw), *geo)
+    poison(x.shape)
+    got = KC.conv2d_dgrad(dy, w, (hw, hw), *geo)
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= _GRAD_TOL[dtype]
+    ref = KC.conv2d_wgrad_reference(x, dy, k, k, *geo)
+    poison(ref.shape, torch.float32)
+    got = KC.conv2d_wgrad(x, dy, k, k, *geo)
+    again = KC.conv2d_wgrad(x, dy, k, k, *geo)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (k, k, 1, c * mult)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    err = (got.to(dtype).float() - ref.to(dtype).float()).abs().max()
+    assert float(err / ref.to(dtype).float().abs().max()) <= \
+        _GRAD_TOL[dtype]
+    assert TK.LAUNCHES["conv2d_fwd"] == TK.LAUNCHES["conv2d_dgrad"] == 1
+    assert TK.LAUNCHES["conv2d_wgrad"] == 2
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_conv_dgrad_tapless_phases_write_zeros(card, dtype):

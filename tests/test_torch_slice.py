@@ -420,12 +420,13 @@ def test_package_imports_without_jax():
 
 
 def test_samediff_and_imports_load_without_frameworks():
-    """SameDiff and both importers import and run with jax, tensorflow,
-    google.protobuf, onnx and the JAX package made unimportable."""
+    """SameDiff and the three importers import and run with jax,
+    tensorflow, google.protobuf, onnx, h5py and the JAX package made
+    unimportable (the Keras importer on a keras_cases file)."""
     code = (
         "import sys\n"
         "BLOCK = ('jax', 'jaxlib', 'tensorflow', 'google.protobuf', 'onnx',"
-        " 'deeplearning4j_tpu')\n"
+        " 'h5py', 'deeplearning4j_tpu')\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if any(name == b or name.startswith(b + '.') for b in BLOCK):\n"
@@ -446,12 +447,14 @@ def test_samediff_and_imports_load_without_frameworks():
         "p = sd.output({'input_1': np.ones((1, 32, 32, 3), np.float32)}, "
         "[k])[k]\n"
         "assert p.shape == (1, 3) and abs(p.sum() - 1) < 1e-5\n"
-        "try:\n"
-        "    KerasModelImport()\n"
-        "except NotImplementedError:\n"
-        "    pass\n"
-        "else:\n"
-        "    raise AssertionError('KerasModelImport must raise')\n"
+        "import tempfile, os\n"
+        "from deeplearning4j_tpu_torch.imports import keras_cases\n"
+        "p = keras_cases.lstm_h5(os.path.join(tempfile.mkdtemp(), 'l.h5'),"
+        " steps=5, features=3, units=4)\n"
+        "net = KerasModelImport.import_keras_model_and_weights(p, "
+        "device='cpu')\n"
+        "assert net.output(np.ones((2, 5, 3), np.float32)).shape == "
+        "(2, 5, 4)\n"
         "bad = [k for k in sys.modules if any(k == b or k.startswith(b + '.')"
         " for b in BLOCK)]\n"
         "assert not bad, bad\n")
