@@ -287,6 +287,41 @@ Phases, each printing one JSON line:
     ``output`` and ``calculate_gradients`` (W, R, B) within 1e-4 of the
     largest CPU value, K4 once in each, every launch checked, eager and
     captured.
+22h. data_pipeline: the host data pipeline. The native library (CSV and
+    image loaders, ``native/csrc``) built with g++ (seconds; whether the
+    image decoder built, with the compiler's error and the host's
+    libjpeg/libpng headers and libraries where it did not); the
+    synthetic digits of phase 15 written as 8 MNIST-format CSV shards
+    (60,000 rows of a label and 784 pixels 0-255), DP_IMAGES images in
+    DP_CLASSES class folders (PNGs written here with zlib, the committed
+    JPEG fixtures of tools/fixtures/jpeg) and DP_SEQ_BATCHES x 64 review
+    files of 300 values a row; CSV parse MB/s and rows/s at 1, 2, 4 and 8
+    threads, image decode images/s at 1, 4 and 8 threads, pinned and
+    pageable H2D GB/s; DP_STRESS pipelines of 4 files on 4 threads with a
+    ring of 1, each file in order and equal to the single-threaded parse;
+    MultiProcessTransformExecutor forked after CUDA is initialised, equal
+    to serial. Leg (a): LeNet-5 trained through CSVRecordReader ->
+    RecordReaderDataSetIterator for the first DP_CSV_RR_BATCHES of the
+    epoch's 938 batches (cut) and one whole epoch through
+    NativeCSVDataSetIterator, each in AsyncDataSetIterator (batches staged
+    on a side stream from pinned memory), every staged batch bit-equal on
+    the card to the batch numpy makes from the arrays the shards were
+    written from (the CSVRecordReader route's host batches too), every
+    conv launch checked, none plain, the loss falling; fit(iterator)
+    images/sec eager and captured beside one resident batch's (each over
+    the whole call and after the first step), the captured epoch's
+    programs (2: the ragged last batch), telemetry's prefetch stalls, a
+    profiled window (idle share). Leg (b), where the image decoder built: ResNet-50
+    (224x224x3, 1000 classes, batch 32, Adam(1e-3)) trained from the image
+    folders through AsyncImageDataSetIterator (native decode into a pinned
+    ring) -> AsyncDataSetIterator, fp32 and bf16, one checked epoch each on
+    one decode thread (every batch bit-equal to decode_image_file file by
+    file, every launch checked), then images/sec eager and captured beside
+    a resident batch's. Leg (c): the sentiment graph "last" (LSTM 300 ->
+    256 on K4) trained from CSVSequenceRecordReader ->
+    SequenceRecordReaderDataSetIterator (masks) -> AsyncDataSetIterator, one
+    checked epoch in align_start and one in align_end, the loss falling;
+    sequences/sec eager and captured beside a resident batch's.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -301,7 +336,9 @@ Phases, each printing one JSON line:
     ``launches_keras`` with theirs under ``conv_zoo_checked`` and
     ``keras_checked`` and the depthwise times at Xception's and
     MobileNetV2's geometries under ``conv_zoo_depthwise`` and
-    ``keras_depthwise``.
+    ``keras_depthwise``; the data pipeline's legs (22h) under
+    ``launches_data_pipeline`` with theirs under
+    ``data_pipeline_checked``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -468,6 +505,9 @@ SENT_SEQ_BUCKETS = (64, 128, 192, 256)
 #: every line's fields by phase, in order: the capture phases read the
 #: eager phases' rates and profiles of the same run here
 EMITTED = {}
+#: the synthetic training digits of the lenet phase, which the
+#: data_pipeline phase writes out as CSV shards (generated once a run)
+DIGITS = {}
 
 
 def emit(phase, **fields):
@@ -3039,6 +3079,7 @@ def lenet_phase(torch, np, card):
     test = MnistDataSetIterator(batch=LENET_BATCH, train=False,
                                 n_examples=LENET_TEST)
     data_s = time.perf_counter() - t0
+    DIGITS["train"] = (train.features, train.labels)
     steps = -(-LENET_TRAIN // LENET_BATCH)
     emit("lenet_data", synthetic=train.synthetic and test.synthetic,
          train_examples=train.total_examples(),
@@ -6564,6 +6605,762 @@ def samediff_onnx_lstm_phase(torch, np, card):
     return launches, checked
 
 
+# ------------------------------------------------------------ data pipeline
+
+DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
+JPEG_FIXTURES = os.path.join(ROOT, "tools", "fixtures", "jpeg")
+DP_SHARDS, DP_CSV_COLS = 8, 785
+DP_RATE_BATCHES = {"native_csv": 300, "csv_record_reader": 40}  # leg (a)'s
+#                             rate windows: the first batches of an epoch
+DP_CSV_RR_BATCHES = 250       # leg (a): the CSVRecordReader route's checked
+#                               run, of the epoch's 938 batches (cut)
+DP_IMAGES, DP_CLASSES, DP_IMAGE_BATCH = 512, 16, 32
+DP_SEQ_BATCHES = 2            # leg (c): 2 batches of 64 reviews (cut)
+DP_CSV_THREADS, DP_DECODE_THREADS = (1, 2, 4, 8), (1, 4, 8)
+DP_STRESS = 200
+DP_H2D_MB = 64
+RESNET_STEP = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
+
+
+class MnistCsvPreProcessor:
+    """DataSetPreProcessor: MNIST-format CSV features (784 pixels 0-255,
+    flat) to NHWC (B, 28, 28, 1) in [0, 1]."""
+
+    def pre_process(self, ds):
+        ds.features = (ds.features / 255.0).astype(
+            ds.features.dtype).reshape(-1, 28, 28, 1)
+
+
+class Tee:
+    """Iterates ``base`` and keeps each host batch it yields in ``kept``
+    (the plain Python path's batches, before staging)."""
+
+    def __init__(self, base):
+        self.base, self.kept = base, []
+
+    def reset(self):
+        self.kept = []
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def __iter__(self):
+        for ds in self.base:
+            self.kept.append(ds)
+            yield ds
+
+
+class CheckedBatches:
+    """Iterates ``it`` (staged batches) and holds each one, on the card, bit
+    for bit against ``plain(i)``, the plain Python path's i-th batch:
+    features, labels and masks of the same type and shape and equal
+    (``torch.equal`` after copying the plain batch over). Counts them."""
+
+    def __init__(self, torch, it, plain):
+        self.torch, self.it, self.plain, self.n = torch, it, plain, 0
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        torch = self.torch
+        for i, ds in enumerate(self.it):
+            want = self.plain(i)
+            for f in ("features", "labels", "features_mask", "labels_mask"):
+                a, b = getattr(ds, f), getattr(want, f)
+                if (a is None) != (b is None):
+                    raise AssertionError(f"batch {i} {f}: {a is None} / "
+                                         f"{b is None} None")
+                if a is None:
+                    continue
+                if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+                    raise AssertionError(f"batch {i} {f} not staged on the "
+                                         f"card: {type(a)}")
+                bt = torch.from_numpy(b).to(a.device)
+                if a.dtype != bt.dtype or a.shape != bt.shape or \
+                        not torch.equal(a, bt):
+                    raise AssertionError(
+                        f"batch {i} {f}: staged {a.dtype} "
+                        f"{tuple(a.shape)} differs from the plain path's "
+                        f"{bt.dtype} {tuple(bt.shape)}")
+            self.n += 1
+            yield ds
+
+
+class FirstBatches:
+    """The first ``n`` batches of ``it``, as an iterator ``fit`` takes."""
+
+    def __init__(self, it, n):
+        self.it, self.n = it, n
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        return itertools.islice(iter(self.it), self.n)
+
+
+def write_png(path, arr):
+    """``arr`` (H, W) or (H, W, 3) uint8 as a PNG, with the standard
+    library's zlib (no PIL on the card's host)."""
+    import struct
+
+    h, w = arr.shape[:2]
+    raw = b"".join(b"\x00" + arr[r].tobytes() for r in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             0 if arr.ndim == 2 else 2,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def smooth_image(np, rng, h, w):
+    """A smooth seeded RGB field in [0, 255] (sinusoids and blobs), as
+    tools/make_jpeg_fixtures.py draws its fixtures."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        fy, fx = rng.uniform(0.5, 3.0, 2) * np.pi / np.array([h, w])
+        ph = rng.uniform(0, 2 * np.pi, 2)
+        img[..., c] = 128 + 60 * np.sin(yy * fy + ph[0]) * np.cos(
+            xx * fx + ph[1])
+    for _ in range(4):
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(20, 80)
+        g = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+        img += g[..., None] * rng.uniform(-90, 90, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def mnist_csv_arrays(np, x, y):
+    """The synthetic digits as the CSV shards hold them: (pixels rounded
+    to 0-255 as uint8 (n, 784), labels (n,))."""
+    return np.rint(x.reshape(len(x), -1) * 255).astype(np.uint8), y.argmax(1)
+
+
+def write_mnist_csv(np, x, y):
+    """The synthetic digits as MNIST-format CSV shards (label, then the
+    784 pixels rounded to 0-255), DP_SHARDS files. → (paths, bytes)."""
+    pix, lab = mnist_csv_arrays(np, x, y)
+    table = [str(i) for i in range(256)]
+    paths, nbytes = [], 0
+    for k, idx in enumerate(np.array_split(np.arange(len(x)), DP_SHARDS)):
+        text = "\n".join(f"{lab[i]}," + ",".join([table[v] for v in
+                                                  pix[i].tolist()])
+                         for i in idx) + "\n"
+        p = os.path.join(DATA_DIR, f"mnist_train_{k}.csv")
+        with open(p, "w") as f:
+            f.write(text)
+        paths.append(p)
+        nbytes += len(text)
+    return paths, nbytes
+
+
+def write_image_tree(np):
+    """DP_IMAGES images in DP_CLASSES class folders under DATA_DIR/images:
+    half PNGs written here with zlib (seeded smooth fields, 256-500 px a
+    side), half copies of the committed JPEG fixtures. → (root, bytes)."""
+    import shutil
+
+    root = os.path.join(DATA_DIR, "images")
+    rng = np.random.default_rng(12345)
+    jpegs = sorted(os.path.join(JPEG_FIXTURES, f)
+                   for f in os.listdir(JPEG_FIXTURES))
+    nbytes = 0
+    for i in range(DP_IMAGES):
+        d = os.path.join(root, f"class{i % DP_CLASSES:02d}")
+        os.makedirs(d, exist_ok=True)
+        if i % 2:
+            p = os.path.join(d, f"img{i:04d}.jpg")
+            shutil.copyfile(jpegs[(i // 2) % len(jpegs)], p)
+        else:
+            h, w = (int(v) for v in rng.integers(256, 501, 2))
+            p = os.path.join(d, f"img{i:04d}.png")
+            img = smooth_image(np, rng, h, w)
+            write_png(p, img[..., 0] if i % 8 == 0 else img)
+        nbytes += os.path.getsize(p)
+    return root, nbytes
+
+
+def write_reviews(np):
+    """DP_SEQ_BATCHES x SENT_BATCH reviews as CSVSequenceRecordReader
+    files (one a review; SENT_FEATURES values, N(0, 1) to 3 decimals, and
+    the label a row; 32-256 rows; the label the sign of the review's mean
+    projected on a seeded unit vector, as review_batches draws it).
+    → (dir, bytes)."""
+    d = os.path.join(DATA_DIR, "reviews")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(12345)
+    u = rng.normal(size=SENT_FEATURES)
+    u /= np.linalg.norm(u)
+    table = {k: f"{k / 1000:.3f}" for k in range(-6000, 6001)}
+    nbytes = 0
+    for i in range(DP_SEQ_BATCHES * SENT_BATCH):
+        n = int(rng.integers(SENT_MIN_LEN, SENT_MAX_LEN + 1))
+        q = np.clip(np.rint(rng.normal(size=(n, SENT_FEATURES)) * 1000),
+                    -6000, 6000).astype(int)
+        cls = int(q.mean(0) @ u > 0)
+        rows = "\n".join(",".join([table[v] for v in r]) + f",{cls}"
+                         for r in q.tolist()) + "\n"
+        p = os.path.join(d, f"review_{i:04d}.csv")
+        with open(p, "w") as f:
+            f.write(rows)
+        nbytes += len(rows)
+    return d, nbytes
+
+
+def dp_rates(torch, np, native, paths, csv_bytes, csv_rows, image_paths):
+    """CSV parse MB/s and rows/s by thread count, native image decode
+    images/s by thread count, pinned (and pageable) H2D GB/s."""
+    parse = {}
+    for n in DP_CSV_THREADS:
+        t0 = time.perf_counter()
+        pipe = native.AsyncCSVPipeline(paths, cols=DP_CSV_COLS, n_threads=n,
+                                       prefetch=4)
+        rows = sum(len(a) for _, a in pipe)
+        pipe.close()
+        s = time.perf_counter() - t0
+        if rows != csv_rows:
+            raise AssertionError(f"CSV pipeline at {n} threads: {rows} rows")
+        parse[n] = {"seconds": s, "mb_per_s": csv_bytes / s / 1e6,
+                    "rows_per_s": rows / s}
+    decode = {}
+    for n in DP_DECODE_THREADS if image_paths else ():
+        t0 = time.perf_counter()
+        pipe = native.AsyncImagePipeline(image_paths, height=224, width=224,
+                                         channels=3, batch=DP_IMAGE_BATCH,
+                                         n_threads=n, prefetch=64,
+                                         pin_memory=False)
+        count = sum(len(x) for x, _, _ in pipe)
+        pipe.close()
+        s = time.perf_counter() - t0
+        if count != len(image_paths) or pipe.failed:
+            raise AssertionError(f"image pipeline at {n} threads: {count} "
+                                 f"images, {pipe.failed} failed")
+        decode[n] = {"seconds": s, "images_per_s": count / s}
+    h2d = {}
+    n = DP_H2D_MB * (1 << 20) // 4
+    dst = torch.empty(n, device="cuda")
+    for kind in ("pinned", "pageable"):
+        src = torch.ones(n, pin_memory=kind == "pinned")
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        h2d[kind] = {"gb_per_s": 10 * src.nbytes / (
+            start.elapsed_time(end) / 1e3) / 1e9, "mb": DP_H2D_MB}
+    return parse, decode, h2d
+
+
+def dp_stress(np, native):
+    """DP_STRESS pipelines of 4 files (50 seeded MNIST-width rows each, the
+    last without a final newline), 4 threads, a ring of 1: each must
+    deliver every file in order, equal to the single-threaded parse."""
+    rng = np.random.default_rng(5)
+    paths4 = []
+    for k in range(4):
+        p = os.path.join(DATA_DIR, f"stress_{k}.csv")
+        with open(p, "w") as f:
+            f.write("\n".join(",".join(str(v) for v in row) for row in
+                              rng.integers(0, 256, (50, DP_CSV_COLS))))
+        paths4.append(p)
+    want = []
+    for p in paths4:
+        with open(p, "rb") as f:
+            want.append(native.parse_csv(f.read(), DP_CSV_COLS))
+    t0 = time.perf_counter()
+    for k in range(DP_STRESS):
+        pipe = native.AsyncCSVPipeline(paths4, cols=DP_CSV_COLS, n_threads=4,
+                                       prefetch=1)
+        got = list(pipe)
+        pipe.close()
+        if [i for i, _ in got] != list(range(len(paths4))) or not all(
+                np.array_equal(a, want[i]) for i, a in got):
+            raise AssertionError(f"stress pipeline {k}: files "
+                                 f"{[i for i, _ in got]} or rows differ")
+    return {"pipelines": DP_STRESS, "files": len(paths4), "threads": 4,
+            "prefetch": 1, "seconds": time.perf_counter() - t0}
+
+
+class Clocked:
+    """Iterates ``it`` and notes when ``fit`` asked for its second batch
+    (the first step dispatched) and the rows of the batches from there on
+    (the window after start-up)."""
+
+    def __init__(self, it):
+        self.it, self.t_first, self.rest_rows = it, None, 0
+
+    def reset(self):
+        if hasattr(self.it, "reset"):
+            self.it.reset()
+
+    def __iter__(self):
+        for i, ds in enumerate(self.it):
+            if i:
+                self.rest_rows += len(ds.features)
+            yield ds
+            if i == 0:
+                self.t_first = time.perf_counter()
+
+
+def fit_rate(torch, net, data, rows):
+    """``net.fit(data)`` once, closed by a device sync: rows a second over
+    the whole call, and over the window from the first step's dispatch to
+    the end (the rows of the later batches: the rate after start-up, which
+    leaves out the first batch's read, the iterator's threads' start and
+    the first step)."""
+    clock = Clocked(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(clock)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = t1 - t0
+    if not math.isfinite(net.get_score()):
+        raise AssertionError(f"non-finite loss {net.get_score()}")
+    after = t1 - clock.t_first
+    return {"rows_per_s": rows / s, "seconds": s, "rows": rows,
+            "after_first_rows_per_s": clock.rest_rows / after,
+            "after_first_seconds": after, "first_step_s": clock.t_first - t0}
+
+
+def rate_record(eager, resident, captured, resident_c):
+    """A leg's four fit rates and the iterator's share of the resident
+    rate, eager and captured, over the whole call and after start-up."""
+    out = {"eager": eager, "resident_eager": resident, "captured": captured,
+           "resident_captured": resident_c}
+    for mode, it, res in (("eager", eager, resident),
+                          ("captured", captured, resident_c)):
+        out[f"{mode}_over_resident"] = it["rows_per_s"] / res["rows_per_s"]
+        out[f"{mode}_over_resident_after_first"] = (
+            it["after_first_rows_per_s"] / res["after_first_rows_per_s"])
+    return out
+
+
+def profile_window(torch, run):
+    """``run()`` under torch.profiler: wall, device busy (the traced
+    kernels' sum; the staging copies apart) and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    copies = sum(ms for ms, _, k in kernels if k.startswith("Memcpy"))
+    busy = sum(ms for ms, _, k in kernels if not k.startswith("Memcpy"))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "h2d_copy_ms": copies,
+            "top": [{"ms": ms, "calls": n, "kernel": k[:90]}
+                    for ms, n, k in kernels[:6]]}
+
+
+def checked_epoch(torch, net, data, want, steps, what):
+    """One epoch of ``net.fit(data)`` eagerly with every launch checked:
+    ``want`` launches a step, ``steps`` steps, none plain. → (launches,
+    checks, scores, seconds)."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.nn import listeners as lst
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    collect = lst.CollectScoresListener(1)
+    net.set_listeners(collect)
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with capture.disabled(), check_every_launch(torch, checked):
+        net.fit(data)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    net.set_listeners()
+    launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    expect = {k: v * steps for k, v in want.items()}
+    tag = "bf16" if net.conf.compute_dtype == "bfloat16" else "fp32"
+    if launches != expect or plain or _launch_summary(checked, tag) != expect:
+        raise AssertionError(f"{what}: launched {launches}, expected "
+                             f"{expect}; plain on CUDA {plain}; checked "
+                             f"{_checked_summary(checked)}")
+    scores = [v for _, v in collect.scores]
+    if len(scores) != steps or not all(math.isfinite(v) for v in scores):
+        raise AssertionError(f"{what}: {len(scores)} scores for {steps} "
+                             f"steps, or non-finite")
+    return launches, checked, scores, s
+
+
+def data_lenet_leg(torch, np, card, paths, arrays):
+    """Leg (a): LeNet-5 (seed 12345, Adam 1e-3) trained on the 60,000
+    MNIST-format CSV rows, each route in AsyncDataSetIterator, every staged
+    batch held bit for bit against the batch made with numpy from
+    ``arrays`` (the pixels and labels the shards were written from):
+    CSVRecordReader -> RecordReaderDataSetIterator (the plain Python path)
+    for its first DP_CSV_RR_BATCHES batches (a cut: its parse runs at
+    ~2,300 rows/s, 26 s for the epoch), its host batches also equal to
+    numpy's, and NativeCSVDataSetIterator for the whole epoch, each a
+    checked eager run. Then fit(iterator) images/sec over the route's
+    first DP_RATE_BATCHES batches, eager and captured, beside one resident
+    batch's; the captured epoch's programs (the ragged last batch of 32 is
+    a second signature); a profiled window."""
+    from deeplearning4j_tpu_torch.data import AsyncDataSetIterator, DataSet
+    from deeplearning4j_tpu_torch.datavec import (CSVRecordReader,
+                                                  RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.native.dataset import \
+        NativeCSVDataSetIterator
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.util import telemetry as tm
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    pix, lab = arrays
+    eye = np.eye(10, dtype=np.float32)
+    pre = MnistCsvPreProcessor()
+
+    def plain(i):
+        rows = slice(i * LENET_BATCH, (i + 1) * LENET_BATCH)
+        ds = DataSet(pix[rows].astype(np.float32), eye[lab[rows]])
+        pre.pre_process(ds)
+        return ds
+
+    dev = torch.device("cuda")
+    epoch = -(-LENET_TRAIN // LENET_BATCH)
+    routes = {
+        "csv_record_reader": lambda: RecordReaderDataSetIterator(
+            CSVRecordReader(paths), LENET_BATCH, label_index=0,
+            num_classes=10, preprocessor=MnistCsvPreProcessor()),
+        "native_csv": lambda: NativeCSVDataSetIterator(
+            paths, LENET_BATCH, DP_CSV_COLS, label_index=0, num_classes=10,
+            n_threads=4, prefetch=4, preprocessor=MnistCsvPreProcessor()),
+    }
+    launches, checks, rates = {}, {}, {}
+    for route, make in routes.items():
+        steps = DP_CSV_RR_BATCHES if route == "csv_record_reader" else epoch
+        base = Tee(make())
+        it = AsyncDataSetIterator(base, device=dev)
+        chk = CheckedBatches(torch, it, plain)
+        net = LeNet().init(device="cuda")
+        launches[route], checks[route], scores, s = checked_epoch(
+            torch, net, FirstBatches(chk, steps), LENET_STEP, steps,
+            f"LeNet via {route}")
+        if chk.n != steps or it.staged_batches < steps:
+            raise AssertionError(f"{route}: {chk.n} batches checked, "
+                                 f"{it.staged_batches} staged, {steps} steps")
+        for i, ds in enumerate(base.kept[:steps]):
+            want = plain(i)
+            if not (np.array_equal(ds.features, want.features)
+                    and np.array_equal(ds.labels, want.labels)
+                    and ds.features.dtype == want.features.dtype):
+                raise AssertionError(f"{route}: host batch {i} differs "
+                                     "from numpy's")
+        first50, last50 = sum(scores[:50]) / 50, sum(scores[-50:]) / 50
+        if last50 >= first50:
+            raise AssertionError(f"LeNet via {route}: loss did not fall "
+                                 f"({first50} -> {last50})")
+        window = DP_RATE_BATCHES[route]
+        rows = window * LENET_BATCH
+        tm.get_telemetry().reset()
+        with capture.disabled():
+            eager_rate = fit_rate(torch, net, FirstBatches(
+                AsyncDataSetIterator(make(), device=dev), window), rows)
+        snap = tm.get_telemetry().snapshot()
+        stalls = {"stalls_total": snap["counters"].get(
+            "prefetch.stalls_total", 0.0), "stall_seconds":
+            snap["histograms"].get("prefetch.stall_seconds")}
+        ds = next(iter(AsyncDataSetIterator(make(), device=dev)))
+        with capture.disabled():
+            resident = fit_rate(torch, net, [ds] * window, rows)
+        netc = LeNet().init(device="cuda")
+        before = watcher_counts(None)
+        t0 = time.perf_counter()
+        if route == "native_csv":  # a whole epoch: the ragged last batch
+            netc.fit(AsyncDataSetIterator(make(), device=dev))
+        else:
+            netc.fit(FirstBatches(AsyncDataSetIterator(make(), device=dev),
+                                  5))
+        torch.cuda.synchronize()
+        built = watcher_counts(before)
+        build_s = time.perf_counter() - t0
+        captured = fit_rate(torch, netc, FirstBatches(
+            AsyncDataSetIterator(make(), device=dev), window), rows)
+        resident_c = fit_rate(torch, netc, [ds] * window, rows)
+        rates[route] = rate_record(eager_rate, resident, captured,
+                                   resident_c)
+        if route == "native_csv":
+            programs = built["traces"].get("MultiLayerNetwork.train_step", 0)
+            if programs != 2:
+                raise AssertionError(f"the captured LeNet epoch built "
+                                     f"{programs} programs, expected 2 "
+                                     "(batches of 64 and the last of 32)")
+            rates[route]["captured_epoch"] = {"programs": programs,
+                                              "seconds": build_s,
+                                              **built}
+            with capture.disabled():
+                prof = profile_window(torch, lambda: net.fit(FirstBatches(
+                    AsyncDataSetIterator(make(), device=dev), 100)))
+        emit("data_pipeline_lenet", route=route, model="LeNet",
+             batch=LENET_BATCH, steps=steps, epoch_steps=epoch,
+             rows=steps * LENET_BATCH if steps < epoch else LENET_TRAIN,
+             batches_checked_bit_equal=chk.n, staged=it.staged_batches,
+             staged_bytes=it.staged_bytes, checked_epoch_s=s,
+             loss_first50=first50, loss_last50=last50,
+             launches=launches[route],
+             launches_checked=_checked_summary(checks[route]),
+             images_per_sec=rates[route], prefetch=stalls, card=card)
+        del net, netc
+    emit("data_pipeline_lenet_profile", route="native_csv", batches=100,
+         **prof, card=card)
+    return launches, checks, rates
+
+
+def data_resnet_leg(torch, np, card, root):
+    """Leg (b): ResNet-50 (224x224x3, 1000 classes, seed 12345,
+    Adam(1e-3)) trained on the DP_IMAGES files through
+    AsyncImageDataSetIterator (native decode and resize) ->
+    AsyncDataSetIterator, fp32 and bf16: one checked epoch each on one
+    decode thread (file order), every batch bit-equal to
+    ``decode_image_file`` called file by file; then fit(iterator)
+    images/sec on 8 decode threads, eager and captured, beside one
+    resident batch's."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator, DataSet,
+                                               AsyncImageDataSetIterator)
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    dev = torch.device("cuda")
+    steps = DP_IMAGES // DP_IMAGE_BATCH
+
+    def make(threads):
+        return AsyncImageDataSetIterator(
+            root=root, height=224, width=224, channels=3,
+            batch=DP_IMAGE_BATCH, num_classes=1000, n_threads=threads,
+            prefetch=64)
+
+    items = make(1).items
+    eye = np.eye(1000, dtype=np.float32)
+
+    def plain(i):
+        part = items[i * DP_IMAGE_BATCH:(i + 1) * DP_IMAGE_BATCH]
+        x = np.stack([native.decode_image_file(p, 224, 224, 3)
+                      for p, _ in part])
+        x *= np.float32(1.0 / 255.0)
+        return DataSet(x, eye[[lab for _, lab in part]])
+
+    launches, checks, out = {}, {}, {}
+    for tag, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        net = ResNet50(compute_dtype=dtype).init(device="cuda")
+        _calm_residual_branches(net)
+        src = make(1)
+        it = AsyncDataSetIterator(src, device=dev)
+        chk = CheckedBatches(torch, it, plain)
+        launches[tag], checks[tag], scores, s = checked_epoch(
+            torch, net, chk, RESNET_STEP, steps, f"ResNet-50 {tag} images")
+        ring = src.pipeline.ring
+        if (chk.n != steps or it.staged_batches != steps
+                or src.decoded != DP_IMAGES or src.failed or ring is None
+                or ring.fresh):
+            raise AssertionError(
+                f"ResNet-50 {tag}: {chk.n} batches checked, "
+                f"{it.staged_batches} staged, {src.decoded} decoded natively "
+                f"({src.failed} failed), ring {ring and ring.fresh} fresh")
+        if scores[-1] >= scores[0]:
+            raise AssertionError(f"ResNet-50 {tag}: loss did not fall "
+                                 f"{scores}")
+        rows = DP_IMAGES
+        with capture.disabled():
+            eager_rate = fit_rate(torch, net, AsyncDataSetIterator(
+                make(8), device=dev), rows)
+        ds = next(iter(AsyncDataSetIterator(make(8), device=dev)))
+        with capture.disabled():
+            resident = fit_rate(torch, net, [ds] * steps, rows)
+        net.fit(AsyncDataSetIterator(make(8), device=dev))  # capture
+        torch.cuda.synchronize()
+        captured = fit_rate(torch, net, AsyncDataSetIterator(make(8),
+                                                             device=dev),
+                            rows)
+        resident_c = fit_rate(torch, net, [ds] * steps, rows)
+        out[tag] = rate_record(eager_rate, resident, captured, resident_c)
+        emit("data_pipeline_resnet50", dtype=tag, model="ResNet50",
+             batch=DP_IMAGE_BATCH, steps=steps, images=DP_IMAGES,
+             classes_on_disk=DP_CLASSES, batches_checked_bit_equal=chk.n,
+             staged=it.staged_batches, native_decodes=src.decoded,
+             ring={"slots": len(ring.slots), "fresh": ring.fresh,
+                   "waits": ring.waits},
+             checked_epoch_s=s, losses=scores, launches=launches[tag],
+             launches_checked=_checked_summary(checks[tag]),
+             images_per_sec=out[tag],
+             peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+             card=card)
+        del net, ds
+        torch.cuda.empty_cache()
+    return launches, checks, out
+
+
+def data_sentiment_leg(torch, np, card, seq_dir):
+    """Leg (c): the sentiment graph "last" (LSTM 300 -> 256 on K4,
+    RnnOutputLayer, Adam SENT_LR) trained on the review files through
+    CSVSequenceRecordReader -> SequenceRecordReaderDataSetIterator (padded,
+    with masks) -> AsyncDataSetIterator: one checked epoch in align_start,
+    then one in align_end, on one net (the loss falls over the four
+    steps), every staged batch bit-equal to the host batch; fit(iterator)
+    sequences/sec eager and captured (seq_buckets) beside one resident
+    batch's."""
+    from deeplearning4j_tpu_torch.data import AsyncDataSetIterator
+    from deeplearning4j_tpu_torch.datavec import (
+        CSVSequenceRecordReader, SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.nn import capture
+
+    dev = torch.device("cuda")
+
+    def make(align):
+        return SequenceRecordReaderDataSetIterator(
+            CSVSequenceRecordReader(seq_dir), SENT_BATCH, label_index=-1,
+            num_classes=2, alignment_mode=align)
+
+    net = sent_graph("last")
+    launches, checks, losses, kept = {}, {}, [], {}
+    for align in ("align_start", "align_end"):
+        base = Tee(make(align))
+        it = AsyncDataSetIterator(base, device=dev)
+        chk = CheckedBatches(torch, it, lambda i: base.kept[i])
+        launches[align], checks[align], scores, _ = checked_epoch(
+            torch, net, chk, {"lstm_seq_fwd": 1}, DP_SEQ_BATCHES,
+            f"sentiment {align}")
+        m = base.kept[0].features_mask
+        lens = m.sum(1)
+        edge = m[np.argmin(lens)]
+        if (align == "align_end") != (edge[0] == 0 and edge[-1] == 1):
+            raise AssertionError(f"{align}: the shortest review's mask "
+                                 f"{edge[:3]}...{edge[-3:]}")
+        losses += scores
+        kept[align] = base.kept
+        if chk.n != DP_SEQ_BATCHES or it.staged_batches != DP_SEQ_BATCHES:
+            raise AssertionError(f"sentiment {align}: {chk.n} checked")
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"sentiment loss did not fall: {losses}")
+    rows = DP_SEQ_BATCHES * SENT_BATCH
+    with capture.disabled():
+        eager_rate = fit_rate(torch, net, AsyncDataSetIterator(
+            make("align_start"), device=dev), rows)
+    staged = list(AsyncDataSetIterator(kept["align_start"], device=dev))
+    with capture.disabled():
+        resident = fit_rate(torch, net, staged, rows)
+    netc = sent_graph("last", seq_buckets=SENT_SEQ_BUCKETS)
+    before = watcher_counts(None)
+    netc.fit(staged)  # builds the captured programs
+    built = watcher_counts(before)
+    captured = fit_rate(torch, netc, AsyncDataSetIterator(
+        make("align_start"), device=dev), rows)
+    resident_c = fit_rate(torch, netc, staged, rows)
+    rates = {**rate_record(eager_rate, resident, captured, resident_c),
+             "captured_programs": built}
+    emit("data_pipeline_sentiment", graph="last", batch=SENT_BATCH,
+         batches=DP_SEQ_BATCHES, reviews=rows, features=SENT_FEATURES,
+         units=SENT_UNITS, losses=losses, launches=launches,
+         launches_checked={k: _checked_summary(v) for k, v in checks.items()},
+         sequences_per_sec=rates, card=card)
+    return launches, checks, rates
+
+
+def data_pipeline_phase(torch, np, card):
+    """The host data pipeline (build, parse, decode, H2D, the three legs,
+    the stress loop, the executor forked after CUDA). Returns the legs'
+    launches and checks."""
+    import ctypes.util
+    import shutil
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datavec import (
+        MultiProcessTransformExecutor, Schema, TransformProcess)
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    libs = {"jpeglib.h": os.path.exists("/usr/include/jpeglib.h")
+            or os.path.exists("/usr/include/x86_64-linux-gnu/jpeglib.h"),
+            "png.h": os.path.exists("/usr/include/png.h"),
+            "libjpeg": ctypes.util.find_library("jpeg"),
+            "libpng": ctypes.util.find_library("png16")
+            or ctypes.util.find_library("png"),
+            "g++": shutil.which("g++")}
+    info = native.build_info()
+    if info["error"] is not None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{info['error']}")
+    have_image_libs = all(libs.values())
+    if have_image_libs and not info["image"]:
+        raise AssertionError(f"the image decoder did not build where its "
+                             f"libraries are: {info['image_error']}")
+    emit("data_pipeline_build", seconds=info["seconds"],
+         library=os.path.basename(info["library"]), image=info["image"],
+         image_error=info["image_error"], host_libraries=libs, card=card)
+
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+
+    t0 = time.perf_counter()
+    if "train" not in DIGITS:  # the lenet phase did not run before
+        mn = MnistDataSetIterator(batch=LENET_BATCH, n_examples=LENET_TRAIN)
+        DIGITS["train"] = (mn.features, mn.labels)
+    paths, csv_bytes = write_mnist_csv(np, *DIGITS["train"])
+    image_root, image_bytes = (write_image_tree(np) if info["image"]
+                               else (None, 0))
+    seq_dir, seq_bytes = write_reviews(np)
+    image_paths = sorted(os.path.join(dp, f) for dp, _, fs in
+                         os.walk(image_root) for f in fs) if image_root \
+        else []
+    emit("data_pipeline_files", csv_shards=len(paths), csv_rows=LENET_TRAIN,
+         csv_mb=csv_bytes / 1e6, images=len(image_paths),
+         image_mb=image_bytes / 1e6, reviews=DP_SEQ_BATCHES * SENT_BATCH,
+         review_mb=seq_bytes / 1e6, write_s=time.perf_counter() - t0,
+         cache="warm: the files were just written", card=card)
+
+    parse, decode, h2d = dp_rates(torch, np, native, paths, csv_bytes,
+                                  LENET_TRAIN, image_paths)
+    stress = dp_stress(np, native)
+    torch.cuda.init()
+    tp = (TransformProcess.builder(
+        Schema.builder().add_column_double("v").build())
+        .double_math_op("v", "multiply", 2.0).build())
+    recs = [[float(i)] for i in range(4096)]
+    t0 = time.perf_counter()
+    if MultiProcessTransformExecutor(tp, num_workers=4).execute(recs) != \
+            tp.execute(recs):
+        raise AssertionError("the forked executor differs from serial")
+    fork = {"workers": 4, "records": len(recs),
+            "seconds": time.perf_counter() - t0,
+            "cuda_initialised_before": torch.cuda.is_initialized()}
+    emit("data_pipeline_host", csv_parse=parse, image_decode=decode,
+         h2d=h2d, stress=stress, fork_after_cuda=fork, card=card)
+
+    launches, checks = {}, {}
+    lenet = data_lenet_leg(torch, np, card, paths,
+                           mnist_csv_arrays(np, *DIGITS["train"]))
+    launches["lenet"], checks["lenet"] = lenet[0], lenet[1]
+    if info["image"]:
+        resnet = data_resnet_leg(torch, np, card, image_root)
+        launches["resnet50"], checks["resnet50"] = resnet[0], resnet[1]
+    else:
+        emit("data_pipeline_resnet50", ran=False,
+             reason="the native image decoder did not build on this host "
+                    "(its libjpeg and libpng headers and libraries are "
+                    "missing), so leg (b) waits for a host that has them",
+             image_error=info["image_error"], host_libraries=libs,
+             card=card)
+    sent = data_sentiment_leg(torch, np, card, seq_dir)
+    launches["sentiment"], checks["sentiment"] = sent[0], sent[1]
+    return launches, checks
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -6874,6 +7671,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sd_lstm_launches, sd_lstm_checked = timed(
         "samediff_onnx_lstm", samediff_onnx_lstm_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    dp_launches, dp_checks = timed("data_pipeline", data_pipeline_phase,
+                                   torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -7075,6 +7875,15 @@ def main() -> int:
             "map); keras_depthwise_pass_s*: summed over the 13 stride-1 and "
             "the 4 stride-2 launches of one 224x224 MobileNetV2 pass; "
             f"{library}"))
+    for e in entries:  # the data pipeline's legs, every eager one checked
+        e["launches_data_pipeline"] = {
+            f"{leg}_{part}": n.get(e["name"], 0)
+            for leg, parts in dp_launches.items()
+            for part, n in parts.items()}
+        e["data_pipeline_checked"] = {
+            f"{leg}_{part}": checked_fields(e["name"], c)
+            for leg, parts in dp_checks.items() for part, c in parts.items()
+            if checked_fields(e["name"], c)}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -119,6 +119,37 @@ class BucketingPolicy:
                 return b
         return n  # above the largest bucket: pass through
 
+    @staticmethod
+    def from_spec(spec: str) -> Optional["BucketingPolicy"]:
+        """Parse the ``DL4J_TPU_BUCKETS`` string form:
+
+        - ``"pow2"``                     → batch axis pow2
+        - ``"batch=8,16,32"``            → explicit batch buckets
+        - ``"batch=pow2;seq=64,128"``    → both axes
+        - ``""`` / ``"none"``            → None (off)
+        """
+        spec = (spec or "").strip()
+        if not spec or spec.lower() == "none":
+            return None
+        if "=" not in spec:
+            return BucketingPolicy(batch_buckets=_normalize(spec))
+        kw = {}
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            key, _, val = part.partition("=")
+            key = key.strip().lower()
+            if key not in ("batch", "seq"):
+                raise ValueError(
+                    f"DL4J_TPU_BUCKETS: unknown axis {key!r} "
+                    "(want batch=…;seq=…)")
+            val = val.strip()
+            kw[key + "_buckets"] = (
+                val if val.lower() == "pow2"
+                else tuple(int(v) for v in val.split(",") if v.strip()))
+        return BucketingPolicy(**kw)
+
     def bucket_batch(self, n: int) -> int:
         return self._round(int(n), self.batch_buckets)
 
@@ -131,20 +162,38 @@ class BucketingPolicy:
             return self.batch_buckets[-1]
         return None
 
-    def plan_serving_batch(self, n: int):
-        """Split a serving batch of ``n`` rows into chunks that each round
+    def plan_serving_batch(self, n: int, cap: Optional[int] = None):
+        """Cover a serving batch of ``n`` rows with chunks that each round
         up to an existing bucket: sizes between buckets pad up, sizes above
         the largest bucket split into largest-bucket chunks with the
-        remainder rounding up to its own bucket. Returns
-        ``(real_rows, padded_rows)`` pairs covering ``n`` in order. (The
-        reference's ``cap`` argument serves its multi-device path, not
-        ported yet.)"""
+        remainder rounding up to its own bucket (reference ``:176``).
+        ``cap`` bounds the PADDED per-call batch (ParallelInference's
+        batch_limit in the reference): chunking targets the largest bucket
+        that still fits under it; when NO bucket fits, the bound wins and
+        chunks pass through unpadded at ``cap``. Returns
+        ``(real_rows, padded_rows)`` pairs covering ``n`` in order."""
         n = int(n)
         top = self.largest_batch_bucket()
+        raw_cap = None  # set when the cap excludes every bucket
+        if cap is not None:
+            cap = int(cap)
+            if isinstance(self.batch_buckets, tuple):
+                fitting = [b for b in self.batch_buckets if b <= cap]
+                top = fitting[-1] if fitting else None
+            elif self.batch_buckets == "pow2":
+                top = 1 << (max(1, cap).bit_length() - 1)  # pow2 <= cap
+            else:
+                top = cap
+            if top is None:
+                raw_cap = cap
         plan = []
         while n > 0:
-            take = n if top is None else min(n, top)
-            plan.append((take, self.bucket_batch(take)))
+            if raw_cap is not None:
+                take = min(n, raw_cap)
+                plan.append((take, take))
+            else:
+                take = n if top is None else min(n, top)
+                plan.append((take, self.bucket_batch(take)))
             n -= take
         return plan
 

@@ -5,8 +5,10 @@ them, or any iterable of them (the iterators of ``data/iterators.py``),
 ``evaluate`` an iterable and ``score`` one. Both networks apply the (B, T)
 feature and label masks; a ComputationGraph shares a DataSet's masks among
 its inputs and outputs, and keys a MultiDataSet's mask lists by input and
-output name. The async prefetching iterator and the image iterator are not
-ported yet (item 9).
+output name. Files on disk reach a network through ``datavec`` (readers,
+transforms, RecordReaderDataSetIterator), ``native`` (the CSV and image
+loaders) and ``data/prefetch.py``'s AsyncDataSetIterator, which stages
+each batch on the card as tensors.
 """
 
 from __future__ import annotations

@@ -319,6 +319,8 @@ class GraphBuilder:
             input_shapes=self._input_shapes,
             compute_dtype=p._compute_dtype,
             kernel_impl=p._kernel_impl,
+            batch_buckets=p._batch_buckets,
+            seq_buckets=p._seq_buckets,
             remat_stages=tuple(self._stage_ends) or None,
             knobs=knobs,
         )

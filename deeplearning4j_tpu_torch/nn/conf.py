@@ -6,10 +6,11 @@ deeplearning4j_tpu/nn/conf.py): ``InputType``, the
 and the JSON helpers both packages share the format of.
 
 The builder carries what ResNet-50, BERT and the char-RNN set: seed,
-updater, compute dtype, kernel dispatch, the TBPTT segment length and the
-remat knobs; the reference's other global settings (l1/l2, weight_init and
-activation stamping onto the layers, buckets) come with the slices that
-use them.
+updater, compute dtype, kernel dispatch, the TBPTT segment length, the
+remat knobs and the batch and time buckets (whose default a
+``DL4J_TPU_BUCKETS`` spec sets, as in the reference); the reference's
+other global settings (l1/l2, weight_init and activation stamping onto the
+layers) come with the slices that use them.
 ``compute_dtype="bfloat16"`` keeps params fp32 and runs activations and
 convolutions in bf16.
 
@@ -124,6 +125,23 @@ class Builder:
         self._compute_dtype = "float32"
         self._kernel_impl: Optional[str] = None
         self._knobs = dict(INERT_KNOBS)
+        self._batch_buckets = None
+        self._seq_buckets = None
+        # DL4J_TPU_BUCKETS folds into the default buckets, as the
+        # reference's builder does (``nn/conf.py:270-280``)
+        from deeplearning4j_tpu_torch.config import get_environment
+
+        spec = get_environment().default_buckets
+        if spec:
+            from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+
+            try:  # fail fast: a typo'd env spec must not survive to fit()
+                pol = BucketingPolicy.from_spec(spec)
+            except ValueError as e:
+                raise ValueError(f"DL4J_TPU_BUCKETS: {e}") from None
+            if pol is not None:
+                self._batch_buckets = pol.batch_buckets
+                self._seq_buckets = pol.seq_buckets
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -148,6 +166,28 @@ class Builder:
         (plain PyTorch) or ``"cuda"`` (force the kernels). ``None`` defers
         to the DL4J_TORCH_KERNEL_IMPL env knob."""
         self._kernel_impl = _kern.validate_impl(impl)
+        return self
+
+    def batch_buckets(self, spec) -> "Builder":
+        """Shape bucketing for the batch axis (reference ``nn/conf.py:350``):
+        ``"pow2"`` or an explicit size list; ragged batches pad up to the
+        nearest bucket with zero rows of loss weight 0. ``None`` turns it
+        off."""
+        from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+
+        if spec is not None:  # fail fast on malformed specs
+            BucketingPolicy(batch_buckets=spec)
+        self._batch_buckets = spec
+        return self
+
+    def seq_buckets(self, spec) -> "Builder":
+        """Shape bucketing for the time axis (reference ``:364``):
+        ``"pow2"``, an explicit size list, or ``None`` (off)."""
+        from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+
+        if spec is not None:
+            BucketingPolicy(seq_buckets=spec)
+        self._seq_buckets = spec
         return self
 
     def tbptt_length(self, k: int) -> "Builder":
@@ -292,5 +332,7 @@ class ListBuilder:
             input_shape=self._input_shape,
             compute_dtype=p._compute_dtype,
             kernel_impl=p._kernel_impl,
+            batch_buckets=p._batch_buckets,
+            seq_buckets=p._seq_buckets,
             knobs=dict(p._knobs),
         )

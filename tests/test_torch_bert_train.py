@@ -125,10 +125,29 @@ def test_fit_trajectory_matches_reference(task, causal, flash):
     _assert_close(net, jnet, _fit_both(jnet, net, batches))
 
 
+def _ref_grads(jnet, x, y, w, m):
+    """The reference's gradients of its loss on one batch (dropout off:
+    the keys are drawn but unused)."""
+    keys = list(jax.random.split(jax.random.PRNGKey(0), len(jnet.params)))
+
+    def loss(p):
+        return jnet._loss(p, jnet.states, jnp.asarray(x), jnp.asarray(y),
+                          keys, jnp.asarray(w), jnp.asarray(m))[0]
+
+    return jax.tree_util.tree_map(np.asarray, jax.grad(loss)(jnet.params))
+
+
 def test_ragged_batch_under_buckets_matches_reference():
     """Three rows pad to the bucket of 4 in both packages; the padded row
     is fully masked and weighted 0, so it adds no gradient: the port's
-    gradients equal those of the three rows alone."""
+    gradients of the padded batch equal those of the three rows alone,
+    within rtol 1e-5 / atol 1e-7, or no farther from them (each tensor's
+    largest difference) than 3x the reference's own padded gradients are
+    from its three-row gradients. Padding changes the fp32 summation
+    order in both packages: the reference's own padded gradients miss
+    the elementwise gate too (by 1.2e-6 on the embedding tables, CPU), and
+    which elements the port's miss it by depends on the machine's
+    kernels."""
     _, batches = _batches(BertIterator.SEQ_CLASSIFICATION, n_rows=3)
     jnet, net = _pair(flash=True)
     jnet.conf.batch_buckets = (4, 8)
@@ -146,10 +165,17 @@ def test_ragged_batch_under_buckets_matches_reference():
     w = torch.tensor([1.0, 1.0, 1.0, 0.0])
     _, g_pad, _, _ = net._gradients(None, pad[0], pad[1], w, pad[2])
     _, g_3, _, _ = net._gradients(None, x, y, torch.ones(3), m)
+    j_pad = _ref_grads(jnet, *(t.numpy() for t in pad[:2]), w.numpy(),
+                       pad[2].numpy())
+    j_3 = _ref_grads(jnet, ds.features, ds.labels, np.ones(3, np.float32),
+                     ds.features_mask)
     for i in g_3:
         for k in g_3[i]:
-            torch.testing.assert_close(g_pad[i][k], g_3[i][k], rtol=1e-5,
-                                       atol=1e-7)
+            a, b = g_pad[i][k].numpy(), g_3[i][k].numpy()
+            if np.allclose(a, b, rtol=1e-5, atol=1e-7):
+                continue
+            own = float(np.abs(j_pad[i][k] - j_3[i][k]).max())
+            assert float(np.abs(a - b).max()) <= 3 * own, (i, k, own)
     _assert_close(net, jnet, _fit_both(jnet, net, batches[:3]))
 
 

@@ -19,7 +19,10 @@ tests/test_zoo.py runs them at; Xception at 64x64 with one middle repeat).
   losses within 1e-4 relative, every param and layer-state tensor within
   1e-4 relative L2, or within 3x the reference's distance from its own
   run on the same batch in another row order where the fp32 step is that
-  ill-conditioned (see the test). Sgd, not the zoo's Adam: a batchnorm
+  ill-conditioned (see the test); a tensor that misses both is held to
+  the same steps in fp64 (the port's fp64 run within 1e-4 of the
+  reference's, and the port's fp32 last step no farther from the fp64
+  step than 3x the reference's). Sgd, not the zoo's Adam: a batchnorm
   whose output reaches another batch-statistic batchnorm through a conv
   (Xception's and InceptionResNetV1's residual blocks) has its beta's
   gradient at the level of rounding noise in either package, which
@@ -215,9 +218,72 @@ def _rel(a, b):
 _PERM = [2, 0, 3, 1]
 
 
+def _trees(net, tonp=None):
+    """{"params": {path: array}, "states": ...} of a net of either package
+    (``tonp``: the port's ``interop.to_numpy``)."""
+    if tonp is not None:
+        out = tonp(net)
+        return {w: dict(jax_items(out[w])) for w in ("params", "states")}
+    return {w: dict(jax_items(jax.tree_util.tree_map(
+        np.asarray, getattr(net, w)))) for w in ("params", "states")}
+
+
+def _held_in_fp64(jconf, tconf, x, y, steps, misses, monkeypatch):
+    """The tensors of ``misses`` ((what, path) pairs that left the fp32
+    gate) held to the same steps in fp64, where rounding is out of the
+    way: (1) the port's fp64 run within TRAJ_RTOL of the reference's
+    (jax x64; the port keeps float64 inputs as the reference does with
+    x64 on), so the port computes the reference's function; (2) one fp32
+    step of each package from the fp64 run's state before its last step:
+    the port's step no farther from the fp64 step than 3x the
+    reference's is, so the port's fp32 arithmetic is no worse than the
+    reference's at the step where the trajectories part."""
+    f64 = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: jnp.asarray(a, jnp.float64), t)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    with jax.enable_x64(True):
+        j64, _ = _pair(jconf, tconf)
+        j64.params, j64.states = f64(j64.params), f64(j64.states)
+        for _ in range(steps - 1):
+            j64.fit(x64, y64)
+        last = _trees(j64)
+        start = [jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                        t) for t in (j64.params, j64.states)]
+        j64.fit(x64, y64)
+        ref64 = _trees(j64)
+    import deeplearning4j_tpu_torch.nn.computation_graph as tcg
+    monkeypatch.setattr(tcg, "as_tensor", lambda a, dev: (
+        a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))).to(dev))
+    _, net64 = _pair(jconf, tconf)
+    net64.params = ttree.tree_map(lambda t: t.double(), net64.params)
+    net64.states = ttree.tree_map(lambda t: t.double(), net64.states)
+    for _ in range(steps):
+        net64.fit(x64, y64)
+    monkeypatch.undo()
+    port64 = _trees(net64, interop.to_numpy)
+    for what, path in misses:
+        err = _rel(port64[what][path], ref64[what][path])
+        assert err <= TRAJ_RTOL, ("fp64", what, path, err)
+    jnet, _ = _pair(jconf, tconf)
+    jnet.params, jnet.states = (jax.tree_util.tree_map(jnp.asarray, t)
+                                for t in start)
+    net = interop.from_reference_json(jconf.to_json(), *start, device="cpu")
+    jnet.fit(x, y)
+    net.fit(x, y)
+    ref1, port1 = _trees(jnet), _trees(net, interop.to_numpy)
+    for what, path in misses:
+        base = last[what][path]
+        step64 = ref64[what][path] - base
+        err = _rel(port1[what][path] - base, step64)
+        floor = _rel(ref1[what][path] - base, step64)
+        assert err <= max(TRAJ_RTOL, 3 * floor), ("step", what, path, err,
+                                                  floor)
+
+
 @pytest.mark.parametrize("name", ["Xception", "SqueezeNet",
                                   "InceptionResNetV1"])
-def test_fit_trajectory_matches_reference(name):
+def test_fit_trajectory_matches_reference(name, monkeypatch):
     """3 steps in both packages from the same params, and the reference a
     second time on the same batch in another row order (the same
     trajectory in exact arithmetic): each loss and each tensor of the
@@ -228,7 +294,15 @@ def test_fit_trajectory_matches_reference(name):
     from zero), and all of InceptionResNetV1's upstream of block8, whose
     last batchnorm normalises over 4 values a channel (1x1 spatial at
     96x96, batch 4): there both packages' gradients sit about 1e-2 from
-    the same step in fp64."""
+    the same step in fp64. A tensor that misses both is held to an fp64
+    run instead (``_held_in_fp64``). InceptionResNetV1 needs it on some
+    machines: at its third step the running variance of cb114_b (a
+    batchnorm over 4 values a channel) has one channel far from the fp64
+    run in either package, and which channel and how far depends on the
+    rounding (over 16 one-ulp nudges of the input, CPU: the reference's
+    tensor 0.18-0.35 from fp64, the port's 0.17-0.54, and 0.98 on the
+    batch as it is), while one fp32 step of the port from the fp64
+    run's state is 4-7x closer to the fp64 step than the reference's."""
     jconf, tconf = _confs(name, JSgd(0.05))
     jconf = _no_dropout(jconf, JDropout)
     tconf = _no_dropout(tconf, TL.DropoutLayer)
@@ -244,18 +318,17 @@ def test_fit_trajectory_matches_reference(name):
         want = float(jnet.score_value)
         floor = _rel(float(jrep.score_value), want)
         assert _rel(net.get_score(), want) <= max(TRAJ_RTOL, 3 * floor)
-    out = interop.to_numpy(net)
+    ref, rep = _trees(jnet), _trees(jrep)
+    mine = _trees(net, interop.to_numpy)
+    misses = []
     for what in ("params", "states"):
-        ref = dict(jax_items(jax.tree_util.tree_map(np.asarray,
-                                                    getattr(jnet, what))))
-        rep = dict(jax_items(jax.tree_util.tree_map(np.asarray,
-                                                    getattr(jrep, what))))
-        mine = dict(jax_items(out[what]))
-        assert set(mine) == set(ref)
-        for path, b in ref.items():
-            err, floor = _rel(mine[path], b), _rel(rep[path], b)
-            assert err <= max(TRAJ_RTOL, 3 * floor), (what, path, err,
-                                                      floor)
+        assert set(mine[what]) == set(ref[what])
+        for path, b in ref[what].items():
+            err, floor = _rel(mine[what][path], b), _rel(rep[what][path], b)
+            if err > max(TRAJ_RTOL, 3 * floor):
+                misses.append((what, path))
+    if misses:
+        _held_in_fp64(jconf, tconf, x, y, 3, misses, monkeypatch)
 
 
 def test_xception_bf16_forward_tracks_fp32():

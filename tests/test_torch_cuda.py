@@ -1602,3 +1602,119 @@ def test_xception_archive_restores_on_card(card, tmp_path):
     back.fit(x, y)
     net.fit(x, y)
     assert back.get_score() == net.get_score()
+
+
+# ------------------------------------------------------------ data pipeline
+
+def _staging_batches(n=12, batch=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.normal(size=(batch, 28, 28, 1)).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)])
+            for _ in range(n)]
+
+
+class _Batches:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def test_prefetch_staged_buffers_are_never_reused_early(card):
+    """The reference's donation-safety test on the card: while step k
+    reads its staged batch (slow device work queued on the consumer's
+    stream), the worker copies k+1 and k+2 on its own stream. Each batch's
+    result, read after everything drained, is its own source's, batches
+    held and batches dropped at once alike (a dropped batch's memory must
+    not go to a later copy before its reader has run)."""
+    from deeplearning4j_tpu_torch.data import AsyncDataSetIterator
+
+    src = _staging_batches()
+    it = AsyncDataSetIterator(_Batches(src), buffer_size=2, device=card)
+    w = torch.randn(784, 784, device=card)
+    held, sums = [], []
+    for i, ds in enumerate(it):
+        assert ds.features.device.type == "cuda" and ds.features.is_cuda
+        x = ds.features.reshape(len(ds.features), -1)
+        for _ in range(30):  # keep the consumer's stream busy
+            x = torch.tanh(x @ w) * 0.5 + ds.features.reshape(len(x), -1)
+        sums.append((x - torch.tanh(x)).sum() * 0 + ds.features.sum())
+        if i % 2 == 0:
+            held.append((ds, src[i]))
+        del ds, x
+    torch.cuda.synchronize()
+    assert it.staged_batches == len(src)
+    assert it.staged_bytes == sum(b.features.nbytes + b.labels.nbytes
+                                  for b in src)
+    for got, b in zip(sums, src):
+        assert float(got) == pytest.approx(float(b.features.sum()),
+                                           rel=1e-5, abs=1e-3)
+    for ds, b in held:
+        np.testing.assert_array_equal(ds.features.cpu().numpy(), b.features)
+        np.testing.assert_array_equal(ds.labels.cpu().numpy(), b.labels)
+
+
+def test_prefetch_image_ring_on_card(card, tmp_path):
+    """Native-decoded image batches in the pinned ring, staged on the
+    card: bit-equal to decode_image_file called file by file (one decode
+    thread: file order), every ring slot reused after its copy's event
+    (no fresh buffer), every batch staged once."""
+    from PIL import Image
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               AsyncImageDataSetIterator)
+
+    if not native.image_available():
+        pytest.skip("the native image decoder did not build on this host "
+                    "(libjpeg/libpng headers missing): "
+                    f"{(native.image_build_error() or '')[:200]}")
+    rng = np.random.default_rng(1)
+    for c in range(3):
+        (tmp_path / f"c{c}").mkdir()
+        for i in range(7):
+            a = rng.integers(0, 256, (40 + i, 50, 3), dtype=np.uint8)
+            Image.fromarray(a).save(tmp_path / f"c{c}" / f"{i}.png")
+    src = AsyncImageDataSetIterator(root=str(tmp_path), height=32, width=32,
+                                    batch=4, n_threads=1, num_classes=3)
+    it = AsyncDataSetIterator(src, device=card)
+    files = [p for p, _ in src.items]
+    n = 0
+    for k, ds in enumerate(it):
+        want = np.stack([native.decode_image_file(p, 32, 32, 3)
+                         for p in files[4 * k:4 * k + 4]])
+        want *= np.float32(1.0 / 255.0)
+        np.testing.assert_array_equal(ds.features.cpu().numpy(), want)
+        n += len(want)
+    assert n == 21 and src.decoded == 21
+    ring = src.pipeline.ring
+    assert ring is not None and ring.fresh == 0
+    assert it.staged_batches == 6
+
+
+def test_fork_executor_after_cuda_init(card):
+    """The multiprocess executor forks from a parent whose CUDA is
+    initialised: the children (and telemetry's fork hook) never touch
+    torch.cuda, the records equal the serial ones, and the parent's card
+    still computes afterwards."""
+    from deeplearning4j_tpu_torch.datavec import (
+        MultiProcessTransformExecutor, Schema, TransformProcess)
+    from deeplearning4j_tpu_torch.util import telemetry as tm
+
+    torch.cuda.init()
+    before = torch.arange(8, device=card, dtype=torch.float32)
+    tp = (TransformProcess.builder(
+        Schema.builder().add_column_double("v").build())
+        .double_math_op("v", "multiply", 2.0).build())
+    recs = [[float(i)] for i in range(256)]
+    tele = tm.get_telemetry()
+    tele.drain_events()
+    out = MultiProcessTransformExecutor(
+        tp, num_workers=4, min_records_per_worker=16).execute(recs)
+    assert out == tp.execute(recs)
+    pids = {e["pid"] for e in tele.drain_events()
+            if e["name"] == "etl.transform_chunk"}
+    assert len(pids) == 4
+    assert float((before * 2).sum()) == 56.0
+    assert tm.device_memory_stats()  # the parent reads its own card

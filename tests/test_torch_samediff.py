@@ -13,7 +13,8 @@ is compared before the reference's answer is returned:
   fake quantization within one grid step (a tie may round either way);
 - ``calculate_gradients`` within 1e-5 of the largest reference gradient;
 - ``fit`` histories within 1e-4 relative, and the trained arrays after
-  (``trained_close``);
+  (``trained_close``, whose count of stray elements may reach 3x the
+  reference's own repeat on inputs moved by one ulp);
 - variable names and inferred shapes equal;
 - ``save`` writes both packages' files, loads each in the OTHER package
   and holds every array bit-equal;
@@ -98,20 +99,70 @@ def compare_values(ref, port, random=False, what="output", tol=None):
                                       err_msg=what)
 
 
-def trained_close(port, ref, before, what):
+def trained_close(port, ref, before, what, repeat=None):
     """Trained arrays: within rtol 1e-4 / atol 1e-5 of the largest
-    element, but for at most 0.1% of the elements, and the whole
+    element, but for at most 0.1% of the elements or for no more than 3x
+    as many as differ so between the reference and its own repeat of the
+    training on inputs moved by one ulp (``repeat()``: that array of the
+    repeat, or None; called only when the 0.1% gate fails), and the whole
     difference within 1% (L2) of the reference's own update (``before``:
     the array before training). Adam's m / (sqrt(v) + eps) on a gradient
     near zero turns float noise into a step of either sign, so a few
-    elements of a large kernel may differ by up to one step."""
+    elements of a large kernel may differ by up to one step; in a small
+    head that can be more than 0.1% (one input feature moves a whole row:
+    VGG16's fine-tune moves 2 of the 1,024 elements of its head so, in
+    the reference's own repeat as in the port)."""
     port, ref = np.asarray(port), np.asarray(ref)
     scale = max(1.0, float(np.abs(ref).max()))
     bad = ~np.isclose(port, ref, rtol=RTOL, atol=ATOL * scale)
-    assert bad.mean() <= 1e-3, f"{what}: {bad.sum()} of {bad.size} differ"
+    if bad.mean() > 1e-3:
+        rep = None if repeat is None else repeat()
+        own = 0 if rep is None else int(
+            (~np.isclose(rep, ref, rtol=RTOL, atol=ATOL * scale)).sum())
+        assert bad.sum() <= 3 * own, \
+            f"{what}: {bad.sum()} of {bad.size} differ (the reference's " \
+            f"own repeat: {own})"
     if bad.any():
         moved = float(np.linalg.norm(ref - np.asarray(before)))
         assert np.linalg.norm(port - ref) <= 1e-2 * moved, what
+
+
+def _nudged(data):
+    """``data`` (a (features, labels) pair or a DataSet) with its float
+    features moved by one ulp, or None for another kind of data."""
+    def up(a):
+        a = np.asarray(a)
+        return np.nextafter(a, np.array(np.inf, a.dtype)) \
+            if a.dtype.kind == "f" else a
+
+    if isinstance(data, tuple) and len(data) == 2:
+        return (up(data[0]), data[1])
+    if hasattr(data, "features") and hasattr(data, "labels"):
+        return type(data)(up(data.features), data.labels)
+    return None
+
+
+class _Repeat:
+    """The reference's training repeated on nudged inputs (``_nudged``),
+    from a copy taken before it trained; run at most once, on demand."""
+
+    def __init__(self, ref, data, args, kw):
+        import copy
+
+        try:
+            self.sd = copy.deepcopy(ref) if _nudged(data) is not None \
+                else None
+        except (TypeError, ValueError, AttributeError):  # not copyable
+            self.sd = None
+        self.data, self.args, self.kw, self.done = data, args, kw, False
+
+    def array(self, name):
+        if self.sd is None:
+            return None
+        if not self.done:
+            self.sd.fit(_nudged(self.data), *self.args, **self.kw)
+            self.done = True
+        return np.asarray(self.sd._arrays[name])
 
 
 def _port_config(cfg):
@@ -301,13 +352,15 @@ class DualSameDiff:
     def fit(self, data, *args, **kw):
         before = {n: np.array(self.ref._arrays[n])
                   for n in self.ref.trainable_names()}
+        repeat = _Repeat(self.ref, data, args, kw)
         r, p = _same_error(lambda: self.ref.fit(data, *args, **kw),
                            lambda: self.port.fit(data, *args, **kw))
         np.testing.assert_allclose(p, r, rtol=RTOL, atol=ATOL,
                                    err_msg="fit history")
         for n in self.ref.trainable_names():
             trained_close(self.port._arrays[n], self.ref._arrays[n],
-                          before[n], f"trained {n}")
+                          before[n], f"trained {n}",
+                          lambda n=n: repeat.array(n))
         return r
 
     def save(self, path, save_updater_state=False):
