@@ -322,6 +322,35 @@ Phases, each printing one JSON line:
     SequenceRecordReaderDataSetIterator (masks) -> AsyncDataSetIterator, one
     checked epoch in align_start and one in align_end, the loss falling;
     sequences/sec eager and captured beside a resident batch's.
+22i. generate: the decode tier at full width. A causal BERT-base LM
+    (``Bert.base(causal=True, task="mlm", max_length=512)``, random
+    weights from seed 12345) behind ModelServer -> ModelRouter ->
+    BatchScheduler -> ServingModel(kind="generate") -> Generator, with a
+    pinned pool of 1,024 blocks of 16 (and the trash block: 16,400 slots),
+    warmed (every batch bucket's prefill at each sequence bucket and its
+    decode step, captured). 8 HTTP requests of 1-4 prompts (16-448 tokens,
+    32-64 new), four at a time, each answer equal to the generator's own
+    ``generate_full_recompute`` under the tie rule (at a first difference
+    the oracle's top-two logits within 1e-4 relative, at most one row in
+    32), no program built after warmup, no kernel launched; the same
+    prompts through the contiguous engine, chunked prefill (64) and
+    speculative decoding (the ``Bert.draft`` net, 4 tokens; a self-draft
+    accepts everything), temperature samples equal paged/contiguous from
+    one seed; 32 streams sharing a 256-token head through the prefix cache
+    against the cacheless run (hit rate, blocks held); a pinned 8-block
+    pool shedding a 429 with Retry-After, its pool conserved, the next
+    request served; int8 (first-step logits within INT8_LOGIT_TOL, weight
+    bytes, an int8 archive loaded with ModelRouter.load(quantize="int8"),
+    its leaves bit-equal); decode tokens/sec at batch 1, 8 and 32 to 512
+    tokens of context, captured and eager, time to first token at 256 and
+    448, one profiled captured decode step at batch 32 (device time by
+    kernel class, idle share, and the step's gathers and attentions timed
+    alone), the pool's bytes. Leg serve_int8 (under
+    ``capture.disabled()``): full-width ResNet-50 served over HTTP with
+    ``quantize="int8"``, every K1 launch checked (53 per chunk), the
+    answers within 1e-4 of the net over the dequantized leaves on the
+    plain path, and the largest probability difference and top-1
+    agreement against fp32 beside them.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -338,7 +367,9 @@ Phases, each printing one JSON line:
     MobileNetV2's geometries under ``conv_zoo_depthwise`` and
     ``keras_depthwise``; the data pipeline's legs (22h) under
     ``launches_data_pipeline`` with theirs under
-    ``data_pipeline_checked``.
+    ``data_pipeline_checked``; the int8 ResNet-50's K1 launches under
+    ``launches_serve_int8`` with theirs under ``serve_int8_checked_*``,
+    and the decode tier's (none) under ``launches_generate``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -353,6 +384,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -1092,7 +1124,7 @@ def profile_forward(torch, net, batch=32, top=8):
 
 
 def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
-                    archive=None):
+                    archive=None, quantize=None, ref_net=None):
     """``net`` served over HTTP (ModelServer -> ModelRouter ->
     BatchScheduler -> ServingModel, buckets BUCKETS), or with ``archive``
     (a ModelSerializer archive of ``net``) the net ``ModelRouter.load``
@@ -1100,8 +1132,10 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
     in two waves of four concurrent, every conv launch held against its
     plain version, ``per_chunk`` K1 launches each executed chunk, none
     plain on CUDA; the answers' probabilities within 1e-4 of the plain
-    path's and their rows summing to 1 within 1e-5. Returns (the fields
-    of the line, the launches, the checks)."""
+    path's (of ``ref_net``'s when given: with ``quantize="int8"``, the net
+    with its params set to the dequantized leaves) and their rows summing
+    to 1 within 1e-5. Returns (the fields of the line, the launches, the
+    checks)."""
     from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.serving import (ModelRouter, ModelServer,
@@ -1111,12 +1145,13 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
     router = ModelRouter()
     if archive is None:
         model = ServingModel(net, model_id,
-                             bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+                             bucketing=BucketingPolicy(batch_buckets=BUCKETS),
+                             quantize=quantize)
         router.register(model, max_wait_ms=100.0, queue_limit=64)
     else:
         router.load(model_id, archive,
                     bucketing=BucketingPolicy(batch_buckets=BUCKETS),
-                    max_wait_ms=100.0, queue_limit=64)
+                    quantize=quantize, max_wait_ms=100.0, queue_limit=64)
         model, _ = router.get(model_id)
     server = ModelServer(router, port=0).start()  # warms every bucket
     warm_s = time.perf_counter() - t0
@@ -1160,7 +1195,7 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
             raise AssertionError(f"response shape {got.shape}")
         max_sum_err = max(max_sum_err, float(np.abs(got.sum(1) - 1).max()))
         with kern.impl_scope("exact"):
-            ref = net.output(x).double().cpu().numpy()
+            ref = (ref_net or net).output(x).double().cpu().numpy()
         max_err = max(max_err, float(np.abs(got - ref).max()))
         max_prob = max(max_prob, float(ref.max()))
     if max_sum_err > 1e-5 or max_err > 1e-4:
@@ -7361,6 +7396,617 @@ def data_pipeline_phase(torch, np, card):
     return launches, checks
 
 
+# --------------------------------------------------------------- generate
+
+GEN_SEED = 12345
+GEN_BUCKETS = (1, 2, 4, 8, 16, 32)
+GEN_SEQ_BUCKETS = (64, 128, 256)  # max_length (512) is the implicit last
+GEN_BLOCK = 16
+GEN_POOL_BLOCKS = 1024  # + the trash block: 1,025 blocks, 16,400 slots
+GEN_MAXLEN = 512
+#: the HTTP wave: (prompt lengths of one request, max_new_tokens)
+GEN_REQUESTS = (((16,), 32), ((48, 200), 48), ((448,), 64),
+                ((64, 96, 128), 32), ((300, 17, 256, 80), 40), ((130,), 64),
+                ((20, 400), 48), ((256, 33, 77), 32))
+GEN_PREFIX = 256       # the prefix cache's shared head
+GEN_STREAMS = 32       # streams sharing it, in two batches of 16
+GEN_CHUNK = 64
+GEN_SPEC_TOKENS = 4
+GEN_RATE_BATCHES = (1, 8, 32)
+GEN_RATE_PROMPT = 256  # + GEN_RATE_NEW generated: contexts to 512
+GEN_RATE_NEW = 256
+GEN_TTFT = (256, 448)
+TIE_RTOL = 1e-4
+GEN_DIR = os.path.join(ROOT, "build", "smoke_generate")
+
+
+def gen_prompts(np, lengths, seed, vocab=30522):
+    rng = np.random.default_rng(seed)
+    return [[int(v) for v in rng.integers(0, vocab, n)] for n in lengths]
+
+
+def near_tie(logits_row, rtol=TIE_RTOL):
+    """Whether the top two of a logits row are within ``rtol`` relative."""
+    top = sorted(float(v) for v in logits_row)[-2:]
+    return abs(top[1] - top[0]) <= rtol * max(abs(top[1]), 1e-6)
+
+
+def tied_rows(torch, gen, prompts, got, want, oracle_logits=None):
+    """Rows of ``got`` that differ from ``want`` where the tie rule allows
+    it: at the first difference the oracle's top-two logits (its prefill
+    over the prompt and the tokens before it, or ``oracle_logits[k][row]``
+    from ``generate_full_recompute``) are within TIE_RTOL relative. Raises
+    on any other difference, or when more than one row in 32 needs the
+    rule."""
+    ties = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        k = next((j for j in range(min(len(g), len(w))) if g[j] != w[j]),
+                 None)
+        if k is None:
+            raise AssertionError(f"row {i}: {len(g)} tokens, {len(w)} "
+                                 "expected")
+        if oracle_logits is not None:
+            row = oracle_logits[k][i]
+        else:
+            tokens, lengths, _, _ = gen._prep([list(prompts[i]) + w[:k]], 1)
+            row = gen._prefill(tokens, lengths)[0].cpu().numpy()
+        if not near_tie(row):
+            raise AssertionError(f"row {i} differs at step {k} without a "
+                                 f"near tie: {g[:k + 2]} vs {w[:k + 2]}")
+        ties += 1
+    if len(got) != len(want) or ties > max(1, len(got) // 32):
+        raise AssertionError(f"{ties} rows of {len(got)} needed the tie "
+                             "rule")
+    return ties
+
+
+def _http_generate(url, prompts, max_new, **extra):
+    body, lat = _post(url, {"prompt_tokens": [list(p) for p in prompts],
+                            "max_new_tokens": max_new, **extra})
+    return body["tokens"], lat
+
+
+def _post_status(url, body):
+    """(status, body, headers) of a POST, HTTP errors included."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def decode_rates(torch, np, gen, capture):
+    """Decode tokens/sec at GEN_RATE_BATCHES, prompts of GEN_RATE_PROMPT
+    and GEN_RATE_NEW new tokens (contexts to 512), captured and eager:
+    (wall of the whole generate less the wall of a 1-token generate, the
+    prefill's) per generated step, median of 3."""
+    out = {}
+    for b in GEN_RATE_BATCHES:
+        prompts = gen_prompts(np, [GEN_RATE_PROMPT] * b, 100 + b)
+        for mode in ("captured", "eager"):
+            ctx = (capture.disabled() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                gen.generate(prompts, max_new_tokens=2)  # build / warm
+                walls = {}
+                for n in (1, GEN_RATE_NEW):
+                    ts = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        gen.generate(prompts, max_new_tokens=n)
+                        ts.append(time.perf_counter() - t0)
+                    walls[n] = sorted(ts)[1]
+            decode_s = walls[GEN_RATE_NEW] - walls[1]
+            out[f"b{b}_{mode}"] = {
+                "tokens_per_s": b * (GEN_RATE_NEW - 1) / decode_s,
+                "ms_per_step": decode_s / (GEN_RATE_NEW - 1) * 1e3,
+                "prefill_wall_ms": walls[1] * 1e3,
+                "generate_wall_s": walls[GEN_RATE_NEW]}
+    return out
+
+
+def time_to_first_token(torch, np, gen):
+    out = {}
+    for n in GEN_TTFT:
+        prompts = gen_prompts(np, [n], 200 + n)
+        gen.generate(prompts, max_new_tokens=1)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.generate(prompts, max_new_tokens=1)
+            ts.append(time.perf_counter() - t0)
+        ts.sort()
+        out[f"prompt_{n}"] = {"median_ms": ts[2] * 1e3, "min_ms": ts[0] * 1e3,
+                              "max_ms": ts[-1] * 1e3}
+    return out
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device time of one ``fn()`` by CUDA graph replay: ``reps`` calls
+    captured in one graph, timed by events, per call."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def events_ms_of(torch, fn, reps=10):
+    """Device time of one ``fn()`` (a program's replay) by CUDA events
+    around ``reps`` back-to-back calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _decode_class(name):
+    n = name.lower()
+    if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n \
+            or n.startswith("sm90") or "ampere" in n or "splitk" in n:
+        return "matmul"
+    if "index" in n or "gather" in n or "scatter" in n:
+        return "gather_scatter"
+    if "softmax" in n:
+        return "softmax"
+    return "rest"
+
+
+def profile_decode_step(torch, np, gen, batch=32):
+    """One captured paged decode step at ``batch`` streams of 512-token
+    contexts under torch.profiler: device time by kernel class (GEMMs, the
+    gathers and scatters, softmax, the rest), its wall and idle share; and
+    beside it, by CUDA graph replay, the step, the step's K/V gathers alone
+    (2 per layer) and its attentions alone (``paged_attention`` per layer,
+    gathers included), so the gather's and the attention's shares of the
+    step stand apart from the kernel names."""
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    prompts = gen_prompts(np, [GEN_RATE_PROMPT] * batch, 300)
+    tokens, lengths, b_real, lens = gen._prep(prompts, GEN_RATE_NEW)
+    tables_list, tables, _, _, _ = gen._admit(lens, GEN_RATE_NEW, batch)
+    try:
+        limits = lengths + GEN_RATE_NEW - 1
+        cur = gen._prefill_paged(tokens, lengths, tables).argmax(-1)
+        positions = lengths + GEN_RATE_NEW // 2
+
+        def step():
+            gen._decode_paged(tables, cur, positions, limits)
+
+        prof = profile_captured_step(torch, step)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            step()
+            torch.cuda.synchronize()
+        classes = {}
+        for ms, n, name in device_kernels(torch, p):
+            c = _decode_class(name)
+            classes[c] = classes.get(c, 0.0) + ms
+        slots = gen._slots_of(tables)
+        pools = gen.pool.pools
+        heads, dh = pools[0]["k"].shape[1], pools[0]["k"].shape[2]
+        q = torch.randn((batch, heads, 1, dh), device="cuda")
+        pos_w = positions[:, None]
+
+        def gathers():
+            for p_ in pools:
+                att.paged_kv_gather(p_["k"], slots)
+                att.paged_kv_gather(p_["v"], slots)
+
+        def attentions():
+            for p_ in pools:
+                att.paged_attention(q, p_["k"], p_["v"], slots, pos_w)
+
+        step_ms = events_ms_of(torch, step, reps=10)
+        gather_ms = graph_ms(torch, gathers, reps=5)
+        attention_ms = graph_ms(torch, attentions, reps=5)
+        gathered = 2 * len(pools) * batch * GEN_MAXLEN * heads * dh * 4
+    finally:
+        gen.pool.release(tables_list)
+    return {"batch": batch, "context": GEN_MAXLEN, **prof,
+            "traced_classes_ms": classes,
+            "step_ms_graph": step_ms, "gather_ms_graph": gather_ms,
+            "attention_ms_graph": attention_ms,
+            "gather_share": gather_ms / step_ms,
+            "attention_share": attention_ms / step_ms,
+            "attention_less_gather_share": (attention_ms - gather_ms)
+            / step_ms,
+            "gathered_bytes": gathered,
+            "gather_GBps": gathered / (gather_ms * 1e-3) / 1e9,
+            "per": "step_ms_graph: one replay of the step's program, by "
+                   "events around 10; gather_ms_graph/attention_ms_graph: "
+                   "one call by CUDA graph replay (5 in one graph); the "
+                   "gathers "
+                   "are the step's 2 per layer of (B, 512, 12, 64) fp32 "
+                   "rows, the attentions its paged_attention per layer "
+                   "(gathers included); traced_classes_ms: the profiled "
+                   "replay's kernels by name"}
+
+
+def prefix_cache_check(torch, np, net, kw):
+    """GEN_STREAMS streams sharing a GEN_PREFIX-token head, two batches of
+    16, through a prefix-cache generator and a cacheless one: tokens under
+    the tie rule, the hit rate, and the blocks each run held at the end of
+    each batch (read just before the batch releases them)."""
+    from deeplearning4j_tpu_torch.serving import Generator
+
+    head = gen_prompts(np, [GEN_PREFIX], 7)[0]
+    tails = gen_prompts(np, [16 + (i * 7) % 33 for i in range(GEN_STREAMS)],
+                        8)
+    prompts = [head + t for t in tails]
+    half = GEN_STREAMS // 2
+    out = {}
+    for name, extra in (("cache", {"prefix_cache": True}), ("plain", {})):
+        gen = Generator(net, **kw, **extra)
+        held = []
+        release = gen.pool.release
+
+        def recording(tables, gen=gen, release=release, held=held):
+            held.append(gen.pool.num_blocks - gen.pool.free_blocks())
+            return release(tables)
+
+        gen.pool.release = recording
+        toks, stats = [], []
+        t0 = time.perf_counter()
+        for part in (prompts[:half], prompts[half:]):
+            st = {}
+            toks += gen.generate(part, max_new_tokens=32, stats=st)
+            stats.append(st)
+        torch.cuda.synchronize()
+        out[name] = {"tokens": toks, "blocks_held": held,
+                     "wall_s": time.perf_counter() - t0,
+                     "stats": [{k: v for k, v in s.items()
+                                if k != "resumed_positions"} for s in stats],
+                     "hit_rate": gen.prefix_hit_rate(), "gen": gen}
+    c, p = out["cache"], out["plain"]
+    ties = tied_rows(torch, p["gen"], prompts, c["tokens"], p["tokens"])
+    if not c["gen"].pool.conservation()[0] or not c["gen"].cache.check()[0]:
+        raise AssertionError("prefix cache: pool or trie inconsistent")
+    if c["blocks_held"][1] >= p["blocks_held"][1]:
+        raise AssertionError(f"prefix cache held {c['blocks_held']} blocks, "
+                             f"the plain run {p['blocks_held']}")
+    return {"streams": GEN_STREAMS, "prefix": GEN_PREFIX,
+            "tails": [len(t) for t in tails], "max_new_tokens": 32,
+            "hit_rate": c["hit_rate"],
+            "batch_hit_rates": [s.get("prefix_hit_rate") for s in c["stats"]],
+            "prefill_chunks": [s.get("prefill_chunks") for s in c["stats"]],
+            "blocks_held_cache": c["blocks_held"],
+            "blocks_held_plain": p["blocks_held"],
+            "wall_s_cache": c["wall_s"], "wall_s_plain": p["wall_s"],
+            "tie_rows": ties}
+
+
+def int8_generate_check(torch, np, net, kw, tmp):
+    """int8 decode: first-step logits within INT8_LOGIT_TOL of fp32,
+    resident weight bytes against fp32, and an int8 archive written,
+    loaded by ModelRouter.load(quantize="int8") with its int8 leaves
+    bit-equal to the archive's, and decoding."""
+    import zipfile
+
+    from deeplearning4j_tpu_torch.serving import (INT8_LOGIT_TOL, Generator,
+                                                  ModelRouter)
+    from deeplearning4j_tpu_torch.util.model_serializer import \
+        ModelSerializer
+
+    g8, g32 = Generator(net, quantize="int8", **kw), Generator(net, **kw)
+    prompts = gen_prompts(np, (16, 300, 448), 9)
+    tokens, lengths, b_real, _ = g8._prep(prompts, 1)
+    tables = torch.zeros((tokens.shape[0], g8.pool.max_blocks_per_stream),
+                         dtype=torch.int64, device="cuda")
+    l8 = g8._prefill_paged(tokens, lengths, tables)[:b_real].clone()
+    l32 = g32._prefill_paged(tokens, lengths, tables)[:b_real].clone()
+    err = float((l8 - l32).abs().max())
+    ratio = g8._qp.fp32_bytes() / g8._qp.resident_bytes()
+    if err > INT8_LOGIT_TOL or ratio < 3.5:
+        raise AssertionError(f"int8: logits err {err} (gate "
+                             f"{INT8_LOGIT_TOL}), fp32/resident {ratio}")
+    top1 = float((l8.argmax(-1) == l32.argmax(-1)).float().mean())
+    resident, fp32 = g8._qp.resident_bytes(), g8._qp.fp32_bytes()
+    del g8, g32
+    path = os.path.join(tmp, "bert_base_causal_int8.zip")
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(net, path, quantize="int8")
+    write_s = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        z = np.load(__import__("io").BytesIO(zf.read("coefficients.npz")))
+        written = [z[f"arr_{i}"] for i in range(len(z.files))]
+    router = ModelRouter()
+    try:
+        t0 = time.perf_counter()
+        router.load("lm8", path, kind="generate", quantize="int8",
+                    start=False, **{k: v for k, v in kw.items()
+                                    if k in ("block_size", "max_length")})
+        load_s = time.perf_counter() - t0
+        model, _ = router.get("lm8")
+        loaded = [q.cpu().numpy() for q in model._qp.qleaves]
+        if len(loaded) != len(written) or not all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(loaded, written)):
+            raise AssertionError("int8 leaves served differ from the "
+                                 "archive's")
+        toks, _ = model.execute([np.asarray(prompts[0])], max_new_tokens=8)
+        if len(toks[0]) != 8:
+            raise AssertionError(f"int8 archive model decoded {toks}")
+    finally:
+        router.shutdown()
+    return {"first_step_max_abs_logit_err": err, "tol": INT8_LOGIT_TOL,
+            "first_step_top1_agreement": top1,
+            "weight_bytes_resident": resident, "weight_bytes_fp32": fp32,
+            "fp32_over_resident": ratio,
+            "archive_bytes": os.path.getsize(path),
+            "archive_write_s": write_s, "archive_load_s": load_s,
+            "int8_leaves_bit_equal": True}
+
+
+def generate_phase(torch, np, card):
+    """Phase 22i: the decode tier at full width (module doc)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import (Generator, ModelRouter,
+                                                  ModelServer, ServingModel)
+    from deeplearning4j_tpu_torch.util.compile_watcher import get_watcher
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    os.makedirs(GEN_DIR)
+    net = Bert.base(causal=True, task="mlm", max_length=GEN_MAXLEN,
+                    hidden_dropout=0.0, seed=GEN_SEED).init(device="cuda")
+    policy = BucketingPolicy(batch_buckets=GEN_BUCKETS,
+                             seq_buckets=GEN_SEQ_BUCKETS)
+    kw = dict(batch_buckets=GEN_BUCKETS, prefill_buckets=GEN_SEQ_BUCKETS,
+              block_size=GEN_BLOCK, max_length=GEN_MAXLEN)
+    watcher = get_watcher()
+    kern.reset_counts()
+
+    # -- HTTP: ModelServer -> router -> scheduler -> ServingModel(generate)
+    router = ModelRouter()
+    model = ServingModel(net, "bert_base_lm", kind="generate",
+                         bucketing=policy, block_size=GEN_BLOCK,
+                         pool_blocks=GEN_POOL_BLOCKS, max_length=GEN_MAXLEN)
+    router.register(model, max_wait_ms=20.0, queue_limit=64)
+    small = ServingModel(net, "bert_base_lm_small_pool", kind="generate",
+                         bucketing=BucketingPolicy(batch_buckets=(1, 2),
+                                                   seq_buckets=(64,)),
+                         block_size=GEN_BLOCK, pool_blocks=8,
+                         max_length=GEN_MAXLEN)
+    router.register(small, max_wait_ms=1.0)
+    t0 = time.perf_counter()
+    with watcher.scope() as warm:
+        server = ModelServer(router, port=0).start()
+    warm_s, warm_programs = time.perf_counter() - t0, warm.traces
+    gen = model.generator
+    requests = [(gen_prompts(np, lens, 1000 + i), n)
+                for i, (lens, n) in enumerate(GEN_REQUESTS)]
+    url = f"{server.url}/v1/models/bert_base_lm/generate"
+    try:
+        t1 = time.perf_counter()
+        with watcher.scope() as steady, ThreadPoolExecutor(4) as pool:
+            served = list(pool.map(lambda r: _http_generate(url, *r),
+                                   requests[:4]))
+            served += list(pool.map(lambda r: _http_generate(url, *r),
+                                    requests[4:]))
+        serve_s = time.perf_counter() - t1
+        steady_programs = steady.traces
+        served_tokens = [s[0] for s in served]
+        _, sched = router.get("bert_base_lm")
+        batches = sched.counts["batches"]
+        # pool exhaustion: a pinned 8-block pool sheds a 200 + 32 request
+        small_url = f"{server.url}/v1/models/bert_base_lm_small_pool/generate"
+        status, body, headers = _post_status(small_url, {
+            "prompt_tokens": gen_prompts(np, [200], 5), "max_new_tokens": 32})
+        _, small_sched = router.get("bert_base_lm_small_pool")
+        conserved = small.generator.pool.conservation()
+        status2, body2, _ = _post_status(small_url, {
+            "prompt_tokens": gen_prompts(np, [16], 6), "max_new_tokens": 32})
+        shed = {"status": status, "error": body.get("error"),
+                "retry_after": headers.get("Retry-After"),
+                "shed_pool_exhausted": small_sched.counts[
+                    "shed_pool_exhausted"],
+                "conservation_after": conserved,
+                "next_status": status2,
+                "next_tokens": len(body2.get("tokens", [[]])[0])}
+        if status != 429 or not headers.get("Retry-After") \
+                or not conserved[0] or status2 != 200 \
+                or shed["next_tokens"] != 32:
+            raise AssertionError(f"pool exhaustion: {shed}")
+    finally:
+        server.stop()
+    if steady_programs:
+        raise AssertionError(f"the warmed server built {steady_programs} "
+                             "programs for mixed context lengths")
+    if any(kern.LAUNCHES.values()):
+        raise AssertionError(f"the decode path launched kernels: "
+                             f"{dict(kern.LAUNCHES)}")
+
+    # -- the oracle, and the other engines on the same prompts
+    ties = {}
+    oracle = []
+    t2 = time.perf_counter()
+    for (prompts, n), got in zip(requests, served_tokens):
+        lo = []
+        want = gen.generate_full_recompute(prompts, n, logits_out=lo)
+        oracle.append((want, lo))
+    oracle_s = time.perf_counter() - t2
+
+    def check(name, outs):
+        ties[name] = sum(tied_rows(torch, gen, p, o, w, lo)
+                         for (p, _), o, (w, lo) in zip(requests, outs,
+                                                       oracle))
+
+    check("http", served_tokens)
+    contiguous = Generator(net, paged=False, **kw)
+    check("contiguous", [contiguous.generate(p, n) for p, n in requests])
+    chunked = Generator(net, prefill_chunk=GEN_CHUNK, **kw)
+    chunk_stats = []
+
+    def chunked_run(p, n):
+        st = {}
+        out = chunked.generate(p, n, stats=st)
+        chunk_stats.append(st["prefill_chunks"])
+        return out
+
+    check("chunked", [chunked_run(p, n) for p, n in requests])
+    del chunked
+    draft = Bert.draft(vocab_size=30522, max_length=GEN_MAXLEN,
+                       seed=7).init(device="cuda")
+    spec = Generator(net, draft_net=draft, spec_tokens=GEN_SPEC_TOKENS, **kw)
+    spec_stats = []
+
+    def spec_run(gen_, p, n):
+        st = {}
+        out = gen_.generate(p, n, stats=st)
+        spec_stats.append((st["spec_accept_rate"], st["spec_rounds"]))
+        return out
+
+    t3 = time.perf_counter()
+    check("speculative", [spec_run(spec, p, n) for p, n in requests])
+    spec_s = time.perf_counter() - t3
+    del spec
+    self_spec = Generator(net, draft_net=net, spec_tokens=GEN_SPEC_TOKENS,
+                          **kw)
+    self_stats_from = len(spec_stats)
+    sub = requests[:2]
+    outs = [spec_run(self_spec, p, n) for p, n in sub]
+    ties["self_draft"] = sum(tied_rows(torch, gen, p, o, w, lo)
+                             for (p, _), o, (w, lo) in zip(sub, outs,
+                                                           oracle[:2]))
+    self_rates = [r for r, _ in spec_stats[self_stats_from:]]
+    # a self-draft accepts every proposal; the tie rule's budget (one in
+    # 32) covers a near tie that rounds apart between the draft's one-row
+    # step and the target's window
+    if min(self_rates) < 1.0 - 1.0 / 32:
+        raise AssertionError(f"a self-draft rejected proposals: {self_rates}")
+    del self_spec
+    # temperature: paged and contiguous draw the same samples from a seed
+    sampled_rows = differing = 0
+    for i, (p, n) in enumerate(requests[:4]):
+        a = gen.generate(p, n, temperature=0.8, key=50 + i)
+        b = contiguous.generate(p, n, temperature=0.8, key=50 + i)
+        sampled_rows += len(a)
+        differing += sum(x != y for x, y in zip(a, b))
+    if differing > max(1, sampled_rows // 32):
+        raise AssertionError(f"sampled paged/contiguous differ in "
+                             f"{differing} of {sampled_rows} rows")
+    del contiguous
+    torch.cuda.empty_cache()
+    prefix = prefix_cache_check(torch, np, net, kw)
+    torch.cuda.empty_cache()
+    int8 = int8_generate_check(torch, np, net, kw, GEN_DIR)
+    torch.cuda.empty_cache()
+    if any(kern.LAUNCHES.values()):
+        raise AssertionError(f"the decode engines launched kernels: "
+                             f"{dict(kern.LAUNCHES)}")
+    # -- rates, time to first token, the profiled step
+    rate_gen = Generator(net, **kw)
+    rates = decode_rates(torch, np, rate_gen, capture)
+    ttft = time_to_first_token(torch, np, rate_gen)
+    step = profile_decode_step(torch, np, rate_gen)
+    pool_fields = {"pool_blocks": gen.pool.num_blocks,
+                   "pool_blocks_with_trash": gen.pool.num_blocks + 1,
+                   "pool_slots": gen.pool.num_slots,
+                   "pool_bytes": gen.pool.pool_bytes(),
+                   "pool_bytes_with_trash": gen.pool.num_slots
+                   * gen.pool.bytes_per_token(),
+                   "bytes_per_token": gen.pool.bytes_per_token(),
+                   "contiguous_stream_ceiling":
+                   gen.pool.contiguous_stream_ceiling()}
+    fields = {
+        "model": "Bert.base(causal=True, task='mlm')", "seed": GEN_SEED,
+        "params": net.num_params(), "max_length": GEN_MAXLEN,
+        "batch_buckets": list(GEN_BUCKETS),
+        "prefill_buckets": list(GEN_SEQ_BUCKETS) + [GEN_MAXLEN],
+        "block_size": GEN_BLOCK, **pool_fields,
+        "warmup_s": warm_s, "warmup_programs": warm_programs,
+        "requests": [{"prompts": [len(x) for x in p], "max_new_tokens": n}
+                     for p, n in requests],
+        "http_batches": batches, "http_wall_s": serve_s,
+        "http_latency_s": [lat for _, lat in served],
+        "programs_after_warmup": steady_programs,
+        "kernel_launches": sum(kern.LAUNCHES.values()),
+        "oracle_wall_s": oracle_s, "tie_rule_rows": ties,
+        "rows_compared": sum(len(p) for p, _ in requests),
+        "chunked_prefill_chunks": chunk_stats,
+        "speculative_accept_rates": [r for r, _ in
+                                     spec_stats[:self_stats_from]],
+        "speculative_rounds": [r for _, r in spec_stats[:self_stats_from]],
+        "speculative_wall_s": spec_s,
+        "self_draft_accept_rates": self_rates,
+        "sampled_rows": sampled_rows, "sampled_rows_differing": differing,
+        "pool_exhaustion": shed, "prefix_cache": prefix, "int8": int8,
+        "decode_rates": rates, "time_to_first_token": ttft,
+        "profiled_decode_step": step,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit("generate", **fields)
+    return 0
+
+
+def serve_int8_leg(torch, np, card):
+    """Leg serve_int8 of phase 22i: full-width ResNet-50 served with
+    quantize="int8" over HTTP, every K1 launch checked, the answers against
+    the same net with its params set to the dequantized leaves on the
+    plain path; the largest probability difference from fp32 serving and
+    the top-1 agreement beside them."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import QuantizedParams
+    from deeplearning4j_tpu_torch.tree import tree_copy_
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    deq = ResNet50().init(device="cuda")  # the dequantized leaves' net
+    qp = QuantizedParams.from_params(net.params).device_put("cuda")
+    tree_copy_(deq.params, qp.rebuild())
+    tree_copy_(deq.states, net.states)
+    fields, launches, checked = serve_and_check(
+        torch, np, net, "resnet50_int8", (224, 224, 3), 53,
+        quantize="int8", ref_net=deq)
+    rng = np.random.default_rng(12345)
+    x = torch.from_numpy(rng.integers(-8, 9, size=(16, 224, 224, 3)).astype(
+        np.float32) / 4).cuda()
+    with kern.impl_scope("exact"):
+        p32 = net.output(x)
+        p8 = deq.output(x)
+    emit("serve_int8", model="ResNet50", quantize="int8", input=[224, 224, 3],
+         **fields, weight_bytes_resident=qp.resident_bytes(),
+         weight_bytes_fp32=qp.fp32_bytes(),
+         quantized_fraction=qp.quantized_fraction(),
+         max_prob_diff_vs_fp32=float((p8 - p32).abs().max()),
+         top1_agreement_vs_fp32=float(
+             (p8.argmax(-1) == p32.argmax(-1)).float().mean()),
+         rows_vs_fp32=16, card=card)
+    return launches, checked
+
+
 def lstm_entry(cell_records, seq_records, launches, train_checked,
                sample_launches, sample_checked, bodies, card):
     """K4's line of the kernels table: the segment kernel the main paths
@@ -7674,6 +8320,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_launches, dp_checks = timed("data_pipeline", data_pipeline_phase,
                                    torch, np, smi)
+    torch.cuda.empty_cache()
+    gen_launches = timed("generate", generate_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    with capture.disabled():
+        int8_launches, int8_checked = timed("serve_int8", serve_int8_leg,
+                                            torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -7801,6 +8453,9 @@ def main() -> int:
         "library_ms_bf16": total("bf16", "library_ms"),
         **{f"serve_{k}": v for k, v in checked_fields(
             "conv2d_fwd", serve_checked).items()},
+        "launches_serve_int8": int8_launches,
+        **{f"serve_int8_{k}": v for k, v in checked_fields(
+            "conv2d_fwd", int8_checked).items()},
         **{f"train_{k}": v for k, v in checked_fields(
             "conv2d_fwd", train_checked).items()},
         "launches_captured": {
@@ -7813,7 +8468,9 @@ def main() -> int:
         "per": "one 224x224 ResNet-50 forward at batch 8 (its 53 launches "
                "summed), fp32 unless suffixed _bf16; ms by CUDA graph "
                "replay, eager_ms by a Python loop; launches from the serve "
-               "phase (53 per executed chunk), launches_train from the train phase's 4 "
+               "phase (53 per executed chunk), launches_serve_int8 from the "
+               "int8 ResNet-50 served in serve_int8 (53 per chunk), "
+               "launches_train from the train phase's 4 "
                "fit steps; serve_/train_checked_*: every launch of those "
                "paths (and of one bf16 fit step) against the plain version",
         "card": smi},
@@ -7884,6 +8541,8 @@ def main() -> int:
             f"{leg}_{part}": checked_fields(e["name"], c)
             for leg, parts in dp_checks.items() for part, c in parts.items()
             if checked_fields(e["name"], c)}
+    for e in entries:  # the decode tier runs no kernel (exact attention)
+        e["launches_generate"] = gen_launches
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

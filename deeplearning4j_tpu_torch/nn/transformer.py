@@ -20,9 +20,18 @@ the reference's ``_flash_bwd`` as its backward). In training it applies
 twice from the network's generator (the reference splits its key in two);
 ``attn_dropout`` is kept as config and, as in the reference, never applied.
 The embedding applies its ``dropout`` to its output in training, as the
-reference does. Not ported yet: ``embed_step``/``embed_window``,
-``prefill``/``decode_step`` and the paged methods (the generate serving
-slice).
+reference does.
+
+The decode tier (``serving/generate.py``) runs the block's cache methods:
+``prefill``/``decode_step`` over a contiguous (B, H, max_length, Dh) cache
+and ``prefill_paged``/``prefill_resume_paged``/``decode_window_paged``
+over a slot-flat paged pool, with the embedding's ``embed_step``/
+``embed_window``. They share ``_qkv``, ``_proj_out`` and ``_finish`` with
+``apply``, and the prompt's attention is the exact one, never the flash
+kernel, so paged, contiguous and full-recompute decode compute the same
+rows. Unlike the reference's, which return new buffers (its executables
+donate them), these write the cache or pool in place and return it: the
+buffers are static state of the serving programs.
 """
 
 from __future__ import annotations
@@ -99,6 +108,22 @@ class BertEmbeddingLayer(Layer):
              + _take(params["type"], segments))
         h = _layer_norm(h, params["gamma"], params["beta"])
         return self._maybe_dropout(h, training, gen), state
+
+    def embed_step(self, params, tokens, positions):
+        """One decode step's embedding (reference ``:81``): ``tokens``
+        (B,) at per-row ``positions`` (B,) -> (B, H), the word + position +
+        type-0 sum and layer norm of :meth:`apply`, so a token embedded on
+        its own matches the whole sequence's embedding at its position."""
+        return self.embed_window(params, tokens, positions)
+
+    def embed_window(self, params, tokens, positions):
+        """A window's embedding (reference ``:92``): ``tokens`` (B, W) at
+        per-row ``positions`` (B, W) -> (B, W, H), every token as
+        :meth:`embed_step` embeds it."""
+        h = (_take(params["word"], tokens.to(torch.int64))
+             + _take(params["pos"], positions.to(torch.int64))
+             + params["type"][0])
+        return _layer_norm(h, params["gamma"], params["beta"])
 
     def output_shape(self, input_shape):
         return (input_shape[0], self.hidden_size)
@@ -212,6 +237,132 @@ class TransformerEncoderBlock(Layer):
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out, state
+
+    # --------------------------------------------------- KV-cache decoding
+
+    def _require_causal(self):
+        if not self.causal:
+            raise ValueError("prefill/decode_step need causal=True blocks")
+
+    def _prompt_attention(self, q, k, v, mask):
+        """The prompt's causal attention: the exact path, as the
+        reference's prefill takes it, whatever ``flash`` says."""
+        amask = None if mask is None else mask[:, None, None, :].to(
+            torch.bool)
+        return attn_ops.dot_product_attention(q, k, v, mask=amask,
+                                              causal=True)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None):
+        """An empty K/V cache of ``batch`` rows and ``max_len`` positions
+        (reference ``:228``): two distinct (B, H, max_len, Dh) buffers."""
+        dh = self.hidden_size // self.n_heads
+        shape = (batch, self.n_heads, max_len, dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def prefill(self, params, x, cache, mask=None):
+        """Causal forward over the prompt (B, T, H), writing positions
+        [0, T) of ``cache`` in place (reference ``:238``); returns (out,
+        cache). ``mask``: the (B, T) padding mask. Padding positions write
+        values that every later read masks out, and generation overwrites
+        position ``length`` before attending to it."""
+        self._require_causal()
+        q, k, v = self._qkv(params, self._attn_input(params, x))
+        t = x.shape[1]
+        cache["k"][:, :, :t] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :t] = v.to(cache["v"].dtype)
+        o = self._prompt_attention(q, k, v, mask)
+        return self._finish(params, x, self._proj_out(params, o)), cache
+
+    def decode_step(self, params, x_t, cache, positions):
+        """One autoregressive step (reference ``:349``): ``x_t`` (B, 1, H)
+        at per-row ``positions`` (B,). Writes this step's K/V at each row's
+        position, in place, and attends the query over ``k_pos <=
+        position``. Returns (out (B, 1, H), cache)."""
+        q, k, v = self._qkv(params, self._attn_input(params, x_t))
+        length = cache["k"].shape[2]
+        rows = torch.arange(x_t.shape[0], device=x_t.device)
+        pos = positions.to(torch.int64)
+        cache["k"][rows, :, pos] = k[:, :, 0].to(cache["k"].dtype)
+        cache["v"][rows, :, pos] = v[:, :, 0].to(cache["v"].dtype)
+        keys = torch.arange(length, device=x_t.device)
+        amask = (keys[None, :] <= pos[:, None])[:, None, None, :]
+        o = attn_ops.dot_product_attention(q, cache["k"], cache["v"],
+                                           mask=amask)
+        return self._finish(params, x_t, self._proj_out(params, o)), cache
+
+    # ------------------------------------------------- paged KV-cache path
+
+    def init_pool(self, num_slots: int, dtype=torch.float32, device=None):
+        """An empty slot-flat K/V pool of this layer (reference ``:270``):
+        two distinct (S, H, Dh) buffers."""
+        dh = self.hidden_size // self.n_heads
+        shape = (num_slots, self.n_heads, dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _pool_write(self, pool, slots_flat, k, v):
+        """Scatter (N, H, Dh) K/V rows at flat slots (N,), in place
+        (reference ``:279``). Collisions happen only in the trash block,
+        garbage on garbage that every read masks out."""
+        idx = slots_flat.to(torch.int64)
+        pool["k"][idx] = k.to(pool["k"].dtype)
+        pool["v"][idx] = v.to(pool["v"].dtype)
+        return pool
+
+    def _rows(self, t):
+        """(B, nh, T, dh) -> (B * T, nh, dh), the pool's row layout."""
+        b, nh, w, dh = t.shape
+        return t.permute(0, 2, 1, 3).reshape(b * w, nh, dh)
+
+    def prefill_paged(self, params, x, pool, slots, mask=None):
+        """Causal forward over the prompt (B, T, H), scattering each
+        position's K/V into the paged ``pool`` at ``slots`` (B, T)
+        (reference ``:288``); the attention runs over the projected q/k/v
+        as :meth:`prefill`'s does, so the hidden states are the contiguous
+        prefill's."""
+        self._require_causal()
+        q, k, v = self._qkv(params, self._attn_input(params, x))
+        self._pool_write(pool, slots.reshape(-1), self._rows(k),
+                         self._rows(v))
+        o = self._prompt_attention(q, k, v, mask)
+        return self._finish(params, x, self._proj_out(params, o)), pool
+
+    def prefill_resume_paged(self, params, x_w, pool, slots, positions,
+                             limits=None):
+        """Prefill of a prompt's suffix (reference ``:306``): ``x_w``
+        (B, W, H) at per-row absolute ``positions`` (B, W), resuming where
+        each stream's prefix-cache hit ends, against the K/V its cached
+        blocks hold. Write-then-attend through the page table with each
+        query masked to ``k_pos <= position`` is the verify window's rule,
+        so it is :meth:`decode_window_paged`; ``limits`` is each row's last
+        prompt position (later columns write to the trash block)."""
+        return self.decode_window_paged(params, x_w, pool, slots, positions,
+                                        limits=limits)
+
+    def decode_window_paged(self, params, x_w, pool, slots, positions,
+                            limits=None):
+        """W autoregressive steps in one call (reference ``:324``):
+        ``x_w`` (B, W, H) at per-row ``positions`` (B, W). Writes the
+        window's K/V at each token's slot, then attends each query over
+        ``k_pos <= position`` through the page table. W = 1 is the decode
+        step, W > 1 the speculative verify window. ``limits`` (B,): each
+        stream's last valid position; writes past it go to the trash
+        block. Returns (out (B, W, H), pool)."""
+        q, k, v = self._qkv(params, self._attn_input(params, x_w))
+        pos = positions.to(torch.int64)
+        # a column past the table (a verify window overhanging max_length)
+        # reads the last slot's index and, past its limit, writes to trash
+        wslots = torch.gather(slots.to(torch.int64), 1,
+                              pos.clamp(max=slots.shape[1] - 1))
+        if limits is not None:
+            wslots = torch.where(pos <= limits.to(torch.int64)[:, None],
+                                 wslots, 0)
+        self._pool_write(pool, wslots.reshape(-1), self._rows(k),
+                         self._rows(v))
+        o = attn_ops.paged_attention(q, pool["k"], pool["v"], slots, pos)
+        return self._finish(params, x_w, self._proj_out(params, o)), pool
 
     def output_shape(self, input_shape):
         return (input_shape[0], self.hidden_size)

@@ -26,9 +26,11 @@ both paths.
 - :func:`multi_head_dot_product_attention` (reference ``:465``) projects
   [B, T, F] sequences into heads and takes flash or exact attention by
   :func:`resolve_flash`.
-
-Not ported yet: the paged functions (``paged_kv_gather``,
-``paged_attention``), which come with the generate serving slice.
+- :func:`paged_kv_gather` and :func:`paged_attention` (reference
+  ``:506``, ``:522``) are the decode tier's attention over a slot-flat
+  paged K/V pool (``serving/paged.py``): a gather into the contiguous
+  cache's layout and the exact attention, plain PyTorch as in the
+  reference, which runs no kernel there either.
 """
 
 from __future__ import annotations
@@ -182,3 +184,40 @@ def multi_head_dot_product_attention(queries, keys, values, Wq, Wk, Wv, Wo,
         o = dot_product_attention(q, k, v, mask=amask, scale=scale,
                                   causal=causal)
     return _merge_heads(o) @ Wo
+
+
+# ---------------------------------------------------------------------------
+# Paged KV-cache attention (serving/paged.py)
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_gather(pool, slots):
+    """Per-stream K or V rows of a slot-flat block pool (reference
+    ``:506``).
+
+    ``pool``: (S, H, Dh), every block's token slots of ONE layer, block
+    ``b`` at slots ``[b * block_size, (b + 1) * block_size)``. ``slots``:
+    (B, L) integer, each stream's page table expanded to one flat slot per
+    logical position (unallocated positions point into the trash block,
+    which the caller's position mask keeps out of every softmax). Returns
+    (B, H, L, Dh): the layout a contiguous cache holds, so the attention
+    downstream is the contiguous path's."""
+    return pool[slots.long()].permute(0, 2, 1, 3)
+
+
+def paged_attention(q, k_pool, v_pool, slots, positions, scale=None):
+    """One decode or verify attention over a paged K/V pool (reference
+    ``:522``).
+
+    ``q``: (B, H, W, Dh), W query tokens a stream (1 for a decode step,
+    the window for a speculative verify, a prompt chunk for a resumed or
+    chunked prefill). ``positions``: (B, W), each query token's logical
+    position; key position ``p`` is attended iff ``p <= positions[b, w]``,
+    the contiguous ``decode_step``'s rule. The gather is read-only and
+    masked per stream, so several streams' tables may map the same
+    physical (prefix-cache) blocks."""
+    kk = paged_kv_gather(k_pool, slots)
+    vv = paged_kv_gather(v_pool, slots)
+    keys = torch.arange(kk.shape[2], device=q.device)
+    amask = (keys[None, None, :] <= positions[:, :, None])[:, None]
+    return dot_product_attention(q, kk, vv, mask=amask, scale=scale)

@@ -1,5 +1,5 @@
 """Gradient-compression ops: threshold, one-bit and bitmap encodings, and
-the weight-only int8 pair (counterpart of
+the weight-only int8 pair with its host-side helpers (counterpart of
 deeplearning4j_tpu/ops/compression.py).
 
 The encoded buffers are exchanged between ranks, so they equal the
@@ -114,3 +114,20 @@ def quantize_per_channel(x, scale):
 @op("dequantize_per_channel", "compression")
 def dequantize_per_channel(q, scale):
     return C.t(q).to(torch.float32) * C.t(scale, q).to(torch.float32)
+
+
+def dequantize_np(q, scale) -> np.ndarray:
+    """Host-side twin of :func:`dequantize_per_channel` (reference
+    ``:174``): the one dequantize expression the int8 archive's restore and
+    the serving stash check share."""
+    return np.asarray(q, np.float32) * np.asarray(scale, np.float32)
+
+
+def channel_scale(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Host-side per-channel scale (reference ``:183``): ``amax(|x|) /
+    127`` over every axis but ``axis``, keepdims; a zero channel gets
+    scale 1, so it dequantizes to exact zeros."""
+    x = np.asarray(x, np.float32)
+    axes = tuple(i for i in range(x.ndim) if i != (axis % x.ndim))
+    s = np.amax(np.abs(x), axis=axes, keepdims=True) / 127.0
+    return np.where(s == 0, 1.0, s).astype(np.float32)

@@ -13,9 +13,13 @@ or a non-finite canary raises :class:`ReloadRejectedError` and leaves it
 serving too. Archives restore onto the device given at construction (the
 card unless the caller names another).
 
-Not ported yet: int8 serving (``quantize=``) and speculative decoding
-(``draft_path=``), which are ROADMAP Queue 1 item 11; archive watching
-(``watch``, same item); drain and brownout.
+``load(quantize="int8")`` serves weight-only int8 (an int8 archive's own
+quantization, bit for bit; an fp32 archive quantized at load), and
+``load(draft_path=)`` restores a draft net from its own archive for a
+generate model's speculative decoding.
+
+Not ported yet (ROADMAP Queue 1 item 11b): archive watching (``watch``),
+drain, brownout, metrics collection and the flight snapshot.
 """
 
 from __future__ import annotations
@@ -28,7 +32,13 @@ from deeplearning4j_tpu_torch.serving.resilience import (ModelLoadError,
                                                          ReloadRejectedError)
 from deeplearning4j_tpu_torch.serving.scheduler import BatchScheduler
 
-_ITEM_11 = "ROADMAP.md Queue 1 item 11 (int8 serving, speculative decode)"
+_ITEM_11B = "ROADMAP.md Queue 1 item 11b (resilience and fleet)"
+
+
+#: load() keywords that configure the ServingModel, not the scheduler
+_MODEL_KW = ("bucketing", "max_length", "prefill_buckets", "paged",
+             "block_size", "pool_blocks", "prefix_cache", "prefill_chunk",
+             "spec_tokens")
 
 
 class UnknownModelError(KeyError):
@@ -79,16 +89,20 @@ class ModelRouter:
              quantize: Optional[str] = None,
              draft_path: Optional[str] = None, **kw) -> BatchScheduler:
         """Restore a ModelSerializer archive and register it under
-        ``model_id``; ``kw`` goes to :meth:`register` (scheduler knobs) or
-        to :class:`ServingModel` (``bucketing``). A corrupt archive raises
+        ``model_id`` (reference ``:102-127``); ``kw`` goes to
+        :meth:`register` (scheduler knobs) or to :class:`ServingModel`
+        (bucketing and the decode engine's knobs). ``quantize="int8"``
+        serves weight-only int8; ``draft_path`` restores the draft net of
+        a generate model's speculative decoding. A corrupt archive raises
         :class:`ModelLoadError` and registers nothing."""
-        if quantize is not None or draft_path is not None:
-            raise NotImplementedError(
-                f"load(quantize=, draft_path=) is not ported: {_ITEM_11}")
         net = self._restore_archive(path, f"load {model_id!r}")
-        model_kw = {k: kw.pop(k) for k in ("bucketing",) if k in kw}
+        model_kw = {k: kw.pop(k) for k in _MODEL_KW if k in kw}
+        if draft_path is not None:
+            model_kw["draft_net"] = self._restore_archive(
+                draft_path, f"load {model_id!r} draft")
         return self.register(ServingModel(net, model_id, kind=kind,
-                                          **model_kw), **kw)
+                                          quantize=quantize, **model_kw),
+                             **kw)
 
     def reload(self, model_id: str, path: str, *, canary=None) -> int:
         """Rolling weight reload (see the module doc); returns the new
@@ -117,7 +131,7 @@ class ModelRouter:
 
     def watch(self, model_id: str, path: str, interval_s: float = 1.0):
         raise NotImplementedError(
-            f"watch (archive following) is not ported: {_ITEM_11}")
+            f"watch (archive following) is not ported: {_ITEM_11B}")
 
     def get(self, model_id: str) -> Tuple[ServingModel, BatchScheduler]:
         with self._lock:
@@ -131,10 +145,12 @@ class ModelRouter:
             return list(self._models)
 
     def submit(self, model_id: str, payload, *, lane: str = "interactive",
-               deadline_ms: Optional[float] = None):
-        """Route one request to its model's scheduler; returns a Future."""
+               deadline_ms: Optional[float] = None, **opts):
+        """Route one request (and its options) to its model's scheduler;
+        returns a Future."""
         _model, sched = self.get(model_id)
-        return sched.submit(payload, lane=lane, deadline_ms=deadline_ms)
+        return sched.submit(payload, lane=lane, deadline_ms=deadline_ms,
+                            **opts)
 
     def warmup(self) -> int:
         """Warm every registered model's buckets; returns the total run."""

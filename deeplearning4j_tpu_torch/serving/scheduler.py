@@ -14,9 +14,24 @@ them into device batches:
   is shed with :class:`DeadlineExceededError`. Both are
   :class:`ShedError`\\ s, which the HTTP layer answers with 429.
 
-A failing batch fails its requests, never the worker. Not ported yet: the
-circuit breaker, brownout, worker watchdog, fault injection, request ids
-and tracing, the flight recorder and telemetry (see ROADMAP.md).
+- **options**: per-request options (a generate request's
+  ``max_new_tokens``, ``temperature``, ``eos_id``) go to ``model.execute``;
+  only requests with equal options share a batch.
+- **execute-time sheds**: a :class:`ShedError` raised by the batch itself
+  (the paged KV pool's :class:`PoolExhaustedError`) sheds its requests
+  with 429 and the error's ``shed_reason``, instead of failing them.
+- **chunked prefill**: a batch of a non-priority lane on a model that
+  chunks its prefill (``supports_chunked_prefill``) gets
+  :meth:`BatchScheduler._drain_priority_once` as its yield hook, run
+  between prompt chunks, so queued interactive batches do not wait for a
+  long prompt.
+
+A failing batch fails its requests, never the worker. The batch stats a
+generate model reports (``draft_accept_rate`` per request,
+``prefix_hit_rate``, ``spec_accept_rate``) are kept as the latest of each
+in :meth:`BatchScheduler.stats`. Not ported yet (ROADMAP Queue 1 item
+11b): the circuit breaker, brownout, worker watchdog, drain, fault
+injection, request ids and tracing, the flight recorder and telemetry.
 """
 
 from __future__ import annotations
@@ -28,28 +43,11 @@ import time
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
 
+from deeplearning4j_tpu_torch.serving.resilience import (  # noqa: F401
+    DeadlineExceededError, PoolExhaustedError, QueueFullError,
+    SchedulerStoppedError, ShedError)
+
 LANES = ("interactive", "batch")  # priority order, first drains first
-
-
-class ShedError(RuntimeError):
-    """A request refused instead of run (HTTP 429 + Retry-After)."""
-
-    http_status = 429
-    retry_after_s = 1.0
-
-
-class QueueFullError(ShedError):
-    pass
-
-
-class DeadlineExceededError(ShedError):
-    pass
-
-
-class SchedulerStoppedError(ShedError):
-    """The scheduler was shut down (HTTP 503)."""
-
-    http_status = 503
 
 
 @dataclasses.dataclass
@@ -60,6 +58,11 @@ class _Request:
     lane: str
     t_enqueue: float                 # monotonic
     deadline: Optional[float]        # absolute monotonic, or None
+    opts: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def opts_key(self) -> tuple:
+        return tuple(sorted(self.opts.items()))
 
 
 class BatchScheduler:
@@ -79,20 +82,24 @@ class BatchScheduler:
         self._stop = False
         #: batches / completed / errors / shed_<reason> totals
         self.counts: collections.Counter = collections.Counter()
+        #: the latest generate batch's stats (accept and hit rates)
+        self.last_batch_stats: Dict[str, Any] = {}
 
     # ------------------------------------------------------------ admission
     def submit(self, payload, *, lane: str = "interactive",
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None, **opts) -> Future:
         """Enqueue one request; returns a Future of the model result.
-        Raises a :class:`ShedError` instead of queueing when the scheduler
-        is stopped or the queue is full."""
+        ``opts`` go to ``model.execute`` (requests share a batch only with
+        equal options). Raises a :class:`ShedError` instead of queueing
+        when the scheduler is stopped or the queue is full."""
         if lane not in self._queues:
             raise ValueError(f"unknown lane {lane!r} (have {LANES})")
         now = time.monotonic()
         req = _Request(
             payload=payload, rows=self.model.payload_rows(payload),
             future=Future(), lane=lane, t_enqueue=now,
-            deadline=None if deadline_ms is None else now + deadline_ms / 1e3)
+            deadline=None if deadline_ms is None else now + deadline_ms / 1e3,
+            opts=dict(opts))
         with self._cv:
             if self._stop:
                 self.counts["shed_stopped"] += 1
@@ -134,12 +141,15 @@ class BatchScheduler:
         return self
 
     def _fill_batch_locked(self, batch: List[_Request]) -> int:
-        """Admit queued requests, highest lane first, until the next one
-        would pass ``max_batch`` rows; returns the batch's rows."""
+        """Admit queued requests with the batch's options, highest lane
+        first, until the next one would pass ``max_batch`` rows; returns
+        the batch's rows."""
         rows = sum(r.rows for r in batch)
+        key = batch[0].opts_key
         for lane in LANES:
             q = self._queues[lane]
-            while q and rows + q[0].rows <= self.max_batch:
+            while q and rows + q[0].rows <= self.max_batch \
+                    and q[0].opts_key == key:
                 req = self._take_locked(q)
                 if req is not None:
                     batch.append(req)
@@ -173,10 +183,45 @@ class BatchScheduler:
                     self._cv.wait(timeout=remaining)
             self._run_batch(batch)
 
+    def _drain_priority_once(self):
+        """Chunked-prefill yield hook (reference ``:717``): between an
+        outer batch's prompt chunks, run up to two queued batches of the
+        priority lane. Wired only into non-priority batches
+        (:meth:`_run_batch`), so an interactive batch never yields and the
+        nesting is one deep."""
+        ran = 0
+        while ran < 2:
+            inner: List[_Request] = []
+            with self._cv:
+                q = self._queues[LANES[0]]
+                while q and not inner:
+                    req = self._take_locked(q)
+                    if req is not None:
+                        inner.append(req)
+                if not inner:
+                    break
+                self._fill_batch_locked(inner)
+            self._run_batch(inner)
+            ran += 1
+        if ran:
+            self.counts["prefill_yield_preemptions"] += ran
+
     def _run_batch(self, batch: List[_Request]):
         self.counts["batches"] += 1
+        extra = {}
+        if (batch[0].lane != LANES[0]
+                and getattr(self.model, "supports_chunked_prefill", False)):
+            extra["_yield"] = self._drain_priority_once
         try:
-            results, _stats = self.model.execute([r.payload for r in batch])
+            results, stats = self.model.execute(
+                [r.payload for r in batch], **extra, **batch[0].opts)
+        except ShedError as e:  # an execute-time shed (pool exhausted)
+            reason = getattr(e, "shed_reason", "shed")
+            for req in batch:
+                self.counts[f"shed_{reason}"] += 1
+                if req.future.set_running_or_notify_cancel():
+                    req.future.set_exception(e)
+            return
         except Exception as e:  # a bad batch fails its requests only
             for req in batch:
                 self.counts["errors"] += 1
@@ -187,6 +232,11 @@ class BatchScheduler:
             self.counts["completed"] += 1
             if req.future.set_running_or_notify_cancel():
                 req.future.set_result(res)
+        kept = {k: stats[k] for k in ("draft_accept_rate", "spec_accept_rate",
+                                      "prefix_hit_rate", "prefill_chunks")
+                if stats.get(k) is not None}
+        if kept:
+            self.last_batch_stats = kept
 
     # ----------------------------------------------------------- lifecycle
     def shutdown(self):
@@ -209,5 +259,8 @@ class BatchScheduler:
     def stats(self) -> dict:
         with self._cv:
             depth = self._depth_locked()
-        return {"queue_depth": depth, "max_batch": self.max_batch,
-                "counts": dict(self.counts)}
+        out = {"queue_depth": depth, "max_batch": self.max_batch,
+               "counts": dict(self.counts)}
+        if self.last_batch_stats:
+            out["last_batch"] = dict(self.last_batch_stats)
+        return out

@@ -2,19 +2,24 @@
 deeplearning4j_tpu/serving/server.py). A stdlib ``ThreadingHTTPServer``
 over a :class:`~deeplearning4j_tpu_torch.serving.router.ModelRouter`:
 
-    POST /v1/models/<id>/infer   {"inputs": [[...], ...]}  -> {"outputs": ...}
-    GET  /v1/models              registry and per-model scheduler counts
-    GET  /healthz                {"ok": true, "models": [...]}
+    POST /v1/models/<id>/infer     {"inputs": [[...], ...]}  -> {"outputs": ...}
+    POST /v1/models/<id>/generate  {"prompt_tokens": [[...], ...],
+                                    "max_new_tokens": 16}    -> {"tokens": ...}
+    GET  /v1/models                registry and per-model scheduler counts
+    GET  /healthz                  {"ok": true, "models": [...]}
 
 Connections persist (HTTP/1.1 with ``Content-Length`` on every response),
 and every POST reads its whole body before answering. Status codes follow
 the reference: an unknown model answers 404, a malformed body 400, a shed
-request 429 (503 once stopped) with ``Retry-After``, a failed batch 500,
-and ``generate`` 501 until its slice is ported.
+request 429 (503 once stopped) with ``Retry-After`` (a generate batch the
+paged KV pool cannot hold among them), a failed batch 500. A generate body
+takes ``prompt_tokens`` (one prompt or a list; ``prompts`` also reads),
+``max_new_tokens``, ``temperature``, ``eos_id``, ``lane`` (default
+``"batch"``) and ``deadline_ms``; each prompt is one scheduler request.
 
-Not ported yet: request ids (``X-Request-Id``), drain signals and
-``/admin``, ``/metrics``, ``/slo``, the flight-recorder route and
-``reload``.
+Not ported yet (ROADMAP Queue 1 item 11b): request ids
+(``X-Request-Id``), drain signals and ``/admin``, ``/metrics``, ``/slo``,
+the flight-recorder route and ``reload``.
 """
 
 from __future__ import annotations
@@ -85,6 +90,34 @@ class ModelServer:
         out = fut.result(timeout=self.request_timeout_s)
         return {"model": model_id, "outputs": np.asarray(out).tolist()}
 
+    def _handle_generate(self, model_id: str, body: dict) -> dict:
+        """The generate route (reference ``:186``): each prompt one
+        scheduler request with the body's options; on a shed or timeout
+        the prompts still queued are cancelled."""
+        prompts = body.get("prompt_tokens", body.get("prompts"))
+        if prompts is None:
+            raise ValueError("generate needs prompt_tokens")
+        if prompts and isinstance(prompts[0], (int, float)):
+            prompts = [prompts]  # one prompt
+        opts = {"max_new_tokens": int(body.get("max_new_tokens", 16))}
+        if body.get("temperature"):
+            opts["temperature"] = float(body["temperature"])
+        if body.get("eos_id") is not None:
+            opts["eos_id"] = int(body["eos_id"])
+        futs = []
+        try:
+            for p in prompts:
+                futs.append(self.router.submit(
+                    model_id, np.asarray(p, np.int64),
+                    lane=body.get("lane", "batch"),
+                    deadline_ms=body.get("deadline_ms"), **opts))
+            toks = [f.result(timeout=self.request_timeout_s) for f in futs]
+        except Exception:
+            for f in futs:
+                f.cancel()
+            raise
+        return {"model": model_id, "tokens": toks}
+
 
 def _make_handler(server: ModelServer):
 
@@ -127,13 +160,10 @@ def _make_handler(server: ModelServer):
             model_id, verb = parts[2], parts[3]
             try:
                 server.router.get(model_id)
-                if verb == "generate":
-                    self._send_json(501, {
-                        "error": "generate is not ported yet: it comes "
-                                 "with the generate serving slice"})
-                    return
-                self._send_json(200, server._handle_infer(
-                    model_id, json.loads(raw or b"{}")))
+                body = json.loads(raw or b"{}")
+                handle = (server._handle_generate if verb == "generate"
+                          else server._handle_infer)
+                self._send_json(200, handle(model_id, body))
             except UnknownModelError as e:
                 self._send_json(404, {"error": f"unknown model {e}"})
             except ShedError as e:

@@ -74,3 +74,17 @@ def tree_copy_(dst, src) -> None:
     for (_, d), (_, s) in zip(tree_items(dst), tree_items(src)):
         if d.data_ptr() != s.data_ptr():
             d.copy_(s)
+
+
+def tree_with(tree, leaves: dict, prefix: Path = ()):
+    """A tree shaped as ``tree`` whose leaf at each path is
+    ``leaves[path]`` (the paths of :func:`tree_items`, in any order)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_with(v, leaves, prefix + (k,))
+                for k, v in tree.items()}
+    if _is_node(tree):
+        return type(tree)(tree_with(v, leaves, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return leaves[prefix]

@@ -24,8 +24,14 @@ Within the port a restored net resumes bit for bit; the generator state
 is taken only onto a device of the type it was saved from (on another it
 stays seeded from ``conf.seed``).
 
-Int8 serving archives (``quantize="int8"``) are ROADMAP Queue 1 item 11:
-writing one, or restoring one, raises NotImplementedError.
+Int8 serving archives (``write_model(..., quantize="int8")``, reference
+``:86-121``): the weight matrices and tables as int8 with per-channel fp32
+scales in ``quantScales.npz`` (size-0 arrays for the pass-through leaves),
+no updater state. A restore dequantizes them into an fp32 net and keeps
+the stored leaves on ``net._int8_archive`` (reference ``:241-259``), so
+``ModelRouter.load(quantize="int8")`` serves the archive's own
+quantization, bit for bit. Either package restores the other's int8
+archives.
 
 Restores build the net on ``device`` (CUDA unless the caller names
 another, as at every entry point) and copy each archived leaf into the
@@ -52,10 +58,7 @@ _UPDATER = "updaterState.npz"
 _META = "meta.json"
 _NORMALIZER = "normalizer.json"
 _GENERATOR = "torchGenerator.npz"
-
-#: ROADMAP's name for the int8 serving archives
-_INT8 = ("int8 archives come with the int8 serving slice (ROADMAP.md "
-         "Queue 1 item 11, serving/quantize.py)")
+_SCALES = "quantScales.npz"  # int8 archives: per-channel scales
 
 
 # --------------------------------------------------------------- the trees
@@ -186,19 +189,36 @@ class ModelSerializer:
     def write_model(model, path: str, save_updater: bool = True,
                     normalizer=None, quantize: Optional[str] = None) -> None:
         """Write ``model`` to ``path`` (atomically). ``quantize="int8"``
-        raises NotImplementedError (ROADMAP item 11)."""
-        if quantize == "int8":
-            raise NotImplementedError(f"write_model(quantize='int8'): {_INT8}")
-        if quantize is not None:
+        writes a weight-only int8 serving archive (module doc) and no
+        updater state."""
+        if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
+        snap = ModelSerializer.snapshot(model, save_updater and
+                                        quantize is None)
+        if quantize == "int8":
+            from deeplearning4j_tpu_torch.serving.quantize import \
+                QuantizedParams
+
+            qp = QuantizedParams.from_params(snap["params"])
+            snap["meta"].update(quantize="int8", fp32_bytes=qp.fp32_bytes())
+            snap["int8"] = qp
         ModelSerializer._write_zip(path, ModelSerializer._entries(
-            ModelSerializer.snapshot(model, save_updater), normalizer))
+            snap, normalizer))
 
     @staticmethod
     def _entries(snap: dict, normalizer=None) -> list:
-        entries = [(_CONFIG, snap["conf_json"]),
-                   (_COEFF, _savez(_leaves(snap["params"]))),
-                   (_STATE, _savez(_leaves(snap["states"])))]
+        qp = snap.get("int8")
+        if qp is None:
+            entries = [(_CONFIG, snap["conf_json"]),
+                       (_COEFF, _savez(_leaves(snap["params"]))),
+                       (_STATE, _savez(_leaves(snap["states"])))]
+        else:  # pass-through leaves' scales ride as size-0 arrays
+            entries = [(_CONFIG, snap["conf_json"]),
+                       (_COEFF, _savez(qp.qleaves)),
+                       (_SCALES, _savez([
+                           np.zeros(0, np.float32) if sc is None else sc
+                           for sc in qp.scales])),
+                       (_STATE, _savez(_leaves(snap["states"])))]
         if snap.get("opt_states") is not None:
             entries.append((_UPDATER, _savez(_leaves(snap["opt_states"]))))
         entries.append((_META, json.dumps(snap["meta"])))
@@ -267,8 +287,6 @@ class ModelSerializer:
             if expect_type and meta["type"] != expect_type:
                 raise ValueError(
                     f"archive holds a {meta['type']}, expected {expect_type}")
-            if meta.get("quantize") == "int8":
-                raise NotImplementedError(f"restoring {path!r}: {_INT8}")
             cfg_json = zf.read(_CONFIG).decode()
             if meta["type"] == "MultiLayerNetwork":
                 net = MultiLayerNetwork(
@@ -283,7 +301,10 @@ class ModelSerializer:
                     "checkpoint param structure does not match the model "
                     "built from its configuration (corrupt or hand-edited "
                     "archive)")
-            _refill("param", net.params, _loadz(zf.read(_COEFF)))
+            if meta.get("quantize") == "int8":
+                ModelSerializer._restore_int8(zf, net)
+            else:
+                _refill("param", net.params, _loadz(zf.read(_COEFF)))
             _refill("state", net.states, _loadz(zf.read(_STATE)))
             names = zf.namelist()
             if load_updater and meta.get("has_updater_state") and \
@@ -299,6 +320,24 @@ class ModelSerializer:
                 net._gen.set_state(torch.from_numpy(state.copy()))
         net._drop_programs()
         return net
+
+    @staticmethod
+    def _restore_int8(zf, net) -> None:
+        """An int8 archive's params, dequantized into the fp32 net, and
+        the stored leaves stashed on ``net._int8_archive`` (reference
+        ``:241-259``)."""
+        from deeplearning4j_tpu_torch.ops.compression import dequantize_np
+
+        qleaves = _loadz(zf.read(_COEFF))
+        scales = [None if sc.size == 0 else sc
+                  for sc in _loadz(zf.read(_SCALES))]
+        if len(qleaves) != len(scales):
+            raise ValueError("int8 archive scale count does not match its "
+                             "coefficient count (corrupt archive)")
+        _refill("param", net.params,
+                [q if sc is None else dequantize_np(q, sc)
+                 for q, sc in zip(qleaves, scales)])
+        net._int8_archive = (fingerprint(net.params), qleaves, scales)
 
     @staticmethod
     def peek_meta(path: str) -> dict:

@@ -266,8 +266,17 @@ def test_router_load_and_reload(tmp_path):
     with pytest.raises(ReloadRejectedError, match="canary"):
         router.reload("m", wrong)
     assert model.version == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        router.load("q", v1, quantize="int8")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # int8 serving loads (no leaf of this narrow net reaches the 256
+    # elements a quantized leaf needs, so it serves the fp32 outputs)
+    router.load("q", v1, quantize="int8", start=False)
+    q, _ = router.get("q")
+    assert q.describe()["quantize"] == "int8"
+    assert q._qp.quantized_fraction() == 0.0
+    q.warmup()
+    np.testing.assert_array_equal(
+        q.execute([x[:4]])[0][0],
+        ModelSerializer.restore_model(v1, device="cpu").output(
+            x[:4]).numpy())
+    with pytest.raises(NotImplementedError, match="item 11b"):
         router.watch("m", v1)
     router.shutdown()

@@ -1718,3 +1718,84 @@ def test_fork_executor_after_cuda_init(card):
     assert len(pids) == 4
     assert float((before * 2).sum()) == 56.0
     assert tm.device_memory_stats()  # the parent reads its own card
+
+
+# ------------------------------------------------------------ decode tier
+
+def _decoder(device, **kw):
+    return Bert.tiny(causal=True, task="mlm", vocab_size=97, max_length=32,
+                     hidden_dropout=0.0, **kw).init(device=device)
+
+
+DECODE_BUCKETS = dict(batch_buckets=(1, 2, 4), prefill_buckets=(8, 16))
+DECODE_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8],
+                  [9, 10, 11, 12, 13, 14, 15, 16, 17]]
+
+
+@pytest.mark.parametrize("engine", ["contiguous", "paged", "prefix",
+                                    "chunked", "speculative"])
+def test_decode_engines_on_card_captured_equal_eager(card, engine):
+    """Each engine's captured programs give the eager run's tokens, and
+    the CPU's (the tie rule is not needed at this width), with no kernel
+    launched."""
+    from deeplearning4j_tpu_torch.serving import Generator
+
+    kw = {"contiguous": dict(paged=False), "paged": {},
+          "prefix": dict(prefix_cache=True), "chunked": dict(prefill_chunk=4),
+          "speculative": {}}[engine]
+
+    def make(device):
+        net = _decoder(device)
+        if engine == "speculative":
+            kw["draft_net"] = Bert.draft(vocab_size=97, max_length=32,
+                                         seed=7).init(device=device)
+        return Generator(net, block_size=4, **DECODE_BUCKETS, **kw)
+
+    gen, cpu = make("cuda"), make("cpu")
+    want = cpu.generate(DECODE_PROMPTS, max_new_tokens=8)
+    for _ in range(2):  # a prefix cache's second batch resumes
+        got = gen.generate(DECODE_PROMPTS, max_new_tokens=8)
+        with capture.disabled():
+            eager = gen.generate(DECODE_PROMPTS, max_new_tokens=8)
+        assert got == eager == want
+    assert gen.programs() and not any(TK.LAUNCHES.values())
+    if gen.pool is not None:
+        assert gen.pool.conservation()[0]
+
+
+def test_decode_sampling_and_int8_on_card(card):
+    from deeplearning4j_tpu_torch.serving import INT8_LOGIT_TOL, Generator
+
+    net = _decoder("cuda")
+    paged = Generator(net, block_size=4, **DECODE_BUCKETS)
+    contiguous = Generator(net, paged=False, **DECODE_BUCKETS)
+    assert paged.generate(DECODE_PROMPTS, 6, temperature=0.8, key=3) == \
+        contiguous.generate(DECODE_PROMPTS, 6, temperature=0.8, key=3)
+    g8 = Generator(net, block_size=4, quantize="int8", **DECODE_BUCKETS)
+    tokens, lengths, _, _ = g8._prep(DECODE_PROMPTS, 1)
+    tables = torch.zeros((4, g8.pool.max_blocks_per_stream),
+                         dtype=torch.int64, device="cuda")
+    err = (g8._prefill_paged(tokens, lengths, tables).clone()
+           - paged._prefill_paged(tokens, lengths, tables)).abs().max()
+    assert float(err) <= INT8_LOGIT_TOL
+    assert all(q.device.type == "cuda" for q in g8._qp.qleaves)
+
+
+def test_int8_classify_on_card_launches_conv_kernel(card):
+    """int8 classify serving on the card: the conv kernel runs on the
+    dequantized filters inside the captured ``serving.classify_int8``
+    program, equal to the eager forward."""
+    from deeplearning4j_tpu_torch.serving import ServingModel
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    net = LeNet().init(device="cuda")
+    x = np.random.default_rng(0).random((3, 28, 28, 1), dtype=np.float32)
+    q = ServingModel(net, "q", quantize="int8")
+    q.warmup()
+    TK.reset_counts()
+    got = np.concatenate(q.execute([x])[0])
+    assert TK.LAUNCHES["conv2d_fwd"] == 2 and not TK.PLAIN_ON_CUDA[
+        "conv2d_fwd"]
+    with capture.disabled():
+        eager = np.concatenate(q.execute([x])[0])
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-6)

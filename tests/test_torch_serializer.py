@@ -306,17 +306,28 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="param structure"):
         ModelSerializer.restore_model(edited, device="cpu")
     net = _port_net(conf, graph)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ModelSerializer.write_model(net, str(tmp_path / "q.zip"),
-                                    quantize="int8")
     with pytest.raises(ValueError, match="quantize"):
         ModelSerializer.write_model(net, str(tmp_path / "q.zip"),
                                     quantize="fp8")
+    # int8 archives are no longer refused: the reference's restores in
+    # the port as the reference restores it (tests/test_torch_quantize.py
+    # holds the leaves bit for bit)
     q8 = str(tmp_path / "int8.zip")
     JMS.write_model(jnet, q8, quantize="int8")
     assert ModelSerializer.peek_meta(q8)["quantize"] == "int8"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ModelSerializer.restore_model(q8, device="cpu")
+    back = ModelSerializer.restore_model(q8, device="cpu")
+    jback = JMS.restore_model(q8)
+    for a, b in zip(jax.tree_util.tree_leaves(jback.params),
+                    [t for _, t in jax_items(back.params)]):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert back._int8_archive[0] == fingerprint(back.params)
+    lost = str(tmp_path / "lost.zip")  # its scales member lost: corrupt
+    with zipfile.ZipFile(q8) as src, zipfile.ZipFile(lost, "w") as dst:
+        for item in src.namelist():
+            if item != "quantScales.npz":
+                dst.writestr(item, src.read(item))
+    with pytest.raises(KeyError, match="quantScales"):
+        ModelSerializer.restore_model(lost, device="cpu")
 
 
 def test_write_is_atomic(tmp_path, monkeypatch):

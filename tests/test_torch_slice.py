@@ -281,7 +281,8 @@ def test_entry_points_never_drift_to_cpu(monkeypatch):
 
 def test_inference_only_layers_name_their_slice(narrow):
     """What the port does not have yet raises, naming the slice that brings
-    it: the serving kinds beyond classify. Dropout in training is ported:
+    it (multi-device serving), and a serving kind the net cannot take is
+    refused by name. Dropout in training is ported:
     a graph with dropout 0.5 on its first node trains, draws its masks
     from the graph's seeded generator (two graphs, one seed, one
     trajectory), and its inference forward applies none."""
@@ -300,10 +301,16 @@ def test_inference_only_layers_name_their_slice(narrow):
     assert nets[0].get_score() == nets[1].get_score()
     assert nets[0].get_score() != plain.get_score()
     net = _port_net(jnet, params, states)
-    with pytest.raises(NotImplementedError, match="generate"):
+    # generate serves decoder-only LMs (tests/test_torch_decode.py): this
+    # graph is refused by what it lacks; int8 classify serves it
+    with pytest.raises(ValueError, match="BertEmbeddingLayer"):
         ServingModel(net, "m", kind="generate")
-    with pytest.raises(NotImplementedError, match="quantize"):
-        ServingModel(net, "m", quantize="int8")
+    with pytest.raises(ValueError, match="serving kind"):
+        ServingModel(net, "m", kind="embed")
+    q = ServingModel(net, "m", quantize="int8")
+    assert q.describe()["quantize"] == "int8"
+    with pytest.raises(NotImplementedError, match="use_mesh"):
+        ServingModel(net, "m", use_mesh=True)
 
 
 def test_conf_batch_buckets_pad_and_slice(narrow):
@@ -413,7 +420,8 @@ def test_package_imports_without_jax():
         "'util.telemetry', 'util.faults', 'native', 'native.dataset', "
         "'data.prefetch', 'data.image_iterator', 'nlp.vectorizer', "
         "'datavec', 'datavec.records', 'datavec.transform', "
-        "'datavec.executor', 'datavec.iterators')}\n"
+        "'datavec.executor', 'datavec.iterators', 'serving.generate', "
+        "'serving.paged', 'serving.quantize')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "bad = [k for k in sys.modules if k == 'orbax' or "
         "k.startswith('orbax.')]\n"
