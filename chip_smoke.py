@@ -38,7 +38,8 @@ Phases, each printing one JSON line:
    each of those launches is held against the plain version on its own
    tensors (``check_every_launch``).
    Then ``net.output`` forward images/sec at batch 32 in fp32 and bf16
-   (five windows of 2 s each: median, min, max), and one profiled
+   (RATE_WINDOWS windows of RATE_WINDOW_S each: median, min, max; 3 of
+   0.5 s since the serving slice, 5 of 2 s before), and one profiled
    batch-32 forward of each: device time by kernel, idle share.
 6. train: full-width ResNet-50 training at batch 32 (seed 12345, random
    one-hot labels, the zoo's Adam(1e-3)): one step's loss and gradients
@@ -49,7 +50,7 @@ Phases, each printing one JSON line:
    whose loss must fall (the main path: its launches are the kernels
    line's, and each is held against its plain version on its own batch-32
    tensors), one bf16 ``fit`` step checked the same way, ``fit``
-   images/sec in fp32 and bf16 (five 2 s windows), one profiled step of
+   images/sec in fp32 and bf16 (RATE_WINDOWS windows), one profiled step of
    each.
 7. attention_kernel: the flash-attention kernel (``csrc/flash_fwd.cu``, K5)
    against its plain version on ATTENTION_CASES below (BERT-base heads of
@@ -115,7 +116,7 @@ Phases, each printing one JSON line:
     the fp64 step gate), the main path (CHAR_FITS ``fit`` calls, every K4
     launch held against its plain version, none plain on CUDA, the loss of
     the last five segments below the first five's), one checked bf16
-    ``fit`` call, train characters/sec fp32 and bf16 (five windows of one
+    ``fit`` call, train characters/sec fp32 and bf16 (RATE_WINDOWS of one
     ``fit`` call), one profiled segment (device busy, idle share, K4's
     launches and share).
 14. char_rnn_sample: 4 samples of 300 characters with ``rnn_time_step``
@@ -142,8 +143,8 @@ Phases, each printing one JSON line:
     most 3 epochs, patience 1; the best model on the card re-scores to its
     recorded score within 1e-6); a checked bf16 run of 200 steps (every
     launch on mma.sync) and its ``evaluate``; train images/sec fp32 and
-    bf16 (five windows of 200 steps), ``evaluate`` images/sec at batch
-    1024, one profiled step of each (device busy, idle share, the conv
+    bf16 (RATE_WINDOWS windows of 200 steps), ``evaluate`` images/sec at
+    batch 1024, one profiled step of each (device busy, idle share, the conv
     kernels' share). LeNet's two conv geometries at batch 64 are extra
     cases of phases 3 and 4 (marked ``lenet``).
 16. recurrent_layers: each layer, wrapper, head and vertex of the
@@ -270,7 +271,7 @@ Phases, each printing one JSON line:
     gate, then ``fit`` (captured) for BERT_TRAIN_EPOCHS epochs of the
     bert_train batches, the last 10 steps' mean loss below the first
     10's; SameDiff BERT samples/sec of ``output`` and ``fit``, eager and
-    captured (five windows); one profiled eager step by class.
+    captured (RATE_WINDOWS windows); one profiled eager step by class.
 22e. samediff_save: that trained graph saved with its updater state and
     loaded on the card: arrays, Adam moments and the iteration bit for
     bit; outputs (captured and eager) and one more eager ``fit`` step
@@ -351,6 +352,47 @@ Phases, each printing one JSON line:
     answers within 1e-4 of the net over the dequantized leaves on the
     plain path, and the largest probability difference and top-1
     agreement against fp32 beside them.
+22j. serving_resilience (under ``capture.disabled()``): full-width
+    ResNet-50 behind ModelServer with a breaker on its own clock (3
+    consecutive errors, 5 s cooldown), every K1 launch checked: an
+    ``X-Request-Id`` echoed and found in ``debug/requests``;
+    ``serving_compute_error`` on three batches opens the breaker (503 with
+    ``Retry-After``) and a probe after the cooldown closes it;
+    ``serving_worker_crash`` fails its batch with 500 and the restarted
+    worker serves the next; ``serving_slow_batch`` (1.5 s) sheds the
+    requests queued behind it past their 200 ms deadline with 429; an
+    availability SLO on the model spent by those failures browns out the
+    ``batch`` lane (429) while ``interactive`` serves, until
+    ``slo.reset()``; ``watch`` follows the archive republished with
+    ``os.replace`` as a second ResNet-50 (seed 7), then refuses a truncated
+    publish and keeps version 2; ``/metrics`` holds the ``serving.*``
+    families, ``/healthz`` the serving section; ``POST /admin/drain``
+    finishes the requests queued behind a stalled batch and answers new
+    ones 503. Every 200 answer within 1e-4 of its net on the plain path,
+    53 K1 launches a chunk, none plain. Leg serving_resilience_captured:
+    the worker crash with the compiled step on, no program built after
+    warmup, 53 launches a chunk under replay.
+22k. fleet: ``FleetRouter`` over two worker processes on the card
+    (``serving/fleet_worker.py``, spec env ``DL4J_TORCH_KERNEL_IMPL=cuda``:
+    a worker launches the kernel or fails the request), each serving a
+    ResNet-50 archive (seed 12345) and the causal BERT-base LM's (a pinned
+    pool of 256 blocks of 16, prefix cache on): each worker's time to
+    ready; 16 classify requests of 1-16 rows, four at a time, within 1e-4
+    of the in-process output (eager, every K1 launch checked); 16 greedy
+    streams of 64-token prompts over two shared 32-token heads
+    (affinity head 16), 32 new tokens each, equal to
+    ``generate_full_recompute`` under the tie rule and each on
+    ``rendezvous_pick``'s worker; classify rows/s straight to one worker,
+    straight to two and through the router to two, and generate tokens/s
+    through the router (4 closed-loop clients a worker, 3 windows of 2.5 s,
+    median, min, max; each request's client wall beside the worker's
+    own queue, fill and compute from its flight records); each worker's
+    own K1 launches over those legs (its ``/v1/models``: 53 a chunk, none
+    plain); a worker SIGKILLed under traffic (8 of
+    8 answered, failovers counted), respawned into the ring (its time);
+    a rolling reload to the seed-7 archive under live traffic (no answer
+    but 200, versions up, answers the new net's); ``/metrics`` relabelled
+    per worker; ``stop()`` drains both workers to exit code 0.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -369,20 +411,28 @@ Phases, each printing one JSON line:
     ``launches_data_pipeline`` with theirs under
     ``data_pipeline_checked``; the int8 ResNet-50's K1 launches under
     ``launches_serve_int8`` with theirs under ``serve_int8_checked_*``,
-    and the decode tier's (none) under ``launches_generate``.
+    and the decode tier's (none) under ``launches_generate``; phase 22j's
+    under ``launches_serving_resilience`` (checks
+    ``serving_resilience_checked_*``) and
+    ``launches_serving_resilience_captured``, phase 22k's in-process
+    oracle's under ``launches_fleet_inprocess`` and each fleet worker's
+    own (launches, plain calls, chunks) under ``launches_fleet_workers``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
 """
 
+import collections
 import contextlib
 import dataclasses
 import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -524,12 +574,16 @@ SENT_EVAL_BATCHES, SENT_WINDOW_BATCHES = 4, 3
 # same ops in the same order on the same card
 GRAPH_MLN_RTOL = 1e-6
 # the compiled step (nn/capture.py): CAPTURE_STEPS steps of each path under
-# the captured-against-eager gate, captured rates over five windows of
+# the captured-against-eager gate, captured rates over RATE_WINDOWS of
 # CAPTURE_WINDOW_S (the eager rates are the earlier phases'); reduced: the
 # GravesLSTM gate's fit call of GRAVES_GATE_SEQ characters, LeNet's rate
 # windows over LENET_CAPTURE_BATCHES batches; the sentiment graphs in
 # SENT_SEQ_BUCKETS
-CAPTURE_STEPS, CAPTURE_WINDOW_S = 4, 1.0
+CAPTURE_STEPS, CAPTURE_WINDOW_S = 4, 0.5
+#: the eager rates' windows (count, seconds each), cut from 5 x 2 s (and
+#: the captured rates' from 5 x 1 s) to keep the whole run inside its
+#: limit with the serving slice's phases
+RATE_WINDOWS, RATE_WINDOW_S = 3, 0.5
 GRAVES_GATE_SEQ, LENET_CAPTURE_BATCHES = 200, 50
 SENT_SEQ_BUCKETS = (64, 128, 192, 256)
 
@@ -1042,7 +1096,8 @@ def _calm_residual_branches(net, scale=0.25):
             p["gamma"].mul_(scale)
 
 
-def forward_rows_per_sec(torch, net, x, window_s=2.0, windows=5):
+def forward_rows_per_sec(torch, net, x, window_s=RATE_WINDOW_S,
+                         windows=RATE_WINDOWS):
     """``net.output(x)`` rows/sec (no HTTP, scheduler or bucketing):
     ``windows`` windows of at least ``window_s`` seconds of back-to-back
     forwards, each closed by a device sync."""
@@ -1064,7 +1119,8 @@ def forward_rows_per_sec(torch, net, x, window_s=2.0, windows=5):
             "max": rates[-1], "windows": rates}
 
 
-def forward_images_per_sec(torch, net, batch=32, window_s=2.0, windows=5):
+def forward_images_per_sec(torch, net, batch=32, window_s=RATE_WINDOW_S,
+                           windows=RATE_WINDOWS):
     """``net.output`` forward images/sec at ``batch`` 224x224 images."""
     x = torch.randn((batch, 224, 224, 3), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
@@ -1156,9 +1212,7 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
     server = ModelServer(router, port=0).start()  # warms every bucket
     warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(12345)
-    # inputs on a quarter grid in [-2, 2]: short JSON, exact in fp32
-    xs = [rng.integers(-8, 9, size=(r,) + tuple(input_shape)).astype(
-        np.float32) / 4 for r in SERVE_ROWS]
+    xs = [quarter_grid(np, rng, r, input_shape) for r in SERVE_ROWS]
     bodies = [{"inputs": x.tolist()} for x in xs]
     url = f"{server.url}/v1/models/{model_id}/infer"
     checked = {}
@@ -1226,7 +1280,8 @@ def serve_phase(torch, np, card):
     net16 = ResNet50(compute_dtype="bfloat16").init(device="cuda")
     net16.params, net16.states = net.params, net.states  # cast per forward
     emit("throughput", model="ResNet50", batch=32, path="net.output",
-         window_s=2.0, forward_images_per_sec_fp32=forward_images_per_sec(
+         window_s=RATE_WINDOW_S,
+         forward_images_per_sec_fp32=forward_images_per_sec(
              torch, net),
          forward_images_per_sec_bf16=forward_images_per_sec(torch, net16),
          card=card)
@@ -1428,7 +1483,8 @@ def _parents(evt):
         p = getattr(p, "cpu_parent", None)
 
 
-def train_images_per_sec(torch, net, x, y, window_s=2.0, windows=5):
+def train_images_per_sec(torch, net, x, y, window_s=RATE_WINDOW_S,
+                         windows=RATE_WINDOWS):
     """``net.fit`` images/sec on one device-resident batch: ``windows``
     windows of at least ``window_s`` seconds of back-to-back steps, each
     closed by a device sync; the last loss must be finite."""
@@ -1666,7 +1722,7 @@ def train_phase(torch, np, card):
              f"{k}_bf16": checked[(k, "bf16")] for k in want},
          conv_bodies=bodies16, card=card)
     emit("train_throughput", model="ResNet50", batch=batch, path="net.fit",
-         window_s=2.0,
+         window_s=RATE_WINDOW_S,
          train_images_per_sec_fp32=train_images_per_sec(torch, net, x, y),
          train_images_per_sec_bf16=train_images_per_sec(torch, net16, x, y),
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
@@ -2026,7 +2082,7 @@ def bert_forward_phase(torch, np, card, net):
              for tag, n in (("fp32", net), ("bf16", net16))
              for s in (128, 512)}
     emit("bert_throughput", model="Bert.base", batch=32, path="net.output",
-         window_s=2.0, sequences_per_sec=rates, card=card)
+         window_s=RATE_WINDOW_S, sequences_per_sec=rates, card=card)
 
     lens = rng.integers(16, 513, size=32)
     lens[0] = 512
@@ -2490,9 +2546,9 @@ def bert_train_phase(torch, np, card):
             rng.integers(0, 2, size=BERT_TRAIN_BATCH)).cuda()]
         for tag, n in (("fp32", rate_net), ("bf16", rate16)):
             rates[f"seq{s}_{tag}"] = train_images_per_sec(
-                torch, n, xs, ys, window_s=1.0)
+                torch, n, xs, ys)
     emit("bert_train_throughput", model="Bert.base", batch=BERT_TRAIN_BATCH,
-         path="net.fit", hidden_dropout=0.1, window_s=1.0,
+         path="net.fit", hidden_dropout=0.1, window_s=RATE_WINDOW_S,
          sequences_per_sec=rates,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     for tag, n in (("fp32", rate_net), ("bf16", rate16)):
@@ -2779,7 +2835,7 @@ def _is_k4(name):
     return "lstm_seq_resident" in name or "lstm_cell_fwd" in name
 
 
-def chars_per_sec(torch, net, x, y, windows=5):
+def chars_per_sec(torch, net, x, y, windows=RATE_WINDOWS):
     """``net.fit`` characters/sec on one device-resident batch: ``windows``
     windows of one fit call each (20 TBPTT updates), each closed by a
     device sync; the loss must stay finite."""
@@ -3062,7 +3118,7 @@ def lenet_outputs(torch, net, xs, batch=LENET_BATCH):
                       for i in range(0, len(xs), batch)]).float().cpu()
 
 
-def lenet_windows(torch, net, batches, windows=5):
+def lenet_windows(torch, net, batches, windows=RATE_WINDOWS):
     """``net.fit`` images/sec: ``windows`` windows of one fit call over the
     same LENET_WINDOW host batches (each step moves its batch to the card,
     as ``fit(iterator)`` does), each closed by a device sync."""
@@ -3615,7 +3671,7 @@ def graves_char_rnn_phase(torch, np, card, k4_rates):
     ``exact`` and fp64 (the gradient gate); (b) the main path, CHAR_FITS
     ``fit`` calls whose loss falls (the last five segments' mean below the
     first five's), no kernel launched; (c) one bf16 ``fit`` call; (d)
-    train characters/sec fp32 and bf16 (five windows), one profiled
+    train characters/sec fp32 and bf16 (RATE_WINDOWS), one profiled
     segment, and SAMPLES x SAMPLE_LEN sampled characters with
     ``rnn_time_step``, beside char_rnn_train's K4 rates (``k4_rates``)."""
     from deeplearning4j_tpu_torch.ops import kernels as kern
@@ -3773,7 +3829,7 @@ def sent_graph(kind, dtype="float32", seq_buckets=None):
     return ComputationGraph(conf).init(device="cuda")
 
 
-def seqs_per_sec(torch, net, data, windows=5):
+def seqs_per_sec(torch, net, data, windows=RATE_WINDOWS):
     """``net.fit`` sequences/sec: ``windows`` windows of one epoch over
     ``data`` each, closed by a device sync."""
     net.fit(data[:1])
@@ -4163,7 +4219,7 @@ def nondeterministic_ops(torch, make, steps):
         "ops_without_a_deterministic_kernel": sorted(no_kernel)}
 
 
-def captured_rate(torch, call, rows, windows=5):
+def captured_rate(torch, call, rows, windows=RATE_WINDOWS):
     """``rows`` a call per second of ``call()``, a replay of a warm
     program: each window holds as many calls as fit in CAPTURE_WINDOW_S by
     a timed first call, run back to back and closed by a device sync. (A
@@ -4352,8 +4408,7 @@ def capture_serve_phase(torch, np, card):
     parts = {"warmup": warm_s}
     t = time.perf_counter()
     rng = np.random.default_rng(12345)
-    xs = [rng.integers(-8, 9, size=(r, 224, 224, 3)).astype(np.float32) / 4
-          for r in SERVE_ROWS]
+    xs = [quarter_grid(np, rng, r) for r in SERVE_ROWS]
     bodies = [{"inputs": x.tolist()} for x in xs]
     url = f"{server.url}/v1/models/resnet50/infer"
     served, output = [], net.output
@@ -5244,7 +5299,7 @@ def eager_train_leg(torch, card, prefix, model, net, net16, x, y, per_step,
     rates = {tag: train_images_per_sec(torch, n, x, y, windows=ZOO_WINDOWS)
              for tag, n in nets}
     emit(f"{prefix}_train_throughput", model=model, batch=batch,
-         path="net.fit", window_s=2.0,
+         path="net.fit", window_s=RATE_WINDOW_S,
          **{f"train_images_per_sec_{t}": r for t, r in rates.items()},
          card=card)
     for tag, n in nets:
@@ -5282,7 +5337,7 @@ def conv_zoo_phase(torch, np, card):
          classes=1000, params=net.num_params(), calibrated_batchnorm=True,
          **fields, card=card)
     emit("conv_zoo_throughput", model="Xception", batch=XCEPTION_BATCH,
-         path="net.output", window_s=2.0,
+         path="net.output", window_s=RATE_WINDOW_S,
          forward_images_per_sec_fp32=forward_rows_per_sec(
              torch, net, x, windows=ZOO_WINDOWS), card=card)
     del net
@@ -5761,7 +5816,7 @@ def keras_import_phase(torch, np, card):
                                         ("bf16", "forward_bf16"))},
          card=card)
     emit("keras_import_throughput", model="MobileNetV2", batch=MNV2_BATCH,
-         path="net.output", window_s=2.0,
+         path="net.output", window_s=RATE_WINDOW_S,
          forward_images_per_sec_fp32=forward_rows_per_sec(
              torch, net, x, windows=ZOO_WINDOWS), card=card)
 
@@ -7468,22 +7523,33 @@ def _http_generate(url, prompts, max_new, **extra):
     return body["tokens"], lat
 
 
-def _post_status(url, body):
-    """(status, body, headers) of a POST, HTTP errors included."""
-    req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+def _http(url, method="GET", body=None, headers=None, timeout=600):
+    """(status, body, headers) of one request, HTTP errors included; a
+    JSON body is decoded, any other returned as text. ``body`` may be
+    bytes already encoded."""
+    data = None
+    if body is not None:
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
-        with urllib.request.urlopen(req, timeout=600) as r:
-            return r.status, json.loads(r.read()), dict(r.headers)
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw, hdrs = r.status, r.read(), dict(r.headers)
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read()), dict(e.headers)
+        status, raw, hdrs = e.code, e.read(), dict(e.headers)
+    if hdrs.get("Content-Type", "").startswith("application/json"):
+        return status, json.loads(raw), hdrs
+    return status, raw.decode(), hdrs
 
 
 def decode_rates(torch, np, gen, capture):
     """Decode tokens/sec at GEN_RATE_BATCHES, prompts of GEN_RATE_PROMPT
     and GEN_RATE_NEW new tokens (contexts to 512), captured and eager:
     (wall of the whole generate less the wall of a 1-token generate, the
-    prefill's) per generated step, median of 3."""
+    prefill's) per generated step, captured the median of 3, eager one run
+    (host-bound and 3-12x slower; cut from the median of 3 to keep the
+    whole smoke inside its limit)."""
     out = {}
     for b in GEN_RATE_BATCHES:
         prompts = gen_prompts(np, [GEN_RATE_PROMPT] * b, 100 + b)
@@ -7493,14 +7559,15 @@ def decode_rates(torch, np, gen, capture):
             with ctx:
                 gen.generate(prompts, max_new_tokens=2)  # build / warm
                 walls = {}
+                reps = 3 if mode == "captured" else 1
                 for n in (1, GEN_RATE_NEW):
                     ts = []
-                    for _ in range(3):
+                    for _ in range(reps):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         gen.generate(prompts, max_new_tokens=n)
                         ts.append(time.perf_counter() - t0)
-                    walls[n] = sorted(ts)[1]
+                    walls[n] = sorted(ts)[len(ts) // 2]
             decode_s = walls[GEN_RATE_NEW] - walls[1]
             out[f"b{b}_{mode}"] = {
                 "tokens_per_s": b * (GEN_RATE_NEW - 1) / decode_s,
@@ -7822,11 +7889,11 @@ def generate_phase(torch, np, card):
         batches = sched.counts["batches"]
         # pool exhaustion: a pinned 8-block pool sheds a 200 + 32 request
         small_url = f"{server.url}/v1/models/bert_base_lm_small_pool/generate"
-        status, body, headers = _post_status(small_url, {
+        status, body, headers = _http(small_url, "POST", {
             "prompt_tokens": gen_prompts(np, [200], 5), "max_new_tokens": 32})
         _, small_sched = router.get("bert_base_lm_small_pool")
         conserved = small.generator.pool.conservation()
-        status2, body2, _ = _post_status(small_url, {
+        status2, body2, _ = _http(small_url, "POST", {
             "prompt_tokens": gen_prompts(np, [16], 6), "max_new_tokens": 32})
         shed = {"status": status, "error": body.get("error"),
                 "retry_after": headers.get("Retry-After"),
@@ -8005,6 +8072,762 @@ def serve_int8_leg(torch, np, card):
              (p8.argmax(-1) == p32.argmax(-1)).float().mean()),
          rows_vs_fp32=16, card=card)
     return launches, checked
+
+
+# ------------------------------------------------ serving resilience (22j)
+
+RES_DIR = os.path.join(ROOT, "build", "smoke_resilience")
+RES_COOLDOWN_S = 5.0       # the breaker's cooldown, on its own clock
+RES_SLOW_MS = 1500.0       # serving_slow_batch's stall
+RES_DEADLINE_MS = 200.0    # the deadline of the requests queued behind it
+RELOAD_SEED = 7            # the second ResNet-50's weights (watch, reload)
+SERVE_TOL = 1e-4           # a served answer against the exact path
+
+
+def quarter_grid(np, rng, rows, shape=(224, 224, 3)):
+    """``rows`` inputs of ``shape`` on a quarter grid in [-2, 2] (short
+    JSON, exact in fp32)."""
+    return rng.integers(-8, 9, size=(rows,) + tuple(shape)).astype(
+        np.float32) / 4
+
+
+def served_errors(np, answers):
+    """The largest difference of the 200 answers from their nets' outputs
+    on the exact path (plain conv), and the answers' count."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    worst = 0.0
+    for x, got, net in answers:
+        with kern.impl_scope("exact"):
+            ref = net.output(x).double().cpu().numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"answer {got.shape}, expected {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    if worst > SERVE_TOL:
+        raise AssertionError(f"served answers off by {worst} > {SERVE_TOL}")
+    return worst, len(answers)
+
+
+def _wait(cond, timeout_s, what, poll_s=0.05):
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout_s} s: {what}")
+        time.sleep(poll_s)
+
+
+def serving_resilience_phase(torch, np, card):
+    """Phase 22j: the single-process resilience of the serving stack at full
+    width, eager (module doc)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import (BrownoutController,
+                                                  CircuitBreaker, ModelRouter,
+                                                  ModelServer, ServingModel)
+    from deeplearning4j_tpu_torch.util import ModelSerializer, slo
+    from deeplearning4j_tpu_torch.util import faults as fl
+    from deeplearning4j_tpu_torch.util import telemetry as tm
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    os.makedirs(RES_DIR)
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    net2 = ResNet50(seed=RELOAD_SEED).init(device="cuda")
+    _calm_residual_branches(net2)
+    live = os.path.join(RES_DIR, "live.zip")
+    ModelSerializer.write_model(net, live, save_updater=False)
+    clock = [0.0]
+    breaker = CircuitBreaker(clock=lambda: clock[0], model_id="resnet50",
+                             consecutive_errors=3, cooldown_s=RES_COOLDOWN_S)
+    router = ModelRouter(name="resilience")
+    model = ServingModel(net, "resnet50",
+                         bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+    sched = router.register(model, max_wait_ms=5.0, queue_limit=64,
+                            breaker=breaker)
+    inj = fl.get_injector()
+    inj.clear()
+    slo.reset()
+    tele = tm.get_telemetry()
+    t0 = time.perf_counter()
+    server = ModelServer(router, port=0).start()
+    warm_s = time.perf_counter() - t0
+    base = server.url
+    url = f"{base}/v1/models/resnet50/infer"
+    rng = np.random.default_rng(2024)
+    answers, steps, checked = [], {}, {}
+    current = [net]
+
+    def infer(rows, lane="interactive", rid=None, **extra):
+        x = quarter_grid(np, rng, rows)
+        st, body, hdrs = _http(url, "POST", {"inputs": x.tolist(),
+                                             "lane": lane, **extra},
+                               {"X-Request-Id": rid} if rid else None)
+        if st == 200:
+            answers.append((x, np.asarray(body["outputs"], np.float64),
+                            current[0]))
+        return st, body, hdrs
+
+    def expect(step, got, want):
+        steps[step] = got
+        if got != want:
+            raise AssertionError(f"{step}: {got}, expected {want}")
+
+    kern.reset_counts()
+    chunks0 = model.chunks_executed
+    reload_launches = {}
+    ctrl = None
+    try:
+        with check_every_launch(torch, checked):
+            # request ids: echoed, and the flight recorder holds the record
+            st, body, hdrs = infer(2, rid="smoke-rid-1")
+            rec = _http(f"{base}/v1/models/resnet50/debug/requests"
+                        "?last=4")[1]["requests"]
+            expect("request_id", {
+                "status": st, "echo": hdrs.get("X-Request-Id"),
+                "body_id": body.get("request_id"),
+                "recorded": [r["status"] for r in rec
+                             if r["id"] == "smoke-rid-1"]},
+                {"status": 200, "echo": "smoke-rid-1",
+                 "body_id": "smoke-rid-1", "recorded": ["ok"]})
+            # an SLO on this model and the brownout hung off it
+            slo.register(slo.SloObjective(
+                "resnet50-availability", "availability", target=0.999,
+                model="resnet50", windows=(600.0,)))
+            ctrl = BrownoutController(router).install()
+            slo.get_engine().evaluate()  # the baseline sample
+            # breaker: three failed batches open it; a probe closes it
+            inj.inject(fl.SERVING_COMPUTE_ERROR, count=3)
+            errors = [infer(1)[0] for _ in range(3)]
+            st, body, hdrs = infer(1)
+            opened = {"errors": errors, "open_status": st,
+                      "open_error": body.get("error"),
+                      "retry_after": hdrs.get("Retry-After"),
+                      "state": breaker.state}
+            clock[0] += RES_COOLDOWN_S + 0.1
+            probe = infer(2)[0]
+            expect("breaker", {**opened, "probe": probe,
+                               "closed": breaker.state,
+                               "opens": breaker.opens,
+                               "closes": breaker.closes},
+                   {"errors": [500, 500, 500], "open_status": 503,
+                    "open_error": "CircuitOpenError",
+                    "retry_after": str(int(RES_COOLDOWN_S)),
+                    "state": "open", "probe": 200, "closed": "closed",
+                    "opens": 1, "closes": 1})
+            # worker crash: a loud 500, the loop restarts, serves again
+            inj.inject(fl.SERVING_WORKER_CRASH)
+            crash = infer(1)
+            after = infer(3)[0]
+            stats = sched.stats()
+            expect("worker_crash", {
+                "status": crash[0], "after": after,
+                "restarts": stats["worker_restarts"],
+                "alive": stats["worker_alive"],
+                "recompiles": stats["recompiles"]},
+                {"status": 500, "after": 200, "restarts": 1, "alive": True,
+                 "recompiles": 0})
+            steps["worker_crash"]["error"] = crash[1].get("error", "")[:120]
+            # slow batch: requests queued behind it past their deadline
+            inj.inject(fl.SERVING_SLOW_BATCH, arg=RES_SLOW_MS)
+            with ThreadPoolExecutor(3) as pool:
+                stalled = pool.submit(infer, 1)
+                _wait(lambda: sched._current_batch is not None, 30,
+                      "the stalled batch to open")
+                doomed = [pool.submit(infer, 1,
+                                      deadline_ms=RES_DEADLINE_MS)
+                          for _ in range(2)]
+                slow = {"stalled": stalled.result()[0],
+                        "doomed": sorted(f.result()[0] for f in doomed)}
+            expect("slow_batch", slow, {"stalled": 200,
+                                        "doomed": [429, 429]})
+            # brownout: the budget is spent, the batch lane sheds
+            doc = slo.get_engine().evaluate()
+            hz = _http(f"{base}/healthz")[0]
+            batch_lane = infer(1, lane="batch")
+            interactive = infer(1, lane="interactive")[0]
+            slo.reset()  # ends the breach, and the brownout with it
+            restored = infer(1, lane="batch")[0]
+            expect("brownout", {
+                "exhausted": doc["objectives"][0]["exhausted"],
+                "healthz_while_exhausted": hz, "batch": batch_lane[0],
+                "batch_error": batch_lane[1].get("error"),
+                "interactive": interactive, "after_reset": restored,
+                "active": ctrl.active},
+                {"exhausted": True, "healthz_while_exhausted": 503,
+                 "batch": 429, "batch_error": "BrownoutShedError",
+                 "interactive": 200, "after_reset": 200, "active": False})
+            steps["brownout"]["burn_rate"] = \
+                doc["objectives"][0]["windows"]["600s"]["burn_rate"]
+            ctrl.uninstall()
+            # watch: a republished archive with new weights is followed
+            router.watch("resnet50", live, interval_s=0.2)
+            tmp = live + ".next"
+            snap = kern.snapshot_counts()
+            t1 = time.perf_counter()
+            ModelSerializer.write_model(net2, tmp, save_updater=False)
+            os.replace(tmp, live)
+            _wait(lambda: model.version == 2, 300, "the watched reload")
+            watch_s = time.perf_counter() - t1
+            reload_launches = kern.counts_since(snap)[0]
+            current[0] = net2
+            followed = infer(2)[0]
+            rejected0 = tele.counter_total("serving.reload_rejected_total",
+                                           model="resnet50")
+            data = open(live, "rb").read()
+            with open(tmp, "wb") as f:
+                f.write(data[: len(data) // 2])
+            os.replace(tmp, live)
+            _wait(lambda: tele.counter_total(
+                "serving.reload_rejected_total", model="resnet50")
+                > rejected0, 120, "the truncated publish's rejection")
+            kept = infer(1)[0]
+            router.unwatch("resnet50")
+            expect("watch", {"version": model.version, "followed": followed,
+                             "after_truncated": kept},
+                   {"version": 2, "followed": 200, "after_truncated": 200})
+            steps["watch"]["reload_s"] = watch_s
+            # metrics and health
+            st_m, text, _ = _http(f"{base}/metrics")
+            families = ("serving_requests_total", "serving_completed_total",
+                        "serving_shed_total", "serving_request_errors_total",
+                        "serving_breaker_opens_total",
+                        "serving_breaker_state", "serving_model_version",
+                        "serving_worker_restarts_total",
+                        "serving_request_latency_seconds_bucket",
+                        "serving_reloads_total",
+                        "serving_reload_rejected_total",
+                        "serving_queue_depth", "serving_flight_recorder")
+            st_h, health, _ = _http(f"{base}/healthz")
+            st_s, slo_doc, _ = _http(f"{base}/slo")
+            expect("metrics", {
+                "status": [st_m, st_h, st_s],
+                "missing": [f for f in families if f not in text],
+                "serving_section": "serving" in health,
+                "slo": slo_doc}, {
+                "status": [200, 200, 200], "missing": [],
+                "serving_section": True, "slo": {"objectives": []}})
+            # drain: queued requests finish, new ones get 503
+            inj.inject(fl.SERVING_SLOW_BATCH, arg=RES_SLOW_MS)
+            with ThreadPoolExecutor(3) as pool:
+                queued = [pool.submit(infer, 1)]
+                _wait(lambda: sched._current_batch is not None, 30,
+                      "the stalled batch to open")
+                queued += [pool.submit(infer, 1) for _ in range(2)]
+                _wait(lambda: sched.queue_depth() >= 2, 30,
+                      "two requests queued behind it")
+                drain = _http(f"{base}/admin/drain", "POST", {})
+                late = infer(1)
+                done = sorted(f.result()[0] for f in queued)
+            drained = server.wait_drained(timeout=60)
+            status = _http(f"{base}/admin/status")[1]
+            expect("drain", {"drain": drain[0], "queued": done,
+                             "late": late[0],
+                             "late_retry_after": late[2].get("Retry-After"),
+                             "drained": drained,
+                             "status_draining": status["draining"]},
+                   {"drain": 200, "queued": [200, 200, 200], "late": 503,
+                    "late_retry_after": "10", "drained": True,
+                    "status_draining": True})
+        launches = dict(kern.LAUNCHES)
+        plain = dict(kern.PLAIN_ON_CUDA)
+    finally:
+        inj.clear()
+        if ctrl is not None:
+            ctrl.uninstall()
+        slo.reset()
+        server.stop()
+        tm.set_health("serving.accepting", True, "phase over")
+    chunks = model.chunks_executed - chunks0
+    path_launches = launches["conv2d_fwd"] - reload_launches.get(
+        "conv2d_fwd", 0)
+    if path_launches != 53 * chunks or chunks < 1:
+        raise AssertionError(f"{path_launches} K1 launches on the serving "
+                             f"path for {chunks} chunks, expected 53 each")
+    if any(plain.values()):
+        raise AssertionError(f"plain path on CUDA tensors: {plain}")
+    if checked.get(("conv2d_fwd", "fp32"), {}).get("calls") \
+            != launches["conv2d_fwd"]:
+        raise AssertionError(f"{launches['conv2d_fwd']} launches, "
+                             f"{_checked_summary(checked)} checked")
+    worst, n_answers = served_errors(np, answers)
+    emit("serving_resilience", model="ResNet50", input=[224, 224, 3],
+         buckets=list(BUCKETS), warmup_s=warm_s, steps=steps,
+         answers_200=n_answers, max_abs_err_vs_exact=worst,
+         chunks=chunks, conv_launches_path=path_launches,
+         conv_launches_watch_reload=reload_launches.get("conv2d_fwd", 0),
+         plain_on_cuda=plain["conv2d_fwd"],
+         launches_checked=_checked_summary(checked),
+         flight_recorder_depth=len(sched.flight),
+         phase_s=time.perf_counter() - t_phase, card=card)
+    return path_launches, checked
+
+
+def serving_resilience_captured_leg(torch, np, card):
+    """Leg serving_resilience_captured of phase 22j: the worker crash with
+    the compiled step on. The scheduler's restarted loop runs on the same
+    thread and replays the programs warmup captured (53 K1 launches a
+    chunk under replay): nothing is captured again."""
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import (ModelRouter, ServingModel,
+                                                  WorkerCrashedError)
+    from deeplearning4j_tpu_torch.util import faults as fl
+    from deeplearning4j_tpu_torch.util.compile_watcher import get_watcher
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    model = ServingModel(net, "resnet50_captured",
+                         bucketing=BucketingPolicy(batch_buckets=BUCKETS))
+    router = ModelRouter(name="resilience-captured")
+    sched = router.register(model, max_wait_ms=5.0)
+    watcher = get_watcher()
+    t0 = time.perf_counter()
+    with watcher.scope() as warm:
+        router.warmup()
+    warm_s, warm_programs = time.perf_counter() - t0, warm.traces
+    inj = fl.get_injector()
+    rng = np.random.default_rng(7)
+    answers = []
+    try:
+        kern.reset_counts()
+        chunks0 = model.chunks_executed
+        with watcher.scope() as steady:
+            x = quarter_grid(np, rng, 3)
+            answers.append((x, np.asarray(router.submit(
+                "resnet50_captured", x).result(timeout=300), np.float64),
+                net))
+            inj.inject(fl.SERVING_WORKER_CRASH)
+            try:
+                router.submit("resnet50_captured",
+                              quarter_grid(np, rng, 2)).result(timeout=300)
+                raise AssertionError("the crashed batch answered")
+            except WorkerCrashedError:
+                pass
+            for rows in (2, 5):
+                x = quarter_grid(np, rng, rows)
+                answers.append((x, np.asarray(router.submit(
+                    "resnet50_captured", x).result(timeout=300),
+                    np.float64), net))
+        steady_programs = steady.traces
+        stats = sched.stats()
+        launches = kern.LAUNCHES["conv2d_fwd"]
+        plain = kern.PLAIN_ON_CUDA["conv2d_fwd"]
+        chunks = model.chunks_executed - chunks0
+    finally:
+        inj.clear()
+        router.shutdown()
+    if stats["worker_restarts"] != 1 or stats["recompiles"] \
+            or steady_programs:
+        raise AssertionError(f"after the crash: {stats['worker_restarts']} "
+                             f"restarts, {stats['recompiles']} programs "
+                             f"built by batches, {steady_programs} in all")
+    if launches != 53 * chunks or plain:
+        raise AssertionError(f"{launches} K1 launches under replay for "
+                             f"{chunks} chunks, {plain} plain")
+    worst, n = served_errors(np, answers)
+    emit("serving_resilience_captured", model="ResNet50",
+         warmup_s=warm_s, warmup_programs=warm_programs,
+         programs_after_warmup=steady_programs,
+         recompiles=stats["recompiles"],
+         worker_restarts=stats["worker_restarts"], answers_200=n,
+         max_abs_err_vs_exact=worst, chunks=chunks,
+         conv_launches_replayed=launches, card=card)
+    return launches
+
+
+# -------------------------------------------------------------- fleet (22k)
+
+FLEET_DIR = os.path.join(ROOT, "build", "smoke_fleet")
+FLEET_WORKERS = 2
+#: 16 classify requests of 1-16 rows, four at a time
+FLEET_ROWS = (1, 4, 16, 2, 8, 3, 12, 5, 1, 16, 6, 2, 9, 4, 7, 11)
+FLEET_GEN_BUCKETS = (1, 2, 4, 8)
+FLEET_GEN_SEQ = (64, 128)       # max_length (512) is the implicit last
+FLEET_POOL_BLOCKS = 256         # per worker, pinned: 4,096 token slots
+FLEET_HEAD = 32                 # two shared 32-token heads
+FLEET_PROMPT = 64
+FLEET_STREAMS = 16
+FLEET_NEW = 32
+FLEET_AFFINITY_HEAD = 16
+#: the fleet's rates: closed-loop clients, four for each worker the
+#: requests reach; each rate the median of FLEET_RATE_WINDOWS windows of
+#: FLEET_RATE_WINDOW_S
+FLEET_RATE_ROWS, FLEET_RATE_CLIENTS_A_WORKER = 8, 4
+FLEET_RATE_WINDOWS, FLEET_RATE_WINDOW_S = 3, 2.5
+FLEET_KILL_REQUESTS = 8
+
+
+def _fleet_rate(np, fleet, model, targets, units, tag, check, workers):
+    """A closed-loop rate over HTTP: FLEET_RATE_CLIENTS_A_WORKER clients
+    for each of the ``workers`` the requests reach, the c-th
+    posting ``targets[(c + k * clients) % len(targets)]`` (url, encoded
+    body) as its k-th request until the window closes; FLEET_RATE_WINDOWS
+    windows of FLEET_RATE_WINDOW_S, each rate the ``units`` a request of
+    its requests over the wall until its last answer (median, min, max).
+    Every answer is 200; ``check(target index, body)`` gives a number for
+    each (an error, or 1 for an answer unlike a reference), reported as
+    ``check_max`` and ``check_sum``. Each request carries an ``X-Request-Id``,
+    so the workers' flight records split its client wall into the worker
+    scheduler's queue, fill and compute and the rest (HTTP, JSON,
+    routing): medians over the requests the records still hold."""
+    n = FLEET_RATE_CLIENTS_A_WORKER * workers
+    rates, walls, checks = [], {}, []
+    for win in range(FLEET_RATE_WINDOWS):
+        t0 = time.perf_counter()
+        deadline = t0 + FLEET_RATE_WINDOW_S
+
+        def client(c):
+            done, k = [], 0
+            while time.perf_counter() < deadline:
+                i = (c + k * n) % len(targets)
+                rid = f"{tag}-{win}-{c}-{k}"
+                t = time.perf_counter()
+                st, body, _ = _http(targets[i][0], "POST", targets[i][1],
+                                    {"X-Request-Id": rid})
+                done.append((rid, time.perf_counter() - t, st, i, body))
+                k += 1
+            return done
+
+        with ThreadPoolExecutor(n) as pool:
+            done = [d for ds in pool.map(client, range(n)) for d in ds]
+        wall = time.perf_counter() - t0
+        bad = [st for _, _, st, _, _ in done if st != 200]
+        if bad:
+            raise AssertionError(f"{tag}: {len(bad)} answers not 200: "
+                                 f"{sorted(set(bad))}")
+        checks += [check(i, body) for _, _, _, i, body in done]
+        rates.append(units * len(done) / wall)
+        walls.update((rid, secs) for rid, secs, _, _, _ in done)
+    recs = [r for r in fleet.debug_requests(model, last=256)
+            if r["id"] in walls]
+    by_worker = collections.Counter(r["worker"] for r in recs)
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else None
+
+    rates_sorted = sorted(rates)
+    return {
+        "median": rates_sorted[len(rates) // 2], "min": rates_sorted[0],
+        "max": rates_sorted[-1], "windows": rates,
+        "window_s": FLEET_RATE_WINDOW_S, "clients": n,
+        "requests": len(walls), "units_a_request": units,
+        "check_max": max(checks), "check_sum": sum(checks),
+        "client_ms_median": med(1e3 * v for v in walls.values()),
+        "traced_requests": len(recs), "traced_by_worker": dict(by_worker),
+        **{f"worker_{k}_median": med(r[k] for r in recs
+                                     if r.get(k) is not None)
+           for k in ("queue_ms", "fill_ms", "compute_ms", "total_ms")},
+        "outside_worker_scheduler_ms_median": med(
+            1e3 * walls[r["id"]] - r["total_ms"] for r in recs)}
+
+
+def _worker_conv_counts(fleet):
+    """{worker id: [K1 launches, K1 calls on CUDA that took the plain
+    path, ResNet-50 chunks executed]}, each read from the worker's own
+    ``/v1/models`` (its process's counts)."""
+    out = {}
+    for w in fleet.workers:
+        st, body, _ = _http(f"{w.url}/v1/models")
+        if st != 200:
+            raise AssertionError(f"{w.worker_id} /v1/models answered {st}")
+        k = body["kernels"]
+        out[w.worker_id] = [k["launches"]["conv2d_fwd"],
+                            k["plain_on_cuda"]["conv2d_fwd"],
+                            body["models"]["resnet50"]["chunks_executed"]]
+    return out
+
+
+def fleet_phase(torch, np, card):
+    """Phase 22k: a FleetRouter over two worker processes on the card
+    (module doc)."""
+    import shutil
+    import signal
+
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import Generator
+    from deeplearning4j_tpu_torch.serving.fleet import (FleetRouter,
+                                                        affinity_key,
+                                                        fleet_spec,
+                                                        rendezvous_pick)
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import Bert
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+    net = ResNet50().init(device="cuda")
+    _calm_residual_branches(net)
+    net2 = ResNet50(seed=RELOAD_SEED).init(device="cuda")
+    _calm_residual_branches(net2)
+    lm = Bert.base(causal=True, task="mlm", max_length=GEN_MAXLEN,
+                   hidden_dropout=0.0, seed=GEN_SEED).init(device="cuda")
+    paths = {k: os.path.join(FLEET_DIR, f"{k}.zip")
+             for k in ("resnet50", "resnet50_seed7", "lm")}
+    t0 = time.perf_counter()
+    for k, n in (("resnet50", net), ("resnet50_seed7", net2), ("lm", lm)):
+        ModelSerializer.write_model(n, paths[k], save_updater=False)
+    archive_s = time.perf_counter() - t0
+    spec = fleet_spec(models=[
+        {"id": "resnet50", "path": paths["resnet50"], "kind": "classify",
+         "register": {"max_wait_ms": 5.0, "queue_limit": 64},
+         "model_kw": {"bucketing": {"batch_buckets": list(BUCKETS)}}},
+        {"id": "lm", "path": paths["lm"], "kind": "generate",
+         "register": {"max_wait_ms": 5.0, "queue_limit": 64},
+         "model_kw": {"bucketing": {"batch_buckets": list(FLEET_GEN_BUCKETS),
+                                    "seq_buckets": list(FLEET_GEN_SEQ)},
+                      "block_size": GEN_BLOCK,
+                      "pool_blocks": FLEET_POOL_BLOCKS,
+                      "prefix_cache": True, "max_length": GEN_MAXLEN}}],
+        env={"DL4J_TORCH_KERNEL_IMPL": "cuda"})
+    rng = np.random.default_rng(4242)
+    xs = [quarter_grid(np, rng, r) for r in FLEET_ROWS]
+    heads = gen_prompts(np, [FLEET_HEAD] * 2, 300)
+    tails = gen_prompts(np, [FLEET_PROMPT - FLEET_HEAD] * FLEET_STREAMS, 301)
+    prompts = [heads[i % 2] + tails[i] for i in range(FLEET_STREAMS)]
+    # the in-process oracles: every K1 launch checked, eager
+    oracle_checked = {}
+    kern.reset_counts()
+    with capture.disabled(), check_every_launch(torch, oracle_checked):
+        want = [net.output(x).double().cpu().numpy() for x in xs]
+    oracle_launches = kern.LAUNCHES["conv2d_fwd"]
+    oracle_gen = Generator(lm, paged=False, batch_buckets=FLEET_GEN_BUCKETS,
+                           prefill_buckets=FLEET_GEN_SEQ,
+                           max_length=GEN_MAXLEN)
+    oracle_logits = []
+    want_tokens = oracle_gen.generate_full_recompute(
+        prompts, FLEET_NEW, logits_out=oracle_logits)
+
+    t0 = time.perf_counter()
+    fleet = FleetRouter(spec, n_workers=FLEET_WORKERS,
+                        affinity_head=FLEET_AFFINITY_HEAD,
+                        health_interval_s=0.25, boot_timeout_s=600,
+                        request_timeout_s=600, name="smoke",
+                        fleet_dir=os.path.join(FLEET_DIR, "run")).start()
+    boot_s = time.perf_counter() - t0
+    ready_s = {w.worker_id: w.healthy_since - w.spawned_at
+               for w in fleet.workers}
+    front = fleet.url
+    out = {"archive_write_s": archive_s, "boot_s": boot_s,
+           "worker_ready_s": ready_s}
+    try:
+        # each worker's own K1 counts from here to the end of the rates
+        counts0 = _worker_conv_counts(fleet)
+        # classify through the router, four at a time (bodies encoded
+        # before the clock starts)
+        url = f"{front}/v1/models/resnet50/infer"
+        bodies = [json.dumps({"inputs": x.tolist()}).encode() for x in xs]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(lambda b: _http(url, "POST", b), bodies))
+        classify_s = time.perf_counter() - t1
+        worst = 0.0
+        for (st, body, _), w in zip(got, want):
+            if st != 200:
+                raise AssertionError(f"classify answered {st}: {body}")
+            worst = max(worst, float(np.abs(
+                np.asarray(body["outputs"], np.float64) - w).max()))
+        if worst > SERVE_TOL:
+            raise AssertionError(f"fleet classify off by {worst}")
+        out["classify"] = {"requests": len(xs), "rows": list(FLEET_ROWS),
+                           "max_abs_err_vs_inprocess": worst,
+                           "wall_s": classify_s}
+        # generate: streams over two shared heads, affinity-routed
+        gurl = f"{front}/v1/models/lm/generate"
+        ring = sorted(w.worker_id for w in fleet._ring())
+
+        def gen(i):
+            return _http(gurl, "POST", {"prompt_tokens": prompts[i],
+                                        "max_new_tokens": FLEET_NEW},
+                         {"X-Request-Id": f"smoke-gen-{i}"})
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            gen_out = list(pool.map(gen, range(FLEET_STREAMS)))
+        gen_s = time.perf_counter() - t1
+        if any(st != 200 for st, _, _ in gen_out):
+            raise AssertionError(f"generate answered "
+                                 f"{[st for st, _, _ in gen_out]}")
+        tokens = [body["tokens"][0] for _, body, _ in gen_out]
+        ties = tied_rows(torch, oracle_gen, prompts, tokens, want_tokens,
+                         oracle_logits)
+        placed = {r["id"]: r["worker"] for r in fleet.debug_requests("lm")}
+        owners = [rendezvous_pick(affinity_key("lm", p,
+                                               FLEET_AFFINITY_HEAD), ring)
+                  for p in prompts]
+        landed = [placed.get(f"smoke-gen-{i}")
+                  for i in range(FLEET_STREAMS)]
+        if landed != owners:
+            raise AssertionError(f"streams landed on {landed}, rendezvous "
+                                 f"picks {owners}")
+        status = fleet.status()
+        out["generate"] = {
+            "streams": FLEET_STREAMS, "prompt": FLEET_PROMPT,
+            "shared_head": FLEET_HEAD, "new_tokens": FLEET_NEW,
+            "tie_rule_rows": ties, "wall_s": gen_s,
+            "head_owners": sorted(set(owners)),
+            "prefix_cache_hit_rate": {
+                w: d["models"].get("lm", {}).get("prefix_cache_hit_rate")
+                for w, d in status["workers"].items()}}
+        # rates, closed-loop: classify rows/s to one worker straight, to
+        # two straight, to two through the router,
+        # check_max the worst error against the exact path; generate
+        # tokens/s through the router over the 16 prompts (their prefixes
+        # cached by now), check_sum the answers unlike the first leg's
+        rx = quarter_grid(np, rng, FLEET_RATE_ROWS)
+        with kern.impl_scope("exact"):
+            want_rx = net.output(rx).double().cpu().numpy()
+        body = json.dumps({"inputs": rx.tolist()}).encode()
+
+        def rx_err(_, b):
+            return float(np.abs(np.asarray(b["outputs"], np.float64)
+                                - want_rx).max())
+
+        direct = [(f"{fleet.worker(w).url}/v1/models/resnet50/infer", body)
+                  for w in ("w0", "w1")]
+        for tag, targets, workers in (
+                ("rate_one_worker_direct", direct[:1], 1),
+                ("rate_two_workers_direct", direct, 2),
+                ("rate_two_workers_router", [(url, body)], 2)):
+            out[tag] = _fleet_rate(np, fleet, "resnet50", targets,
+                                   FLEET_RATE_ROWS, tag, rx_err, workers)
+            if out[tag]["check_max"] > SERVE_TOL:
+                raise AssertionError(f"{tag} off by "
+                                     f"{out[tag]['check_max']}")
+        gbodies = [(gurl, json.dumps({"prompt_tokens": p,
+                                      "max_new_tokens": FLEET_NEW}).encode())
+                   for p in prompts]
+        out["rate_generate_router"] = _fleet_rate(
+            np, fleet, "lm", gbodies, FLEET_NEW, "rate_generate",
+            lambda i, b: float(b["tokens"][0] != tokens[i]), FLEET_WORKERS)
+        # what each worker launched: 53 K1 launches a chunk, none plain
+        counts1 = _worker_conv_counts(fleet)
+        worker_k1 = {w: dict(zip(("launches", "plain_on_cuda", "chunks"),
+                                 (b - a for a, b in zip(counts0[w],
+                                                        counts1[w]))))
+                     for w in counts0}
+        for w, c in worker_k1.items():
+            if c["chunks"] < 1 or c["plain_on_cuda"] \
+                    or c["launches"] != 53 * c["chunks"]:
+                raise AssertionError(f"worker {w}: {c}")
+        out["worker_conv2d_fwd"] = worker_k1
+        # SIGKILL one worker under traffic: every request answered
+        victim = fleet.worker("w0")
+        old_pid = victim.pid
+        failover0 = status["routing_decisions"].get("failover", 0)
+        kx = [quarter_grid(np, rng, 4) for _ in range(FLEET_KILL_REQUESTS)]
+        with kern.impl_scope("exact"):
+            kwant = [net.output(x).double().cpu().numpy() for x in kx]
+        kbodies = [json.dumps({"inputs": x.tolist()}).encode() for x in kx]
+        with ThreadPoolExecutor(4) as pool:
+            futs = [pool.submit(_http, url, "POST", b) for b in kbodies[:4]]
+            # killed with a request of its in flight: that one fails over
+            _wait(lambda: victim.inflight > 0, 60, "a request on w0")
+            t_kill = time.perf_counter()
+            os.kill(old_pid, signal.SIGKILL)
+            futs += [pool.submit(_http, url, "POST", b)
+                     for b in kbodies[4:]]
+            kill_out = [f.result() for f in futs]
+        kill_codes = [st for st, _, _ in kill_out]
+        kill_err = max(float(np.abs(np.asarray(b["outputs"], np.float64)
+                                    - w).max())
+                       for (st, b, _), w in zip(kill_out, kwant)
+                       if st == 200)
+        if kill_codes != [200] * FLEET_KILL_REQUESTS or kill_err > SERVE_TOL:
+            raise AssertionError(f"under SIGKILL: {kill_codes}, "
+                                 f"err {kill_err}")
+        _wait(lambda: len(fleet._ring()) == FLEET_WORKERS
+              and victim.pid != old_pid, 600, "the respawned worker")
+        respawn_s = time.perf_counter() - t_kill
+        status = fleet.status()
+        out["sigkill"] = {
+            "killed": "w0", "answered_200": kill_codes.count(200),
+            "requests": FLEET_KILL_REQUESTS,
+            "max_abs_err_vs_exact": kill_err,
+            "failovers": status["routing_decisions"].get("failover", 0)
+            - failover0,
+            "restarts": victim.restarts, "respawn_to_ring_s": respawn_s,
+            "respawned_ready_s": victim.healthy_since - victim.spawned_at}
+        if victim.restarts < 1:
+            raise AssertionError("the killed worker was not respawned")
+        # rolling reload to the second ResNet-50 under live traffic
+        before = {w: d["models"]["resnet50"]["version"]
+                  for w, d in status["workers"].items()}
+        stop, codes = threading.Event(), []
+        tx = quarter_grid(np, rng, 2)
+        tbody = json.dumps({"inputs": tx.tolist()}).encode()
+
+        def traffic():
+            while not stop.is_set():
+                codes.append(_http(url, "POST", tbody)[0])
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        t1 = time.perf_counter()
+        try:
+            st, rbody, _ = _http(f"{front}/v1/models/resnet50/reload",
+                                 "POST", {"path": paths["resnet50_seed7"]})
+        finally:
+            reload_s = time.perf_counter() - t1
+            stop.set()
+            th.join(timeout=600)
+        if st != 200 or not codes or set(codes) != {200}:
+            raise AssertionError(f"rolling reload: {st} {rbody}; traffic "
+                                 f"answered {sorted(set(codes))}")
+        versions = rbody["versions"]
+        if sorted(versions) != ["w0", "w1"] or any(
+                versions[w] <= before[w] for w in versions):
+            raise AssertionError(f"versions {before} -> {versions}")
+        with kern.impl_scope("exact"):
+            want2 = net2.output(tx).double().cpu().numpy()
+        after = [np.asarray(_http(url, "POST", tbody)[1]["outputs"],
+                            np.float64) for _ in range(4)]
+        reload_err = max(float(np.abs(a - want2).max()) for a in after)
+        if reload_err > SERVE_TOL:
+            raise AssertionError(f"after the reload off by {reload_err}")
+        out["rolling_reload"] = {
+            "seconds": reload_s, "versions_before": before,
+            "versions_after": versions, "traffic_requests": len(codes),
+            "non_200": sum(c != 200 for c in codes),
+            "max_abs_err_vs_new_net": reload_err}
+        # metrics fan in relabelled per worker
+        st_m, text, _ = _http(f"{front}/metrics")
+        relabelled = {w: bool(re.search(
+            r'serving_completed_total\{worker="%s",' % w, text))
+            for w in ("w0", "w1")}
+        if st_m != 200 or not all(relabelled.values()) \
+                or 'serving_fleet_ring_size{fleet="smoke"} 2' not in text:
+            raise AssertionError(f"fleet metrics: {st_m} {relabelled}")
+        out["metrics"] = {"relabelled": relabelled,
+                          "lines": text.count("\n")}
+        out["routing_decisions"] = fleet.status()["routing_decisions"]
+    finally:
+        fleet.stop(kill_timeout_s=120)
+    exit_codes = {w.worker_id: w.proc.returncode for w in fleet.workers}
+    if set(exit_codes.values()) != {0}:
+        raise AssertionError(f"worker exit codes {exit_codes}")
+    emit("fleet", workers=FLEET_WORKERS, models={
+        "resnet50": {"params": net.num_params(), "input": [224, 224, 3],
+                     "buckets": list(BUCKETS)},
+        "lm": {"model": "Bert.base(causal=True, task='mlm')",
+               "params": lm.num_params(),
+               "batch_buckets": list(FLEET_GEN_BUCKETS),
+               "prefill_buckets": list(FLEET_GEN_SEQ) + [GEN_MAXLEN],
+               "block_size": GEN_BLOCK, "pool_blocks": FLEET_POOL_BLOCKS,
+               "prefix_cache": True}},
+         kernel_impl="cuda", affinity_head=FLEET_AFFINITY_HEAD,
+         oracle_conv_launches=oracle_launches,
+         oracle_launches_checked=_checked_summary(oracle_checked), **out,
+         exit_codes=exit_codes, phase_s=time.perf_counter() - t_phase,
+         card=card)
+    return oracle_launches, oracle_checked, out["worker_conv2d_fwd"]
 
 
 def lstm_entry(cell_records, seq_records, launches, train_checked,
@@ -8326,6 +9149,14 @@ def main() -> int:
     with capture.disabled():
         int8_launches, int8_checked = timed("serve_int8", serve_int8_leg,
                                             torch, np, smi)
+        torch.cuda.empty_cache()
+        res_launches, res_checked = timed(
+            "serving_resilience", serving_resilience_phase, torch, np, smi)
+    res_captured = timed("serving_resilience_captured",
+                         serving_resilience_captured_leg, torch, np, smi)
+    torch.cuda.empty_cache()
+    fleet_launches, fleet_checked, fleet_workers = timed(
+        "fleet", fleet_phase, torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -8456,6 +9287,14 @@ def main() -> int:
         "launches_serve_int8": int8_launches,
         **{f"serve_int8_{k}": v for k, v in checked_fields(
             "conv2d_fwd", int8_checked).items()},
+        "launches_serving_resilience": res_launches,
+        **{f"serving_resilience_{k}": v for k, v in checked_fields(
+            "conv2d_fwd", res_checked).items()},
+        "launches_serving_resilience_captured": res_captured,
+        "launches_fleet_inprocess": fleet_launches,
+        "launches_fleet_workers": fleet_workers,
+        **{f"fleet_inprocess_{k}": v for k, v in checked_fields(
+            "conv2d_fwd", fleet_checked).items()},
         **{f"train_{k}": v for k, v in checked_fields(
             "conv2d_fwd", train_checked).items()},
         "launches_captured": {
@@ -8470,7 +9309,15 @@ def main() -> int:
                "replay, eager_ms by a Python loop; launches from the serve "
                "phase (53 per executed chunk), launches_serve_int8 from the "
                "int8 ResNet-50 served in serve_int8 (53 per chunk), "
-               "launches_train from the train phase's 4 "
+               "launches_serving_resilience from phase 22j's HTTP "
+               "requests (53 per chunk, the watched reload's warmup apart), "
+               "launches_serving_resilience_captured from its captured "
+               "leg (53 per chunk under replay), launches_fleet_inprocess "
+               "from phase 22k's in-process oracle, launches_fleet_workers "
+               "each fleet worker's own count (its /v1/models) over the "
+               "classify and rate legs, with its chunks and plain calls "
+               "(53 per chunk, 0 plain), launches_train from the train "
+               "phase's 4 "
                "fit steps; serve_/train_checked_*: every launch of those "
                "paths (and of one bf16 fit step) against the plain version",
         "card": smi},

@@ -16,12 +16,22 @@ Recognized variables:
   (``util/telemetry.py``); default on, 0/false strips every recording hook.
 - ``DL4J_TPU_FAULTS`` — armed injectable faults, ``"kind[@step][:arg]"``
   pairs (``util/faults.py`` parses it; kept here so a dump shows it).
+- ``DL4J_TPU_TRACE_SAMPLE`` — the serving tier's request-trace
+  head-sampling keep fraction in [0, 1] (``serving/scheduler.py``
+  ``trace_sample_rate`` parses it): the share of healthy requests whose
+  queue-wait, batch-fill and compute spans land on the merged trace;
+  slow, shed and failed requests are always kept, ``0`` turns request
+  tracing off. Unset = 0.02. The flight recorder records every request
+  whatever it says.
+- ``DL4J_TPU_AFFINITY_HEAD`` — the prompt-head length (tokens) the fleet
+  router hashes for prefix affinity (``serving/fleet.py``
+  ``default_affinity_head`` reads it); unset = 16, 0 turns affinity off.
 
 The reference's other variables (compute dtype, remat policy, sync_every,
 kernel dispatch, fused update, gradient compression, pipeline stages,
-tuning database, compilation cache, trace sampling, OpProfiler and NaN
-panic) are added with the ROADMAP items that port the code reading them;
-the port's kernel dispatch reads its own ``DL4J_TORCH_KERNEL_IMPL``.
+tuning database, compilation cache, OpProfiler and NaN panic) are added
+with the ROADMAP items that port the code reading them; the port's kernel
+dispatch reads its own ``DL4J_TORCH_KERNEL_IMPL``.
 """
 
 from __future__ import annotations
@@ -62,6 +72,11 @@ class Environment:
         self.default_buckets = os.environ.get("DL4J_TPU_BUCKETS") or None
         self.telemetry = _env_bool("DL4J_TPU_TELEMETRY", default=True)
         self.fault_spec = os.environ.get("DL4J_TPU_FAULTS") or None
+        # the authoritative parses are serving.scheduler.trace_sample_rate
+        # and serving.fleet.default_affinity_head (read live, per request
+        # and per router); kept here so a dump shows them
+        self.trace_sample = os.environ.get("DL4J_TPU_TRACE_SAMPLE") or None
+        self.affinity_head = os.environ.get("DL4J_TPU_AFFINITY_HEAD") or None
 
     @classmethod
     def get_instance(cls) -> "Environment":

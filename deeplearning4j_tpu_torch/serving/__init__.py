@@ -1,7 +1,10 @@
 """Serving tier of the port (counterpart of deeplearning4j_tpu/serving):
 ModelServer -> ModelRouter -> BatchScheduler -> ServingModel, classify
 (fp32 or int8) and generate (the paged-KV decode tier of
-``serving/generate.py``).
+``serving/generate.py``), with the resilience layer (circuit breaker,
+brownout, supervised worker, drain, request ids, flight recorder; the
+``/metrics``, ``/healthz``, ``/slo`` and ``/admin`` routes) and the fleet
+(``FleetRouter`` over worker processes, ``serving/fleet_worker.py``).
 
     from deeplearning4j_tpu_torch.serving import (ModelRouter, ModelServer,
                                                   ServingModel)
@@ -11,9 +14,12 @@ ModelServer -> ModelRouter -> BatchScheduler -> ServingModel, classify
     router.load("lm", "/models/lm.zip", kind="generate")
     server = ModelServer(router, port=8080).start()  # warms the programs
 
-Resilience beyond the errors and the fleet are ROADMAP Queue 1 item 11b.
+Multi-device inference (``use_mesh``) is ROADMAP Queue 1 item 10.
 """
 
+from deeplearning4j_tpu_torch.serving.fleet import (FleetRouter, FleetWorker,
+                                                    affinity_key, fleet_spec,
+                                                    rendezvous_pick)
 from deeplearning4j_tpu_torch.serving.generate import Generator
 from deeplearning4j_tpu_torch.serving.model import ServingModel
 from deeplearning4j_tpu_torch.serving.paged import (BlockPool,
@@ -22,24 +28,29 @@ from deeplearning4j_tpu_torch.serving.paged import (BlockPool,
 from deeplearning4j_tpu_torch.serving.quantize import (INT8_LOGIT_TOL,
                                                        QuantizedParams)
 from deeplearning4j_tpu_torch.serving.resilience import (
-    BrownoutShedError, CircuitOpenError, FleetUnavailableError,
-    ModelLoadError, ReloadRejectedError, SchedulerDrainingError,
+    BrownoutController, BrownoutShedError, CircuitBreaker, CircuitOpenError,
+    FleetUnavailableError, ModelLoadError, ReloadRejectedError,
     SchedulerStoppedError, WorkerCrashedError, WorkerProxyError)
 from deeplearning4j_tpu_torch.serving.router import (ModelRouter,
-                                                     UnknownModelError)
-from deeplearning4j_tpu_torch.serving.scheduler import (BatchScheduler,
-                                                        DeadlineExceededError,
-                                                        QueueFullError,
-                                                        ShedError)
+                                                     UnknownModelError,
+                                                     current_status)
+from deeplearning4j_tpu_torch.serving.scheduler import (
+    BatchScheduler, DeadlineExceededError, FlightRecorder, QueueFullError,
+    SchedulerDrainingError, ShedError, new_request_id, trace_sample_rate)
 from deeplearning4j_tpu_torch.serving.server import ModelServer
 
 __all__ = [
     "BatchScheduler",
     "BlockPool",
+    "BrownoutController",
     "BrownoutShedError",
+    "CircuitBreaker",
     "CircuitOpenError",
     "DeadlineExceededError",
+    "FleetRouter",
     "FleetUnavailableError",
+    "FleetWorker",
+    "FlightRecorder",
     "Generator",
     "INT8_LOGIT_TOL",
     "ModelLoadError",
@@ -57,4 +68,10 @@ __all__ = [
     "UnknownModelError",
     "WorkerCrashedError",
     "WorkerProxyError",
+    "affinity_key",
+    "current_status",
+    "fleet_spec",
+    "new_request_id",
+    "rendezvous_pick",
+    "trace_sample_rate",
 ]

@@ -32,6 +32,14 @@ net, generator and int8 leaves between batch cycles (under the lock
 ``execute`` holds) and advances ``version``. ``execute`` reports the
 programs the batch built (``recompiles``: 0 in steady state).
 
+Faults and tracing (reference ``:216-245``): the scheduler passes its
+batch number as ``_step``, and only then can ``serving_slow_batch`` (a
+real sleep of ``arg`` ms on the worker thread) and
+``serving_compute_error`` (the batch raises) fire; a reload's canary and a
+direct call pass none and never consume them. ``_trace`` (a head-sampled
+batch) emits the batch's pad and device phase spans (the generator its
+prefill and decode spans) through the deferred-event path.
+
 Not ported yet: ``use_mesh`` (multi-device inference, ROADMAP Queue 1
 item 10), which raises ``NotImplementedError``.
 """
@@ -48,6 +56,8 @@ import torch
 from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
 from deeplearning4j_tpu_torch.device import as_tensor
 from deeplearning4j_tpu_torch.nn import capture
+from deeplearning4j_tpu_torch.util import faults as fl
+from deeplearning4j_tpu_torch.util import telemetry as tm
 from deeplearning4j_tpu_torch.util.compile_watcher import get_watcher
 
 _DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -178,52 +188,87 @@ class ServingModel:
         return primed
 
     # ------------------------------------------------------------- execute
-    def execute(self, payloads: List[Any], _yield=None, **opts
+    def execute(self, payloads: List[Any], _trace: bool = False,
+                _step: Optional[int] = None, _yield=None, **opts
                 ) -> Tuple[List[Any], Dict[str, Any]]:
         """Run one coalesced batch; returns (per-payload results, stats):
         real/padded row counts, the chunks run and the programs the batch
         built (``recompiles``, counted on this thread). Generate batches
-        take the scheduler's options and add their decode stats."""
+        take the scheduler's options and add their decode stats.
+        ``_step`` (the scheduler's batch number) arms the serving faults;
+        ``_trace`` emits the batch's phase spans (see the module doc)."""
+        if _step is not None:
+            injector = fl.get_injector()
+            fault = injector.fire(fl.SERVING_SLOW_BATCH, step=_step)
+            if fault is not None:
+                # a real stall on the worker thread: requests queued
+                # behind it age toward their deadlines as behind a wedged
+                # device
+                time.sleep((fault.arg or 50.0) / 1e3)
+            if injector.fire(fl.SERVING_COMPUTE_ERROR,
+                             step=_step) is not None:
+                raise RuntimeError(
+                    f"{self.model_id}: injected serving compute error "
+                    f"(batch {_step})")
         watcher = get_watcher()
         with self._lock:
             before = watcher.thread_traces()
             stats: Dict[str, Any] = {}
             if self.kind == "generate":
                 results, real, padded = self._execute_generate(
-                    payloads, stats, _yield, **opts)
+                    payloads, stats, _yield, _trace=_trace, **opts)
                 chunks = 1
             else:
                 if opts:
                     raise ValueError(f"classify takes no options, got "
                                      f"{opts}")
                 results, real, padded, chunks = self._execute_classify(
-                    payloads)
+                    payloads, _trace=_trace)
             stats.update({"real_rows": real, "padded_rows": padded,
                           "chunks": chunks,
                           "recompiles": watcher.thread_traces() - before})
         return results, stats
 
-    def _execute_classify(self, payloads):
+    def _emit(self, name: str, t0_ns: int, **args):
+        # deferred (no registry lock): this runs on the scheduler worker
+        tm.get_telemetry().event_deferred(name, t0_ns, time.time_ns(),
+                                          model=self.model_id, **args)
+
+    def _execute_classify(self, payloads, _trace: bool = False):
+        # the bucket-padding phase (host) apart from the device phase, so
+        # a sampled trace shows where the milliseconds went
+        t0 = time.time_ns() if _trace else 0
         xs = np.concatenate([np.asarray(p, np.float32) for p in payloads],
                             axis=0)
         plan = self.policy.plan_serving_batch(xs.shape[0])
-        outs, off = [], 0
+        padded = sum(p for _, p in plan)
+        chunks, off = [], 0
         for take, _bucket in plan:
             chunk, _ = self.policy.pad_inference_batch(xs[off:off + take])
+            chunks.append((chunk, take))
+            off += take
+        if _trace:
+            self._emit("serving.exec.pad", t0, rows=xs.shape[0],
+                       padded=padded)
+        t1 = time.time_ns() if _trace else 0
+        outs = []
+        for chunk, take in chunks:
             if self._qp is not None:
                 y = self._forward_int8(chunk)[:take]
             else:
                 y = self.net.output(chunk)[:take]
             outs.append(y.to(torch.float32).cpu().numpy())
             self.chunks_executed += 1
-            off += take
         out = np.concatenate(outs, axis=0)
+        if _trace:
+            self._emit("serving.exec.device", t1, rows=xs.shape[0],
+                       padded=padded, chunks=len(plan))
         results, off = [], 0
         for p in payloads:
             k = int(np.shape(p)[0])
             results.append(out[off:off + k])
             off += k
-        return results, xs.shape[0], sum(p for _, p in plan), len(plan)
+        return results, xs.shape[0], padded, len(plan)
 
     def _forward_int8(self, x):
         """The int8 classify forward (reference ``:126-145``): the net's
@@ -243,14 +288,16 @@ class ServingModel:
                             "serving.classify_int8", body, (x,),
                             train=False)(x).clone()
 
-    def _execute_generate(self, payloads, stats, _yield=None, **opts):
+    def _execute_generate(self, payloads, stats, _yield=None,
+                          _trace: bool = False, **opts):
         prompts = [[int(v) for v in np.asarray(p).ravel()]
                    for p in payloads]
         t0 = time.perf_counter()
         tokens = self.generator.generate(
             prompts, max_new_tokens=int(opts.get("max_new_tokens", 16)),
             temperature=float(opts.get("temperature", 0.0)),
-            eos_id=opts.get("eos_id"), stats=stats, yield_hook=_yield)
+            eos_id=opts.get("eos_id"), trace=_trace, stats=stats,
+            yield_hook=_yield)
         stats["decode_seconds"] = time.perf_counter() - t0
         stats["decode_tokens"] = sum(len(t) for t in tokens)
         real = len(prompts)
@@ -327,6 +374,8 @@ class ServingModel:
             "warmed": self.warmed,
             "version": self.version,
             "reload_time": self.reload_time,
+            "iteration": int(getattr(self.net, "iteration", 0) or 0),
+            "mesh": False,  # use_mesh is ROADMAP Queue 1 item 10
             "chunks_executed": self.chunks_executed,
             "device": str(getattr(self.net, "device", None)),
             "params": int(self.net.num_params())

@@ -85,16 +85,18 @@ class RetryPolicy:
     def with_(self, **kw) -> "RetryPolicy":
         return replace(self, **kw)
 
-    def sleep_before_retry(self, attempt: int) -> float:
+    def sleep_before_retry(self, attempt: int,
+                           rng: Optional[random.Random] = None) -> float:
         """Jittered backoff before retry number ``attempt`` (1-based) —
         for callers that drive their own retry loop (the mp-ETL chunk
-        supervisor) but must keep this policy's backoff semantics. Returns
-        the seconds slept."""
+        supervisor, the serving scheduler's watchdog) but must keep this
+        policy's backoff semantics; ``rng`` is the caller's own draw (the
+        module's otherwise). Returns the seconds slept."""
         delays = self.delays()
         if not delays:
             return 0.0
         d = delays[min(attempt - 1, len(delays) - 1)]
-        d *= 1.0 - self.jitter * random.random()
+        d *= 1.0 - self.jitter * (rng or random).random()
         time.sleep(d)
         return d
 

@@ -9,10 +9,11 @@ What differs in the port: compile counts come from the port's
 CUDA itself, so a scrape never initialises it and a forked child never
 touches it; the compile-cache collector waits for ``util/compile_cache.py``
 (ROADMAP item 12) and is left out until then. So are the reference's
-collectors of the elastic runtime, the serving router and fleet, the tuning
-database and the SLOs, and the serving schedulers' deferred request spans:
-the port has none of the functions they read, and each comes back with the
-ROADMAP item that ports its module.
+collectors of the elastic runtime (item 10) and the tuning database (item
+13). The serving router's, the fleet's and the SLO engine's collectors and
+the serving schedulers' deferred request spans are here, each guarded by
+``sys.modules`` on the port's own module name as the reference guards its
+own, so a process that never served pays nothing.
 
 OpProfiler, StepTimer, CompileWatcher and StatsListener each emit their own
 format, and none of them observes the ETL worker processes or the prefetch
@@ -260,6 +261,7 @@ class Telemetry:
         under no lock; takes the registry lock once for the whole
         batch)."""
         pend, self._pending = self._pending, []
+        pend += _staged_serving_spans()
         if not pend:
             return
         with self._lock:
@@ -463,6 +465,7 @@ class Telemetry:
         return out
 
     def reset(self):
+        _staged_serving_spans()  # discard staged serving request spans
         with self._lock:
             self.counters.clear()
             self.gauges.clear()
@@ -644,8 +647,9 @@ _defaults_lock = threading.Lock()
 
 def install_default_collectors() -> Telemetry:
     """Register the scrape-time sources every deployment wants (idempotent):
-    CompileWatcher counters (compile observability) and per-device memory
-    live/peak bytes from torch's allocator."""
+    CompileWatcher counters (compile observability), per-device memory
+    live/peak bytes from torch's allocator, and the serving, fleet and SLO
+    gauges (reference ``:663-666``)."""
     global _defaults_installed
     tele = Telemetry.get_instance()
     with _defaults_lock:
@@ -653,6 +657,9 @@ def install_default_collectors() -> Telemetry:
             return tele
         tele.register_collector(_collect_compile)
         tele.register_collector(_collect_device_memory)
+        tele.register_collector(_collect_serving)
+        tele.register_collector(_collect_fleet)
+        tele.register_collector(_collect_slo)
         _defaults_installed = True
     return tele
 
@@ -702,6 +709,56 @@ def device_memory_stats() -> List[Tuple[str, dict, float]]:
 
 def _collect_device_memory() -> list:
     return device_memory_stats()
+
+
+def _collect_serving() -> list:
+    """Serving-tier gauges (per-model queue depth, p50/p99 latency, QPS,
+    breaker state, version, restarts) at scrape time (reference ``:741``);
+    nothing in a process that never imported the router."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.serving.router")
+    if mod is None:
+        return []
+    return mod.collect_metrics()
+
+
+def _collect_fleet() -> list:
+    """Fleet-tier gauges (ring size, per-worker health, membership,
+    in-flight and restarts) at scrape time; nothing in a process without
+    a fleet front tier."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.serving.fleet")
+    if mod is None:
+        return []
+    return mod.collect_metrics()
+
+
+def _collect_slo() -> list:
+    """SLO gauges (compliance, burn rates, budget remaining) at scrape
+    time; nothing in a process that never declared an objective."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.util.slo")
+    if mod is None:
+        return []
+    return mod.collect_slo_gauges()
+
+
+def _staged_serving_spans() -> list:
+    """Request phase spans staged by the serving schedulers, cleared on
+    read (reference ``:468``); nothing in a process that never imported
+    the scheduler."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.serving.scheduler")
+    if mod is None:
+        return []
+    try:
+        return mod.collect_deferred_spans()
+    except Exception:
+        return []  # a broken scheduler must never break an export
 
 
 def _after_fork_child():

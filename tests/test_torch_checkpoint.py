@@ -277,6 +277,8 @@ def test_router_load_and_reload(tmp_path):
         q.execute([x[:4]])[0][0],
         ModelSerializer.restore_model(v1, device="cpu").output(
             x[:4]).numpy())
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        router.watch("m", v1)
+    # archive following is ported: a poller until unwatch stops it
+    stop = router.watch("m", v1, interval_s=0.05)
+    assert not stop.is_set()
+    assert router.unwatch("m") and stop.is_set()
     router.shutdown()

@@ -1799,3 +1799,148 @@ def test_int8_classify_on_card_launches_conv_kernel(card):
     with capture.disabled():
         eager = np.concatenate(q.execute([x])[0])
     np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------ serving resilience and the fleet
+
+
+def test_serving_resilience_on_card(card):
+    """LeNet served on the card through the scheduler: a compute error
+    opens the breaker (consecutive 1) and a probe closes it; a worker crash
+    fails its batch loudly and the restarted loop replays the warmed
+    programs (no program built after warmup); every answer equals the
+    in-process output, 2 conv launches a chunk, none plain."""
+    from deeplearning4j_tpu_torch.serving import (BatchScheduler,
+                                                  CircuitBreaker,
+                                                  CircuitOpenError,
+                                                  ServingModel,
+                                                  WorkerCrashedError)
+    from deeplearning4j_tpu_torch.util import faults as fl
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    net = LeNet().init(device=card)
+    x = np.random.default_rng(1).random((3, 28, 28, 1), dtype=np.float32)
+    want = net.output(x).float().cpu().numpy()
+    model = ServingModel(net, "lenet-card")
+    model.warmup()
+    clock = [0.0]
+    breaker = CircuitBreaker(clock=lambda: clock[0], model_id="lenet-card",
+                             consecutive_errors=1, cooldown_s=1.0)
+    sched = BatchScheduler(model, max_wait_ms=0.5, breaker=breaker).start()
+    inj = fl.get_injector()
+    try:
+        TK.reset_counts()
+        np.testing.assert_allclose(sched.submit(x).result(timeout=60), want,
+                                   rtol=1e-5, atol=1e-6)
+        inj.inject(fl.SERVING_COMPUTE_ERROR)
+        with pytest.raises(RuntimeError, match="injected serving"):
+            sched.submit(x).result(timeout=60)
+        with pytest.raises(CircuitOpenError):
+            sched.submit(x)
+        clock[0] = 2.0
+        np.testing.assert_allclose(sched.submit(x).result(timeout=60), want,
+                                   rtol=1e-5, atol=1e-6)
+        assert breaker.state == "closed" and breaker.closes == 1
+        inj.inject(fl.SERVING_WORKER_CRASH)
+        with pytest.raises(WorkerCrashedError):
+            sched.submit(x).result(timeout=60)
+        # the crash is the breaker's one allowed error (recorded just after
+        # the batch's futures fail): open again, so the next request after
+        # the cooldown is its probe
+        import time
+
+        deadline = time.monotonic() + 10
+        while breaker.state != "open" and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert breaker.state == "open"
+        clock[0] = 4.0
+        np.testing.assert_allclose(sched.submit(x).result(timeout=60), want,
+                                   rtol=1e-5, atol=1e-6)
+        assert breaker.state == "closed" and breaker.closes == 2
+        stats = sched.stats()
+        assert stats["worker_restarts"] == 1 and stats["worker_alive"]
+        assert stats["recompiles"] == 0
+        # 3 served chunks of 2 conv launches; the failed batches ran none
+        assert TK.LAUNCHES["conv2d_fwd"] == 6
+        assert not TK.PLAIN_ON_CUDA["conv2d_fwd"]
+    finally:
+        inj.clear()
+        sched.shutdown()
+
+
+def test_fleet_on_card(card, tmp_path):
+    """Two worker processes on the card under DL4J_TORCH_KERNEL_IMPL=cuda
+    serve a LeNet archive equal to the in-process output, each worker's
+    own counts showing two K1 launches a chunk, none plain; a SIGKILLed
+    worker fails over and respawns; stop drains both to exit code 0."""
+    import http.client
+    import json
+    import os
+
+    from deeplearning4j_tpu_torch.serving.fleet import FleetRouter, fleet_spec
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    net = LeNet().init(device=card)
+    path = str(tmp_path / "lenet.zip")
+    ModelSerializer.write_model(net, path, save_updater=False)
+    x = np.random.default_rng(2).random((4, 28, 28, 1), dtype=np.float32)
+    want = net.output(x).float().cpu().numpy()
+    spec = fleet_spec(models=[{"id": "lenet", "path": path}],
+                      env={"DL4J_TORCH_KERNEL_IMPL": "cuda"})
+
+    def infer():
+        conn = http.client.HTTPConnection("127.0.0.1", fleet.port,
+                                          timeout=60)
+        try:
+            conn.request("POST", "/v1/models/lenet/infer",
+                         body=json.dumps({"inputs": x.tolist()}).encode())
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    def worker_counts():
+        # per worker: (K1 launches, plain calls on CUDA, chunks), the
+        # worker process's own counts from its /v1/models
+        out = []
+        for w in fleet.workers:
+            conn = http.client.HTTPConnection("127.0.0.1", w.port,
+                                              timeout=60)
+            try:
+                conn.request("GET", "/v1/models")
+                body = json.loads(conn.getresponse().read())
+            finally:
+                conn.close()
+            k = body["kernels"]
+            out.append((k["launches"]["conv2d_fwd"],
+                        k["plain_on_cuda"]["conv2d_fwd"],
+                        body["models"]["lenet"]["chunks_executed"]))
+        return np.asarray(out)
+
+    fleet = FleetRouter(spec, n_workers=2, health_interval_s=0.1,
+                        fleet_dir=str(tmp_path / "run")).start()
+    try:
+        before = worker_counts()
+        for _ in range(4):
+            st, body = infer()
+            assert st == 200
+            np.testing.assert_allclose(np.asarray(body["outputs"]), want,
+                                       rtol=1e-4, atol=1e-5)
+        launches, plain, chunks = (worker_counts() - before).sum(axis=0)
+        # LeNet's two convs on K1 in the workers, at least a chunk a
+        # request
+        assert chunks >= 4 and launches == 2 * chunks and plain == 0
+        victim = fleet._ring()[0]
+        os.kill(victim.pid, 9)
+        assert [infer()[0] for _ in range(8)] == [200] * 8
+        import time
+
+        deadline = time.monotonic() + 180
+        while len(fleet._ring()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.2)
+        assert len(fleet._ring()) == 2
+        assert fleet.worker(victim.worker_id).restarts >= 1
+    finally:
+        fleet.stop(kill_timeout_s=30)
+    assert [w.proc.returncode for w in fleet.workers] == [0, 0]

@@ -368,7 +368,15 @@ def test_model_server_answers_with_net_output(narrow):
             _post(f"{server.url}/v1/models/nope/infer", {"inputs": [[0.0]]})
         assert e.value.code == 404
         with urllib.request.urlopen(f"{server.url}/healthz") as r:
-            assert json.loads(r.read()) == {"ok": True, "models": ["narrow"]}
+            health = json.loads(r.read())
+        assert health["status"] == "ok"
+        assert health["checks"]["devices"] == {"ok": True, "detail": "cpu"}
+        # the serving section lists the model (keyed by router name when
+        # this process holds more than one router)
+        serving = health["serving"]
+        assert any("narrow" in r["models"]
+                   for r in [serving, *serving.values()]
+                   if isinstance(r, dict) and "models" in r)
         with urllib.request.urlopen(f"{server.url}/v1/models") as r:
             desc = json.loads(r.read())["models"]["narrow"]
         assert desc["warmed"] and desc["counts"]["completed"] == 3
@@ -421,7 +429,9 @@ def test_package_imports_without_jax():
         "'data.prefetch', 'data.image_iterator', 'nlp.vectorizer', "
         "'datavec', 'datavec.records', 'datavec.transform', "
         "'datavec.executor', 'datavec.iterators', 'serving.generate', "
-        "'serving.paged', 'serving.quantize')}\n"
+        "'serving.paged', 'serving.quantize', 'serving.fleet', "
+        "'serving.fleet_worker', 'util.slo', 'util.health', "
+        "'util.ui_server')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "bad = [k for k in sys.modules if k == 'orbax' or "
         "k.startswith('orbax.')]\n"

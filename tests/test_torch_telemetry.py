@@ -209,10 +209,11 @@ def test_injector_fires_once_and_retry_policy_delays():
 def test_environment_reads_the_same_flags(monkeypatch):
     for k, v in {"DL4J_TPU_ETL_WORKERS": "3", "DL4J_TPU_BUCKETS": "pow2",
                  "DL4J_TPU_TELEMETRY": "0", "DL4J_TPU_FAULTS": "inject_nan@5",
-                 "DL4J_TPU_VERBOSE": "1"}.items():
+                 "DL4J_TPU_VERBOSE": "1",
+                 "DL4J_TPU_TRACE_SAMPLE": "0.5"}.items():
         monkeypatch.setenv(k, v)
     keys = ("etl_workers", "default_buckets", "telemetry", "fault_spec",
-            "debug", "verbose")
+            "debug", "verbose", "trace_sample")
     ref = ref_config.Environment()
     port = port_config.Environment()
     assert [getattr(port, k) for k in keys] == [getattr(ref, k) for k in keys]
