@@ -393,6 +393,29 @@ Phases, each printing one JSON line:
     a rolling reload to the seed-7 archive under live traffic (no answer
     but 200, versions up, answers the new net's); ``/metrics`` relabelled
     per worker; ``stop()`` drains both workers to exit code 0.
+22l. observe_tune: observability and tuning (``util/cost_model.py``,
+    ``tuning/``, ``util/profiler.py``, ``util/health.py``,
+    ``util/stats.py``), with ``DL4J_TPU_PEAK_FLOPS`` set to the card's
+    dense peaks. ``cost_report(profile=True)`` of full-width ResNet-50 at
+    224x224, batch 32, fp32 and bf16, and of BERT-base at S 128, batch 32,
+    fp32 and bf16: step FLOPs, step ms, per-layer device ms (CUDA events
+    by scope on a profiled eager step) against the same regions' span in
+    the step's trace (within 10%; the trace's kernel-busy time beside it),
+    MFU, the five costliest layers; the counted and the
+    profiled step each launch K1/dgrad/K3 53/52/53 times (K5 12 times),
+    every launch of the counted step checked; the nets' params, states and
+    optimizer states bit-equal after. ``MeasurementDriver`` over
+    ``ConvTileSpace`` at ResNet-50's four 3x3 stage geometries (batch 32,
+    fp32 and bf16) into ``build/tuning_db``: every candidate gated against
+    exact, the row-tile (K2) launches counted and each gate launch
+    checked; then a served batch-32 chunk and a ``fit`` step (fp32) and a
+    served bf16 chunk under ``auto`` with the database armed: TUNED,
+    row-tile and plain counts as the winners say, every launch checked,
+    answers within 1e-4 (bf16 2^-7) of the unarmed run. ``LstmTileSpace``
+    at the char-RNN's geometry (B 32, H 256, T 50) on K4. LeNet: the
+    OpProfiler over a by-name forward, ``DL4J_TPU_FAULTS=inject_nan@3``
+    turned into ``NaNPanicError`` by ``TrainingHealthMonitor(panic=True)``,
+    StatsListener records of four ``fit`` steps.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -416,7 +439,10 @@ Phases, each printing one JSON line:
     ``serving_resilience_checked_*``) and
     ``launches_serving_resilience_captured``, phase 22k's in-process
     oracle's under ``launches_fleet_inprocess`` and each fleet worker's
-    own (launches, plain calls, chunks) under ``launches_fleet_workers``.
+    own (launches, plain calls, chunks) under ``launches_fleet_workers``;
+    phase 22l's under ``launches_cost_report`` (the counted steps),
+    ``launches_tuning`` (the sweeps; K2's by row tile under
+    ``launches_k2``) and ``launches_tuned_path`` (the armed path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -9016,6 +9042,470 @@ def depthwise_phase_fields(prefix, name, launches, checked, records,
     return out
 
 
+# ------------------------------------------------------ observe_tune (22l)
+
+#: the card's dense peaks (PERF.md §6): set for this process so cost
+#: reports compute MFU; fp32 runs with TF32 off
+OBSERVE_PEAK_FLOPS = "bf16=9.89e14,fp32=6.7e13"
+#: ResNet-50's 3x3 convs a pass, by output height (res2b..res5b)
+OBSERVE_CONV_COUNTS = {56: 3, 28: 4, 14: 6, 7: 3}
+#: the per-layer device time's (CUDA events) largest gap from the same
+#: regions' span in the step's trace (``cost_model.region_span_s``)
+OBSERVE_DEVICE_TOL = 0.10
+#: answers of the armed path against the unarmed one (fp32)
+OBSERVE_ANSWER_TOL = 1e-4
+
+
+def _state_copy(net):
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    return ([t.detach().clone() for t in tree_leaves(
+        [net.params, net.states, net.opt_states])],
+        net._gen.get_state().clone(), net.iteration)
+
+
+def _state_unchanged(torch, net, copy):
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    leaves, gen, it = copy
+    now = tree_leaves([net.params, net.states, net.opt_states])
+    return (len(now) == len(leaves) and net.iteration == it
+            and torch.equal(net._gen.get_state(), gen)
+            and all(torch.equal(a, b) for a, b in zip(now, leaves)))
+
+
+def observe_cost_leg(torch, card, label, net, want, batch, dtype):
+    """``cost_report(profile=True)`` of one network at ``batch`` on the
+    card: the counted step run under the per-launch check, the launches of
+    the counted and of the profiled step (each ``want``), the per-layer
+    device time (CUDA events by region) against the same regions' span in
+    the profiled step's trace (the trace's kernel-busy time beside it: the
+    rest is the launch gaps between back-to-back kernels), MFU against
+    ``OBSERVE_PEAK_FLOPS``, and the net's state bit-equal after."""
+    import shutil
+    import tempfile
+
+    before = _state_copy(net)
+    checked = {}
+    trace_dir = tempfile.mkdtemp(prefix="dl4j_cost_")
+    t0 = time.perf_counter()
+    try:
+        rep = net.cost_report(
+            batch_size=batch, dtype=dtype, profile=True, steps=3,
+            name=label, trace_dir=trace_dir,
+            count_guard=lambda: check_every_launch(torch, checked))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    unchanged = _state_unchanged(torch, net, before)
+    counted = rep.launches.get("counted", {})
+    profiled = rep.launches.get("profiled", {})
+    tag = "bf16" if net.conf.compute_dtype == "bfloat16" else "fp32"
+    calls = {k: checked.get((k, tag), {}).get("calls", 0) for k in want}
+    gap = (abs(rep.device_time_s - rep.trace_span_s) / rep.trace_span_s
+           if rep.trace_span_s else None)
+    fields = {
+        "model": label, "batch": batch, "source": rep.source,
+        "flops_per_step": rep.flops_per_step,
+        "flops_fwd": sum(r.flops_fwd for r in rep.rows),
+        "flops_bwd": sum(r.flops_bwd for r in rep.rows),
+        "bytes_per_step": rep.totals.get("bytes_accessed"),
+        "step_ms": rep.step_time_s * 1e3,
+        "device_ms": rep.device_time_s * 1e3,
+        "trace_span_ms": (rep.trace_span_s or 0.0) * 1e3,
+        "trace_busy_ms": (rep.trace_busy_s or 0.0) * 1e3,
+        "device_vs_span": gap,
+        "launch_gap_share": (1.0 - rep.trace_busy_s / rep.trace_span_s
+                             if rep.trace_span_s else None),
+        "mfu": rep.mfu, "peak_flops": rep.peak_flops,
+        "examples_per_sec": rep.examples_per_sec,
+        "optimizer_update_share": rep.optimizer_update_share,
+        "top5": [{"layer": r["layer"],
+                  "device_ms": (r["device_time_s"] or 0.0) * 1e3,
+                  "flops": r["flops"]} for r in rep.top_layers(5)],
+        "kernels_counted": rep.kernels, "launches_counted": counted,
+        "launches_profiled": profiled, "checked_calls": calls,
+        "checked": _checked_summary(checked),
+        "trace_kernel_events": sum((rep.trace_kernels or {}).values()),
+        "uncounted_ops": rep.uncounted_ops, "state_bit_equal": unchanged,
+        "seconds": seconds, "card": card}
+    emit("observe_cost", **fields)
+    bad = []
+    if rep.source != "counted":
+        bad.append(f"source {rep.source}")
+    for k, n in want.items():
+        if counted.get(k, 0) != n or profiled.get(k, 0) != n \
+                or calls[k] != n:
+            bad.append(f"{k}: counted {counted.get(k)}, profiled "
+                       f"{profiled.get(k)}, checked {calls[k]}, want {n}")
+    if gap is None or gap > OBSERVE_DEVICE_TOL:
+        bad.append(f"per-layer device {rep.device_time_s * 1e3:.3f} ms vs "
+                   f"the trace's span {(rep.trace_span_s or 0) * 1e3:.3f} ms")
+    if not unchanged:
+        bad.append("the profile moved the net's state")
+    if rep.mfu is None or not 0 < rep.mfu < 1:
+        bad.append(f"mfu {rep.mfu}")
+    if bad:
+        raise AssertionError(f"observe_cost {label}: " + "; ".join(bad))
+    return {k: counted.get(k, 0) for k in want}, checked, fields
+
+
+def _checked_tile_space(torch, base, checked):
+    """``base`` (a ConvTileSpace) whose gate outputs run under the
+    per-launch check: every row-tile launch that decides admission is held
+    against the plain version; the timed launches are the same calls."""
+    class Checked(type(base)):
+        def build(self, ctx):
+            case = super().build(ctx)
+            outputs = case.outputs
+
+            def checked_outputs(cand):
+                with check_every_launch(torch, checked):
+                    return outputs(cand)
+
+            case.outputs = checked_outputs
+            return case
+
+    return Checked()
+
+
+def observe_tune_conv_leg(torch, np, card, db_dir):
+    """MeasurementDriver over ConvTileSpace at ResNet-50's four 3x3 stage
+    geometries at batch 32, fp32 and bf16: every candidate gated against
+    exact, the row-tile (K2) launches counted and checked, the winners
+    committed to ``db_dir``. Returns (winners by (dtype, OH), the sweep's
+    launches, its checks)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    shutil.rmtree(db_dir, ignore_errors=True)
+    db = tuning.TuningDatabase(db_dir)
+    checked = {}
+    space = _checked_tile_space(torch, tuning.get_space("conv2d_tiles"),
+                                checked)
+    drv = tuning.MeasurementDriver(db, min_window_s=0.01, runs=3)
+    snap = kern.snapshot_counts()
+    winners, rows = {}, []
+    t0 = time.perf_counter()
+    for ctx in tuning.space.resnet50_conv_contexts(32):
+        entry = drv.sweep(space, ctx, force=True)
+        oh = ctx["x_shape"][1]
+        table = {r["label"]: r.get("ms") for r in entry["measured"]}
+        rejected = [r["label"] for r in entry["measured"]
+                    if not r["admitted"]]
+        winners[(ctx["dtype"], oh)] = entry["winner"]
+        rows.append({"dtype": ctx["dtype"], "oh": oh,
+                     "channels": ctx["x_shape"][3],
+                     "winner": entry["winner"]["label"],
+                     "winner_ms": entry["winner"]["ms"],
+                     "whole_ms": table.get("cuda:rt=whole"),
+                     "exact_ms": table.get("exact"), "ms": table,
+                     "rejected": rejected,
+                     "max_diff": max(r.get("max_diff", 0.0)
+                                     for r in entry["measured"])})
+        if rejected:
+            raise AssertionError(f"conv2d_tiles {ctx['dtype']} {oh}: "
+                                 f"candidates failed the gate: {rejected}")
+    launches, plain, _, tiles, _ = kern.counts_since(snap)
+    calls = sum(rec["calls"] for (name, _), rec in checked.items()
+                if name == "conv2d_fwd")
+    gate_launches = sum(len([c for c in space.enumerate(ctx)
+                             if c.impl == "cuda"])
+                        for ctx in tuning.space.resnet50_conv_contexts(32))
+    emit("observe_tune_conv", rows=rows, launches=launches, plain=plain,
+         row_tile_launches=tiles, checked=_checked_summary(checked),
+         checked_gate_launches=calls, db=db.stats(),
+         seconds=time.perf_counter() - t0, card=card)
+    if calls != gate_launches or not sum(tiles.values()):
+        raise AssertionError(f"conv tuning: {calls} checked gate launches, "
+                             f"want {gate_launches}; row-tile launches "
+                             f"{tiles}")
+    return winners, {"launches": launches, "row_tile": tiles}, checked
+
+
+def _expected_tuned(winners, dtype, passes):
+    """TUNED, ROW_TILE_LAUNCHES and plain counts the armed path must show
+    for ``passes`` ResNet-50 forwards at batch 32 in ``dtype``."""
+    tuned, tiles, plain = {}, {}, 0
+    for oh, n in OBSERVE_CONV_COUNTS.items():
+        w = winners[(dtype, oh)]
+        key = f"conv2d_fwd/{w['label']}"
+        tuned[key] = tuned.get(key, 0) + n * passes
+        if w["impl"] == "exact":
+            plain += n * passes
+        elif w["params"].get("row_tile"):
+            k = f"conv2d_fwd/rt={w['params']['row_tile']}"
+            tiles[k] = tiles.get(k, 0) + n * passes
+    return tuned, tiles, plain
+
+
+def observe_tuned_path_leg(torch, np, card, db_dir, winners):
+    """One served ResNet-50 chunk (batch 32, ServingModel) and one ``fit``
+    step under ``auto`` with the database armed, fp32, and a served bf16
+    chunk: their launches follow the winners (TUNED, row tiles, plain
+    calls as the winners say, every launch checked), and their answers
+    agree with the same nets' unarmed run."""
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import ServingModel
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    rng = np.random.default_rng(12345)
+    x = rng.normal(size=(32, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 32)]
+    out, launches, checked_all = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        net = ResNet50(compute_dtype=dtype).init(device="cuda")
+        _calm_residual_branches(net)
+        runs = {}
+        for armed in (False, True):
+            tuning.set_database(db_dir if armed else None)
+            twin = net._cost_shadow()
+            model = ServingModel(twin, f"resnet50_{dtype}",
+                                 bucketing=BucketingPolicy(
+                                     batch_buckets=(32,)))
+            checked = {}
+            snap = kern.snapshot_counts()
+            with capture.disabled(), check_every_launch(torch, checked):
+                res, stats = model.execute([x])
+                if dtype == "float32":
+                    twin.fit(x, y)
+                    loss = float(twin.score_value)
+            delta = kern.counts_since(snap)
+            runs[armed] = {"out": res[0], "delta": delta,
+                           "checked": checked, "chunks": stats["chunks"]}
+            if dtype == "float32":
+                runs[armed]["loss"] = loss
+                runs[armed]["params"] = [t.detach().float().cpu()
+                                         for t in tree_leaves(twin.params)]
+            if armed:
+                checked_all[dtype] = checked
+        tuning.set_database(None)
+        passes = 2 if dtype == "float32" else 1
+        want_tuned, want_tiles, want_plain = _expected_tuned(
+            winners, dtype, passes)
+        lau, plain, _, tiles, tuned = runs[True]["delta"]
+        ref = runs[False]["out"]
+        diff = float(np.max(np.abs(runs[True]["out"] - ref)))
+        scale = max(1.0, float(np.max(np.abs(ref))))
+        leg = {"dtype": dtype, "chunks": runs[True]["chunks"],
+               "launches": lau, "plain_on_cuda": plain,
+               "row_tile_launches": tiles, "tuned": tuned,
+               "want_tuned": want_tuned, "want_row_tile": want_tiles,
+               "want_plain": want_plain,
+               "unarmed_tuned": runs[False]["delta"][4],
+               "max_abs_diff": diff,
+               "checked": _checked_summary(runs[True]["checked"])}
+        bad = []
+        if tuned != want_tuned or tiles != want_tiles \
+                or plain.get("conv2d_fwd", 0) != want_plain:
+            bad.append("launches did not follow the winners")
+        if runs[False]["delta"][4] or runs[False]["delta"][3]:
+            bad.append("the unarmed run consulted the database")
+        want_fwd = 53 * passes - want_plain
+        checked_fwd = runs[True]["checked"].get(
+            ("conv2d_fwd", "fp32" if dtype == "float32" else "bf16"),
+            {}).get("calls", 0)
+        if lau.get("conv2d_fwd", 0) != want_fwd or checked_fwd != want_fwd:
+            bad.append(f"K1 launches {lau.get('conv2d_fwd')} / checked "
+                       f"{checked_fwd}, want {want_fwd}")
+        tol = OBSERVE_ANSWER_TOL if dtype == "float32" else 2.0 ** -7
+        if diff / scale > tol:
+            bad.append(f"armed answer off by {diff} (scale {scale})")
+        if dtype == "float32":
+            pl = max(float((a - b).abs().max()) / max(
+                1.0, float(b.abs().max())) for a, b in zip(
+                runs[True]["params"], runs[False]["params"]))
+            dl = abs(runs[True]["loss"] - runs[False]["loss"])
+            leg.update(loss_diff=dl, param_diff=pl)
+            if dl > OBSERVE_ANSWER_TOL * max(1.0, abs(runs[False]["loss"])) \
+                    or pl > OBSERVE_ANSWER_TOL:
+                bad.append(f"armed fit step off: loss {dl}, params {pl}")
+        emit("observe_tuned_path", **leg, card=card)
+        if bad:
+            raise AssertionError(f"observe_tuned_path {dtype}: "
+                                 + "; ".join(bad))
+        out[dtype] = leg
+        launches[dtype] = {"launches": lau, "row_tile": tiles,
+                           "tuned": tuned, "plain": plain}
+        del net
+        torch.cuda.empty_cache()
+    return launches, checked_all
+
+
+def observe_lstm_tune_leg(torch, card, db_dir):
+    """LstmTileSpace at the char-RNN's geometry (B 32, H 256, T 50, fp32):
+    the layer's plain loop against the segment kernel (K4), value and
+    gradients gated, the winner committed."""
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    db = tuning.TuningDatabase(db_dir)
+    drv = tuning.MeasurementDriver(db, min_window_s=0.02, runs=3)
+    snap = kern.snapshot_counts()
+    t0 = time.perf_counter()
+    entry = drv.sweep(tuning.get_space("lstm_tiles"),
+                      {"batch": 32, "hidden": 256, "timesteps": 50,
+                       "n_in": 256, "dtype": "float32"}, force=True)
+    launches = kern.counts_since(snap)[0]
+    rows = {r["label"]: {k: r.get(k) for k in ("admitted", "ms",
+                                                "max_diff", "reason")}
+            for r in entry["measured"]}
+    emit("observe_tune_lstm", winner=entry["winner"], rows=rows,
+         launches=launches, seconds=time.perf_counter() - t0, card=card)
+    if not all(r["admitted"] for r in rows.values()) \
+            or not launches.get("lstm_seq_fwd"):
+        raise AssertionError(f"lstm tuning: {rows}, launches {launches}")
+    return launches
+
+
+def observe_lenet_health_leg(torch, np, card):
+    """LeNet: the OpProfiler over a forward by name through ``exec_op``
+    (each K1 launch checked, the output against ``net.output``);
+    ``DL4J_TPU_FAULTS=inject_nan@3`` poisoning a batch, which
+    ``TrainingHealthMonitor(panic=True)`` turns into ``NaNPanicError``;
+    StatsListener records of a short ``fit``."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.util import faults, health, stats
+    from deeplearning4j_tpu_torch.util.profiler import (NaNPanicError,
+                                                        OpProfiler,
+                                                        ProfilerConfig)
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    t0 = time.perf_counter()
+    net = LeNet().init(device="cuda")
+    data = list(MnistDataSetIterator(batch=LENET_BATCH, n_examples=512))
+    x = torch.from_numpy(data[0].features).cuda()
+    p = net.params
+    prof = OpProfiler(ProfilerConfig(check_for_nan=True))
+    checked = {}
+    with capture.disabled():
+        with prof.profile(), check_every_launch(torch, checked):
+            h = x
+            for i in (0, 2):
+                h = registry.exec_op("conv2d", h, p[i]["W"], p[i]["b"],
+                                     padding="VALID")
+                h = registry.exec_op("relu", h)
+                h = registry.exec_op("max_pool2d", h, kernel=(2, 2),
+                                     strides=(2, 2))
+            h = registry.exec_op("reshape", h, (h.shape[0], -1))
+            h = registry.exec_op("relu", registry.exec_op(
+                "add", registry.exec_op("matmul", h, p[4]["W"]), p[4]["b"]))
+            h = registry.exec_op("softmax", registry.exec_op(
+                "add", registry.exec_op("matmul", h, p[5]["W"]), p[5]["b"]))
+        ref = net.output(x)
+    prof_err = float((h - ref).abs().max())
+    invocations = dict(prof.invocations)
+    # the injected NaN: the seam the reference's elastic trainer fires
+    os.environ["DL4J_TPU_FAULTS"] = "inject_nan@3"
+    faults.FaultInjector._instance = None
+    panic = None
+    try:
+        net2 = LeNet().init(device="cuda")
+        net2.set_listeners(health.TrainingHealthMonitor(
+            window=1, panic=True, log_fn=None))
+        inj = faults.get_injector()
+        try:
+            for ds in data:
+                feats = ds.features
+                if inj.fire(faults.INJECT_NAN, step=net2.iteration):
+                    feats = np.full_like(feats, np.nan)
+                net2.fit(feats, ds.labels)
+        except NaNPanicError as e:
+            panic = {"error": type(e).__name__, "message": str(e),
+                     "iteration": net2.iteration}
+    finally:
+        os.environ.pop("DL4J_TPU_FAULTS", None)
+        faults.FaultInjector._instance = None
+    storage = stats.InMemoryStatsStorage()
+    net3 = LeNet().init(device="cuda")
+    net3.set_listeners(stats.StatsListener(storage, collect_histograms=True))
+    for ds in data[:4]:
+        net3.fit(ds.features, ds.labels)
+    recs = storage.records
+    finite = all(math.isfinite(v) for r in recs
+                 for s in r.get("params", {}).values()
+                 for k, v in s.items() if k in ("mean", "std", "l2"))
+    fields = {"op_profiler_invocations": invocations,
+              "op_profiler_ms": {k: v / 1e6 for k, v in
+                                 prof.total_ns.items()},
+              "op_profiler_vs_output": prof_err,
+              "checked": _checked_summary(checked), "nan_panic": panic,
+              "stats_records": len(recs),
+              "stats_scores": [r["score"] for r in recs],
+              "stats_layers": sorted(recs[-1]["params"]) if recs else [],
+              "stats_updates": len(recs[-1].get("updates", {}))
+              if recs else 0,
+              "seconds": time.perf_counter() - t0, "card": card}
+    emit("observe_lenet_health", **fields)
+    bad = []
+    if invocations.get("conv2d") != 2 or prof_err > 1e-5 \
+            or checked.get(("conv2d_fwd", "fp32"), {}).get("calls") != 2:
+        bad.append(f"profiled forward: {invocations}, err {prof_err}")
+    if panic is None or panic["iteration"] != 4 \
+            or "loss_non_finite" not in panic["message"]:
+        bad.append(f"no NaNPanicError at iteration 4: {panic}")
+    if len(recs) != 4 or not finite or fields["stats_updates"] == 0:
+        bad.append(f"stats records {len(recs)}, finite {finite}")
+    if bad:
+        raise AssertionError("observe_lenet_health: " + "; ".join(bad))
+    return checked
+
+
+def observe_tune_phase(torch, np, card):
+    """Phase 22l: observability and tuning on the card (the module doc)."""
+    from deeplearning4j_tpu_torch.util import cost_model
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    os.environ["DL4J_TPU_PEAK_FLOPS"] = OBSERVE_PEAK_FLOPS
+    db_dir = os.path.join(ROOT, "build", "tuning_db")
+    t0 = time.perf_counter()
+    launches, checked = {}, {}
+    costs = {}
+    want = {"conv2d_fwd": 53, "conv2d_dgrad": 52, "conv2d_wgrad": 53}
+    for dtype in ("float32", "bfloat16"):
+        net = ResNet50(compute_dtype=dtype).init(device="cuda")
+        _calm_residual_branches(net)
+        launches[f"resnet50_{dtype}"], checked[f"resnet50_{dtype}"], \
+            costs[f"resnet50_{dtype}"] = observe_cost_leg(
+                torch, card, f"resnet50_{dtype}", net, want, 32,
+                torch.float32)
+        del net
+        torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        net = bert_train_net(torch, num_classes=2, compute_dtype=dtype)
+        launches[f"bert_{dtype}"], checked[f"bert_{dtype}"], \
+            costs[f"bert_{dtype}"] = observe_cost_leg(
+                torch, card, f"bert_base_{dtype}", net,
+                {"flash_attention_fwd": 12}, 32, torch.int64)
+        del net
+        torch.cuda.empty_cache()
+    cost_model.clear_published()
+    winners, tune_launches, checked["tuning"] = observe_tune_conv_leg(
+        torch, np, card, db_dir)
+    path_launches, checked["tuned_path"] = observe_tuned_path_leg(
+        torch, np, card, db_dir, winners)
+    lstm_launches = observe_lstm_tune_leg(torch, card, db_dir)
+    checked["lenet"] = observe_lenet_health_leg(torch, np, card)
+    emit("observe_tune", seconds=time.perf_counter() - t0,
+         costs={k: {f: v[f] for f in ("flops_per_step", "step_ms",
+                                       "device_ms", "trace_span_ms",
+                                       "trace_busy_ms", "mfu")}
+                for k, v in costs.items()}, card=card)
+    return {"cost": launches, "tuning": tune_launches,
+            "tuned_path": path_launches, "lstm_tuning": lstm_launches,
+            "winners": {f"{d}/{oh}": w["label"]
+                        for (d, oh), w in winners.items()},
+            "checked": checked}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -9157,6 +9647,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_launches, fleet_checked, fleet_workers = timed(
         "fleet", fleet_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    observe = timed("observe_tune", observe_tune_phase, torch, np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -9293,6 +9785,25 @@ def main() -> int:
         "launches_serving_resilience_captured": res_captured,
         "launches_fleet_inprocess": fleet_launches,
         "launches_fleet_workers": fleet_workers,
+        "launches_cost_report": {
+            k: v["conv2d_fwd"] for k, v in observe["cost"].items()
+            if "conv2d_fwd" in v},
+        "launches_tuning": observe["tuning"]["launches"].get(
+            "conv2d_fwd", 0),
+        "launches_tuned_path": {
+            d: v["launches"].get("conv2d_fwd", 0)
+            for d, v in observe["tuned_path"].items()},
+        "launches_k2": {
+            "tuning": observe["tuning"]["row_tile"],
+            **{f"tuned_path_{d}": v["row_tile"]
+               for d, v in observe["tuned_path"].items()}},
+        "tuned_path_choices": {d: v["tuned"]
+                               for d, v in observe["tuned_path"].items()},
+        "tuning_winners": observe["winners"],
+        "tuning_checked": _checked_summary(observe["checked"]["tuning"]),
+        "tuned_path_checked": {
+            d: _checked_summary(c)
+            for d, c in observe["checked"]["tuned_path"].items()},
         **{f"fleet_inprocess_{k}": v for k, v in checked_fields(
             "conv2d_fwd", fleet_checked).items()},
         **{f"train_{k}": v for k, v in checked_fields(
@@ -9390,6 +9901,18 @@ def main() -> int:
             if checked_fields(e["name"], c)}
     for e in entries:  # the decode tier runs no kernel (exact attention)
         e["launches_generate"] = gen_launches
+    for e in entries:  # phase 22l's counted cost-report steps, checked
+        e.setdefault("launches_cost_report", {
+            k: v[e["name"]] for k, v in observe["cost"].items()
+            if e["name"] in v})
+        e["cost_report_checked"] = {
+            k: checked_fields(e["name"], c)
+            for k, c in observe["checked"].items()
+            if k.startswith(("resnet50_", "bert_"))
+            and checked_fields(e["name"], c)}
+        if e["name"] == "lstm_seq_fwd":
+            e["launches_tuning"] = observe["lstm_tuning"].get(
+                "lstm_seq_fwd", 0)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,3 +40,14 @@ forward captured as a CUDA graph per shape signature, ``warmup``,
 """
 
 __version__ = "0.1.0"
+
+import os as _os
+
+if any(_os.environ.get(_v, "").strip().lower() in ("1", "true", "yes", "on")
+       for _v in ("DL4J_TPU_PROFILING", "DL4J_TPU_NAN_PANIC",
+                  "DL4J_TPU_DEBUG")):
+    # profiling mode: the flags install the OpProfiler hook at import, as
+    # the reference's package import does
+    from deeplearning4j_tpu_torch.config import get_environment
+
+    get_environment()

@@ -26,12 +26,30 @@ Recognized variables:
 - ``DL4J_TPU_AFFINITY_HEAD`` — the prompt-head length (tokens) the fleet
   router hashes for prefix affinity (``serving/fleet.py``
   ``default_affinity_head`` reads it); unset = 16, 0 turns affinity off.
+- ``DL4J_TPU_PROFILING`` — install the OpProfiler (``util/profiler.py``)
+  on ``exec_op`` when the package is imported (profiling mode).
+- ``DL4J_TPU_NAN_PANIC`` — the same hook raises ``NaNPanicError`` on a NaN
+  or Inf op output (ProfilerConfig.nanPanic).
+- ``DL4J_TPU_TUNING_DB`` — directory of the tuning database
+  (``tuning/database.py``): measured winners keyed by (op, shape
+  signature, dtype, backend, topology), consulted by ``auto`` kernel
+  dispatch on CUDA tensors. Unset = off: ``auto`` takes the kernel on a
+  CUDA tensor and the plain version on a CPU one.
+- ``DL4J_TPU_REMAT_POLICY`` — default ``remat_policy`` of new configs (one
+  of the reference's registered names, ``nn/conf.py``
+  ``REMAT_POLICY_NAMES``; kept as config, it changes no arithmetic). Unset:
+  an armed tuning database's conf-default winner, else none.
+- ``DL4J_TPU_PEAK_FLOPS`` — the card's peak FLOP/s, a bare number or a
+  per-dtype table (``bf16=9.89e14,fp32=6.7e13``); enables MFU in
+  ``net.cost_report()``, the ``/costs`` route and the
+  ``train.model_flops_utilization`` gauge (``util/cost_model.py``). Unset =
+  no MFU: no peak is ever assumed.
 
-The reference's other variables (compute dtype, remat policy, sync_every,
-kernel dispatch, fused update, gradient compression, pipeline stages,
-tuning database, compilation cache, OpProfiler and NaN panic) are added
-with the ROADMAP items that port the code reading them; the port's kernel
-dispatch reads its own ``DL4J_TORCH_KERNEL_IMPL``.
+The reference's other variables (compute dtype, sync_every, kernel
+dispatch, fused update, gradient compression, pipeline stages, compilation
+cache) are added with the ROADMAP items that port the code
+reading them; the port's kernel dispatch reads its own
+``DL4J_TORCH_KERNEL_IMPL``.
 """
 
 from __future__ import annotations
@@ -77,6 +95,16 @@ class Environment:
         # and per router); kept here so a dump shows them
         self.trace_sample = os.environ.get("DL4J_TPU_TRACE_SAMPLE") or None
         self.affinity_head = os.environ.get("DL4J_TPU_AFFINITY_HEAD") or None
+        self.profiling = _env_bool("DL4J_TPU_PROFILING")
+        self.nan_panic = _env_bool("DL4J_TPU_NAN_PANIC")
+        # the authoritative read is tuning.database.database_dir(); kept
+        # here so a crash dump shows the knob
+        self.tuning_db_dir = os.environ.get("DL4J_TPU_TUNING_DB") or None
+        self.default_remat_policy = (
+            os.environ.get("DL4J_TPU_REMAT_POLICY") or None)
+        if self.default_remat_policy == "none":
+            self.default_remat_policy = None
+        self._profiler = None
 
     @classmethod
     def get_instance(cls) -> "Environment":
@@ -98,9 +126,17 @@ class Environment:
         self.telemetry = v
         return self._apply()
 
+    def set_profiling(self, v: bool) -> "Environment":
+        self.profiling = v
+        return self._apply()
+
+    def set_nan_panic(self, v: bool) -> "Environment":
+        self.nan_panic = v
+        return self._apply()
+
     def _apply(self) -> "Environment":
-        """Set the logger level and the telemetry switch to match the
-        flags."""
+        """Set the logger level, the telemetry switch and the OpProfiler
+        hook to match the flags."""
         import logging
 
         # only drive the logger level while a verbosity flag is ON; never
@@ -122,7 +158,28 @@ class Environment:
 
             _telemetry.set_enabled(self.telemetry)
             self._telemetry_applied = self.telemetry
+
+        # the OpProfiler singleton: the flags own its hook only while one
+        # of them asks for it, so a user-started profiler is never stopped
+        # by an unrelated setter
+        want_hook = self.profiling or self.nan_panic or self.debug
+        if want_hook or self._profiler is not None:
+            from deeplearning4j_tpu_torch.util.profiler import OpProfiler
+
+            prof = OpProfiler.get_instance()
+            if want_hook:
+                prof.config.profile_ops = self.profiling or self.debug
+                prof.config.check_for_nan = self.nan_panic
+                prof.config.check_for_inf = self.nan_panic
+                prof.start()
+                self._profiler = prof
+            else:
+                prof.stop()
+                self._profiler = None
         return self
+
+    def profiler(self):
+        return self._profiler
 
 
 def get_environment() -> Environment:

@@ -67,7 +67,9 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.ops import kernels as _kern
-from deeplearning4j_tpu_torch.tree import tree_copy_, tree_leaves
+from deeplearning4j_tpu_torch.tree import tree_copy_, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.util import cost_model as _cm
+from deeplearning4j_tpu_torch.util import telemetry as tm
 from deeplearning4j_tpu_torch.util.compile_watcher import (_shape_of,
                                                            get_watcher,
                                                            note_trace)
@@ -284,9 +286,59 @@ class CompiledSteps:
     def _update(self, grads, new_states) -> None:
         """The updaters in place, at the step sizes in the buffer, and the
         new layer states copied into the network's own tensors."""
-        upd.step_groups(self._update_groups, self.params, grads,
-                        self.opt_states, self._sizes.views)
+        with _cm.optimizer_scope():
+            upd.step_groups(self._update_groups, self.params, grads,
+                            self.opt_states, self._sizes.views)
         tree_copy_(self.states, new_states)
+
+    def _step_telemetry(self, model: str, real_n: int, padded_n: int) -> None:
+        """The reference's per-step telemetry (``nn/multilayer.py:667-688``):
+        the time since the last step, examples/sec, MFU once a cost report
+        knows the step's FLOPs and a peak, the step counter. A cost
+        report's copies record nothing."""
+        if getattr(self, "_cost_twin", False) or not tm.enabled():
+            return
+        now = time.time_ns()
+        last = getattr(self, "_last_fit_ns", None)
+        if last is not None:
+            dt = (now - last) / 1e9
+            tm.observe("train.step_seconds", dt, model=model)
+            if dt > 0:
+                tm.gauge("train.examples_per_sec", real_n / dt, model=model)
+                fpe = getattr(self, "_cost_flops_per_example", None)
+                peak = getattr(self, "_peak_flops", None)
+                if fpe and peak:
+                    tm.gauge("train.model_flops_utilization",
+                             fpe * padded_n / dt / peak, model=model)
+        self._last_fit_ns = now
+        tm.counter("train.steps_total", model=model)
+
+    def _cost_shadow(self):
+        """A copy of this network for a cost report: the same conf and
+        layers, its own copies of the params, states, optimizer states and
+        dropout generator, no listeners, no programs. Steps on it never
+        move this network."""
+        from deeplearning4j_tpu_torch.nn.listeners import \
+            CoalescingListenerDispatcher
+
+        twin = object.__new__(type(self))
+        twin.__dict__.update(self.__dict__)
+        clone = (lambda t: t.detach().clone()  # noqa: E731
+                 if isinstance(t, torch.Tensor) else t)
+        twin.params = tree_map(clone, self.params)
+        twin.states = tree_map(clone, self.states)
+        twin.opt_states = tree_map(clone, self.opt_states)
+        if self._gen is not None:
+            twin._gen = torch.Generator(device=self._gen.device)
+            twin._gen.set_state(self._gen.get_state())
+        twin.listeners = []
+        twin._dispatcher = CoalescingListenerDispatcher(twin, 1)
+        twin._cast_cache = {}
+        twin._w_cache = {}
+        twin._rnn_carries = None
+        twin._cost_twin = True
+        twin._drop_programs()
+        return twin
 
     def _program(self, table, key, fn_name, body, args, trace_args=None,
                  train=True) -> Program:

@@ -73,13 +73,19 @@ applies its ``layer`` with the params and state of its ``source`` node
 programs), ``score`` and ``rnn_time_step``; it owns no params, and
 autograd sums both call sites' gradients into the source's.
 
+Cost attribution (``util/cost_model.py``): every node's apply runs under
+``layer_scope(<node name>)`` (a SharedLayer node under its own, with its
+source's params: weight sharing shows as two rows), the updaters under
+``optimizer_scope()``; :meth:`ComputationGraph.cost_report` counts one
+step per node on copies of the state, and each ``fit`` step records the
+reference's telemetry (``model="cg"``, the ``cg.train_step`` span).
+
 Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
-loss scaling (``fused_update``/``loss_scale`` raise in ``fit``),
-telemetry and the AOT store behind ``warmup``'s
-``export_dir`` (item 12; ``score``, ``feed_forward`` and
-``rnn_time_step`` run eagerly), remat segments
-(item 12: ``remat_policy`` and ``stage_barriers`` are kept as config and
-leave the step's arithmetic as it is, as they do in the reference; the
+loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), the AOT
+store behind ``warmup``'s ``export_dir`` (item 12b; ``score``,
+``feed_forward`` and ``rnn_time_step`` run eagerly), remat segments (item
+12b: ``remat_policy`` and ``stage_barriers`` are kept as config and leave
+the step's arithmetic as it is, as they do in the reference; the
 reference's masked graphs take its plain path), pipelining (item 10).
 """
 
@@ -112,6 +118,8 @@ from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
                                            tree_leaves, tree_map, tree_set)
+from deeplearning4j_tpu_torch.util import cost_model as _cm
+from deeplearning4j_tpu_torch.util import telemetry as tm
 
 _dispatch_sig = capture.dispatch_sig
 
@@ -385,6 +393,12 @@ class ComputationGraph(capture.CompiledSteps):
             for n in self.topo if hasattr(n.node, "compute_loss")}
         self._rnn_carries: Optional[dict] = None
         self._shape_of: Dict[str, tuple] = {}
+        # cost attribution: one scope tag per node
+        self._node_tags = {n.name: _cm.sanitize_tag(n.name)
+                           for n in self.topo}
+        self._cost_flops_per_example = None  # set by cost_report()
+        self._peak_flops = None
+        self._last_fit_ns = None
         self._drop_programs()
 
     # ------------------------------------------------------------------ init
@@ -501,13 +515,14 @@ class ComputationGraph(capture.CompiledSteps):
                         for name, p in params.items()})
             for n in self.topo:
                 x = self._gather_input(acts, n)
-                if n.is_layer:
-                    lyr, pkey = _resolve_shared(n.node, n.name)
-                    acts[n.name], _ = lyr.apply(
-                        cparams[pkey], states[pkey], x,
-                        training=training, **self._mask_kw(n, mask, x))
-                else:
-                    acts[n.name] = n.node.apply(*x)
+                with _cm.layer_scope(self._node_tags[n.name]):
+                    if n.is_layer:
+                        lyr, pkey = _resolve_shared(n.node, n.name)
+                        acts[n.name], _ = lyr.apply(
+                            cparams[pkey], states[pkey], x,
+                            training=training, **self._mask_kw(n, mask, x))
+                    else:
+                        acts[n.name] = n.node.apply(*x)
             return acts
 
     def _require_init(self):
@@ -616,34 +631,36 @@ class ComputationGraph(capture.CompiledSteps):
                 produced[n.name] = mk
             x = self._gather_input(acts, n)
             if not n.is_layer:
-                acts[n.name] = n.node.apply(*x)
+                with _cm.layer_scope(self._node_tags[n.name]):
+                    acts[n.name] = n.node.apply(*x)
                 continue
-            if n.name in out_names:
-                if not hasattr(n.node, "compute_loss"):
-                    raise ValueError(
-                        f"output {n.name!r} must be an OutputLayer/LossLayer")
-                lm = (label_mask.get(n.name) if isinstance(label_mask, dict)
-                      else label_mask)
-                out_loss = n.node.compute_loss(
-                    cparams[n.name], states[n.name], x, labels[n.name],
-                    training=training, gen=gen, weights=weights,
-                    **self._loss_mask_kw(n, mk, lm, x))
-                loss = loss + out_loss.to(
-                    torch.promote_types(out_loss.dtype, torch.float32))
-                acts[n.name] = x  # terminal; activation unused downstream
-            elif carries is not None and n.name in carries:
-                seg_mask = (mk if (mk is not None and x.dim() == 3
-                                   and tuple(mk.shape[:2])
-                                   == tuple(x.shape[:2])) else None)
-                x = n.node._maybe_dropout(x, training, gen)
-                acts[n.name], new_carries[n.name] = n.node.apply_seq(
-                    cparams[n.name], x, carries[n.name], mask=seg_mask,
-                    training=training)
-            else:
-                lyr, pkey = _resolve_shared(n.node, n.name)
-                acts[n.name], new_states[pkey] = lyr.apply(
-                    cparams[pkey], states[pkey], x, training=training,
-                    gen=gen, **self._mask_kw(n, mk, x))
+            with _cm.layer_scope(self._node_tags[n.name]):
+                if n.name in out_names:
+                    if not hasattr(n.node, "compute_loss"):
+                        raise ValueError(f"output {n.name!r} must be an "
+                                         "OutputLayer/LossLayer")
+                    lm = (label_mask.get(n.name)
+                          if isinstance(label_mask, dict) else label_mask)
+                    out_loss = n.node.compute_loss(
+                        cparams[n.name], states[n.name], x, labels[n.name],
+                        training=training, gen=gen, weights=weights,
+                        **self._loss_mask_kw(n, mk, lm, x))
+                    loss = loss + out_loss.to(
+                        torch.promote_types(out_loss.dtype, torch.float32))
+                    acts[n.name] = x  # terminal; activation unused after
+                elif carries is not None and n.name in carries:
+                    seg_mask = (mk if (mk is not None and x.dim() == 3
+                                       and tuple(mk.shape[:2])
+                                       == tuple(x.shape[:2])) else None)
+                    x = n.node._maybe_dropout(x, training, gen)
+                    acts[n.name], new_carries[n.name] = n.node.apply_seq(
+                        cparams[n.name], x, carries[n.name], mask=seg_mask,
+                        training=training)
+                else:
+                    lyr, pkey = _resolve_shared(n.node, n.name)
+                    acts[n.name], new_states[pkey] = lyr.apply(
+                        cparams[pkey], states[pkey], x, training=training,
+                        gen=gen, **self._mask_kw(n, mk, x))
         if training:
             for n in self.topo:
                 if n.is_layer:
@@ -783,12 +800,15 @@ class ComputationGraph(capture.CompiledSteps):
             return self._fit_batch_tbptt(features, labels, mask, label_mask)
         args = self._batch(features, labels, mask, label_mask)
         self._step_sizes()
-        if capture.enabled():
-            loss, _ = self._replay_step(self._aot_steps,
-                                        "ComputationGraph.train_step",
-                                        self._train_body, args)
-        else:
-            loss = self._train_body(*args)
+        self._step_telemetry("cg", features[0].shape[0],
+                             next(iter(args[0].values())).shape[0])
+        with tm.step_span("cg.train_step", iteration=self.iteration):
+            if capture.enabled():
+                loss, _ = self._replay_step(self._aot_steps,
+                                            "ComputationGraph.train_step",
+                                            self._train_body, args)
+            else:
+                loss = self._train_body(*args)
         self.iteration += 1
         self.score_value = loss
         self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
@@ -868,12 +888,12 @@ class ComputationGraph(capture.CompiledSteps):
         graph); default the conf's explicit ``batch_buckets`` x
         ``input_shapes``. Returns the number built (none within
         ``capture.disabled()``). ``export_dir`` raises (ROADMAP Queue 1
-        item 12)."""
+        item 12b)."""
         if export_dir is not None:
             raise NotImplementedError(
                 "warmup(export_dir=...) is not ported: the AOT store "
                 "(util/aot_store.py, util/compile_cache.py) comes with "
-                "ROADMAP Queue 1 item 12")
+                "ROADMAP Queue 1 item 12b")
         if self.device is None:
             raise ValueError("init() the graph before warmup()")
         if shapes is None:
@@ -960,16 +980,18 @@ class ComputationGraph(capture.CompiledSteps):
             acts = dict(ins)
             for n in self.topo:
                 x = self._gather_input(acts, n)
-                if not n.is_layer:
-                    acts[n.name] = n.node.apply(*x)
-                elif n.name in carries:
-                    acts[n.name], new_carries[n.name] = n.node.apply_seq(
-                        cparams[n.name], x, carries[n.name], training=False)
-                else:
-                    lyr, pkey = _resolve_shared(n.node, n.name)
-                    acts[n.name], _ = lyr.apply(
-                        cparams[pkey], self.states[pkey], x,
-                        training=False)
+                with _cm.layer_scope(self._node_tags[n.name]):
+                    if not n.is_layer:
+                        acts[n.name] = n.node.apply(*x)
+                    elif n.name in carries:
+                        acts[n.name], new_carries[n.name] = \
+                            n.node.apply_seq(cparams[n.name], x,
+                                             carries[n.name], training=False)
+                    else:
+                        lyr, pkey = _resolve_shared(n.node, n.name)
+                        acts[n.name], _ = lyr.apply(
+                            cparams[pkey], self.states[pkey], x,
+                            training=False)
         self._rnn_carries = new_carries
         outs = [acts[o] for o in self.conf.outputs]
         if squeeze:
@@ -979,6 +1001,64 @@ class ComputationGraph(capture.CompiledSteps):
     def rnn_clear_previous_state(self):
         """rnnClearPreviousState parity (``:1121``)."""
         self._rnn_carries = None
+
+    # ----------------------------------------------------------- cost report
+    def cost_report(self, batch_size=None, *, shapes=None,
+                    dtype=torch.float32, profile: bool = False,
+                    steps: int = 3, peak_flops=None, name: str = "cg",
+                    publish: bool = True, trace_dir=None,
+                    count_guard=None) -> _cm.CostReport:
+        """Per-node FLOPs / bytes / device-time table of ONE train step,
+        the graph's twin of :meth:`MultiLayerNetwork.cost_report`
+        (reference ``:1395``). A SharedLayer node is its own row with no
+        params (its source's row owns them). ``shapes``: one full input
+        shape per graph input (batch included); default ``batch_size`` x
+        ``conf.input_shapes``."""
+        self._require_init()
+        if shapes is None:
+            if self.conf.input_shapes is None:
+                raise ValueError(
+                    "cost_report() needs shapes= or conf.input_shapes")
+            b = int(batch_size or 8)
+            shapes = [(b,) + tuple(sh) for sh in self.conf.input_shapes]
+        if shapes and not isinstance(shapes[0], (list, tuple)):
+            shapes = [shapes]  # single-input graph, bare shape
+        shapes = [tuple(int(d) for d in sh) for sh in shapes]
+        if len(shapes) != len(self.conf.inputs):
+            raise ValueError(
+                f"cost_report got {len(shapes)} shapes for "
+                f"{len(self.conf.inputs)} graph inputs")
+        b = shapes[0][0]
+        xs, ys = _cm.random_batch(
+            self.device, shapes,
+            [(b,) + tuple(self._shape_of[o]) for o in self.conf.outputs],
+            dtype)
+        params_by_tag = {
+            self._node_tags[n.name]: int(sum(
+                v.numel() for v in tree_leaves(self.params.get(n.name, {}))))
+            for n in self.topo if n.is_layer}
+
+        def entries():
+            out = []
+            for n in self.topo:
+                if not n.is_layer:
+                    continue
+                in_shape = self._merged_shape(
+                    [tuple(self._shape_of[i]) for i in n.inputs])
+                lyr, _ = _resolve_shared(n.node, n.name)
+                tag = self._node_tags[n.name]
+                out.append((tag, lyr, in_shape, params_by_tag.get(tag, 0)))
+            return out
+
+        def args_of(net):
+            return net._batch(xs, ys)
+
+        return _cm.net_cost_report(
+            self, args_of, params_by_tag, entries, b,
+            profile=profile, steps=steps, peak_flops=peak_flops, name=name,
+            publish=publish, trace_dir=trace_dir, count_guard=count_guard,
+            fit_args=(xs, ys))
+
 
     # ------------------------------------------------------- score, evaluate
     def score(self, dataset=None, x=None, y=None, mask=None,

@@ -118,6 +118,33 @@ class NeuralNetConfiguration:
         return Builder()
 
 
+#: the reference's registered selective-remat policies
+#: (``util/xla_tuning.py:48``); the port keeps the choice as config
+REMAT_POLICY_NAMES = ("full", "save_all", "save_conv", "save_conv_dots",
+                      "save_dots")
+
+
+def _default_remat_policy(env) -> Optional[str]:
+    """The builder's deferred ``remat_policy`` (reference ``:211-237``):
+    ``DL4J_TPU_REMAT_POLICY`` (a typo fails the build), else an armed
+    tuning database's conf-default winner when it names a known policy
+    (a stale one is ignored), else None."""
+    name = env.default_remat_policy
+    if name is not None:
+        if name not in REMAT_POLICY_NAMES:
+            raise ValueError(
+                f"DL4J_TPU_REMAT_POLICY: unknown remat policy {name!r}; "
+                f"known: {['none', *REMAT_POLICY_NAMES]}")
+        return name
+    from deeplearning4j_tpu_torch.tuning import database as _tdb
+
+    if _tdb.database_dir() is not None:
+        tuned = _tdb.conf_default("remat_policy")
+        if tuned in REMAT_POLICY_NAMES:
+            return tuned
+    return None
+
+
 class Builder:
     def __init__(self):
         self._seed = 12345
@@ -131,7 +158,9 @@ class Builder:
         # reference's builder does (``nn/conf.py:270-280``)
         from deeplearning4j_tpu_torch.config import get_environment
 
-        spec = get_environment().default_buckets
+        env = get_environment()
+        self._knobs["remat_policy"] = _default_remat_policy(env)
+        spec = env.default_buckets
         if spec:
             from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
 

@@ -32,7 +32,9 @@ every listener does, so it adds no host wait beyond ``sync_every``'s; the
 archive then holds the net as it stands at the flush (at ``sync_every`` 1,
 that iteration's state).
 
-Not ported yet: the dispatcher's telemetry spans (ROADMAP item 12).
+The dispatcher records the reference's telemetry spans:
+``listeners.dispatch`` around an immediate call, ``listeners.flush`` around
+a window's dispatch and ``listeners.loss_fetch`` around its one host copy.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import time
 
 import torch
 
+from deeplearning4j_tpu_torch.util import telemetry as tm
 from deeplearning4j_tpu_torch.util.compile_watcher import get_watcher
 
 
@@ -80,8 +83,9 @@ class CoalescingListenerDispatcher:
         if not model.listeners:
             return
         if self.sync_every <= 1:
-            for lst in model.listeners:
-                lst.iteration_done(model, iteration, epoch)
+            with tm.span("listeners.dispatch", iteration=iteration):
+                for lst in model.listeners:
+                    lst.iteration_done(model, iteration, epoch)
             return
         self._pending.append((iteration, epoch, loss, time.perf_counter_ns()))
         if len(self._pending) >= self.sync_every:
@@ -93,18 +97,20 @@ class CoalescingListenerDispatcher:
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        vals = torch.stack([torch.as_tensor(p[2], dtype=torch.float32)
-                            for p in pending]).tolist()
-        self.fetches += 1
-        model = self.model
-        try:
-            for (it, ep, _, wall_ns), val in zip(pending, vals):
-                model.score_value = val
-                model.last_iteration_wall_ns = wall_ns
-                for lst in model.listeners:
-                    lst.iteration_done(model, it, ep)
-        finally:
-            model.last_iteration_wall_ns = None
+        with tm.span("listeners.flush", window=len(pending)):
+            with tm.span("listeners.loss_fetch", window=len(pending)):
+                vals = torch.stack([torch.as_tensor(p[2], dtype=torch.float32)
+                                    for p in pending]).tolist()
+            self.fetches += 1
+            model = self.model
+            try:
+                for (it, ep, _, wall_ns), val in zip(pending, vals):
+                    model.score_value = val
+                    model.last_iteration_wall_ns = wall_ns
+                    for lst in model.listeners:
+                        lst.iteration_done(model, it, ep)
+            finally:
+                model.last_iteration_wall_ns = None
 
 
 class RecompileListener(TrainingListener):

@@ -72,15 +72,26 @@ batch calls them once, after its last segment, as the reference does
 Refused: ``fused_update``/``loss_scale`` (ROADMAP.md Queue 1 item 10).
 Layers wrapped in ``nn/transfer.py``'s ``FrozenLayer`` take no gradient:
 their params enter the updater with zero gradients, which leave Adam's
-update exactly zero, as in the reference. Not ported: telemetry, the AOT
-store and ``warmup``'s ``export_dir`` (item 12), ``pretrain`` (item 13);
-``score`` and ``rnn_time_step`` run eagerly; remat stages are kept as
-config.
+update exactly zero, as in the reference.
+
+Cost attribution (``util/cost_model.py``): every layer apply runs under
+``layer_scope("<index>_<name or class>")`` and the updaters under
+``optimizer_scope()``; :meth:`MultiLayerNetwork.cost_report` counts one
+step's FLOPs and bytes per layer on copies of the state, and with
+``profile=True`` times it. Each ``fit`` step records the reference's
+telemetry (``train.step_seconds``, ``train.steps_total``,
+``train.examples_per_sec``, ``train.model_flops_utilization`` once a cost
+report knows the step's FLOPs and a peak, the ``mln.train_step`` span).
+
+Not ported: the AOT store and ``warmup``'s ``export_dir`` (item 12b),
+``pretrain`` (item 13); ``score`` and ``rnn_time_step`` run eagerly; remat
+stages are kept as config.
 """
 
 from __future__ import annotations
 
 import inspect
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -99,6 +110,8 @@ from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
                                            tree_leaves, tree_map, tree_set)
+from deeplearning4j_tpu_torch.util import cost_model as _cm
+from deeplearning4j_tpu_torch.util import telemetry as tm
 
 _dispatch_sig = capture.dispatch_sig
 
@@ -144,6 +157,14 @@ class MultiLayerNetwork(capture.CompiledSteps):
             "mask" in inspect.signature(last.compute_loss).parameters)
         self._bucketing = BucketingPolicy.from_conf(conf)
         self._output_shape: Optional[tuple] = None
+        # cost attribution: one stable scope tag per layer, the index
+        # keeping tags unique under repeated names
+        self._layer_tags = [
+            _cm.sanitize_tag(f"{i}_{lyr.name or type(lyr).__name__}")
+            for i, lyr in enumerate(self.layers)]
+        self._cost_flops_per_example = None  # set by cost_report()
+        self._peak_flops = None
+        self._last_fit_ns = None
         self._drop_programs()
 
     # ------------------------------------------------------------------ init
@@ -216,8 +237,9 @@ class MultiLayerNetwork(capture.CompiledSteps):
             if (mask is not None and self._mask_aware[i] and h.dim() == 3
                     and tuple(mask.shape[:2]) == tuple(h.shape[:2])):
                 kw["mask"] = mask
-            h, _ = lyr.apply(cparams[i], states[i], h, training=training,
-                             **kw)
+            with _cm.layer_scope(self._layer_tags[i]):
+                h, _ = lyr.apply(cparams[i], states[i], h,
+                                 training=training, **kw)
             if h.dim() < 3:
                 mask = None  # time axis consumed (TimeStep/GlobalPooling)
         return h
@@ -274,8 +296,9 @@ class MultiLayerNetwork(capture.CompiledSteps):
             cparams = self._cast_params(self.params)
             acts = [h]
             for i, lyr in enumerate(self.layers):
-                h, _ = lyr.apply(cparams[i], self.states[i], h,
-                                 training=False)
+                with _cm.layer_scope(self._layer_tags[i]):
+                    h, _ = lyr.apply(cparams[i], self.states[i], h,
+                                     training=False)
                 acts.append(h)
         return acts
 
@@ -301,17 +324,19 @@ class MultiLayerNetwork(capture.CompiledSteps):
                                   and tuple(fmask.shape[:2])
                                   == tuple(h.shape[:2])) else None)
             if carries is not None and is_recurrent(lyr):
-                h = lyr._maybe_dropout(h, training, gen)
-                h, c = lyr.apply_seq(cparams[i], h, carries[i],
-                                     mask=seg_mask, training=training)
+                with _cm.layer_scope(self._layer_tags[i]):
+                    h = lyr._maybe_dropout(h, training, gen)
+                    h, c = lyr.apply_seq(cparams[i], h, carries[i],
+                                         mask=seg_mask, training=training)
                 new_carries.append(c)
                 new_states.append(self.states[i])
             else:
                 kw = {}
                 if seg_mask is not None and self._mask_aware[i]:
                     kw["mask"] = seg_mask
-                h, ns = lyr.apply(cparams[i], self.states[i], h,
-                                  training=training, gen=gen, **kw)
+                with _cm.layer_scope(self._layer_tags[i]):
+                    h, ns = lyr.apply(cparams[i], self.states[i], h,
+                                      training=training, gen=gen, **kw)
                 new_states.append(ns)
                 new_carries.append(None if carries is None else carries[i])
             if h.dim() < 3:
@@ -325,8 +350,9 @@ class MultiLayerNetwork(capture.CompiledSteps):
             loss_kw["mask"] = lm
         if weights is not None:
             loss_kw["weights"] = weights
-        loss = out.compute_loss(cparams[-1], self.states[-1], h, y,
-                                training=training, gen=gen, **loss_kw)
+        with _cm.layer_scope(self._layer_tags[-1]):
+            loss = out.compute_loss(cparams[-1], self.states[-1], h, y,
+                                    training=training, gen=gen, **loss_kw)
         new_states.append(self.states[-1])
         new_carries.append(None if carries is None else carries[-1])
         loss = loss.to(torch.promote_types(loss.dtype, torch.float32))
@@ -447,12 +473,14 @@ class MultiLayerNetwork(capture.CompiledSteps):
         weights = dev_weights(self._w_cache, x.shape[0], real_n, self.device)
         self._step_sizes()
         args = (x, y, weights, mask, label_mask)
-        if capture.enabled():
-            loss, _ = self._replay_step(self._aot_steps,
-                                        "MultiLayerNetwork.train_step",
-                                        self._train_body, args)
-        else:
-            loss = self._train_body(*args)
+        self._step_telemetry("mln", real_n, x.shape[0])
+        with tm.step_span("mln.train_step", iteration=self.iteration):
+            if capture.enabled():
+                loss, _ = self._replay_step(self._aot_steps,
+                                            "MultiLayerNetwork.train_step",
+                                            self._train_body, args)
+            else:
+                loss = self._train_body(*args)
         self.iteration += 1
         self.score_value = loss
         self._dispatcher.iteration_done(loss, self.iteration, self.epoch)
@@ -527,12 +555,12 @@ class MultiLayerNetwork(capture.CompiledSteps):
 
         ``export_dir`` (the reference's on-disk AOT store) raises: a CUDA
         graph holds one process's device addresses, so storing programs
-        waits for ROADMAP Queue 1 item 12."""
+        waits for ROADMAP Queue 1 item 12b."""
         if export_dir is not None:
             raise NotImplementedError(
                 "warmup(export_dir=...) is not ported: the AOT store "
                 "(util/aot_store.py, util/compile_cache.py) comes with "
-                "ROADMAP Queue 1 item 12")
+                "ROADMAP Queue 1 item 12b")
         if self.device is None:
             raise ValueError("init() the network before warmup()")
         if shapes is None:
@@ -574,6 +602,58 @@ class MultiLayerNetwork(capture.CompiledSteps):
         return built
 
     # ------------------------------------------------- stateful rnn inference
+    # ----------------------------------------------------------- cost report
+    def cost_report(self, batch_size=None, *, shape=None,
+                    dtype=torch.float32, profile: bool = False,
+                    steps: int = 3, peak_flops=None, name: str = "mln",
+                    publish: bool = True, trace_dir=None,
+                    count_guard=None) -> _cm.CostReport:
+        """Per-layer FLOPs / bytes / device-time table of ONE train step
+        (reference ``:842``). A step on random inputs (seed 0) of ``shape``
+        (default ``batch_size`` x ``conf.input_shape``) runs eagerly on
+        copies of the params, states and optimizer states and is counted
+        (``util/cost_model.py``, ``source: counted``); where it cannot be,
+        the rows come from the analytic formulas (``source: analytic``).
+        ``profile=True`` also times ``steps`` steps on the copies the way
+        ``fit`` runs them (captured on CUDA) and times one eager step per
+        layer by CUDA events (``trace_dir``: keep its torch.profiler trace
+        there). The net's own state never moves. MFU is reported against
+        ``peak_flops`` (default: ``DL4J_TPU_PEAK_FLOPS`` for the conf's
+        compute dtype). The report publishes to ``/costs`` and primes the
+        ``train.model_flops_utilization`` gauge. ``count_guard``: a context
+        manager entered around the counted step (e.g. a per-launch check).
+        """
+        self._require_init()
+        if shape is None:
+            if self.conf.input_shape is None:
+                raise ValueError(
+                    "cost_report() needs shape= or conf.input_shape")
+            shape = (int(batch_size or 8),) + tuple(self.conf.input_shape)
+        shape = tuple(int(d) for d in shape)
+        b = shape[0]
+        x, y = _cm.random_batch(self.device, [shape],
+                                [(b,) + tuple(self._output_shape)], dtype)
+        x, y = x[0], y[0]
+        params_by_tag = {t: int(sum(v.numel() for v in tree_leaves(p)))
+                         for t, p in zip(self._layer_tags, self.params)}
+
+        def entries():
+            out, cur = [], tuple(self.conf.input_shape or shape[1:])
+            for tag, lyr in zip(self._layer_tags, self.layers):
+                out.append((tag, lyr, cur, params_by_tag.get(tag, 0)))
+                cur = tuple(lyr.output_shape(cur))
+            return out
+
+        def args_of(net):
+            w = dev_weights(net._w_cache, b, b, net.device)
+            return (x, y, w, None, None)
+
+        return _cm.net_cost_report(
+            self, args_of, params_by_tag, entries, b,
+            profile=profile, steps=steps, peak_flops=peak_flops, name=name,
+            publish=publish, trace_dir=trace_dir, count_guard=count_guard,
+            fit_args=(x, y))
+
     def rnn_time_step(self, x):
         """Stateful step-by-step inference (rnnTimeStep parity, ``:591``):
         the recurrent carries persist across calls. ``x`` is (B, T, F), or
@@ -604,14 +684,15 @@ class MultiLayerNetwork(capture.CompiledSteps):
             cparams = self._cast_params(self.params)
             h = x
             for i, lyr in enumerate(self.layers):
-                if is_recurrent(lyr):
-                    h, c = lyr.apply_seq(cparams[i], h, carries[i],
+                with _cm.layer_scope(self._layer_tags[i]):
+                    if is_recurrent(lyr):
+                        h, c = lyr.apply_seq(cparams[i], h, carries[i],
+                                             training=False)
+                    else:
+                        h, _ = lyr.apply(cparams[i], self.states[i], h,
                                          training=False)
-                    new_carries.append(c)
-                else:
-                    h, _ = lyr.apply(cparams[i], self.states[i], h,
-                                     training=False)
-                    new_carries.append(None)
+                        c = None
+                new_carries.append(c)
         self._rnn_carries = new_carries
         return h[:, -1] if (squeeze and h.dim() == 3) else h
 

@@ -161,7 +161,10 @@ class LSTM(BaseRecurrentLayer):
                 _klstm.supports(xp0, u, self.gate_activation, self.activation),
                 xp, lambda: (f"{_klstm._describe(xp0, carry[0], carry[1], u)}"
                              f", activations {self.gate_activation}/"
-                             f"{self.activation}")):
+                             f"{self.activation}"),
+                op="lstm_cell",
+                sig=lambda: _klstm.shape_signature(xp0.shape[0], self.n_out),
+                dtype=xp.dtype):
             return _klstm.lstm_seq(xp, carry[0], carry[1], u,
                                    _klstm.ORDER_IFOG, mask)
 

@@ -15,10 +15,23 @@ launch it:
 - A conf JSON written by the JAX package may say ``"pallas"`` (its forced
   kernel mode); the port reads it as ``"cuda"`` (nn/conf.py).
 
+Tuned dispatch (the reference's ``:83-125``): a call site that names its
+(``op``, shape signature, dtype) has, under
+``auto`` on a CUDA tensor with a tuning database armed
+(``DL4J_TPU_TUNING_DB``, ``tuning/database.py``), the database's winner
+decide: a kernel winner launches with its parameters (the conv's
+``row_tile``, K2), an ``exact`` winner runs the plain version on the card.
+That is the reference's measured choice, not a fallback, and it is counted
+like every plain call on the card. With no database, no entry, a CPU
+tensor or an explicit ``exact``/``cuda``, dispatch is as above.
+
 Counters: :data:`LAUNCHES` counts, per kernel, the launches its wrapper
 made; :data:`PLAIN_ON_CUDA` counts calls with a CUDA tensor that took the
-plain path (only ``exact`` sends one there); :data:`BODY_LAUNCHES` splits
-the conv, wgrad and LSTM segment kernels' launches by the body that ran.
+plain path (``exact``, or an ``exact`` winner under ``auto``);
+:data:`BODY_LAUNCHES` splits the conv, wgrad and LSTM segment kernels'
+launches by the body that ran; :data:`ROW_TILE_LAUNCHES` counts the conv
+forward's launches with a row tile (K2), by tile; :data:`TUNED` counts
+every choice a database winner made, by ``"<kernel>/<winner label>"``.
 All are plain integers, reset with :func:`reset_counts`. A captured
 program (``nn/capture.py``) launches nothing through the wrappers when it
 replays: it takes the counts its capture made (:func:`snapshot_counts`,
@@ -28,9 +41,8 @@ replays: it takes the counts its capture made (:func:`snapshot_counts`,
 
 Not carried over from the TPU seam: the VMEM gate (``fits_vmem`` /
 ``VMEM_BUDGET_BYTES``, conv.py:57-114) sizes a TPU program's whole-image
-block, which has no counterpart in a tiled CUDA grid; and the tuning-database
-lookup (conv.py:114-125, tuning/database.py) holds TPU measurements and is
-not ported.
+block, which has no counterpart in a tiled CUDA grid. A TPU database's
+records never apply here: the port's keys carry backend ``cuda:sm_90``.
 """
 
 from __future__ import annotations
@@ -59,18 +71,26 @@ PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: (the conv and wgrad kernels' ``fma``, ``mma_sync`` and ``wgmma``; the
 #: LSTM segment's ``resident`` and ``step``)
 BODY_LAUNCHES: Dict[str, int] = {}
+#: conv forward launches with a row tile (K2), by ``"conv2d_fwd/rt=<n>"``
+ROW_TILE_LAUNCHES: Dict[str, int] = {}
+#: choices a tuning-database winner made, by ``"<kernel>/<label>"``
+TUNED: Dict[str, int] = {}
+
+_TABLES = (LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES, ROW_TILE_LAUNCHES, TUNED)
 
 
 def reset_counts() -> None:
     for table in (LAUNCHES, PLAIN_ON_CUDA):
         for k in table:
             table[k] = 0
-    BODY_LAUNCHES.clear()
+    for table in (BODY_LAUNCHES, ROW_TILE_LAUNCHES, TUNED):
+        table.clear()
 
 
 def snapshot_counts() -> tuple:
-    """Copies of (LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES)."""
-    return dict(LAUNCHES), dict(PLAIN_ON_CUDA), dict(BODY_LAUNCHES)
+    """Copies of (LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES,
+    ROW_TILE_LAUNCHES, TUNED)."""
+    return tuple(dict(t) for t in _TABLES)
 
 
 def counts_since(snap: tuple) -> tuple:
@@ -78,20 +98,19 @@ def counts_since(snap: tuple) -> tuple:
     only."""
     return tuple({k: n - old.get(k, 0) for k, n in table.items()
                   if n != old.get(k, 0)}
-                 for table, old in zip((LAUNCHES, PLAIN_ON_CUDA,
-                                        BODY_LAUNCHES), snap))
+                 for table, old in zip(_TABLES, snap))
 
 
 def restore_counts(snap: tuple) -> None:
     """Put every table back to ``snap``."""
-    for table, old in zip((LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES), snap):
+    for table, old in zip(_TABLES, snap):
         table.clear()
         table.update(old)
 
 
 def add_counts(delta: tuple) -> None:
     """Add :func:`counts_since`'s counts to the tables."""
-    for table, add in zip((LAUNCHES, PLAIN_ON_CUDA, BODY_LAUNCHES), delta):
+    for table, add in zip(_TABLES, delta):
         for k, n in add.items():
             table[k] = table.get(k, 0) + n
 
@@ -126,10 +145,37 @@ def resolve_impl() -> str:
     return impl
 
 
-def dispatch(kernel: str, supported: bool, x, describe) -> bool:
+def tuned_winner(kernel: str, x, *, op=None, sig=None, dtype=None):
+    """The armed tuning database's winner for a call, or None: consulted
+    only under ``auto`` on a CUDA tensor, for a call that names its ``op``
+    (the database's op, e.g. ``"conv2d"``), ``sig`` (its shape signature,
+    or a callable giving it, built only when a database is armed) and
+    ``dtype``. A winner is counted in :data:`TUNED`; an ``exact`` winner,
+    which runs the plain version on the card, in :data:`PLAIN_ON_CUDA`
+    too. A kernel winner's ``params`` (the conv's ``row_tile``) are the
+    caller's to apply."""
+    if op is None or not x.is_cuda or resolve_impl() != "auto":
+        return None
+    winner = _tuned_winner(op, sig, dtype)
+    if winner is not None:
+        key = f"{kernel}/{winner.get('label', winner.get('impl'))}"
+        TUNED[key] = TUNED.get(key, 0) + 1
+        if winner.get("impl") == "exact":
+            PLAIN_ON_CUDA[kernel] += 1
+    return winner
+
+
+def dispatch(kernel: str, supported: bool, x, describe, *, op=None,
+             sig=None, dtype=None) -> bool:
     """The one dispatch rule: True = launch ``kernel`` on ``x``'s device,
     False = take the plain version. ``describe()`` names the call's
-    geometry and types for the error when ``supported`` is False."""
+    geometry and types for the error when ``supported`` is False. A call
+    that names its tuning key (``op``, ``sig``, ``dtype``) follows the
+    armed database's winner under ``auto`` (:func:`tuned_winner`): an
+    ``exact`` winner takes the plain version, a kernel winner the kernel."""
+    winner = tuned_winner(kernel, x, op=op, sig=sig, dtype=dtype)
+    if winner is not None and winner.get("impl") == "exact":
+        return False
     impl = resolve_impl()
     if impl == "exact" or (impl == "auto" and not x.is_cuda):
         if x.is_cuda:
@@ -145,6 +191,24 @@ def dispatch(kernel: str, supported: bool, x, describe) -> bool:
             f"{describe()} (see its supports()); kernel_impl='exact' runs "
             "the plain version")
     return True
+
+
+def _tuned_winner(op, sig, dtype):
+    """The armed tuning database's winner for (op, sig, dtype) on this
+    backend, or None: one env/global read when no database is armed, a
+    memo probe once one is (reference ``:114-125``)."""
+    from deeplearning4j_tpu_torch.tuning import database as _tdb
+
+    if _tdb.database_dir() is None:
+        return None
+    if callable(sig):
+        sig = sig()
+    if sig is None:
+        return None
+    from deeplearning4j_tpu_torch.dtypes import name_of
+
+    return _tdb.resolve(op, sig, name_of(dtype) if dtype is not None
+                        else "float32")
 
 
 from deeplearning4j_tpu_torch.ops.kernels import (  # noqa: E402,F401

@@ -41,6 +41,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops.kernels import _build
+from deeplearning4j_tpu_torch.util import cost_model as _cm
 
 _NEG_BIG = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -258,7 +259,9 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, scale, causal, block_k, launch):
         fwd = flash_attention_fwd if launch else \
             flash_attention_fwd_reference
-        o, lse = fwd(q, k, v, scale, causal, mask, block_k)
+        with _cm.kernel_cost("flash_attention_fwd",
+                             flash_cost(q, k, v, causal)):
+            o, lse = fwd(q, k, v, scale, causal, mask, block_k)
         ctx.save_for_backward(q, k, v, o, lse, mask)
         ctx.settings = (scale, causal, block_k)
         ctx.mark_non_differentiable(lse)
@@ -283,7 +286,30 @@ def flash(q, k, v, scale, causal, mask=None, block_k: int = 512):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, mask, scale, causal, block_k,
                                     launch)
-    if launch:
-        return flash_attention_fwd(q, k, v, scale, causal, mask, block_k)
-    return flash_attention_fwd_reference(q, k, v, scale, causal, mask,
-                                         block_k)
+    with _cm.kernel_cost("flash_attention_fwd", flash_cost(q, k, v, causal)):
+        if launch:
+            return flash_attention_fwd(q, k, v, scale, causal, mask, block_k)
+        return flash_attention_fwd_reference(q, k, v, scale, causal, mask,
+                                             block_k)
+
+
+def flash_cost(q, k, v, causal):
+    """(FLOPs, transcendentals, bytes) of one flash forward for the cost
+    model, [B, H, S, D]: 2·D FLOPs a (query, key) pair for each of QKᵀ and
+    PV, 3 more for the scale, the running max and the normalisation, one
+    exp a pair; a causal call counts the pairs on or below the diagonal.
+    Bytes: q, k, v read, O and the fp32 LSE written."""
+    def fn():
+        b, h, sq, d = (int(n) for n in q.shape)
+        sk = int(k.shape[2])
+        if causal:
+            off = sk - sq
+            pairs = sum(min(sk, max(0, i + off + 1)) for i in range(sq))
+        else:
+            pairs = sq * sk
+        pairs *= b * h
+        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) \
+            * q.element_size() + 4 * b * h * sq
+        return ((4.0 * d + 3.0) * pairs, float(pairs), float(nbytes),
+                4.0 * d * pairs)
+    return fn

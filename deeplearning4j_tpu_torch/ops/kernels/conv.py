@@ -63,6 +63,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops.kernels import _build
+from deeplearning4j_tpu_torch.util import cost_model as _cm
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,6 +102,29 @@ def valid_row_tile(oh: int, row_tile) -> bool:
         return True
     return isinstance(row_tile, int) and 0 < row_tile <= oh \
         and oh % row_tile == 0
+
+
+def valid_row_tiles(oh: int, limit: int = 8):
+    """The candidate row tiles of an output height: ``None`` (whole OH,
+    the default) and every divisor of ``oh`` below it, up to ``limit``
+    of them, smallest first (the reference's ``:144``)."""
+    divs = [d for d in range(1, oh + 1) if oh % d == 0 and d < oh]
+    return [None] + divs[:limit]
+
+
+def shape_signature(x_shape, w_shape, strides, padding, dilation,
+                    groups) -> str:
+    """The tuning-database signature of one conv geometry, the same
+    string the reference builds (``:128``): one builder for the search
+    space (``tuning/space.py``) and the dispatch site (``ops/nn.py``)."""
+    def part(v):
+        if isinstance(v, (tuple, list)):
+            return "x".join(str(int(x)) for x in v)
+        return str(v)
+
+    pad = padding if isinstance(padding, str) else part(_pair(padding))
+    return (f"x={part(x_shape)};w={part(w_shape)};s={part(strides)};"
+            f"p={pad};d={part(dilation)};g={int(groups)}")
 
 
 def supports(x, w, data_format, feature_group_count,
@@ -277,6 +301,9 @@ def _launch(kernel, x, w, out, plan):
     _kern.LAUNCHES[kernel] += 1
     key = f"{kernel}/{body}"
     _kern.BODY_LAUNCHES[key] = _kern.BODY_LAUNCHES.get(key, 0) + 1
+    if spec.row_tile:
+        key = f"{kernel}/rt={spec.row_tile}"
+        _kern.ROW_TILE_LAUNCHES[key] = _kern.ROW_TILE_LAUNCHES.get(key, 0) + 1
 
 
 def fwd_plan(x, w, strides, pads, dilation, groups, row_tile=None):
@@ -379,13 +406,47 @@ def conv2d_fwd(x, w, strides, pads, dilation, groups,
     return out
 
 
-def conv2d(x, w, strides, pads, dilation, groups, supported, describe):
+def _cost(x, w, strides, pads, dilation, groups):
+    """(FLOPs, transcendentals, bytes) of one conv launch for the cost
+    model: the forward, dgrad and wgrad launches of a conv multiply over
+    the same valid (position, tap) pairs and each moves x (or dx), w (or
+    dW) and y (or dy) once."""
+    def fn():
+        strides_p, dil_p = _pair(strides), _pair(dilation)
+        flops = _cm.conv_flops(tuple(x.shape), tuple(w.shape), strides_p,
+                               pads, dil_p, groups)
+        y = 1
+        for d in _geometry(x, w, strides_p, pads, dil_p):
+            y *= int(d)
+        return flops, 0.0, float((x.numel() + w.numel() + y)
+                                 * x.element_size())
+    return fn
+
+
+def conv2d(x, w, strides, pads, dilation, groups, supported, describe,
+           sig=None):
     """The forward as ``ops.nn.conv2d`` dispatches it: the kernel on a CUDA
-    tensor (or raise), the plain version on the CPU or under ``exact``."""
-    if _kern.dispatch("conv2d_fwd", supported, x, describe):
-        return conv2d_fwd(x.contiguous(), w.contiguous(), strides, pads,
-                          dilation, groups)
-    return conv2d_fwd_reference(x, w, strides, pads, dilation, groups)
+    tensor (or raise), the plain version on the CPU or under ``exact``.
+    ``sig``: the call's tuning signature (:func:`shape_signature`, or a
+    callable giving it); under ``auto`` with a tuning database armed, the
+    winner for it decides, and a kernel winner's ``row_tile`` (K2) is
+    launched when it divides the output height (a stale tile launches the
+    whole kernel)."""
+    winner = _kern.tuned_winner("conv2d_fwd", x, op="conv2d", sig=sig,
+                                dtype=x.dtype)
+    launch = (winner is None or winner.get("impl") != "exact") and \
+        _kern.dispatch("conv2d_fwd", supported, x, describe)
+    with _cm.kernel_cost("conv2d_fwd", _cost(x, w, strides, pads, dilation,
+                                             groups)):
+        if launch:
+            row_tile = ((winner or {}).get("params") or {}).get("row_tile")
+            if row_tile is not None and not valid_row_tile(
+                    _geometry(x, w, _pair(strides), pads,
+                              _pair(dilation))[1], row_tile):
+                row_tile = None
+            return conv2d_fwd(x.contiguous(), w.contiguous(), strides, pads,
+                              dilation, groups, row_tile=row_tile)
+        return conv2d_fwd_reference(x, w, strides, pads, dilation, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -643,30 +704,34 @@ def conv2d_bwd(dy, x, w, strides, pads, dilation, groups, need_dx=True,
     that needs no gradient gets None and costs no launch."""
     dx = dw = None
     if need_dx:
-        if _kern.dispatch("conv2d_dgrad",
-                          supports_dgrad(dy, w, groups, strides), dy,
-                          lambda: f"dy {tuple(dy.shape)} {dy.dtype}, w "
-                                  f"{tuple(w.shape)} {w.dtype}, groups "
-                                  f"{groups}"):
-            dx = conv2d_dgrad(dy.contiguous(), w.contiguous(),
-                              tuple(x.shape[1:3]), strides, pads, dilation,
-                              groups)
-        else:
-            dx = conv2d_dgrad_reference(dy, w, tuple(x.shape[1:3]), strides,
-                                        pads, dilation, groups)
-        dx = dx.to(x.dtype)
+        with _cm.kernel_cost("conv2d_dgrad", _cost(x, w, strides, pads,
+                                                   dilation, groups)):
+            if _kern.dispatch("conv2d_dgrad",
+                              supports_dgrad(dy, w, groups, strides), dy,
+                              lambda: f"dy {tuple(dy.shape)} {dy.dtype}, w "
+                                      f"{tuple(w.shape)} {w.dtype}, groups "
+                                      f"{groups}"):
+                dx = conv2d_dgrad(dy.contiguous(), w.contiguous(),
+                                  tuple(x.shape[1:3]), strides, pads,
+                                  dilation, groups)
+            else:
+                dx = conv2d_dgrad_reference(dy, w, tuple(x.shape[1:3]),
+                                            strides, pads, dilation, groups)
+            dx = dx.to(x.dtype)
     if need_dw:
         kh, kw = w.shape[0], w.shape[1]
-        if _kern.dispatch("conv2d_wgrad", supports_wgrad(x, dy, groups), x,
-                          lambda: f"x {tuple(x.shape)} {x.dtype}, dy "
-                                  f"{tuple(dy.shape)} {dy.dtype}, groups "
-                                  f"{groups}"):
-            dw = conv2d_wgrad(x.contiguous(), dy.contiguous(), kh, kw,
-                              strides, pads, dilation, groups)
-        else:
-            dw = conv2d_wgrad_reference(x, dy, kh, kw, strides, pads,
-                                        dilation, groups)
-        dw = dw.to(w.dtype)
+        with _cm.kernel_cost("conv2d_wgrad", _cost(x, w, strides, pads,
+                                                   dilation, groups)):
+            if _kern.dispatch("conv2d_wgrad", supports_wgrad(x, dy, groups),
+                              x, lambda: f"x {tuple(x.shape)} {x.dtype}, dy "
+                                         f"{tuple(dy.shape)} {dy.dtype}, "
+                                         f"groups {groups}"):
+                dw = conv2d_wgrad(x.contiguous(), dy.contiguous(), kh, kw,
+                                  strides, pads, dilation, groups)
+            else:
+                dw = conv2d_wgrad_reference(x, dy, kh, kw, strides, pads,
+                                            dilation, groups)
+            dw = dw.to(w.dtype)
     return dx, dw
 
 
@@ -679,12 +744,12 @@ class Conv2dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, strides, pads, dilation, groups, supported,
-                describe):
+                describe, sig=None):
         ctx.impl = _kern.resolve_impl()
         ctx.geometry = (strides, pads, dilation, groups)
         ctx.save_for_backward(x, w)
         return conv2d(x, w, strides, pads, dilation, groups, supported,
-                      describe)
+                      describe, sig)
 
     @staticmethod
     def backward(ctx, dy):
@@ -693,4 +758,4 @@ class Conv2dFunction(torch.autograd.Function):
             dx, dw = conv2d_bwd(dy, x, w, *ctx.geometry,
                                 need_dx=ctx.needs_input_grad[0],
                                 need_dw=ctx.needs_input_grad[1])
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None

@@ -43,9 +43,10 @@ Not carried over from the TPU module: the lane rule of ``supports``
 the VMEM guard ``fits_vmem`` (it sizes a TPU program holding the whole
 batch block and U in VMEM; the CUDA kernel streams U through shared memory
 in chunks, so no cell is too large for it), and the ``b_tile`` knob with
-``valid_b_tile``/``valid_b_tiles``/``shape_signature`` (the TPU tuning
-database's batch tile; the CUDA kernel's tile is fixed by its launch
-geometry).
+``valid_b_tile``/``valid_b_tiles`` (the TPU kernel's batch tile; the CUDA
+kernel's tile is fixed by its launch geometry). :func:`shape_signature`
+stays: the tuning database keys the LSTM's choice, exact or the kernel, by
+it, as the reference keys its tiles.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops.kernels import _build
+from deeplearning4j_tpu_torch.util import cost_model as _cm
 
 ORDER_IFOG: Tuple[str, ...] = ("i", "f", "o", "g")   # DL4J layer order
 ORDER_IOFG: Tuple[str, ...] = ("i", "o", "f", "g")   # ONNX lstm_layer order
@@ -68,6 +70,29 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RAW_LAUNCH_NO_GRAD = (
     "{} is the raw kernel launch and has no backward: call it on inputs "
     "that require grad through its autograd Function ({})")
+
+
+def shape_signature(b: int, h: int) -> str:
+    """The tuning-database signature of one cell geometry, the reference's
+    string (``:121``): (B, H) only, the kernel's program being the same at
+    every sequence length."""
+    return f"b={int(b)};h={int(h)}"
+
+
+def seq_cost(xp, u):
+    """(FLOPs, transcendentals, bytes) of one segment launch (or its plain
+    version) on xp (B, T, 4H) and U (H, 4H), for the cost model: per step
+    the (B, H) x (H, 4H) product, the 4H add of xp and 4 FLOPs a unit for
+    the state update (f·c + i·g, o·tanh), 5 transcendentals a unit (three
+    sigmoids, two tanh); bytes: xp and U read, y, h and c written."""
+    def fn():
+        b, t = int(xp.shape[0]), int(xp.shape[1]) if xp.dim() == 3 else 1
+        h = int(u.shape[0])
+        es = xp.element_size()
+        flops = t * (2.0 * b * h * 4 * h + 4.0 * b * h + 4.0 * b * h)
+        nbytes = es * (xp.numel() + u.numel() + 3 * b * t * h)
+        return flops, 5.0 * t * b * h, float(nbytes), 8.0 * t * b * h * h
+    return fn
 
 
 def supports(xp, u, gate_activation: str, activation: str) -> bool:
@@ -396,7 +421,9 @@ class LSTMSequenceFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, h0, c0, u, mask, order, carries=False):
-        y, hseq, cseq, h_fin, c_fin = lstm_seq_fwd(xp, h0, c0, u, order, mask)
+        with _cm.kernel_cost("lstm_seq_fwd", seq_cost(xp, u)):
+            y, hseq, cseq, h_fin, c_fin = lstm_seq_fwd(xp, h0, c0, u, order,
+                                                       mask)
         ctx.save_for_backward(xp, h0, c0, u, hseq, cseq, mask)
         ctx.order, ctx.carries = order, carries
         return (hseq if carries else y), h_fin, c_fin

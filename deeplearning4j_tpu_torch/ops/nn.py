@@ -62,7 +62,10 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
     and the output comes back in x's type, as the reference casts back.
     When autograd records the call (grad enabled and x or w needing a
     gradient) it goes through ``Conv2dFunction``, the reference's custom
-    VJP, whose backward dispatches the dgrad and wgrad kernels."""
+    VJP, whose backward dispatches the dgrad and wgrad kernels. Under
+    ``auto`` with a tuning database armed, the winner for this geometry's
+    signature decides the forward (``row_tile`` included; reference
+    ``:92-115``)."""
     if data_format not in ("NHWC", "NCHW"):
         raise ValueError(f"conv2d: unknown data_format {data_format!r}")
     strides_p, dil_p = _pair(strides), _pair(dilation)
@@ -77,8 +80,12 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
                 f"{tuple(w.shape)} {w.dtype}, groups {feature_group_count}, "
                 f"preferred_element_type {preferred_element_type}")
 
+    def sig():
+        return _kconv.shape_signature(xh.shape, w.shape, strides_p, padding,
+                                      dil_p, feature_group_count)
+
     args = (xh, w, strides_p, pads, dil_p, feature_group_count, supported,
-            describe)
+            describe, sig)
     if torch.is_grad_enabled() and (xh.requires_grad or w.requires_grad):
         out = _kconv.Conv2dFunction.apply(*args)
     else:

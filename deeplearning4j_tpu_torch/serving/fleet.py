@@ -373,8 +373,10 @@ class FleetRouter:
         handler = _make_fleet_handler(self)
         self._httpd = _ServingHTTPServer((self.host, self.port), handler)
         self.port = self._httpd.server_address[1]
+        # a short poll: stop() waits one poll for the loop to see it
         self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        daemon=True, name=f"{self.name}-http")
+                                        args=(0.05,), daemon=True,
+                                        name=f"{self.name}-http")
         self._thread.start()
         _FLEETS.add(self)
         tm.set_health(f"serving.fleet.{self.name}", True,
@@ -902,7 +904,7 @@ def fleet_spec(models: Sequence[dict], env: Optional[dict] = None,
     - ``model_kw``: ServingModel kwargs (bucketing as
       {"batch_buckets": [...], "seq_buckets": [...]}, prefix_cache,
       prefill_chunk, pool_blocks, …; ``export_dir`` raises in the worker,
-      the AOT store being ROADMAP Queue 1 item 12)
+      the AOT store being ROADMAP Queue 1 item 12b)
 
     ``env`` is put into every worker's environment at spawn, before it
     imports torch (``CUDA_VISIBLE_DEVICES``, ``DL4J_TORCH_KERNEL_IMPL``,

@@ -23,7 +23,7 @@ spawn, so ``CUDA_VISIBLE_DEVICES``, ``DL4J_TORCH_KERNEL_IMPL`` and the
 worker applies them again (an operator's own setting wins) before it
 restores anything, so a hand-run with the same spec behaves the same. A
 ``model_kw`` ``export_dir`` (the reference's AOT store) raises: it comes
-with ROADMAP Queue 1 item 12.
+with ROADMAP Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def build_router(spec: dict):
             raise NotImplementedError(
                 f"model {m['id']!r}: model_kw export_dir is not ported: "
                 "the AOT store (util/aot_store.py, util/compile_cache.py) "
-                "comes with ROADMAP Queue 1 item 12")
+                "comes with ROADMAP Queue 1 item 12b")
         net = ModelSerializer.restore_model(m["path"], load_updater=False,
                                             device=device)
         b = kw.get("bucketing")

@@ -95,8 +95,10 @@ class ModelServer:
         self._httpd = _ServingHTTPServer((self.host, self.port),
                                          _make_handler(self))
         self.port = self._httpd.server_address[1]  # resolves port 0
+        # a short poll: stop() waits one poll for the loop to see it
         self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        daemon=True, name="model-server")
+                                        args=(0.05,), daemon=True,
+                                        name="model-server")
         self._thread.start()
         self._install_signal_handlers()
         tm.set_health("serving.accepting", True,

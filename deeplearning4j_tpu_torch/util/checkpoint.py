@@ -22,15 +22,20 @@ The contract:
   generator's state ride with the arrays, so a resumed ``fit`` draws the
   same streams as an uninterrupted one.
 - **Retried I/O** under a small :class:`RetryPolicy` (the part of the
-  reference's ``util/faults.py`` this module uses; the rest is ROADMAP
-  item 12).
+  reference's ``util/faults.py`` this module uses; the full policy is in
+  the port's ``util/faults.py``).
 - **Async save**: ``save(..., block=False)`` copies the state to the host
   on the caller's thread and commits on a background thread;
   :meth:`ShardedCheckpointer.wait_until_finished` joins it.
 
-Counters are attributes of the checkpointer (``checkpoints_total``,
-``corrupt_skipped_total``, ...) until the telemetry slice (item 12) brings
-the reference's metrics.
+Telemetry (the reference's names): ``elastic.checkpoint_commit`` and
+``elastic.checkpoint_restore`` spans, the ``elastic.checkpoints_total``,
+``elastic.checkpoint_errors_total``, ``elastic.commit_hook_errors_total``
+and ``checkpoint.corrupt_skipped_total`` counters, the
+``elastic.last_checkpoint_step`` gauge and a ``checkpoint.corrupt_skipped``
+instant. Each checkpointer also keeps its own counts as attributes of the
+same names, for callers that hold it. :class:`FaultTolerantTrainer` writes
+``CrashReportingUtil``'s dump (``util/stats.py``) on each failure.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.util import telemetry as tm
 from deeplearning4j_tpu_torch.util.model_serializer import (_host_tree,
                                                             fingerprint,
                                                             jax_items)
@@ -234,19 +240,23 @@ class ShardedCheckpointer:
             write_meta(tmp)
             os.replace(tmp, final)  # the commit point
 
-        if self.retry is not None:
-            self.retry.run(attempt, name="checkpoint_save",
-                           retry_on=(OSError, ValueError))
-        else:
-            attempt()
+        with tm.span("elastic.checkpoint_commit", step=step):
+            if self.retry is not None:
+                self.retry.run(attempt, name="checkpoint_save",
+                               retry_on=(OSError, ValueError))
+            else:
+                attempt()
         self._committed_steps.add(step)
         self.checkpoints_total += 1
         self.last_checkpoint_step = step
+        tm.counter("elastic.checkpoints_total")
+        tm.gauge("elastic.last_checkpoint_step", step)
         for hook in list(self._commit_hooks):
             try:
                 hook(step)
             except Exception as e:  # noqa: BLE001 - an observer
                 self.commit_hook_errors_total += 1
+                tm.counter("elastic.commit_hook_errors_total")
                 if self.log:
                     self.log(f"WARNING: checkpoint commit hook failed at "
                              f"step {step}: {e!r}")
@@ -270,6 +280,7 @@ class ShardedCheckpointer:
                 with self._lock:
                     self._pending_error = e
                     self.checkpoint_errors_total += 1
+                tm.counter("elastic.checkpoint_errors_total")
 
         t = threading.Thread(target=run, name="dl4j-torch-ckpt", daemon=True)
         self._pending = t
@@ -338,9 +349,10 @@ class ShardedCheckpointer:
         def attempt():
             return load_tree_npz(os.path.join(path, _STATE_FILE))
 
-        restored = (self.retry.run(attempt, name="checkpoint_restore",
-                                   retry_on=(OSError,))
-                    if self.retry is not None else attempt())
+        with tm.span("elastic.checkpoint_restore", step=step):
+            restored = (self.retry.run(attempt, name="checkpoint_restore",
+                                       retry_on=(OSError,))
+                        if self.retry is not None else attempt())
         for name in ("params", "states", "opt_states"):
             _fill(name, getattr(model, name), restored[name])
         meta = restored["meta"]
@@ -365,6 +377,9 @@ class ShardedCheckpointer:
                 return step
             except Exception as e:  # noqa: BLE001 - skip bad, keep walking
                 self.corrupt_skipped_total += 1
+                tm.counter("checkpoint.corrupt_skipped_total")
+                tm.instant("checkpoint.corrupt_skipped", step=step,
+                           error=f"{type(e).__name__}: {e}"[:200])
                 if self.log:
                     self.log(f"WARNING: checkpoint step {step} in "
                              f"{self.directory} failed to load "
@@ -425,13 +440,12 @@ class FaultTolerantTrainer:
         self.restarts = 0
 
     def _crash_dump(self, error):
-        """A small JSON report of the failure (the reference's
-        CrashReportingUtil dump is ROADMAP item 12)."""
-        with open(self.crash_dump_path, "w") as f:
-            json.dump({"error": f"{type(error).__name__}: {error}",
-                       "iteration": int(self.model.iteration),
-                       "epoch": int(self.model.epoch),
-                       "time": time.time()}, f)
+        """CrashReportingUtil's dump of the model and the failure (reference
+        ``:492-494``)."""
+        from deeplearning4j_tpu_torch.util.stats import CrashReportingUtil
+
+        CrashReportingUtil.write_crash_dump(self.model, self.crash_dump_path,
+                                            error)
 
     def fit(self, iterator, epochs: int = 1):
         if self.listener not in self.model.listeners:

@@ -18,7 +18,7 @@ same.
 ``persistent_cache_hits`` stays 0: a CUDA graph holds device addresses of
 one process and cannot be stored for the next, so the persistent cache and
 the AOT store (``util/compile_cache.py``, ``util/aot_store.py``) wait for
-ROADMAP item 12. Read by ``nn/listeners.py::RecompileListener``.
+ROADMAP item 12b. Read by ``nn/listeners.py::RecompileListener``.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ What differs in the port: compile counts come from the port's
 ``torch.cuda.memory_stats``, read only once the process has initialised
 CUDA itself, so a scrape never initialises it and a forked child never
 touches it; the compile-cache collector waits for ``util/compile_cache.py``
-(ROADMAP item 12) and is left out until then. So are the reference's
-collectors of the elastic runtime (item 10) and the tuning database (item
-13). The serving router's, the fleet's and the SLO engine's collectors and
+(ROADMAP item 12b) and is left out until then, and so is the reference's
+collector of the elastic runtime (item 10). The tuning database's
+(``tuning/database.py``, item 12a), the serving router's, the fleet's and
+the SLO engine's collectors and
 the serving schedulers' deferred request spans are here, each guarded by
 ``sys.modules`` on the port's own module name as the reference guards its
 own, so a process that never served pays nothing.
@@ -660,6 +661,7 @@ def install_default_collectors() -> Telemetry:
         tele.register_collector(_collect_serving)
         tele.register_collector(_collect_fleet)
         tele.register_collector(_collect_slo)
+        tele.register_collector(_collect_tuning)
         _defaults_installed = True
     return tele
 
@@ -744,6 +746,18 @@ def _collect_slo() -> list:
     if mod is None:
         return []
     return mod.collect_slo_gauges()
+
+
+def _collect_tuning() -> list:
+    """Tuning-database gauges (armed flag, entry count) at scrape time;
+    nothing in a process that never imported the tuner (reference
+    ``:766-775``)."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.tuning.database")
+    if mod is None:
+        return []
+    return mod.collect_tuning_gauges()
 
 
 def _staged_serving_spans() -> list:

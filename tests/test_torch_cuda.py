@@ -1944,3 +1944,76 @@ def test_fleet_on_card(card, tmp_path):
     finally:
         fleet.stop(kill_timeout_s=30)
     assert [w.proc.returncode for w in fleet.workers] == [0, 0]
+
+
+def test_observe_tune_on_card(card, tmp_path, monkeypatch):
+    """Observability and tuning on the card, at a small size: LeNet's
+    ``cost_report(profile=True)`` counts the same FLOPs on the card as on
+    the CPU (the kernel wrappers report one formula on both), launches the
+    conv kernels the same in its counted and profiled steps, and leaves the
+    net's state bit-equal; a ``conv2d_tiles`` sweep admits every candidate
+    and launches K2; armed, ``ops.nn.conv2d`` follows the winner (a row
+    tile, then ``exact``), counted in TUNED, ROW_TILE_LAUNCHES and
+    PLAIN_ON_CUDA, within 1e-4 of the plain version."""
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.ops import nn as nnops
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.zoo.models import LeNet
+
+    monkeypatch.setenv("DL4J_TORCH_KERNEL_IMPL", "auto")
+    monkeypatch.setenv("DL4J_TPU_PEAK_FLOPS", "bf16=9.89e14,fp32=6.7e13")
+    flops = {}
+    for dev in ("cpu", "cuda"):
+        net = LeNet().init(device=dev)
+        before = [t.clone() for t in tree_leaves(
+            [net.params, net.states, net.opt_states])]
+        with capture.disabled():
+            rep = net.cost_report(batch_size=64, profile=True, steps=2,
+                                  publish=False,
+                                  trace_dir=str(tmp_path / f"trace_{dev}"))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(
+            [net.params, net.states, net.opt_states]), before))
+        flops[dev] = rep.flops_per_step
+        if dev == "cuda":
+            want = {"conv2d_fwd": 2, "conv2d_dgrad": 1, "conv2d_wgrad": 2}
+            assert rep.launches["counted"] == want
+            assert rep.launches["profiled"] == want
+            assert rep.mfu is not None and 0 < rep.mfu < 1
+            assert rep.device_time_s > 0 and 0 < rep.trace_busy_s \
+                <= rep.trace_span_s
+    assert flops["cuda"] == pytest.approx(flops["cpu"], rel=1e-6)
+
+    ctx = {"x_shape": (4, 8, 8, 16), "w_shape": (3, 3, 16, 16),
+           "strides": (1, 1), "padding": "SAME", "dilation": (1, 1),
+           "groups": 1, "dtype": "float32"}
+    db = tuning.set_database(str(tmp_path / "tdb"))
+    try:
+        TK.reset_counts()
+        entry = tuning.MeasurementDriver(db, min_window_s=0.005).sweep(
+            tuning.get_space("conv2d_tiles"), ctx)
+        assert all(r["admitted"] for r in entry["measured"])
+        assert sum(TK.ROW_TILE_LAUNCHES.values()) > 0
+        sp = tuning.get_space("conv2d_tiles")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(ctx["x_shape"], device="cuda", generator=g)
+        w = torch.randn(ctx["w_shape"], device="cuda", generator=g) * 0.1
+        plain = KC.conv2d_fwd_reference(x, w, (1, 1), ((1, 1), (1, 1)),
+                                        (1, 1), 1)
+        for label, impl, params in (("cuda:rt=2", "cuda", {"row_tile": 2}),
+                                    ("exact", "exact", {})):
+            db.commit(sp.key(ctx), {"winner": {
+                "label": label, "impl": impl, "params": params, "ms": 1.0},
+                "candidates_digest": "t", "measured": []})
+            TK.reset_counts()
+            out = nnops.conv2d(x, w)
+            assert TK.TUNED == {f"conv2d_fwd/{label}": 1}
+            if impl == "exact":
+                assert TK.PLAIN_ON_CUDA["conv2d_fwd"] == 1
+                assert TK.LAUNCHES["conv2d_fwd"] == 0
+            else:
+                assert TK.ROW_TILE_LAUNCHES == {"conv2d_fwd/rt=2": 1}
+            assert float((out - plain).abs().max()) <= 1e-4 * max(
+                1.0, float(plain.abs().max()))
+    finally:
+        tuning.set_database(None)
+        TK.reset_counts()
