@@ -38,8 +38,8 @@ Phases, each printing one JSON line:
    each of those launches is held against the plain version on its own
    tensors (``check_every_launch``).
    Then ``net.output`` forward images/sec at batch 32 in fp32 and bf16
-   (RATE_WINDOWS windows of RATE_WINDOW_S each: median, min, max; 3 of
-   0.5 s since the serving slice, 5 of 2 s before), and one profiled
+   (RATE_WINDOWS windows of RATE_WINDOW_S each: median, min, max; short,
+   to keep the run inside its time limit), and one profiled
    batch-32 forward of each: device time by kernel, idle share.
 6. train: full-width ResNet-50 training at batch 32 (seed 12345, random
    one-hot labels, the zoo's Adam(1e-3)): one step's loss and gradients
@@ -127,23 +127,24 @@ Phases, each printing one JSON line:
 15. lenet: LeNet-5 (``zoo.LeNet``: conv 5x5 -> 20, pool, conv 5x5 -> 50,
     pool, dense 500, softmax 10; seed 12345, Adam(1e-3), fp32) as
     dl4j-examples' LeNetMNIST trains it, on the reference's synthetic
-    MNIST (60,000 training and 10,000 test digits, MnistDataSetIterator at
-    batch 64): one step under ``auto`` against ``exact`` (2 / 1 / 2 conv
+    MNIST (20,000 training and 4,000 test digits, cut from the example's
+    60,000 / 10,000 to keep the run inside its limit; MnistDataSetIterator
+    at batch 64): one step under ``auto`` against ``exact`` (2 / 1 / 2 conv
     launches of fwd / dgrad / wgrad, the fp64 step gate); the main path,
-    one epoch of ``fit(iterator)`` (938 steps, the last of 32) with
+    one epoch of ``fit(iterator)`` (313 steps, the last of 32) with
     ScoreIterationListener(100), PerformanceListener(100) and
     CollectScoresListener(1), every conv launch held against its plain
     version, none plain on CUDA, every iteration seen once in order, the
-    mean of the last 50 scores below the first 50's; its first 200 steps
+    mean of the last 50 scores below the first 50's; its first 96 steps
     again at ``sync_every`` 16 (the same scores within 1e-6, one host copy
     a window); ``evaluate`` on the test digits (accuracy >= 0.97, all
-    10,000 rows counted, the ``exact`` path's confusion matrix but for
+    4,000 rows counted, the ``exact`` path's confusion matrix but for
     rows whose top two probabilities lie within 1e-4) and ``score``
     against ``exact`` (1e-5); EarlyStoppingTrainer on 6,000 digits (at
     most 3 epochs, patience 1; the best model on the card re-scores to its
-    recorded score within 1e-6); a checked bf16 run of 200 steps (every
+    recorded score within 1e-6); a checked bf16 run of 100 steps (every
     launch on mma.sync) and its ``evaluate``; train images/sec fp32 and
-    bf16 (RATE_WINDOWS windows of 200 steps), ``evaluate`` images/sec at
+    bf16 (RATE_WINDOWS windows of LENET_WINDOW steps), ``evaluate`` images/sec at
     batch 1024, one profiled step of each (device busy, idle share, the conv
     kernels' share). LeNet's two conv geometries at batch 64 are extra
     cases of phases 3 and 4 (marked ``lenet``).
@@ -172,7 +173,7 @@ Phases, each printing one JSON line:
     features, LSTM 256, 2 classes; seeded data): (i) LSTM -> RnnOutputLayer
     with the label at each review's last step, (ii) Bidirectional(LSTM) ->
     masked average -> OutputLayer. For each: a step against ``exact`` and
-    fp64, two epochs of ``fit(iterator)`` over 32 batches with every K4
+    fp64, two epochs of ``fit(iterator)`` over 20 batches with every K4
     launch checked (1 a step, 2 a step) and the loss falling, ``evaluate``
     and ``score`` with masks against ``exact``, a checked bf16 step, train
     sequences/sec fp32 and bf16, a profiled step. Then TextGenerationLSTM
@@ -204,8 +205,8 @@ Phases, each printing one JSON line:
     archive of it served through ``ModelRouter.load`` over HTTP (within
     1e-4 of the exact path); its head made an OutputLayer under
     Adam(1e-3): a step under auto against exact and fp64 with the gate's
-    controls (TF32 must fail), four checked fp32 steps whose loss must
-    fall, four checked bf16 steps, 52 / 51 / 52 K1 / dgrad / K3 launches
+    controls (TF32 must fail), MNV2_STEPS checked fp32 steps whose loss
+    must fall, MNV2_STEPS checked bf16 steps, 52 / 51 / 52 K1 / dgrad / K3 launches
     a step as the conf works out, none plain; images/sec forward and
     fit; K1, dgrad and K3 against their plain versions and cuDNN at its
     ten depthwise geometries (stride 1 and the four stride-2 ones, batch
@@ -293,17 +294,17 @@ Phases, each printing one JSON line:
     image decoder built, with the compiler's error and the host's
     libjpeg/libpng headers and libraries where it did not); the
     synthetic digits of phase 15 written as 8 MNIST-format CSV shards
-    (60,000 rows of a label and 784 pixels 0-255), DP_IMAGES images in
+    (20,000 rows of a label and 784 pixels 0-255), DP_IMAGES images in
     DP_CLASSES class folders (PNGs written here with zlib, the committed
     JPEG fixtures of tools/fixtures/jpeg) and DP_SEQ_BATCHES x 64 review
-    files of 300 values a row; CSV parse MB/s and rows/s at 1, 2, 4 and 8
-    threads, image decode images/s at 1, 4 and 8 threads, pinned and
+    files of 300 values a row; CSV parse MB/s and rows/s at 1, 4 and 8
+    threads, image decode images/s at 1 and 8 threads, pinned and
     pageable H2D GB/s; DP_STRESS pipelines of 4 files on 4 threads with a
     ring of 1, each file in order and equal to the single-threaded parse;
     MultiProcessTransformExecutor forked after CUDA is initialised, equal
     to serial. Leg (a): LeNet-5 trained through CSVRecordReader ->
     RecordReaderDataSetIterator for the first DP_CSV_RR_BATCHES of the
-    epoch's 938 batches (cut) and one whole epoch through
+    epoch's 313 batches (cut) and one whole epoch through
     NativeCSVDataSetIterator, each in AsyncDataSetIterator (batches staged
     on a side stream from pinned memory), every staged batch bit-equal on
     the card to the batch numpy makes from the arrays the shards were
@@ -377,14 +378,14 @@ Phases, each printing one JSON line:
     a worker launches the kernel or fails the request), each serving a
     ResNet-50 archive (seed 12345) and the causal BERT-base LM's (a pinned
     pool of 256 blocks of 16, prefix cache on): each worker's time to
-    ready; 16 classify requests of 1-16 rows, four at a time, within 1e-4
-    of the in-process output (eager, every K1 launch checked); 16 greedy
+    ready; 8 classify requests of 1-16 rows, four at a time, within 1e-4
+    of the in-process output (eager, every K1 launch checked); 8 greedy
     streams of 64-token prompts over two shared 32-token heads
     (affinity head 16), 32 new tokens each, equal to
     ``generate_full_recompute`` under the tie rule and each on
     ``rendezvous_pick``'s worker; classify rows/s straight to one worker,
     straight to two and through the router to two, and generate tokens/s
-    through the router (4 closed-loop clients a worker, 3 windows of 2.5 s,
+    through the router (4 closed-loop clients a worker, 3 windows of 0.4 s,
     median, min, max; each request's client wall beside the worker's
     own queue, fill and compute from its flight records); each worker's
     own K1 launches over those legs (its ``/v1/models``: 53 a chunk, none
@@ -416,6 +417,32 @@ Phases, each printing one JSON line:
     OpProfiler over a by-name forward, ``DL4J_TPU_FAULTS=inject_nan@3``
     turned into ``NaNPanicError`` by ``TrainingHealthMonitor(panic=True)``,
     StatsListener records of four ``fit`` steps.
+22m. compile_time: the compile-time half of item 12 and the fused update.
+    (a) Remat on full-width ResNet-50 at 224x224, batch 32, fp32 and bf16,
+    from one set of params: ``none`` twice, stage barriers alone,
+    ``full`` and ``save_conv``, three eager steps each (the first with
+    every launch checked), their losses, params and running statistics
+    equal to ``none``'s to the bit where its two runs agree; K1/dgrad/K3
+    launches a step as the conf gives them (53/52/53, and under ``full``
+    53 more K1 in the recompute); each policy's peak memory of an eager
+    and of a captured step, its graph pool, its captured step's ms over
+    three replays and its MFU (phase 22l's ``cost_report`` FLOPs). (b)
+    BERT-base
+    bf16 at batch 32, S 128: four captured steps per-leaf and fused with
+    dynamic loss scaling from the same params (losses within 2^-7, 12 K5
+    launches a step); a captured step whose scaled backward overflows
+    (scale 2^127) leaves params, moments and masters bit-equal and halves
+    the scale; each path's optimizer share and step ms by
+    ``cost_report(profile=True)``. (c) The warm start: ResNet-50's
+    archive served in buckets 1-32 by process A with
+    ``DL4J_TPU_COMPILE_CACHE`` on a fresh directory and an ``export_dir``
+    AOT store, then by process B from the same directories (B warms from
+    the store with no shapes first): time to ready, nvcc seconds (A
+    builds, B none), the store's hits, misses and saves, 53 K1 launches a
+    forward, B's answers bit-equal to A's. (d) 4 x 300 characters sampled
+    from the char-RNN eager (every K4 launch checked) and with captured
+    ``rnn_time_step``: the same texts, 2 K4 launches a character; captured
+    ``score`` and ``feed_forward`` on ResNet-50 at batch 8 equal to eager.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -442,7 +469,10 @@ Phases, each printing one JSON line:
     own (launches, plain calls, chunks) under ``launches_fleet_workers``;
     phase 22l's under ``launches_cost_report`` (the counted steps),
     ``launches_tuning`` (the sweeps; K2's by row tile under
-    ``launches_k2``) and ``launches_tuned_path`` (the armed path).
+    ``launches_k2``) and ``launches_tuned_path`` (the armed path);
+    phase 22m's under ``launches_compile_time`` (the warm-start processes'
+    K1 under ``launches_compile_time_warm_start``), with its checks under
+    ``compile_time_checked``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -494,7 +524,7 @@ GRAD_TOL = {"fp32": 1e-4, "bf16": 2.0 ** -7}
 # arithmetic summed in other orders through 53 layers
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
-SERVE_ROWS = (1, 3, 16, 2, 5, 8, 4, 7)
+SERVE_ROWS = (1, 3, 16, 2, 1, 2, 4, 3)
 BUCKETS = (1, 2, 4, 8, 16, 32)
 FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_fwd.cu"
 FLASH_REPLACES = "deeplearning4j_tpu/ops/attention.py:119 _flash_fwd_kernel"
@@ -525,7 +555,7 @@ SWEEP_SEQ = (32, 64, 128, 256, 512, 1024, 2048)
 # Adam at 1e-5 from random weights, without warmup: on this data 1e-4 and
 # 3e-5 spike in the first steps and settle at the class prior (ln 2), 1e-5
 # goes below it in three epochs (PERF.md, PR 10); the main path must too
-BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, BERT_TRAIN_EPOCHS = 32, 128, 3
+BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, BERT_TRAIN_EPOCHS = 32, 128, 2
 BERT_TRAIN_LR = 1e-5
 BERT_MLM_STEPS = BERT_TRANSFER_STEPS = 3
 # the FlashAttention Function alone: (batch, S) at BERT-base's heads, each
@@ -558,18 +588,19 @@ CHAR_BATCH, CHAR_SEQ, CHAR_TBPTT, CHAR_UNITS = 32, 1000, 50, 256
 CHAR_FITS = 3
 SAMPLES, SAMPLE_LEN, SAMPLE_PRIME = 4, 300, "the port "
 # LeNet-5 (dl4j-examples' LeNetMNIST): batch 64 on the reference's
-# synthetic MNIST (no idx files are in the repository), 60,000 training and
-# 10,000 test digits; its two convs (5x5 VALID, stride 1) at batch 64 are
+# synthetic MNIST (no idx files are in the repository), 20,000 training and
+# 4,000 test digits (the example's 60,000 / 10,000, cut for the run's time
+# limit); its two convs (5x5 VALID, stride 1) at batch 64 are
 # extra cases of the kernel phases: (geometry key) -> (name, forwards,
 # dgrads, wgrads per train step); conv1 reads the input, so it has no dgrad
-LENET_BATCH, LENET_TRAIN, LENET_TEST = 64, 60000, 10000
+LENET_BATCH, LENET_TRAIN, LENET_TEST = 64, 20000, 4000
 LENET_CONVS = {
     (64, 28, 28, 1, 5, 5, 20, (1, 1), "VALID", (1, 1), 1): ("conv1", 1, 0, 1),
     (64, 12, 12, 20, 5, 5, 50, (1, 1), "VALID", (1, 1), 1): ("conv2", 1, 1, 1),
 }
 LENET_STEP = {"conv2d_fwd": 2, "conv2d_dgrad": 1, "conv2d_wgrad": 2}
 LENET_ACCURACY = 0.97  # the reference's own bar (tests/test_multilayer.py)
-LENET_WINDOW, LENET_SYNC_STEPS, LENET_SYNC_EVERY = 200, 200, 16
+LENET_WINDOW, LENET_SYNC_STEPS, LENET_SYNC_EVERY = 100, 96, 16
 LENET_ES_TRAIN, LENET_EVAL_BATCH = 6000, 1024
 # The recurrent slice. recurrent_layers: each new layer at (B, T, F) and H
 # (H 256: K4's resident body for Bidirectional(LSTM)), ConvLSTM2D at B 8,
@@ -585,16 +616,18 @@ RL_B, RL_T, RL_F, RL_H = 16, 20, 64, 256
 CONVLSTM_B, CONVLSTM_T, CONVLSTM_HW, CONVLSTM_FILTERS = 8, 10, 64, 64
 LAYER_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2.0 ** -4, 2.0 ** -3)}
 # graves_char_rnn: dl4j-examples' GravesLSTMCharModellingExample widths;
-# its rate windows are fit calls over the first 500 characters (10
-# segments), half the phase's time at some 16,000 characters/sec
-GRAVES_UNITS, GRAVES_RATE_SEQ = 200, 500
+# its rate windows are fit calls over the first 250 characters (5
+# segments: short, for the run's time limit), at some 12,000 to 16,000
+# characters/sec
+GRAVES_UNITS, GRAVES_RATE_SEQ = 200, 250
 # seq_graph: dl4j-examples' Word2VecSentimentRNN shape (minibatch 64,
 # reviews truncated at 256 steps, 300 features a step, LSTM 256, 2
-# classes) on seeded reviews of 32-256 steps; two epochs over 32 batches;
-# evaluate and score on the first 4, rates over windows of 3
+# classes) on seeded reviews of 32-256 steps; two epochs over SENT_BATCHES
+# batches (cut for the run's time limit); evaluate and score on the first
+# 4, rates over windows of 3
 SENT_BATCH, SENT_FEATURES, SENT_UNITS = 64, 300, 256
 SENT_MIN_LEN, SENT_MAX_LEN = 32, 256
-SENT_BATCHES, SENT_EPOCHS, SENT_LR = 32, 2, 5e-3
+SENT_BATCHES, SENT_EPOCHS, SENT_LR = 12, 2, 5e-3
 SENT_EVAL_BATCHES, SENT_WINDOW_BATCHES = 4, 3
 # the graph's TBPTT and rnn_time_step against the MultiLayerNetwork's: the
 # same ops in the same order on the same card
@@ -605,11 +638,11 @@ GRAPH_MLN_RTOL = 1e-6
 # GravesLSTM gate's fit call of GRAVES_GATE_SEQ characters, LeNet's rate
 # windows over LENET_CAPTURE_BATCHES batches; the sentiment graphs in
 # SENT_SEQ_BUCKETS
-CAPTURE_STEPS, CAPTURE_WINDOW_S = 4, 0.5
+CAPTURE_STEPS, CAPTURE_WINDOW_S = 3, 0.2
 #: the eager rates' windows (count, seconds each), cut from 5 x 2 s (and
 #: the captured rates' from 5 x 1 s) to keep the whole run inside its
 #: limit with the serving slice's phases
-RATE_WINDOWS, RATE_WINDOW_S = 3, 0.5
+RATE_WINDOWS, RATE_WINDOW_S = 3, 0.2
 GRAVES_GATE_SEQ, LENET_CAPTURE_BATCHES = 200, 50
 SENT_SEQ_BUCKETS = (64, 128, 192, 256)
 
@@ -3167,17 +3200,17 @@ def lenet_windows(torch, net, batches, windows=RATE_WINDOWS):
 def lenet_phase(torch, np, card):
     """LeNet-5 (``zoo.LeNet``, seed 12345, Adam 1e-3, fp32) as
     dl4j-examples' LeNetMNIST trains it: MnistDataSetIterator at batch 64
-    over the synthetic 60,000 / 10,000 digits. (a) One step under ``auto``
+    over the synthetic LENET_TRAIN / LENET_TEST digits. (a) One step under ``auto``
     against ``exact`` (the fp64 step gate), 2 / 1 / 2 conv launches. (b)
-    The main path: one epoch of ``fit(iterator)`` (938 steps, the last of
+    The main path: one epoch of ``fit(iterator)`` (313 steps, the last of
     32) with ScoreIterationListener(100), PerformanceListener(100) and
     CollectScoresListener(1), every conv launch checked, none plain, every
     iteration seen once in order, the loss falling. (c) Its first
     LENET_SYNC_STEPS steps again from the same init at sync_every 16: the
-    same scores. (d) ``evaluate`` on the 10,000 test digits (accuracy >=
+    same scores. (d) ``evaluate`` on the LENET_TEST test digits (accuracy >=
     0.97, every row counted, the exact path's confusion matrix but for
     near-tied rows) and ``score`` against ``exact``. (e) EarlyStoppingTrainer
-    on 6,000 digits. (f) A checked bf16 run of 200 steps and its
+    on 6,000 digits. (f) A checked bf16 run of LENET_WINDOW steps and its
     ``evaluate``. (g) Train images/sec fp32 and bf16, ``evaluate``
     images/sec at batch 1024, one profiled step. Returns the main path's
     launches, their checks and the bf16 run's bodies."""
@@ -3307,7 +3340,7 @@ def lenet_phase(torch, np, card):
          max_rel_diff_vs_sync_every_1=diff, card=card)
     del net_sync
 
-    # (d) evaluate and score on the 10,000 test digits, auto against exact
+    # (d) evaluate and score on the LENET_TEST test digits, auto against exact
     kern.reset_counts()
     ev = net.evaluate(test)
     p_auto = lenet_outputs(torch, net, test.features)
@@ -5074,6 +5107,8 @@ def op_table_phase(torch, np, card):
 # depthwise launch with one channel a group and a 1x1 pointwise launch;
 # the stem reads the input, so it has no dgrad)
 XCEPTION_INPUT, XCEPTION_BATCH = (299, 299, 3), 32
+#: Xception's checked Adam steps (cut for the run's time limit)
+XCEPTION_STEPS = 3
 XCEPTION_STEP = {"conv2d_fwd": 74, "conv2d_wgrad": 74, "conv2d_dgrad": 73}
 # its depthwise geometries, (H = W, C, stride): 3x3, stride 1, SAME,
 # groups = C, whose kernel records run at batch 8 as the ResNet-50
@@ -5338,7 +5373,8 @@ def conv_zoo_phase(torch, np, card):
     """The conv zoo (ROADMAP item 4) on the card, eagerly, every launch
     checked: the depthwise kernel records; Xception served over HTTP; its
     training at batch 32 (a step under auto against exact with the gate's
-    controls, four checked Adam steps, a checked bf16 step, images/sec, a
+    controls, XCEPTION_STEPS checked Adam steps, a checked bf16 step,
+    images/sec, a
     profiled step with the depthwise launches as their own class); the
     other eight zoo models' checked forward and fit step. Returns the
     launches by part, the checks, the depthwise records and the state
@@ -5374,7 +5410,7 @@ def conv_zoo_phase(torch, np, card):
     net = xception(torch)
     got, chk = eager_train_leg(torch, card, "conv_zoo", "Xception", net,
                                xception(torch, "bfloat16"), x, y,
-                               XCEPTION_STEP, 4, 1)
+                               XCEPTION_STEP, XCEPTION_STEPS, 1)
     launches.update(got)
     checked.update(chk)
     proto = copy_net(net)
@@ -5515,7 +5551,7 @@ MNV2_DEPTHWISE = ((112, 32, 1), (56, 144, 1), (28, 192, 1), (14, 384, 1),
 KERAS_TOL = 1e-4
 # the checked fit steps, fp32 and bf16 from one state, and the captured
 # leg's steps under the gate
-MNV2_STEPS = 4
+MNV2_STEPS = 3  # cut for the run's time limit
 # the small leg: imported keras_cases files and the other new layer
 # classes, the card against the CPU
 KERAS_SMALL_B = 8
@@ -5763,7 +5799,7 @@ def keras_import_phase(torch, np, card):
     path (features, logits, probabilities); an archive of it served over
     HTTP through ModelRouter.load; its training at batch 32 under
     Adam(1e-3) (a step under auto against exact with the gate's controls,
-    four checked fp32 steps whose loss must fall, four checked bf16
+    MNV2_STEPS checked fp32 steps whose loss must fall, as many bf16
     steps, images/sec, a profiled step each with the depthwise launches
     as their own class); the depthwise records at its ten geometries; the
     small leg (keras_small_phase). Returns the launches by part, the
@@ -6726,14 +6762,14 @@ def samediff_onnx_lstm_phase(torch, np, card):
 DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
 JPEG_FIXTURES = os.path.join(ROOT, "tools", "fixtures", "jpeg")
 DP_SHARDS, DP_CSV_COLS = 8, 785
-DP_RATE_BATCHES = {"native_csv": 300, "csv_record_reader": 40}  # leg (a)'s
+DP_RATE_BATCHES = {"native_csv": 60, "csv_record_reader": 10}  # leg (a)'s
 #                             rate windows: the first batches of an epoch
-DP_CSV_RR_BATCHES = 250       # leg (a): the CSVRecordReader route's checked
-#                               run, of the epoch's 938 batches (cut)
+DP_CSV_RR_BATCHES = 120       # leg (a): the CSVRecordReader route's checked
+#                               run, of the epoch's 313 batches (cut)
 DP_IMAGES, DP_CLASSES, DP_IMAGE_BATCH = 512, 16, 32
 DP_SEQ_BATCHES = 2            # leg (c): 2 batches of 64 reviews (cut)
-DP_CSV_THREADS, DP_DECODE_THREADS = (1, 2, 4, 8), (1, 4, 8)
-DP_STRESS = 200
+DP_CSV_THREADS, DP_DECODE_THREADS = (1, 4, 8), (1, 8)
+DP_STRESS = 30
 DP_H2D_MB = 64
 RESNET_STEP = {"conv2d_fwd": 53, "conv2d_wgrad": 53, "conv2d_dgrad": 52}
 
@@ -7118,7 +7154,7 @@ def checked_epoch(torch, net, data, want, steps, what):
 
 
 def data_lenet_leg(torch, np, card, paths, arrays):
-    """Leg (a): LeNet-5 (seed 12345, Adam 1e-3) trained on the 60,000
+    """Leg (a): LeNet-5 (seed 12345, Adam 1e-3) trained on the LENET_TRAIN
     MNIST-format CSV rows, each route in AsyncDataSetIterator, every staged
     batch held bit for bit against the batch made with numpy from
     ``arrays`` (the pixels and labels the shards were written from):
@@ -7128,8 +7164,8 @@ def data_lenet_leg(torch, np, card, paths, arrays):
     numpy's, and NativeCSVDataSetIterator for the whole epoch, each a
     checked eager run. Then fit(iterator) images/sec over the route's
     first DP_RATE_BATCHES batches, eager and captured, beside one resident
-    batch's; the captured epoch's programs (the ragged last batch of 32 is
-    a second signature); a profiled window."""
+    batch's; the captured epoch's programs (the ragged last batch is a
+    second signature); a profiled window."""
     from deeplearning4j_tpu_torch.data import AsyncDataSetIterator, DataSet
     from deeplearning4j_tpu_torch.datavec import (CSVRecordReader,
                                                   RecordReaderDataSetIterator)
@@ -7217,7 +7253,7 @@ def data_lenet_leg(torch, np, card, paths, arrays):
             if programs != 2:
                 raise AssertionError(f"the captured LeNet epoch built "
                                      f"{programs} programs, expected 2 "
-                                     "(batches of 64 and the last of 32)")
+                                     "(batches of 64 and the ragged last)")
             rates[route]["captured_epoch"] = {"programs": programs,
                                               "seconds": build_s,
                                               **built}
@@ -7480,7 +7516,7 @@ def data_pipeline_phase(torch, np, card):
 # --------------------------------------------------------------- generate
 
 GEN_SEED = 12345
-GEN_BUCKETS = (1, 2, 4, 8, 16, 32)
+GEN_BUCKETS = (1, 4, 8, 32)  # few buckets: fewer programs to build
 GEN_SEQ_BUCKETS = (64, 128, 256)  # max_length (512) is the implicit last
 GEN_BLOCK = 16
 GEN_POOL_BLOCKS = 1024  # + the trash block: 1,025 blocks, 16,400 slots
@@ -7490,12 +7526,15 @@ GEN_REQUESTS = (((16,), 32), ((48, 200), 48), ((448,), 64),
                 ((64, 96, 128), 32), ((300, 17, 256, 80), 40), ((130,), 64),
                 ((20, 400), 48), ((256, 33, 77), 32))
 GEN_PREFIX = 256       # the prefix cache's shared head
-GEN_STREAMS = 32       # streams sharing it, in two batches of 16
+GEN_STREAMS = 16       # streams sharing it, in two batches of 8
 GEN_CHUNK = 64
 GEN_SPEC_TOKENS = 4
 GEN_RATE_BATCHES = (1, 8, 32)
 GEN_RATE_PROMPT = 256  # + GEN_RATE_NEW generated: contexts to 512
 GEN_RATE_NEW = 256
+#: the eager decode rate's generated tokens (host-bound, one run; fewer
+#: than GEN_RATE_NEW for the run's time limit)
+GEN_RATE_NEW_EAGER = 64
 GEN_TTFT = (256, 448)
 TIE_RTOL = 1e-4
 GEN_DIR = os.path.join(ROOT, "build", "smoke_generate")
@@ -7574,19 +7613,21 @@ def decode_rates(torch, np, gen, capture):
     and GEN_RATE_NEW new tokens (contexts to 512), captured and eager:
     (wall of the whole generate less the wall of a 1-token generate, the
     prefill's) per generated step, captured the median of 3, eager one run
-    (host-bound and 3-12x slower; cut from the median of 3 to keep the
-    whole smoke inside its limit)."""
+    of GEN_RATE_NEW_EAGER tokens (host-bound and 3-12x slower; cut from
+    the median of 3 and then from GEN_RATE_NEW tokens to keep the whole
+    smoke inside its limit)."""
     out = {}
     for b in GEN_RATE_BATCHES:
         prompts = gen_prompts(np, [GEN_RATE_PROMPT] * b, 100 + b)
         for mode in ("captured", "eager"):
             ctx = (capture.disabled() if mode == "eager"
                    else contextlib.nullcontext())
+            new = GEN_RATE_NEW if mode == "captured" else GEN_RATE_NEW_EAGER
             with ctx:
                 gen.generate(prompts, max_new_tokens=2)  # build / warm
                 walls = {}
                 reps = 3 if mode == "captured" else 1
-                for n in (1, GEN_RATE_NEW):
+                for n in (1, new):
                     ts = []
                     for _ in range(reps):
                         torch.cuda.synchronize()
@@ -7594,12 +7635,12 @@ def decode_rates(torch, np, gen, capture):
                         gen.generate(prompts, max_new_tokens=n)
                         ts.append(time.perf_counter() - t0)
                     walls[n] = sorted(ts)[len(ts) // 2]
-            decode_s = walls[GEN_RATE_NEW] - walls[1]
+            decode_s = walls[new] - walls[1]
             out[f"b{b}_{mode}"] = {
-                "tokens_per_s": b * (GEN_RATE_NEW - 1) / decode_s,
-                "ms_per_step": decode_s / (GEN_RATE_NEW - 1) * 1e3,
+                "tokens_per_s": b * (new - 1) / decode_s,
+                "ms_per_step": decode_s / (new - 1) * 1e3,
                 "prefill_wall_ms": walls[1] * 1e3,
-                "generate_wall_s": walls[GEN_RATE_NEW]}
+                "generate_wall_s": walls[new], "new_tokens": new}
     return out
 
 
@@ -7609,13 +7650,13 @@ def time_to_first_token(torch, np, gen):
         prompts = gen_prompts(np, [n], 200 + n)
         gen.generate(prompts, max_new_tokens=1)
         ts = []
-        for _ in range(5):
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             gen.generate(prompts, max_new_tokens=1)
             ts.append(time.perf_counter() - t0)
         ts.sort()
-        out[f"prompt_{n}"] = {"median_ms": ts[2] * 1e3, "min_ms": ts[0] * 1e3,
+        out[f"prompt_{n}"] = {"median_ms": ts[1] * 1e3, "min_ms": ts[0] * 1e3,
                               "max_ms": ts[-1] * 1e3}
     return out
 
@@ -7744,7 +7785,7 @@ def profile_decode_step(torch, np, gen, batch=32):
 
 def prefix_cache_check(torch, np, net, kw):
     """GEN_STREAMS streams sharing a GEN_PREFIX-token head, two batches of
-    16, through a prefix-cache generator and a cacheless one: tokens under
+    GEN_STREAMS // 2, through a prefix-cache generator and a cacheless one: tokens under
     the tie rule, the hit rate, and the blocks each run held at the end of
     each batch (read just before the batch releases them)."""
     from deeplearning4j_tpu_torch.serving import Generator
@@ -8470,21 +8511,25 @@ def serving_resilience_captured_leg(torch, np, card):
 
 FLEET_DIR = os.path.join(ROOT, "build", "smoke_fleet")
 FLEET_WORKERS = 2
-#: 16 classify requests of 1-16 rows, four at a time
-FLEET_ROWS = (1, 4, 16, 2, 8, 3, 12, 5, 1, 16, 6, 2, 9, 4, 7, 11)
-FLEET_GEN_BUCKETS = (1, 2, 4, 8)
-FLEET_GEN_SEQ = (64, 128)       # max_length (512) is the implicit last
+#: 8 classify requests of 1-16 rows, four at a time
+FLEET_ROWS = (1, 4, 16, 2, 8, 3, 12, 5)
+#: the fleet's ResNet-50 batch buckets (each worker warms one program a
+#: bucket at every boot, respawn and reload)
+FLEET_BUCKETS = (1, 4, 8, 16)
+FLEET_GEN_BUCKETS = (1, 8)      # few buckets: fewer programs a worker
+FLEET_GEN_SEQ = (64,)           # builds at each boot; max_length (512)
+#                                 is the implicit last
 FLEET_POOL_BLOCKS = 256         # per worker, pinned: 4,096 token slots
 FLEET_HEAD = 32                 # two shared 32-token heads
 FLEET_PROMPT = 64
-FLEET_STREAMS = 16
+FLEET_STREAMS = 8
 FLEET_NEW = 32
 FLEET_AFFINITY_HEAD = 16
 #: the fleet's rates: closed-loop clients, four for each worker the
 #: requests reach; each rate the median of FLEET_RATE_WINDOWS windows of
 #: FLEET_RATE_WINDOW_S
 FLEET_RATE_ROWS, FLEET_RATE_CLIENTS_A_WORKER = 8, 4
-FLEET_RATE_WINDOWS, FLEET_RATE_WINDOW_S = 3, 2.5
+FLEET_RATE_WINDOWS, FLEET_RATE_WINDOW_S = 3, 0.4
 FLEET_KILL_REQUESTS = 8
 
 
@@ -8604,7 +8649,7 @@ def fleet_phase(torch, np, card):
     spec = fleet_spec(models=[
         {"id": "resnet50", "path": paths["resnet50"], "kind": "classify",
          "register": {"max_wait_ms": 5.0, "queue_limit": 64},
-         "model_kw": {"bucketing": {"batch_buckets": list(BUCKETS)}}},
+         "model_kw": {"bucketing": {"batch_buckets": list(FLEET_BUCKETS)}}},
         {"id": "lm", "path": paths["lm"], "kind": "generate",
          "register": {"max_wait_ms": 5.0, "queue_limit": 64},
          "model_kw": {"bucketing": {"batch_buckets": list(FLEET_GEN_BUCKETS),
@@ -8841,7 +8886,7 @@ def fleet_phase(torch, np, card):
         raise AssertionError(f"worker exit codes {exit_codes}")
     emit("fleet", workers=FLEET_WORKERS, models={
         "resnet50": {"params": net.num_params(), "input": [224, 224, 3],
-                     "buckets": list(BUCKETS)},
+                     "buckets": list(FLEET_BUCKETS)},
         "lm": {"model": "Bert.base(causal=True, task='mlm')",
                "params": lm.num_params(),
                "batch_buckets": list(FLEET_GEN_BUCKETS),
@@ -9169,6 +9214,27 @@ def _checked_tile_space(torch, base, checked):
     return Checked()
 
 
+def _k2_yardsticks(torch, ctx):
+    """The bound and cuDNN's time (``F.conv2d``, TF32 off, a yardstick the
+    port never calls) of one sweep geometry: a stride-1 SAME 3x3 conv, its
+    padding symmetric, so cuDNN pads it itself. Operations: 2 N OH OW Cout
+    Cin 9; bytes: x, w and y once each."""
+    import torch.nn.functional as F
+
+    n, h, w, c = ctx["x_shape"]
+    kh, kw, _, cout = ctx["w_shape"]
+    dt = torch.float32 if ctx["dtype"] == "float32" else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(n * h * c)
+    x = torch.randn((n, c, h, w), generator=gen, device="cuda").to(dt)
+    wt = torch.randn((cout, c, kh, kw), generator=gen, device="cuda").to(dt)
+    peak = H100_FP32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
+    nbytes = (x.numel() + wt.numel() + n * h * w * cout) * x.element_size()
+    b = bound(2.0 * n * h * w * cout * c * kh * kw, nbytes, peak)
+    return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": time_ms(torch, lambda: F.conv2d(
+                x, wt, None, 1, (kh // 2, kw // 2)))}
+
+
 def observe_tune_conv_leg(torch, np, card, db_dir):
     """MeasurementDriver over ConvTileSpace at ResNet-50's four 3x3 stage
     geometries at batch 32, fp32 and bf16: every candidate gated against
@@ -9198,6 +9264,7 @@ def observe_tune_conv_leg(torch, np, card, db_dir):
         winners[(ctx["dtype"], oh)] = entry["winner"]
         rows.append({"dtype": ctx["dtype"], "oh": oh,
                      "channels": ctx["x_shape"][3],
+                     **_k2_yardsticks(torch, ctx),
                      "winner": entry["winner"]["label"],
                      "winner_ms": entry["winner"]["ms"],
                      "whole_ms": table.get("cuda:rt=whole"),
@@ -9500,10 +9567,530 @@ def observe_tune_phase(torch, np, card):
                                        "trace_busy_ms", "mfu")}
                 for k, v in costs.items()}, card=card)
     return {"cost": launches, "tuning": tune_launches,
+            "flops": {d: costs[f"resnet50_{d}"]["flops_per_step"]
+                      for d in ("float32", "bfloat16")},
             "tuned_path": path_launches, "lstm_tuning": lstm_launches,
             "winners": {f"{d}/{oh}": w["label"]
                         for (d, oh), w in winners.items()},
             "checked": checked}
+
+
+# ----------------------------------------- compile time (phase 22m, 12b)
+#: the remat leg: full-width ResNet-50 (224x224, batch 32, the zoo's Adam)
+#: from one set of params, per compute type: ``none`` twice (is the eager
+#: step deterministic?), stage barriers alone, ``full`` and ``save_conv``;
+#: REMAT_STEPS eager steps each (the first under the per-launch check, the
+#: second's peak memory), then the captured step (its build's peak) over
+#: REMAT_TIMED replays by CUDA events
+REMAT_LEGS = (("none", False), ("none2", False), ("barriers", True),
+              ("full", False), ("save_conv", False))
+REMAT_STEPS, REMAT_TIMED = 3, 3
+#: the peaks MFU is counted against (the observe phase's table)
+CT_PEAK = {"float32": 6.7e13, "bfloat16": 9.89e14}
+#: where two eager ``none`` runs differ, a policy's losses against none's
+REMAT_LOSS_RTOL = {"float32": TRAIN_LOSS_RTOL, "bfloat16": 2.0 ** -7}
+#: the fused leg: BERT-base bf16 at batch 32, S 128, FUSED_STEPS captured
+#: steps per-leaf and fused (dynamic loss scaling) from the same params
+FUSED_STEPS = 4
+#: bf16 steps of the two paths: the same arithmetic on values scaled by a
+#: power of two, with atomics in some backward kernels: two bf16 ulps
+FUSED_LOSS_RTOL = 2.0 ** -7
+#: a scale whose scaled backward overflows: the injected non-finite step
+FUSED_OVERFLOW_SCALE = 2.0 ** 127
+#: the warm start: ResNet-50 served in BUCKETS by two processes in turn
+WARM_DIR = os.path.join(ROOT, "build", "smoke_warm")
+WARM_ROWS = (1, 3, 16, 32)
+
+_WARM_SERVER = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+root, arch, export_dir, x_path, out_path, buckets, shapeless = sys.argv[1:8]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+from deeplearning4j_tpu_torch.ops import kernels as kern
+from deeplearning4j_tpu_torch.ops.kernels import _build
+from deeplearning4j_tpu_torch.serving import ServingModel
+from deeplearning4j_tpu_torch.util import (ModelSerializer, compile_cache,
+                                           telemetry as tm)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t_import = time.perf_counter() - t0
+_build.load()
+t_lib = time.perf_counter() - t0
+net = ModelSerializer.restore_model(arch, load_updater=False, device="cuda")
+t_restore = time.perf_counter() - t0
+shapeless_built = net.warmup(export_dir=export_dir) if shapeless == "1" \
+    else None
+model = ServingModel(net, "resnet50", export_dir=export_dir,
+                     bucketing=BucketingPolicy(batch_buckets=tuple(
+                         int(b) for b in buckets.split(","))))
+built = model.warmup()
+torch.cuda.synchronize()
+ready = time.perf_counter() - t0
+xs = np.load(x_path, allow_pickle=True)
+kern.reset_counts()
+outs = [net.output(x).cpu().numpy() for x in xs]
+torch.cuda.synchronize()
+np.save(out_path, np.array(outs, dtype=object), allow_pickle=True)
+c = tm.get_telemetry().snapshot()["counters"]
+print(json.dumps({
+    "ready_s": ready, "import_s": t_import, "library_s": t_lib,
+    "restore_s": t_restore, "nvcc_s": _build.build_seconds,
+    "library": str(_build.library_path()),
+    "compile_cache": compile_cache.cache_dir(),
+    "cache_entries": compile_cache.cache_entries(),
+    "built_shapeless": shapeless_built, "built_serving": built,
+    "programs": len(net.programs()),
+    "aot_hits": c.get("aot_store.hits_total", 0),
+    "aot_misses": c.get("aot_store.misses_total", 0),
+    "aot_saves": c.get("aot_store.saves_total", 0),
+    "conv2d_fwd": kern.LAUNCHES["conv2d_fwd"],
+    "plain_on_cuda": sum(kern.PLAIN_ON_CUDA.values()),
+    "forwards": len(xs),
+    "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}))
+"""
+
+
+def variant(net, dtype=None, **knobs):
+    """A copy of ``net`` at its state with ``knobs`` (and the compute type
+    ``dtype``) on its conf: the remat stages and the fused engine (a fresh
+    fused optimizer state, as a fresh net's per-leaf one) built for
+    them."""
+    conf = dataclasses.replace(net.conf, knobs={**net.conf.knobs, **knobs},
+                               compute_dtype=dtype or net.conf.compute_dtype)
+    snap = copy_net(net, conf)
+    snap._segments = snap._build_segments()
+    params = (snap.params if isinstance(snap.params, list)
+              else {k: snap.params[k] for k in snap._updaters})
+    snap._make_fused(params)
+    if snap._fused is None:
+        snap.opt_states = copy_net(net).opt_states
+    return snap
+
+
+def remat_expected(net, policy):
+    """K1 / dgrad / K3 launches of one step, from the conf: a forward per
+    conv, a dgrad per conv whose input needs a gradient (not the stem,
+    which reads the input), a wgrad per conv; ``full`` recomputes each conv
+    of the stages in the backward (every conv: ResNet-50's stages end at
+    the stem's pool and at each residual stage's relu, whose saved tensors
+    make each recompute run to the stage's end), ``save_conv`` none."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+
+    convs = [n for n in net.topo if isinstance(n.node, L.ConvolutionLayer)]
+    staged = {n.name for stage in (net._segments or ((),))[0]
+              for n in stage}
+    again = (sum(n.name in staged for n in convs)
+             if policy == "full" else 0)
+    return {"conv2d_fwd": len(convs) + again,
+            "conv2d_dgrad": sum(not set(n.inputs) & set(net.conf.inputs)
+                                for n in convs),
+            "conv2d_wgrad": len(convs)}
+
+
+def _event_ms(torch, fn, reps):
+    """Median device ms of ``fn()`` over ``reps`` calls, by CUDA events."""
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def compile_time_remat_leg(torch, np, card, base, flops=None):
+    """Selective remat on ResNet-50's train step (the module doc, 22m a):
+    per compute type and policy, REMAT_STEPS eager steps equal to
+    ``none``'s (to the bit where two eager ``none`` runs agree, else within
+    the loss and params tolerance), K1/dgrad/K3 launches a step as
+    :func:`remat_expected` works them out (the first step's held against
+    the plain versions), the peak memory of an eager and of a captured
+    step, the captured step's ms and its MFU from ``cost_report``'s
+    FLOPs: ``flops`` by compute type, the counted steps of phase 22l's
+    reports on the same net (else a report made here). ``base``:
+    ResNet-50 at its initial state (never stepped here: each leg steps a
+    copy). Returns (launches, checks)."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.util.cost_model import CostReport
+
+    batch = 32
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, 1000, batch)]).cuda()
+    launches, checked, out = collections.Counter(), {}, {}
+    for dtype in ("float32", "bfloat16"):  # bf16 compute: the fp32 params
+        if flops and flops.get(dtype):
+            rep = CostReport(rows=[], totals={"flops": flops[dtype]},
+                             batch=batch, params_total=base.num_params(),
+                             source="counted", peak_flops=CT_PEAK[dtype])
+        else:
+            rep = variant(base, dtype=dtype).cost_report(
+                batch_size=batch, peak_flops=CT_PEAK[dtype], publish=False)
+        runs = {}
+        for name, barriers in REMAT_LEGS:
+            policy = name.rstrip("2") if name != "barriers" else "none"
+            net = variant(base, dtype=dtype,
+                          remat_policy=None if policy == "none" else policy,
+                          stage_barriers=barriers)
+            want = remat_expected(net, policy)
+            losses, per_step = [], []
+            with capture.disabled():
+                for s in range(REMAT_STEPS):
+                    kern.reset_counts()
+                    if s == 0:
+                        with check_every_launch(torch, checked):
+                            net.fit(x, y)
+                    else:
+                        if s == 1:  # the second step's peak: unchecked
+                            torch.cuda.synchronize()
+                            base_mem = torch.cuda.memory_allocated()
+                            torch.cuda.reset_peak_memory_stats()
+                        net.fit(x, y)
+                    torch.cuda.synchronize()
+                    if s == 1:
+                        peak_eager = (torch.cuda.max_memory_allocated()
+                                      - base_mem)
+                    per_step.append({k: kern.LAUNCHES[k] for k in want})
+                    if any(kern.PLAIN_ON_CUDA.values()):
+                        raise AssertionError(f"remat {name} {dtype}: plain "
+                                             f"{dict(kern.PLAIN_ON_CUDA)}")
+                    losses.append(net.score_value.detach().clone())
+            if any(got != want for got in per_step):
+                raise AssertionError(f"remat {name} {dtype}: launches a "
+                                     f"step {per_step}, expected {want}")
+            for k, v in want.items():
+                launches[k] += v * REMAT_STEPS
+            state = [torch.stack(losses)] + [
+                t.detach().clone() for t in tree_leaves(
+                    [net.params, net.states])]
+            if name == "none2":  # the repeat only asks: deterministic?
+                runs[name] = {"state": state, "rec": {
+                    "policy": policy, "losses": [float(v)
+                                                 for v in state[0]],
+                    "peak_memory_eager_gb": peak_eager / 1e9}}
+                del net
+                continue
+            # the captured step's peak (its build included) and its time
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kern.reset_counts()
+            net.fit(x, y)  # the program's build and first replay
+            torch.cuda.synchronize()
+            peak_captured = torch.cuda.max_memory_allocated() - base_mem
+            prog = next(iter(net._aot_steps.values()))
+            step_ms = _event_ms(torch, lambda: net.fit(x, y), REMAT_TIMED)
+            if {k: kern.LAUNCHES[k] for k in want} != {
+                    k: v * (1 + REMAT_TIMED) for k, v in want.items()}:
+                raise AssertionError(f"remat {name} {dtype} captured: "
+                                     f"{dict(kern.LAUNCHES)}")
+            for k, v in want.items():
+                launches[k] += v * (1 + REMAT_TIMED)
+            rep.step_time_s = step_ms / 1e3
+            runs[name] = {"state": state, "rec": {
+                "policy": policy, "stage_barriers": barriers,
+                "stages": len(net._segments[0]) if net._segments else 0,
+                "launches_a_step": want,
+                "losses": [float(v) for v in state[0]],
+                "peak_memory_eager_gb": peak_eager / 1e9,
+                "peak_memory_captured_gb": peak_captured / 1e9,
+                "graph_pool_gb": prog.pool_bytes / 1e9,
+                "captured_step_ms": step_ms,
+                "images_per_sec": batch / (step_ms / 1e3),
+                "mfu": rep.mfu}}
+            del net, prog
+            torch.cuda.empty_cache()
+        ref = runs["none"]["state"]
+
+        def diff(a, b):
+            return max(float((u.float() - v.float()).abs().max())
+                       for u, v in zip(a, b))
+
+        repeat = diff(ref, runs["none2"]["state"])
+        recs = {}
+        for name, r in runs.items():
+            d = diff(ref, r["state"])
+            rel = max(abs(u - w) / abs(w) for u, w in zip(
+                r["rec"]["losses"], runs["none"]["rec"]["losses"]))
+            r["rec"].update(max_diff_vs_none=d, loss_rel_vs_none=rel,
+                            bit_equal=d == 0.0)
+            if (d != 0.0 and repeat == 0.0) or d > 4 * repeat \
+                    or rel > REMAT_LOSS_RTOL[dtype]:
+                raise AssertionError(
+                    f"remat {name} {dtype}: {d} from none (its repeat "
+                    f"{repeat}), losses {rel:.3g} relative")
+            recs[name] = r["rec"]
+        out[dtype] = {"eager_none_repeat_max_diff": repeat,
+                      "flops_per_step": rep.flops_per_step,
+                      "flops_from": "observe_cost" if flops else "here",
+                      "peak_flops": CT_PEAK[dtype], "legs": recs}
+        del runs
+        torch.cuda.empty_cache()
+    emit("compile_time_remat", model="ResNet50", batch=batch,
+         input=[224, 224, 3], steps=REMAT_STEPS, timed_replays=REMAT_TIMED,
+         **out, launches=dict(launches),
+         launches_checked=_checked_summary(checked), card=card)
+    return launches, checked
+
+
+def compile_time_fused_leg(torch, np, card):
+    """The fused optimizer step on BERT-base (bf16, batch 32, S 128, 22m
+    b): FUSED_STEPS captured steps per-leaf and fused with dynamic loss
+    scaling from the same params (losses within FUSED_LOSS_RTOL; 12 K5
+    launches a step); a captured step whose scaled backward overflows
+    (scale 2^127) applies nothing, bit for bit, and halves the scale; each
+    path's optimizer share and step ms by ``cost_report(profile=True)``.
+    Returns the K5 launches."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    rng = np.random.default_rng(13)
+    xs = torch.from_numpy(bert_rows(np, BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, rng,
+                                    np.int64)).cuda()
+    ys = torch.eye(2, device="cuda")[torch.from_numpy(
+        rng.integers(0, 2, size=BERT_TRAIN_BATCH)).cuda()]
+    proto = bert_train_net(torch, num_classes=2, compute_dtype="bfloat16",
+                           hidden_dropout=0.0)
+    nets = {"per_leaf": copy_net(proto),
+            "fused": variant(proto, fused_update=True,
+                             loss_scale="dynamic")}
+    del proto
+    out, launches = {}, 0
+    for tag, net in nets.items():
+        kern.reset_counts()
+        losses = []
+        for _ in range(FUSED_STEPS):
+            net.fit(xs, ys)
+            losses.append(float(net.score_value))
+        torch.cuda.synchronize()
+        got = kern.LAUNCHES["flash_attention_fwd"]
+        if got != BERT_LAYERS * FUSED_STEPS or any(
+                kern.PLAIN_ON_CUDA.values()) or not net.programs():
+            raise AssertionError(f"fused leg {tag}: K5 {got}, plain "
+                                 f"{dict(kern.PLAIN_ON_CUDA)}")
+        launches += got
+        out[tag] = {"losses": losses, "k5_launches": got}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        out["fused"]["losses"], out["per_leaf"]["losses"]))
+    if rel > FUSED_LOSS_RTOL:
+        raise AssertionError(f"fused losses {out['fused']['losses']} vs "
+                             f"per-leaf {out['per_leaf']['losses']}")
+    fused = nets["fused"]
+    st = fused.opt_states
+    scale0, good0 = float(st["scale"]["scale"]), int(st["scale"]["good"])
+    # the injected non-finite step: a scale whose backward overflows
+    st["scale"]["scale"].fill_(FUSED_OVERFLOW_SCALE)
+    before = [t.clone() for t in tree_leaves([fused.params,
+                                              st["groups"]])]
+    kern.reset_counts()
+    fused.fit(xs, ys)
+    torch.cuda.synchronize()
+    after = tree_leaves([fused.params, st["groups"]])
+    kept = all(torch.equal(a, b) for a, b in zip(before, after))
+    scale_after = float(st["scale"]["scale"])
+    if not kept or scale_after != FUSED_OVERFLOW_SCALE / 2 or \
+            int(st["scale"]["good"]) != 0:
+        raise AssertionError(f"overflowed step: state kept {kept}, scale "
+                             f"{scale_after}")
+    launches += kern.LAUNCHES["flash_attention_fwd"]
+    st["scale"]["scale"].fill_(scale0)
+    for tag, net in nets.items():
+        rep = net.cost_report(batch_size=BERT_TRAIN_BATCH, dtype=torch.int64,
+                              profile=True, steps=2,
+                              peak_flops=CT_PEAK["bfloat16"], publish=False)
+        out[tag].update(step_ms=rep.step_time_s * 1e3, mfu=rep.mfu,
+                        optimizer_update_share=rep.optimizer_update_share,
+                        optimizer_ms=next((r.device_time_s * 1e3
+                                           for r in rep.rows
+                                           if r.layer == "(optimizer)"),
+                                          None))
+    emit("compile_time_fused", model="Bert.base", dtype="bfloat16",
+         batch=BERT_TRAIN_BATCH, seq=BERT_TRAIN_SEQ, steps=FUSED_STEPS,
+         loss_scale="dynamic", scale_before=scale0, good_before=good0,
+         groups=len(fused._fused.groups),
+         group_elements=[g.total for g in fused._fused.groups],
+         loss_rel_vs_per_leaf=rel, overflow_step={
+             "scale_injected": FUSED_OVERFLOW_SCALE,
+             "scale_after": scale_after,
+             "params_moments_masters_bit_equal": kept}, **out,
+         pr20_bf16_optimizer_share=0.185, pr20_bf16_step_ms=26.53,
+         card=card)
+    del nets, fused
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compile_time_warm_leg(torch, np, card, net):
+    """The warm start (22m c): ResNet-50's archive served in BUCKETS by
+    process A with ``DL4J_TPU_COMPILE_CACHE`` on a fresh directory and an
+    ``export_dir`` store, then by process B from the same directories
+    (B first warms from the store with no shapes given). Each reports its
+    time to ready, its nvcc seconds, the store's hits, misses and saves
+    and its K1 launches a forward (53, none plain); B's answers are
+    bit-equal to A's. ``net``: the ResNet-50 whose archive they serve.
+    Returns (K1 launches, the records)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.util import ModelSerializer
+
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    os.makedirs(WARM_DIR)
+    arch = os.path.join(WARM_DIR, "resnet50.zip")
+    ModelSerializer.write_model(net, arch, save_updater=False)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    xs = np.empty(len(WARM_ROWS), dtype=object)
+    for i, r in enumerate(WARM_ROWS):
+        xs[i] = quarter_grid(np, rng, r)
+    x_path = os.path.join(WARM_DIR, "x.npy")
+    np.save(x_path, xs, allow_pickle=True)
+    env = {**os.environ, "PYTHONPATH": ROOT,
+           "DL4J_TPU_COMPILE_CACHE": os.path.join(WARM_DIR, "cache")}
+    recs, answers = {}, {}
+    for proc_name, shapeless in (("A", "0"), ("B", "1")):
+        out_path = os.path.join(WARM_DIR, f"y_{proc_name}.npy")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-c", _WARM_SERVER, ROOT, arch,
+             os.path.join(WARM_DIR, "aot"), x_path, out_path,
+             ",".join(map(str, BUCKETS)), shapeless],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"warm-start process {proc_name} failed "
+                                 f"({p.returncode}): {p.stderr[-3000:]}")
+        rec = json.loads(p.stdout.strip().splitlines()[-1])
+        rec["wall_s"] = wall
+        recs[proc_name] = rec
+        answers[proc_name] = np.load(out_path, allow_pickle=True)
+        if rec["conv2d_fwd"] != 53 * rec["forwards"] or \
+                rec["plain_on_cuda"] or rec["jax"]:
+            raise AssertionError(f"warm-start {proc_name}: {rec}")
+    a, b = recs["A"], recs["B"]
+    n_prog = len(BUCKETS)
+    if not (a["nvcc_s"] > 0 and b["nvcc_s"] == 0.0 and a["aot_saves"] ==
+            n_prog and a["aot_hits"] == 0 and b["aot_hits"] == n_prog
+            and b["aot_saves"] == 0 and b["aot_misses"] == 0
+            and b["built_shapeless"] == n_prog
+            and a["cache_entries"] == b["cache_entries"] == 1
+            and a["library"] == b["library"]):
+        raise AssertionError(f"warm start: A {a}, B {b}")
+    equal = all(np.array_equal(u, v) for u, v in zip(answers["A"],
+                                                     answers["B"]))
+    if not equal:
+        raise AssertionError("process B's answers differ from A's")
+    emit("compile_time_warm_start", model="ResNet50", buckets=list(BUCKETS),
+         rows=list(WARM_ROWS), process_a=a, process_b=b,
+         answers_bit_equal=equal,
+         ready_s={"A": a["ready_s"], "B": b["ready_s"]},
+         nvcc_s={"A": a["nvcc_s"], "B": b["nvcc_s"]}, card=card)
+    return a["conv2d_fwd"] + b["conv2d_fwd"], recs
+
+
+def compile_time_paths_leg(torch, np, card, net):
+    """Captured ``rnn_time_step``, ``score`` and ``feed_forward`` (22m d):
+    SAMPLES x SAMPLE_LEN characters sampled from the full-width char-RNN
+    eager (every K4 launch checked) and captured, the same texts, 2 K4
+    launches a character step each way; ResNet-50's ``score`` and
+    ``feed_forward`` at batch 8 (on ``net``), captured equal to eager to
+    the bit, 53 K1 launches each. Returns ({kernel: launches}, checks)."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    checked, launches, out = {}, collections.Counter(), {}
+    rnn = char_net(dropout=0.0)
+    texts = {}
+    for mode in ("eager", "captured"):
+        kern.reset_counts()
+        guard = (check_every_launch(torch, checked) if mode == "eager"
+                 else contextlib.nullcontext())
+        ctx = capture.disabled() if mode == "eager" else \
+            contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx, guard:
+            texts[mode] = sample_chars(torch, np, rnn,
+                                       np.random.default_rng(12345), 1e-4)
+        torch.cuda.synchronize()
+        got = kern.LAUNCHES["lstm_seq_fwd"]
+        if got != 2 * (1 + SAMPLE_LEN) or any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{mode} sampling: K4 {got}")
+        launches["lstm_seq_fwd"] += got
+        out[f"sample_{mode}"] = {"k4_launches": got,
+                                 "wall_s": time.perf_counter() - t0}
+    if texts["eager"] != texts["captured"]:
+        raise AssertionError("captured rnn_time_step sampled other text")
+    out["programs_rnn_time_step"] = len(rnn._aot_rnn)
+    del rnn
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(quarter_grid(np, rng, 8)).cuda()
+    y = torch.eye(1000, device="cuda")[torch.from_numpy(
+        rng.integers(0, 1000, 8)).cuda()]
+    for mode in ("eager", "captured"):
+        kern.reset_counts()
+        ctx = capture.disabled() if mode == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            sc = net.score(x=x, y=y)
+            ff = net.feed_forward(x)
+        torch.cuda.synchronize()
+        got = kern.LAUNCHES["conv2d_fwd"]
+        if got != 2 * 53 or any(kern.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{mode} score/feed_forward: K1 {got}")
+        launches["conv2d_fwd"] += got
+        out[mode] = (sc, ff)
+    sc_e, ff_e = out.pop("eager")
+    sc_c, ff_c = out.pop("captured")
+    ff_equal = ff_e.keys() == ff_c.keys() and all(
+        torch.equal(ff_e[k], ff_c[k]) for k in ff_e)
+    if sc_e != sc_c or not ff_equal:
+        raise AssertionError(f"captured score {sc_c} vs eager {sc_e}, "
+                             f"feed_forward equal {ff_equal}")
+    emit("compile_time_paths", samples=SAMPLES, chars_per_sample=SAMPLE_LEN,
+         texts_equal=True, excerpt=texts["captured"][0][:60],
+         resnet50_score=sc_c, feed_forward_activations=len(ff_c),
+         score_and_feed_forward_bit_equal=True,
+         programs={k: v for k, v in out.items()}, launches=dict(launches),
+         launches_checked=_checked_summary(checked), card=card)
+    net._drop_programs()
+    del ff_e, ff_c
+    torch.cuda.empty_cache()
+    return launches, checked
+
+
+def compile_time_phase(torch, np, card, flops=None):
+    """Phase 22m: the compile-time half of item 12 and the fused update
+    (the module doc); ``flops``: ResNet-50's counted FLOPs a step by
+    compute type (phase 22l's). Returns {kernel: launches} and the
+    checks."""
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    t0 = time.perf_counter()
+    resnet = ResNet50().init(device="cuda")
+    _calm_residual_branches(resnet)
+    remat_launches, remat_checked = compile_time_remat_leg(
+        torch, np, card, resnet, flops)
+    k5 = compile_time_fused_leg(torch, np, card)
+    warm_k1, _ = compile_time_warm_leg(torch, np, card, resnet)
+    path_launches, path_checked = compile_time_paths_leg(torch, np, card,
+                                                         resnet)
+    del resnet
+    launches = collections.Counter(remat_launches)
+    launches.update(path_launches)
+    launches["flash_attention_fwd"] += k5
+    emit("compile_time", seconds=time.perf_counter() - t0,
+         launches=dict(launches), warm_start_conv2d_fwd=warm_k1, card=card)
+    return {"launches": dict(launches), "warm_start_conv2d_fwd": warm_k1,
+            "checked": {"remat": remat_checked, "paths": path_checked}}
 
 
 def main() -> int:
@@ -9536,7 +10123,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    log = (_build.build_dir() / "build.log").read_text().splitlines()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=str(_build.build()),
          ptxas=[ln.split("ptxas info    : ", 1)[-1] for ln in log
@@ -9548,6 +10135,9 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
+        print(f"chip_smoke: {name} {seconds[name]:.1f} s (at "
+              f"{time.perf_counter() - t_start:.1f} s)", file=sys.stderr,
+              flush=True)
         return out
 
     # the phases of the earlier slices run eagerly, as they did: their
@@ -9649,6 +10239,9 @@ def main() -> int:
         "fleet", fleet_phase, torch, np, smi)
     torch.cuda.empty_cache()
     observe = timed("observe_tune", observe_tune_phase, torch, np, smi)
+    torch.cuda.empty_cache()
+    ctime = timed("compile_time", compile_time_phase, torch, np, smi,
+                  observe["flops"])
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -9913,6 +10506,16 @@ def main() -> int:
         if e["name"] == "lstm_seq_fwd":
             e["launches_tuning"] = observe["lstm_tuning"].get(
                 "lstm_seq_fwd", 0)
+    for e in entries:  # phase 22m: remat, the fused step, the warm start
+        # and the captured paths, every eager first step checked
+        e["launches_compile_time"] = ctime["launches"].get(e["name"], 0)
+        if e["name"] == "conv2d_fwd":
+            e["launches_compile_time_warm_start"] = ctime[
+                "warm_start_conv2d_fwd"]
+        e["compile_time_checked"] = {
+            k: checked_fields(e["name"], c)
+            for k, c in ctime["checked"].items()
+            if checked_fields(e["name"], c)}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -35,19 +35,27 @@ Recognized variables:
   signature, dtype, backend, topology), consulted by ``auto`` kernel
   dispatch on CUDA tensors. Unset = off: ``auto`` takes the kernel on a
   CUDA tensor and the plain version on a CPU one.
-- ``DL4J_TPU_REMAT_POLICY`` — default ``remat_policy`` of new configs (one
-  of the reference's registered names, ``nn/conf.py``
-  ``REMAT_POLICY_NAMES``; kept as config, it changes no arithmetic). Unset:
-  an armed tuning database's conf-default winner, else none.
+- ``DL4J_TPU_REMAT_POLICY`` — default ``remat_policy`` of new configs (a
+  policy registered in ``util/xla_tuning.py``). Unset: an armed tuning
+  database's conf-default winner, else none.
+- ``DL4J_TPU_COMPUTE_DTYPE`` — default ``compute_dtype`` of new configs
+  (``float32`` | ``bfloat16``; unset = float32).
+- ``DL4J_TPU_SYNC_EVERY`` — default listener window ``sync_every`` of new
+  configs (>= 1; unset = 1).
+- ``DL4J_TPU_FUSED_UPDATE`` — default ``fused_update`` of new configs (the
+  fused optimizer step, ``nn/updaters.py`` ``FusedUpdateEngine``).
+- ``DL4J_TPU_COMPILE_CACHE`` — directory of the persistent kernel-library
+  cache (``util/compile_cache.py``), applied once when the environment is
+  first read: a process loads the kernel library built there by an
+  earlier one instead of running nvcc.
 - ``DL4J_TPU_PEAK_FLOPS`` — the card's peak FLOP/s, a bare number or a
   per-dtype table (``bf16=9.89e14,fp32=6.7e13``); enables MFU in
   ``net.cost_report()``, the ``/costs`` route and the
   ``train.model_flops_utilization`` gauge (``util/cost_model.py``). Unset =
   no MFU: no peak is ever assumed.
 
-The reference's other variables (compute dtype, sync_every, kernel
-dispatch, fused update, gradient compression, pipeline stages, compilation
-cache) are added with the ROADMAP items that port the code
+The reference's other variables (kernel dispatch, gradient compression,
+pipeline stages) are added with the ROADMAP items that port the code
 reading them; the port's kernel dispatch reads its own
 ``DL4J_TORCH_KERNEL_IMPL``.
 """
@@ -104,6 +112,13 @@ class Environment:
             os.environ.get("DL4J_TPU_REMAT_POLICY") or None)
         if self.default_remat_policy == "none":
             self.default_remat_policy = None
+        self.default_compute_dtype = os.environ.get(
+            "DL4J_TPU_COMPUTE_DTYPE", "float32")
+        self.default_sync_every = _env_int("DL4J_TPU_SYNC_EVERY", 1, floor=1)
+        self.default_fused_update = _env_bool("DL4J_TPU_FUSED_UPDATE")
+        self.compile_cache_dir = (
+            os.environ.get("DL4J_TPU_COMPILE_CACHE") or None)
+        self._compile_cache_applied = False
         self._profiler = None
 
     @classmethod
@@ -148,6 +163,15 @@ class Environment:
         elif getattr(self, "_set_logger_level", False):
             logger.setLevel(logging.NOTSET)
             self._set_logger_level = False
+
+        # the persistent kernel-library cache, pointed at once (a later
+        # enable_persistent_cache() call may re-point it)
+        if self.compile_cache_dir and not self._compile_cache_applied:
+            from deeplearning4j_tpu_torch.util.compile_cache import \
+                enable_persistent_cache
+
+            enable_persistent_cache(self.compile_cache_dir)
+            self._compile_cache_applied = True
 
         # unified telemetry switch: the module reads DL4J_TPU_TELEMETRY
         # itself at singleton creation; the setter keeps them in sync at

@@ -108,6 +108,7 @@ def load_reference(net: ComputationGraph, params: dict, states: dict,
         raise ValueError("init() the port graph before load_reference()")
     _copy_tree("params", net.params, params, net.device)
     _copy_tree("states", net.states, states, net.device)
+    _resync_fused(net, opt_states)
     if opt_states is not None:
         if set(opt_states) != set(net.opt_states):
             raise ValueError(
@@ -142,6 +143,7 @@ def load_reference_mln(net: MultiLayerNetwork, params, states,
         # the per-layer dicts are updated in place
         _copy_tree(name, {str(i): d for i, d in enumerate(dst)},
                    {str(i): d for i, d in enumerate(src)}, net.device)
+    _resync_fused(net, opt_states)
     if opt_states is not None:
         if len(opt_states) != len(net.opt_states):
             raise ValueError(f"opt_states: {len(opt_states)} layers != "
@@ -156,6 +158,19 @@ def load_reference_mln(net: MultiLayerNetwork, params, states,
     net._cast_cache = {}
     net._drop_programs()
     return net
+
+
+def _resync_fused(net, opt_states) -> None:
+    """A fused net's masters follow the params just copied in; its flat
+    buffers are laid out in the port's leaf order, so the reference's
+    fused optimizer state does not copy across."""
+    if getattr(net, "_fused", None) is None:
+        return
+    if opt_states is not None:
+        raise ValueError("opt_states of a fused_update net do not copy "
+                         "between the packages (their flat buffers order "
+                         "the leaves differently); load the params only")
+    net._fused.resync_masters(net.params, net.opt_states)
 
 
 def _numpy_tree(tree):

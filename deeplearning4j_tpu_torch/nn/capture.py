@@ -273,22 +273,52 @@ class CompiledSteps:
         self._aot_steps: Dict[tuple, Program] = {}
         self._tbptt_steps: Dict[tuple, Program] = {}
         self._aot_forward: Dict[tuple, Program] = {}
+        self._aot_score: Dict[tuple, Program] = {}
+        self._aot_feed_forward: Dict[tuple, Program] = {}
+        self._aot_rnn: Dict[tuple, Program] = {}
         self._pool = None
         self._sizes: Optional[upd.StepSizes] = None
+
+    def _make_fused(self, params) -> None:
+        """The conf's ``fused_update``: the engine over ``params`` (one
+        updater per layer or node, ``_updaters``) and its optimizer state
+        as ``opt_states``; else no engine (``_fused`` None)."""
+        k = self.conf.knobs
+        self._fused = None
+        if k.get("fused_update"):
+            self._fused = upd.FusedUpdateEngine(
+                self._updaters, params,
+                loss_scale=k.get("loss_scale", "none"),
+                loss_scale_value=k.get("loss_scale_value", 2.0 ** 15),
+                growth_interval=k.get("loss_scale_growth", 2000))
+            self.opt_states = self._fused.init_state(params)
+
+    def _loss_scale(self):
+        """This step's loss multiplier (a 0-d device tensor), or None."""
+        if self._fused is None:
+            return None
+        return self._fused.current_scale(self.opt_states)
 
     def _step_sizes(self) -> upd.StepSizes:
         """The step-size buffer, written for the iteration about to run."""
         if self._sizes is None:
-            self._sizes = upd.StepSizes(self._update_groups, self.device)
+            groups = (self._fused.rule_groups if self._fused is not None
+                      else self._update_groups)
+            self._sizes = upd.StepSizes(groups, self.device)
         self._sizes.write(self.iteration)
         return self._sizes
 
     def _update(self, grads, new_states) -> None:
-        """The updaters in place, at the step sizes in the buffer, and the
-        new layer states copied into the network's own tensors."""
+        """The updaters in place, at the step sizes in the buffer (the
+        fused engine's groups when the conf asks for it), and the new layer
+        states copied into the network's own tensors."""
         with _cm.optimizer_scope():
-            upd.step_groups(self._update_groups, self.params, grads,
-                            self.opt_states, self._sizes.views)
+            if self._fused is not None:
+                self._fused.apply(self.params, grads, self.opt_states,
+                                  self._sizes.views)
+            else:
+                upd.step_groups(self._update_groups, self.params, grads,
+                                self.opt_states, self._sizes.views)
         tree_copy_(self.states, new_states)
 
     def _step_telemetry(self, model: str, real_n: int, padded_n: int) -> None:
@@ -372,5 +402,65 @@ class CompiledSteps:
         """Every program built so far, by function name and signature."""
         return {f"{p.fn_name} {sig}": p
                 for t in (self._aot_steps, self._tbptt_steps,
-                          self._aot_forward)
+                          self._aot_forward, self._aot_score,
+                          self._aot_feed_forward, self._aot_rnn)
                 for sig, p in t.items()}
+
+    def _warm_one(self, store, tag, args) -> int:
+        """Build the ``tag`` program (``<net>_train_step`` or
+        ``<net>_forward``) for ``args`` unless it exists, through the AOT
+        store when there is one (``util/aot_store.aot_build``); 1 if
+        built."""
+        from deeplearning4j_tpu_torch.util.aot_store import aot_build
+
+        name = type(self).__name__
+        if tag.endswith("train_step"):
+            table, key = self._aot_steps, dispatch_sig(*args)
+
+            def build():
+                self._step_sizes()
+                return self._program(table, key, f"{name}.train_step",
+                                     self._train_body, args)
+        else:
+            table, key = self._aot_forward, (False, dispatch_sig(*args))
+
+            def build():
+                return self._program(table, key, f"{name}.forward",
+                                     self._forward_program_body(False),
+                                     args, train=False)
+        if key in table:
+            return 0
+        aot_build(store, tag, self.conf.to_json(), key, args, build)
+        return 1
+
+    def _warm_from_store(self, export_dir, shapes, train, inference):
+        """(store, built) for ``warmup``: the AOT store at ``export_dir``
+        (None without one) and, when no ``shapes`` are given and it holds
+        entries of this conf, the number of programs built from the
+        entries alone, each entry's kernel plans made first (else None:
+        the caller warms from the shapes)."""
+        if export_dir is None:
+            return None, None
+        from deeplearning4j_tpu_torch.ops.kernels import conv as _kconv
+        from deeplearning4j_tpu_torch.util.aot_store import (AotStore,
+                                                             decode_args)
+
+        store = AotStore(export_dir)
+        entries = store.find(self.conf.to_json()) if shapes is None else ()
+        if not entries:
+            return store, None
+        built = 0
+        for e in entries if enabled() else ():
+            if (train if e["tag"].endswith("train_step") else inference):
+                _kconv.replan(e.get("plans", []))
+                args = tuple(decode_args(e["args"], self.device))
+                built += self._warm_one(None, e["tag"], args)
+        return store, built
+
+    def _inference_program(self, table, fn_name, body, args,
+                           trace_args=None) -> Program:
+        """``table``'s program for ``args``' signature (built on first
+        sight): an inference body that updates nothing but its own static
+        inputs."""
+        return self._program(table, dispatch_sig(*args), fn_name, body,
+                             args, trace_args=trace_args, train=False)

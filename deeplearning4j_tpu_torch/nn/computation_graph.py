@@ -80,13 +80,27 @@ source's params: weight sharing shows as two rows), the updaters under
 step per node on copies of the state, and each ``fit`` step records the
 reference's telemetry (``model="cg"``, the ``cg.train_step`` span).
 
-Not ported, each with its slice (ROADMAP Queue 1): the fused optimizer and
-loss scaling (``fused_update``/``loss_scale`` raise in ``fit``), the AOT
-store behind ``warmup``'s ``export_dir`` (item 12b; ``score``,
-``feed_forward`` and ``rnn_time_step`` run eagerly), remat segments (item
-12b: ``remat_policy`` and ``stage_barriers`` are kept as config and leave
-the step's arithmetic as it is, as they do in the reference; the
-reference's masked graphs take its plain path), pipelining (item 10).
+The fused update (``fused_update``/``loss_scale``, reference ``:516-526``,
+``:1166-1190``): the conf's ``FusedUpdateEngine`` over the nodes'
+params replaces the per-node updaters, as in
+:class:`~deeplearning4j_tpu_torch.nn.multilayer.MultiLayerNetwork`.
+
+Remat stages (``_build_segments`` ``:429``, ``_loss_remat`` ``:725-780``):
+with a ``remat_policy`` or ``stage_barriers``, the topological order is
+cut after each ``stage_boundary`` node (the body before the first output
+is one stage when there are none); each stage runs under
+``util/xla_tuning.checkpoint_stage``, the activations no later node reads
+are dropped at its boundary, and the tail with the loss heads runs
+unwrapped. Masked and TBPTT steps take the plain path. Values and
+gradients are the plain path's.
+
+``score``, ``feed_forward`` and ``rnn_time_step`` are programs per
+signature (``ComputationGraph.loss_eval``, ``.feed_forward``,
+``.rnn_time_step``; the carries the last one's static inputs, updated in
+place); ``warmup(export_dir=)`` saves and reads ``util/aot_store.py``
+entries as the layer stack's does.
+
+Not ported: pipelining (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -107,7 +121,7 @@ from deeplearning4j_tpu_torch.nn import capture
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn import vertices as V
-from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
+from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, KNOBS,
                                               Builder,
                                               _buckets_from_json,
                                               _buckets_to_json, _detuple,
@@ -120,6 +134,7 @@ from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
                                            tree_leaves, tree_map, tree_set)
 from deeplearning4j_tpu_torch.util import cost_model as _cm
 from deeplearning4j_tpu_torch.util import telemetry as tm
+from deeplearning4j_tpu_torch.util import xla_tuning as _xt
 
 _dispatch_sig = capture.dispatch_sig
 
@@ -138,9 +153,9 @@ class GraphNode:
 @dataclasses.dataclass
 class ComputationGraphConfiguration:
     """DAG description (ComputationGraphConfiguration.java parity).
-    ``knobs`` holds the :data:`~deeplearning4j_tpu_torch.nn.conf.INERT_KNOBS`
-    the port keeps for later slices; ``remat_stages`` are the node names
-    that end a stage (``stage_boundary``)."""
+    ``knobs`` holds the :data:`~deeplearning4j_tpu_torch.nn.conf.KNOBS`;
+    ``remat_stages`` are the node names that end a stage
+    (``stage_boundary``)."""
 
     inputs: List[str]
     nodes: List[GraphNode]
@@ -154,7 +169,7 @@ class ComputationGraphConfiguration:
     seq_buckets: Any = None
     remat_stages: Optional[Tuple[str, ...]] = None
     knobs: Dict[str, Any] = dataclasses.field(
-        default_factory=lambda: dict(INERT_KNOBS))
+        default_factory=lambda: dict(KNOBS))
 
     @property
     def input_shape(self) -> Optional[Tuple[int, ...]]:
@@ -172,7 +187,7 @@ class ComputationGraphConfiguration:
 
     # -- serialization: the reference's JSON, key for key ------------------
     def to_dict(self) -> dict:
-        k = {**INERT_KNOBS, **self.knobs}
+        k = {**KNOBS, **self.knobs}
         return {
             "inputs": list(self.inputs),
             "outputs": list(self.outputs),
@@ -190,7 +205,7 @@ class ComputationGraphConfiguration:
             "batch_buckets": _buckets_to_json(self.batch_buckets),
             "seq_buckets": _buckets_to_json(self.seq_buckets),
             "kernel_impl": kernel_impl_to_json(self.kernel_impl),
-            **{name: k[name] for name in list(INERT_KNOBS)[4:]},
+            **{name: k[name] for name in list(KNOBS)[4:]},
             "nodes": [{"name": n.name, "inputs": list(n.inputs),
                        "node": n.node.to_dict()} for n in self.nodes],
         }
@@ -226,7 +241,7 @@ class ComputationGraphConfiguration:
             seq_buckets=_buckets_from_json(d.get("seq_buckets")),
             remat_stages=tuple(d["remat_stages"])
             if d.get("remat_stages") else None,
-            knobs={k: d.get(k, v) for k, v in INERT_KNOBS.items()},
+            knobs={k: d.get(k, v) for k, v in KNOBS.items()},
             nodes=[GraphNode(n["name"], denode(n["node"]), list(n["inputs"]))
                    for n in d["nodes"]],
         )
@@ -298,8 +313,8 @@ class GraphBuilder:
         return self
 
     def stage_boundary(self, *node_names: str) -> "GraphBuilder":
-        """Record remat/fusion stage boundaries: each named node ENDS a
-        stage (the last added node when none is named). Kept as config."""
+        """Record remat stage boundaries: each named node ENDS a stage (the
+        last added node when none is named; reference ``:259``)."""
         if not node_names:
             if not self._nodes:
                 raise ValueError("stage_boundary() before any node")
@@ -352,7 +367,7 @@ class ComputationGraph(capture.CompiledSteps):
         self.score_value: Any = float("nan")
         self.last_iteration_wall_ns = None  # set during coalesced dispatch
         self._dispatcher = CoalescingListenerDispatcher(
-            self, {**INERT_KNOBS, **conf.knobs}["sync_every"])
+            self, {**KNOBS, **conf.knobs}["sync_every"])
         self.device: Optional[torch.device] = None
         self._gen: Optional[torch.Generator] = None  # dropout, set by init
         self._cast_cache: Dict[Tuple[str, str], tuple] = {}
@@ -364,6 +379,13 @@ class ComputationGraph(capture.CompiledSteps):
                 n.node.updater or conf.updater or DEFAULT_UPDATER)
             for n in self.topo if n.is_layer}
         self._update_groups = upd.group_by_rule(self._updaters)
+        # the fused optimizer step (``:381-386``), built by init()
+        self._fused: Optional[upd.FusedUpdateEngine] = None
+        k = {**KNOBS, **conf.knobs}
+        if k["loss_scale"] != "none" and not k["fused_update"]:
+            raise ValueError(
+                "loss_scale requires fused_update=True: the scale "
+                "automaton lives in the fused optimizer state")
         names = {n.name for n in self.topo}
         consumed = {i for n in self.topo for i in n.inputs}
         for name in conf.outputs:
@@ -399,7 +421,62 @@ class ComputationGraph(capture.CompiledSteps):
         self._cost_flops_per_example = None  # set by cost_report()
         self._peak_flops = None
         self._last_fit_ns = None
+        self._segments = self._build_segments()
         self._drop_programs()
+
+    # ------------------------------------------- remat stage segmentation
+    def _build_segments(self):
+        """The remat stages (reference ``:429-492``): (stages, keep_after,
+        tail), or None when neither a remat policy nor stage barriers are
+        on. ``stages`` are node lists, ``keep_after[k]`` the activations a
+        later stage or the tail reads (the rest are dropped at boundary
+        k), ``tail`` the unwrapped rest with the loss heads."""
+        k = {**KNOBS, **self.conf.knobs}
+        if k["remat_policy"] in (None, "none") and not k["stage_barriers"]:
+            return None
+        names = {n.name for n in self.topo}
+        out_names = set(self.conf.outputs)
+        bounds = list(self.conf.remat_stages or ())
+        for b in bounds:
+            if b not in names:
+                raise ValueError(f"remat stage boundary {b!r} is not a node")
+            if b in out_names:
+                raise ValueError(
+                    f"remat stage boundary {b!r} is an output layer: the "
+                    "loss head always runs in the unwrapped tail")
+        bound_set = set(bounds)
+        stages, cur = [], []
+        if not bound_set:
+            for n in self.topo:
+                if n.name in out_names:
+                    break
+                cur.append(n)
+            stages, tail = [cur], self.topo[len(cur):]
+        else:
+            for n in self.topo:
+                cur.append(n)
+                if n.name in bound_set:
+                    stages.append(cur)
+                    cur = []
+            tail = cur
+        if not tail:
+            raise ValueError("remat stages consume every node: the loss "
+                             "head must stay outside the last boundary")
+        for i, stage in enumerate(stages):
+            swallowed = [n.name for n in stage if n.name in out_names]
+            if swallowed:
+                raise ValueError(
+                    f"output node(s) {swallowed} fall inside remat stage "
+                    f"{i} (boundary {stage[-1].name!r}): every output/loss "
+                    "head must stay in the unwrapped tail")
+        groups = stages + [tail]
+        keep_after = [set() for _ in stages]
+        consumed: set = set()
+        for i in range(len(groups) - 1, 0, -1):
+            for n in groups[i]:
+                consumed.update(n.inputs)
+            keep_after[i - 1] = set(consumed)
+        return stages, keep_after, tail
 
     # ------------------------------------------------------------------ init
     def init(self, input_shapes=None, device=None) -> "ComputationGraph":
@@ -429,6 +506,7 @@ class ComputationGraph(capture.CompiledSteps):
                 shape_of[n.name] = tuple(n.node.output_shape(*in_shapes))
         self.opt_states = {name: u.init_state(self.params[name])
                            for name, u in self._updaters.items()}
+        self._make_fused({k: self.params[k] for k in self._updaters})
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
         self._rnn_carries = None
@@ -585,24 +663,96 @@ class ComputationGraph(capture.CompiledSteps):
         return body
 
     def feed_forward(self, *inputs) -> Dict[str, torch.Tensor]:
-        """All vertex activations by name (ComputationGraph.feedForward)."""
+        """All vertex activations by name (ComputationGraph.feedForward,
+        reference ``:1540``); a program per signature
+        (``ComputationGraph.feed_forward``) unless capture is disabled."""
         self._require_init()
         ins = dict(zip(self.conf.inputs,
                        [as_tensor(x, self.device) for x in inputs]))
+        if capture.enabled():
+            acts = self._inference_program(
+                self._aot_feed_forward, "ComputationGraph.feed_forward",
+                self._feed_forward_body, (ins,))(ins)
+            return {k: v.clone() for k, v in acts.items()}
         return self._forward(self.params, self.states, ins)
 
+    def _feed_forward_body(self, inputs):
+        """Every activation, the params cast inside (a program's)."""
+        return self._forward(self.params, self.states, inputs,
+                             cached_cast=False)
+
     # ---------------------------------------------------------------- train
-    def _check_trainable(self):
-        self._require_init()
-        k = {**INERT_KNOBS, **self.conf.knobs}
-        if k["fused_update"] or k["loss_scale"] != "none":
-            raise NotImplementedError(
-                "fused_update / loss_scale are not ported yet: the fused "
-                "optimizer (FusedUpdateEngine) and loss scaling come with the "
-                "parallel-training slice (ROADMAP Queue 1 item 10)")
+    def _loss_remat(self, inputs, labels, weights):
+        """The training loss with the topological order cut into remat
+        stages (``_loss_remat`` ``:725-820``): each stage under
+        ``xla_tuning.checkpoint_stage``, the activations no later node
+        reads dropped at its boundary, a barrier after it with
+        ``stage_barriers``, the tail with the loss heads unwrapped; no
+        masks. Same values and gradients as :meth:`_loss`. Returns (loss,
+        new states, None)."""
+        stages, keep_after, tail = self._segments
+        k = {**KNOBS, **self.conf.knobs}
+        params, states = self.params, self.states
+        gen = self._gen
+        acts = {name: self._cast(v) for name, v in inputs.items()}
+        cparams = {name: tree_map(self._cast, p)
+                   for name, p in params.items()}
+        new_states = dict(states)
+
+        def stage_runner(nodes):
+            def run(acts_in):
+                a = dict(acts_in)
+                st = {}
+                for n in nodes:
+                    x = self._gather_input(a, n)
+                    with _cm.layer_scope(self._node_tags[n.name]):
+                        if n.is_layer:
+                            lyr, pkey = _resolve_shared(n.node, n.name)
+                            a[n.name], st[pkey] = lyr.apply(
+                                cparams[pkey], states[pkey], x,
+                                training=True, gen=gen)
+                        else:
+                            a[n.name] = n.node.apply(*x)
+                return a, st
+            return run
+
+        for i, nodes in enumerate(stages):
+            acts_out, st = _xt.checkpoint_stage(
+                stage_runner(nodes), k["remat_policy"])(acts)
+            new_states.update(st)
+            acts = {name: v for name, v in acts_out.items()
+                    if name in keep_after[i]}
+            if k["stage_barriers"]:
+                acts = _xt.barrier(acts)
+        out_names = set(self.conf.outputs)
+        loss = 0.0
+        for n in tail:
+            x = self._gather_input(acts, n)
+            with _cm.layer_scope(self._node_tags[n.name]):
+                if not n.is_layer:
+                    acts[n.name] = n.node.apply(*x)
+                elif n.name in out_names:
+                    if not hasattr(n.node, "compute_loss"):
+                        raise ValueError(f"output {n.name!r} must be an "
+                                         "OutputLayer/LossLayer")
+                    out_loss = n.node.compute_loss(
+                        cparams[n.name], states[n.name], x, labels[n.name],
+                        training=True, gen=gen, weights=weights)
+                    loss = loss + out_loss.to(
+                        torch.promote_types(out_loss.dtype, torch.float32))
+                    acts[n.name] = x
+                else:
+                    lyr, pkey = _resolve_shared(n.node, n.name)
+                    acts[n.name], new_states[pkey] = lyr.apply(
+                        cparams[pkey], states[pkey], x, training=True,
+                        gen=gen)
+        for n in self.topo:
+            if n.is_layer:
+                loss = loss + n.node.regularization(params[n.name])
+        return loss, new_states, None
 
     def _loss(self, inputs, labels, weights, mask=None, label_mask=None,
-              carries=None, *, training=True):
+              carries=None, *, training=True, fresh_cast=False):
         """Sum of the output layers' losses (+ the l1/l2 penalty in
         training), the new states and the new carries (``_loss_body``
         ``:667-723``, ``_loss_tbptt_body`` ``:850-905``, ``_loss_eval``
@@ -610,11 +760,12 @@ class ComputationGraph(capture.CompiledSteps):
         dict by input/output name. ``carries``: None for the whole-sequence
         step, else the recurrent nodes' carries by name, each node running
         ``apply_seq`` on its own after its input dropout. The training
-        forward casts the fp32 params inside autograd (bf16 compute), the
+        forward casts the fp32 params inside autograd (bf16 compute), as
+        does ``fresh_cast`` (a program's inference loss); else the
         inference loss takes them through the cast cache."""
         params, states = self.params, self.states
         acts = {k: self._cast(v) for k, v in inputs.items()}
-        if training:
+        if training or fresh_cast:
             cparams = {name: tree_map(self._cast, p)
                        for name, p in params.items()}
         else:
@@ -694,18 +845,29 @@ class ComputationGraph(capture.CompiledSteps):
         backward, leaving params, states and optimizer states as they are.
         Nodes whose updater is NoOp are frozen: their params get no
         gradient. The new states and carries come back detached: a carry
-        handed to the next segment starts a new graph."""
+        handed to the next segment starts a new graph. Under loss scaling
+        the gradients are the scaled loss's and the loss returned is
+        unscaled; an unmasked whole-sequence step with remat stages takes
+        :meth:`_loss_remat`."""
         leaves = [(name, path, t) for name, u in self._updaters.items()
                   if not isinstance(u, upd.NoOp)
                   for path, t in tree_items(self.params[name])
                   if t.is_floating_point()]
         for _, _, t in leaves:
             t.requires_grad_(True)
+        scale = self._loss_scale()
         try:
             with self._kscope():
-                loss, new_states, new_carries = self._loss(
-                    inputs, labels, weights, mask, label_mask, carries)
-                gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
+                if (self._segments is not None and carries is None
+                        and mask is None and label_mask is None):
+                    loss, new_states, new_carries = self._loss_remat(
+                        inputs, labels, weights)
+                else:
+                    loss, new_states, new_carries = self._loss(
+                        inputs, labels, weights, mask, label_mask, carries)
+                scaled = loss if scale is None else loss * scale.to(
+                    loss.dtype)
+                gs = torch.autograd.grad(scaled, [t for _, _, t in leaves],
                                          allow_unused=True)
         finally:
             for _, _, t in leaves:
@@ -725,7 +887,7 @@ class ComputationGraph(capture.CompiledSteps):
         applying it (ComputationGraph.computeGradientAndScore): grads is
         node-name -> {key: tensor}, score the loss as a 0-d tensor. Params,
         states and optimizer states are left as they are."""
-        self._check_trainable()
+        self._require_init()
         loss, grads, _, _ = self._gradients(*self._batch(features, labels))
         return grads, loss
 
@@ -788,7 +950,7 @@ class ComputationGraph(capture.CompiledSteps):
         as a device tensor (no host sync per step); ``get_score()`` reads
         it. The listeners get the iteration through the dispatcher
         (``:1301-1308``)."""
-        self._check_trainable()
+        self._require_init()
         if not isinstance(features, (list, tuple)):
             features = [features]
         if not isinstance(labels, (list, tuple)):
@@ -887,15 +1049,14 @@ class ComputationGraph(capture.CompiledSteps):
         per graph input with the batch (a bare tuple for a single-input
         graph); default the conf's explicit ``batch_buckets`` x
         ``input_shapes``. Returns the number built (none within
-        ``capture.disabled()``). ``export_dir`` raises (ROADMAP Queue 1
-        item 12b)."""
-        if export_dir is not None:
-            raise NotImplementedError(
-                "warmup(export_dir=...) is not ported: the AOT store "
-                "(util/aot_store.py, util/compile_cache.py) comes with "
-                "ROADMAP Queue 1 item 12b")
+        ``capture.disabled()``). ``export_dir``: the on-disk AOT store
+        (``util/aot_store.py``), as the layer stack's."""
         if self.device is None:
             raise ValueError("init() the graph before warmup()")
+        store, built = self._warm_from_store(export_dir, shapes, train,
+                                             inference)
+        if built is not None:
+            return built
         if shapes is None:
             if self.conf.input_shapes is None:
                 raise ValueError(
@@ -928,20 +1089,9 @@ class ComputationGraph(capture.CompiledSteps):
                         for name in self.conf.outputs}
                 args = (ins, labs, dev_weights(self._w_cache, b, b, dev),
                         None, None)
-                if _dispatch_sig(*args) not in self._aot_steps:
-                    self._step_sizes()
-                    self._program(self._aot_steps, _dispatch_sig(*args),
-                                  "ComputationGraph.train_step",
-                                  self._train_body, args)
-                    built += 1
+                built += self._warm_one(store, "cg_train_step", args)
             if inference:
-                key = (False, _dispatch_sig(ins, None))
-                if key not in self._aot_forward:
-                    self._program(self._aot_forward, key,
-                                  "ComputationGraph.forward",
-                                  self._forward_program_body(False),
-                                  (ins, None), train=False)
-                    built += 1
+                built += self._warm_one(store, "cg_forward", (ins, None))
         return built
 
     # ------------------------------------------------- stateful rnn inference
@@ -950,7 +1100,10 @@ class ComputationGraph(capture.CompiledSteps):
         ``:1078``): the recurrent nodes' carries persist across calls.
         Each input is (B, T, F), or (B, F) for one step (then the outputs
         have no time axis). A Bidirectional node raises, as in the
-        reference; so does a batch size other than the carried one."""
+        reference; so does a batch size other than the carried one. A
+        program per signature (``ComputationGraph.rnn_time_step``) unless
+        capture is disabled: the carries are its static inputs, updated in
+        place, and stay the graph's carries after the call."""
         if any(n.is_layer and isinstance(n.node, Bidirectional)
                for n in self.topo):
             raise ValueError(
@@ -974,29 +1127,47 @@ class ComputationGraph(capture.CompiledSteps):
                         "rnn_clear_previous_state()")
         else:
             carries = self._init_carries(first.shape[0], first.dtype)
-        new_carries = dict(carries)
-        with self._kscope(), torch.inference_mode():
-            cparams = self._cast_params(self.params)
-            acts = dict(ins)
-            for n in self.topo:
-                x = self._gather_input(acts, n)
-                with _cm.layer_scope(self._node_tags[n.name]):
-                    if not n.is_layer:
-                        acts[n.name] = n.node.apply(*x)
-                    elif n.name in carries:
-                        acts[n.name], new_carries[n.name] = \
-                            n.node.apply_seq(cparams[n.name], x,
-                                             carries[n.name], training=False)
-                    else:
-                        lyr, pkey = _resolve_shared(n.node, n.name)
-                        acts[n.name], _ = lyr.apply(
-                            cparams[pkey], self.states[pkey], x,
-                            training=False)
-        self._rnn_carries = new_carries
-        outs = [acts[o] for o in self.conf.outputs]
+        if capture.enabled():
+            prog = self._inference_program(
+                self._aot_rnn, "ComputationGraph.rnn_time_step",
+                self._rnn_body(True), (carries, ins), trace_args=(ins,))
+            outs = [o.clone() for o in prog(carries, ins)]
+            self._rnn_carries = prog.inputs[0]
+        else:
+            with torch.inference_mode():
+                carries = tree_map(torch.clone, carries)
+            outs = list(self._rnn_body(False)(carries, ins))
+            self._rnn_carries = carries
         if squeeze:
             outs = [o[:, -1] if o.dim() == 3 else o for o in outs]
         return outs[0] if len(outs) == 1 else outs
+
+    def _rnn_body(self, fresh_cast):
+        """One ``rnn_time_step`` over the DAG from ``carries`` (written in
+        place); returns the outputs' activations."""
+        def body(carries, inputs):
+            with self._kscope(), torch.inference_mode():
+                cparams = ({name: tree_map(self._cast, p)
+                            for name, p in self.params.items()}
+                           if fresh_cast else self._cast_params(self.params))
+                acts = dict(inputs)
+                for n in self.topo:
+                    x = self._gather_input(acts, n)
+                    with _cm.layer_scope(self._node_tags[n.name]):
+                        if not n.is_layer:
+                            acts[n.name] = n.node.apply(*x)
+                        elif n.name in carries:
+                            acts[n.name], c = n.node.apply_seq(
+                                cparams[n.name], x, carries[n.name],
+                                training=False)
+                            tree_copy_(carries[n.name], c)
+                        else:
+                            lyr, pkey = _resolve_shared(n.node, n.name)
+                            acts[n.name], _ = lyr.apply(
+                                cparams[pkey], self.states[pkey], x,
+                                training=False)
+            return tuple(acts[o] for o in self.conf.outputs)
+        return body
 
     def rnn_clear_previous_state(self):
         """rnnClearPreviousState parity (``:1121``)."""
@@ -1065,7 +1236,8 @@ class ComputationGraph(capture.CompiledSteps):
               label_mask=None) -> float:
         """Inference-mode loss (running batchnorm statistics, no penalty)
         of a batch, as a float (:1546-1612), its masks as ``fit`` takes
-        them."""
+        them; a program per signature (``ComputationGraph.loss_eval``)
+        unless capture is disabled."""
         self._require_init()
         if dataset is not None:
             x, y = dataset.features, dataset.labels
@@ -1075,12 +1247,25 @@ class ComputationGraph(capture.CompiledSteps):
             if label_mask is None:
                 label_mask = _mask_dict(dataset, self.conf.outputs,
                                         "labels_mask", "labels_masks")
-        inputs, labels, weights, mask, label_mask = self._batch(
-            x, y, mask, label_mask)
-        with self._kscope(), torch.inference_mode():
-            loss, _, _ = self._loss(inputs, labels, weights, mask,
-                                    label_mask, training=False)
+        args = self._batch(x, y, mask, label_mask)
+        if capture.enabled():
+            loss = self._inference_program(
+                self._aot_score, "ComputationGraph.loss_eval",
+                self._score_body(True), args)(*args)
+        else:
+            loss = self._score_body(False)(*args)
         return float(loss)
+
+    def _score_body(self, fresh_cast):
+        """The inference loss (``_loss_eval`` ``:1572-1612``) of a padded
+        batch."""
+        def body(inputs, labels, weights, mask, label_mask):
+            with self._kscope(), torch.inference_mode():
+                loss, _, _ = self._loss(inputs, labels, weights, mask,
+                                        label_mask, training=False,
+                                        fresh_cast=fresh_cast)
+            return loss
+        return body
 
     def evaluate(self, iterator) -> Evaluation:
         """Classification metrics of the first output over an iterator of

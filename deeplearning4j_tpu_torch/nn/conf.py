@@ -7,20 +7,23 @@ and the JSON helpers both packages share the format of.
 
 The builder carries what ResNet-50, BERT and the char-RNN set: seed,
 updater, compute dtype, kernel dispatch, the TBPTT segment length, the
-remat knobs and the batch and time buckets (whose default a
-``DL4J_TPU_BUCKETS`` spec sets, as in the reference); the reference's
-other global settings (l1/l2, weight_init and activation stamping onto the
+remat policy and stage barriers, the fused update and loss scaling, and
+the batch and time buckets. Its defaults come from the environment as the
+reference's builder takes them (``nn/conf.py:210-250``):
+``DL4J_TPU_COMPUTE_DTYPE``, ``DL4J_TPU_SYNC_EVERY``,
+``DL4J_TPU_FUSED_UPDATE``, ``DL4J_TPU_REMAT_POLICY`` (else an armed
+tuning database's winner) and ``DL4J_TPU_BUCKETS``. The reference's other
+global settings (l1/l2, weight_init and activation stamping onto the
 layers) come with the slices that use them.
 ``compute_dtype="bfloat16"`` keeps params fp32 and runs activations and
 convolutions in bf16.
 
 JSON: the port reads the JSON the JAX package writes and writes JSON the
-JAX package reads. The knobs of :data:`INERT_KNOBS` are kept as read and
-written back, with the reference's defaults; of them the port acts on
-``tbptt_length`` (``MultiLayerNetwork.fit``) and ``sync_every`` (the
-listener dispatch window of both networks' ``fit``) and leaves the rest
-(remat policy, loss scaling, gradient compression, pipelining, ...) for
-later slices. The
+JAX package reads. The knobs of :data:`KNOBS` are kept as read and written
+back, with the reference's defaults; the port acts on all of them but
+the gradient-compression and pipelining knobs (``grad_compression*``,
+``pipe_stages``, ``n_micro``: ROADMAP Queue 1 item 10), which are kept
+as config. The
 updater is kept as the reference's updater dict. ``kernel_impl`` is the one
 key whose vocabulary differs: the reference's forced-kernel mode
 ``"pallas"`` is the port's ``"cuda"``, translated both ways.
@@ -37,7 +40,7 @@ from deeplearning4j_tpu_torch.ops import kernels as _kern
 
 #: conf keys kept verbatim, with the reference's defaults
 #: (deeplearning4j_tpu/nn/computation_graph.py:59-100), in its JSON order
-INERT_KNOBS = {
+KNOBS = {
     "tbptt_length": 0,
     "remat_policy": None,
     "stage_barriers": False,
@@ -118,30 +121,30 @@ class NeuralNetConfiguration:
         return Builder()
 
 
-#: the reference's registered selective-remat policies
-#: (``util/xla_tuning.py:48``); the port keeps the choice as config
-REMAT_POLICY_NAMES = ("full", "save_all", "save_conv", "save_conv_dots",
-                      "save_dots")
-
-
 def _default_remat_policy(env) -> Optional[str]:
     """The builder's deferred ``remat_policy`` (reference ``:211-237``):
     ``DL4J_TPU_REMAT_POLICY`` (a typo fails the build), else an armed
-    tuning database's conf-default winner when it names a known policy
-    (a stale one is ignored), else None."""
+    tuning database's conf-default winner when it names a registered
+    policy (``util/xla_tuning.py``; a stale one is ignored), else None."""
+    from deeplearning4j_tpu_torch.util import xla_tuning
+
     name = env.default_remat_policy
     if name is not None:
-        if name not in REMAT_POLICY_NAMES:
-            raise ValueError(
-                f"DL4J_TPU_REMAT_POLICY: unknown remat policy {name!r}; "
-                f"known: {['none', *REMAT_POLICY_NAMES]}")
+        try:
+            xla_tuning.resolve_policy(name)
+        except ValueError as e:
+            raise ValueError(f"DL4J_TPU_REMAT_POLICY: {e}") from None
         return name
     from deeplearning4j_tpu_torch.tuning import database as _tdb
 
     if _tdb.database_dir() is not None:
         tuned = _tdb.conf_default("remat_policy")
-        if tuned in REMAT_POLICY_NAMES:
-            return tuned
+        if tuned is not None:
+            try:
+                xla_tuning.resolve_policy(tuned)
+                return None if tuned == "none" else tuned
+            except ValueError:
+                pass
     return None
 
 
@@ -149,16 +152,19 @@ class Builder:
     def __init__(self):
         self._seed = 12345
         self._updater = dict(DEFAULT_UPDATER)
-        self._compute_dtype = "float32"
         self._kernel_impl: Optional[str] = None
-        self._knobs = dict(INERT_KNOBS)
+        self._knobs = dict(KNOBS)
         self._batch_buckets = None
         self._seq_buckets = None
-        # DL4J_TPU_BUCKETS folds into the default buckets, as the
-        # reference's builder does (``nn/conf.py:270-280``)
+        # the environment's defaults, as the reference's builder takes
+        # them (``nn/conf.py:210-280``)
         from deeplearning4j_tpu_torch.config import get_environment
 
         env = get_environment()
+        self._compute_dtype = "float32"
+        self.compute_dtype(env.default_compute_dtype)
+        self._knobs["sync_every"] = env.default_sync_every
+        self._knobs["fused_update"] = env.default_fused_update
         self._knobs["remat_policy"] = _default_remat_policy(env)
         spec = env.default_buckets
         if spec:
@@ -237,13 +243,48 @@ class Builder:
         return self
 
     def remat_policy(self, name: Optional[str]) -> "Builder":
-        """Kept as config (the training slice acts on it)."""
+        """Selective rematerialization of the train step's stages
+        (``util/xla_tuning.py``; reference ``nn/conf.py:322``): a
+        registered policy name, or None/'none' (off). The stages are the
+        ``stage_boundary`` marks' (the whole body before the loss head
+        when there are none)."""
+        from deeplearning4j_tpu_torch.util import xla_tuning
+
+        xla_tuning.resolve_policy(name)  # fail fast on a typo
         self._knobs["remat_policy"] = name
         return self
 
     def stage_barriers(self, on: bool = True) -> "Builder":
-        """Kept as config (the training slice acts on it)."""
+        """Fence each stage boundary (``xla_tuning.barrier``: the identity
+        here, see its docstring); turns the stage segmentation on."""
         self._knobs["stage_barriers"] = bool(on)
+        return self
+
+    def fused_update(self, on: bool = True) -> "Builder":
+        """The fused optimizer step (``nn/updaters.py``
+        ``FusedUpdateEngine``; reference ``:388``): one update per
+        (rule, dtype) flat buffer instead of a walk over the leaves, bit
+        for bit the same for fp32 params; required by ``loss_scale``."""
+        self._knobs["fused_update"] = bool(on)
+        return self
+
+    def loss_scale(self, policy: str, value: float = 2.0 ** 15,
+                   growth_interval: int = 2000) -> "Builder":
+        """Loss scaling (reference ``:397-412``): "none" | "static" |
+        "dynamic". Dynamic skips a step with a non-finite gradient
+        (halving the scale) and doubles the scale after
+        ``growth_interval`` good steps. Requires ``fused_update`` (the
+        automaton lives in the fused optimizer state)."""
+        if policy not in ("none", "static", "dynamic"):
+            raise ValueError(
+                f"loss_scale must be none|static|dynamic, got {policy!r}")
+        if policy != "none" and not self._knobs["fused_update"]:
+            raise ValueError(
+                "loss_scale requires fused_update(True): the scale "
+                "automaton lives in the fused optimizer state")
+        self._knobs["loss_scale"] = policy
+        self._knobs["loss_scale_value"] = float(value)
+        self._knobs["loss_scale_growth"] = int(growth_interval)
         return self
 
     def list(self) -> "ListBuilder":
@@ -262,7 +303,7 @@ class MultiLayerConfiguration:
     """A layer stack (MultiLayerConfiguration.java parity; reference
     ``nn/conf.py:45``). ``input_shape`` excludes the batch; ``remat_stages``
     are layer indices that start a stage; ``knobs`` holds the
-    :data:`INERT_KNOBS` kept for later slices."""
+    :data:`KNOBS`."""
 
     layers: List[L.Layer]
     seed: int = 12345
@@ -274,7 +315,7 @@ class MultiLayerConfiguration:
     seq_buckets: Any = None
     remat_stages: Optional[Tuple[int, ...]] = None
     knobs: Dict[str, Any] = dataclasses.field(
-        default_factory=lambda: dict(INERT_KNOBS))
+        default_factory=lambda: dict(KNOBS))
 
     @property
     def tbptt_length(self) -> int:
@@ -287,7 +328,7 @@ class MultiLayerConfiguration:
 
     def to_json(self) -> str:
         """The reference's JSON (``nn/conf.py:102``), key for key."""
-        k = {**INERT_KNOBS, **self.knobs}
+        k = {**KNOBS, **self.knobs}
         return json.dumps({
             "seed": self.seed,
             "updater": self.updater,
@@ -303,7 +344,7 @@ class MultiLayerConfiguration:
             "batch_buckets": _buckets_to_json(self.batch_buckets),
             "seq_buckets": _buckets_to_json(self.seq_buckets),
             "kernel_impl": kernel_impl_to_json(self.kernel_impl),
-            **{name: k[name] for name in list(INERT_KNOBS)[4:]},
+            **{name: k[name] for name in list(KNOBS)[4:]},
             "layers": [lyr.to_dict() for lyr in self.layers],
         }, indent=2)
 
@@ -331,7 +372,7 @@ class MultiLayerConfiguration:
             seq_buckets=_buckets_from_json(d.get("seq_buckets")),
             remat_stages=tuple(d["remat_stages"])
             if d.get("remat_stages") else None,
-            knobs={k: d.get(k, v) for k, v in INERT_KNOBS.items()},
+            knobs={k: d.get(k, v) for k, v in KNOBS.items()},
         )
 
 
@@ -343,9 +384,19 @@ class ListBuilder:
         self._p = parent
         self._layers: List[L.Layer] = []
         self._input_shape = None
+        self._stage_bounds: List[int] = []
 
     def layer(self, lyr: L.Layer) -> "ListBuilder":
         self._layers.append(lyr)
+        return self
+
+    def stage_boundary(self) -> "ListBuilder":
+        """Mark a remat stage boundary after the last added layer (the
+        next ``layer()`` starts a new stage; reference ``:500``)."""
+        if not self._layers:
+            raise ValueError("stage_boundary() before any layer()")
+        if len(self._layers) not in self._stage_bounds:
+            self._stage_bounds.append(len(self._layers))
         return self
 
     def set_input_type(self, shape) -> "ListBuilder":
@@ -363,5 +414,6 @@ class ListBuilder:
             kernel_impl=p._kernel_impl,
             batch_buckets=p._batch_buckets,
             seq_buckets=p._seq_buckets,
+            remat_stages=tuple(self._stage_bounds) or None,
             knobs=dict(p._knobs),
         )

@@ -69,7 +69,21 @@ batch calls them once, after its last segment, as the reference does
 (``:584-587``); the end of each epoch flushes the window, then calls
 ``on_epoch_end``.
 
-Refused: ``fused_update``/``loss_scale`` (ROADMAP.md Queue 1 item 10).
+The fused update (``fused_update``, ``loss_scale``; reference ``:160-172``,
+``:381-405``): the conf's ``FusedUpdateEngine`` (``nn/updaters.py``)
+replaces the per-layer updaters, its state is ``opt_states``, the loss is
+multiplied by the engine's scale before the backward and the gradients
+divided by it in the engine, whose finite check and scale automaton run on
+the device (a captured step holds them).
+
+Remat stages (``_build_segments`` ``:124``, ``_loss_remat`` ``:312-360``):
+with a ``remat_policy`` or ``stage_barriers`` the layers before the loss
+head are cut at the ``stage_boundary`` marks (one stage when there are
+none) and each stage runs under ``util/xla_tuning.checkpoint_stage``; the
+loss head and the layers after the last boundary run unwrapped, and masked
+or TBPTT steps take the plain path, as in the reference. Values and
+gradients are the plain path's.
+
 Layers wrapped in ``nn/transfer.py``'s ``FrozenLayer`` take no gradient:
 their params enter the updater with zero gradients, which leave Adam's
 update exactly zero, as in the reference.
@@ -83,9 +97,14 @@ telemetry (``train.step_seconds``, ``train.steps_total``,
 ``train.examples_per_sec``, ``train.model_flops_utilization`` once a cost
 report knows the step's FLOPs and a peak, the ``mln.train_step`` span).
 
-Not ported: the AOT store and ``warmup``'s ``export_dir`` (item 12b),
-``pretrain`` (item 13); ``score`` and ``rnn_time_step`` run eagerly; remat
-stages are kept as config.
+``score``, ``feed_forward`` and ``rnn_time_step`` are programs too
+(``MultiLayerNetwork.loss_eval``, ``.feed_forward``, ``.rnn_time_step``),
+per signature; ``rnn_time_step``'s carries are its program's static
+inputs, updated in place by each replay. ``warmup(export_dir=)`` keeps
+what a later process needs to build the same programs in an
+``util/aot_store.py`` store, and a warm process builds them from it.
+
+Not ported: ``pretrain`` (item 13).
 """
 
 from __future__ import annotations
@@ -103,7 +122,7 @@ from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.eval import Evaluation, RegressionEvaluation
 from deeplearning4j_tpu_torch.nn import capture
 from deeplearning4j_tpu_torch.nn import updaters as upd
-from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, INERT_KNOBS,
+from deeplearning4j_tpu_torch.nn.conf import (DEFAULT_UPDATER, KNOBS,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.listeners import CoalescingListenerDispatcher
 from deeplearning4j_tpu_torch.nn.recurrent import Bidirectional, is_recurrent
@@ -112,6 +131,7 @@ from deeplearning4j_tpu_torch.tree import (tree_copy_, tree_items,
                                            tree_leaves, tree_map, tree_set)
 from deeplearning4j_tpu_torch.util import cost_model as _cm
 from deeplearning4j_tpu_torch.util import telemetry as tm
+from deeplearning4j_tpu_torch.util import xla_tuning as _xt
 
 _dispatch_sig = capture.dispatch_sig
 
@@ -134,7 +154,7 @@ class MultiLayerNetwork(capture.CompiledSteps):
         self.score_value: Any = float("nan")
         self.last_iteration_wall_ns = None  # set during coalesced dispatch
         self._dispatcher = CoalescingListenerDispatcher(
-            self, {**INERT_KNOBS, **conf.knobs}["sync_every"])
+            self, {**KNOBS, **conf.knobs}["sync_every"])
         self.device: Optional[torch.device] = None
         self._gen: Optional[torch.Generator] = None  # dropout, set by init
         self._rnn_carries: Optional[list] = None
@@ -147,6 +167,14 @@ class MultiLayerNetwork(capture.CompiledSteps):
             for lyr in self.layers]
         self._update_groups = upd.group_by_rule(dict(enumerate(
             self._updaters)))
+        # the fused optimizer step (``:79-84``), built by init()
+        self._fused: Optional[upd.FusedUpdateEngine] = None
+        k = {**KNOBS, **conf.knobs}
+        if k["loss_scale"] != "none" and not k["fused_update"]:
+            raise ValueError(
+                "loss_scale requires fused_update=True: the scale "
+                "automaton lives in the fused optimizer state")
+        self._segments = self._build_segments()
         # which layers' apply()/compute_loss() take a mask
         # (setLayerMaskArrays parity)
         self._mask_aware = [
@@ -166,6 +194,30 @@ class MultiLayerNetwork(capture.CompiledSteps):
         self._peak_flops = None
         self._last_fit_ns = None
         self._drop_programs()
+
+    # ------------------------------------------- remat stage segmentation
+    def _build_segments(self):
+        """The remat stages (reference ``:124-148``): ([(start, end)],
+        tail_start), or None when neither a remat policy nor stage
+        barriers are on. The loss head (and the layers after the last
+        boundary) always run unwrapped."""
+        k = {**KNOBS, **self.conf.knobs}
+        if k["remat_policy"] in (None, "none") and not k["stage_barriers"]:
+            return None
+        n = len(self.layers)
+        bounds = sorted(set(self.conf.remat_stages or ()))
+        for b in bounds:
+            if not 0 < b < n:
+                raise ValueError(
+                    f"remat stage boundary {b} out of range (1..{n - 1}); "
+                    "the loss head always runs in the unwrapped tail")
+        if not bounds:
+            bounds = [n - 1]  # the whole body before the loss head
+        spans, start = [], 0
+        for b in bounds:
+            spans.append((start, b))
+            start = b
+        return spans, start
 
     # ------------------------------------------------------------------ init
     def init(self, input_shape=None, device=None) -> "MultiLayerNetwork":
@@ -188,6 +240,7 @@ class MultiLayerNetwork(capture.CompiledSteps):
         self._output_shape = tuple(cur)
         self.opt_states = [u.init_state(p)
                            for u, p in zip(self._updaters, self.params)]
+        self._make_fused(self.params)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
         self._rnn_carries = None
@@ -289,31 +342,46 @@ class MultiLayerNetwork(capture.CompiledSteps):
 
     def feed_forward(self, x) -> List[torch.Tensor]:
         """Per-layer activations, the (cast) input first
-        (MultiLayerNetwork.feedForward parity)."""
+        (MultiLayerNetwork.feedForward parity); a program per signature
+        (``MultiLayerNetwork.feed_forward``) unless capture is disabled."""
         self._require_init()
-        with self._kscope(), torch.inference_mode():
-            h = self._cast(as_tensor(x, self.device))
-            cparams = self._cast_params(self.params)
-            acts = [h]
-            for i, lyr in enumerate(self.layers):
-                with _cm.layer_scope(self._layer_tags[i]):
-                    h, _ = lyr.apply(cparams[i], self.states[i], h,
-                                     training=False)
-                acts.append(h)
-        return acts
+        x = as_tensor(x, self.device)
+        if capture.enabled():
+            return [a.clone() for a in self._inference_program(
+                self._aot_feed_forward, "MultiLayerNetwork.feed_forward",
+                self._feed_forward_body(True), (x,))(x)]
+        return self._feed_forward_body(False)(x)
+
+    def _feed_forward_body(self, fresh_cast):
+        """The activations of every layer on ``x``; ``fresh_cast``: cast
+        the params inside (a program's), else through the cast cache."""
+        def body(x):
+            with self._kscope(), torch.inference_mode():
+                h = self._cast(x)
+                cparams = ([tree_map(self._cast, p) for p in self.params]
+                           if fresh_cast else self._cast_params(self.params))
+                acts = [h]
+                for i, lyr in enumerate(self.layers):
+                    with _cm.layer_scope(self._layer_tags[i]):
+                        h, _ = lyr.apply(cparams[i], self.states[i], h,
+                                         training=False)
+                    acts.append(h)
+            return acts
+        return body
 
     # ------------------------------------------------------------------ loss
     def _loss_body(self, carries, x, y, weights, mask, label_mask, *,
-                   training=True):
+                   training=True, fresh_cast=False):
         """The forward + loss (``_loss_body_impl`` ``:249-301``): ``carries``
         None for the whole-sequence step, else one carry per layer
         (recurrent layers run ``apply_seq`` on it, after their input
         dropout). Returns (loss + penalty in fp32, (new states, new
         carries)). Training casts the params inside autograd and draws
-        dropout from the net's generator."""
+        dropout from the net's generator; so does ``fresh_cast`` (a
+        program's inference loss), else the cast cache serves."""
         gen = self._gen if training else None
         h = self._cast(x)
-        if training:
+        if training or fresh_cast:
             cparams = [tree_map(self._cast, p) for p in self.params]
         else:
             cparams = self._cast_params(self.params)
@@ -360,33 +428,86 @@ class MultiLayerNetwork(capture.CompiledSteps):
             loss = loss + lyr.regularization(self.params[i])
         return loss, (new_states, new_carries)
 
-    # ---------------------------------------------------------------- train
-    def _check_trainable(self):
-        self._require_init()
-        k = {**INERT_KNOBS, **self.conf.knobs}
-        if k["fused_update"] or k["loss_scale"] != "none":
-            raise NotImplementedError(
-                "fused_update / loss_scale are not ported yet: the fused "
-                "optimizer (FusedUpdateEngine) and loss scaling come with the "
-                "parallel-training slice (ROADMAP Queue 1 item 10)")
+    def _loss_remat(self, x, y, weights):
+        """The training loss with the layers cut into remat stages
+        (``_loss_remat`` ``:312-360``): each stage under
+        ``xla_tuning.checkpoint_stage`` with the conf's policy, a barrier
+        after each with ``stage_barriers``, the tail and the loss head
+        unwrapped; no masks. Same values and gradients as
+        :meth:`_loss_body`. Returns (loss, (new states, carries None))."""
+        spans, tail_start = self._segments
+        k = {**KNOBS, **self.conf.knobs}
+        gen = self._gen
+        h = self._cast(x)
+        cparams = [tree_map(self._cast, p) for p in self.params]
+        n = len(self.layers)
+        new_states: list = [None] * n
 
+        def stage_runner(a, b):
+            def run(h):
+                st = []
+                for i in range(a, b):
+                    with _cm.layer_scope(self._layer_tags[i]):
+                        h, ns = self.layers[i].apply(
+                            cparams[i], self.states[i], h, training=True,
+                            gen=gen)
+                    st.append(ns)
+                return h, st
+            return run
+
+        for a, b in spans:
+            h, st = _xt.checkpoint_stage(stage_runner(a, b),
+                                         k["remat_policy"])(h)
+            new_states[a:b] = st
+            if k["stage_barriers"]:
+                h = _xt.barrier(h)
+        for i in range(tail_start, n - 1):
+            with _cm.layer_scope(self._layer_tags[i]):
+                h, new_states[i] = self.layers[i].apply(
+                    cparams[i], self.states[i], h, training=True, gen=gen)
+        out = self.layers[-1]
+        if not hasattr(out, "compute_loss"):
+            raise ValueError("last layer must be an OutputLayer/LossLayer")
+        loss_kw = {} if weights is None else {"weights": weights}
+        with _cm.layer_scope(self._layer_tags[-1]):
+            loss = out.compute_loss(cparams[-1], self.states[-1], h, y,
+                                    training=True, gen=gen, **loss_kw)
+        new_states[-1] = self.states[-1]
+        loss = loss.to(torch.promote_types(loss.dtype, torch.float32))
+        for i, lyr in enumerate(self.layers):
+            loss = loss + lyr.regularization(self.params[i])
+        return loss, (new_states, [None] * n)
+
+    # ---------------------------------------------------------------- train
     def _gradients(self, carries, x, y, weights, mask=None, label_mask=None):
         """(loss, grads, new states, new carries) of one training forward
         and backward, leaving params and optimizer states as they are.
         ``grads`` is {layer index: {key: tensor}}; layers whose updater is
         NoOp are frozen and get none. The new states and carries come back
-        detached: a carry handed to the next segment starts a new graph."""
+        detached: a carry handed to the next segment starts a new graph.
+        Under loss scaling the gradients are those of the scaled loss (the
+        fused engine divides them back); the loss returned is unscaled.
+        An unmasked whole-sequence step with remat stages takes
+        :meth:`_loss_remat`."""
         leaves = [(i, path, t) for i, u in enumerate(self._updaters)
                   if not isinstance(u, upd.NoOp)
                   for path, t in tree_items(self.params[i])
                   if t.is_floating_point()]
         for _, _, t in leaves:
             t.requires_grad_(True)
+        scale = self._loss_scale()
         try:
             with self._kscope():
-                loss, (new_states, new_carries) = self._loss_body(
-                    carries, x, y, weights, mask, label_mask)
-                gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
+                if (self._segments is not None and carries is None
+                        and mask is None and label_mask is None):
+                    loss, (new_states, new_carries) = self._loss_remat(
+                        x, y, weights)
+                else:
+                    loss, (new_states, new_carries) = self._loss_body(
+                        carries, x, y, weights, mask, label_mask)
+                scaled = loss if scale is None else loss * scale.to(
+                    loss.dtype)
+                gs = torch.autograd.grad(scaled, [t for _, _, t in leaves],
                                          allow_unused=True)
         finally:
             for _, _, t in leaves:
@@ -459,7 +580,7 @@ class MultiLayerNetwork(capture.CompiledSteps):
         ``tbptt_length`` cuts the sequence. ``score_value`` keeps the loss
         as a device tensor (no host sync per step); ``get_score()`` reads
         it. The listeners get the iteration through the dispatcher."""
-        self._check_trainable()
+        self._require_init()
         x, y, mask, label_mask = self._on_device(x, y, mask, label_mask)
         k = self.conf.tbptt_length
         if k and x.dim() == 3 and y.dim() == 3 and x.shape[1] > k:
@@ -553,16 +674,18 @@ class MultiLayerNetwork(capture.CompiledSteps):
         already built are kept. Returns the number built (none within
         ``capture.disabled()``).
 
-        ``export_dir`` (the reference's on-disk AOT store) raises: a CUDA
-        graph holds one process's device addresses, so storing programs
-        waits for ROADMAP Queue 1 item 12b."""
-        if export_dir is not None:
-            raise NotImplementedError(
-                "warmup(export_dir=...) is not ported: the AOT store "
-                "(util/aot_store.py, util/compile_cache.py) comes with "
-                "ROADMAP Queue 1 item 12b")
+        ``export_dir``: the on-disk AOT store (``util/aot_store.py``): each
+        program's entry (its signature and the kernel plans its build made)
+        is saved there by the first process; a later process given the
+        same directory and no ``shapes`` builds every program the store
+        holds for this conf, and with ``shapes`` makes the stored plans
+        again before building."""
         if self.device is None:
             raise ValueError("init() the network before warmup()")
+        store, built = self._warm_from_store(export_dir, shapes, train,
+                                             inference)
+        if built is not None:
+            return built
         if shapes is None:
             if self.conf.input_shape is None:
                 raise ValueError("warmup() needs shapes= or conf.input_shape")
@@ -584,21 +707,10 @@ class MultiLayerNetwork(capture.CompiledSteps):
                 y = torch.zeros((b,) + self._output_shape,
                                 dtype=torch.float32, device=self.device)
                 w = dev_weights(self._w_cache, b, b, self.device)
-                args = (x, y, w, None, None)
-                if _dispatch_sig(*args) not in self._aot_steps:
-                    self._step_sizes()
-                    self._program(self._aot_steps, _dispatch_sig(*args),
-                                  "MultiLayerNetwork.train_step",
-                                  self._train_body, args)
-                    built += 1
+                built += self._warm_one(store, "mln_train_step",
+                                        (x, y, w, None, None))
             if inference:
-                key = (False, _dispatch_sig(x, None))
-                if key not in self._aot_forward:
-                    self._program(self._aot_forward, key,
-                                  "MultiLayerNetwork.forward",
-                                  self._forward_program_body(False),
-                                  (x, None), train=False)
-                    built += 1
+                built += self._warm_one(store, "mln_forward", (x, None))
         return built
 
     # ------------------------------------------------- stateful rnn inference
@@ -660,7 +772,10 @@ class MultiLayerNetwork(capture.CompiledSteps):
         (B, F) for one step (the output then has no time axis). A batch
         size other than the carried one raises, and so does a
         Bidirectional layer, which needs the sequence's future (the
-        reference's ``:594-600``)."""
+        reference's ``:594-600``). A program per signature
+        (``MultiLayerNetwork.rnn_time_step``) unless capture is disabled:
+        the carries are its static inputs, updated in place, and stay the
+        net's carries after the call."""
         if any(isinstance(lyr, Bidirectional) for lyr in self.layers):
             raise ValueError(
                 "rnn_time_step does not support Bidirectional layers")
@@ -679,22 +794,38 @@ class MultiLayerNetwork(capture.CompiledSteps):
                         "rnn_clear_previous_state()")
         else:
             carries = self._init_carries(x.shape[0], x.dtype)
-        new_carries = []
-        with self._kscope(), torch.inference_mode():
-            cparams = self._cast_params(self.params)
-            h = x
-            for i, lyr in enumerate(self.layers):
-                with _cm.layer_scope(self._layer_tags[i]):
-                    if is_recurrent(lyr):
-                        h, c = lyr.apply_seq(cparams[i], h, carries[i],
-                                             training=False)
-                    else:
-                        h, _ = lyr.apply(cparams[i], self.states[i], h,
-                                         training=False)
-                        c = None
-                new_carries.append(c)
-        self._rnn_carries = new_carries
+        if capture.enabled():
+            prog = self._inference_program(
+                self._aot_rnn, "MultiLayerNetwork.rnn_time_step",
+                self._rnn_body(True), (carries, x), trace_args=(x,))
+            h = prog(carries, x).clone()
+            self._rnn_carries = prog.inputs[0]
+        else:
+            with torch.inference_mode():
+                carries = tree_map(torch.clone, carries)
+            h = self._rnn_body(False)(carries, x)
+            self._rnn_carries = carries
         return h[:, -1] if (squeeze and h.dim() == 3) else h
+
+    def _rnn_body(self, fresh_cast):
+        """One ``rnn_time_step`` on ``x`` from ``carries``, the new carries
+        written into ``carries``; returns the last layer's output."""
+        def body(carries, x):
+            with self._kscope(), torch.inference_mode():
+                cparams = ([tree_map(self._cast, p) for p in self.params]
+                           if fresh_cast else self._cast_params(self.params))
+                h = x
+                for i, lyr in enumerate(self.layers):
+                    with _cm.layer_scope(self._layer_tags[i]):
+                        if is_recurrent(lyr):
+                            h, c = lyr.apply_seq(cparams[i], h, carries[i],
+                                                 training=False)
+                            tree_copy_(carries[i], c)
+                        else:
+                            h, _ = lyr.apply(cparams[i], self.states[i], h,
+                                             training=False)
+            return h
+        return body
 
     def rnn_clear_previous_state(self):
         """rnnClearPreviousState parity (``:628``)."""
@@ -710,7 +841,8 @@ class MultiLayerNetwork(capture.CompiledSteps):
         penalty, as a float (``:975``, ``_loss_eval`` ``:994``): no
         dropout, the DataSet's feature and label masks applied, a batch
         padded to its bucket under ``batch_buckets`` with the padding rows
-        weighted 0."""
+        weighted 0. A program per signature
+        (``MultiLayerNetwork.loss_eval``) unless capture is disabled."""
         self._require_init()
         if dataset is not None:
             x, y = dataset.features, dataset.labels
@@ -722,10 +854,25 @@ class MultiLayerNetwork(capture.CompiledSteps):
             x, y, mask, label_mask = self._bucketing.pad_batch(
                 x, y, mask, label_mask)
         weights = dev_weights(self._w_cache, x.shape[0], real_n, self.device)
-        with self._kscope(), torch.inference_mode():
-            loss, _ = self._loss_body(None, x, y, weights, mask, label_mask,
-                                      training=False)
+        args = (x, y, weights, mask, label_mask)
+        if capture.enabled():
+            loss = self._inference_program(
+                self._aot_score, "MultiLayerNetwork.loss_eval",
+                self._score_body(True), args)(*args)
+        else:
+            loss = self._score_body(False)(*args)
         return float(loss)
+
+    def _score_body(self, fresh_cast):
+        """The inference loss (``_loss_eval`` ``:994-1005``) of a padded
+        batch."""
+        def body(x, y, weights, mask, label_mask):
+            with self._kscope(), torch.inference_mode():
+                loss, _ = self._loss_body(None, x, y, weights, mask,
+                                          label_mask, training=False,
+                                          fresh_cast=fresh_cast)
+            return loss
+        return body
 
     def _evaluate_into(self, ev, iterator):
         if hasattr(iterator, "reset"):

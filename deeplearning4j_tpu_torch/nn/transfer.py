@@ -178,5 +178,10 @@ class TransferLearning:
                         and _shapes(states[i]) == _shapes(new_net.states[i])):
                     new_net.params[i] = params[i]
                     new_net.states[i] = states[i]
+            if new_net._fused is not None:
+                # the fused masters were built from the new net's random
+                # params: resync them to the grafted ones
+                new_net._fused.resync_masters(new_net.params,
+                                              new_net.opt_states)
             new_net._drop_programs()  # they would read the replaced trees
             return new_net

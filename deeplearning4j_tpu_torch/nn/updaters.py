@@ -26,9 +26,12 @@ A replayed program therefore steps with its own iteration's sizes, and the
 eager step does the same arithmetic: a size rounds to fp32 once, as a
 Python float does where a ``_foreach`` op takes it as a scalar.
 
-Not ported: ``FusedUpdateEngine`` (the reference's flat-buffer optimizer
-with loss scaling); ``fused_update=True`` or a ``loss_scale`` on the conf
-raises in ``ComputationGraph`` naming the slice that brings it.
+:class:`FusedUpdateEngine` (reference ``:286-500``, the conf's
+``fused_update``) steps the whole network as a few flat buffers, one per
+(rule, dtype) group, with the fp32 master buffers resident in the
+optimizer state, and owns the ``loss_scale`` policy (none, static,
+dynamic); its finite check and scale automaton run on the device, so a
+captured step holds them.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -398,3 +401,201 @@ def step_groups(groups, params, grads: dict, opt_states, sizes) -> None:
             apply_updates(updater, [params[k] for k in keys],
                           [grads[k] for k in keys],
                           [opt_states[k] for k in keys], s)
+
+
+# ---------------------------------------------------------------------------
+# Fused update engine (reference nn/updaters.py:286-500)
+# ---------------------------------------------------------------------------
+
+LOSS_SCALE_MAX = 2.0 ** 24
+LOSS_SCALE_MIN = 1.0
+
+
+class FusedUpdateEngine:
+    """The whole network's optimizer step as one update per flat buffer
+    instead of a walk over the leaves.
+
+    Every (updater rule, param dtype) group of the float leaves flattens
+    into one 1-D buffer padded to 512 elements
+    (``ops/updater_ops.build_groups``); the rule's ``apply`` runs once a
+    group over it, and the result is copied back into the param tensors in
+    place. Each group's **master buffer stays resident in the optimizer
+    state** (fp32, for a bf16 group too): a step flattens only the
+    gradients. An fp32 group steps bit for bit as the per-leaf walk does.
+    The invariant this buys costs a rule: params and masters move
+    together, so code that writes ``net.params`` outside the step must call
+    :meth:`resync_masters` (the serializer, the transfer builder and
+    ``ModelRouter.reload`` through the serializer do). Layers whose updater
+    is ``NoOp`` (frozen) are left out: they never move.
+
+    ``loss_scale``: ``"none"``; ``"static"`` (the loss is multiplied by
+    ``loss_scale_value`` before the backward, the gradients divided by it
+    here); ``"dynamic"``: static scaling plus the automaton: a step with
+    any non-finite gradient applies nothing (params, moments and masters
+    keep their bits) and halves the scale; after ``growth_interval`` good
+    steps in a row the scale doubles; it stays within [2^0, 2^24]. The
+    automaton's state (``scale``, ``good``) lives in the optimizer state on
+    the device, and every decision is a ``torch.where`` there: no value
+    comes to the host, so the step can be captured as a CUDA graph.
+
+    The state tree: ``{"groups": [{"master", "opt"}, ...]}`` plus
+    ``"scale": {"good", "scale"}`` under ``dynamic``. Step sizes: one list
+    per group, as :class:`StepSizes` writes them for :attr:`rule_groups`.
+    """
+
+    def __init__(self, updaters, params, *, loss_scale: str = "none",
+                 loss_scale_value: float = 2.0 ** 15,
+                 growth_interval: int = 2000):
+        from deeplearning4j_tpu_torch.ops import updater_ops as uo
+
+        if loss_scale not in ("none", "static", "dynamic"):
+            raise ValueError(
+                f"loss_scale must be none|static|dynamic, got {loss_scale!r}")
+        self.loss_scale = loss_scale
+        self.loss_scale_value = float(loss_scale_value)
+        self.growth_interval = int(growth_interval)
+        self._is_dict = isinstance(params, dict)
+        upd_map = updaters if self._is_dict else dict(enumerate(updaters))
+        keys = params if self._is_dict else range(len(params))
+        self.keys = [k for k in keys if k in upd_map
+                     and not isinstance(upd_map[k], NoOp)]
+        self.groups = uo.build_groups(
+            [(k, params[k]) for k in self.keys], upd_map)
+        #: (updater, [group index]) per group, for :class:`StepSizes`
+        self.rule_groups = [(g.updater, [i])
+                            for i, g in enumerate(self.groups)]
+        self._static_scale = None
+
+    # ------------------------------------------------------------- state
+    def _leaves(self, trees) -> Dict[Any, list]:
+        from deeplearning4j_tpu_torch.tree import tree_leaves
+
+        return {k: tree_leaves(trees.get(k) if isinstance(trees, dict)
+                               else trees[k])
+                for k in self.keys}
+
+    def init_state(self, params) -> dict:
+        """The optimizer state: each group's master (its params as fp32)
+        and the rule's state over it; the scale automaton under
+        ``dynamic``."""
+        from deeplearning4j_tpu_torch.ops import updater_ops as uo
+
+        leaves = self._leaves(params)
+        groups_state = []
+        device = None
+        for g in self.groups:
+            master = uo.flatten_group(g, leaves, cast_dtype=torch.float32)
+            device = master.device
+            groups_state.append({"master": master,
+                                 "opt": g.updater.init_state(master)})
+        state = {"groups": groups_state}
+        if device is None:
+            device = next((t.device for v in leaves.values() for t in v),
+                          torch.device("cpu"))
+        self._static_scale = torch.tensor(self.loss_scale_value,
+                                          dtype=torch.float32, device=device)
+        if self.loss_scale == "dynamic":
+            state["scale"] = {
+                "good": torch.zeros((), dtype=torch.int32, device=device),
+                "scale": torch.tensor(self.loss_scale_value,
+                                      dtype=torch.float32, device=device)}
+        return state
+
+    def resync_masters(self, params, state) -> dict:
+        """Copy the params into the resident master buffers (in place:
+        captured programs keep reading the same tensors) after the params
+        were written outside the step. Moments are kept. Returns
+        ``state``."""
+        from deeplearning4j_tpu_torch.ops import updater_ops as uo
+
+        leaves = self._leaves(params)
+        with torch.no_grad():
+            for g, gs in zip(self.groups, state["groups"]):
+                gs["master"].copy_(uo.flatten_group(
+                    g, leaves, cast_dtype=torch.float32))
+        return state
+
+    def current_scale(self, state) -> Optional[torch.Tensor]:
+        """The loss multiplier of this step as a 0-d device tensor (None
+        when scaling is off)."""
+        if self.loss_scale == "none":
+            return None
+        if self.loss_scale == "static":
+            return self._static_scale
+        return state["scale"]["scale"]
+
+    @staticmethod
+    def wrap_scaled(loss_fn, scale):
+        """``args -> (loss, aux)`` as ``args -> (scaled loss, (aux, loss))``:
+        the gradients of the first come out ``scale`` x true, and the aux
+        carries the unscaled loss. ``scale=None`` scales nothing."""
+        def wrapped(*args):
+            loss, aux = loss_fn(*args)
+            scaled = loss if scale is None else loss * scale.to(loss.dtype)
+            return scaled, (aux, loss)
+
+        return wrapped
+
+    # ------------------------------------------------------------- apply
+    def flatten_grads(self, grads) -> List[torch.Tensor]:
+        """The gradients, one fp32 padded 1-D buffer per group (the one
+        flatten a step makes). No unscaling here: :meth:`apply_flat` owns
+        the loss-scale policy."""
+        from deeplearning4j_tpu_torch.ops import updater_ops as uo
+
+        return [uo.flatten_group(g, self._leaves(grads),
+                                 cast_dtype=torch.float32)
+                for g in self.groups]
+
+    def apply(self, params, grads, state, sizes) -> None:
+        """One fused step, in place: ``grads`` keyed as ``params``,
+        ``sizes`` the step sizes of each group (``StepSizes.views``)."""
+        self.apply_flat(params, self.flatten_grads(grads), state, sizes)
+
+    def apply_flat(self, params, g_bufs, state, sizes) -> None:
+        """:meth:`apply` over gradients already flattened per group."""
+        leaves_p = self._leaves(params)
+        scale = self.current_scale(state)
+        if scale is not None:
+            inv = torch.reciprocal(scale)
+            g_bufs = [buf * inv.to(buf.dtype) for buf in g_bufs]
+        finite = None
+        if self.loss_scale == "dynamic":
+            finite = torch.stack([torch.isfinite(b).all()
+                                  for b in g_bufs]).all()
+        with torch.no_grad():
+            for g, buf, gs, s in zip(self.groups, g_bufs, state["groups"],
+                                     sizes):
+                master = gs["master"]
+                slot_in = {k: [gs["opt"][k]] for k in g.updater.slots}
+                updates, slot_out = g.updater.apply([buf], slot_in, s,
+                                                    [master])
+                upd = updates[0].to(master.dtype)
+                if finite is None:
+                    master.sub_(upd)
+                    for k in g.updater.slots:
+                        slot_in[k][0].copy_(slot_out[k][0])
+                else:
+                    # a skipped step: every buffer keeps its old bits (each
+                    # where writes into the buffer it keeps)
+                    torch.where(finite, master - upd, master, out=master)
+                    for k in g.updater.slots:
+                        torch.where(finite, slot_out[k][0], slot_in[k][0],
+                                    out=slot_in[k][0])
+                dst = [leaves_p[r.coll_key][r.leaf_idx] for r in g.leaves]
+                src = [master[r.offset:r.offset + r.size].view(r.shape)
+                       for r in g.leaves]
+                torch._foreach_copy_(dst, src)
+            if finite is not None:
+                st = state["scale"]
+                sc, good = st["scale"], st["good"]
+                grown = (good + 1) >= self.growth_interval
+                sc.copy_(torch.where(
+                    finite,
+                    torch.where(grown, torch.clamp(sc * 2.0,
+                                                   max=LOSS_SCALE_MAX), sc),
+                    torch.clamp(sc * 0.5, min=LOSS_SCALE_MIN)))
+                good.copy_(torch.where(
+                    finite, torch.where(grown, torch.zeros_like(good),
+                                        good + 1),
+                    torch.zeros_like(good)))

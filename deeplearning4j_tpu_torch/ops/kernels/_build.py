@@ -7,10 +7,11 @@ interface (pointers and the stream as ``void*``), so they compile with
 ``nvcc`` alone, in seconds, without PyTorch's headers, and are bound with
 ``ctypes``. Each source compiles to an object in its own ``nvcc`` process,
 all started together; one more ``nvcc`` links the objects into a library
-in ``build/kernels/`` at the root of the checkout, named by a hash of the
-sources, the headers they share (``csrc/*.cuh``) and the flags: an edited
-source or header gets a new library on its next load,
-an unchanged one is reused. Nothing here runs at import time; the first
+in ``build/kernels/`` at the root of the checkout (or in the persistent
+cache directory ``util/compile_cache.py`` points it at), named by a hash
+of the sources, the headers they share (``csrc/*.cuh``) and the flags: an
+edited source or header gets a new library on its next load, an unchanged
+one is reused, by this process or by a later one. Nothing here runs at import time; the first
 kernel launch calls :func:`load`. A build that fails raises with nvcc's
 output.
 """
@@ -29,7 +30,9 @@ from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
+#: where the library is built unless a persistent cache directory is set
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+_cache_dir: Optional[Path] = None
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -64,12 +67,24 @@ def headers():
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 
+def build_dir() -> Path:
+    """The directory the library is built in and loaded from."""
+    return _cache_dir or BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build and load the library in ``path`` (None: ``build/kernels/``);
+    a library already loaded stays loaded."""
+    global _cache_dir
+    _cache_dir = None if path is None else Path(path)
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libdl4j_torch_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libdl4j_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
@@ -92,9 +107,10 @@ def build() -> Path:
     if lib.exists():
         build_seconds = 0.0
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = lib.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{lib.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    objs = [out_dir / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
     results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
                         for src, o in zip(sources(), objs)])
@@ -103,7 +119,7 @@ def build() -> Path:
         results += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                               *map(str, objs)]])
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text("".join(
+    (out_dir / "build.log").write_text("".join(
         " ".join(c) + "\n" + log for c, _, log in results))
     for o in objs:
         o.unlink(missing_ok=True)
@@ -149,8 +165,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (in the persistent cache
+    directory when ``DL4J_TPU_COMPILE_CACHE`` names one: reading the
+    environment applies it)."""
     global _lib
+    if _lib is None:
+        from deeplearning4j_tpu_torch.config import get_environment
+
+        get_environment()
     with _lock:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(build())))

@@ -256,12 +256,43 @@ def _spec(n, cin, cout, groups, k_hw, in_hw, out_hw, plans, row_tile,
     return s
 
 
+#: the geometry of each plan this process made, in order, as
+#: ("fwd" | "wgrad", args): what ``util/aot_store.py`` stores so that a
+#: warm process makes them again before building (:func:`replan`)
+_PLANNED: list = []
+
+
+def plans_made() -> list:
+    """The plans made so far (see ``_PLANNED``), JSON-ready."""
+    return [list(p) for p in _PLANNED]
+
+
+def _tupled(v):
+    return tuple(_tupled(x) for x in v) if isinstance(v, list) else v
+
+
+def replan(plans) -> None:
+    """Make again the plans :func:`plans_made` listed (a stored warm-up's;
+    each a cached call into the kernel library), on the card only."""
+    if not torch.cuda.is_available():
+        return
+    for kind, args in plans:
+        args = _tupled(args)
+        if kind == "fwd":
+            _launch_plan(*args)
+        else:
+            _wgrad_plan(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_plan(device_index, code, n, cin, cout, groups, k_hw, in_hw,
                  out_hw, plans, row_tile, b_trans):
     """(ConvSpec, K slices, body name) of one launch, as the kernel
     library plans it for this card (``dl4j_conv2d_plan``); cached per
     geometry, so a step's launches build no struct and make no plan call."""
+    _PLANNED.append(("fwd", [device_index, code, n, cin, cout, groups,
+                             k_hw, in_hw, out_hw, plans, row_tile,
+                             b_trans]))
     lib = _build.load()
     if lib.dl4j_conv2d_spec_bytes() != ctypes.sizeof(_Spec):
         raise RuntimeError("csrc/conv2d_fwd.cu's ConvSpec and conv.py's "
@@ -491,6 +522,7 @@ def _wgrad_plan(device_index, code, *geometry):
     tile, one wave of resident blocks from the occupancy calculator);
     raises where its body is not :func:`wgrad_body`'s. Cached per
     geometry, so a step's launches make no plan call."""
+    _PLANNED.append(("wgrad", [device_index, code, *geometry]))
     splits, body = ctypes.c_int(1), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         rc = _build.load().dl4j_conv2d_wgrad_plan(
@@ -740,14 +772,19 @@ class Conv2dFunction(torch.autograd.Function):
     :func:`conv2d`, the backward through :func:`conv2d_bwd` (dgrad skipped
     when x needs no gradient, e.g. a network's input). The dispatch mode is
     read when the forward runs and pinned for the backward, which autograd
-    may run on another thread."""
+    may run on another thread. ``kept``: the output a remat stage's
+    forward kept (``util/xla_tuning.py``), returned instead of launching;
+    x and w are saved either way, so the stage's recompute saves what its
+    forward saved."""
 
     @staticmethod
     def forward(ctx, x, w, strides, pads, dilation, groups, supported,
-                describe, sig=None):
+                describe, sig=None, kept=None):
         ctx.impl = _kern.resolve_impl()
         ctx.geometry = (strides, pads, dilation, groups)
         ctx.save_for_backward(x, w)
+        if kept is not None:
+            return kept.view_as(kept)
         return conv2d(x, w, strides, pads, dilation, groups, supported,
                       describe, sig)
 
@@ -758,4 +795,4 @@ class Conv2dFunction(torch.autograd.Function):
             dx, dw = conv2d_bwd(dy, x, w, *ctx.geometry,
                                 need_dx=ctx.needs_input_grad[0],
                                 need_dw=ctx.needs_input_grad[1])
-        return dx, dw, None, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None, None

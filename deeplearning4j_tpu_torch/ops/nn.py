@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.ops import kernels as _kern
 from deeplearning4j_tpu_torch.ops import shape_ops
 from deeplearning4j_tpu_torch.ops.kernels import conv as _kconv
 from deeplearning4j_tpu_torch.ops.registry import op
+from deeplearning4j_tpu_torch.util import xla_tuning as _xt
 
 
 def _pair(v):
@@ -65,7 +66,9 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
     VJP, whose backward dispatches the dgrad and wgrad kernels. Under
     ``auto`` with a tuning database armed, the winner for this geometry's
     signature decides the forward (``row_tile`` included; reference
-    ``:92-115``)."""
+    ``:92-115``). The kernel's output is tagged ``CONV_OUT`` (reference
+    ``:118,140``): a remat stage that keeps conv outputs records it, and
+    its recompute takes it back instead of launching again."""
     if data_format not in ("NHWC", "NCHW"):
         raise ValueError(f"conv2d: unknown data_format {data_format!r}")
     strides_p, dil_p = _pair(strides), _pair(dilation)
@@ -86,10 +89,14 @@ def conv2d(x, w, b=None, strides=(1, 1), padding="SAME", dilation=(1, 1),
 
     args = (xh, w, strides_p, pads, dil_p, feature_group_count, supported,
             describe, sig)
+    # a remat stage's recompute hands back the output its forward kept
+    # (util/xla_tuning.py): no launch, the autograd node built as before
+    kept = _xt.reuse(_xt.CONV_OUT)
     if torch.is_grad_enabled() and (xh.requires_grad or w.requires_grad):
-        out = _kconv.Conv2dFunction.apply(*args)
+        out = _kconv.Conv2dFunction.apply(*args, kept)
     else:
-        out = _kconv.conv2d(*args)
+        out = kept if kept is not None else _kconv.conv2d(*args)
+    out = _xt.tag(out, _xt.CONV_OUT)
     if b is not None:
         out = out + b.reshape(1, 1, 1, -1).to(out.dtype)
     return out if data_format == "NHWC" else out.permute(0, 3, 1, 2)
@@ -282,10 +289,46 @@ def xw_plus_b(x, w, b):
     """x @ w + b with fp32 accumulation, result in x's type. A plain
     matrix product: the reference leaves it to XLA outside any Pallas
     kernel, so here it is ``torch.matmul`` on fp32 operands (TF32 stays
-    off for fp32 parity)."""
+    off for fp32 parity). The product is tagged ``DOT_OUT`` (reference
+    ``:726``); inside a remat stage that keeps it, the product runs as
+    :class:`_DotFunction` so the stage's recompute takes it back."""
     acc = _acc_dtype(x)
-    out = torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+    if _xt.keeps(_xt.DOT_OUT) and torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad):
+        out = _DotFunction.apply(x, w, _xt.reuse(_xt.DOT_OUT))
+    else:
+        out = torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+    out = _xt.tag(out, _xt.DOT_OUT)
     return out + b.to(out.dtype)
+
+
+class _DotFunction(torch.autograd.Function):
+    """``x @ w`` with fp32 accumulation, its backward the one autograd
+    records for the plain expression (the products on the fp32 casts, cast
+    back to each input's type). ``kept``: the output a remat stage's
+    forward kept, returned instead of computing it; the inputs are saved
+    either way, so the stage's recompute saves what its forward saved."""
+
+    @staticmethod
+    def forward(ctx, x, w, kept=None):
+        ctx.save_for_backward(x, w)
+        if kept is not None:
+            return kept.view_as(kept)
+        acc = _acc_dtype(x)
+        return torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        acc = _acc_dtype(x)
+        ga = g.to(acc)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(ga, w.to(acc).t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x.to(acc).reshape(-1, x.shape[-1])
+            dw = x2.t().mm(ga.reshape(-1, ga.shape[-1])).to(w.dtype)
+        return dx, dw, None
 
 
 # ---------------------------------------------------------------------------

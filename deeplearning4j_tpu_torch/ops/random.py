@@ -17,6 +17,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import _compat as C
 from deeplearning4j_tpu_torch.ops.registry import op
+from deeplearning4j_tpu_torch.util import xla_tuning as _xt
 
 
 @op("random_split_key", "random", differentiable=False)
@@ -185,7 +186,9 @@ def dropout(x, gen, rate, training=True):
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=gen, device=x.device)
+    # a remat stage's recompute reuses its forward's draw (xla_tuning.draw)
+    u = _xt.draw(lambda: torch.rand(x.shape, generator=gen,
+                                    device=x.device))
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 

@@ -5,18 +5,129 @@ Each op runs the same rule as ``nn/updaters.py`` on one tensor, so the op
 table and the training loop cannot disagree. Signature:
 ``<name>_updater(gradient, *state, lr=..., ...hyperparams, iteration=0)``
 returns ``(update, *new_state)``; the caller applies ``param -= update``.
-``apply_sgd`` takes the parameter and returns it updated. (The
-reference module's fused flat-buffer helpers serve its FusedUpdateEngine,
-which the port does not have; see ``nn/updaters.py``.)
+``apply_sgd`` takes the parameter and returns it updated.
+
+The fused-update buffers (reference ``:60-160``) serve
+``nn/updaters.py``'s ``FusedUpdateEngine``: every float param leaf is
+grouped by (updater rule, dtype) (:func:`build_groups`), each group's
+leaves concatenate into one 1-D buffer padded to a multiple of
+:data:`_GROUP_PAD` elements (:func:`flatten_group`), and the rule runs once
+a group over its buffer; :func:`unflatten_group` slices a buffer back into
+the leaves' shapes. Elementwise rules are position-independent, so an fp32
+group steps bit for bit as the per-leaf walk does.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+import math
+from typing import Any, List, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import updaters as U
 from deeplearning4j_tpu_torch.ops import _compat as C
 from deeplearning4j_tpu_torch.ops.registry import op
+
+
+_GROUP_PAD = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafRef:
+    """One parameter leaf's place inside a fused group buffer."""
+
+    coll_key: Any          # layer index (MLN) or node name (CG)
+    leaf_idx: int          # index into the collection's tree_leaves order
+    shape: Tuple[int, ...]
+    offset: int            # element offset into the group buffer
+
+    @property
+    def size(self) -> int:
+        return int(math.prod(self.shape or (1,)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGroup:
+    """One (updater rule, dtype) fused buffer: metadata only, no tensors."""
+
+    updater: Any
+    dtype: torch.dtype     # the param storage dtype of every leaf in here
+    leaves: Tuple[LeafRef, ...]
+    total: int             # padded buffer length (multiple of _GROUP_PAD)
+
+    @property
+    def needs_master(self) -> bool:
+        """Sub-fp32 groups step an fp32 master buffer; an fp32 group's
+        master holds the params' own values."""
+        return self.dtype != torch.float32
+
+
+def updater_signature(updater) -> str:
+    """Stable grouping key of an updater (same rule, hyperparameters and
+    schedule: same group)."""
+    return json.dumps(updater.to_dict(), sort_keys=True, default=repr)
+
+
+def build_groups(keyed_params, keyed_updaters) -> List[ParamGroup]:
+    """``keyed_params``: ordered [(coll_key, param_tree)];
+    ``keyed_updaters``: {coll_key: updater}. Groups every leaf by (updater
+    signature, dtype), in first-seen order; a non-float leaf has no fused
+    rule and raises."""
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    buckets: dict = {}
+    order: list = []
+    for coll_key, tree in keyed_params:
+        updater = keyed_updaters[coll_key]
+        for leaf_idx, leaf in enumerate(tree_leaves(tree)):
+            if not leaf.is_floating_point():
+                raise ValueError(
+                    f"fused updater: non-float param leaf {coll_key}/"
+                    f"{leaf_idx} ({leaf.dtype}) has no fused rule")
+            gkey = (updater_signature(updater), str(leaf.dtype))
+            if gkey not in buckets:
+                buckets[gkey] = (updater, leaf.dtype, [])
+                order.append(gkey)
+            buckets[gkey][2].append(
+                (coll_key, leaf_idx, tuple(int(d) for d in leaf.shape)))
+    groups = []
+    for gkey in order:
+        updater, dt, entries = buckets[gkey]
+        refs, offset = [], 0
+        for coll_key, leaf_idx, shape in entries:
+            refs.append(LeafRef(coll_key, leaf_idx, shape, offset))
+            offset += int(math.prod(shape or (1,)))
+        total = -(-max(offset, 1) // _GROUP_PAD) * _GROUP_PAD
+        groups.append(ParamGroup(updater, dt, tuple(refs), total))
+    return groups
+
+
+def flatten_group(group: ParamGroup, leaves_by_key, cast_dtype=None
+                  ) -> torch.Tensor:
+    """The group's leaves (``leaves_by_key[coll_key][leaf_idx]``)
+    concatenated into one padded 1-D buffer, cast to ``cast_dtype``."""
+    parts = [leaves_by_key[r.coll_key][r.leaf_idx].reshape(-1)
+             for r in group.leaves]
+    if cast_dtype is not None:
+        parts = [p.to(cast_dtype) for p in parts]
+    pad = group.total - sum(p.shape[0] for p in parts)
+    if pad:
+        parts.append(parts[0].new_zeros((pad,)))
+    return torch.cat(parts)
+
+
+def unflatten_group(group: ParamGroup, buf, out, cast_dtype=None):
+    """Slice ``buf`` back into leaves, written as
+    ``out[coll_key][leaf_idx]`` (a dict of leaf lists); views of ``buf``
+    unless cast."""
+    for r in group.leaves:
+        leaf = buf[r.offset:r.offset + r.size].view(r.shape)
+        if cast_dtype is not None:
+            leaf = leaf.to(cast_dtype)
+        out[r.coll_key][r.leaf_idx] = leaf
+    return out
 
 
 def _single(updater, grad, state, iteration):

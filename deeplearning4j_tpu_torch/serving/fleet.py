@@ -903,8 +903,8 @@ def fleet_spec(models: Sequence[dict], env: Optional[dict] = None,
       queue_limit, …)
     - ``model_kw``: ServingModel kwargs (bucketing as
       {"batch_buckets": [...], "seq_buckets": [...]}, prefix_cache,
-      prefill_chunk, pool_blocks, …; ``export_dir`` raises in the worker,
-      the AOT store being ROADMAP Queue 1 item 12b)
+      prefill_chunk, pool_blocks, ``export_dir`` (the AOT store the
+      worker's warmup saves to and warms from), …)
 
     ``env`` is put into every worker's environment at spawn, before it
     imports torch (``CUDA_VISIBLE_DEVICES``, ``DL4J_TORCH_KERNEL_IMPL``,

@@ -22,8 +22,11 @@ spawn, so ``CUDA_VISIBLE_DEVICES``, ``DL4J_TORCH_KERNEL_IMPL`` and the
 ``DL4J_TPU_*`` knobs are in place before the worker imports torch; the
 worker applies them again (an operator's own setting wins) before it
 restores anything, so a hand-run with the same spec behaves the same. A
-``model_kw`` ``export_dir`` (the reference's AOT store) raises: it comes
-with ROADMAP Queue 1 item 12b.
+``model_kw`` ``export_dir`` goes to the ServingModel: its warmup saves its
+programs' entries in that AOT store, and a respawned worker (or a later
+fleet) warms from them (``util/aot_store.py``); with
+``DL4J_TPU_COMPILE_CACHE`` in ``env`` a worker loads the kernel library an
+earlier one built.
 """
 
 from __future__ import annotations
@@ -49,11 +52,6 @@ def build_router(spec: dict):
                          device=device)
     for m in spec.get("models", []):
         kw = dict(m.get("model_kw") or {})
-        if kw.get("export_dir") is not None:
-            raise NotImplementedError(
-                f"model {m['id']!r}: model_kw export_dir is not ported: "
-                "the AOT store (util/aot_store.py, util/compile_cache.py) "
-                "comes with ROADMAP Queue 1 item 12b")
         net = ModelSerializer.restore_model(m["path"], load_updater=False,
                                             device=device)
         b = kw.get("bucketing")

@@ -7,7 +7,8 @@ binds either) is bound to the serving tier with ONE
 shape decision. Two kinds:
 
 - ``kind="classify"``: warmup builds the net's forward program of each
-  batch bucket (``net.warmup``; on the card a CUDA graph each), the
+  batch bucket (``net.warmup``; on the card a CUDA graph each; with
+  ``export_dir`` through the on-disk AOT store, reference ``:207``), the
   scheduler coalesces up to the largest bucket, and a coalesced batch is
   split by ``plan_serving_batch`` into chunks padded up to a bucket, run
   through ``net.output`` (a replay of the bucket's program) and split back
@@ -75,7 +76,8 @@ class ServingModel:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  draft_net=None, spec_tokens: int = 4,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None,
+                 export_dir: Optional[str] = None):
         if kind not in ("classify", "generate"):
             raise ValueError(f"unknown serving kind {kind!r}")
         if use_mesh:
@@ -86,6 +88,9 @@ class ServingModel:
         self.model_id = str(model_id)
         self.kind = kind
         self.quantize = quantize
+        #: the AOT store ``warmup`` passes to ``net.warmup`` (reference
+        #: ``:71``; ``util/aot_store.py``)
+        self.export_dir = export_dir
         # the decode engine's knobs, kept for clone_with_net
         self._gen_kw = dict(max_length=max_length, paged=paged,
                             block_size=block_size, pool_blocks=pool_blocks,
@@ -166,8 +171,9 @@ class ServingModel:
         """Build every program before traffic (reference ``:175-212``): the
         generator's prefill/decode programs, the int8 forward of each batch
         bucket, or the net's forward program of each bucket
-        (``net.warmup(train=False, inference=True)``), each bucket then run
-        once. Returns the number of programs built."""
+        (``net.warmup(train=False, inference=True,
+        export_dir=self.export_dir)``), each bucket then run once. Returns
+        the number of programs built."""
         if self.kind == "generate":
             primed = self.generator.warmup()
         else:
@@ -181,7 +187,7 @@ class ServingModel:
                 primed = self.net.warmup(
                     shapes=[(int(b),) + shape
                             for b in self.policy.batch_buckets],
-                    train=False, inference=True)
+                    train=False, inference=True, export_dir=self.export_dir)
                 for b in self.policy.batch_buckets:
                     self.net.output(np.zeros((int(b),) + shape, np.float32))
         self.warmed = True
@@ -306,12 +312,13 @@ class ServingModel:
     # -------------------------------------------------------------- reload
     def clone_with_net(self, net) -> "ServingModel":
         """A shadow around ``net`` with this model's serving configuration
-        (kind, bucket policy), warmed and checked without touching the
-        live model."""
+        (kind, bucket policy, export dir), warmed and checked without
+        touching the live model."""
         return ServingModel(net, self.model_id, kind=self.kind,
                             bucketing=self.policy,
                             prefill_buckets=self._prefill_buckets,
-                            quantize=self.quantize, **self._gen_kw)
+                            quantize=self.quantize,
+                            export_dir=self.export_dir, **self._gen_kw)
 
     def structure_matches(self, net) -> bool:
         """Whether ``net``'s param tree is swap-compatible with the live

@@ -24,13 +24,21 @@ Registered spaces:
   length distribution, a live fleet under shared-prefix traffic).
 - ``prefill_chunk``: MEASURABLE (conf scope), gated on generated-token
   identity.
+- ``remat_policy``: MEASURABLE (conf scope): every policy registered in
+  ``util/xla_tuning.py`` on a small conv net's train step, gated on its
+  3-step loss (remat recomputes; it must not change the arithmetic); the
+  winner lands under ``conf-default``, which the conf builders read.
+- ``xla_flags``: DECLARED: the reference's XLA flag candidates
+  (``xla_tuning.XLA_FLAG_CANDIDATES``), each reported invalid here: there
+  is no XLA on this build, as the reference reports TPU flags rejected on
+  the CPU.
 
 Kernel candidates call the kernels' wrappers, which launch on CUDA tensors
 and run their plain versions on CPU tensors: on the CPU a sweep proves the
 machinery and the gate, not a ranking.
 
-Not ported with this slice: ``remat_policy`` and ``xla_flags`` (ROADMAP
-item 12b), ``compression_hosts`` and ``pipe_schedule`` (item 10).
+Not ported with this slice: ``compression_hosts`` and ``pipe_schedule``
+(ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -424,7 +432,134 @@ class LstmTileSpace(SearchSpace):
                  "n_in": 256, "dtype": "float32"}]
 
 
+# --------------------------------------------------- remat policy space
+class RematPolicySpace(SearchSpace):
+    """The train step's selective-remat policy (conf scope, reference
+    ``:454``): every name ``util/xla_tuning.policy_names()`` registers is a
+    candidate, user-registered ones included. Measured on a small conv
+    net's whole ``_fit_batch`` on the card; the gate is the 3-step loss
+    within the fp32 reassociation bound. The winner lands under the
+    ``conf-default`` signature the conf builders consult."""
+
+    name = "remat_policy"
+    op = "remat_policy"
+    scope = "conf"
+    tolerance = 5e-4   # fp32 trajectory wobble over k steps
+
+    def signature(self, ctx: dict) -> str:
+        return "conf-default"
+
+    def dtype(self, ctx: dict) -> str:
+        return "any"
+
+    def enumerate(self, ctx: dict) -> List[Candidate]:
+        from deeplearning4j_tpu_torch.util import xla_tuning
+
+        return [Candidate(f"policy:{name}", impl="conf",
+                          params={"remat_policy": None if name == "none"
+                                  else name},
+                          is_default=(name == "none"))
+                for name in xla_tuning.policy_names()]
+
+    @staticmethod
+    def _net(policy, device, seed: int = 7):
+        from deeplearning4j_tpu_torch.nn import layers as L
+        from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        conf = (NeuralNetConfiguration.builder()
+                .seed(seed).updater({"@updater": "Sgd",
+                                     "learning_rate": 0.05})
+                .list()
+                .layer(L.ConvolutionLayer(n_out=8, kernel_size=(3, 3)))
+                .stage_boundary()
+                .layer(L.ConvolutionLayer(n_out=8, kernel_size=(3, 3)))
+                .stage_boundary()
+                .layer(L.DenseLayer(n_out=16))
+                .layer(L.OutputLayer(n_out=4, loss="mcxent",
+                                     activation="softmax"))
+                .set_input_type((12, 12, 3))
+                .build())
+        conf.knobs["remat_policy"] = policy
+        return MultiLayerNetwork(conf).init(device=device)
+
+    def build(self, ctx: dict) -> MeasureCase:
+        import numpy as np
+        import torch
+
+        steps = int(ctx.get("steps", 3))
+        dev = _device(ctx)
+        rng = np.random.default_rng(3)
+        x = torch.as_tensor(rng.normal(size=(8, 12, 12, 3)),
+                            dtype=torch.float32, device=dev)
+        y = torch.as_tensor(np.eye(4, dtype=np.float32)[
+            rng.integers(0, 4, size=8)], device=dev)
+
+        def trajectory(cand: Candidate):
+            net = self._net(cand.params.get("remat_policy"), dev)
+            for _ in range(steps):
+                net._fit_batch(x, y)
+            return (net.score_value.detach().reshape(1).clone(),)
+
+        nets: Dict[str, Any] = {}
+
+        def timer(cand: Candidate):
+            if cand.label not in nets:
+                net = self._net(cand.params.get("remat_policy"), dev)
+                for _ in range(2):  # past the program's build
+                    net._fit_batch(x, y)
+                nets[cand.label] = net
+            net = nets[cand.label]
+            return lambda: net._fit_batch(x, y)
+
+        return MeasureCase(
+            reference=lambda: trajectory(
+                Candidate("policy:none", impl="conf",
+                          params={"remat_policy": None})),
+            outputs=trajectory, timer=timer, tolerance=self.tolerance,
+            sync=_sync_for(dev))
+
+    def default_contexts(self) -> List[dict]:
+        return [{"steps": 3}]
+
+
 # ------------------------------------------------- declared-only spaces
+class XlaFlagsSpace(SearchSpace):
+    """The reference's XLA flag candidates
+    (``util/xla_tuning.XLA_FLAG_CANDIDATES``; reference ``:561``). The
+    port runs no XLA, so every candidate but the default is reported
+    invalid ("no XLA"), as the reference's sweep records TPU flags
+    rejected on the CPU backend."""
+
+    name = "xla_flags"
+    op = "xla_flags"
+    scope = "conf"
+    measurable = False
+    requires = "an XLA backend (this build has none)"
+
+    def signature(self, ctx: dict) -> str:
+        return "conf-default"
+
+    def dtype(self, ctx: dict) -> str:
+        return "any"
+
+    def enumerate(self, ctx: dict) -> List[Candidate]:
+        from deeplearning4j_tpu_torch.util import xla_tuning
+
+        out = [Candidate("flags:none", impl="conf",
+                         params={"xla_flags": ""}, is_default=True)]
+        for name, flag in xla_tuning.XLA_FLAG_CANDIDATES:
+            out.append(Candidate(name, impl="conf",
+                                 params={"xla_flags": flag}))
+        return out
+
+    def validate(self, cand: Candidate, ctx: dict) -> Tuple[bool, str]:
+        if not cand.params.get("xla_flags"):
+            return True, ""
+        return False, (f"no XLA: {cand.params['xla_flags']} has no "
+                       "backend to configure on this build")
+
+
 class BucketSetSpace(SearchSpace):
     """Shape-bucket candidate sets (``data/bucketing.py``). Ranking needs
     the workload's real length distribution (pad waste against programs
@@ -615,3 +750,5 @@ register_space(LstmTileSpace())
 register_space(BucketSetSpace())
 register_space(PrefillChunkSpace())
 register_space(AffinityHeadSpace())
+register_space(RematPolicySpace())
+register_space(XlaFlagsSpace())

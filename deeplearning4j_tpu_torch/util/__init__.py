@@ -1,12 +1,17 @@
 """Cross-cutting utilities (counterpart of deeplearning4j_tpu/util): the
-compile watcher, ModelSerializer archives and sharded checkpoints, the
-profiler, health monitors, stats storage, cost model, telemetry and fault
-injection. Not here yet: the compile cache, the AOT store and
-``xla_tuning`` (ROADMAP item 12b), ``packed`` (item 13)."""
+compile watcher, the persistent compile cache and the AOT store, remat
+policies (``xla_tuning``), ModelSerializer archives and sharded
+checkpoints, the profiler, health monitors, stats storage, cost model,
+telemetry and fault injection. Not here yet: ``packed`` (item 13)."""
 
 from deeplearning4j_tpu_torch.util.checkpoint import (FaultTolerantTrainer,
                                                       ShardedCheckpointer,
                                                       ShardedCheckpointListener)
+from deeplearning4j_tpu_torch.util import xla_tuning  # noqa: F401
+from deeplearning4j_tpu_torch.util.aot_store import AotStore
+from deeplearning4j_tpu_torch.util.compile_cache import (
+    cache_entries, clear_persistent_cache, disable_persistent_cache,
+    enable_persistent_cache)
 from deeplearning4j_tpu_torch.util.compile_watcher import (CompileScope,
                                                            CompileWatcher,
                                                            get_watcher,
@@ -48,8 +53,9 @@ __all__ = [
     "FaultTolerantTrainer", "OpProfiler", "ProfilerConfig", "StepTimer",
     "NaNPanicError", "check_numerics", "device_trace", "CrashReportingUtil",
     "FileStatsStorage", "InMemoryStatsStorage", "StatsListener", "to_csv",
-    "CompileWatcher", "CompileScope", "get_watcher", "note_trace",
-    "telemetry", "Telemetry", "get_telemetry", "TrainingHealthMonitor",
+    "xla_tuning", "CompileWatcher", "CompileScope", "get_watcher",
+    "note_trace", "enable_persistent_cache", "disable_persistent_cache",
+    "clear_persistent_cache", "cache_entries", "AotStore", "telemetry", "Telemetry", "get_telemetry", "TrainingHealthMonitor",
     "cost_model", "CostReport", "CostRow",
     "RetryPolicy", "RetryExhaustedError", "FaultInjector", "get_injector",
     "RollbackSignal",

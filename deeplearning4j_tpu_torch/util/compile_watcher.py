@@ -16,9 +16,11 @@ same.
 ``backend_compiles`` counts CUDA graphs instantiated (none on the CPU) and
 ``backend_compile_seconds`` the seconds their warm-up and capture took.
 ``persistent_cache_hits`` stays 0: a CUDA graph holds device addresses of
-one process and cannot be stored for the next, so the persistent cache and
-the AOT store (``util/compile_cache.py``, ``util/aot_store.py``) wait for
-ROADMAP item 12b. Read by ``nn/listeners.py::RecompileListener``.
+one process and cannot be stored for the next; what crosses processes is
+the kernel library (``util/compile_cache.py``) and each program's
+signature and kernel plans (``util/aot_store.py``), which the
+``aot_store.*`` and ``compile_cache.*`` telemetry counts. Read by
+``nn/listeners.py::RecompileListener``.
 """
 
 from __future__ import annotations

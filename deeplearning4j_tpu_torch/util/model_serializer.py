@@ -137,7 +137,8 @@ def _refill(name: str, tree, leaves) -> None:
                 f"{tuple(src.shape)}, model expects {tuple(dst.shape)} "
                 "(configuration mismatch)")
         with torch.no_grad():
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+            # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+            dst.copy_(torch.from_numpy(np.array(src, order="C")))
 
 
 def _model_type(model) -> str:
@@ -309,7 +310,14 @@ class ModelSerializer:
             names = zf.namelist()
             if load_updater and meta.get("has_updater_state") and \
                     _UPDATER in names:
+                # a fused net's masters are saved and restored with the
+                # params (they are leaves of its optimizer state)
                 _refill("updater", net.opt_states, _loadz(zf.read(_UPDATER)))
+            elif getattr(net, "_fused", None) is not None:
+                # the masters were built from init()'s random params:
+                # resync them to the loaded ones (reference ``:266-272``),
+                # or the first step would put the random params back
+                net._fused.resync_masters(net.params, net.opt_states)
             net.iteration = int(meta["iteration"])
             net.epoch = int(meta["epoch"])
             net._reference_rng_key = [int(v) for v in meta["rng_key"]]

@@ -7,10 +7,10 @@ What differs in the port: compile counts come from the port's
 ``xla.*`` names are kept); device memory comes from
 ``torch.cuda.memory_stats``, read only once the process has initialised
 CUDA itself, so a scrape never initialises it and a forked child never
-touches it; the compile-cache collector waits for ``util/compile_cache.py``
-(ROADMAP item 12b) and is left out until then, and so is the reference's
-collector of the elastic runtime (item 10). The tuning database's
-(``tuning/database.py``, item 12a), the serving router's, the fleet's and
+touches it; the compile-cache collector reports the persistent
+kernel-library cache (``util/compile_cache.py``); the reference's
+collector of the elastic runtime (item 10) is left out. The tuning
+database's (``tuning/database.py``), the serving router's, the fleet's and
 the SLO engine's collectors and
 the serving schedulers' deferred request spans are here, each guarded by
 ``sys.modules`` on the port's own module name as the reference guards its
@@ -658,6 +658,7 @@ def install_default_collectors() -> Telemetry:
             return tele
         tele.register_collector(_collect_compile)
         tele.register_collector(_collect_device_memory)
+        tele.register_collector(_collect_compile_cache)
         tele.register_collector(_collect_serving)
         tele.register_collector(_collect_fleet)
         tele.register_collector(_collect_slo)
@@ -711,6 +712,17 @@ def device_memory_stats() -> List[Tuple[str, dict, float]]:
 
 def _collect_device_memory() -> list:
     return device_memory_stats()
+
+
+def _collect_compile_cache() -> list:
+    """Whether the persistent kernel-library cache is on, and its entries
+    (reference ``:720-726``)."""
+    from deeplearning4j_tpu_torch.util import compile_cache
+
+    d = compile_cache.cache_dir()
+    return [("compile_cache.enabled", {}, 1 if d else 0),
+            ("compile_cache.entries", {},
+             compile_cache.cache_entries() if d else 0)]
 
 
 def _collect_serving() -> list:

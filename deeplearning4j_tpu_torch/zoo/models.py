@@ -233,9 +233,10 @@ class Darknet19(ZooModel):
 class ResNet50(ZooModel):
     """zoo/model/ResNet50.java — the repo's flagship model. ResNet-v1
     bottleneck layout (stride on the first 1x1, as in the reference/Keras),
-    NHWC. ``remat_policy``/``stage_barriers`` and the residual-stage
-    boundaries (stem, res2-res5) are recorded in the config for the
-    training slice."""
+    NHWC. ``remat_policy``/``stage_barriers`` turn on the remat stages,
+    whose boundaries are the stem and each residual stage (res2-res5):
+    the training step recomputes each stage under the policy
+    (``util/xla_tuning.py``)."""
 
     updater: object = None
     remat_policy: Optional[str] = None

@@ -13,8 +13,10 @@ BatchNormalization and dropout; a two-input graph with per-input masks;
 TBPTT with a ragged last segment, on both networks; ``sync_every`` 4, where
 each listener call must see its own step's loss. Then: every entry that
 rebinds the params drops the programs (``init``, the ``interop`` loaders,
-the transfer builder, early stopping's snapshots); ``export_dir`` raises
-naming ROADMAP item 12. The card legs are in ``tests/test_torch_cuda.py``.
+the transfer builder, early stopping's snapshots); ``export_dir`` saves
+the programs' entries in an AOT store and a fresh network builds the same
+programs from them (ROADMAP item 12b). The card legs are in
+``tests/test_torch_cuda.py``.
 """
 
 import contextlib
@@ -324,14 +326,19 @@ def test_disabled_builds_no_program():
         assert sc.backend_compiles == 0  # nothing is captured on the CPU
 
 
-def test_export_dir_raises_naming_item_12():
+def test_export_dir_raises_naming_item_12(tmp_path):
+    """Item 12b ported: ``export_dir`` no longer raises. The first network
+    saves one entry per program; a fresh one given the same directory and
+    no shapes builds the same programs from the entries."""
     jnet = JMLN(_mln_conf(0.0)).init()
-    net = MultiLayerNetwork(TConf.from_json(jnet.conf.to_json())).init(
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        net.warmup([(4, 4)], export_dir="/nonexistent")
+    conf_json = jnet.conf.to_json()
+    net = MultiLayerNetwork(TConf.from_json(conf_json)).init(device="cpu")
+    d = str(tmp_path / "aot")
+    assert net.warmup([(4, 4)], export_dir=d) == 2
+    warm = MultiLayerNetwork(TConf.from_json(conf_json)).init(device="cpu")
+    assert warm.warmup(export_dir=d) == 2
+    assert sorted(warm.programs()) == sorted(net.programs())
     _, g = seq_graph._pair(seq_graph._seq_conf())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        g.warmup([(2, seq_graph.T, seq_graph.F)], export_dir="/nonexistent")
-    assert json.loads(net.conf.to_json()) == json.loads(
-        jnet.conf.to_json())
+    assert g.warmup([(2, seq_graph.T, seq_graph.F)],
+                    export_dir=str(tmp_path / "aot_g")) == 2
+    assert json.loads(net.conf.to_json()) == json.loads(conf_json)

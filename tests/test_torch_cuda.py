@@ -2017,3 +2017,138 @@ def test_observe_tune_on_card(card, tmp_path, monkeypatch):
     finally:
         tuning.set_database(None)
         TK.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# the compile-time half of item 12 and the fused update (``-k compile_time``)
+# ---------------------------------------------------------------------------
+def _remat_graph(policy, dtype="float32"):
+    """conv-bn-relu | conv-bn + residual add, relu | pool, output: the
+    residual block of ResNet-50 at 64 channels (the bf16 wgmma bodies)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import vertices as V
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+
+    b = (NeuralNetConfiguration.builder().seed(5).compute_dtype(dtype)
+         .updater({"@updater": "Sgd", "learning_rate": 0.05}))
+    if policy != "none":
+        b.remat_policy(policy)
+    gb = b.graph_builder().add_inputs("in")
+    gb.add_layer("c1", L.ConvolutionLayer(n_out=64, kernel_size=(3, 3),
+                                          padding="SAME"), "in")
+    gb.add_layer("bn1", L.BatchNormalization(), "c1")
+    gb.add_layer("r1", L.ActivationLayer(activation="relu"), "bn1")
+    gb.stage_boundary("r1")
+    gb.add_layer("c2", L.ConvolutionLayer(n_out=64, kernel_size=(3, 3),
+                                          padding="SAME"), "r1")
+    gb.add_layer("bn2", L.BatchNormalization(), "c2")
+    gb.add_vertex("add", V.ElementWiseVertex(op="add"), "r1", "bn2")
+    gb.add_layer("r2", L.ActivationLayer(activation="relu"), "add")
+    gb.stage_boundary("r2")
+    gb.add_layer("pool", L.GlobalPoolingLayer(), "r2")
+    gb.add_layer("out", L.OutputLayer(n_out=10), "pool")
+    conf = gb.set_outputs("out").set_input_types((16, 16, 64)).build()
+    return ComputationGraph(conf).init(device="cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compile_time_remat_launches_and_values(card, dtype):
+    """Each policy, eager: the step equals ``none``'s bit for bit where two
+    eager ``none`` steps agree; K1 launches 2 a step, plus 2 in the
+    recompute under ``full`` and none under ``save_conv``; dgrad 2 (the
+    stem takes the input, which needs no gradient: 1) and K3 2."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 16, 16, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    outs, launches = {}, {}
+    with capture.disabled():
+        for policy in ("none", "none2", "full", "save_conv", "save_all"):
+            net = _remat_graph(policy.rstrip("2"), dtype)
+            TK.reset_counts()
+            net.fit(x, y)
+            torch.cuda.synchronize()
+            launches[policy] = dict(TK.LAUNCHES)
+            outs[policy] = [t.detach().float().cpu() for p in
+                            net.params.values() for t in p.values()]
+    same = all(torch.equal(a, b) for a, b in zip(outs["none"],
+                                                 outs["none2"]))
+    for policy in ("full", "save_conv", "save_all"):
+        for a, b in zip(outs["none"], outs[policy]):
+            if same:
+                assert torch.equal(a, b), policy
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    want_k1 = {"none": 2, "full": 4, "save_conv": 2, "save_all": 2}
+    for policy, k1 in want_k1.items():
+        got = launches[policy]
+        assert got["conv2d_fwd"] == k1, (policy, got)
+        assert got["conv2d_dgrad"] == 1 and got["conv2d_wgrad"] == 2
+        assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_compile_time_remat_captured_equals_eager(card):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(8, 16, 16, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    eager, cap = _remat_graph("save_conv"), _remat_graph("save_conv")
+    with capture.disabled():
+        for _ in range(3):
+            eager.fit(x, y)
+    for _ in range(3):
+        cap.fit(x, y)
+    assert cap.programs()
+    for a, b in zip(eager.params.values(), cap.params.values()):
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-4, atol=1e-6)
+
+
+def test_compile_time_fused_dynamic_skip_captured(card):
+    """A bf16 layer stack, fused with dynamic scaling, captured: a step
+    with a non-finite input leaves params, moments and masters bit-equal
+    and halves the scale, all on the device (no host sync: the capture
+    would fail by name)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    conf = (NeuralNetConfiguration.builder().seed(2)
+            .compute_dtype("bfloat16").fused_update(True)
+            .loss_scale("dynamic")
+            .updater({"@updater": "Adam", "learning_rate": 1e-3})
+            .list().layer(L.DenseLayer(n_out=64, activation="relu"))
+            .layer(L.OutputLayer(n_out=4)).set_input_type((32,)).build())
+    net = MultiLayerNetwork(conf).init(device="cuda")
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(16, 32)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 16)]
+    net.fit(x, y)
+    net.fit(x, y)
+    before = [t.clone() for t in tree_leaves(
+        [net.params, net.opt_states["groups"]])]
+    bad = x.copy()
+    bad[0, 0] = np.inf
+    net.fit(bad, y)
+    after = tree_leaves([net.params, net.opt_states["groups"]])
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert float(net.opt_states["scale"]["scale"]) == 2.0 ** 14
+    assert int(net.opt_states["scale"]["good"]) == 0
+    assert len(net.programs()) == 1
+
+
+def test_compile_time_captured_rnn_time_step(card):
+    net = TextGenerationLSTM(total_unique_characters=11, units=32).init(
+        device="cuda")
+    rng = np.random.default_rng(3)
+    x = np.eye(11, dtype=np.float32)[rng.integers(0, 11, (4, 6))]
+    with capture.disabled():
+        eager = [net.rnn_time_step(x[:, t]).cpu() for t in range(6)]
+    net.rnn_clear_previous_state()
+    TK.reset_counts()
+    cap = [net.rnn_time_step(x[:, t]).cpu() for t in range(6)]
+    for a, b in zip(eager, cap):
+        assert torch.equal(a, b)
+    assert TK.LAUNCHES["lstm_seq_fwd"] == 2 * 6
+    assert not any(TK.PLAIN_ON_CUDA.values())

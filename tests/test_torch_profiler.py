@@ -202,7 +202,20 @@ def test_stats_listener_records_match_the_reference():
     assert "updates" in ts.records[-1] and "compile" in ts.records[-1]
 
 
-def test_health_monitor_flags_the_same_anomalies():
+@pytest.fixture
+def healthy_after():
+    """The monitors below publish ``training.finite`` False into both
+    packages' process-wide telemetry; put it back, or a later test in the
+    same process (a server's ``/healthz``) answers 503."""
+    yield
+    from deeplearning4j_tpu.util import telemetry as jtm
+    from deeplearning4j_tpu_torch.util import telemetry as ttm
+
+    for t in (jtm, ttm):
+        t.set_health("training.finite", True, "")
+
+
+def test_health_monitor_flags_the_same_anomalies(healthy_after):
     jnet, tnet = _lenet_pair()
     kw = dict(window=2, warmup=2, log_fn=None)
     jm = jhealth.TrainingHealthMonitor(**kw)
@@ -218,7 +231,8 @@ def test_health_monitor_flags_the_same_anomalies():
     assert tm_.state()["last_probe"][0] is False
 
 
-def test_health_monitor_panics_on_an_injected_nan(monkeypatch):
+def test_health_monitor_panics_on_an_injected_nan(monkeypatch,
+                                                  healthy_after):
     """``DL4J_TPU_FAULTS=inject_nan@2``: the fault fires at iteration 2
     (the seam the reference's elastic trainer uses, ``parallel/elastic.py
     :833``), the batch goes in poisoned, and ``panic=True`` raises."""

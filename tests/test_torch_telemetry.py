@@ -155,8 +155,12 @@ def test_default_collectors_leave_out_the_compile_cache():
         port_tm._defaults_installed = False
         port_tm.install_default_collectors()
         names = [f.__name__ for f in t._collectors]
-        assert "_collect_compile_cache" not in names
-        assert names[:2] == ["_collect_compile", "_collect_device_memory"]
+        # ported since (util/compile_cache.py): the collector is in, third
+        # as in the reference, and reports the cache off by default
+        assert names[:3] == ["_collect_compile", "_collect_device_memory",
+                             "_collect_compile_cache"]
+        got = {n: v for n, _, v in port_tm._collect_compile_cache()}
+        assert set(got) == {"compile_cache.enabled", "compile_cache.entries"}
         t.prometheus_text()  # guarded collectors of unported modules: quiet
     finally:
         t._collectors[:] = saved
@@ -210,10 +214,14 @@ def test_environment_reads_the_same_flags(monkeypatch):
     for k, v in {"DL4J_TPU_ETL_WORKERS": "3", "DL4J_TPU_BUCKETS": "pow2",
                  "DL4J_TPU_TELEMETRY": "0", "DL4J_TPU_FAULTS": "inject_nan@5",
                  "DL4J_TPU_VERBOSE": "1",
-                 "DL4J_TPU_TRACE_SAMPLE": "0.5"}.items():
+                 "DL4J_TPU_TRACE_SAMPLE": "0.5",
+                 "DL4J_TPU_COMPUTE_DTYPE": "bfloat16",
+                 "DL4J_TPU_SYNC_EVERY": "4",
+                 "DL4J_TPU_FUSED_UPDATE": "1"}.items():
         monkeypatch.setenv(k, v)
     keys = ("etl_workers", "default_buckets", "telemetry", "fault_spec",
-            "debug", "verbose", "trace_sample")
+            "debug", "verbose", "trace_sample", "default_compute_dtype",
+            "default_sync_every", "default_fused_update")
     ref = ref_config.Environment()
     port = port_config.Environment()
     assert [getattr(port, k) for k in keys] == [getattr(ref, k) for k in keys]

@@ -542,12 +542,17 @@ def test_fit_entry_forms_take_the_same_steps():
 
 
 def test_unported_training_paths_name_their_slice():
-    x = np.zeros((2, 6, 6, 2), np.float32)
+    # the fused update is ported (ROADMAP item 10a's first bullet): an fp32
+    # graph steps bit for bit as the per-node updaters do
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 6, 6, 2)).astype(np.float32)
     y = np.eye(3, dtype=np.float32)[[0, 1]]
     conf = _small_conf()
     conf.knobs["fused_update"] = True
-    with pytest.raises(NotImplementedError, match="slice"):
-        TGraph(conf).init(device="cpu").fit(x, y)
+    fused = TGraph(conf).init(device="cpu").fit(x, y)
+    plain = TGraph(_small_conf()).init(device="cpu").fit(x, y)
+    for (_, a), (_, b) in zip(_flat(fused.params), _flat(plain.params)):
+        np.testing.assert_array_equal(a, b)
     # a masked DataSet trains as the reference
     # does; on this CNN the (B, T) masks reach no node (the shape rule)
     rng = np.random.default_rng(4)
