@@ -443,6 +443,32 @@ Phases, each printing one JSON line:
     from the char-RNN eager (every K4 launch checked) and with captured
     ``rnn_time_step``: the same texts, 2 K4 launches a character; captured
     ``score`` and ``feed_forward`` on ResNet-50 at batch 8 equal to eager.
+22n. parallel: single-process data parallelism (``parallel/``, ROADMAP
+    item 10a) on full-width ResNet-50 (224x224x3, seed 12345, global
+    batch 32 as 4 lanes of 8, Adam(1e-3), fp32). (a) SharedTrainingMaster,
+    threshold 1e-3 adaptive: 3 eager steps, each with its loss against
+    the same step under ``exact`` from the same state (1e-5), 212 / 208 /
+    212 K1 / dgrad / K3 launches every one checked, none plain, and each
+    lane's residual and threshold after the step bit-equal to the
+    accumulator's encode of that lane's gradient, taken from the state
+    before the step (its quantized values ``+-t`` where ``|c| > t``, its
+    residual ``c - q`` or that clipped); the step's parts (lanes, encode
+    and combine, update) each captured and timed by replay, and one eager
+    encode traced (kernels, device busy, idle share); captured images/sec
+    beside the same run's captured single-net b32 fp32 step (phase 22m's
+    ``none``) and PR 12's 583.0; the wire ratio and the residual's
+    bytes. (b) ParallelWrapper
+    with ``fused_update``, 4 lanes, 2 steps a leg: deterministic eager
+    twice and captured (bit for bit where the eager runs agree); threshold
+    0 against the uncompressed lanes; threshold 1e-3 with static loss
+    scaling and the power-of-two encode's conservation on a real lane
+    gradient; the default fast step against ``net.fit``. (c) ResNet-50
+    served over HTTP through ``ServingModel(use_mesh=True)``
+    (ParallelInference), every K1 launch checked, 53 a chunk, answers
+    within 1e-4; 8 concurrent ``output_async`` requests in fewer batches.
+    (d) the char-RNN through ParallelWrapper(deterministic=True) at 4
+    lanes of 8: one 1000-character batch, 20 TBPTT segments, 8 K4
+    launches each, every one checked.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -472,7 +498,8 @@ Phases, each printing one JSON line:
     ``launches_k2``) and ``launches_tuned_path`` (the armed path);
     phase 22m's under ``launches_compile_time`` (the warm-start processes'
     K1 under ``launches_compile_time_warm_start``), with its checks under
-    ``compile_time_checked``.
+    ``compile_time_checked``; phase 22n's under ``launches_parallel``
+    (by leg) with its checks under ``parallel_checked``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -1239,7 +1266,8 @@ def profile_forward(torch, net, batch=32, top=8):
 
 
 def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
-                    archive=None, quantize=None, ref_net=None):
+                    archive=None, quantize=None, ref_net=None,
+                    use_mesh=False):
     """``net`` served over HTTP (ModelServer -> ModelRouter ->
     BatchScheduler -> ServingModel, buckets BUCKETS), or with ``archive``
     (a ModelSerializer archive of ``net``) the net ``ModelRouter.load``
@@ -1249,7 +1277,8 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
     plain on CUDA; the answers' probabilities within 1e-4 of the plain
     path's (of ``ref_net``'s when given: with ``quantize="int8"``, the net
     with its params set to the dequantized leaves) and their rows summing
-    to 1 within 1e-5. Returns (the fields of the line, the launches, the
+    to 1 within 1e-5; ``use_mesh``: the model serves through
+    ParallelInference. Returns (the fields of the line, the launches, the
     checks)."""
     from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
     from deeplearning4j_tpu_torch.ops import kernels as kern
@@ -1261,7 +1290,7 @@ def serve_and_check(torch, np, net, model_id, input_shape, per_chunk,
     if archive is None:
         model = ServingModel(net, model_id,
                              bucketing=BucketingPolicy(batch_buckets=BUCKETS),
-                             quantize=quantize)
+                             quantize=quantize, use_mesh=use_mesh)
         router.register(model, max_wait_ms=100.0, queue_limit=64)
     else:
         router.load(model_id, archive,
@@ -9716,7 +9745,8 @@ def compile_time_remat_leg(torch, np, card, base, flops=None):
     FLOPs: ``flops`` by compute type, the counted steps of phase 22l's
     reports on the same net (else a report made here). ``base``:
     ResNet-50 at its initial state (never stepped here: each leg steps a
-    copy). Returns (launches, checks)."""
+    copy). Returns (launches, checks, the fp32 ``none`` captured step's
+    ms)."""
     from deeplearning4j_tpu_torch.nn import capture
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.tree import tree_leaves
@@ -9840,7 +9870,8 @@ def compile_time_remat_leg(torch, np, card, base, flops=None):
          input=[224, 224, 3], steps=REMAT_STEPS, timed_replays=REMAT_TIMED,
          **out, launches=dict(launches),
          launches_checked=_checked_summary(checked), card=card)
-    return launches, checked
+    return (launches, checked,
+            out["float32"]["legs"]["none"]["captured_step_ms"])
 
 
 def compile_time_fused_leg(torch, np, card):
@@ -10077,7 +10108,7 @@ def compile_time_phase(torch, np, card, flops=None):
     t0 = time.perf_counter()
     resnet = ResNet50().init(device="cuda")
     _calm_residual_branches(resnet)
-    remat_launches, remat_checked = compile_time_remat_leg(
+    remat_launches, remat_checked, single_ms = compile_time_remat_leg(
         torch, np, card, resnet, flops)
     k5 = compile_time_fused_leg(torch, np, card)
     warm_k1, _ = compile_time_warm_leg(torch, np, card, resnet)
@@ -10090,7 +10121,537 @@ def compile_time_phase(torch, np, card, flops=None):
     emit("compile_time", seconds=time.perf_counter() - t0,
          launches=dict(launches), warm_start_conv2d_fwd=warm_k1, card=card)
     return {"launches": dict(launches), "warm_start_conv2d_fwd": warm_k1,
-            "checked": {"remat": remat_checked, "paths": path_checked}}
+            "checked": {"remat": remat_checked, "paths": path_checked},
+            "single_net_step_ms": single_ms}
+
+
+# ------------------------------------------------- parallel (22n, item 10a)
+
+PAR_LANES = 4                 # lanes of the global batch of 32 (4 x 8)
+PAR_SHARED_STEPS = 3          # SharedTrainingMaster's checked steps
+PAR_WRAPPER_STEPS = 2         # each ParallelWrapper leg's steps
+PAR_THRESHOLD = 1e-3
+RESNET_LANE_STEP = {k: PAR_LANES * v for k, v in RESNET_STEP.items()}
+#: the captured single-net ResNet-50 fit's rate at fp32 batch 32 on the
+#: H100, as PERF.md §5 records it
+SINGLE_NET_CAPTURED_IMAGES_PER_SEC = 583.0
+
+
+def _tensors_of(torch, net, extra=()):
+    """The net's params, layer and optimizer states (and ``extra`` trees),
+    as a flat list of the live tensors."""
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    return tree_leaves([net.params, net.states, net.opt_states,
+                        *extra])
+
+
+def _snap(torch, tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+def _max_diff(a, b):
+    return max((float((x.double() - y.double()).abs().max())
+                for x, y in zip(a, b) if x.numel()), default=0.0)
+
+
+def _repeat_gate(ref, repeat, got, what):
+    """``got`` against ``ref`` where a repeat of ``ref`` shows what the
+    path's own nondeterminism is: bit for bit when the repeat is, else no
+    farther from ``ref`` than the repeat."""
+    rep, dist = _max_diff(ref, repeat), _max_diff(ref, got)
+    if (rep == 0.0 and dist != 0.0) or dist > rep:
+        raise AssertionError(f"{what}: {dist} from the reference run, its "
+                             f"repeat {rep}")
+    return {"repeat_max_diff": rep, "max_diff": dist,
+            "reference_deterministic": rep == 0.0, "bit_equal": dist == 0.0}
+
+
+def _lane_counts(torch, what, steps):
+    """The conv kernels' launches since the last reset: RESNET_LANE_STEP a
+    step, none plain on CUDA."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    torch.cuda.synchronize()
+    got = {k: kern.LAUNCHES[k] for k in RESNET_LANE_STEP}
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    want = {k: steps * v for k, v in RESNET_LANE_STEP.items()}
+    if got != want or plain:
+        raise AssertionError(f"{what}: launched {got} (expected {want}), "
+                             f"plain on CUDA {plain}")
+    return got
+
+
+def _lane_grads(torch, master, net, ds):
+    """What a shared-master step's encode reads, taken from the net's
+    state before the step: each lane's gradients (the master's own lane
+    split of ``ds``), the lanes' residuals and thresholds, the
+    iteration."""
+    from deeplearning4j_tpu_torch.parallel import gspmd
+
+    lane_vg = gspmd.make_lane_value_and_grad(net)
+    xs, ys, ws = master.mesh.pad_lane_batch(ds.features, ds.labels,
+                                            PAR_LANES)
+    grads = [lane_vg(net.params, net.states, xs[r], ys[r], ws[r], None,
+                     None)[1][1] for r in range(PAR_LANES)]
+    if master.residual is None:  # the first step starts from zeros
+        res = [master.accumulator.init_residual(g) for g in grads]
+        thr = torch.full((PAR_LANES,), PAR_THRESHOLD, device="cuda")
+    else:
+        res = [tree_clone(lane_leaves_tree(master.residual, r))
+               for r in range(PAR_LANES)]
+        thr = master.threshold.clone()
+    it = torch.full((), net.iteration, dtype=torch.int64, device="cuda")
+    return grads, res, thr, it
+
+
+def _encode_check(torch, master, pre):
+    """Each lane's residual and threshold after the step against the
+    accumulator's encode of that lane's gradient and residual from before
+    it (``pre``, :func:`_lane_grads`), bit for bit; and that encode
+    against its definition, leaf by leaf: ``q`` is ``+-t`` where
+    ``|c| > t`` and 0 elsewhere, the residual ``c - q`` or that clipped
+    to ``+-5t``."""
+    grads, res_in, thr_in, it = pre
+    total = clipped = sent = 0
+    for r in range(PAR_LANES):
+        q, res, thr, _ = master.accumulator.encode(grads[r], res_in[r],
+                                                   thr_in[r], it)
+        got = lane_leaves(lane_leaves_tree(master.residual, r))
+        if not all(torch.equal(a, b) for a, b in zip(lane_leaves(res), got)) \
+                or not torch.equal(thr, master.threshold[r]):
+            raise AssertionError(f"shared master lane {r}: residual or "
+                                 f"threshold off the encode of its "
+                                 f"gradient")
+        t = thr_in[r]
+        for g, r0, qq, rr in zip(lane_leaves(grads[r]),
+                                 lane_leaves(res_in[r]), lane_leaves(q),
+                                 lane_leaves(res)):
+            c = g + r0
+            want = torch.where(c.abs() > t, torch.sign(c) * t,
+                               torch.zeros_like(c))
+            raw = c - want
+            lim = t * 5.0
+            if not torch.equal(qq, want) or not (
+                    torch.equal(rr, raw)
+                    or torch.equal(rr, torch.clamp(raw, -lim, lim))):
+                raise AssertionError(f"shared master lane {r}: the encode "
+                                     f"off its definition")
+            total += c.numel()
+            clipped += int((rr != raw).sum())
+            sent += int((qq != 0).sum())
+    return {"elements": total, "residual_and_threshold_bit_equal": True,
+            "transmitted": sent, "clipped_elements": clipped}
+
+
+def lane_leaves(tree):
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _shared_split_ms(torch, master, net, twin, x, y):
+    """The shared master's step by parts, each captured in a CUDA graph
+    and timed by replay (``graph_ms``): the 4 lanes' value and gradient,
+    the 4 encodes with the stacking and pairwise mean of the quantized
+    trees, and the update (on ``twin``, which it moves)."""
+    from deeplearning4j_tpu_torch.parallel import gspmd
+
+    lane_vg = gspmd.make_lane_value_and_grad(net)
+    xs, ys, ws = master.mesh.pad_lane_batch(x, y, PAR_LANES)
+    it = torch.ones((), dtype=torch.int64, device="cuda")
+
+    def lanes():
+        return [lane_vg(net.params, net.states, xs[r], ys[r], ws[r], None,
+                        None)[1][1] for r in range(PAR_LANES)]
+
+    grads = lanes()
+    res = [tree_clone(lane_leaves_tree(master.residual, r))
+           for r in range(PAR_LANES)]
+
+    def encode():
+        q = [master.accumulator.encode(grads[r], res[r],
+                                       master.threshold[r], it)[0]
+             for r in range(PAR_LANES)]
+        return gspmd.tree_pairwise_mean(gspmd.stack_lanes(q))
+
+    shared = encode()
+    twin._step_sizes()
+
+    def update():
+        gspmd.apply_updaters(twin, twin.params, shared, twin.opt_states,
+                             twin._sizes.views)
+
+    out = {"lanes_ms": graph_ms(torch, lanes, reps=2),
+           "encode_combine_ms": graph_ms(torch, encode, reps=2),
+           "update_ms": graph_ms(torch, update, reps=2)}
+    out["parts_ms"] = sum(out.values())
+    out["encode_share"] = out["encode_combine_ms"] / out["parts_ms"]
+    out["encode_traced"] = _profile_encode(torch, encode)
+    # at the least each lane's gradient and residual are read once and its
+    # quantized values and residual written once
+    least = 4 * sum(v.numel() * v.element_size()
+                    for g in grads for v in lane_leaves(g))
+    out["encode_least_bytes"] = least
+    out["encode_bytes_bound_ms"] = least / H100_BYTES_PER_S * 1e3
+    return out
+
+
+def _profile_encode(torch, encode):
+    """One eager ``encode()`` under torch.profiler: its kernels (less the
+    tracer's warm-up fill and add), their device time, the wall time and
+    the device's idle share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    encode()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the tracer's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kernels)
+    n = sum(k[1] for k in kernels) - 2
+    return {"kernels": n, "device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "device_us_a_kernel": 1e3 * busy / n if n > 0 else None,
+            "top": [{"ms": ms, "calls": c, "kernel": name[:90]}
+                    for ms, c, name in kernels[:6]]}
+
+
+def lane_leaves_tree(tree, r):
+    from deeplearning4j_tpu_torch.tree import tree_map
+
+    return tree_map(lambda v: v[r], tree)
+
+
+def parallel_shared_leg(torch, np, card, base, x, y, single_step_ms=None):
+    """(a) SharedTrainingMaster on ResNet-50, global batch 32 as 4 lanes
+    of 8, Adam(1e-3), threshold 1e-3 adaptive: PAR_SHARED_STEPS eager
+    steps, each with every launch checked, 212 / 208 / 212 K1 / dgrad /
+    K3, none plain, its loss against the same step under ``exact`` from
+    the same state (TRAIN_LOSS_RTOL) and its residuals and thresholds
+    against the encode (:func:`_encode_check`); the step's parts timed as
+    CUDA graphs; captured images/sec, beside ``single_step_ms`` (this
+    run's captured single-net b32 fp32 step, phase 22m) where given; the
+    wire ratio and the residual's bytes."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_copy_
+
+    net, twin = copy_net(base), copy_net(base)
+    ds = DataSet(x, y)
+    master = P.SharedTrainingMaster(threshold=PAR_THRESHOLD,
+                                    replicas=PAR_LANES)
+    exact = P.SharedTrainingMaster(threshold=PAR_THRESHOLD,
+                                   replicas=PAR_LANES)
+    checked, steps, launches = {}, [], {}
+    with capture.disabled():
+        for step in range(PAR_SHARED_STEPS):
+            if master.residual is not None:  # the twin from this state
+                with torch.no_grad():
+                    tree_copy_(_tensors_of(torch, twin),
+                               _tensors_of(torch, net))
+                exact.residual = tree_clone(master.residual)
+                exact.threshold = master.threshold.clone()
+                exact.model_, exact.n_ = twin, PAR_LANES
+            twin.iteration = net.iteration
+            with kern.impl_scope("exact"):
+                exact.fit(twin, [ds])
+            master.mesh = master.mesh or P.TrainingMesh(
+                devices=[net.device])
+            pre = _lane_grads(torch, master, net, ds)
+            kern.reset_counts()
+            with check_every_launch(torch, checked):
+                master.fit(net, [ds])
+            got = _lane_counts(torch, f"shared master step {step}", 1)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            la, le = float(net.score_value), float(twin.score_value)
+            rel = abs(la - le) / abs(le)
+            if rel > TRAIN_LOSS_RTOL or not math.isfinite(la):
+                raise AssertionError(f"shared master step {step}: loss "
+                                     f"{la} auto, {le} exact")
+            steps.append({"loss": la, "loss_exact": le, "loss_rel": rel,
+                          "threshold": master.threshold.tolist(),
+                          "wire_ratio": float(master.last_stats["ratio"]),
+                          "encode_check": _encode_check(torch, master,
+                                                        pre)})
+            del pre
+        if {k: checked[(k, "fp32")]["calls"] for k in launches} != launches:
+            raise AssertionError(f"shared master: {launches} launches, "
+                                 f"{_checked_summary(checked)} checked")
+        twin.iteration = net.iteration
+        graph_split = _shared_split_ms(torch, master, net, twin, x, y)
+    kern.reset_counts()
+    rate = captured_rate(torch, lambda: master.fit(net, [ds]), x.shape[0])
+    single = {}
+    if single_step_ms:
+        single = {"single_net_captured_step_ms": single_step_ms,
+                  "lanes_vs_single_net_step": (graph_split["lanes_ms"]
+                                               / single_step_ms),
+                  "rate_vs_single_net_this_run": (
+                      rate["median"] * single_step_ms / 1e3 / x.shape[0])}
+    torch.cuda.synchronize()
+    if not math.isfinite(float(net.score_value)) or any(
+            kern.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"captured shared master: loss "
+                             f"{float(net.score_value)}, plain "
+                             f"{dict(kern.PLAIN_ON_CUDA)}")
+    emit("parallel_shared", model="ResNet50", batch=int(x.shape[0]),
+         lanes=PAR_LANES, lane_batch=int(x.shape[0]) // PAR_LANES,
+         updater=net.conf.updater, threshold=PAR_THRESHOLD,
+         accumulator="EncodedGradientsAccumulator(Adaptive, "
+                     "ResidualClipping(5, 5))",
+         steps=steps, launches_per_step=RESNET_LANE_STEP,
+         launches=launches, launches_checked=_checked_summary(checked),
+         captured_parts_split=graph_split,
+         captured_step_wall_ms=1e3 * x.shape[0] / rate["median"],
+         captured_images_per_sec=rate,
+         single_net_captured_images_per_sec=(
+             SINGLE_NET_CAPTURED_IMAGES_PER_SEC),
+         rate_vs_single_net=(rate["median"]
+                             / SINGLE_NET_CAPTURED_IMAGES_PER_SEC),
+         **single,
+         wire_ratio=float(master.last_stats["ratio"]),
+         wire_bytes=float(master.last_stats["wire_bytes"]),
+         dense_bytes=float(master.last_stats["dense_bytes"]),
+         residual_bytes=P.gspmd.tree_bytes(master.residual),
+         card=card)
+    del net, twin, master, exact
+    torch.cuda.empty_cache()
+    return launches, checked
+
+
+def tree_clone(tree):
+    from deeplearning4j_tpu_torch.tree import tree_map
+
+    return tree_map(lambda v: v.clone(), tree)
+
+
+def parallel_wrapper_leg(torch, np, card, base, x, y):
+    """(b) ParallelWrapper on ResNet-50 with ``fused_update``, 4 lanes of
+    8: the deterministic lane step eager twice and captured (bit for bit
+    where the eager runs agree); ``grad_compression="threshold"`` at
+    threshold 0 against the uncompressed lanes; threshold 1e-3 with static
+    loss scaling (the power-of-two encode's conservation on a real lane
+    gradient, bit for bit); the default fast step against ``net.fit``.
+    Returns the conv launches."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    ds = DataSet(x, y)
+    launches = dict.fromkeys(RESNET_LANE_STEP, 0)
+
+    def lanes(eager, **kw):
+        net = variant(base, fused_update=True, **kw.pop("knobs", {}))
+        pw = P.ParallelWrapper(net, deterministic=True, replicas=PAR_LANES,
+                               skew_every=0, **kw)
+        kern.reset_counts()
+        with capture.disabled() if eager else contextlib.nullcontext():
+            losses = [float(pw.step_batch(ds))
+                      for _ in range(PAR_WRAPPER_STEPS)]
+        got = _lane_counts(torch, f"wrapper {kw}", PAR_WRAPPER_STEPS)
+        for k, v in got.items():
+            launches[k] += v
+        state = _snap(torch, _tensors_of(torch, net))
+        return net, pw, losses, state
+
+    _, _, l1, e1 = lanes(True)
+    _, _, l2, e2 = lanes(True)
+    net_c, pw_c, lc, cap = lanes(False)
+    if not pw_c._programs or any(p.graph is None
+                                 for p in pw_c._programs.values()):
+        raise AssertionError("the lane step built no captured program")
+    captured = _repeat_gate(e1, e2, cap, "captured lane step")
+    del net_c, pw_c, cap
+    _, pw0, l0, t0 = lanes(True, grad_compression="threshold",
+                           compression_threshold=0.0)
+    zero = _repeat_gate(e1, e2, t0, "threshold 0 against uncompressed")
+    zero_stats = pw0.compression_stats()
+    del pw0, t0
+    net_s, pw_s, ls, _ = lanes(True, grad_compression="threshold",
+                               compression_threshold=PAR_THRESHOLD,
+                               knobs={"loss_scale": "static"})
+    stats = pw_s.compression_stats()
+    # the encode on a real lane gradient at the path's shapes: q + r ==
+    # carried bit for bit (the threshold snapped to a power of two)
+    comp, engine = pw_s._compressor, net_s._fused
+    lane_vg = P.gspmd.make_lane_value_and_grad(net_s)
+    xs, ys, ws = pw_s.mesh.pad_lane_batch(x, y, PAR_LANES)
+    with capture.disabled():
+        (_, wsum), (_, g) = lane_vg(net_s.params, net_s.states, xs[0],
+                                    ys[0], ws[0], None, None)
+    flat = engine.flatten_grads(g)
+    res = pw_s._comp_state["residual"]
+    t = pw_s._comp_state["threshold"]
+    conserved, nonzero = True, 0
+    for buf, r in zip(flat, res):
+        carried = (buf * wsum)[None] + r[:1]
+        q, rr = comp._encode_leaf(carried, t)
+        conserved &= bool(torch.equal(q + rr, carried))
+        nonzero += int((q != 0).sum())
+    if not conserved or not all(math.isfinite(v) for v in ls):
+        raise AssertionError(f"threshold {PAR_THRESHOLD}: conservation "
+                             f"{conserved}, losses {ls}")
+    del net_s, pw_s, flat, res
+    # the default fast step: the net's own step (captured), against fit
+    fast = {}
+    for tag in ("fit", "fit_repeat", "wrapper"):
+        net = variant(base, fused_update=True)
+        if tag == "wrapper":
+            pw = P.ParallelWrapper(net, skew_every=0)
+            pw.step_batch(ds)
+        else:
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        fast[tag] = _snap(torch, _tensors_of(torch, net))
+        del net
+    fast_gate = _repeat_gate(fast["fit"], fast["fit_repeat"],
+                             fast["wrapper"], "fast step against net.fit")
+    emit("parallel_wrapper", model="ResNet50", batch=int(x.shape[0]),
+         replicas=PAR_LANES, fused_update=True, steps=PAR_WRAPPER_STEPS,
+         deterministic={"losses_eager": l1, "losses_repeat": l2,
+                        "losses_captured": lc, "captured_gate": captured},
+         threshold_zero={"losses": l0, "against_uncompressed": zero,
+                         "stats": zero_stats},
+         threshold={"threshold": PAR_THRESHOLD, "loss_scale": "static",
+                    "losses": ls, "stats": stats,
+                    "lane_encode_conserved_bit_exact": conserved,
+                    "lane_encode_transmitted": nonzero},
+         fast_step_against_fit=fast_gate,
+         launches_per_lane_step=RESNET_LANE_STEP, launches=launches,
+         card=card)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_serve_leg(torch, np, card, base):
+    """(c) ResNet-50 behind ModelServer with ServingModel(use_mesh=True)
+    (ParallelInference over the buckets), every launch checked, answers
+    within 1e-4 of the exact path; then 8 concurrent ``output_async``
+    requests coalesced into fewer batches than requests."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    fields, launches, checked = serve_and_check(
+        torch, np, base, "resnet50_mesh", (224, 224, 3), 53, use_mesh=True)
+    pi = P.ParallelInference(base, bucketing=BucketingPolicy(
+        batch_buckets=BUCKETS), batch_timeout_ms=50.0)
+    rng = np.random.default_rng(7)
+    xs = [quarter_grid(np, rng, r) for r in SERVE_ROWS]
+    kern.reset_counts()
+    with check_every_launch(torch, checked), ThreadPoolExecutor(8) as pool:
+        futs = list(pool.map(pi.output_async, xs))
+        answers = [f.result(timeout=300) for f in futs]
+    pi.shutdown()
+    async_launches = kern.LAUNCHES["conv2d_fwd"]
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    worst, n = served_errors(np, [(x, a, base) for x, a in
+                                  zip(xs, answers)])
+    if (pi.batches_executed >= len(xs) or plain
+            or async_launches != 53 * pi.chunks_executed):
+        raise AssertionError(f"output_async: {pi.batches_executed} batches "
+                             f"for {len(xs)} requests, {async_launches} "
+                             f"launches for {pi.chunks_executed} chunks, "
+                             f"plain {plain}")
+    emit("parallel_serve", model="ResNet50", use_mesh=True, **fields,
+         async_requests=len(xs), async_batches=pi.batches_executed,
+         async_chunks=pi.chunks_executed, async_launches=async_launches,
+         async_max_abs_err_vs_exact=worst, card=card)
+    return launches + async_launches, checked
+
+
+def parallel_char_rnn_leg(torch, np, card):
+    """(d) the char-RNN (two LSTMs of 256, batch 32 as 4 lanes, T 1000,
+    TBPTT 50) through ParallelWrapper(deterministic=True): one batch, 20
+    segments, 2 K4 launches a lane and segment, every one checked against
+    the plain segment, none plain."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    net = char_net()
+    x, y = char_batch(torch, np, char_corpus(np), np.random.default_rng(5))
+    pw = P.ParallelWrapper(net, deterministic=True, replicas=PAR_LANES,
+                           skew_every=0)
+    checked = {}
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with check_every_launch(torch, checked):
+        loss = float(pw.step_batch(DataSet(x, y)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    segments = CHAR_SEQ // CHAR_TBPTT
+    want = segments * 2 * PAR_LANES
+    got = lstm_only(dict(kern.LAUNCHES), "char-RNN lanes")
+    calls = checked.get(("lstm_seq_fwd", "fp32"), {}).get("calls")
+    if (got != want or calls != want or any(kern.PLAIN_ON_CUDA.values())
+            or not math.isfinite(loss) or net.iteration != segments):
+        raise AssertionError(f"char-RNN lanes: {got} K4 launches, {calls} "
+                             f"checked (expected {want}), loss {loss}")
+    emit("parallel_char_rnn", model="TextGenerationLSTM", batch=CHAR_BATCH,
+         lanes=PAR_LANES, seq=CHAR_SEQ, tbptt=CHAR_TBPTT, segments=segments,
+         loss=loss, k4_launches=got, launches_checked=_checked_summary(
+             checked), checked_wall_s=wall, card=card)
+    del net, pw
+    torch.cuda.empty_cache()
+    return got, checked
+
+
+def parallel_phase(torch, np, card, single_step_ms=None):
+    """Phase 22n (see the module doc): single-process data parallelism on
+    full-width ResNet-50 and the char-RNN; ``single_step_ms``: phase 22m's
+    captured single-net ResNet-50 b32 fp32 step. Returns ({kernel:
+    launches}, {kernel: checks})."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    batch = 32
+    base = ResNet50().init(device="cuda")
+    _calm_residual_branches(base)
+    x = torch.randn((batch, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(12345).integers(0, 1000, batch)]).cuda()
+    launches, checked, legs_s = {}, {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        legs_s[name] = time.perf_counter() - t0
+        return out
+
+    shared_launches, shared_checked = leg(
+        "shared", parallel_shared_leg, torch, np, card, base, x, y,
+        single_step_ms)
+    wrapper_launches = leg("wrapper", parallel_wrapper_leg, torch, np, card,
+                           base, x, y)
+    with capture.disabled():
+        serve_launches, serve_checked = leg(
+            "serve", parallel_serve_leg, torch, np, card, base)
+        char_launches, char_checked = leg(
+            "char_rnn", parallel_char_rnn_leg, torch, np, card)
+    emit("parallel_timing", legs_s=legs_s, card=card)
+    for k in RESNET_LANE_STEP:
+        launches[k] = {"shared_master": shared_launches[k],
+                       "wrapper": wrapper_launches[k]}
+    launches["conv2d_fwd"]["serve_use_mesh"] = serve_launches
+    launches["lstm_seq_fwd"] = {"char_rnn_lanes": char_launches}
+    checked = {"shared_master": shared_checked, "serve": serve_checked,
+               "char_rnn": char_checked}
+    del base
+    torch.cuda.empty_cache()
+    return launches, checked
 
 
 def main() -> int:
@@ -10242,6 +10803,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ctime = timed("compile_time", compile_time_phase, torch, np, smi,
                   observe["flops"])
+    torch.cuda.empty_cache()
+    par_launches, par_checked = timed("parallel", parallel_phase, torch, np,
+                                      smi, ctime["single_net_step_ms"])
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -10515,6 +11079,11 @@ def main() -> int:
         e["compile_time_checked"] = {
             k: checked_fields(e["name"], c)
             for k, c in ctime["checked"].items()
+            if checked_fields(e["name"], c)}
+    for e in entries:  # phase 22n: the lanes, the masters, the mesh path
+        e["launches_parallel"] = par_launches.get(e["name"], {})
+        e["parallel_checked"] = {
+            k: checked_fields(e["name"], c) for k, c in par_checked.items()
             if checked_fields(e["name"], c)}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,10 @@ Recognized variables:
   configs (>= 1; unset = 1).
 - ``DL4J_TPU_FUSED_UPDATE`` — default ``fused_update`` of new configs (the
   fused optimizer step, ``nn/updaters.py`` ``FusedUpdateEngine``).
+- ``DL4J_TPU_GRAD_COMPRESSION`` — default ``grad_compression`` of new
+  configs ("none" | "threshold" | "bitmap" | "onebit";
+  ``parallel/compression.py``), validated by the conf builder: a
+  ``ParallelWrapper`` fit then runs the encoded gradient exchange.
 - ``DL4J_TPU_COMPILE_CACHE`` — directory of the persistent kernel-library
   cache (``util/compile_cache.py``), applied once when the environment is
   first read: a process loads the kernel library built there by an
@@ -54,9 +58,8 @@ Recognized variables:
   ``train.model_flops_utilization`` gauge (``util/cost_model.py``). Unset =
   no MFU: no peak is ever assumed.
 
-The reference's other variables (kernel dispatch, gradient compression,
-pipeline stages) are added with the ROADMAP items that port the code
-reading them; the port's kernel dispatch reads its own
+The reference's other variables (kernel dispatch, pipeline stages) are
+added with the ROADMAP items that port the code reading them; the port's kernel dispatch reads its own
 ``DL4J_TORCH_KERNEL_IMPL``.
 """
 
@@ -116,6 +119,9 @@ class Environment:
             "DL4J_TPU_COMPUTE_DTYPE", "float32")
         self.default_sync_every = _env_int("DL4J_TPU_SYNC_EVERY", 1, floor=1)
         self.default_fused_update = _env_bool("DL4J_TPU_FUSED_UPDATE")
+        # validated by the conf builder, so a typo fails at config build
+        self.default_grad_compression = (
+            os.environ.get("DL4J_TPU_GRAD_COMPRESSION") or None)
         self.compile_cache_dir = (
             os.environ.get("DL4J_TPU_COMPILE_CACHE") or None)
         self._compile_cache_applied = False

@@ -14,7 +14,8 @@ brownout, supervised worker, drain, request ids, flight recorder; the
     router.load("lm", "/models/lm.zip", kind="generate")
     server = ModelServer(router, port=8080).start()  # warms the programs
 
-Multi-device inference (``use_mesh``) is ROADMAP Queue 1 item 10.
+``ServingModel(net, id, use_mesh=True)`` serves classify through
+``parallel.ParallelInference`` (one device; more is ROADMAP item 10b).
 """
 
 from deeplearning4j_tpu_torch.serving.fleet import (FleetRouter, FleetWorker,

@@ -41,8 +41,12 @@ direct call pass none and never consume them. ``_trace`` (a head-sampled
 batch) emits the batch's pad and device phase spans (the generator its
 prefill and decode spans) through the deferred-event path.
 
-Not ported yet: ``use_mesh`` (multi-device inference, ROADMAP Queue 1
-item 10), which raises ``NotImplementedError``.
+``use_mesh=True`` (reference ``:146-151``) serves classify through
+``parallel.ParallelInference`` with this model's bucket policy: a
+coalesced batch is planned by ``plan_serving_batch(n,
+cap=batch_limit)`` and each chunk runs the net's forward program. On one
+device the mesh is the net's device. ``quantize`` with ``use_mesh`` is
+refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -80,11 +84,8 @@ class ServingModel:
                  export_dir: Optional[str] = None):
         if kind not in ("classify", "generate"):
             raise ValueError(f"unknown serving kind {kind!r}")
-        if use_mesh:
-            raise NotImplementedError(
-                "use_mesh is not ported yet: multi-device inference comes "
-                "with the parallel slice")
         self.net = net
+        self._use_mesh = bool(use_mesh)
         self.model_id = str(model_id)
         self.kind = kind
         self.quantize = quantize
@@ -124,10 +125,21 @@ class ServingModel:
             self.policy = self.generator.policy
             self._qp = self.generator._qp
         elif quantize is not None:
+            if use_mesh:
+                raise ValueError("quantize + use_mesh is not supported: "
+                                 "the mesh path serves fp32 params")
             from deeplearning4j_tpu_torch.serving.quantize import \
                 maybe_quantize
 
             self._qp = maybe_quantize(net, quantize, model_id=self.model_id)
+        #: the mesh path (``use_mesh``): ParallelInference over this
+        #: model's policy, the one bucket source for warmup and planning
+        self.inference = None
+        if use_mesh and kind != "generate":
+            from deeplearning4j_tpu_torch.parallel.wrapper import \
+                ParallelInference
+
+            self.inference = ParallelInference(net, bucketing=self.policy)
         self.warmed = False
         #: chunks run through the forward since construction
         self.chunks_executed = 0
@@ -183,6 +195,10 @@ class ServingModel:
                     self._forward_int8(np.zeros((int(b),) + shape,
                                                 np.float32))
                 primed = len(self.policy.batch_buckets)
+            elif self.inference is not None:
+                primed = self.inference.warmup(
+                    batch_sizes=self.policy.batch_buckets,
+                    input_shape=shape)
             else:
                 primed = self.net.warmup(
                     shapes=[(int(b),) + shape
@@ -246,8 +262,26 @@ class ServingModel:
         t0 = time.time_ns() if _trace else 0
         xs = np.concatenate([np.asarray(p, np.float32) for p in payloads],
                             axis=0)
-        plan = self.policy.plan_serving_batch(xs.shape[0])
+        cap = (self.inference.batch_limit if self.inference is not None
+               else None)
+        plan = self.policy.plan_serving_batch(xs.shape[0], cap=cap)
         padded = sum(p for _, p in plan)
+        if self.inference is not None:
+            if _trace:
+                self._emit("serving.exec.pad", t0, rows=xs.shape[0],
+                           padded=padded)
+            t1 = time.time_ns() if _trace else 0
+            out = self.inference.output(xs)  # plans the chunks inside
+            self.chunks_executed += len(plan)
+            if _trace:
+                self._emit("serving.exec.device", t1, rows=xs.shape[0],
+                           padded=padded, chunks=len(plan))
+            results, off = [], 0
+            for p in payloads:
+                k = int(np.shape(p)[0])
+                results.append(out[off:off + k])
+                off += k
+            return results, xs.shape[0], padded, len(plan)
         chunks, off = [], 0
         for take, _bucket in plan:
             chunk, _ = self.policy.pad_inference_batch(xs[off:off + take])
@@ -315,7 +349,7 @@ class ServingModel:
         (kind, bucket policy, export dir), warmed and checked without
         touching the live model."""
         return ServingModel(net, self.model_id, kind=self.kind,
-                            bucketing=self.policy,
+                            bucketing=self.policy, use_mesh=self._use_mesh,
                             prefill_buckets=self._prefill_buckets,
                             quantize=self.quantize,
                             export_dir=self.export_dir, **self._gen_kw)
@@ -367,6 +401,7 @@ class ServingModel:
             # the int8 leaves and their programs swap with the net
             self._qp = shadow._qp
             self._qprograms = shadow._qprograms
+            self.inference = shadow.inference
             self.policy = shadow.policy
             self.warmed = shadow.warmed
             self.version += 1
@@ -382,7 +417,7 @@ class ServingModel:
             "version": self.version,
             "reload_time": self.reload_time,
             "iteration": int(getattr(self.net, "iteration", 0) or 0),
-            "mesh": False,  # use_mesh is ROADMAP Queue 1 item 10
+            "mesh": self.inference is not None,
             "chunks_executed": self.chunks_executed,
             "device": str(getattr(self.net, "device", None)),
             "params": int(self.net.num_params())

@@ -20,8 +20,9 @@ Registered spaces:
   forward and the backward (the kernel's adjoint Function against the
   loop's autograd), so the case gates and times value and gradients. The
   name and database keys are the reference's.
-- ``bucket_sets``, ``affinity_head``: DECLARED (ranking needs a recorded
-  length distribution, a live fleet under shared-prefix traffic).
+- ``bucket_sets``, ``affinity_head``, ``compression_hosts``: DECLARED
+  (ranking needs a recorded length distribution, a live fleet under
+  shared-prefix traffic, real hosts on a real interconnect).
 - ``prefill_chunk``: MEASURABLE (conf scope), gated on generated-token
   identity.
 - ``remat_policy``: MEASURABLE (conf scope): every policy registered in
@@ -37,8 +38,7 @@ Kernel candidates call the kernels' wrappers, which launch on CUDA tensors
 and run their plain versions on CPU tensors: on the CPU a sweep proves the
 machinery and the gate, not a ranking.
 
-Not ported with this slice: ``compression_hosts`` and ``pipe_schedule``
-(ROADMAP item 10).
+Not ported: ``pipe_schedule`` (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -744,6 +744,38 @@ class AffinityHeadSpace(SearchSpace):
         return out
 
 
+# --------------------------------------------- compression hosts space
+class CompressionHostsSpace(SearchSpace):
+    """Hierarchical gradient-compression host counts (reference ``:627``;
+    ``parallel/compression.py``, ``ParallelWrapper(compression_hosts=)``):
+    full-precision combines within a host, the encoded exchange across
+    hosts. The wire bytes are deterministic, but ranking wire against
+    encode cost needs real hosts on a real interconnect (ROADMAP item
+    10b), so the space is declared with the reference's candidates."""
+
+    name = "compression_hosts"
+    op = "compression_hosts"
+    scope = "conf"
+    measurable = False
+    requires = ("real multi-host links (one process cannot rank wire "
+                "against encode cost)")
+
+    def signature(self, ctx: dict) -> str:
+        return "conf-default"
+
+    def dtype(self, ctx: dict) -> str:
+        return "any"
+
+    def enumerate(self, ctx: dict) -> List[Candidate]:
+        out = [Candidate("hosts:auto", impl="conf",
+                         params={"compression_hosts": "auto"},
+                         is_default=True)]
+        for n in (1, 2, 4):
+            out.append(Candidate(f"hosts:{n}", impl="conf",
+                                 params={"compression_hosts": n}))
+        return out
+
+
 # ------------------------------------------------------- default wiring
 register_space(ConvTileSpace())
 register_space(LstmTileSpace())
@@ -752,3 +784,4 @@ register_space(PrefillChunkSpace())
 register_space(AffinityHeadSpace())
 register_space(RematPolicySpace())
 register_space(XlaFlagsSpace())
+register_space(CompressionHostsSpace())

@@ -24,6 +24,11 @@ The contract:
 - **Retried I/O** under a small :class:`RetryPolicy` (the part of the
   reference's ``util/faults.py`` this module uses; the full policy is in
   the port's ``util/faults.py``).
+- **Gradient-compression sidecar**: a model fitted by a compressed
+  ``ParallelWrapper`` carries ``_grad_comp_state`` (the error-feedback
+  residual and the threshold); it is saved as ``<step>/grad_comp.npz``
+  inside the same atomic commit, and a restore without it clears a live
+  state (reference ``:221-225``, ``:388-397``).
 - **Async save**: ``save(..., block=False)`` copies the state to the host
   on the caller's thread and commits on a background thread;
   :meth:`ShardedCheckpointer.wait_until_finished` joins it.
@@ -59,6 +64,7 @@ from deeplearning4j_tpu_torch.util.model_serializer import (_host_tree,
 
 _META_FILE = "elastic_meta.json"
 _STATE_FILE = "state.npz"
+_COMP_FILE = "grad_comp.npz"
 _TMP_PREFIX = ".tmp-"
 
 
@@ -207,7 +213,7 @@ class ShardedCheckpointer:
                 "opt_states": _host_tree(model.opt_states), "meta": meta}
 
     def _commit(self, step: int, state: dict,
-                extra_meta: Optional[dict]) -> None:
+                extra_meta: Optional[dict], comp_state=None) -> None:
         tmp = os.path.join(self.directory,
                            f"{_TMP_PREFIX}{step}-{os.getpid()}")
         final = os.path.join(self.directory, str(step))
@@ -237,6 +243,11 @@ class ShardedCheckpointer:
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
             save_tree_npz(os.path.join(tmp, _STATE_FILE), state)
+            if comp_state is not None:
+                # the gradient-compression sidecar (parallel/compression.py)
+                # commits with the params it pairs with, so a resumed
+                # compressed fit continues the same trajectory
+                save_tree_npz(os.path.join(tmp, _COMP_FILE), comp_state)
             write_meta(tmp)
             os.replace(tmp, final)  # the commit point
 
@@ -269,13 +280,16 @@ class ShardedCheckpointer:
         commits on a background thread."""
         self.wait_until_finished()
         state = self._state(model)
+        comp = getattr(model, "_grad_comp_state", None)
+        if comp is not None:
+            comp = _host_tree(comp)
         if block:
-            self._commit(step, state, extra_meta)
+            self._commit(step, state, extra_meta, comp)
             return
 
         def run():
             try:
-                self._commit(step, state, extra_meta)
+                self._commit(step, state, extra_meta, comp)
             except BaseException as e:  # noqa: BLE001 - crosses the thread
                 with self._lock:
                     self._pending_error = e
@@ -364,6 +378,15 @@ class ShardedCheckpointer:
                 gen.device.type:
             gen.set_state(torch.from_numpy(
                 np.array(meta["torch_generator"], copy=True)))
+        # the gradient-compression sidecar: ParallelWrapper adopts the
+        # restored residual and threshold at its next step; a checkpoint
+        # without one clears a live state (the restored params never saw
+        # that residual)
+        comp_path = os.path.join(path, _COMP_FILE)
+        if os.path.exists(comp_path):
+            model._grad_comp_state = load_tree_npz(comp_path)
+        elif getattr(model, "_grad_comp_state", None) is not None:
+            model._grad_comp_state = None
         model._drop_programs()
         return model
 

@@ -1019,6 +1019,8 @@ class CostReport:
     trace_kernels: Optional[dict] = None
     uncounted_ops: Optional[dict] = None
     kernels: Optional[dict] = None
+    #: devices the step spans (a one-device mesh's lane step: 1)
+    devices: int = 1
 
     @property
     def flops_per_step(self) -> float:
@@ -1092,6 +1094,7 @@ class CostReport:
             "trace_kernels": self.trace_kernels,
             "uncounted_ops": self.uncounted_ops,
             "kernels": self.kernels,
+            "devices": self.devices,
             "layers": [r.to_dict() for r in self.rows],
         }
 

@@ -16,6 +16,21 @@ the serving schedulers' deferred request spans are here, each guarded by
 ``sys.modules`` on the port's own module name as the reference guards its
 own, so a process that never served pays nothing.
 
+The data-parallel names (``parallel/wrapper.py``, ``parallel/masters.py``;
+the reference's, listed in :data:`PARALLEL_NAMES`): the
+``parallel.step`` / ``parallel.tbptt_step`` spans and the
+``parallel.replica_step`` events (one per shard, on a per-replica trace
+row), the ``parallel.straggler_skew_seconds``, ``parallel.replicas``,
+``parallel.mesh_axis_size`` (by ``axis``),
+``parallel.zero_state_sharded_fraction``,
+``parallel.opt_state_bytes_per_device``,
+``parallel.grad_compression_hosts``, ``parallel.allreduce_wire_bytes``,
+``parallel.allreduce_dense_bytes`` and
+``parallel.allreduce_compression_ratio`` gauges, the
+``parallel.allreduce_wire_bytes_total``,
+``parallel.allreduce_exchanges_total`` and ``parallel.reshards_total``
+counters.
+
 OpProfiler, StepTimer, CompileWatcher and StatsListener each emit their own
 format, and none of them observes the ETL worker processes or the prefetch
 thread. This module is the shared measurement substrate:
@@ -57,6 +72,23 @@ import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+#: the data-parallel spans, events, gauges and counters, by kind
+PARALLEL_NAMES = {
+    "span": ("parallel.step", "parallel.tbptt_step"),
+    "event": ("parallel.replica_step",),
+    "gauge": ("parallel.straggler_skew_seconds", "parallel.replicas",
+              "parallel.mesh_axis_size",
+              "parallel.zero_state_sharded_fraction",
+              "parallel.opt_state_bytes_per_device",
+              "parallel.grad_compression_hosts",
+              "parallel.allreduce_wire_bytes",
+              "parallel.allreduce_dense_bytes",
+              "parallel.allreduce_compression_ratio"),
+    "counter": ("parallel.allreduce_wire_bytes_total",
+                "parallel.allreduce_exchanges_total",
+                "parallel.reshards_total"),
+}
 
 # Default span-ring capacity: ~200 bytes/event -> tens of MB worst case.
 _DEFAULT_MAX_EVENTS = 100_000

@@ -2152,3 +2152,132 @@ def test_compile_time_captured_rnn_time_step(card):
         assert torch.equal(a, b)
     assert TK.LAUNCHES["lstm_seq_fwd"] == 2 * 6
     assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+# ---------------------------------------------------------------------------
+# single-process data parallelism (``-k parallel``, parallel/)
+# ---------------------------------------------------------------------------
+def _parallel_graph(dev, comp=None):
+    """Two convs (K1 / dgrad / K3) with batchnorm under Sgd (Adam would
+    amplify to its step size the noise-level gradient of the first conv's
+    bias, which the batchnorm cancels), on ``dev``: the same seeded params
+    on every device."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+
+    b = (NeuralNetConfiguration.builder().seed(9)
+         .updater({"@updater": "Sgd", "learning_rate": 0.05}))
+    if comp:
+        b.grad_compression(comp, threshold=1e-3)
+    gb = b.graph_builder().add_inputs("in")
+    gb.add_layer("c1", L.ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                          padding="SAME"), "in")
+    gb.add_layer("bn1", L.BatchNormalization(), "c1")
+    gb.add_layer("r1", L.ActivationLayer(activation="relu"), "bn1")
+    gb.add_layer("c2", L.ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                          padding="SAME"), "r1")
+    gb.add_layer("pool", L.GlobalPoolingLayer(), "c2")
+    gb.add_layer("out", L.OutputLayer(n_out=5), "pool")
+    conf = gb.set_outputs("out").set_input_types((12, 12, 8)).build()
+    return ComputationGraph(conf).init(device=dev)
+
+
+def _parallel_batches(n=2, b=16):
+    rng = np.random.default_rng(21)
+    return [DataSet(rng.normal(size=(b, 12, 12, 8)).astype(np.float32),
+                    np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)])
+            for _ in range(n)]
+
+
+def _params_close(a, b, rtol, atol):
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        torch.testing.assert_close(x.detach().cpu(), y.detach().cpu(),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "threshold", "shared"])
+def test_parallel_lane_steps_on_card_match_cpu(card, mode):
+    """The wrapper's lane step (deterministic, compressed) and the shared
+    master, 4 lanes, on the card against the same steps on the CPU: losses
+    within 1e-4, params within 1e-3; every conv launch a kernel, none
+    plain."""
+    from deeplearning4j_tpu_torch import parallel as P
+
+    comp = "threshold" if mode == "threshold" else None
+    nets = {d: _parallel_graph(d, comp) for d in ("cpu", "cuda")}
+    losses = {}
+    for d, net in nets.items():
+        TK.reset_counts()
+        if mode == "shared":
+            P.SharedTrainingMaster(replicas=4).fit(net, _parallel_batches())
+            losses[d] = float(net.score_value)
+        else:
+            pw = P.ParallelWrapper(net, deterministic=True, replicas=4,
+                                   skew_every=0)
+            losses[d] = [float(pw.step_batch(ds))
+                         for ds in _parallel_batches()]
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert TK.LAUNCHES["conv2d_fwd"] == 2 * 4 * 2, TK.LAUNCHES
+            assert TK.LAUNCHES["conv2d_wgrad"] == 2 * 4 * 2
+            assert TK.LAUNCHES["conv2d_dgrad"] == 1 * 4 * 2
+            assert not any(TK.PLAIN_ON_CUDA.values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    _params_close(nets["cuda"], nets["cpu"], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("comp", [None, "threshold"])
+def test_parallel_captured_lanes_equal_eager(card, comp):
+    """The lane step captured against the same steps eager, from one
+    state: bit for bit where two eager runs agree, else no farther from
+    eager than its repeat (``_gate``'s rule)."""
+    from deeplearning4j_tpu_torch import parallel as P
+
+    def fit(net, ds):
+        if not hasattr(net, "_pw"):
+            net._pw = P.ParallelWrapper(net, deterministic=True, replicas=4,
+                                        skew_every=0)
+        net._pw.step_batch(ds)
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def make():
+        return _parallel_graph("cuda", comp)
+
+    batches = _parallel_batches(3)
+    _, e1 = _run(make, batches, fit, True)
+    _, e2 = _run(make, batches, fit, True)
+    net, cap = _run(make, batches, fit, False)
+    assert dist(e1, cap) <= dist(e1, e2)
+    if comp:
+        assert net._grad_comp_state is net._pw._comp_state
+    # the lane programs live in the wrapper's table, not the net's
+    assert not net.programs() and net._pw._programs and all(
+        p.graph is not None for p in net._pw._programs.values())
+    assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def test_parallel_inference_and_serving_on_card(card):
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.serving import ServingModel
+
+    net = _parallel_graph("cuda")
+    x = np.random.default_rng(4).normal(size=(11, 12, 12, 8)).astype(
+        np.float32)
+    with capture.disabled():
+        want = net.output(x).cpu().numpy()
+    pi = P.ParallelInference(net, bucketing="batch=4,8", batch_limit=8)
+    TK.reset_counts()
+    np.testing.assert_allclose(pi.output(x), want, rtol=1e-4, atol=1e-5)
+    assert TK.LAUNCHES["conv2d_fwd"] == 2 * 2  # chunks of 8 and 3 (-> 4)
+    m = ServingModel(net, "p", use_mesh=True)
+    m.warmup()
+    out, _ = m.execute([x[:3], x[3:]])
+    np.testing.assert_allclose(np.concatenate(out), want, rtol=1e-4,
+                               atol=1e-5)
+    assert not any(TK.PLAIN_ON_CUDA.values())

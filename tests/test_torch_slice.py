@@ -280,9 +280,9 @@ def test_entry_points_never_drift_to_cpu(monkeypatch):
 
 
 def test_inference_only_layers_name_their_slice(narrow):
-    """What the port does not have yet raises, naming the slice that brings
-    it (multi-device serving), and a serving kind the net cannot take is
-    refused by name. Dropout in training is ported:
+    """A serving kind the net cannot take is refused by name, and
+    ``use_mesh`` serves the same answers as ``net.output`` (quantize with
+    it is refused, as in the reference). Dropout in training is ported:
     a graph with dropout 0.5 on its first node trains, draws its masks
     from the graph's seeded generator (two graphs, one seed, one
     trajectory), and its inference forward applies none."""
@@ -309,8 +309,17 @@ def test_inference_only_layers_name_their_slice(narrow):
         ServingModel(net, "m", kind="embed")
     q = ServingModel(net, "m", quantize="int8")
     assert q.describe()["quantize"] == "int8"
-    with pytest.raises(NotImplementedError, match="use_mesh"):
-        ServingModel(net, "m", use_mesh=True)
+    # use_mesh serves classify through ParallelInference (one device)
+    m = ServingModel(net, "m", use_mesh=True)
+    assert m.describe()["mesh"] is True and m.inference is not None
+    outs, stats = m.execute([x[:1], x])
+    np.testing.assert_allclose(outs[0], net.output(x[:1]).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(outs[1], net.output(x).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert stats["real_rows"] == 1 + len(x) and stats["chunks"] >= 1
+    with pytest.raises(ValueError, match="use_mesh"):
+        ServingModel(net, "m", quantize="int8", use_mesh=True)
 
 
 def test_conf_batch_buckets_pad_and_slice(narrow):
@@ -437,7 +446,9 @@ def test_package_imports_without_jax():
         "'tuning.__main__', 'util.xla_tuning', 'util.compile_cache', "
         "'util.aot_store', 'nn.updaters', 'nn.capture', "
         "'nn.computation_graph', 'ops.nn', 'ops.kernels.conv', "
-        "'ops.kernels._build', 'serving.model')}\n"
+        "'ops.kernels._build', 'serving.model', 'parallel', "
+        "'parallel.mesh', 'parallel.gspmd', 'parallel.accumulator', "
+        "'parallel.compression', 'parallel.wrapper', 'parallel.masters')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "bad = [k for k in sys.modules if k == 'orbax' or "
         "k.startswith('orbax.')]\n"
