@@ -409,10 +409,12 @@ Phases, each printing one JSON line:
     ``ConvTileSpace`` at ResNet-50's four 3x3 stage geometries (batch 32,
     fp32 and bf16) into ``build/tuning_db``: every candidate gated against
     exact, the row-tile (K2) launches counted and each gate launch
-    checked; then a served batch-32 chunk and a ``fit`` step (fp32) and a
-    served bf16 chunk under ``auto`` with the database armed: TUNED,
-    row-tile and plain counts as the winners say, every launch checked,
-    answers within 1e-4 (bf16 2^-7) of the unarmed run. ``LstmTileSpace``
+    checked; then a served batch-32 chunk and a training step's loss and
+    gradients (fp32) and a served bf16 chunk under ``auto`` with the
+    database armed: TUNED, row-tile and plain counts as the winners say,
+    every launch checked, answers within 1e-4 (bf16 2^-7) of the unarmed
+    run, the step's gradients through the fp64 step gate with the unarmed
+    run as its plain path. ``LstmTileSpace``
     at the char-RNN's geometry (B 32, H 256, T 50) on K4. LeNet: the
     OpProfiler over a by-name forward, ``DL4J_TPU_FAULTS=inject_nan@3``
     turned into ``NaNPanicError`` by ``TrainingHealthMonitor(panic=True)``,
@@ -469,6 +471,39 @@ Phases, each printing one JSON line:
     (d) the char-RNN through ParallelWrapper(deterministic=True) at 4
     lanes of 8: one 1000-character batch, 20 TBPTT segments, 8 K4
     launches each, every one checked.
+22o. pipelined: pipelined training and the elastic runtime
+    (``parallel/pipeline.py``, ``pipelined.py``, ``elastic.py``; ROADMAP
+    item 10b's one-card half) on full-width BERT-base (seed 12345, batch 32
+    of full-length rows, S 128, Adam(1e-5), fp32, hidden dropout 0) built
+    with ``ListBuilder.stage_boundary()`` after the embedding and blocks
+    3, 6, 9 and 12: PipelinedTrainer, 4 stages of 3 blocks, 4 microbatches
+    of 8, one lane. (a) One eager lane step, every K5 launch checked (48:
+    12 blocks x 4 microbatches), its loss within 1e-5 of the same net's
+    unpipelined ``exact`` step from the same state and its unstacked
+    gradients within ``_grad_parity``'s rule of an fp64 step; then a
+    checked fp32 lane step at 8 microbatches (96 launches at B 4, its
+    loss within 1e-5 of the same ``exact`` step) and a checked bf16 one
+    at 4 (48 launches at B 8). (b) Under deterministic algorithms, two
+    eager runs of 2 steps (the first with every K5 launch checked) and a
+    captured one, all three equal to the bit, 48 K5 launches a step. (c)
+    Captured
+    sequences/sec, fp32 and bf16, at 4 and 8 microbatches, beside the
+    same run's captured unpipelined step; the bubble fractions; the
+    per-stage rows of a counted cost report. (d) The pipeline-layout
+    fused engine, every K5 launch checked: its state through both layout
+    conversions bit-exact, a trainer rebuilt from the synced net
+    continuing bit for bit. (e) ElasticTrainer around the trainer, eager,
+    every K5 launch checked, deterministic algorithms: SIGTERM at step 2
+    and a resume bit-identical to an uninterrupted 4-step epoch;
+    ``inject_nan`` after step 3 rolled back and finished bit-identical,
+    its archives published and served by a ``ModelRouter.watch`` within
+    1e-4 of the trained net. (f) Two processes on the card
+    (``tests/_torch_elastic_worker.py conf``), each stepping its own
+    replica of the same pipelined BERT-base, eager, over 3 epochs of the
+    4 elastic batches: one SIGKILLed at step 2 exits -9, the survivor
+    regroups to world 1 and finishes (2 + 2 + 4 steps, 48 K5 launches
+    each, counted in that process and not checked), its checkpoint
+    restoring the stacked state bit for bit.
 23. timing: the seconds each phase took, and the whole run's.
 24. kernels: one JSON line per the kernel table in PERF.md; the conv
     kernels' entries carry LeNet's launches and step times under
@@ -499,7 +534,9 @@ Phases, each printing one JSON line:
     phase 22m's under ``launches_compile_time`` (the warm-start processes'
     K1 under ``launches_compile_time_warm_start``), with its checks under
     ``compile_time_checked``; phase 22n's under ``launches_parallel``
-    (by leg) with its checks under ``parallel_checked``.
+    (by leg) with its checks under ``parallel_checked``; phase 22o's on
+    K5's entry under ``launches_pipelined`` (by leg) with its checks under
+    ``pipelined_checked``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; with no CUDA device it exits 1 before doing anything.
@@ -513,6 +550,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -9338,17 +9376,25 @@ def _expected_tuned(winners, dtype, passes):
 
 
 def observe_tuned_path_leg(torch, np, card, db_dir, winners):
-    """One served ResNet-50 chunk (batch 32, ServingModel) and one ``fit``
-    step under ``auto`` with the database armed, fp32, and a served bf16
-    chunk: their launches follow the winners (TUNED, row tiles, plain
-    calls as the winners say, every launch checked), and their answers
-    agree with the same nets' unarmed run."""
+    """One served ResNet-50 chunk (batch 32, ServingModel) and one
+    training step's loss and gradients under ``auto`` with the database
+    armed, fp32, and a served bf16 chunk: their launches follow the
+    winners (TUNED, row tiles, plain calls as the winners say, every
+    launch checked), and their answers agree with the same nets' unarmed
+    run: the served chunks within OBSERVE_ANSWER_TOL (bf16 2^-7), the
+    step's loss within OBSERVE_ANSWER_TOL and its gradients through the
+    fp64 step gate (``_grad_parity``, the unarmed run in the plain path's
+    place). The step is held by its gradients, not by the params after an
+    Adam step: a row tile can change the forward's split-K plan and so the
+    rounding of its fp32 sums (``tools/row_tile_splits.py``), and Adam's
+    first step, lr * g / (|g| + eps), turns the sign of every gradient
+    element that is near 0 into +-lr, so any change of rounding moves
+    some params by up to 2 lr."""
     from deeplearning4j_tpu_torch import tuning
     from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
     from deeplearning4j_tpu_torch.nn import capture
     from deeplearning4j_tpu_torch.ops import kernels as kern
     from deeplearning4j_tpu_torch.serving import ServingModel
-    from deeplearning4j_tpu_torch.tree import tree_leaves
     from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
     rng = np.random.default_rng(12345)
@@ -9370,15 +9416,13 @@ def observe_tuned_path_leg(torch, np, card, db_dir, winners):
             with capture.disabled(), check_every_launch(torch, checked):
                 res, stats = model.execute([x])
                 if dtype == "float32":
-                    twin.fit(x, y)
-                    loss = float(twin.score_value)
+                    grads, loss = twin.compute_gradient_and_score(x, y)
             delta = kern.counts_since(snap)
             runs[armed] = {"out": res[0], "delta": delta,
                            "checked": checked, "chunks": stats["chunks"]}
             if dtype == "float32":
-                runs[armed]["loss"] = loss
-                runs[armed]["params"] = [t.detach().float().cpu()
-                                         for t in tree_leaves(twin.params)]
+                runs[armed]["loss"] = float(loss)
+                runs[armed]["grads"] = grads
             if armed:
                 checked_all[dtype] = checked
         tuning.set_database(None)
@@ -9414,14 +9458,26 @@ def observe_tuned_path_leg(torch, np, card, db_dir, winners):
         if diff / scale > tol:
             bad.append(f"armed answer off by {diff} (scale {scale})")
         if dtype == "float32":
-            pl = max(float((a - b).abs().max()) / max(
-                1.0, float(b.abs().max())) for a, b in zip(
-                runs[True]["params"], runs[False]["params"]))
+            # the same step in fp64 (the plain path on fp64 activations)
+            with capture.disabled(), kern.impl_scope("exact"):
+                l_64, g_64, _, _ = net._cost_shadow()._gradients(
+                    {net.conf.inputs[0]: torch.from_numpy(x).cuda().double()},
+                    {net.conf.outputs[0]: torch.from_numpy(y).cuda()},
+                    torch.ones(x.shape[0], dtype=torch.float64,
+                               device="cuda"))
+            (worst_name, worst), rows, failures = _grad_parity(
+                runs[True]["grads"], runs[False]["grads"], g_64, top=None)
+            del g_64
             dl = abs(runs[True]["loss"] - runs[False]["loss"])
-            leg.update(loss_diff=dl, param_diff=pl)
+            leg.update(loss_diff=dl, loss_fp64=float(l_64),
+                       worst_grad=worst_name, worst_grad_rel_l2=worst,
+                       max_gate_use=max(r["gate_use"] for r in rows),
+                       worst_gate_use=sorted(
+                           rows, key=lambda r: -r["gate_use"])[:3])
             if dl > OBSERVE_ANSWER_TOL * max(1.0, abs(runs[False]["loss"])) \
-                    or pl > OBSERVE_ANSWER_TOL:
-                bad.append(f"armed fit step off: loss {dl}, params {pl}")
+                    or failures:
+                bad.append(f"armed training step off: loss {dl}, "
+                           f"gradients past the gate: {failures[:4]}")
         emit("observe_tuned_path", **leg, card=card)
         if bad:
             raise AssertionError(f"observe_tuned_path {dtype}: "
@@ -10654,6 +10710,656 @@ def parallel_phase(torch, np, card, single_step_ms=None):
     return launches, checked
 
 
+# ------------------------------------- pipelined training (phase 22o, 10b)
+
+PIPE_STAGES, PIPE_MICRO = 4, 4
+#: ListBuilder.stage_boundary() after these layers: the embedding, then
+#: blocks 3, 6, 9 and 12 (a preamble, 4 stages of 3 blocks, the TimeStep
+#: and pooler postamble, the loss head)
+PIPE_BOUNDS = (0, 3, 6, 9, 12)
+PIPE_RATE_MICROS = (4, 8)        # microbatches of 8 and 4 rows
+PIPE_GATE_STEPS = 2              # steps of each capture-gate run
+PIPE_ELASTIC_BATCHES = 4         # the elastic legs' epoch
+PIPE_NAN_AT = 3                  # inject_nan fires after this many steps
+PIPE_DIR = os.path.join(ROOT, "build", "smoke_pipelined")
+PIPE_WORKER = os.path.join(ROOT, "tests", "_torch_elastic_worker.py")
+PIPE_WORKER_TIMEOUT_S = 240      # each process of the two-process leg
+PIPE_KILL_AT = 2                 # the killed member's last step
+PIPE_WATCH_TIMEOUT_S = 90.0
+
+
+def pipelined_bert(torch, dtype="float32", n_micro=PIPE_MICRO):
+    """Full-width BERT-base (hidden 768, 12 blocks of 12 heads, FFN 3072;
+    seed 12345, Adam(BERT_TRAIN_LR), S 128, hidden dropout 0) built from
+    ``Bert.conf()``'s layer stack with ``ListBuilder.stage_boundary()`` at
+    PIPE_BOUNDS and ``pipe_stages(4).n_micro(n_micro)``, on the card."""
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import Bert
+
+    base = Bert.base(updater=Adam(BERT_TRAIN_LR), max_length=BERT_TRAIN_SEQ,
+                     hidden_dropout=0.0).conf()
+    lb = (NeuralNetConfiguration.builder().seed(base.seed)
+          .updater(base.updater).compute_dtype(dtype)
+          .pipe_stages(PIPE_STAGES).n_micro(n_micro).list())
+    for i, lyr in enumerate(base.layers):
+        lb.layer(lyr)
+        if i in PIPE_BOUNDS:
+            lb.stage_boundary()
+    conf = lb.set_input_type(base.input_shape).build()
+    return MultiLayerNetwork(conf).init(device="cuda")
+
+
+def _pipe_conf(net, dtype="float32", n_micro=PIPE_MICRO, **knobs):
+    return dataclasses.replace(net.conf, compute_dtype=dtype, knobs={
+        **net.conf.knobs, "n_micro": n_micro, **knobs})
+
+
+def _k5_only(torch, what, want):
+    """K5's launches since the last reset: ``want``, no other kernel, none
+    plain on CUDA."""
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kern.LAUNCHES.items() if v}
+    plain = {k: v for k, v in kern.PLAIN_ON_CUDA.items() if v}
+    if got != {"flash_attention_fwd": want} or plain:
+        raise AssertionError(f"{what}: launched {got} (expected {want} K5), "
+                             f"plain on CUDA {plain}")
+    return want
+
+
+def _pipe_grads_by_layer(pt, grads, n_layers):
+    """A pipelined lane's gradients (pipeline layout) by layer index."""
+    full = {k: grads.get(k, {}) for k in pt._pp["params"]}
+    out = pt._unstack_tree(full, [{} for _ in range(n_layers)])
+    return {i: g for i, g in enumerate(out) if g}
+
+
+def _checked_lane_step(torch, proto, x, y, dtype, n_micro, checked):
+    """One eager lane step of a fresh trainer over a copy of ``proto`` at
+    ``dtype`` and ``n_micro``, every K5 launch checked: (loss, launches,
+    gradients, the trainer)."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    net = copy_net(proto, _pipe_conf(proto, dtype, n_micro))
+    pt = P.PipelinedTrainer(net, skew_every=0)
+    with capture.disabled():
+        pt._build()
+        xs, ys, ws = pt._shard(x, y)
+        kern.reset_counts()
+        with check_every_launch(torch, checked):
+            (loss, _), (_, grads) = pt._pipe_lane(xs[0], ys[0], ws[0])
+    launches = _k5_only(torch, f"pipelined lane step, {dtype}, n_micro "
+                        f"{n_micro}", BERT_LAYERS * n_micro)
+    return float(loss), launches, grads, pt
+
+
+def pipelined_parity_leg(torch, np, card, proto, x, y, checked):
+    """(a) One checked eager lane step against the same net's unpipelined
+    ``exact`` step from the same state (loss within TRAIN_LOSS_RTOL), the
+    unstacked gradients against an fp64 step under ``_grad_parity``'s
+    rule, 48 K5 launches (12 blocks x 4 microbatches x 1 lane), every one
+    checked; then a checked fp32 lane step at 8 microbatches (96
+    launches, its loss within TRAIN_LOSS_RTOL of the same ``exact``
+    step) and a checked bf16 lane step at 4 (48 launches)."""
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    want = BERT_LAYERS * PIPE_MICRO
+    loss, launches, grads, pt = _checked_lane_step(
+        torch, proto, x, y, "float32", PIPE_MICRO, checked)
+    net = pt.model
+    with capture.disabled():
+        ones = torch.ones(x.shape[0], device="cuda")
+        with kern.impl_scope("exact"):
+            l_exact, g_exact, _, _ = net._gradients(None, x, y, ones)
+            params = net.params
+            net.params = [{k: v.double() for k, v in p.items()}
+                          for p in params]
+            try:  # the same step in fp64
+                l_64, _, _, _ = net._gradients(None, x, y.double(),
+                                               ones.double())
+                g_64 = net._gradients(None, x, y.double(), ones.double())[1]
+            finally:
+                net.params = params
+    g_pp = _pipe_grads_by_layer(pt, grads, len(net.layers))
+    loss_rel = abs(float(loss) - float(l_exact)) / abs(float(l_exact))
+    (worst_name, worst), rows, failures = _grad_parity(
+        g_pp, g_exact, g_64, top=None)
+    k5 = checked[("flash_attention_fwd", "fp32")]
+    if loss_rel > TRAIN_LOSS_RTOL or failures or k5["calls"] != want:
+        raise AssertionError(f"pipelined step off the unpipelined exact "
+                             f"step: loss rel {loss_rel}, gradients past "
+                             f"the gate {failures[:4]}, K5 checked {k5}")
+    part = pt.part
+    del pt, grads
+    more = {}
+    for tag, dtype, m in (("fp32_m8", "float32", 8),
+                          ("bf16_m4", "bfloat16", PIPE_MICRO)):
+        l_m, n_m, g_m, pt_m = _checked_lane_step(torch, proto, x, y, dtype,
+                                                 m, checked)
+        rel = abs(l_m - float(l_exact)) / abs(float(l_exact))
+        if not math.isfinite(l_m) or (dtype == "float32"
+                                      and rel > TRAIN_LOSS_RTOL):
+            raise AssertionError(f"pipelined lane step {tag}: loss {l_m}, "
+                                 f"{rel} from the unpipelined exact step")
+        more[tag] = {"n_micro": m, "micro_batch": int(x.shape[0]) // m,
+                     "loss": l_m, "loss_rel_to_fp32_exact": rel,
+                     "flash_launches": n_m}
+        launches += n_m
+        del g_m, pt_m
+        torch.cuda.empty_cache()
+    fp32_calls = checked[("flash_attention_fwd", "fp32")]["calls"]
+    bf16_calls = checked.get(("flash_attention_fwd", "bf16"), {}).get(
+        "calls")
+    if (fp32_calls, bf16_calls) != (want + more["fp32_m8"]["flash_launches"],
+                                    more["bf16_m4"]["flash_launches"]):
+        raise AssertionError(f"parity leg: K5 checked {checked}")
+    emit("pipelined_parity", model="Bert.base", batch=int(x.shape[0]),
+         seq=BERT_TRAIN_SEQ, stages=PIPE_STAGES, n_micro=PIPE_MICRO,
+         layers_per_stage=part.per_stage,
+         pre=[str(k) for k, _ in part.pre],
+         post=[str(k) for k, _ in part.post],
+         loss_pipelined=float(loss), loss_exact=float(l_exact),
+         loss_fp64=float(l_64), loss_rel_err=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, worst_grad=worst_name,
+         worst_grad_rel_l2=worst,
+         max_gate_use=max(r["gate_use"] for r in rows),
+         worst_gate_use=sorted(rows, key=lambda r: -r["gate_use"])[:3],
+         flash_launches=launches,
+         flash_checked=_checked_summary(checked), more_lane_steps=more,
+         card=card)
+    del net, g_exact, g_64, g_pp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _pipe_run(torch, proto, data, eager, checked=None):
+    """PIPE_GATE_STEPS pipelined steps on a copy of ``proto`` (every K5
+    launch checked into ``checked`` when given): (losses and the synced
+    state as a flat list, K5 launches, the trainer)."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    net = copy_net(proto)
+    pt = P.PipelinedTrainer(net, skew_every=0)
+    kern.reset_counts()
+    with (capture.disabled() if eager else contextlib.nullcontext()), \
+            (contextlib.nullcontext() if checked is None
+             else check_every_launch(torch, checked)):
+        losses = [pt.step_batch(DataSet(x, y)) for x, y in data]
+    pt.sync_model()
+    torch.cuda.synchronize()
+    state = [torch.stack([v.float() for v in losses])]
+    state += _snap(torch, _tensors_of(torch, net))
+    return state, kern.LAUNCHES.get("flash_attention_fwd", 0), pt
+
+
+def pipelined_gate_leg(torch, np, card, proto, data, checked):
+    """(b) The captured pipelined step against eager, under deterministic
+    algorithms (BERT-base's embedding backward accumulates with atomics
+    otherwise, and two eager runs then differ in the last bits; phase
+    ``capture_bert_train`` shows it): two eager runs and a captured one
+    of PIPE_GATE_STEPS steps, the eager runs equal to the bit and the
+    captured run equal to them. 48 K5 launches a step, replays
+    included; the first eager run's all checked (the second is unchecked,
+    so the bit-equal pair also shows the check changes nothing)."""
+    want = BERT_LAYERS * PIPE_MICRO * PIPE_GATE_STEPS
+
+    def three():
+        e1, n1, _ = _pipe_run(torch, proto, data, True, checked)
+        e2, n2, _ = _pipe_run(torch, proto, data, True)
+        cap, nc, pt = _pipe_run(torch, proto, data, False)
+        progs = pt._programs
+        if not progs or any(p.graph is None for p in progs.values()):
+            raise AssertionError("the pipelined step built no captured "
+                                 "program")
+        if (n1, n2, nc) != (want, want, want):
+            raise AssertionError(f"K5 launches eager {n1}, {n2}, captured "
+                                 f"{nc}; expected {want}")
+        pool = sum(p.pool_bytes for p in progs.values())
+        del pt
+        return e1, e2, cap, pool
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        e1, e2, cap, pool = three()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rep, got = _max_diff(e1, e2), _max_diff(e1, cap)
+    rec = {"steps": PIPE_GATE_STEPS, "deterministic_algorithms": True,
+           "eager_repeat_max_diff": rep, "captured_max_diff": got,
+           "eager_deterministic": rep == 0.0, "bit_equal": got == 0.0,
+           "losses_eager": e1[0].tolist(),
+           "losses_captured": cap[0].tolist(), "pool_bytes": pool}
+    k5 = checked.get(("flash_attention_fwd", "fp32"), {}).get("calls")
+    if rep != 0.0 or got != 0.0 or k5 != want:
+        raise AssertionError(f"captured pipelined step: the eager runs "
+                             f"{rep} apart, the captured run {got} from "
+                             f"them; {k5} K5 launches checked of {want}")
+    emit("pipelined_capture_gate", model="Bert.base", stages=PIPE_STAGES,
+         n_micro=PIPE_MICRO, gate=rec, launches_per_step=want //
+         PIPE_GATE_STEPS, launches_checked=_checked_summary(checked),
+         card=card)
+    torch.cuda.empty_cache()
+    return want * 3
+
+
+def pipelined_rate_leg(torch, np, card, proto, x, y):
+    """(c) Captured train sequences/sec of the pipelined step, fp32 and
+    bf16, at PIPE_RATE_MICROS microbatches, beside the same run's
+    captured unpipelined BERT-base step (the net's own ``fit``); the
+    bubble fraction each schedule would idle over stages on devices of
+    their own (none here: one card runs the stages in turn); the
+    per-stage cost rows of one counted step."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+
+    ds = DataSet(x, y)
+    rates, launches = {}, 0
+    for tag, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        net = copy_net(proto, _pipe_conf(proto, dtype))
+        kern.reset_counts()
+        rates[f"unpipelined_{tag}"] = captured_rate(
+            torch, lambda: net.fit(x, y), BERT_TRAIN_BATCH)
+        del net
+        torch.cuda.empty_cache()
+        for m in PIPE_RATE_MICROS:
+            net = copy_net(proto, _pipe_conf(proto, dtype, m))
+            pt = P.PipelinedTrainer(net, skew_every=0)
+            kern.reset_counts()
+            r = captured_rate(torch, lambda: pt.step_batch(ds),
+                              BERT_TRAIN_BATCH)
+            torch.cuda.synchronize()
+            n = kern.LAUNCHES.get("flash_attention_fwd", 0)
+            calls = 2 + r["calls_a_window"] * RATE_WINDOWS
+            if n != BERT_LAYERS * m * calls or any(
+                    kern.PLAIN_ON_CUDA.values()):
+                raise AssertionError(f"pipelined {tag} n_micro {m}: {n} K5 "
+                                     f"launches over {calls} steps")
+            launches += n
+            r["bubble_fraction"] = pt.bubble_fraction
+            r["over_unpipelined"] = (r["median"] /
+                                     rates[f"unpipelined_{tag}"]["median"])
+            rates[f"pipelined_m{m}_{tag}"] = r
+            if not math.isfinite(float(net.score_value)):
+                raise AssertionError(f"pipelined {tag}: {net.score_value}")
+            del net, pt
+            torch.cuda.empty_cache()
+    net = copy_net(proto)
+    pt = P.PipelinedTrainer(net, skew_every=0)
+    t0 = time.perf_counter()
+    rep = pt.cost_report(batch_size=BERT_TRAIN_BATCH, publish=False)
+    cost_s = time.perf_counter() - t0
+    stage_rows = [r.to_dict() for r in rep.rows
+                  if r.layer.startswith("pipe:stage")]
+    if (len(stage_rows) != PIPE_STAGES
+            or len({r["flops"] for r in stage_rows}) != 1
+            or not stage_rows[0]["flops"] > 0):
+        raise AssertionError(f"per-stage cost rows {stage_rows}")
+    emit("pipelined_rates", model="Bert.base", batch=BERT_TRAIN_BATCH,
+         seq=BERT_TRAIN_SEQ, stages=PIPE_STAGES, window_s=CAPTURE_WINDOW_S,
+         sequences_per_sec=rates,
+         bubble_fraction={m: P.bubble_fraction(PIPE_STAGES, m)
+                          for m in PIPE_RATE_MICROS},
+         cost_report={"source": rep.source, "flops": rep.totals["flops"],
+                      "stage_rows": stage_rows,
+                      "rows": len(rep.rows), "seconds": cost_s},
+         train_state_bytes=pt.train_state_bytes_per_device(),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    del net, pt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipelined_fused_leg(torch, np, card, proto, data, checked):
+    """(d) The pipeline-layout fused engine: two steps, ``sync_model``,
+    the engine state through both layout conversions bit-exact, and a
+    trainer rebuilt from the synced net continuing bit for bit with the
+    live one (deterministic algorithms, so the step itself is); every K5
+    launch checked, 48 a step."""
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kern.reset_counts()
+    try:
+        with capture.disabled(), check_every_launch(torch, checked):
+            net = variant(proto, fused_update=True)
+            pt = P.PipelinedTrainer(net, skew_every=0)
+            for x, y in data:
+                pt.step_batch(DataSet(x, y))
+            pt.sync_model()
+            there = pt._convert_fused_state(net.opt_states, net._fused,
+                                            pt._pp_engine, to_pp=True)
+            back = pt._convert_fused_state(there, pt._pp_engine, net._fused,
+                                           to_pp=False)
+            round_trip = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(back), tree_leaves(net.opt_states)))
+            twin = copy_net(net)
+            twin._fused = net._fused
+            pt2 = P.PipelinedTrainer(twin, skew_every=0)
+            x, y = data[0]
+            pt.step_batch(DataSet(x, y))
+            pt2.step_batch(DataSet(x, y))
+            pt.sync_model()
+            pt2.sync_model()
+            torch.cuda.synchronize()
+            cont = _max_diff(_tensors_of(torch, net),
+                             _tensors_of(torch, twin))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    groups = len(pt._pp_engine.groups)
+    want = BERT_LAYERS * PIPE_MICRO * (len(data) + 2)
+    launches = _k5_only(torch, "fused engine leg", want)
+    k5 = checked.get(("flash_attention_fwd", "fp32"), {}).get("calls")
+    if not round_trip or cont != 0.0 or k5 != want:
+        raise AssertionError(f"fused engine: round trip {round_trip}, "
+                             f"continuation {cont} from the live trainer, "
+                             f"{k5} K5 launches checked of {want}")
+    emit("pipelined_fused", model="Bert.base", steps=len(data) + 1,
+         groups=groups, state_round_trip_bit_exact=round_trip,
+         resumed_continuation_max_diff=cont, flash_launches=launches,
+         launches_checked=_checked_summary(checked),
+         loss=float(net.score_value), card=card)
+    del net, twin, pt, pt2, there, back
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _SigtermAt:
+    """A real SIGTERM to this process after iteration ``k`` (a listener):
+    what a preemption notice does."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration == self.k:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _gen_equal(torch, a, b):
+    return torch.equal(a._gen.get_state(), b._gen.get_state())
+
+
+def pipelined_elastic_leg(torch, np, card, proto, batches, checked):
+    """(e) ElasticTrainer around the pipelined trainer, eager, every K5
+    launch checked, deterministic algorithms: SIGTERM at step 2, then a
+    resume in a fresh net, bit-identical to an uninterrupted epoch;
+    ``inject_nan`` after PIPE_NAN_AT steps (integer token ids: the labels
+    take the NaN) rolled back to the step-2 checkpoint and finished
+    bit-identical (no initial checkpoint: the step-2 one is the rollback
+    target); ``publish_archive`` at each checkpoint, followed by a
+    ``ModelRouter.watch`` serving the trained weights."""
+    import shutil
+
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.data.bucketing import BucketingPolicy
+    from deeplearning4j_tpu_torch.nn import capture
+    from deeplearning4j_tpu_torch.ops import kernels as kern
+    from deeplearning4j_tpu_torch.serving import ModelRouter, ServingModel
+    from deeplearning4j_tpu_torch.util import faults as fl
+
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    os.makedirs(PIPE_DIR)
+    data = [DataSet(x, y) for x, y in batches]
+    per_step = BERT_LAYERS * PIPE_MICRO
+    out, times = {}, {}
+    inj = fl.get_injector()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kern.reset_counts()
+    try:
+        with capture.disabled(), check_every_launch(torch, checked):
+            t0 = time.perf_counter()
+            ref = copy_net(proto)
+            pt_ref = P.PipelinedTrainer(ref, skew_every=0)
+            pt_ref.fit(data)
+            pt_ref.sync_model()
+            times["uninterrupted"] = time.perf_counter() - t0
+            ref_state = _snap(torch, _tensors_of(torch, ref))
+            del pt_ref
+
+            # drain at step 2, resume in a fresh net
+            t0 = time.perf_counter()
+            net = copy_net(proto)
+            net.listeners.append(_SigtermAt(2))
+            t1 = P.ElasticTrainer(P.PipelinedTrainer(net, skew_every=0),
+                                  os.path.join(PIPE_DIR, "drain"),
+                                  checkpoint_every=100, keep=2,
+                                  initial_checkpoint=False, log_fn=None)
+            t1.fit(data, epochs=1)
+            if not (t1.drained and net.iteration == 2
+                    and t1.ckpt.latest_step() == 2):
+                raise AssertionError(f"drain: state {t1.state}, iteration "
+                                     f"{net.iteration}")
+            del net, t1
+            net2 = copy_net(proto)
+            t2 = P.ElasticTrainer(P.PipelinedTrainer(net2, skew_every=0),
+                                  os.path.join(PIPE_DIR, "drain"),
+                                  checkpoint_every=100, keep=2, log_fn=None)
+            t2.fit(data, epochs=1)
+            times["drain_resume"] = time.perf_counter() - t0
+            resumed = _max_diff(ref_state, _tensors_of(torch, net2))
+            if (t2.resumed_from != 2 or t2.state != "completed"
+                    or resumed != 0.0 or net2.iteration != len(data)
+                    or not _gen_equal(torch, net2, ref)):
+                raise AssertionError(f"resume: from {t2.resumed_from}, "
+                                     f"{t2.state}, {resumed} from the "
+                                     "uninterrupted run")
+            out["drain_resume"] = {"drained_at": 2,
+                                   "resumed_from": t2.resumed_from,
+                                   "max_diff": resumed, "bit_equal": True,
+                                   "generator_equal": True}
+            del net2, t2
+
+            # inject_nan: rollback, publish, a watching router
+            t0 = time.perf_counter()
+            pub = os.path.join(PIPE_DIR, "live.zip")
+            router = ModelRouter(name="pipelined-publish")
+            serve = ServingModel(copy_net(proto), "bert_pipelined",
+                                 bucketing=BucketingPolicy(batch_buckets=(4,)))
+            router.register(serve, max_wait_ms=1.0)
+            try:
+                router.watch("bert_pipelined", pub, interval_s=0.1)
+                net3 = copy_net(proto)
+                inj.clear()
+                inj.inject(fl.INJECT_NAN, at_step=PIPE_NAN_AT)
+                t3 = P.ElasticTrainer(P.PipelinedTrainer(net3, skew_every=0),
+                                      os.path.join(PIPE_DIR, "nan"),
+                                      checkpoint_every=2, keep=2,
+                                      initial_checkpoint=False,
+                                      publish_archive=pub, log_fn=None)
+                t3.fit(data, epochs=1)
+                rolled = _max_diff(ref_state, _tensors_of(torch, net3))
+                if (t3.rollbacks != 1 or t3.state != "completed"
+                        or rolled != 0.0):
+                    raise AssertionError(f"inject_nan: {t3.rollbacks} "
+                                         f"rollbacks, {t3.state}, {rolled} "
+                                         "from the clean run")
+                rows = batches[0][0][:4]
+                want = net3.output(rows).float()
+                t_w = time.perf_counter()
+                err, version = None, serve.version
+                while time.perf_counter() - t_w < PIPE_WATCH_TIMEOUT_S:
+                    got = torch.from_numpy(np.asarray(router.submit(
+                        "bert_pipelined", rows.cpu().numpy()).result(
+                            timeout=120))).cuda().float()
+                    err = float((got - want).abs().max())
+                    version = serve.version
+                    if version > 1 and err <= SERVE_TOL:
+                        break
+                    time.sleep(0.2)
+                if version <= 1 or err is None or err > SERVE_TOL:
+                    raise AssertionError(f"watch: version {version}, served "
+                                         f"answers {err} from the trained "
+                                         "net")
+                out["inject_nan"] = {"at_step": PIPE_NAN_AT,
+                                     "rollbacks": t3.rollbacks,
+                                     "max_diff": rolled, "bit_equal": True}
+                out["publish_watch"] = {
+                    "version": version, "served_max_err": err,
+                    "tol": SERVE_TOL,
+                    "seconds_to_serve": time.perf_counter() - t_w,
+                    "archive_bytes": os.path.getsize(pub)}
+                del net3, t3
+            finally:
+                router.shutdown()
+                inj.clear()
+            times["nan_publish_watch"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = kern.LAUNCHES.get("flash_attention_fwd", 0)
+    k5 = checked.get(("flash_attention_fwd", "fp32"), {}).get("calls")
+    if any(kern.PLAIN_ON_CUDA.values()) or k5 != launches or launches < \
+            per_step * (len(data) * 2 + PIPE_NAN_AT + 1):
+        raise AssertionError(f"elastic legs: {launches} K5 launches, "
+                             f"{k5} checked, plain {kern.PLAIN_ON_CUDA}")
+    emit("pipelined_elastic", model="Bert.base", batches=len(data),
+         legs=out, seconds=times, launches=launches,
+         launches_checked=_checked_summary(checked), card=card)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipelined_members_leg(torch, np, card, proto, batches):
+    """(f) Two OS processes on the card (``tests/_torch_elastic_worker.py
+    conf``: each steps its own replica of ``proto``, the pipelined
+    BERT-base, from its conf and seed, eager, as the reference's members
+    do) over 3 epochs of ``batches``, member ``i`` taking batch ``j``
+    when ``j % world == i``; member 1 SIGKILLs itself before step
+    PIPE_KILL_AT, in the second epoch; the survivor regroups to world 1
+    at the second epoch's end and takes every batch of the third (2 + 2
+    + 4 steps, 48 K5 launches each, none plain), its final checkpoint
+    restoring the stacked state bit for bit. Each process has its own
+    timeout, and its process group is killed in a ``finally``."""
+    import shutil
+
+    d = os.path.join(PIPE_DIR, "pod")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, "net.json"), "w") as f:
+        f.write(proto.conf.to_json())
+    np.savez(os.path.join(d, "data.npz"),
+             x=np.concatenate([x.cpu().numpy() for x, _ in batches]),
+             y=np.concatenate([y.cpu().numpy() for _, y in batches]),
+             batch=int(batches[0][0].shape[0]))
+    n = len(batches)
+    shared = PIPE_KILL_AT // (n // 2) + 1  # epochs at world 2
+    steps = shared * (n // 2) + (3 - shared) * n
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, PIPE_WORKER, "conf", d, str(pid), "2",
+         str(PIPE_KILL_AT) if pid == 1 else "-", "cuda", "eager"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True) for pid in (0, 1)]
+    outs = {}
+    try:
+        for pid, p in enumerate(procs):
+            outs[pid] = p.communicate(timeout=PIPE_WORKER_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    seconds = time.perf_counter() - t0
+    rc = [p.returncode for p in procs]
+    lines = [ln for ln in outs[0][0].splitlines() if ln.startswith("{")]
+    if rc != [0, -signal.SIGKILL] or outs[1][0].strip() or not lines:
+        raise AssertionError(f"two members: exit codes {rc}, survivor "
+                             f"stderr {outs[0][1][-1500:]}, member 1 "
+                             f"stderr {outs[1][1][-1500:]}")
+    r = json.loads(lines[-1])
+    want = {"flash_attention_fwd": BERT_LAYERS * PIPE_MICRO * steps}
+    if not (r["state"] == "completed" and r["world_final"] == 1
+            and r["members_final"] == [0] and r["regroups"] >= 1
+            and r["iteration"] == steps and r["epoch"] == 3
+            and r["stacked_exact"] and r["checkpoint_exact"]
+            and r["score_finite"] and r["pipe_stages"] == PIPE_STAGES
+            and r["device"] == "cuda" and r["launches"] == want
+            and not r["plain_on_cuda"]):
+        raise AssertionError(f"two members: survivor {r}, expected "
+                             f"{steps} steps and {want}")
+    emit("pipelined_members", model="Bert.base", processes=2,
+         batches_an_epoch=n, killed_at_step=PIPE_KILL_AT,
+         killed_exit=rc[1], survivor=r, seconds=seconds, card=card)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return want["flash_attention_fwd"]
+
+
+def pipelined_phase(torch, np, card):
+    """Phase 22o (see the module doc): PipelinedTrainer on full-width
+    BERT-base, 4 stages of 3 blocks, 4 microbatches of 8, and the elastic
+    runtime around it. Returns ({leg: K5 launches}, {leg: checks})."""
+    from deeplearning4j_tpu_torch.nn import capture
+
+    rng = np.random.default_rng(23)
+
+    def batch():
+        x = torch.from_numpy(bert_rows(np, BERT_TRAIN_BATCH, BERT_TRAIN_SEQ,
+                                       rng, np.int64)).cuda()
+        y = torch.eye(2, device="cuda")[torch.from_numpy(
+            rng.integers(0, 2, size=BERT_TRAIN_BATCH)).cuda()]
+        return x, y
+
+    x, y = batch()
+    batches = [batch() for _ in range(PIPE_ELASTIC_BATCHES)]
+    with capture.disabled():
+        proto = pipelined_bert(torch)
+    launches, checked, legs_s = {}, {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            legs_s[name] = time.perf_counter() - t0
+            print(f"chip_smoke: pipelined {name} {legs_s[name]:.1f} s",
+                  file=sys.stderr, flush=True)
+
+    checked["parity"] = {}
+    launches["parity_eager"] = leg(
+        "parity", pipelined_parity_leg, torch, np, card, proto, x, y,
+        checked["parity"])
+    checked["capture_gate"] = {}
+    launches["capture_gate"] = leg(
+        "capture_gate", pipelined_gate_leg, torch, np, card, proto,
+        batches[:PIPE_GATE_STEPS], checked["capture_gate"])
+    launches["rates_captured"] = leg(
+        "rates", pipelined_rate_leg, torch, np, card, proto, x, y)
+    checked["fused"] = {}
+    launches["fused_eager"] = leg(
+        "fused", pipelined_fused_leg, torch, np, card, proto,
+        batches[:PIPE_GATE_STEPS], checked["fused"])
+    checked["elastic"] = {}
+    launches["elastic_eager"] = leg(
+        "elastic", pipelined_elastic_leg, torch, np, card, proto, batches,
+        checked["elastic"])
+    launches["members_survivor"] = leg(
+        "members", pipelined_members_leg, torch, np, card, proto, batches)
+    emit("pipelined_timing", legs_s=legs_s, card=card)
+    del proto
+    torch.cuda.empty_cache()
+    return launches, checked
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -10806,6 +11512,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     par_launches, par_checked = timed("parallel", parallel_phase, torch, np,
                                       smi, ctime["single_net_step_ms"])
+    torch.cuda.empty_cache()
+    pipe_launches, pipe_checked = timed("pipelined", pipelined_phase, torch,
+                                        np, smi)
     emit("timing", seconds=seconds, total_s=time.perf_counter() - t_start,
          capture_phases_s=sum(v for k, v in seconds.items()
                               if k.startswith("capture_")))
@@ -11085,6 +11794,12 @@ def main() -> int:
         e["parallel_checked"] = {
             k: checked_fields(e["name"], c) for k, c in par_checked.items()
             if checked_fields(e["name"], c)}
+        if e["name"] == "flash_attention_fwd":
+            # phase 22o: the pipelined step and the elastic runtime
+            e["launches_pipelined"] = pipe_launches
+            e["pipelined_checked"] = {
+                k: checked_fields(e["name"], c)
+                for k, c in pipe_checked.items()}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

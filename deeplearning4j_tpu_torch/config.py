@@ -48,6 +48,10 @@ Recognized variables:
   configs ("none" | "threshold" | "bitmap" | "onebit";
   ``parallel/compression.py``), validated by the conf builder: a
   ``ParallelWrapper`` fit then runs the encoded gradient exchange.
+- ``DL4J_TPU_PIPE_STAGES`` — default ``pipe_stages`` of new configs
+  (``parallel/pipelined.py``): ``PipelinedTrainer`` partitions the network
+  into that many stages at its ``stage_boundary()`` marks. 0/unset = off;
+  a network's own ``fit`` ignores it.
 - ``DL4J_TPU_COMPILE_CACHE`` — directory of the persistent kernel-library
   cache (``util/compile_cache.py``), applied once when the environment is
   first read: a process loads the kernel library built there by an
@@ -58,9 +62,8 @@ Recognized variables:
   ``train.model_flops_utilization`` gauge (``util/cost_model.py``). Unset =
   no MFU: no peak is ever assumed.
 
-The reference's other variables (kernel dispatch, pipeline stages) are
-added with the ROADMAP items that port the code reading them; the port's kernel dispatch reads its own
-``DL4J_TORCH_KERNEL_IMPL``.
+The reference's kernel-dispatch variable has no counterpart here: the
+port's kernel dispatch reads its own ``DL4J_TORCH_KERNEL_IMPL``.
 """
 
 from __future__ import annotations
@@ -122,6 +125,10 @@ class Environment:
         # validated by the conf builder, so a typo fails at config build
         self.default_grad_compression = (
             os.environ.get("DL4J_TPU_GRAD_COMPRESSION") or None)
+        # pipeline parallelism (parallel/pipelined.py): stage count of new
+        # configs; 0 = off
+        self.default_pipe_stages = _env_int("DL4J_TPU_PIPE_STAGES", 0,
+                                            floor=0)
         self.compile_cache_dir = (
             os.environ.get("DL4J_TPU_COMPILE_CACHE") or None)
         self._compile_cache_applied = False

@@ -7,12 +7,14 @@ and the JSON helpers both packages share the format of.
 
 The builder carries what ResNet-50, BERT and the char-RNN set: seed,
 updater, compute dtype, kernel dispatch, the TBPTT segment length, the
-remat policy and stage barriers, the fused update and loss scaling, and
-the batch and time buckets. Its defaults come from the environment as the
-reference's builder takes them (``nn/conf.py:210-250``):
+remat policy and stage barriers, the fused update and loss scaling, the
+pipeline's stages and microbatches, and the batch and time buckets. Its
+defaults come from the environment as the reference's builder takes them
+(``nn/conf.py:210-250``):
 ``DL4J_TPU_COMPUTE_DTYPE``, ``DL4J_TPU_SYNC_EVERY``,
 ``DL4J_TPU_FUSED_UPDATE``, ``DL4J_TPU_REMAT_POLICY`` (else an armed
-tuning database's winner) and ``DL4J_TPU_BUCKETS``. The reference's other
+tuning database's winner), ``DL4J_TPU_PIPE_STAGES`` and
+``DL4J_TPU_BUCKETS``. The reference's other
 global settings (l1/l2, weight_init and activation stamping onto the
 layers) come with the slices that use them.
 ``compute_dtype="bfloat16"`` keeps params fp32 and runs activations and
@@ -24,9 +26,10 @@ target_sparsity=)``, default ``DL4J_TPU_GRAD_COMPRESSION``, reference
 
 JSON: the port reads the JSON the JAX package writes and writes JSON the
 JAX package reads. The knobs of :data:`KNOBS` are kept as read and written
-back, with the reference's defaults; the port acts on all of them but
-the pipelining knobs (``pipe_stages``, ``n_micro``: ROADMAP Queue 1 item
-10b), which are kept as config. The
+back, with the reference's defaults, and the port acts on all of them:
+``pipe_stages`` and ``n_micro`` (``pipe_stages(n)``, ``n_micro(n)``) are
+read by ``parallel.PipelinedTrainer``; a network's own ``fit`` ignores
+them, as the reference's does. The
 updater is kept as the reference's updater dict. ``kernel_impl`` is the one
 key whose vocabulary differs: the reference's forced-kernel mode
 ``"pallas"`` is the port's ``"cuda"``, translated both ways.
@@ -169,6 +172,8 @@ class Builder:
         self._knobs["sync_every"] = env.default_sync_every
         self._knobs["fused_update"] = env.default_fused_update
         self._knobs["remat_policy"] = _default_remat_policy(env)
+        # DL4J_TPU_PIPE_STAGES folds in here (reference ``:267``)
+        self._knobs["pipe_stages"] = env.default_pipe_stages
         # validated here, so a typo'd DL4J_TPU_GRAD_COMPRESSION fails at
         # config build (reference ``:255-265``)
         from deeplearning4j_tpu_torch.parallel.compression import \
@@ -316,6 +321,23 @@ class Builder:
         self._knobs["grad_compression"] = validate_scheme(scheme) or "none"
         self._knobs["grad_compression_threshold"] = float(threshold)
         self._knobs["grad_compression_target"] = float(target_sparsity)
+        return self
+
+    def pipe_stages(self, n: int) -> "Builder":
+        """Pipeline stages (reference ``:435``): ``PipelinedTrainer``
+        partitions the network into ``n`` structurally identical stages at
+        its ``stage_boundary()`` marks. 0 = off."""
+        if int(n) < 0:
+            raise ValueError(f"pipe_stages must be >= 0, got {n}")
+        self._knobs["pipe_stages"] = int(n)
+        return self
+
+    def n_micro(self, n: int) -> "Builder":
+        """Microbatches per lane of a pipelined step (reference ``:446``);
+        0 = ``pipe_stages``."""
+        if int(n) < 0:
+            raise ValueError(f"n_micro must be >= 0, got {n}")
+        self._knobs["n_micro"] = int(n)
         return self
 
     def list(self) -> "ListBuilder":

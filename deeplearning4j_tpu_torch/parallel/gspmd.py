@@ -20,7 +20,7 @@ on the same inputs.
 shared tail of every lane step: the network's updaters (or its fused
 engine) applied in place with the step sizes the network's ``StepSizes``
 buffer holds for this iteration. ZeRO placement (reference ``:287-330``)
-needs a ``data`` axis of more than one device: ROADMAP item 10b.
+needs a ``data`` axis of more than one device: ROADMAP item 10c.
 """
 
 from __future__ import annotations
@@ -240,7 +240,7 @@ def apply_updaters_flat(model, params, grad_bufs, opt_states, sizes):
 
 
 # ---------------------------------------------------------------------------
-# ZeRO optimizer-state sharding (reference :287-330): item 10b
+# ZeRO optimizer-state sharding (reference :287-330): item 10c
 # ---------------------------------------------------------------------------
 
 

@@ -8,7 +8,7 @@ the data-parallel worker count (``replicas`` in the wrapper and the
 masters) is a lane count independent of the devices, as in the reference
 (``wrapper.py:103-105``), and the lanes run one after another on the one
 device. A mesh of more than one device, and ``tensor_shard_params``, raise
-``NotImplementedError`` naming ROADMAP item 10b (process groups, NCCL).
+``NotImplementedError`` naming ROADMAP item 10c (process groups, NCCL).
 
 The ragged-batch padding (``_pad_ragged``, reference ``:67``) is the
 reference's array for array: the last row repeated up to the divisor, with
@@ -29,14 +29,15 @@ from deeplearning4j_tpu_torch.device import as_tensor, resolve_device
 from deeplearning4j_tpu_torch.tree import tree_map
 
 #: the ROADMAP item that brings what a one-device mesh cannot do
-ITEM_10B = ("ROADMAP Queue 1 item 10b (process groups, NCCL ranks, ZeRO "
-            "sharding, pipelining, ring attention, the elastic trainer)")
+ITEM_10C = ("ROADMAP Queue 1 item 10c (a mesh of several devices, ranks "
+            "as lanes over torch.distributed, ZeRO sharding, tensor "
+            "parallelism, ring attention, NCCL collectives)")
 
 
 def multi_device_error(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} needs more than one device and is not ported yet: "
-        f"{ITEM_10B}")
+        f"{ITEM_10C}")
 
 
 def _rep_last(v, pad: int):

@@ -49,7 +49,7 @@ coalesces queued requests on a worker thread, where a bad request fails
 its batch and not the worker.
 
 Meshes of more than one device, ZeRO placement and ``zero_optimizer`` on
-them are ROADMAP item 10b; on one device ``zero_optimizer`` is a no-op, as
+them are ROADMAP item 10c; on one device ``zero_optimizer`` is a no-op, as
 in the reference (``:169``).
 """
 
@@ -116,16 +116,20 @@ def _lane(v, r):
 
 
 def lane_program(model, table, key, fn_name, body, args, state_trees,
-                 trace_args=None) -> capture.Program:
-    """``table[key]``, built from ``args`` when missing, in the network's
-    graph pool: a program whose body updates ``state_trees`` in place (and
-    draws from the network's dropout generator)."""
+                 trace_args=None, owner=None) -> capture.Program:
+    """``table[key]``, built from ``args`` when missing, in ``owner``'s
+    graph pool (the network's by default): a program whose body updates
+    ``state_trees`` in place (and draws from the network's dropout
+    generator). An owner that drops its programs drops its pool with them:
+    torch 2.11's pinned-host allocator refuses a capture into a pool whose
+    graphs have all died (an internal assert at ``capture_begin``)."""
+    owner = model if owner is None else owner
     prog = table.get(key)
     if prog is None:
-        if model._pool is None and model.device.type == "cuda":
-            model._pool = torch.cuda.graph_pool_handle()
+        if owner._pool is None and model.device.type == "cuda":
+            owner._pool = torch.cuda.graph_pool_handle()
         prog = table[key] = capture.Program(
-            fn_name, body, args, device=model.device, pool=model._pool,
+            fn_name, body, args, device=model.device, pool=owner._pool,
             state=tree_leaves(state_trees), generators=(model._gen,),
             trace_args=trace_args)
     return prog
@@ -200,6 +204,7 @@ class ParallelWrapper:
         self._built = False
         self._programs: dict = {}
         self._tbptt_programs: dict = {}
+        self._pool = None  # the graph pool of this wrapper's programs
         self._sizes_ref = None
         self._comp_state = None
         self._comp_stats = None
@@ -216,6 +221,7 @@ class ParallelWrapper:
 
     def _drop(self):
         self._programs, self._tbptt_programs = {}, {}
+        self._pool = None
 
     # ------------------------------------------------- compression state
     def _comp_template(self):
@@ -275,13 +281,33 @@ class ParallelWrapper:
                 s_l.shape + (1,) * (t.dim() - 1)).to(t.dtype), grads_l)
         return loss_l * s_l, scaled
 
+    def _update_engine(self):
+        """The fused engine the lanes' gradients are flattened for (None:
+        per-rule updaters)."""
+        return getattr(self.model, "_fused", None)
+
+    def _apply_combined(self, grads, flat: bool) -> None:
+        """One update of the live state with the combined gradients (the
+        fused engine's flat buffers when ``flat``)."""
+        model = self.model
+        sizes = model._sizes.views
+        if flat:
+            gspmd.apply_updaters_flat(model, model.params, grads,
+                                      model.opt_states, sizes)
+        else:
+            gspmd.apply_updaters(model, model.params, grads,
+                                 model.opt_states, sizes, scaled_grads=True)
+
+    def _live_states(self):
+        """The layer states the combined lane states are copied into."""
+        return self.model.states
+
     def _combine_update(self, losses, wsums, states_l, grads_l):
         """Combine the lanes (weighted pairwise mean, or the compressed
         exchange) and apply one update, in place. Returns (loss, stats)."""
-        model = self.model
         loss_l, s_l = torch.stack(losses), torch.stack(wsums)
         comp = self._compressor
-        engine = getattr(model, "_fused", None)
+        engine = self._update_engine()
         total = gspmd.pairwise_sum(s_l)
         inv = 1.0 / torch.where(total == 0.0, torch.ones_like(total), total)
         stats = None
@@ -304,15 +330,9 @@ class ParallelWrapper:
                 lambda t: gspmd.pairwise_sum(t) * inv.to(t.dtype), payload)
         loss = gspmd.pairwise_sum(loss_s) * inv
         new_states = gspmd.combine_states(gspmd.stack_lanes(states_l))
-        sizes = model._sizes.views
-        if comp is not None and engine is not None:
-            gspmd.apply_updaters_flat(model, model.params, grads,
-                                      model.opt_states, sizes)
-        else:
-            gspmd.apply_updaters(model, model.params, grads,
-                                 model.opt_states, sizes, scaled_grads=True)
+        self._apply_combined(grads, comp is not None and engine is not None)
         with torch.no_grad():
-            tree_copy_(model.states, new_states)
+            tree_copy_(self._live_states(), new_states)
         return loss, stats
 
     def _lane_body(self, x, y, w, fm, lm):
@@ -373,7 +393,7 @@ class ParallelWrapper:
             return loss, stats, None
         prog = lane_program(self.model, table, capture.dispatch_sig(*args),
                             fn_name, body, args, self._state_trees(),
-                            trace_args)
+                            trace_args, owner=self)
         loss, stats = prog(*args)
         return loss.clone(), None if stats is None else stats.clone(), prog
 
@@ -696,7 +716,7 @@ class ParallelWrapper:
                 continue
             lane_program(model, self._programs, key,
                          "ParallelWrapper.lane_step", self._lane_body, args,
-                         self._state_trees())
+                         self._state_trees(), owner=self)
             primed += 1
         return primed
 

@@ -15,7 +15,7 @@ brownout, supervised worker, drain, request ids, flight recorder; the
     server = ModelServer(router, port=8080).start()  # warms the programs
 
 ``ServingModel(net, id, use_mesh=True)`` serves classify through
-``parallel.ParallelInference`` (one device; more is ROADMAP item 10b).
+``parallel.ParallelInference`` (one device; more is ROADMAP item 10c).
 """
 
 from deeplearning4j_tpu_torch.serving.fleet import (FleetRouter, FleetWorker,

@@ -20,9 +20,10 @@ Registered spaces:
   forward and the backward (the kernel's adjoint Function against the
   loop's autograd), so the case gates and times value and gradients. The
   name and database keys are the reference's.
-- ``bucket_sets``, ``affinity_head``, ``compression_hosts``: DECLARED
-  (ranking needs a recorded length distribution, a live fleet under
-  shared-prefix traffic, real hosts on a real interconnect).
+- ``bucket_sets``, ``affinity_head``, ``compression_hosts``,
+  ``pipe_schedule``: DECLARED (ranking needs a recorded length
+  distribution, a live fleet under shared-prefix traffic, real hosts on a
+  real interconnect, stages placed on devices of their own).
 - ``prefill_chunk``: MEASURABLE (conf scope), gated on generated-token
   identity.
 - ``remat_policy``: MEASURABLE (conf scope): every policy registered in
@@ -37,8 +38,6 @@ Registered spaces:
 Kernel candidates call the kernels' wrappers, which launch on CUDA tensors
 and run their plain versions on CPU tensors: on the CPU a sweep proves the
 machinery and the gate, not a ranking.
-
-Not ported: ``pipe_schedule`` (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -751,7 +750,7 @@ class CompressionHostsSpace(SearchSpace):
     full-precision combines within a host, the encoded exchange across
     hosts. The wire bytes are deterministic, but ranking wire against
     encode cost needs real hosts on a real interconnect (ROADMAP item
-    10b), so the space is declared with the reference's candidates."""
+    10c), so the space is declared with the reference's candidates."""
 
     name = "compression_hosts"
     op = "compression_hosts"
@@ -776,6 +775,47 @@ class CompressionHostsSpace(SearchSpace):
         return out
 
 
+# --------------------------------------------- pipeline schedule space
+class PipeScheduleSpace(SearchSpace):
+    """Pipeline-schedule candidates of ``PipelinedTrainer`` (reference
+    ``:656``): microbatch counts (bubble fraction (S-1)/(n_micro+S-1)
+    against live activations) x the schedule family (the GPipe fill-drain
+    schedule it runs, and a 1F1B candidate). On one device the stages run
+    one after another, so the bubble costs no time and the ranking needs
+    stages on devices of their own; the space is declared with the
+    reference's candidates."""
+
+    name = "pipe_schedule"
+    op = "pipe_schedule"
+    scope = "conf"
+    measurable = False
+    requires = ("stages placed on devices of their own (one device runs "
+                "the stages in turn, so the bubble costs no time; 1f1b "
+                "candidates also need the interleaved schedule)")
+
+    def signature(self, ctx: dict) -> str:
+        return f"stages={int(ctx.get('pipe_stages', 2))}"
+
+    def dtype(self, ctx: dict) -> str:
+        return "any"
+
+    def enumerate(self, ctx: dict) -> List[Candidate]:
+        from deeplearning4j_tpu_torch.parallel.pipeline import \
+            bubble_fraction
+
+        s = int(ctx.get("pipe_stages", 2))
+        out = []
+        for sched in ("gpipe", "1f1b"):
+            for mult in (1, 2, 4, 8):
+                n_micro = s * mult
+                out.append(Candidate(
+                    f"{sched}:m{n_micro}", impl="conf",
+                    params={"pipe_schedule": sched, "n_micro": n_micro,
+                            "bubble_fraction": bubble_fraction(s, n_micro)},
+                    is_default=(sched == "gpipe" and mult == 1)))
+        return out
+
+
 # ------------------------------------------------------- default wiring
 register_space(ConvTileSpace())
 register_space(LstmTileSpace())
@@ -785,3 +825,4 @@ register_space(AffinityHeadSpace())
 register_space(RematPolicySpace())
 register_space(XlaFlagsSpace())
 register_space(CompressionHostsSpace())
+register_space(PipeScheduleSpace())

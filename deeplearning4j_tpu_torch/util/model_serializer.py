@@ -99,10 +99,15 @@ def fingerprint(tree) -> str:
 
 
 def _host(t) -> np.ndarray:
+    """A host copy of ``t``: never a view of a CPU tensor, which the next
+    step updates in place (an async checkpoint or a publish snapshot would
+    then write a later step's values)."""
     if isinstance(t, torch.Tensor):
         t = t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        elif t.device.type == "cpu":
+            t = t.clone()
         return t.cpu().numpy()
     return np.asarray(t)
 

@@ -8,8 +8,8 @@ What differs in the port: compile counts come from the port's
 ``torch.cuda.memory_stats``, read only once the process has initialised
 CUDA itself, so a scrape never initialises it and a forked child never
 touches it; the compile-cache collector reports the persistent
-kernel-library cache (``util/compile_cache.py``); the reference's
-collector of the elastic runtime (item 10) is left out. The tuning
+kernel-library cache (``util/compile_cache.py``). The elastic
+runtime's (``parallel/elastic.py``), the tuning
 database's (``tuning/database.py``), the serving router's, the fleet's and
 the SLO engine's collectors and
 the serving schedulers' deferred request spans are here, each guarded by
@@ -681,8 +681,8 @@ _defaults_lock = threading.Lock()
 def install_default_collectors() -> Telemetry:
     """Register the scrape-time sources every deployment wants (idempotent):
     CompileWatcher counters (compile observability), per-device memory
-    live/peak bytes from torch's allocator, and the serving, fleet and SLO
-    gauges (reference ``:663-666``)."""
+    live/peak bytes from torch's allocator, and the elastic, serving,
+    fleet and SLO gauges (reference ``:655-666``)."""
     global _defaults_installed
     tele = Telemetry.get_instance()
     with _defaults_lock:
@@ -691,6 +691,7 @@ def install_default_collectors() -> Telemetry:
         tele.register_collector(_collect_compile)
         tele.register_collector(_collect_device_memory)
         tele.register_collector(_collect_compile_cache)
+        tele.register_collector(_collect_elastic)
         tele.register_collector(_collect_serving)
         tele.register_collector(_collect_fleet)
         tele.register_collector(_collect_slo)
@@ -755,6 +756,18 @@ def _collect_compile_cache() -> list:
     return [("compile_cache.enabled", {}, 1 if d else 0),
             ("compile_cache.entries", {},
              compile_cache.cache_entries() if d else 0)]
+
+
+def _collect_elastic() -> list:
+    """The elastic runtime's gauges (world size, live members, rollbacks,
+    drained) at scrape time (reference ``:729``); nothing in a process
+    that never imported it."""
+    import sys
+
+    mod = sys.modules.get("deeplearning4j_tpu_torch.parallel.elastic")
+    if mod is None:
+        return []
+    return mod.collect_elastic_gauges()
 
 
 def _collect_serving() -> list:

@@ -212,7 +212,8 @@ class UIServer:
     def _healthz(device=None) -> "tuple[str, bool]":
         """(JSON body, healthy?) for ``/healthz``: every health check of the
         telemetry registry, the serving device's liveness, and the
-        serving, fleet, tuning and SLO sections where those modules are
+        elastic, serving, fleet, tuning and SLO sections where those
+        modules are
         loaded (``sys.modules`` guards: a probe imports nothing). The SLO
         engine evaluates first, so a budget spent since the last probe
         turns this answer into a 503."""
@@ -229,6 +230,7 @@ class UIServer:
         ok = ok and checks["devices"]["ok"]
         body = {"status": "ok" if ok else "unhealthy", "checks": checks}
         for section, mod_name in (
+                ("elastic", "deeplearning4j_tpu_torch.parallel.elastic"),
                 ("serving", "deeplearning4j_tpu_torch.serving.router"),
                 ("fleet", "deeplearning4j_tpu_torch.serving.fleet"),
                 ("tuning", "deeplearning4j_tpu_torch.tuning.database")):

@@ -2281,3 +2281,186 @@ def test_parallel_inference_and_serving_on_card(card):
     np.testing.assert_allclose(np.concatenate(out), want, rtol=1e-4,
                                atol=1e-5)
     assert not any(TK.PLAIN_ON_CUDA.values())
+
+
+def _pipelined_bert(dev, n_micro=2, dtype="float32"):
+    """A BERT of 4 blocks at hidden 64 (4 heads of 16), S 64, 2 stages of 2
+    blocks (``stage_boundary`` after the embedding and blocks 2 and 4),
+    dropout 0, flash forced, on ``dev``: the same seeded params on every
+    device."""
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+
+    base = Bert(vocab_size=97, hidden_size=64, n_layers=4, n_heads=4,
+                max_length=64, hidden_dropout=0.0, flash=True,
+                updater=Adam(1e-3)).conf()
+    lb = (NeuralNetConfiguration.builder().seed(base.seed)
+          .updater(base.updater).compute_dtype(dtype).pipe_stages(2)
+          .n_micro(n_micro).list())
+    for i, lyr in enumerate(base.layers):
+        lb.layer(lyr)
+        if i in (0, 2, 4):
+            lb.stage_boundary()
+    return MultiLayerNetwork(lb.set_input_type(base.input_shape)
+                             .build()).init(device=dev)
+
+
+def _pipelined_batches(n=2, b=8, ids=False):
+    rng = np.random.default_rng(31)
+    out = []
+    for _ in range(n):
+        x = np.stack([rng.integers(1, 97, (b, 64)),
+                      np.broadcast_to(np.arange(64) >= 32, (b, 64))],
+                     axis=-1).astype(np.int64 if ids else np.float32)
+        out.append(DataSet(x, np.eye(2, dtype=np.float32)[
+            rng.integers(0, 2, b)]))
+    return out
+
+
+@pytest.mark.parametrize("n_micro", [2, 4])
+def test_pipelined_bert_on_card_matches_cpu(card, n_micro):
+    """The pipelined step on the card (K5 in every block of every stage,
+    once a microbatch) against the same steps on the CPU: losses within
+    1e-4, params within 1e-3; 4 blocks x n_micro K5 launches a step, none
+    plain."""
+    from deeplearning4j_tpu_torch import parallel as P
+
+    losses = {}
+    nets = {d: _pipelined_bert(d, n_micro) for d in ("cpu", "cuda")}
+    for d, net in nets.items():
+        pt = P.PipelinedTrainer(net, skew_every=0)
+        TK.reset_counts()
+        with capture.disabled():
+            losses[d] = [float(pt.step_batch(ds))
+                         for ds in _pipelined_batches()]
+        pt.sync_model()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert TK.LAUNCHES["flash_attention_fwd"] == 4 * n_micro * 2
+            assert not any(TK.PLAIN_ON_CUDA.values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    _params_close(nets["cuda"], nets["cpu"], rtol=1e-3, atol=1e-5)
+
+
+def test_pipelined_captured_equals_eager(card):
+    """The pipelined step captured against eager from one state, under
+    deterministic algorithms (the embedding backward accumulates with
+    atomics otherwise): two eager runs and the captured one equal to the
+    bit; the programs in the trainer's table."""
+    from deeplearning4j_tpu_torch import parallel as P
+
+    def fit(net, ds):
+        if not hasattr(net, "_pt"):
+            net._pt = P.PipelinedTrainer(net, skew_every=0)
+        net._pt.step_batch(ds)
+        net._pt.sync_model()
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    batches = _pipelined_batches(3)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, e1 = _run(lambda: _pipelined_bert("cuda"), batches, fit, True)
+        _, e2 = _run(lambda: _pipelined_bert("cuda"), batches, fit, True)
+        TK.reset_counts()
+        net, cap = _run(lambda: _pipelined_bert("cuda"), batches, fit,
+                        False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert dist(e1, e2) == 0.0 and dist(e1, cap) == 0.0
+    assert TK.LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
+    assert net._pt._programs and all(
+        p.graph is not None for p in net._pt._programs.values())
+
+
+def test_elastic_pipelined_drain_resume_and_rollback_on_card(card,
+                                                             tmp_path):
+    """ElasticTrainer around the pipelined trainer on the card, under
+    deterministic algorithms: SIGTERM at step 2, then a resume, equal to
+    an uninterrupted run to the bit; inject_nan on integer ids rolled
+    back, equal to the clean run to the bit."""
+    import os
+    import signal
+
+    from deeplearning4j_tpu_torch import parallel as P
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+    from deeplearning4j_tpu_torch.util import faults as fl
+
+    class SigtermAt:
+        def iteration_done(self, model, iteration, epoch):
+            if iteration == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def on_epoch_end(self, model):
+            pass
+
+    def state(net):
+        return [t.detach().cpu() for t in tree_leaves(
+            [net.params, net.opt_states])]
+
+    data = _pipelined_batches(4, ids=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = _pipelined_bert("cuda")
+        pt = P.PipelinedTrainer(ref, skew_every=0)
+        pt.fit(data)
+        pt.sync_model()
+        net = _pipelined_bert("cuda")
+        net.listeners.append(SigtermAt())
+        t1 = P.ElasticTrainer(P.PipelinedTrainer(net, skew_every=0),
+                              str(tmp_path / "a"), checkpoint_every=100,
+                              log_fn=None)
+        t1.fit(data, epochs=1)
+        assert t1.drained and net.iteration == 2
+        net2 = _pipelined_bert("cuda")
+        t2 = P.ElasticTrainer(P.PipelinedTrainer(net2, skew_every=0),
+                              str(tmp_path / "a"), checkpoint_every=100,
+                              log_fn=None)
+        t2.fit(data, epochs=1)
+        assert t2.resumed_from == 2 and t2.state == "completed"
+        assert all(torch.equal(a, b) for a, b in zip(state(ref),
+                                                     state(net2)))
+        net3 = _pipelined_bert("cuda")
+        fl.get_injector().clear()
+        fl.get_injector().inject(fl.INJECT_NAN, at_step=3)
+        t3 = P.ElasticTrainer(P.PipelinedTrainer(net3, skew_every=0),
+                              str(tmp_path / "b"), checkpoint_every=2,
+                              log_fn=None)
+        t3.fit(data, epochs=1)
+        assert t3.rollbacks == 1 and t3.state == "completed"
+        assert all(torch.equal(a, b) for a, b in zip(state(ref),
+                                                     state(net3)))
+    finally:
+        fl.get_injector().clear()
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("kind", ["pipelined", "wrapper"])
+def test_programs_rebuilt_after_reshard_capture_on_card(card, kind):
+    """A captured step, ``reshard()`` (which drops the programs and, with
+    them, their graph pool), a captured step again: the rebuilt program
+    captures into a fresh pool. (Captured into the dead programs' pool,
+    torch 2.11's pinned-host allocator failed an internal assert at
+    ``capture_begin``.)"""
+    import gc
+    import math
+
+    from deeplearning4j_tpu_torch import parallel as P
+
+    net = _pipelined_bert("cuda")
+    pt = (P.PipelinedTrainer(net, skew_every=0) if kind == "pipelined"
+          else P.ParallelWrapper(net, deterministic=True, replicas=2,
+                                 skew_every=0))
+    batches = _pipelined_batches(2)
+    pt.step_batch(batches[0])
+    first = pt._pool
+    pt.reshard()
+    gc.collect()
+    pt.step_batch(batches[1])
+    torch.cuda.synchronize()
+    assert first is not None and pt._pool is not None
+    assert pt._pool != first
+    assert pt._programs and all(p.graph is not None
+                                for p in pt._programs.values())
+    assert math.isfinite(float(net.score_value))

@@ -18,8 +18,8 @@
   answer the reference server's status codes and JSON keys.
 
 The reference's own ``tests/test_serving_resilience.py`` runs here on the
-port too (``_torch_port_cases``), but for its two cases of the elastic
-runtime's publisher (ROADMAP Queue 1 item 10).
+port too (``_torch_port_cases``), its two cases of the elastic runtime's
+archive publisher included.
 """
 
 import http.client
@@ -67,9 +67,6 @@ from deeplearning4j_tpu_torch.util.model_serializer import \
 _ref = port_copy("test_serving_resilience", replace=(
     ("ModelRouter(name=", 'ModelRouter(device="cpu", name='),
     ("load_updater=False)", 'load_updater=False, device="cpu")')))
-# the elastic runtime's archive publisher is ROADMAP Queue 1 item 10
-del _ref.TestPublishWatch.test_background_publisher_same_step_latest_wins
-del _ref.TestPublishWatch.test_elastic_publish_feeds_watching_router
 expose(_ref, [n for n in dir(_ref) if n.startswith("Test")], globals())
 
 REF = dict(res=j_res, sched=j_sched, model=j_model, router=j_router,

@@ -448,7 +448,9 @@ def test_package_imports_without_jax():
         "'nn.computation_graph', 'ops.nn', 'ops.kernels.conv', "
         "'ops.kernels._build', 'serving.model', 'parallel', "
         "'parallel.mesh', 'parallel.gspmd', 'parallel.accumulator', "
-        "'parallel.compression', 'parallel.wrapper', 'parallel.masters')}\n"
+        "'parallel.compression', 'parallel.wrapper', 'parallel.masters', "
+        "'parallel.pipeline', 'parallel.pipelined', 'parallel.elastic', "
+        "'parallel.distributed')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "bad = [k for k in sys.modules if k == 'orbax' or "
         "k.startswith('orbax.')]\n"
